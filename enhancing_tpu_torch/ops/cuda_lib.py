@@ -1,0 +1,135 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process (all
+started together) for ``sm_90a`` into an object file; the objects are
+linked into one shared library with a plain C interface, which is loaded
+with ``ctypes``. The build runs at first use, into ``build/`` beside the
+package, keyed by a hash of the sources and flags, so a fresh checkout
+builds everything itself and an unchanged tree reuses its library.
+
+Nothing here runs at import time: the CPU tests import every module of the
+package on a machine with no ``nvcc`` and no card.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG.parent / "build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              *ARCH_FLAGS]
+
+_p = ctypes.c_void_p
+_i = ctypes.c_int
+_f = ctypes.c_float
+# C entry points (see each csrc/*.cu); all return a cudaError_t, or -1 for
+# arguments the kernel does not take.
+SIGNATURES = {
+    "etk_ln_gemm": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _f, _i, _p],
+    "etk_layernorm": [_p, _p, _p, _p, _i, _i, _f, _i, _p],
+    "etk_attention_qkv": [_p, _p, _i, _i, _i, _i, _f, _i, _i, _p],
+    "etk_vq_nearest": [_p, _p, _p, _p, _i, _i, _i, _p],
+}
+
+_lib: ctypes.CDLL | None = None
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.iterdir()):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels if this tree's library is not built yet; return
+    its path. Records seconds and the ptxas report in ``build_info``."""
+    out_dir = BUILD_ROOT / f"kernels-{_digest()}"
+    lib_path = out_dir / "libenhancing_kernels.so"
+    if lib_path.exists():
+        build_info.update(path=str(lib_path), seconds=0.0, cached=True,
+                          log="")
+        return lib_path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        procs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for src, _, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(f"== {src.name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        log = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        tmp_lib = Path(tmp) / lib_path.name
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib),
+             *(str(obj) for _, obj, _ in procs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(tmp_lib, lib_path)
+    build_info.update(path=str(lib_path), seconds=time.perf_counter() - t0,
+                      cached=False, log=log)
+    return lib_path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        handle.etk_error_string.argtypes = [ctypes.c_int]
+        handle.etk_error_string.restype = ctypes.c_char_p
+        _lib = handle
+    return _lib
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def call(name: str, *args) -> None:
+    """Launch C entry ``name`` and raise if the launch was refused."""
+    handle = lib()
+    rc = getattr(handle, name)(*args)
+    if rc != 0:
+        msg = ("arguments the kernel does not take" if rc == -1
+               else handle.etk_error_string(rc).decode())
+        raise RuntimeError(f"{name} failed ({rc}): {msg}")

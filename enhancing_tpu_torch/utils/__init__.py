@@ -1,0 +1,15 @@
+from .config import (
+    ConfigDict,
+    get_obj_from_str,
+    initialize_from_config,
+    load_config,
+    merge_configs,
+)
+
+__all__ = [
+    "ConfigDict",
+    "get_obj_from_str",
+    "initialize_from_config",
+    "load_config",
+    "merge_configs",
+]
