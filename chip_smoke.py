@@ -1,27 +1,39 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
-The main path is the ViT-VQGAN-Base tokenizer round trip
-(``encode_codes`` -> ``decode_codes``) at full widths and depth (256 px,
-8x8 patches, width 768, 12 heads of 64, MLP 3072, 12 + 12 layers, 8192
-codes of 32), in bf16 with random weights from seed 0. Phases, each of
-which raises on failure:
+Two paths, both ViT-VQGAN-Base at full widths and depth (256 px, 8x8
+patches, width 768, 12 heads of 64, MLP 3072, 12 + 12 layers, 8192 codes
+of 32) in bf16 with random weights from a seed:
+
+- serving: the tokenizer round trip ``encode_codes`` -> ``decode_codes``;
+- training: ``Trainer.fit`` on ``configs/fake_vitvq_base.yaml`` (held
+  here as a dict, since the card's machine has no pyyaml): AE + StyleGAN
+  discriminator steps at batch 8 with random-init LPIPS, step 0 with R1.
+
+Phases, each of which raises on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every kernel of ``enhancing_tpu_torch/csrc`` by ``nvcc`` for
    sm_90a, with the ptxas register and shared-memory report;
 3. each kernel against its plain PyTorch version on the card at the main
-   path's shapes (batch 8), with the tolerance stated on its line;
-4. each kernel's time at batch 128 (CUDA events), beside its plain
-   version, one PyTorch library call computing the same function (timed
-   only; the port never calls it) and its bound on an H100 SXM;
-5. the main path through the public entry points: requests of batch 1, 8
-   and 128 with launch counters reset just before and read just after,
+   paths' shapes, with the tolerance stated on its line;
+4. each kernel's time (CUDA events; the serving kernels at batch 128, the
+   training kernels at the training batch 8), beside its plain version,
+   one PyTorch library call computing the same function (timed only; the
+   port never calls it) and its bound on an H100 SXM;
+5. serving through the public entry points: requests of batch 1, 8 and
+   128 with launch counters reset just before and read just after,
    outputs checked, the kernels compared with the plain path on one small
    batch, images/s and peak memory at batch 128, and the device time of
-   one round trip by kernel group (``torch.profiler``).
+   one round trip by kernel group (``torch.profiler``);
+6. training through ``Trainer.fit``: counters reset just before and read
+   just after, exact launches per step and per kernel asserted (and the
+   R1 step's plain-routed calls), finite losses, moved parameters, code
+   perplexity; one step's losses and per-tensor gradients through the
+   kernels against the plain path; ms per step, images/s, peak memory and
+   the device time of one step by kernel group.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``. With no card, or run
@@ -45,19 +57,74 @@ PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 
-BASE = dict(image_size=256, patch_size=8,
-            encoder=dict(dim=768, depth=12, heads=12, mlp_dim=3072),
-            decoder=dict(dim=768, depth=12, heads=12, mlp_dim=3072),
-            quantizer=dict(embed_dim=32, n_embed=8192))
+# configs/fake_vitvq_base.yaml after load_config's target remap (a CPU
+# test holds the two equal)
+_TOWER = {"dim": 768, "depth": 12, "heads": 12, "mlp_dim": 3072}
+_FAKE = "enhancing_tpu_torch.data.fake.FakeImages"
+FAKE_VITVQ_BASE = {
+    "model": {
+        "target": "enhancing_tpu_torch.models.stage1.vitvqgan.ViTVQ",
+        "params": {
+            "image_key": "image", "image_size": 256, "patch_size": 8,
+            "dtype": "bfloat16", "scan_layers": True, "remat": True,
+            "encoder": dict(_TOWER), "decoder": dict(_TOWER),
+            "quantizer": {"embed_dim": 32, "n_embed": 8192},
+            "loss": {
+                "target": "enhancing_tpu_torch.losses.vqperceptual."
+                          "VQLPIPSWithDiscriminator",
+                "params": {"loglaplace_weight": 0.0,
+                           "loggaussian_weight": 1.0,
+                           "perceptual_weight": 0.1,
+                           "allow_random_lpips": True,
+                           "adversarial_weight": 0.1}},
+        }},
+    "dataset": {
+        "target": "enhancing_tpu_torch.data.DataModuleFromConfig",
+        "params": {
+            "batch_size": 8, "num_workers": 4,
+            "train": {"target": _FAKE, "params": {
+                "length": 4096, "resolution": 256, "seed": 1}},
+            "validation": {"target": _FAKE, "params": {
+                "length": 64, "resolution": 256, "seed": 2}},
+        }},
+}
+BASE = {k: FAKE_VITVQ_BASE["model"]["params"][k]
+        for k in ("image_size", "patch_size", "encoder", "decoder",
+                  "quantizer")}
 TOKENS, WIDTH, HEADS, HEAD_DIM, MLP, CODES, EMBED = 1024, 768, 12, 64, 3072, 8192, 32
-CHECK_BATCH, TIME_BATCH = 8, 128
+CHECK_BATCH, TIME_BATCH, TRAIN_BATCH = 8, 128, 8
 ROUND_TRIP = {"ln_gemm": 48, "attention": 24, "layernorm": 2, "vq": 1}
+# per training step of fake_vitvq_base: two AE forwards (the AE update and
+# the D update's fresh reconstruction), one AE backward, three D forwards
+# (D on xrec in the AE phase, on x and xrec in the D phase) of 12 blurs
+# and 15 bias + leaky ReLUs each
+TRAIN_STEP = {"ln_gemm": 96, "attention": 48, "layernorm": 4, "vq": 2,
+              "attention_bwd": 24, "fir": 36, "fused_act": 45}
+# the R1 step also runs one D forward on the plain versions
+R1_PLAIN = {"fir": 12, "fused_act": 15}
+# a validation batch: one AE round trip and three D forwards
+EVAL_STEP = {"ln_gemm": 48, "attention": 24, "layernorm": 2, "vq": 1,
+             "attention_bwd": 0, "fir": 36, "fused_act": 45}
+TRAIN_STEPS = 3
 REPLACES = {
     "ln_gemm": "enhancing_tpu/ops/ln_gemm.py:65",
     "attention": "enhancing_tpu/ops/attention.py:334",
     "layernorm": "enhancing_tpu/ops/ln_gemm.py:385",
     "vq": "enhancing_tpu/ops/vq.py:48",
+    "attention_bwd": "enhancing_tpu/ops/attention.py:904",
+    "fir": "enhancing_tpu/ops/upfirdn2d.py:74",
+    "fused_act": "enhancing_tpu/ops/fused_act.py:36",
 }
+# the discriminator's activations at 256 px, batch 8: its 12 blur inputs
+# (each blurred with pads (2, 2) and (1, 1)) and its 15 bias + leaky ReLU
+# inputs, the last one the final linear's
+D_BLURS = [((TRAIN_BATCH, s, s, c), pad)
+           for s, c in ((256, 128), (128, 256), (64, 512), (32, 512),
+                        (16, 512), (8, 512)) for pad in ((2, 2), (1, 1))]
+D_ACTS = ([(TRAIN_BATCH, 256, 256, 128)] * 2
+          + [(TRAIN_BATCH, 128, 128, 256)] * 2 + [(TRAIN_BATCH, 64, 64, 512)] * 2
+          + [(TRAIN_BATCH, s, s, 512) for s in (32, 32, 16, 16, 8, 8, 4, 4)]
+          + [(TRAIN_BATCH, 512)])
 SOURCES = {name: f"enhancing_tpu_torch/csrc/{name}.cu" for name in REPLACES}
 
 
@@ -94,12 +161,14 @@ def bound(flops: float, nbytes: float, peak_flops: float):
 def plain_versions():
     """Run the plain PyTorch versions on CUDA tensors: the reference path
     of this script only. The package itself sends CUDA tensors to the
-    kernels and has no such switch."""
-    from enhancing_tpu_torch.ops import attention, ln_gemm, vq
-    mods = (attention, ln_gemm, vq)
+    kernels and has no such switch (``force_plain_ops`` aside, which R1
+    alone uses)."""
+    from enhancing_tpu_torch.ops import (attention, fused_act, ln_gemm,
+                                         upfirdn2d, vq)
+    mods = (attention, ln_gemm, vq, upfirdn2d, fused_act)
     saved = [m.use_kernel for m in mods]
     for m in mods:
-        m.use_kernel = lambda *tensors: False
+        m.use_kernel = lambda *tensors, **kw: False
     try:
         yield
     finally:
@@ -169,7 +238,9 @@ def near_tie_rows(scores, rel=1e-5):
 def phase_compare() -> dict:
     """Kernel vs plain on the card; returns max_abs_err per kernel."""
     from enhancing_tpu_torch.ops import attention as att
+    from enhancing_tpu_torch.ops import fused_act as fa
     from enhancing_tpu_torch.ops import ln_gemm as lg
+    from enhancing_tpu_torch.ops import upfirdn2d as fir
     from enhancing_tpu_torch.ops import vq
     gen = torch.Generator(device="cuda").manual_seed(0)
     t = kernel_inputs(CHECK_BATCH, gen)
@@ -244,32 +315,79 @@ def phase_compare() -> dict:
     dup = torch.cat([t["codebook"][:64], t["codebook"][:64]])
     check(bool((vq.nearest_kernel(t["z"][:4096], dup) < 64).all()),
           "vq kernel: duplicated codes must resolve to the lowest index")
+
+    # attention backward: the kernel rounds dS to bf16 before its
+    # products, autograd of the plain version rounds dP instead; one bf16
+    # step on terms summed over N keys, held to 2^-6 of the largest plain
+    # value plus 2^-6 relative
+    for (b, n, h, d, mode, cl) in ((TRAIN_BATCH, TOKENS, HEADS, HEAD_DIM,
+                                    "none", 0),
+                                   (2, 1025, 4, 64, "prefix_causal", 5)):
+        qkv = rand((b, n, 3 * h * d), gen)
+        q3, k3, v3 = att.split_qkv_scaled(qkv, d ** -0.5)
+        do = rand((b, n, h * d), gen)
+        got = att.attention_bwd_kernel(q3, k3, v3, do, h, d, mode, cl)
+        want = att.attention_bwd_plain(q3, k3, v3, do, h, d, mode, cl)
+        for name, g, w in zip("qkv", got, want):
+            close("attention_bwd", f"attention_bwd d{name} {mode} B={b} "
+                  f"N={n} H={h} D={d}", g, w,
+                  atol=2.0 ** -6 * float(w.float().abs().max()),
+                  rtol=2.0 ** -6)
+
+    # FIR blur, f32: the same 16 products in another order
+    blur = fir.make_blur_kernel([1, 3, 3, 1])
+    for shape, pad in D_BLURS:
+        x = torch.randn(shape, generator=gen, device="cuda")
+        close("fir", f"fir f32 {shape} pad {pad}", fir.upfirdn2d(x, blur,
+                                                                pad=pad),
+              fir.upfirdn2d_plain(x, blur, 1, 1, pad), atol=1e-5, rtol=1e-5)
+    x = torch.randn((2, 19, 23, 64), generator=gen, device="cuda")
+    k = torch.tensor([[1.0, 2.0, 0.0], [0.5, -1.0, 3.0]])
+    close("fir", "fir f32 (2, 19, 23, 64) 2x3 taps pad (-1, 2, 0, -2)",
+          fir.upfirdn2d(x, k, pad=(-1, 2, 0, -2)),
+          fir.upfirdn2d_plain(x, k, 1, 1, (-1, 2, 0, -2)), atol=1e-5,
+          rtol=1e-5)
+
+    # bias + leaky ReLU: the same roundings in the same order, exact
+    for shape, dtype in ((D_ACTS[0], torch.float32), (D_ACTS[-1],
+                                                      torch.float32),
+                         (D_ACTS[0], torch.bfloat16)):
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        bias = 0.3 * torch.randn(shape[-1], generator=gen, device="cuda")
+        close("fused_act", f"fused_act {dtype} {shape}",
+              fa.fused_leaky_relu(x, bias), fa.fused_act_plain(x, bias),
+              atol=0.0, rtol=0.0)
     torch.cuda.synchronize()
     return errs
 
 
 def phase_times() -> dict:
-    """ms of kernel, plain version and library call at batch 128."""
+    """ms of kernel, plain version and library call: the serving kernels
+    at batch 128, the training kernels at batch 8. Returns the rows of
+    each kernel, one per main-path shape."""
     from enhancing_tpu_torch.ops import attention as att
+    from enhancing_tpu_torch.ops import fused_act as fa
     from enhancing_tpu_torch.ops import ln_gemm as lg
+    from enhancing_tpu_torch.ops import upfirdn2d as fir
     from enhancing_tpu_torch.ops import vq
     gen = torch.Generator(device="cuda").manual_seed(1)
     t = kernel_inputs(TIME_BATCH, gen)
     m, d = TIME_BATCH * TOKENS, WIDTH
-    rows = {}
+    rows: dict = {name: [] for name in REPLACES}
 
-    def row(name, kernel, plain, library, flops, nbytes, peak, iters):
+    def row(name, label, kernel, plain, library, flops, nbytes, peak, iters):
         b_ms, b_by = bound(flops, nbytes, peak)
-        rows[name] = dict(ms=time_ms(kernel, iters),
-                          plain_ms=time_ms(plain, 3, warmup=1),
-                          library_ms=time_ms(library, iters),
-                          bound_ms=b_ms, bound_by=b_by)
-        r = rows[name]
-        log(f"[time] {name} B={TIME_BATCH}: kernel_ms {r['ms']:.4f} "
-            f"plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
-            f"bound_ms {b_ms:.4f} ({b_by}); {flops / r['ms'] / 1e9:.1f} "
-            f"TFLOP/s, {nbytes / r['ms'] / 1e6:.1f} GB/s")
-        return r
+        r = dict(ms=time_ms(kernel, iters),
+                 plain_ms=time_ms(plain, 3, warmup=1),
+                 library_ms=None if library is None else time_ms(library,
+                                                                 iters),
+                 bound_ms=b_ms, bound_by=b_by)
+        rows[name].append(r)
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        log(f"[time] {label}: kernel_ms {r['ms']:.4f} plain_ms "
+            f"{r['plain_ms']:.4f} library_ms {lib} bound_ms {b_ms:.4f} "
+            f"({b_by}); {flops / r['ms'] / 1e9:.1f} TFLOP/s, "
+            f"{nbytes / r['ms'] / 1e6:.1f} GB/s")
 
     x, g, b = t["x"], t["gamma"], t["beta"]
     for label, w, bias, act in (("ln_gemm qkv", t["w_qkv"], None, None),
@@ -277,7 +395,7 @@ def phase_times() -> dict:
                                  "tanh")):
         n = w.shape[0]
         lib_bias = None if bias is None else bias.to(torch.bfloat16)
-        row(label,
+        row("ln_gemm", f"{label} B={TIME_BATCH}",
             lambda: lg.ln_gemm_kernel(x, g, b, w, bias, act),
             lambda: lg.ln_gemm_plain(x, g, b, w, bias, act),
             lambda: lg._act(F.linear(F.layer_norm(x, (d,), g.to(x.dtype),
@@ -290,7 +408,7 @@ def phase_times() -> dict:
     q, k, v = qkv.view(TIME_BATCH, TOKENS, 3, HEADS, HEAD_DIM).permute(
         2, 0, 3, 1, 4)
     hd = HEADS * HEAD_DIM
-    row("attention",
+    row("attention", f"attention B={TIME_BATCH}",
         lambda: att.attention_packed_qkv_kernel(qkv, HEADS, HEAD_DIM,
                                                 HEAD_DIM ** -0.5),
         lambda: att.attention_packed_qkv_plain(qkv, HEADS, HEAD_DIM,
@@ -299,19 +417,68 @@ def phase_times() -> dict:
         4.0 * TIME_BATCH * HEADS * TOKENS * TOKENS * HEAD_DIM,
         (TIME_BATCH * TOKENS * 4 * hd) * 2, PEAK_BF16, 10)
 
-    row("layernorm",
+    row("layernorm", f"layernorm B={TIME_BATCH}",
         lambda: lg.layernorm_kernel(x, g, b),
         lambda: lg.layernorm(x, g, b),
         lambda: F.layer_norm(x, (d,), g.to(x.dtype), b.to(x.dtype), 1e-5),
         8.0 * m * d, 2 * m * d * 2 + 2 * d * 4, PEAK_BF16, 50)
 
     z, cb = t["z"], t["codebook"]
-    row("vq",
+    row("vq", f"vq B={TIME_BATCH}",
         lambda: vq.nearest_kernel(z, cb),
         lambda: vq.nearest_plain(z, cb),
         lambda: torch.cdist(z, cb).argmin(-1),
         2.0 * m * CODES * EMBED + 2.0 * CODES * EMBED,
         (m * EMBED + CODES * EMBED) * 4 + m * 4, PEAK_F32, 10)
+    del t, x, qkv, q, k, v
+
+    # attention backward at the training batch: S, dP, dV, dQ and dK,
+    # five products of 2 N^2 D per (batch, head); q, k, v, dO read and
+    # dq, dk, dv written
+    bt = TRAIN_BATCH
+    qkv = rand((bt, TOKENS, 3 * hd), gen)
+    q3, k3, v3 = att.split_qkv_scaled(qkv, HEAD_DIM ** -0.5)
+    do = rand((bt, TOKENS, hd), gen)
+    ql, kl, vl = (u.reshape(bt, TOKENS, HEADS, HEAD_DIM).transpose(1, 2)
+                  .detach().requires_grad_() for u in (q3, k3, v3))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, scale=1.0)
+    lib_do = do.reshape(bt, TOKENS, HEADS, HEAD_DIM).transpose(1, 2)
+    row("attention_bwd", f"attention_bwd B={bt}",
+        lambda: att.attention_bwd_kernel(q3, k3, v3, do, HEADS, HEAD_DIM),
+        lambda: att.attention_bwd_plain(q3, k3, v3, do, HEADS, HEAD_DIM),
+        lambda: torch.autograd.grad(lib_out, (ql, kl, vl), lib_do,
+                                    retain_graph=True),
+        10.0 * bt * HEADS * TOKENS * TOKENS * HEAD_DIM,
+        7 * bt * TOKENS * hd * 2, PEAK_BF16, 10)
+    del qkv, q3, k3, v3, do, ql, kl, vl, lib_out
+
+    # the 12 blurs of one discriminator forward, f32: 2 flops per tap
+    blur = fir.make_blur_kernel([1, 3, 3, 1])
+    for shape, pad in D_BLURS:
+        xb = torch.randn(shape, generator=gen, device="cuda")
+        bsz, h, w, c = shape
+        out_elems = bsz * (h + 2 * pad[0] - 3) * (w + 2 * pad[0] - 3) * c
+        weight = torch.flip(blur, (0, 1)).cuda()[None, None].expand(
+            c, 1, 4, 4)
+        xn = xb.permute(0, 3, 1, 2)
+        row("fir", f"fir {shape} pad {pad}",
+            lambda: fir.upfirdn2d(xb, blur, pad=pad),
+            lambda: fir.upfirdn2d_plain(xb, blur, 1, 1, pad),
+            lambda: F.conv2d(xn, weight, padding=pad[0], groups=c),
+            2.0 * 16 * out_elems, (xb.numel() + out_elems) * 4, PEAK_F32,
+            20)
+    del xb, xn
+
+    # the 15 bias + leaky ReLUs of one discriminator forward, f32; no
+    # single library call computes bias + leaky ReLU + gain
+    for shape in D_ACTS:
+        xa = torch.randn(shape, generator=gen, device="cuda")
+        bias = torch.randn(shape[-1], generator=gen, device="cuda")
+        row("fused_act", f"fused_act {shape}",
+            lambda: fa.fused_leaky_relu(xa, bias),
+            lambda: fa.fused_act_plain(xa, bias), None,
+            3.0 * xa.numel(), (2 * xa.numel() + bias.numel()) * 4, PEAK_F32,
+            20)
     return rows
 
 
@@ -395,24 +562,200 @@ def phase_main_path() -> dict:
     peak = torch.cuda.max_memory_allocated()
     log(f"[main] round trip batch {TIME_BATCH}: {dt * 1e3:.2f} ms, "
         f"{TIME_BATCH / dt:.1f} images/s, peak memory {peak / 2**30:.2f} GiB")
-    profile_round_trip(model, x)
+    profile_device(f"one round trip batch {TIME_BATCH}",
+                   lambda: model.decode_codes(model.encode_codes(x)))
     return launches
 
 
-# kernel-name fragments -> the share of the round trip they belong to
-KERNEL_GROUPS = (("ln_gemm", "ln_gemm"), ("attn_qkv", "attention"),
-                 ("layernorm_kernel", "layernorm"), ("vq_nearest", "vq"),
-                 ("gemm", "cuBLAS"), ("xmma", "cuBLAS"), ("cutlass", "cuBLAS"),
-                 ("nvjet", "cuBLAS"))
+class StepRecorder:
+    """The trainer's metrics logger: at each log call (after every step
+    and once after validation) it keeps the launch and plain-call counts,
+    the host clock and the metrics."""
+
+    def __init__(self) -> None:
+        self.records: list = []
+
+    def log_metrics(self, metrics: dict, step: int) -> None:
+        from enhancing_tpu_torch.ops import LAUNCHES, PLAIN_CALLS
+        torch.cuda.synchronize()
+        self.records.append(dict(step=step, t=time.perf_counter(),
+                                 launches=dict(LAUNCHES),
+                                 plain=dict(PLAIN_CALLS), metrics=metrics))
 
 
-def profile_round_trip(model, x) -> None:
-    """Device time by kernel group over one round trip, torch.profiler."""
+def one_step_grads(model, x):
+    """Losses and gradients of one AE phase and one D phase on the same
+    batch and weights, without an update."""
+    module, loss = model.module, model.loss
+    ae_params = list(module.parameters())
+    d_params = list(loss.discriminator.parameters())
+    xrec, qloss, _, codes = module.forward_training(x)
+    ae_loss, glog = loss.generator_loss(qloss, x, xrec, 1.0)
+    ae_grads = torch.autograd.grad(ae_loss, ae_params, allow_unused=True,
+                                   materialize_grads=True)
+    d_loss, dlog = loss.discriminator_loss(x, xrec.detach(), 1.0)
+    d_grads = torch.autograd.grad(d_loss, d_params)
+    logs = {k: float(v.detach()) for k, v in {**glog, **dlog}.items()}
+    return logs, ae_grads, d_grads, codes
+
+
+def worst_cosine(names, got, want):
+    """(cosine, name) of the least aligned gradient tensor pair."""
+    worst = (1.0, "")
+    for name, a, b in zip(names, got, want):
+        a, b = a.double().flatten(), b.double().flatten()
+        na, nb = float(a.norm()), float(b.norm())
+        if na == 0.0 and nb == 0.0:
+            continue
+        cos = float(a @ b) / (na * nb) if na and nb else 0.0
+        worst = min(worst, (cos, name))
+    return worst
+
+
+# limits of the kernel path against the plain path on one training step,
+# set from the first measurement on the card (largest loss difference
+# 3.3e-4 relative, least gradient cosine AE 0.999997, D 0.99996; NVIDIA
+# H100 80GB HBM3, 700 W) with a margin of 10-30x on 1 - cosine
+LOSS_RTOL_LIMIT = 5e-3
+AE_COS_LIMIT = 0.9999
+D_COS_LIMIT = 0.999
+
+
+def phase_train() -> dict:
+    """ViT-VQGAN-Base GAN training through Trainer.fit."""
+    from enhancing_tpu_torch.ops import (LAUNCHES, PLAIN_CALLS,
+                                         reset_launches)
+    from enhancing_tpu_torch.train import Trainer, make_vitvq_train_step
+    from enhancing_tpu_torch.utils.config import initialize_from_config
+    t0 = time.perf_counter()
+    model = initialize_from_config(FAKE_VITVQ_BASE["model"], device="cuda")
+    data = initialize_from_config(FAKE_VITVQ_BASE["dataset"])
+    module, disc = model.module, model.loss.discriminator
+    count = lambda mod: sum(p.numel() for p in mod.parameters())  # noqa: E731
+    log(f"[train] fake_vitvq_base built in {time.perf_counter() - t0:.1f} s:"
+        f" AE {count(module) / 1e6:.1f} M parameters (fp32, bf16 compute),"
+        f" StyleGAN D at 256 px {count(disc) / 1e6:.1f} M (fp32), LPIPS "
+        f"{count(model.loss.perceptual) / 1e6:.1f} M (random, frozen)")
+    before = {"AE": [p.detach().clone() for p in module.parameters()],
+              "D": [p.detach().clone() for p in disc.parameters()]}
+    recorder = StepRecorder()
+    trainer = Trainer(max_steps=TRAIN_STEPS, log_every=1,
+                      metrics_logger=recorder)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t_fit = time.perf_counter()
+    trainer.fit(model, data)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    n_val = -(-len(data.datasets["validation"]) // TRAIN_BATCH)
+    check(len(recorder.records) == TRAIN_STEPS + 1,
+          f"{len(recorder.records)} log calls, expected {TRAIN_STEPS} steps"
+          " and one validation")
+    prev = dict(t=t_fit, launches={k: 0 for k in LAUNCHES},
+                plain={k: 0 for k in PLAIN_CALLS})
+    step_ms = []
+    for i, r in enumerate(recorder.records):
+        got = {k: r["launches"][k] - prev["launches"][k] for k in LAUNCHES}
+        plain = {k: r["plain"][k] - prev["plain"][k] for k in PLAIN_CALLS
+                 if r["plain"][k] != prev["plain"][k]}
+        ms = (r["t"] - prev["t"]) * 1e3
+        if i < TRAIN_STEPS:
+            label = f"step {i} ({'R1' if i == 0 else 'no R1'})"
+            want, want_plain = TRAIN_STEP, (R1_PLAIN if i == 0 else {})
+            step_ms.append(ms)
+        else:
+            label = f"validation ({n_val} batches)"
+            want = {k: n_val * v for k, v in EVAL_STEP.items()}
+            want_plain = {}
+        log(f"[train] {label}: {ms:.1f} ms, launches {got}, plain-routed "
+            f"{plain}")
+        check(got == want, f"{label}: launches {got}, expected {want}")
+        check(plain == want_plain, f"{label}: plain-routed {plain}, "
+              f"expected {want_plain}")
+        bad = [k for k, v in r["metrics"].items() if not np.isfinite(v)]
+        check(not bad, f"{label}: non-finite {bad}")
+        prev = r
+    for group, params in (("AE", module.parameters()),
+                          ("D", disc.parameters())):
+        moved = sum(not torch.equal(p, q) for p, q in zip(params,
+                                                          before[group]))
+        log(f"[train] {group}: {moved} of {len(before[group])} parameter "
+            "tensors moved")
+        check(moved == len(before[group]), f"{group} parameters did not move")
+    last = recorder.records[TRAIN_STEPS - 1]["metrics"]
+    steady = float(np.mean(step_ms[1:]))
+    log(f"[train] after {TRAIN_STEPS} steps: "
+        + " ".join(f"{k}={v:.5g}" for k, v in sorted(last.items())))
+    log(f"[train] code perplexity {last['train/code_perplexity']:.2f} "
+        f"({last['train/codes_used']:.0f} codes used); step 0 (R1, first "
+        f"calls) {step_ms[0]:.1f} ms, steps 1-{TRAIN_STEPS - 1} mean "
+        f"{steady:.1f} ms = {TRAIN_BATCH / steady * 1e3:.2f} images/s, peak "
+        f"memory {peak / 2**30:.2f} GiB (wall clock around each step, "
+        "logging included)")
+
+    # one step's losses and gradients: kernels against the plain path
+    x = model.get_input(next(iter(data.val_dataloader())), "image")
+    module.train()
+    k_logs, k_ae, k_d, k_codes = one_step_grads(model, x)
+    mid = dict(LAUNCHES)
+    with plain_versions():
+        p_logs, p_ae, p_d, p_codes = one_step_grads(model, x)
+    check(LAUNCHES == mid, "the plain path launched a kernel")
+    module.eval()
+    rel = {k: abs(k_logs[k] - p_logs[k]) / max(abs(p_logs[k]), 1e-6)
+           for k in p_logs}
+    log("[train] one step, bf16 kernels vs bf16 plain: " + "; ".join(
+        f"{k} {k_logs[k]:.6g} vs {p_logs[k]:.6g}" for k in sorted(p_logs)))
+    worst_loss = max(rel.items(), key=lambda kv: kv[1])
+    ae_cos = worst_cosine([n for n, _ in module.named_parameters()], k_ae,
+                          p_ae)
+    d_cos = worst_cosine([n for n, _ in disc.named_parameters()], k_d, p_d)
+    match = float((k_codes == p_codes).float().mean()) * 100
+    log(f"[train] code match {match:.3f}%; largest loss difference "
+        f"{worst_loss[1]:.3e} relative ({worst_loss[0]}; limit "
+        f"{LOSS_RTOL_LIMIT}); least gradient cosine AE {ae_cos[0]:.6f} "
+        f"({ae_cos[1]}; limit {AE_COS_LIMIT}), D {d_cos[0]:.6f} "
+        f"({d_cos[1]}; limit {D_COS_LIMIT})")
+    check(worst_loss[1] <= LOSS_RTOL_LIMIT, "losses disagree with the plain "
+          "path")
+    check(ae_cos[0] >= AE_COS_LIMIT, "AE gradients disagree with the plain "
+          "path")
+    check(d_cos[0] >= D_COS_LIMIT, "D gradients disagree with the plain "
+          "path")
+    del k_ae, k_d, p_ae, p_d
+
+    step = make_vitvq_train_step(model, model.loss)
+    module.train()
+    profile_device(f"one training step (no R1) batch {TRAIN_BATCH}",
+                   lambda: step(trainer.final_state, x, do_r1=False))
+    module.eval()
+    return launches
+
+
+# kernel-name fragments -> the group of device time they belong to
+KERNEL_GROUPS = (("attn_bwd", "attention_bwd"), ("ln_gemm", "ln_gemm"),
+                 ("attn_qkv", "attention"), ("layernorm_kernel", "layernorm"),
+                 ("vq_nearest", "vq"), ("fir_kernel", "fir"),
+                 ("fused_act", "fused_act"), ("conv", "cuDNN conv"),
+                 ("dgrad", "cuDNN conv"), ("wgrad", "cuDNN conv"),
+                 ("implicit", "cuDNN conv"), ("gemm", "cuBLAS"),
+                 ("xmma", "cuBLAS"), ("cutlass", "cuBLAS"),
+                 ("nvjet", "cuBLAS"), ("multi_tensor", "optimizer"),
+                 ("elementwise", "elementwise"), ("reduce", "reductions"))
+
+
+def profile_device(label: str, fn) -> None:
+    """Device time by kernel group over one call of ``fn``,
+    torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.decode_codes(model.encode_codes(x))
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups: dict[str, float] = {}
@@ -432,9 +775,8 @@ def profile_round_trip(model, x) -> None:
         return
     shares = ", ".join(f"{g} {ms:.2f} ms ({ms / busy:.1%})" for g, ms in
                        sorted(groups.items(), key=lambda kv: -kv[1]))
-    log(f"[profile] one round trip batch {TIME_BATCH}: device busy "
-        f"{busy:.2f} ms of {wall_ms:.2f} ms wall under the profiler "
-        f"(idle {1 - busy / wall_ms:.1%}); {shares}")
+    log(f"[profile] {label}: device busy {busy:.2f} ms of {wall_ms:.2f} ms "
+        f"wall under the profiler (idle {1 - busy / wall_ms:.1%}); {shares}")
     log("[profile] largest 'other' kernels: " + "; ".join(
         f"{name} {ms:.2f} ms" for ms, name in sorted(others)[::-1][:4]))
 
@@ -447,19 +789,23 @@ def main() -> int:
     phase_build()
     errs = phase_compare()
     times = phase_times()
-    launches = phase_main_path()
+    serving = phase_main_path()
+    training = phase_train()
     kernels = []
     for kname in REPLACES:
-        rows = [r for label, r in times.items() if label.startswith(kname)]
-        # ln_gemm has two main-path shapes; its row sums them (one qkv and
-        # one fc1 launch per block), as do its bound and library times
+        rows = times[kname]
+        # a kernel with several main-path shapes (ln_gemm: qkv and fc1 of a
+        # block; fir and fused_act: every call of one discriminator
+        # forward) sums them, as do its bound, plain and library times
         agg = {key: sum(r[key] for r in rows)
-               for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+               for key in ("ms", "plain_ms", "bound_ms")}
+        agg["library_ms"] = (None if rows[0]["library_ms"] is None
+                             else sum(r["library_ms"] for r in rows))
         kernels.append(dict(name=kname, route="cuda", source=SOURCES[kname],
                             replaces=REPLACES[kname],
-                            launches=launches[kname],
-                            max_abs_err=errs[kname], bound_by=rows[0]["bound_by"],
-                            **agg))
+                            launches=serving[kname] + training[kname],
+                            max_abs_err=errs[kname],
+                            bound_by=rows[0]["bound_by"], **agg))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,12 +1,13 @@
-"""Carry a JAX ``ViTVQ.params`` tree (numpy leaves) into the port's module.
+"""Carry JAX parameter trees (numpy leaves) into the port's modules.
 
-The port names its submodules after the JAX tree, so the mapping is
-mechanical: a Dense ``kernel`` (in, out) becomes ``Linear.weight``
-(out, in); a LayerNorm ``scale`` becomes ``weight``; ``bias`` and the
-quantizer's ``embedding`` keep their names. Parameters stored in bf16 are
-rounded on the copy, as the JAX modules round them when they cast. Any
-leaf without a counterpart, any parameter left unfilled and any shape
-mismatch raises.
+The port names its submodules after the JAX trees, so the mapping is
+mechanical. A leaf ``kernel`` becomes ``weight``, and so does a LayerNorm
+``scale``; ``kernel`` and ``weight`` leaves change layout: a 2-D Dense or
+EqualLinear (in, out) array becomes torch's (out, in), a 4-D HWIO conv
+kernel becomes OIHW for ``F.conv2d``. Other leaves (``bias``,
+``act_bias``, the quantizer's ``embedding``) keep name and layout. Every
+parameter is fp32 in the port, as in the JAX trees. Any leaf without a
+counterpart, any parameter left unfilled and any shape mismatch raises.
 """
 from __future__ import annotations
 
@@ -26,38 +27,59 @@ def _leaves(tree: Any, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, 
 
 
 def torch_name(path: Tuple[str, ...]) -> Tuple[str, bool]:
-    """(parameter name in the port, whether the array is transposed)."""
+    """(parameter name in the port, whether the array changes layout)."""
     *modules, leaf = path
-    if leaf == "kernel":
-        return ".".join([*modules, "weight"]), True
-    if leaf == "scale":
-        return ".".join([*modules, "weight"]), False
+    if leaf in ("kernel", "scale", "weight"):
+        return ".".join([*modules, "weight"]), leaf != "scale"
     return ".".join(path), False
+
+
+def _to_torch_layout(array: np.ndarray) -> np.ndarray:
+    if array.ndim == 4:
+        return array.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    return array.T
+
+
+def load_from_jax(module: nn.Module, params: Mapping) -> nn.Module:
+    """Fill every parameter of ``module`` from the JAX tree ``params``."""
+    targets = dict(module.named_parameters())
+    filled = set()
+    for path, leaf in _leaves(params):
+        name, relayout = torch_name(path)
+        if name not in targets:
+            raise KeyError(f"JAX leaf {'/'.join(path)} has no counterpart "
+                           f"{name!r} in the port")
+        array = np.asarray(leaf, dtype=np.float32)
+        if relayout:
+            array = _to_torch_layout(array)
+        param = targets[name]
+        if tuple(array.shape) != tuple(param.shape):
+            raise ValueError(f"{name}: JAX shape {np.shape(leaf)} (in the "
+                             f"port's layout {array.shape}) != port shape "
+                             f"{tuple(param.shape)}")
+        with torch.no_grad():
+            param.copy_(torch.tensor(np.ascontiguousarray(array)))
+        filled.add(name)
+    missing = sorted(set(targets) - filled)
+    if missing:
+        raise KeyError(f"port parameters with no JAX leaf: {missing}")
+    return module
 
 
 def load_vitvq_from_jax(model: Any, params: Mapping) -> Any:
     """Fill ``model`` (a ``ViTVQ`` or its ``ViTVQModule``) from ``params``,
     the JAX ``ViTVQ.params`` tree with numpy leaves. Returns ``model``."""
-    module: nn.Module = getattr(model, "module", model)
-    targets = dict(module.named_parameters())
-    filled = set()
-    for path, leaf in _leaves(params):
-        name, transpose = torch_name(path)
-        if name not in targets:
-            raise KeyError(f"JAX leaf {'/'.join(path)} has no counterpart "
-                           f"{name!r} in the port")
-        array = np.asarray(leaf, dtype=np.float32)
-        if transpose:
-            array = array.T
-        param = targets[name]
-        if tuple(array.shape) != tuple(param.shape):
-            raise ValueError(f"{name}: JAX shape {array.shape} (after "
-                             f"transpose: {transpose}) != port shape "
-                             f"{tuple(param.shape)}")
-        with torch.no_grad():
-            param.copy_(torch.tensor(array))
-        filled.add(name)
-    missing = sorted(set(targets) - filled)
-    if missing:
-        raise KeyError(f"port parameters with no JAX leaf: {missing}")
+    load_from_jax(getattr(model, "module", model), params)
     return model
+
+
+def load_style_discriminator_from_jax(disc: nn.Module,
+                                      params: Mapping) -> nn.Module:
+    """Fill a port ``StyleDiscriminator`` from the JAX loss's
+    ``disc_init_params`` (numpy leaves)."""
+    return load_from_jax(disc, params)
+
+
+def load_lpips_from_jax(lpips: nn.Module, params: Mapping) -> nn.Module:
+    """Fill a port ``LPIPS`` from the JAX loss's ``lpips_params``."""
+    return load_from_jax(lpips, params)

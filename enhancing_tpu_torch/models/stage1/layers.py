@@ -14,9 +14,10 @@ options are later slices of the port):
 
 Submodules are named after the JAX parameter tree (``layers_{i}.attn.
 to_qkv``, ``norm1``, ``ff.fc1``, ...), so ``compat.from_jax`` maps one
-onto the other mechanically. Linear weights are stored in the compute
-dtype, as the JAX modules cast them; LayerNorm parameters and the fc1
-bias (added in fp32 by the fused kernel) stay fp32.
+onto the other mechanically. Parameters are stored in fp32 and cast to
+the compute dtype where they are used, as flax keeps fp32 parameters
+under a bf16 ``dtype``: training updates the fp32 values. LayerNorm
+parameters and the fc1 bias enter the fused kernel in fp32.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from typing import Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ...ops.attention import multihead_attention_packed_qkv
@@ -65,17 +67,26 @@ def get_2d_sincos_pos_embed(embed_dim: int, grid_size: Size) -> np.ndarray:
     return np.concatenate([emb_h, emb_w], axis=1).astype(np.float32)
 
 
-def dense(in_features: int, out_features: int, *, bias: bool = True,
-          generator: torch.Generator | None = None) -> nn.Linear:
-    """nn.Linear with Xavier-uniform weights and zero bias, as the JAX
-    package initialises its Dense kernels, drawn from ``generator``."""
-    layer = nn.utils.skip_init(nn.Linear, in_features, out_features,
-                               bias=bias)
-    with torch.no_grad():
-        nn.init.xavier_uniform_(layer.weight, generator=generator)
+class Dense(nn.Linear):
+    """nn.Linear with Xavier-uniform weights and zero bias drawn from
+    ``generator``, as the JAX package initialises its Dense kernels; the
+    fp32 weight and bias are cast to ``dtype`` with the input, as a flax
+    ``Dense(dtype=...)`` computes."""
+
+    def __init__(self, in_features: int, out_features: int, *,
+                 bias: bool = True, dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None) -> None:
+        super().__init__(in_features, out_features, bias=bias, device="meta")
+        self.compute_dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        nn.init.xavier_uniform_(self.weight, generator=generator)
         if bias:
-            layer.bias.zero_()
-    return layer
+            self.bias = nn.Parameter(torch.zeros(out_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
 
 
 class LayerNormParams(nn.Module):
@@ -97,10 +108,8 @@ class FeedForward(nn.Module):
                  generator: torch.Generator | None = None) -> None:
         super().__init__()
         self.dtype = dtype
-        self.fc1 = dense(dim, hidden_dim, generator=generator)
-        self.fc2 = dense(hidden_dim, dim, generator=generator)
-        self.fc1.weight.data = self.fc1.weight.data.to(dtype)
-        self.fc2.to(dtype)
+        self.fc1 = Dense(dim, hidden_dim, dtype=dtype, generator=generator)
+        self.fc2 = Dense(hidden_dim, dim, dtype=dtype, generator=generator)
 
     def forward(self, x: torch.Tensor, ln: LayerNormParams) -> torch.Tensor:
         h = fused_ln_gemm(x.to(self.dtype), ln.weight, ln.bias,
@@ -119,11 +128,11 @@ class Attention(nn.Module):
         super().__init__()
         self.heads, self.dim_head, self.dtype = heads, dim_head, dtype
         inner = heads * dim_head
-        self.to_qkv = dense(dim, inner * 3, bias=False,
-                            generator=generator).to(dtype)
+        self.to_qkv = Dense(dim, inner * 3, bias=False, dtype=dtype,
+                            generator=generator)
         self.has_proj = not (heads == 1 and dim_head == dim)
         if self.has_proj:
-            self.to_out = dense(inner, dim, generator=generator).to(dtype)
+            self.to_out = Dense(inner, dim, dtype=dtype, generator=generator)
 
     def forward(self, x: torch.Tensor, ln: LayerNormParams,
                 residual: torch.Tensor) -> torch.Tensor:
@@ -192,8 +201,8 @@ class ViTEncoder(nn.Module):
             raise ValueError("image size must divide by patch size")
         self.grid = (ih // ph, iw // pw)
         self.dtype = dtype
-        self.patch_embed = dense(channels * ph * pw, dim,
-                                 generator=generator).to(dtype)
+        self.patch_embed = Dense(channels * ph * pw, dim, dtype=dtype,
+                                 generator=generator)
         pos = get_2d_sincos_pos_embed(dim, self.grid)
         self.register_buffer("pos_embed",
                              torch.from_numpy(pos[None]).to(dtype),
@@ -207,7 +216,7 @@ class ViTEncoder(nn.Module):
         (gh, gw), (ph, pw) = self.grid, self.patch
         x = img.reshape(b, gh, ph, gw, pw, c).permute(0, 1, 3, 5, 2, 4)
         x = x.reshape(b, gh * gw, c * ph * pw)
-        x = self.patch_embed(x.to(self.dtype))
+        x = self.patch_embed(x)
         return self.transformer(x + self.pos_embed)
 
 
@@ -233,15 +242,36 @@ class ViTDecoder(nn.Module):
                              persistent=False)
         self.transformer = Transformer(dim, depth, heads, dim_head, mlp_dim,
                                        dtype=dtype, generator=generator)
-        self.to_pixel = dense(dim, channels * ph * pw,
-                              generator=generator).to(dtype)
+        self.to_pixel = Dense(dim, channels * ph * pw, dtype=dtype,
+                              generator=generator)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens: (B, N, dim) -> img (B, H, W, C)."""
-        x = self.transformer(tokens + self.pos_embed.to(tokens.dtype))
+        return self.pixels_from_tokens(self.pre_pixel_tokens(tokens))
+
+    def pre_pixel_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Everything up to, not including, the last layer (to_pixel)."""
+        return self.transformer(tokens + self.pos_embed.to(tokens.dtype))
+
+    def pixels_from_tokens(self, x: torch.Tensor) -> torch.Tensor:
+        """The last layer only: to_pixel and un-patchify."""
         x = self.to_pixel(x)
         b = x.shape[0]
         (gh, gw), (ph, pw) = self.grid, self.patch
         x = x.reshape(b, gh, gw, self.channels, ph, pw)
         return x.permute(0, 1, 4, 2, 5, 3).reshape(
             b, gh * ph, gw * pw, self.channels)
+
+    def patchify_grad(self, g: torch.Tensor) -> torch.Tensor:
+        """Inverse of the un-patchify: (B, H, W, C) -> (B, N, C*ph*pw), for
+        chaining an image gradient onto the last layer."""
+        b = g.shape[0]
+        (gh, gw), (ph, pw) = self.grid, self.patch
+        g = g.reshape(b, gh, ph, gw, pw, self.channels)
+        return g.permute(0, 1, 3, 5, 2, 4).reshape(
+            b, gh * gw, self.channels * ph * pw)
+
+    def get_last_layer(self) -> torch.Tensor:
+        """The last layer's weight (the reference's
+        ``decoder.get_last_layer()``), for the adaptive GAN weight."""
+        return self.to_pixel.weight

@@ -4,19 +4,22 @@ post_quant -> decoder, in PyTorch.
 Counterpart of ``enhancing_tpu/models/stage1/vitvqgan.py``:
 
 - :class:`ViTVQModule` is the ``nn.Module`` with ``forward / encode /
-  decode / encode_codes / decode_codes``. Encode runs the quantizer in
-  fp32; decode casts ``quant`` to the compute dtype before ``post_quant``.
+  decode / encode_codes / decode_codes / forward_training``. Encode runs
+  the quantizer in fp32; decode casts ``quant`` to the compute dtype
+  before ``post_quant``.
 - :class:`ViTVQ` / :class:`ViTVQGumbel` are the config-instantiable
   wrappers: they build the module from a seed on the chosen device and
-  serve it under ``torch.inference_mode()``. Images are NHWC; NCHW input
-  is transposed.
+  serve it under ``torch.inference_mode()``; ``train.Trainer`` trains the
+  module in train mode outside it. Images are NHWC; NCHW input is
+  transposed.
 
-The constructor takes the JAX wrapper's config keys. ``loss`` and
-``temperature_scheduler`` are kept as dicts and not built (the losses and
-schedulers are the training slice's); ``remat`` and ``scan_layers`` choose
-how XLA compiles the JAX model and mean nothing to eager PyTorch; loading
-a released checkpoint (``path``) is a later slice. Weights come across
-from a JAX parameter tree through ``compat.from_jax.load_vitvq_from_jax``.
+The constructor takes the JAX wrapper's config keys and builds ``loss``
+and ``temperature_scheduler`` with ``initialize_from_config``, as the JAX
+wrapper does; the loss moves to the model's device. ``remat`` and
+``scan_layers`` choose how XLA compiles the JAX model and mean nothing to
+eager PyTorch; loading a released checkpoint (``path``) is a later slice.
+Weights come across from a JAX parameter tree through
+``compat.from_jax.load_vitvq_from_jax``.
 """
 from __future__ import annotations
 
@@ -27,7 +30,8 @@ import torch
 from torch import nn
 
 from ...ops.common import resolve_device
-from .layers import ViTDecoder, ViTEncoder, dense
+from ...utils.config import initialize_from_config
+from .layers import Dense, ViTDecoder, ViTEncoder
 from .quantizers import GumbelQuantizer, VectorQuantizer
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -55,10 +59,10 @@ class ViTVQModule(nn.Module):
         else:
             raise ValueError(f"unknown quantizer_type {quantizer_type!r}")
         embed_dim = quantizer["embed_dim"]
-        self.pre_quant = dense(encoder["dim"], embed_dim,
-                               generator=generator).to(dtype)
-        self.post_quant = dense(embed_dim, decoder["dim"],
-                                generator=generator).to(dtype)
+        self.pre_quant = Dense(encoder["dim"], embed_dim, dtype=dtype,
+                               generator=generator)
+        self.post_quant = Dense(embed_dim, decoder["dim"], dtype=dtype,
+                                generator=generator)
 
     def forward(self, x: torch.Tensor, temp: Optional[float] = None,
                 deterministic: bool = True,
@@ -91,6 +95,19 @@ class ViTVQModule(nn.Module):
 
     def decode_codes(self, codes: torch.Tensor) -> torch.Tensor:
         return self.decode(self.quantizer.embed_codes(codes))
+
+    def forward_training(self, x: torch.Tensor, temp: Optional[float] = None,
+                         deterministic: bool = True,
+                         generator: torch.Generator | None = None):
+        """(xrec, qloss, pre_pixel_tokens, codes) in one pass: the tokens
+        let the train step form last-layer gradients for the adaptive
+        adversarial weight, the codes its codebook-usage metrics."""
+        h = self.pre_quant(self.encoder(x))
+        quant, emb_loss, codes = self._run_quantizer(h.float(), temp,
+                                                     deterministic, generator)
+        tokens = self.decoder.pre_pixel_tokens(
+            self.post_quant(quant.to(self.dtype)))
+        return self.decoder.pixels_from_tokens(tokens), emb_loss, tokens, codes
 
 
 def as_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -132,8 +149,11 @@ class ViTVQ:
         self.image_size = image_size
         self.patch_size = patch_size
         self.scheduler = scheduler
-        self.loss = loss
-        self.temperature_scheduler = temperature_scheduler
+        self.temperature_scheduler = (
+            initialize_from_config(temperature_scheduler)
+            if temperature_scheduler else None)
+        self.loss = (initialize_from_config(loss).to(self.device)
+                     if loss else None)
         self.dtype = DTYPES[dtype]
         generator = torch.Generator().manual_seed(seed)
         self.module = ViTVQModule(

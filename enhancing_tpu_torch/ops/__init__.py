@@ -1,12 +1,16 @@
 from .attention import multihead_attention_packed_qkv
-from .common import LAUNCHES, reset_launches
+from .common import LAUNCHES, PLAIN_CALLS, force_plain_ops, reset_launches
+from .fused_act import fused_leaky_relu
 from .ln_gemm import fused_layernorm, fused_ln_gemm, layernorm
 from .vq import codebook_distances, l2_normalize, nearest_codebook_indices
 
 __all__ = [
     "LAUNCHES",
+    "PLAIN_CALLS",
+    "force_plain_ops",
     "reset_launches",
     "multihead_attention_packed_qkv",
+    "fused_leaky_relu",
     "fused_ln_gemm",
     "fused_layernorm",
     "layernorm",

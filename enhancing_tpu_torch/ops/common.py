@@ -4,6 +4,11 @@ The rule is the tensor's device: a CUDA tensor goes to the hand-written
 kernel (``csrc/``), a CPU tensor goes to the plain PyTorch version beside
 it. A CUDA tensor of a shape or dtype a kernel does not take raises; it
 never falls back to the plain version.
+
+One scoped exception, :class:`force_plain_ops`: the region that R1
+differentiates twice runs every op on its plain version, as the JAX
+package runs it under ``force_xla_ops``; the calls it routes are counted
+in ``PLAIN_CALLS``.
 """
 from __future__ import annotations
 
@@ -13,12 +18,41 @@ import torch
 # wrapper adds one where it launches its kernel and nowhere else, so a run
 # can show that its main path went through the kernels.
 LAUNCHES: dict[str, int] = {"ln_gemm": 0, "attention": 0, "layernorm": 0,
-                            "vq": 0}
+                            "vq": 0, "attention_bwd": 0, "fir": 0,
+                            "fused_act": 0}
+# Op calls on CUDA tensors that force_plain_ops sent to the plain version.
+PLAIN_CALLS: dict[str, int] = {name: 0 for name in LAUNCHES}
+
+_FORCE_PLAIN_DEPTH = 0
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, PLAIN_CALLS):
+        for name in counts:
+            counts[name] = 0
+
+
+class force_plain_ops:
+    """Run every op of the region on its plain PyTorch version, CUDA
+    tensors included.
+
+    The kernels' ``autograd.Function``s give a first-order gradient only;
+    the lazy R1 penalty differentiates the discriminator's input gradient
+    a second time, so that region runs on the plain versions, which
+    autograd differentiates to any order: the counterpart of the JAX
+    package's ``force_xla_ops`` (``enhancing_tpu/ops/common.py:31-49``).
+    Nothing else uses it.
+    """
+
+    def __enter__(self):
+        global _FORCE_PLAIN_DEPTH
+        _FORCE_PLAIN_DEPTH += 1
+        return self
+
+    def __exit__(self, *exc):
+        global _FORCE_PLAIN_DEPTH
+        _FORCE_PLAIN_DEPTH -= 1
+        return False
 
 
 def cdiv(a: int, b: int) -> int:
@@ -36,11 +70,16 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     return dev
 
 
-def use_kernel(*tensors: torch.Tensor | None) -> bool:
+def use_kernel(*tensors: torch.Tensor | None, op: str | None = None) -> bool:
     """True when the tensors lie on a CUDA device (run the kernel), False on
-    the CPU (run the plain version). Mixed or other devices raise."""
+    the CPU (run the plain version) and inside :class:`force_plain_ops`,
+    where the call is counted under ``op``. Mixed or other devices raise."""
     devices = {t.device.type for t in tensors if t is not None}
     if devices == {"cuda"}:
+        if _FORCE_PLAIN_DEPTH:
+            if op is not None:
+                PLAIN_CALLS[op] += 1
+            return False
         return True
     if devices == {"cpu"}:
         return False
@@ -48,23 +87,38 @@ def use_kernel(*tensors: torch.Tensor | None) -> bool:
                      f"{sorted(devices)}")
 
 
-def check_kernel_args(name: str, *tensors: torch.Tensor | None) -> None:
+def check_kernel_args(name: str, *tensors: torch.Tensor | None,
+                      strided_rows: bool = False) -> None:
     """Checks every wrapper makes before it hands pointers to a kernel:
     contiguous, 16-byte aligned memory (the kernels load 16-byte vectors),
-    one device, and no autograd (the kernels have no backward yet;
-    training is a later slice of the port)."""
+    or with ``strided_rows`` a (B, N, C) view whose rows each start 16-byte
+    aligned at a common stride (a lane slice of a wider buffer); one
+    device; and no autograd graph.
+
+    A raw launch records nothing for autograd, so a kernel reached with
+    tensors that need a gradient while grad mode is on raises rather than
+    drop the gradient. Kernels with a backward are launched inside their
+    ``torch.autograd.Function``'s forward, where grad mode is off; the VQ
+    search gets detached inputs, its indices having no gradient."""
     dev = None
     for t in tensors:
         if t is None:
             continue
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name}: kernel inputs must be contiguous and "
-                             "16-byte aligned")
+        if strided_rows:
+            aligned = (t.dim() == 3 and t.stride(2) == 1
+                       and t.stride(0) == t.shape[1] * t.stride(1)
+                       and (t.stride(1) * t.element_size()) % 16 == 0)
+        else:
+            aligned = t.is_contiguous()
+        if not aligned or t.data_ptr() % 16:
+            raise ValueError(f"{name}: kernel inputs must be contiguous "
+                             "(or rows at a common stride) and 16-byte "
+                             "aligned")
         if dev is None:
             dev = t.device
         elif t.device != dev:
             raise ValueError(f"{name}: inputs on {dev} and {t.device}")
         if t.requires_grad and torch.is_grad_enabled():
             raise NotImplementedError(
-                f"{name}: the CUDA kernel has no backward; run under "
-                "torch.no_grad() or torch.inference_mode()")
+                f"{name}: a raw kernel launch records no gradient; call the "
+                "op's differentiable entry point or detach the inputs")

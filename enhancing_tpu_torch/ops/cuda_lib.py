@@ -40,6 +40,9 @@ SIGNATURES = {
     "etk_layernorm": [_p, _p, _p, _p, _i, _i, _f, _i, _p],
     "etk_attention_qkv": [_p, _p, _i, _i, _i, _i, _f, _i, _i, _p],
     "etk_vq_nearest": [_p, _p, _p, _p, _i, _i, _i, _p],
+    "etk_attention_bwd": [_p] * 8 + [_i] * 13 + [_p],
+    "etk_fir": [_p, _p, ctypes.POINTER(_f)] + [_i] * 11 + [_p],
+    "etk_fused_act": [_p, _p, _p, ctypes.c_longlong, _i, _f, _f, _i, _p],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -89,10 +92,10 @@ def build() -> Path:
             out, _ = proc.communicate()
             logs.append(f"== {src.name}\n{out}")
             if proc.returncode != 0:
-                failed.append(src.name)
+                failed.append(logs[-1])
         log = "\n".join(logs)
         if failed:
-            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         tmp_lib = Path(tmp) / lib_path.name
         link = subprocess.run(
             [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib),

@@ -9,6 +9,13 @@ numerics: eps 1e-5, fp32 statistics with the fast variance
 compute dtype before the product, fp32 accumulation, fp32 bias and
 activation, one rounding at the end.
 
+On CUDA each entry point is a ``torch.autograd.Function``: the forward is
+the kernel on detached inputs, and the backward is autograd of the plain
+version recomputed from the saved inputs, as the JAX package's
+``_ln_gemm_bwd`` and ``_layernorm_bwd`` take the VJP of their XLA twins
+(``enhancing_tpu/ops/ln_gemm.py:174-181, 444``). On the CPU the plain
+version runs and autograd differentiates it directly.
+
 Weights use torch's Linear layout, ``w: (n, d)``.
 """
 from __future__ import annotations
@@ -86,6 +93,51 @@ def ln_gemm_kernel(x, gamma, beta, w, b=None, activation=None, eps=1e-5):
     return out
 
 
+def _plain_vjp(plain, inputs, grad_out):
+    """Gradients of ``plain(*inputs)`` against ``grad_out``, recomputed
+    with autograd; None where an input is None or needs no gradient."""
+    leaves = [None if t is None else t.detach().requires_grad_(need)
+              for t, need in inputs]
+    wanted = [t for t in leaves if t is not None and t.requires_grad]
+    with torch.enable_grad():
+        out = plain(*leaves)
+        grads = iter(torch.autograd.grad(out, wanted, grad_out))
+    return tuple(next(grads) if t is not None and t.requires_grad else None
+                 for t in leaves)
+
+
+class _LnGemm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, w, b, activation, eps):
+        ctx.save_for_backward(x, gamma, beta, w, b)
+        ctx.activation, ctx.eps = activation, eps
+        return ln_gemm_kernel(x, gamma, beta, w, b, activation, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma, beta, w, b = ctx.saved_tensors
+        grads = _plain_vjp(
+            lambda *t: ln_gemm_plain(*t, ctx.activation, ctx.eps),
+            zip((x, gamma, beta, w, b), ctx.needs_input_grad[:5]), g)
+        return (*grads, None, None)
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.eps = eps
+        return layernorm_kernel(x, gamma, beta, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma, beta = ctx.saved_tensors
+        grads = _plain_vjp(lambda *t: layernorm(*t, ctx.eps),
+                           zip((x, gamma, beta), ctx.needs_input_grad[:3]),
+                           g)
+        return (*grads, None)
+
+
 def fused_ln_gemm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                   w: torch.Tensor, b: torch.Tensor | None = None, *,
                   activation: str | None = None,
@@ -101,11 +153,11 @@ def fused_ln_gemm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     batch_shape = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     w = w.to(x.dtype)
-    if use_kernel(x2, gamma, beta, w, b):
-        out = ln_gemm_kernel(x2.contiguous(), gamma.float().contiguous(),
-                             beta.float().contiguous(), w.contiguous(),
-                             None if b is None else b.float().contiguous(),
-                             activation, eps)
+    if use_kernel(x2, gamma, beta, w, b, op="ln_gemm"):
+        out = _LnGemm.apply(x2.contiguous(), gamma.float().contiguous(),
+                            beta.float().contiguous(), w.contiguous(),
+                            None if b is None else b.float().contiguous(),
+                            activation, eps)
     else:
         out = ln_gemm_plain(x2, gamma, beta, w, b, activation, eps)
     return out.reshape(*batch_shape, w.shape[0])
@@ -137,8 +189,8 @@ def fused_layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     """LayerNorm(x; gamma, beta) over the last axis in one pass."""
     batch_shape = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if use_kernel(x2, gamma, beta):
-        out = layernorm_kernel(x2.contiguous(), gamma.float().contiguous(),
+    if use_kernel(x2, gamma, beta, op="layernorm"):
+        out = _LayerNorm.apply(x2.contiguous(), gamma.float().contiguous(),
                                beta.float().contiguous(), eps)
     else:
         out = layernorm(x2, gamma, beta, eps)

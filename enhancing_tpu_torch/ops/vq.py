@@ -57,10 +57,13 @@ def nearest_codebook_indices(z: torch.Tensor,
 
     z: (..., D) query vectors; codebook: (n_embed, D). Returns int32
     indices shaped like ``z`` minus its last axis. No gradient flows
-    through the argmin.
+    through the argmin: both inputs are detached, as the JAX package
+    stops their gradient (``enhancing_tpu/ops/vq.py:149-153``), so the
+    search runs inside a training step.
     """
     batch_shape = z.shape[:-1]
-    z2 = z.reshape(-1, z.shape[-1])
+    z2 = z.detach().reshape(-1, z.shape[-1])
+    codebook = codebook.detach()
     if use_kernel(z2, codebook):
         idx = nearest_kernel(z2.contiguous(), codebook.contiguous())
     else:

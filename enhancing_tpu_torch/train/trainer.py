@@ -1,0 +1,127 @@
+"""The stage-1 training loop on one device.
+
+Counterpart of ``enhancing_tpu/train/trainer.py:37-242`` for the stage-1
+tokenizer: ``fit(model, data)`` runs the train step over the training
+loader for ``max_epochs`` epochs or ``max_steps`` steps, with lazy R1 on
+every ``do_r1_every``-th batch of an epoch (batch 0 included), logs every
+``log_every`` steps, and validates at the end of each epoch. The model's
+``device`` is the device it trains on.
+
+Options the port cannot honour yet raise ``NotImplementedError``:
+checkpoints (``basedir``, ``resume``), meshes and parallelism (``mesh``,
+``zero1``, ``sp``, ``pipeline_parallel``), the split GAN step
+(``split_gan_step``, ``reuse_xrec``), and stage-2 models.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+
+from ..models.stage1.vitvqgan import ViTVQ
+from .optim import make_ae_optimizer
+from .steps import GANTrainState, make_vitvq_eval_step, make_vitvq_train_step
+
+
+class Trainer:
+    def __init__(self, max_epochs: int = 100, base_lr: float = 4.5e-6,
+                 basedir: Optional[str] = None, seed: int = 0,
+                 mesh=None, log_every: int = 50,
+                 max_steps: Optional[int] = None,
+                 split_gan_step: bool = False, reuse_xrec: bool = False,
+                 metrics_logger=None, zero1: bool = False, sp: bool = False,
+                 pipeline_parallel: int = 1, resume: bool = False) -> None:
+        unsupported = {
+            "basedir (checkpoints)": basedir is not None,
+            "resume": resume,
+            "mesh": mesh is not None,
+            "zero1": zero1,
+            "sp": sp,
+            "pipeline_parallel": pipeline_parallel != 1,
+            "split_gan_step": split_gan_step,
+            "reuse_xrec": reuse_xrec,
+        }
+        asked = [name for name, on in unsupported.items() if on]
+        if asked:
+            raise NotImplementedError(
+                f"the port's Trainer does not support {asked} yet")
+        self.max_epochs = max_epochs
+        self.base_lr = base_lr
+        # stage-1 VQ training draws no random numbers; the seed is kept
+        # for the Gumbel slice
+        self.seed = seed
+        self.log_every = log_every
+        self.max_steps = max_steps
+        self.metrics_logger = metrics_logger
+        self.global_step = 0
+        self.last_log: Dict[str, Any] = {}
+
+    def _build_stage1(self, model):
+        loss_obj = model.loss
+        if hasattr(loss_obj, "check_trainable"):
+            loss_obj.check_trainable()
+        sched = None
+        if model.scheduler is not None:
+            from ..utils.config import initialize_from_config
+            cfg = dict(model.scheduler)
+            cfg["params"] = dict(cfg.get("params") or {}, start=self.base_lr)
+            sched = initialize_from_config(cfg)
+        ae_opt, ae_sched = make_ae_optimizer(model.module.parameters(),
+                                             self.base_lr, sched)
+        state = GANTrainState(step=0, ae_opt=ae_opt, ae_sched=ae_sched)
+        if getattr(loss_obj, "has_discriminator", False):
+            state.disc_opt, state.disc_sched = make_ae_optimizer(
+                loss_obj.discriminator.parameters(), self.base_lr, sched)
+        return (state, make_vitvq_train_step(model, loss_obj),
+                make_vitvq_eval_step(model, loss_obj))
+
+    def fit(self, model, data) -> None:
+        if not isinstance(model, ViTVQ):
+            raise NotImplementedError(
+                "the port trains stage-1 tokenizers only; stage 2 is a "
+                "later slice")
+        data.setup()
+        state, train_step, eval_step = self._build_stage1(model)
+        do_r1_every = getattr(model.loss, "do_r1_every", 0)
+        model.module.train()
+        try:
+            for epoch in range(self.max_epochs):
+                for batch_idx, batch in enumerate(data.train_dataloader()):
+                    x = model.get_input(batch, model.image_key)
+                    do_r1 = bool(do_r1_every) and batch_idx % do_r1_every == 0
+                    log = train_step(state, x, do_r1=do_r1)
+                    self.last_log = log
+                    self.global_step += 1
+                    self._maybe_log(log, epoch)
+                    if self.max_steps and self.global_step >= self.max_steps:
+                        break
+                self._validate(model, data, state, eval_step, epoch)
+                if self.max_steps and self.global_step >= self.max_steps:
+                    break
+        finally:
+            model.module.eval()
+        self.final_state = state
+
+    def _validate(self, model, data, state, eval_step, epoch) -> None:
+        if "validation" not in getattr(data, "datasets", {}):
+            return
+        logs = [eval_step(state, model.get_input(batch, model.image_key))
+                for batch in data.val_dataloader()]
+        if logs:
+            mean_log = {k: float(np.mean([float(l[k]) for l in logs]))
+                        for k in logs[0]}
+            self._print_metrics(mean_log, prefix=f"[epoch {epoch} val]")
+            if self.metrics_logger is not None:
+                self.metrics_logger.log_metrics(mean_log, self.global_step)
+
+    def _maybe_log(self, log: Dict[str, Any], epoch: int) -> None:
+        if self.global_step % self.log_every == 0:
+            metrics = {k: float(v) for k, v in log.items()}
+            self._print_metrics(
+                metrics, prefix=f"[epoch {epoch} step {self.global_step}]")
+            if self.metrics_logger is not None:
+                self.metrics_logger.log_metrics(metrics, self.global_step)
+
+    def _print_metrics(self, metrics: Dict[str, float], prefix: str) -> None:
+        parts = " ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.items()))
+        print(f"{prefix} {parts}", flush=True)

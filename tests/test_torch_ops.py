@@ -8,18 +8,24 @@ ENHANCING_TPU_PALLAS_INTERPRET=1) and through its XLA twin
 CPU tensors dispatch to. Everything is f32; each tolerance is stated at
 its assert.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from enhancing_tpu.ops import attention as jatt
+from enhancing_tpu.ops import fused_act as jfa
 from enhancing_tpu.ops import ln_gemm as jlg
+from enhancing_tpu.ops import upfirdn2d as jfir
 from enhancing_tpu.ops import vq as jvq
 from enhancing_tpu_torch.ops import attention as tatt
 from enhancing_tpu_torch.ops import common as tcommon
+from enhancing_tpu_torch.ops import fused_act as tfa
 from enhancing_tpu_torch.ops import ln_gemm as tlg
 from enhancing_tpu_torch.ops import vq as tvq
+from enhancing_tpu_torch.ops.upfirdn2d import (make_blur_kernel,
+                                               upfirdn2d_plain)
 
 # f32 with another summation order on each side: a few ulps of O(1) values
 F32_TOL = dict(atol=2e-5, rtol=1e-5)
@@ -154,3 +160,220 @@ def test_cpu_tensors_take_the_plain_versions():
     assert tcommon.LAUNCHES == before
     with pytest.raises(ValueError):
         tcommon.use_kernel(x, torch.zeros(2, device="meta"))
+
+
+# ---- backward of B1 and B3: autograd of the plain version, the path the
+# kernels' autograd Functions take on the card (ops.ln_gemm._plain_vjp)
+
+
+def _np(t):
+    return t.detach().float().numpy()
+
+
+@pytest.mark.parametrize("activation", [None, "tanh", "sqrelu", "gelu"])
+def test_fused_ln_gemm_backward_matches_jax(activation):
+    rng = np.random.default_rng(10)
+    m, d, n = 40, 128, 96
+    x, gamma, beta = _ln_inputs(rng, (m, d))
+    w = (rng.standard_normal((d, n)) / np.sqrt(d)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(n)).astype(np.float32)
+    g = rng.standard_normal((m, n)).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: jlg.fused_ln_gemm(*a, activation=activation),
+                     *map(jnp.asarray, (x, gamma, beta, w, b)))
+    ref = vjp(jnp.asarray(g))
+    ref = (*ref[:3], np.asarray(ref[3]).T, ref[4])  # w in torch's layout
+    ins = [_t(a) for a in (x, gamma, beta, w.T, b)]
+    via_function = tlg._plain_vjp(
+        lambda *t: tlg.ln_gemm_plain(*t, activation),
+        [(t, True) for t in ins], _t(g))
+    leaves = [t.clone().requires_grad_() for t in ins]
+    out = tlg.fused_ln_gemm(*leaves, activation=activation)
+    via_entry = torch.autograd.grad(out, leaves, _t(g))
+    # f32, sums over m or n rows in another order on each side
+    for name, want, a, c in zip(("x", "gamma", "beta", "w", "b"), ref,
+                                via_function, via_entry):
+        np.testing.assert_allclose(_np(a), np.asarray(want), atol=5e-5,
+                                   rtol=1e-4, err_msg=name)
+        np.testing.assert_allclose(_np(c), np.asarray(want), atol=5e-5,
+                                   rtol=1e-4, err_msg=name)
+
+
+def test_fused_layernorm_backward_matches_jax():
+    rng = np.random.default_rng(11)
+    x, gamma, beta = _ln_inputs(rng, (2, 24, 128))
+    g = rng.standard_normal(x.shape).astype(np.float32)
+    _, vjp = jax.vjp(jlg.fused_layernorm,
+                     *map(jnp.asarray, (x, gamma, beta)))
+    ref = vjp(jnp.asarray(g))
+    x2 = _t(x.reshape(-1, 128))
+    via_function = tlg._plain_vjp(lambda *t: tlg.layernorm(*t),
+                                  [(x2, True), (_t(gamma), True),
+                                   (_t(beta), True)],
+                                  _t(g.reshape(-1, 128)))
+    for name, want, got in zip(("x", "gamma", "beta"), ref, via_function):
+        np.testing.assert_allclose(_np(got).reshape(np.shape(want)),
+                                   np.asarray(want), atol=2e-5, rtol=1e-4,
+                                   err_msg=name)
+
+
+# ---- B5: the attention backward
+
+
+def _bwd_inputs(rng, b, n, h, d, dtype):
+    qkv = (rng.standard_normal((b, n, 3 * h * d)) * 0.5).astype(np.float32)
+    do = rng.standard_normal((b, n, h * d)).astype(np.float32)
+    q3, k3, v3 = (qkv[..., i * h * d:(i + 1) * h * d] for i in range(3))
+    q3 = q3 * d ** -0.5
+    return [a.astype(dtype) for a in (q3, k3, v3, do)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode,cl", [("none", 0), ("prefix_causal", 5)])
+def test_attention_bwd_plain_matches_jax_kernel(interpret, dtype, mode, cl):
+    """The port's plain backward (autograd of the plain attention) against
+    the JAX backward kernel run in interpret mode."""
+    b, n, h, d = 2, 64, 2, 64
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    ins = _bwd_inputs(np.random.default_rng(12), b, n, h, d, np.float32)
+    jins = [jnp.asarray(a, jdt) for a in ins]
+    ref = jatt._attention_packed_bwd_call(*jins, mode, cl, d)
+    tdt = getattr(torch, dtype)
+    got = tatt.attention_bwd_plain(*[_t(a).to(tdt) for a in ins], h, d,
+                                   mode, cl)
+    for name, want, g in zip("qkv", ref, got):
+        want = np.asarray(want, np.float32)
+        assert g.dtype == tdt
+        if dtype == "float32":
+            # f32: the same function, another summation order
+            np.testing.assert_allclose(_np(g), want, atol=2e-5, rtol=1e-4,
+                                       err_msg="d" + name)
+        else:
+            # bf16: the kernel rounds dS before its products, the plain
+            # version's autograd rounds dP instead; one bf16 step (2^-8)
+            # on terms summed over 64 keys, held to 2^-6 of the largest
+            # value plus 2^-6 relative
+            scale = np.abs(want).max()
+            np.testing.assert_allclose(_np(g), want,
+                                       atol=2.0 ** -6 * scale,
+                                       rtol=2.0 ** -6, err_msg="d" + name)
+
+
+@pytest.mark.parametrize("mode,cl", [("none", 0), ("prefix_causal", 3)])
+def test_attention_packed_qkv_gradient_matches_jax(interpret, mode, cl):
+    b, n, h, d = 2, 48, 2, 64
+    rng = np.random.default_rng(13)
+    qkv = (rng.standard_normal((b, n, 3 * h * d)) * 0.5).astype(np.float32)
+    g = rng.standard_normal((b, n, h * d)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a: jatt.multihead_attention_packed_qkv(
+        a, h, d, mask_mode=mode, cond_len=cl, impl="pallas"),
+        jnp.asarray(qkv))
+    (ref,) = vjp(jnp.asarray(g))
+    leaf = _t(qkv).requires_grad_()
+    out = tatt.multihead_attention_packed_qkv(leaf, h, d, mask_mode=mode,
+                                              cond_len=cl)
+    (got,) = torch.autograd.grad(out, leaf, _t(g))
+    # f32 through softmax and three products, another order on each side
+    np.testing.assert_allclose(_np(got), np.asarray(ref), atol=3e-5,
+                               rtol=1e-4)
+
+
+# ---- B6: the FIR blur
+
+BLUR = np.asarray(make_blur_kernel([1, 3, 3, 1]))
+
+
+@pytest.mark.parametrize("pad", [(2, 2, 2, 2), (1, 1, 1, 1),
+                                 (-1, 2, 0, -2), (3, 0, -1, 1)])
+def test_fir_plain_matches_jax_kernel(interpret, pad):
+    x = np.random.default_rng(14).standard_normal((2, 9, 11, 16)).astype(
+        np.float32)
+    k = np.array([[1.0, 2.0, 0.0, 1.0], [0.5, -1.0, 3.0, 0.25],
+                  [2.0, 1.0, 1.0, -0.5]], np.float32)
+    taps = tuple(tuple(float(v) for v in row) for row in np.flip(k, (0, 1)))
+    ref = jfir._upfirdn2d_pallas_fir(jnp.asarray(x), taps, pad)
+    got = upfirdn2d_plain(_t(x), _t(k), 1, 1, pad)
+    assert got.shape == ref.shape
+    # f32: the same 12 products summed in another order
+    np.testing.assert_allclose(_np(got), np.asarray(ref), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("up,down,pad", [(1, 2, (1, 1, 1, 1)),
+                                         (2, 1, (2, 1, 2, 1)),
+                                         (2, 2, (1, 2, 0, 1)),
+                                         (1, 1, (0, 0, 0, 0))])
+def test_upfirdn2d_general_path_matches_jax(up, down, pad):
+    x = np.random.default_rng(15).standard_normal((2, 8, 8, 4)).astype(
+        np.float32)
+    k = BLUR * (up ** 2)
+    ref = jfir._upfirdn2d_xla(jnp.asarray(x), jnp.asarray(k), up, down, pad)
+    got = upfirdn2d_plain(_t(x), _t(k), up, down, pad)
+    np.testing.assert_allclose(_np(got), np.asarray(ref), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("pad", [(2, 2), (1, 1)])
+def test_fir_gradient_matches_jax(interpret, pad):
+    rng = np.random.default_rng(16)
+    x = rng.standard_normal((2, 8, 8, 16)).astype(np.float32)
+    out, vjp = jax.vjp(lambda a: jfir.upfirdn2d(a, jnp.asarray(BLUR),
+                                                pad=pad, impl="pallas"),
+                       jnp.asarray(x))
+    g = rng.standard_normal(out.shape).astype(np.float32)
+    (ref,) = vjp(jnp.asarray(g))
+    leaf = _t(x).requires_grad_()
+    (got,) = torch.autograd.grad(
+        upfirdn2d_plain(leaf, _t(BLUR), 1, 1, pad + pad), leaf, _t(g))
+    np.testing.assert_allclose(_np(got), np.asarray(ref), atol=1e-5,
+                               rtol=1e-5)
+
+
+# ---- B7: the fused bias + leaky ReLU
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_act_plain_matches_jax_kernel(interpret, dtype):
+    rng = np.random.default_rng(17)
+    x = rng.standard_normal((40, 128)).astype(np.float32)
+    b = (0.3 * rng.standard_normal(128)).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    ref = jfa._fused_pallas2d(jnp.asarray(x, jdt), jnp.asarray(b[None]),
+                              jfa.SLOPE, jfa.SCALE)
+    got = tfa.fused_act_plain(_t(x).to(getattr(torch, dtype)), _t(b))
+    # the same roundings in the same order (bf16: t, slope * t and the
+    # gain each round once)
+    np.testing.assert_array_equal(_np(got), np.asarray(ref, np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_act_custom_backward_matches_jax(interpret, dtype):
+    rng = np.random.default_rng(18)
+    x = rng.standard_normal((4, 6, 6, 64)).astype(np.float32)
+    b = (0.3 * rng.standard_normal(64)).astype(np.float32)
+    g = rng.standard_normal(x.shape).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    out, vjp = jax.vjp(lambda a, c: jfa.fused_leaky_relu(a, c,
+                                                         impl="pallas"),
+                       jnp.asarray(x, jdt), jnp.asarray(b))
+    dx_ref, db_ref = vjp(jnp.asarray(g, jdt))
+    tdt = getattr(torch, dtype)
+    xs, bs = _t(x).to(tdt).requires_grad_(), _t(b).requires_grad_()
+    y = tfa.FusedLeakyReLU.apply(xs, bs, tfa.SLOPE, tfa.SCALE)
+    dx, db = torch.autograd.grad(y, (xs, bs), _t(g).to(tdt))
+    np.testing.assert_array_equal(_np(y), np.asarray(out, np.float32))
+    # dx: one product of the gain and g, rounded once on both sides
+    np.testing.assert_array_equal(_np(dx), np.asarray(dx_ref, np.float32))
+    # db: a sum over 144 rows in another order (bf16: of bf16 terms, and
+    # rounded to bf16 before the cast to f32)
+    tol = dict(atol=1e-4, rtol=1e-5) if dtype == "float32" else dict(
+        atol=0.25, rtol=2.0 ** -7)
+    np.testing.assert_allclose(_np(db), np.asarray(db_ref), **tol)
+
+
+def test_force_plain_ops_counts_what_it_routes():
+    tcommon.reset_launches()
+    x = torch.zeros(2, 8)
+    with tcommon.force_plain_ops():
+        assert tcommon.use_kernel(x, op="fir") is False
+    assert tcommon.PLAIN_CALLS["fir"] == 0  # CPU tensors are not routed
+    assert tcommon._FORCE_PLAIN_DEPTH == 0

@@ -171,9 +171,9 @@ def test_yaml_configs_build_port_models(name):
         "enhancing_tpu_torch.models.stage1.vitvqgan.ViTVQ"
     model = initialize_from_config(cfg.model, device="cpu")
     assert isinstance(model, ViTVQ)
-    # the loss is the training slice's: kept as a dict, remapped, not built
-    assert isinstance(model.loss, dict)
-    assert model.loss["target"].startswith("enhancing_tpu_torch.losses.")
+    # the loss is built from its remapped target, as the JAX wrapper does
+    assert type(model.loss).__module__ == \
+        "enhancing_tpu_torch.losses.vqperceptual"
     size = cfg.model.params.image_size
     codes = model.encode_codes(np.zeros((1, size, size, 3), np.float32))
     assert codes.shape == (1, (size // 8) ** 2)
@@ -199,6 +199,8 @@ from enhancing_tpu_torch.models.stage1 import ViTVQ
 from enhancing_tpu_torch.compat import load_vitvq_from_jax
 from enhancing_tpu_torch.ops import cuda_lib
 from enhancing_tpu_torch.utils import load_config
+import enhancing_tpu_torch.data, enhancing_tpu_torch.losses
+import enhancing_tpu_torch.train
 tower = dict(dim=64, depth=1, heads=2, mlp_dim=128)
 m = ViTVQ(image_size=16, patch_size=8, encoder=tower, decoder=tower,
           quantizer=dict(embed_dim=16, n_embed=32), device="cpu")
