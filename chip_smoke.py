@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py
 
-Two paths, both ViT-VQGAN-Base at full widths and depth (256 px, 8x8
-patches, width 768, 12 heads of 64, MLP 3072, 12 + 12 layers, 8192 codes
-of 32) in bf16 with random weights from a seed:
+Three paths, in bf16 with random weights from a seed; the first two at
+ViT-VQGAN-Base's full widths and depth (256 px, 8x8 patches, width 768,
+12 heads of 64, MLP 3072, 12 + 12 layers, 8192 codes of 32):
 
 - serving: the tokenizer round trip ``encode_codes`` -> ``decode_codes``;
 - training: ``Trainer.fit`` on ``configs/fake_vitvq_base.yaml`` (held
   here as a dict, since the card's machine has no pyyaml): AE + StyleGAN
-  discriminator steps at batch 8 with random-init LPIPS, step 0 with R1.
+  discriminator steps at batch 8 with random-init LPIPS, step 0 with R1;
+- stage-2 sampling: class-conditional ``CondTransformer.sample`` of the
+  GPT prior of ``configs/imagenet_gpt_vitvq_base.yaml`` (also held as a
+  dict) at batch 8.
 
 Phases, each of which raises on failure:
 
@@ -33,7 +36,18 @@ Phases, each of which raises on failure:
    R1 step's plain-routed calls), finite losses, moved parameters, code
    perplexity; one step's losses and per-tensor gradients through the
    kernels against the plain path; ms per step, images/s, peak memory and
-   the device time of one step by kernel group.
+   the device time of one step by kernel group;
+7. stage-2 sampling: ``CondTransformer.sample`` of the published prior of
+   ``configs/imagenet_gpt_vitvq_base.yaml`` at full width and depth (24
+   layers of 6144, 16 heads of 384, 1024 codes) over the ViT-VQGAN-Base
+   tokenizer, bf16, random weights drawn on the card, 8 class labels:
+   counters reset just before and read just after one call and its
+   launches asserted exactly; codes, pixels and a second seed checked;
+   tokens/s, images/s, ms per decode step against its bound, peak
+   memory; the sampler's per-step logits against the teacher-forced full
+   forward on its codes; the kernels against the plain path on the full
+   forward and 32 decode steps; one decode step's device time by kernel
+   group.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``. With no card, or run
@@ -114,7 +128,53 @@ REPLACES = {
     "attention_bwd": "enhancing_tpu/ops/attention.py:904",
     "fir": "enhancing_tpu/ops/upfirdn2d.py:74",
     "fused_act": "enhancing_tpu/ops/fused_act.py:36",
+    # the pallas_call sites (B8's kernel body is B2's _attn_kernel_packed)
+    "attention_bnhd": "enhancing_tpu/ops/attention.py:626",
+    "decode_attention": "enhancing_tpu/ops/attention.py:1593",
+    "cache_row_update": "enhancing_tpu/ops/cache.py:71",
 }
+# configs/imagenet_gpt_vitvq_base.yaml's model after load_config's target
+# remap (a CPU test holds the two equal), less the stage-1 checkpoint path:
+# the released weights are not in the repository
+_BASE_TOWER = {"dim": 768, "depth": 12, "heads": 12, "mlp_dim": 3072}
+GPT_VITVQ_BASE = {
+    "target": "enhancing_tpu_torch.models.stage2.transformer.CondTransformer",
+    "params": {
+        "cond_key": "class",
+        "cond": {
+            "target": "enhancing_tpu_torch.models.cond.dummycond.ClassCond",
+            "params": {"image_size": 256,
+                       "class_name": "assets/class/imagenet.txt"}},
+        "stage1": {
+            "target": "enhancing_tpu_torch.models.stage1.vitvqgan.ViTVQ",
+            "params": {
+                "image_key": "image", "image_size": 256, "patch_size": 8,
+                "encoder": dict(_BASE_TOWER), "decoder": dict(_BASE_TOWER),
+                "quantizer": {"embed_dim": 32, "n_embed": 8192},
+                "loss": {"target": "enhancing_tpu_torch.losses.vqperceptual."
+                                   "DummyLoss"}}},
+        "transformer": {
+            "target": "enhancing_tpu_torch.models.stage2.layers.GPT",
+            "params": {
+                "vocab_cond_size": 1000, "vocab_img_size": 8192,
+                "embed_dim": 6144, "cond_num_tokens": 1,
+                "img_num_tokens": 1024, "n_heads": 16, "n_layers": 24,
+                "scan_layers": True, "remat": True}},
+    }}
+PRIOR = GPT_VITVQ_BASE["params"]["transformer"]["params"]
+P_LAYERS, P_WIDTH, P_HEADS = (PRIOR["n_layers"], PRIOR["embed_dim"],
+                              PRIOR["n_heads"])
+P_HEAD_DIM, P_CTX = P_WIDTH // P_HEADS, PRIOR["cond_num_tokens"] + 1024
+P_CTX_PAD = -(-P_CTX // 8) * 8
+P_VOCAB, SAMPLE_BATCH, P_STEPS = PRIOR["vocab_img_size"], 8, 1023
+# per CondTransformer.sample of 8 images: the prefill (one B8 launch per
+# layer), 1023 decode steps (one B9 launch per layer, two B10 launches),
+# then the tokenizer's decode of the codes (12 layers)
+SAMPLE_CALL = {"attention_bnhd": P_LAYERS,
+               "decode_attention": P_LAYERS * P_STEPS,
+               "cache_row_update": 2 * P_STEPS,
+               "ln_gemm": 24, "attention": 12, "layernorm": 1}
+CLASSES = (1, 7, 42, 99, 207, 388, 812, 980)
 # the discriminator's activations at 256 px, batch 8: its 12 blur inputs
 # (each blurred with pads (2, 2) and (1, 1)) and its 15 bias + leaky ReLU
 # inputs, the last one the final linear's
@@ -163,9 +223,9 @@ def plain_versions():
     of this script only. The package itself sends CUDA tensors to the
     kernels and has no such switch (``force_plain_ops`` aside, which R1
     alone uses)."""
-    from enhancing_tpu_torch.ops import (attention, fused_act, ln_gemm,
-                                         upfirdn2d, vq)
-    mods = (attention, ln_gemm, vq, upfirdn2d, fused_act)
+    from enhancing_tpu_torch.ops import (attention, cache, fused_act,
+                                         ln_gemm, upfirdn2d, vq)
+    mods = (attention, ln_gemm, vq, upfirdn2d, fused_act, cache)
     saved = [m.use_kernel for m in mods]
     for m in mods:
         m.use_kernel = lambda *tensors, **kw: False
@@ -357,8 +417,95 @@ def phase_compare() -> dict:
         close("fused_act", f"fused_act {dtype} {shape}",
               fa.fused_leaky_relu(x, bias), fa.fused_act_plain(x, bias),
               atol=0.0, rtol=0.0)
+
+    compare_prior_kernels(gen, close, errs)
     torch.cuda.synchronize()
     return errs
+
+
+def prior_stack(gen, cur):
+    """The prior's (L, B, ctx, C) k and v stacks at batch 8, bf16, with
+    every row at or past each batch row's cur_len set to 1e6: a kernel that
+    read one would show it."""
+    shape = (P_LAYERS, SAMPLE_BATCH, P_CTX_PAD, P_WIDTH)
+    dead = (torch.arange(P_CTX_PAD, device="cuda")[None, :]
+            >= torch.as_tensor(cur, device="cuda").reshape(-1, 1))
+    out = []
+    for _ in range(2):
+        t = torch.randn(shape, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        t.masked_fill_(dead[None, :, :, None], 1e6)
+        out.append(t)
+    return out
+
+
+def compare_prior_kernels(gen, close, errs) -> None:
+    """B8-B10 against their plain versions at the prior's shapes."""
+    from enhancing_tpu_torch.ops import attention as att
+    from enhancing_tpu_torch.ops import cache
+    # B8: as B2, P rounds to bf16 against the running row max
+    atol_att = dict(atol=1e-2, rtol=2.0 ** -7)
+    for (b, n, h, d, mode, cl) in ((2, P_CTX, P_HEADS, P_HEAD_DIM,
+                                    "prefix_causal", 1),
+                                   (2, P_CTX, P_HEADS, P_HEAD_DIM,
+                                    "prefix_causal", 3),
+                                   (SAMPLE_BATCH, 1, P_HEADS, P_HEAD_DIM,
+                                    "prefix_causal", 1),
+                                   (2, 300, 4, 64, "prefix_causal", 5)):
+        q, k, v = (rand((b, n, h, d), gen) for _ in range(3))
+        close("attention_bnhd", f"attention_bnhd {mode} cond_len {cl} B={b} "
+              f"N={n} H={h} D={d}",
+              att.attention_bnhd_kernel(q, k, v, d ** -0.5, mode, cl),
+              att.attention_bnhd_plain(q, k, v, d ** -0.5, mode, cl),
+              **atol_att)
+
+    # B9 on the prior's stack, each line held to its own output's scale
+    # (|out| falls as about (e / cur_len)^0.5). Against the plain version:
+    # it rounds the weights, their sum with V and the quotient to bf16,
+    # the kernel sums in fp32 and rounds once, so atol 2^-8 of the line's
+    # largest |plain| + rtol 2^-7. Against the same function in fp32 on the
+    # same inputs: one bf16 rounding of the kernel's output, rtol 2^-8, +
+    # atol 2^-12 of the largest |fp32| for fp32 sums in another order. A
+    # dropped key or new-token term moves an output by about |v| / cur_len,
+    # several times these limits at every cur_len here.
+    hd, layer = P_WIDTH, 17
+    ragged = torch.tensor([1, 100, 255, 256, 511, 513, 900, 1024],
+                          dtype=torch.int32, device="cuda")
+    # ragged rows outside [0, ctx) clamp, as _decode_xla's mask does
+    outside = torch.tensor([-3, 0, 1, 513, P_CTX_PAD, P_CTX_PAD + 9, 1024,
+                            1031], dtype=torch.int32, device="cuda")
+    q3 = rand((SAMPLE_BATCH, hd), gen, scale=P_HEAD_DIM ** -0.5)
+    kn, vn = rand((SAMPLE_BATCH, hd), gen), rand((SAMPLE_BATCH, hd), gen)
+    for cur, label in ((1, 1), (255, 255), (256, 256), (513, 513),
+                       (1024, 1024), (ragged, "ragged"),
+                       (outside, "ragged, rows outside [0, ctx)")):
+        kc, vc = prior_stack(gen, cur)
+        got = att.decode_attention_kernel(q3, kc, vc, kn, vn, cur, layer,
+                                          P_HEAD_DIM)
+        want = att.decode_attention_plain(q3, kc[layer], vc[layer], kn, vn,
+                                          cur, P_HEAD_DIM)
+        what = (f"decode_attention bf16 stack {tuple(kc.shape)} layer "
+                f"{layer} cur_len {label} (rows past cur_len = 1e6)")
+        close("decode_attention", what + " vs plain", got, want,
+              atol=2.0 ** -8 * float(want.float().abs().max()),
+              rtol=2.0 ** -7)
+        want32 = att.decode_attention_plain(
+            q3.float(), kc[layer].float(), vc[layer].float(), kn.float(),
+            vn.float(), cur, P_HEAD_DIM)
+        close("decode_attention", what + " vs fp32", got, want32,
+              atol=2.0 ** -12 * float(want32.abs().max()), rtol=2.0 ** -8)
+        del kc, vc, want32
+
+    # B10: a copy, exact; a ragged row outside [0, ctx) is left unwritten
+    stack = rand((P_LAYERS, SAMPLE_BATCH, P_CTX_PAD, P_WIDTH), gen)
+    news = rand((P_LAYERS, SAMPLE_BATCH, 1, P_WIDTH), gen)
+    for cur, label in ((513, 513), (ragged, "ragged"),
+                       (outside, "ragged, rows outside [0, ctx)")):
+        want = cache.cache_row_update_plain(stack.clone(), news, cur)
+        got = cache.cache_row_update_kernel(stack, news, cur)
+        close("cache_row_update", f"cache_row_update bf16 {tuple(stack.shape)}"
+              f" cur_len {label}", got, want, atol=0.0, rtol=0.0)
+        del want
 
 
 def phase_times() -> dict:
@@ -416,6 +563,21 @@ def phase_times() -> dict:
         lambda: F.scaled_dot_product_attention(q, k, v),
         4.0 * TIME_BATCH * HEADS * TOKENS * TOKENS * HEAD_DIM,
         (TIME_BATCH * TOKENS * 4 * hd) * 2, PEAK_BF16, 10)
+    # B8 on the same buffer's three lane slices computes B2's function:
+    # B2, B8, B8, B2 in turn
+    q_s, k_s, v_s = (u.view(TIME_BATCH, TOKENS, HEADS, HEAD_DIM)
+                     for u in qkv.split(hd, dim=-1))
+    b2 = lambda: att.attention_packed_qkv_kernel(  # noqa: E731
+        qkv, HEADS, HEAD_DIM, HEAD_DIM ** -0.5)
+    b8 = lambda: att.attention_bnhd_kernel(  # noqa: E731
+        q_s, k_s, v_s, HEAD_DIM ** -0.5)
+    diff = float((b2().float() - b8().view(TIME_BATCH, TOKENS, hd).float())
+                 .abs().max())
+    ab = [time_ms(fn, 10) for fn in (b2, b8, b8, b2)]
+    log(f"[time] attention B={TIME_BATCH} N={TOKENS} H={HEADS} D={HEAD_DIM}"
+        f" none: B2 csrc/attention.cu {ab[0]:.4f} / {ab[3]:.4f} ms, B8 "
+        f"csrc/attention_bnhd.cu on the lane slices {ab[1]:.4f} / "
+        f"{ab[2]:.4f} ms; outputs differ by at most {diff:.3e}")
 
     row("layernorm", f"layernorm B={TIME_BATCH}",
         lambda: lg.layernorm_kernel(x, g, b),
@@ -479,7 +641,82 @@ def phase_times() -> dict:
             lambda: fa.fused_act_plain(xa, bias), None,
             3.0 * xa.numel(), (2 * xa.numel() + bias.numel()) * 4, PEAK_F32,
             20)
+    del xa
+    time_prior_kernels(gen, row)
     return rows
+
+
+def kernel_names(fn) -> list:
+    """The CUDA kernels one call of ``fn`` launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key[:70] for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def time_prior_kernels(gen, row) -> None:
+    """B8-B10 at the sampler's shapes (batch 8): B8 at the teacher-forced
+    full forward's N = 1025 and the prefill's N = 1, B9 at cur_len 512 (the
+    mean over a sample's steps), B10 on the prior's stack."""
+    from enhancing_tpu_torch.ops import attention as att
+    from enhancing_tpu_torch.ops import cache
+    b, h, d, hd = SAMPLE_BATCH, P_HEADS, P_HEAD_DIM, P_WIDTH
+    scale = d ** -0.5
+    for n in (P_CTX, 1):
+        q, k, v = (rand((b, n, h, d), gen) for _ in range(3))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, scale=scale)
+        if n > 1:
+            log(f"[time] SDPA is_causal at (B, H, N, D) = {(b, h, n, d)} "
+                f"launches: {kernel_names(sdpa)}")
+        # causal: each row i sees i + 1 keys (cond_len 1 adds none)
+        pairs = b * h * n * (n + 1) / 2
+        row("attention_bnhd", f"attention_bnhd prefix_causal B={b} N={n} "
+            f"H={h} D={d}",
+            lambda: att.attention_bnhd_kernel(q, k, v, scale,
+                                              "prefix_causal", 1),
+            lambda: att.attention_bnhd_plain(q, k, v, scale, "prefix_causal",
+                                             1),
+            sdpa, 4.0 * pairs * d, 4 * b * n * hd * 2, PEAK_BF16,
+            10 if n > 1 else 50)
+        del q, k, v, qt, kt, vt
+
+    cur, layer = 512, 11
+    kc, vc = prior_stack(gen, cur)
+    q3 = rand((b, hd), gen, scale=scale)
+    kn, vn = rand((b, hd), gen), rand((b, hd), gen)
+    split = lambda t: t.view(b, -1, h, d).transpose(1, 2)  # noqa: E731
+    k_cat = torch.cat([split(kc[layer, :, :cur]), split(kn[:, None])], 2)
+    v_cat = torch.cat([split(vc[layer, :, :cur]), split(vn[:, None])], 2)
+    q_l = split(q3[:, None])
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q_l, k_cat, v_cat, scale=1.0)
+    log(f"[time] SDPA at q (B, H, 1, D) against {tuple(k_cat.shape)} "
+        f"launches: {kernel_names(sdpa)}")
+    row("decode_attention", f"decode_attention B={b} cur_len {cur} of the "
+        f"{tuple(kc.shape)} stack (SDPA on the concatenated k, v: "
+        "concatenation not timed)",
+        lambda: att.decode_attention_kernel(q3, kc, vc, kn, vn, cur, layer,
+                                            d),
+        lambda: att.decode_attention_plain(q3, kc[layer], vc[layer], kn, vn,
+                                           cur, d),
+        sdpa, 4.0 * b * hd * (cur + 1),
+        (2 * b * cur * hd + 4 * b * hd) * 2, PEAK_BF16, 50)
+    del k_cat, v_cat
+
+    news = rand((P_LAYERS, b, 1, hd), gen)
+    rows_b = torch.arange(b, device="cuda")
+    cur_b = torch.full((b,), cur, device="cuda")
+    row("cache_row_update", f"cache_row_update {tuple(kc.shape)} cur_len "
+        f"{cur} (library: cache[:, arange(B), cur] = news)",
+        lambda: cache.cache_row_update_kernel(kc, news, cur),
+        lambda: cache.cache_row_update_plain(kc, news, cur),
+        lambda: kc.__setitem__((slice(None), rows_b, cur_b), news[:, :, 0]),
+        0.0, 2 * news.numel() * 2, PEAK_BF16, 50)
 
 
 def phase_main_path() -> dict:
@@ -670,6 +907,7 @@ def phase_train() -> dict:
             label = f"validation ({n_val} batches)"
             want = {k: n_val * v for k, v in EVAL_STEP.items()}
             want_plain = {}
+        want = {k: want.get(k, 0) for k in LAUNCHES}
         log(f"[train] {label}: {ms:.1f} ms, launches {got}, plain-routed "
             f"{plain}")
         check(got == want, f"{label}: launches {got}, expected {want}")
@@ -735,8 +973,192 @@ def phase_train() -> dict:
     return launches
 
 
+# limits of phase 7: the sampler's step logits (B9 + B10) against the
+# teacher-forced full forward (B8) on the sampled codes, and the kernel
+# path against the plain path. bf16 roundings at other places (GEMMs at
+# other row counts, P in B8, the weights in B9's plain version) compound
+# over 24 layers; the logits, up to ~9, have a bf16 spacing of 2^-5 there.
+# Set from the first measurement on the card (largest differences 0.148,
+# 0.141 and 0.156; argmax equal at 96.3-97.0% of positions, the rest
+# near-ties of random weights; NVIDIA H100 80GB HBM3, 700 W) with a margin
+# of 3x on the difference.
+STEP_VS_FULL_ATOL, STEP_VS_FULL_ARGMAX = 0.5, 0.9
+KERNEL_VS_PLAIN_ATOL, KERNEL_VS_PLAIN_ARGMAX = 0.5, 0.9
+
+
+def sampling_model():
+    """The prior and the tokenizer of the config with ``dtype: bfloat16``,
+    every weight drawn on the card: the prior's GEMM weights in bf16, the
+    dtype they are used in, its embeddings and LayerNorms in fp32."""
+    from enhancing_tpu_torch.utils.config import initialize_from_config
+    cfg = json.loads(json.dumps(GPT_VITVQ_BASE))
+    cfg["params"]["dtype"] = "bfloat16"
+    cfg["params"]["stage1"]["params"]["dtype"] = "bfloat16"
+    return initialize_from_config(cfg, device="cuda")
+
+
+def teacher_forced(gpt, codes, conds, steps):
+    """Prefill + ``steps`` decode steps fed the given codes: (B, 1 + steps,
+    V) fp32 logits."""
+    with torch.inference_mode():
+        cache = gpt.init_cache(codes.shape[0])
+        logits, cache = gpt.prefill(conds, cache)
+        out = [logits]
+        for step in range(1, steps + 1):
+            logits, cache = gpt.decode_step(codes[:, step - 1], step, cache)
+            out.append(logits)
+    return torch.stack(out, 1).float()
+
+
+def full_forward(gpt, codes, conds):
+    with torch.inference_mode():
+        return gpt(codes, conds).float()
+
+
+def agreement(label, got, want, atol, argmax_min) -> float:
+    err = float((got - want).abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    log(f"[sample] {label}: logits max_abs_diff {err:.4e} (|logits| max "
+        f"{float(want.abs().max()):.3f}; limit {atol}), argmax equal at "
+        f"{agree:.2%} of positions (limit {argmax_min:.0%})")
+    check(err <= atol and agree >= argmax_min, f"{label}: disagree")
+    return err
+
+
+def phase_sampling() -> dict:
+    """Class-conditional sampling of the published GPT prior."""
+    from enhancing_tpu_torch.models.stage2.sampling import sample_gpt
+    from enhancing_tpu_torch.ops import LAUNCHES, reset_launches
+    gc_cuda()
+    t0 = time.perf_counter()
+    model = sampling_model()
+    gpt = model.transformer
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in gpt.parameters())
+    # the bytes a decode step reads: every parameter but the embedding
+    # tables, of which it reads one row each
+    w_bytes = sum(p.numel() * p.element_size() for name, p in
+                  gpt.named_parameters() if not name.startswith(
+                      ("tok_emb", "pos_emb")))
+    log(f"[sample] prior {P_LAYERS} x {P_WIDTH}, {P_HEADS} heads of "
+        f"{P_HEAD_DIM}, built on the card in {time.perf_counter() - t0:.1f} "
+        f"s: {n_params / 1e9:.3f} G parameters, {w_bytes / 1e9:.2f} GB read "
+        f"per decode step (bf16 GEMM weights); allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    conds = torch.tensor(CLASSES, device="cuda")[:, None]
+
+    # (a) the entry point, counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    pixels, codes = model.sample(conds, top_k=100, seed=0,
+                                 return_codes=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: SAMPLE_CALL.get(k, 0) for k in LAUNCHES}
+    log(f"[sample] CondTransformer.sample(8 classes, top_k=100): {dt:.2f} s,"
+        f" launches {launches}")
+    check(launches == want, f"sample launches {launches}, expected {want}")
+    check(codes.shape == (SAMPLE_BATCH, 1024) and codes.dtype == torch.int32,
+          f"codes {codes.shape} {codes.dtype}")
+    check(bool(((codes >= 0) & (codes < P_VOCAB)).all()), "codes range")
+    check(pixels.shape == (SAMPLE_BATCH, 256, 256, 3), f"{pixels.shape}")
+    check(bool(torch.isfinite(pixels).all()) and float(pixels.min()) >= 0.0
+          and float(pixels.max()) <= 1.0, "pixels not finite in [0, 1]")
+    _, codes_1 = model.sample(conds, top_k=100, seed=1, return_codes=True)
+    differ = float((codes_1 != codes).float().mean())
+    log(f"[sample] codes int32 in [0, {P_VOCAB}), pixels finite in [0, 1]; "
+        f"seed 1 differs from seed 0 at {differ:.2%} of codes; "
+        f"{len(torch.unique(codes))} distinct codes")
+    check(differ > 0.5, "two seeds gave (nearly) the same codes")
+
+    # the sampler alone: prefill + 1023 steps, timed on the host clock
+    gen = torch.Generator("cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, codes_s = sample_gpt(gpt, conds, gen, top_k=100,
+                                 with_logits=True)
+    torch.cuda.synchronize()
+    t_sampler = time.perf_counter() - t0
+    log(f"[sample] sample_gpt with seed 0 repeats CondTransformer.sample's"
+        f" codes: {bool(torch.equal(codes_s, codes))}")
+    step_ms = t_sampler / (P_STEPS + 1) * 1e3
+    cache_bytes = 2 * P_LAYERS * SAMPLE_BATCH * 512 * P_WIDTH * 2
+    step_bound = (w_bytes + cache_bytes) / PEAK_BYTES * 1e3
+    tokens = SAMPLE_BATCH * 1024
+    log(f"[sample] end to end {tokens / dt:.1f} tokens/s, "
+        f"{SAMPLE_BATCH / dt:.3f} images/s ({dt:.2f} s per call); sampler "
+        f"alone {t_sampler:.2f} s = {step_ms:.3f} ms per token step "
+        f"(prefill counted as a step); bound {step_bound:.3f} ms per step "
+        f"({(w_bytes + cache_bytes) / 1e9:.2f} GB: weights + the mean "
+        f"cache read at cur_len 512) -> {step_bound / step_ms:.1%} of "
+        f"3.35 TB/s; peak memory {peak / 2**30:.2f} GiB")
+
+    # (b) B9 + B10 against B8 at full length
+    full = full_forward(gpt, codes_s, conds)
+    agreement("sampler step logits vs teacher-forced full forward, 8 x 1024",
+              logits, full, STEP_VS_FULL_ATOL, STEP_VS_FULL_ARGMAX)
+    del logits, full
+
+    # (c) the kernels against the plain path
+    before = dict(LAUNCHES)
+    k_full = full_forward(gpt, codes[:2], conds[:2])
+    k_dec = teacher_forced(gpt, codes[:2], conds[:2], 32)
+    with plain_versions():
+        p_full = full_forward(gpt, codes[:2], conds[:2])
+        p_dec = teacher_forced(gpt, codes[:2], conds[:2], 32)
+    check(LAUNCHES["attention_bnhd"] == before["attention_bnhd"] + 2 * P_LAYERS
+          and LAUNCHES["decode_attention"] == before["decode_attention"]
+          + 32 * P_LAYERS, "the plain path launched a kernel")
+    agreement("full forward batch 2, kernels vs plain", k_full, p_full,
+              KERNEL_VS_PLAIN_ATOL, KERNEL_VS_PLAIN_ARGMAX)
+    agreement("prefill + 32 decode steps batch 2, kernels vs plain", k_dec,
+              p_dec, KERNEL_VS_PLAIN_ATOL, KERNEL_VS_PLAIN_ARGMAX)
+    del k_full, p_full, k_dec, p_dec
+
+    # (d) one decode step at cur_len 512: host clock over 20 steps, then
+    # its device time by kernel group; the idle share is read against the
+    # unprofiled step, since the profiler slows the host
+    with torch.inference_mode():
+        cache = gpt.init_cache(SAMPLE_BATCH)
+        tok = codes[:, 0]
+        for _ in range(2):
+            gpt.decode_step(tok, 512, cache)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            gpt.decode_step(tok, 512, cache)
+        torch.cuda.synchronize()
+        step_512 = (time.perf_counter() - t0) / 20 * 1e3
+        busy = profile_device(f"one decode step batch {SAMPLE_BATCH} at "
+                              "cur_len 512",
+                              lambda: gpt.decode_step(tok, 512, cache))
+    if busy is not None:
+        log(f"[sample] decode step at cur_len 512: {step_512:.3f} ms on the "
+            f"host clock, device busy {busy:.3f} ms -> device idle "
+            f"{1 - busy / step_512:.1%} of the unprofiled step")
+    del cache, model, gpt
+    gc_cuda()
+    return launches
+
+
+def gc_cuda() -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # kernel-name fragments -> the group of device time they belong to
-KERNEL_GROUPS = (("attn_bwd", "attention_bwd"), ("ln_gemm", "ln_gemm"),
+KERNEL_GROUPS = (("attn_bwd", "attention_bwd"),
+                 ("attn_bnhd", "attention_bnhd"),
+                 ("decode_split", "decode_attention"),
+                 ("decode_combine", "decode_attention"),
+                 ("row_write", "cache_row_update"),
+                 ("layer_norm", "LayerNorm (PyTorch)"),
+                 ("gemv", "cuBLAS"), ("ln_gemm", "ln_gemm"),
                  ("attn_qkv", "attention"), ("layernorm_kernel", "layernorm"),
                  ("vq_nearest", "vq"), ("fir_kernel", "fir"),
                  ("fused_act", "fused_act"), ("conv", "cuDNN conv"),
@@ -747,9 +1169,9 @@ KERNEL_GROUPS = (("attn_bwd", "attention_bwd"), ("ln_gemm", "ln_gemm"),
                  ("elementwise", "elementwise"), ("reduce", "reductions"))
 
 
-def profile_device(label: str, fn) -> None:
+def profile_device(label: str, fn):
     """Device time by kernel group over one call of ``fn``,
-    torch.profiler."""
+    torch.profiler; returns the device's busy ms, None if not measured."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -772,13 +1194,14 @@ def profile_device(label: str, fn) -> None:
     busy = sum(groups.values())
     if busy == 0:
         log("[profile] no device time in the trace: not measured")
-        return
+        return None
     shares = ", ".join(f"{g} {ms:.2f} ms ({ms / busy:.1%})" for g, ms in
                        sorted(groups.items(), key=lambda kv: -kv[1]))
     log(f"[profile] {label}: device busy {busy:.2f} ms of {wall_ms:.2f} ms "
         f"wall under the profiler (idle {1 - busy / wall_ms:.1%}); {shares}")
     log("[profile] largest 'other' kernels: " + "; ".join(
         f"{name} {ms:.2f} ms" for ms, name in sorted(others)[::-1][:4]))
+    return busy
 
 
 def main() -> int:
@@ -791,6 +1214,7 @@ def main() -> int:
     times = phase_times()
     serving = phase_main_path()
     training = phase_train()
+    sampling = phase_sampling()
     kernels = []
     for kname in REPLACES:
         rows = times[kname]
@@ -803,7 +1227,8 @@ def main() -> int:
                              else sum(r["library_ms"] for r in rows))
         kernels.append(dict(name=kname, route="cuda", source=SOURCES[kname],
                             replaces=REPLACES[kname],
-                            launches=serving[kname] + training[kname],
+                            launches=serving[kname] + training[kname]
+                            + sampling[kname],
                             max_abs_err=errs[kname],
                             bound_by=rows[0]["bound_by"], **agg))
     print(json.dumps({"kernels": kernels}))

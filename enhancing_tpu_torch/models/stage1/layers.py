@@ -70,18 +70,22 @@ def get_2d_sincos_pos_embed(embed_dim: int, grid_size: Size) -> np.ndarray:
 class Dense(nn.Linear):
     """nn.Linear with Xavier-uniform weights and zero bias drawn from
     ``generator``, as the JAX package initialises its Dense kernels; the
-    fp32 weight and bias are cast to ``dtype`` with the input, as a flax
-    ``Dense(dtype=...)`` computes."""
+    weight and bias, stored in ``param_dtype`` (fp32, as flax keeps them),
+    are cast to ``dtype`` with the input, as a flax ``Dense(dtype=...)``
+    computes. The bias is added inside the GEMM (ROADMAP C)."""
 
     def __init__(self, in_features: int, out_features: int, *,
                  bias: bool = True, dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None) -> None:
         super().__init__(in_features, out_features, bias=bias, device="meta")
         self.compute_dtype = dtype
-        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.weight = nn.Parameter(torch.empty(out_features, in_features,
+                                               dtype=param_dtype))
         nn.init.xavier_uniform_(self.weight, generator=generator)
         if bias:
-            self.bias = nn.Parameter(torch.zeros(out_features))
+            self.bias = nn.Parameter(torch.zeros(out_features,
+                                                 dtype=param_dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype

@@ -19,7 +19,8 @@ import torch
 # can show that its main path went through the kernels.
 LAUNCHES: dict[str, int] = {"ln_gemm": 0, "attention": 0, "layernorm": 0,
                             "vq": 0, "attention_bwd": 0, "fir": 0,
-                            "fused_act": 0}
+                            "fused_act": 0, "attention_bnhd": 0,
+                            "decode_attention": 0, "cache_row_update": 0}
 # Op calls on CUDA tensors that force_plain_ops sent to the plain version.
 PLAIN_CALLS: dict[str, int] = {name: 0 for name in LAUNCHES}
 
@@ -57,6 +58,12 @@ class force_plain_ops:
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def row_positions(cur_len, b: int, device) -> torch.Tensor:
+    """A scalar or (B,) position as an int32 (B,) tensor on ``device``."""
+    cur = torch.as_tensor(cur_len, device=device).to(torch.int32)
+    return cur.reshape(-1).expand(b).contiguous()
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from enhancing_tpu_torch.ops import attention as att
+from enhancing_tpu_torch.ops import cache
 from enhancing_tpu_torch.ops import common
 from enhancing_tpu_torch.ops import fused_act as fa
 from enhancing_tpu_torch.ops import ln_gemm as lg
@@ -128,7 +129,8 @@ def test_tiny_model_round_trip_goes_through_the_kernels(cuda):
     torch.cuda.synchronize()
     assert common.LAUNCHES == {"ln_gemm": 8, "attention": 4, "layernorm": 2,
                                "vq": 1, "attention_bwd": 0, "fir": 0,
-                               "fused_act": 0}
+                               "fused_act": 0, "attention_bnhd": 0,
+                               "decode_attention": 0, "cache_row_update": 0}
     assert rec.shape == (3, 32, 32, 3) and torch.isfinite(rec).all()
 
 
@@ -290,7 +292,164 @@ def test_tiny_training_step_goes_through_every_kernel(cuda):
     # at 32 px (6 blurs, 9 bias + leaky ReLUs each), one plain D forward
     assert common.LAUNCHES == {"ln_gemm": 16, "attention": 8,
                                "layernorm": 4, "vq": 2, "attention_bwd": 4,
-                               "fir": 18, "fused_act": 27}
+                               "fir": 18, "fused_act": 27,
+                               "attention_bnhd": 0, "decode_attention": 0,
+                               "cache_row_update": 0}
     assert {k: v for k, v in common.PLAIN_CALLS.items() if v} == {
         "fir": 6, "fused_act": 9}
     assert all(torch.isfinite(v).all() for v in log.values()), log
+
+
+# -- the stage-2 GPT prior's kernels ------------------------------------------
+
+@pytest.mark.parametrize("b,n,h,d,mode,cl", [
+    (2, 1025, 16, 384, "prefix_causal", 1),
+    (2, 1025, 16, 384, "prefix_causal", 3),
+    (8, 1, 16, 384, "prefix_causal", 1),
+    (1, 200, 2, 384, "none", 0),
+    (2, 130, 4, 64, "prefix_causal", 5),
+    (1, 77, 2, 128, "none", 0),
+    (1, 40, 2, 32, "prefix_causal", 2),
+])
+def test_attention_bnhd_kernel_matches_plain(cuda, b, n, h, d, mode, cl):
+    q, k, v = (_randn(cuda, b, n, h, d, dtype=torch.bfloat16)
+               for _ in range(3))
+    before = common.LAUNCHES["attention_bnhd"]
+    got = att.multihead_attention_bnhd(q, k, v, mask_mode=mode, cond_len=cl)
+    assert common.LAUNCHES["attention_bnhd"] == before + 1
+    want = att.attention_bnhd_plain(q, k, v, d ** -0.5, mode, cl)
+    assert got.shape == (b, n, h, d)
+    _close(got, want, ATTN_TOL)
+
+
+def test_attention_bnhd_kernel_reads_lane_slices(cuda):
+    """q, k and v as the [q | k | v] lane slices of one buffer."""
+    b, n, h, d = 2, 100, 2, 384
+    qkv = _randn(cuda, b, n, 3 * h * d, dtype=torch.bfloat16)
+    q, k, v = (t.view(b, n, h, d) for t in qkv.split(h * d, dim=-1))
+    got = att.multihead_attention_bnhd(q, k, v, mask_mode="prefix_causal",
+                                       cond_len=1)
+    want = att.attention_bnhd_plain(q, k, v, d ** -0.5, "prefix_causal", 1)
+    _close(got, want, ATTN_TOL)
+
+
+def test_attention_bnhd_kernel_refuses_what_it_does_not_take(cuda):
+    q = _randn(cuda, 1, 16, 2, 96, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        att.multihead_attention_bnhd(q, q, q)
+    q = _randn(cuda, 1, 16, 2, 64)
+    with pytest.raises(TypeError):
+        att.multihead_attention_bnhd(q, q, q)
+
+
+def _stack(gen, layers, b, ctx, hd, cur, dtype):
+    """Random (L, B, ctx, H*D) k and v stacks whose rows at or past each
+    row's cur_len hold 1e6, which a kernel that read them would show."""
+    k = _randn(gen, layers, b, ctx, hd)
+    v = _randn(gen, layers, b, ctx, hd)
+    dead = (torch.arange(ctx, device="cuda")[None, :]
+            >= torch.as_tensor(cur, device="cuda").reshape(-1, 1))
+    for t in (k, v):
+        t.masked_fill_(dead[None, :, :, None].expand_as(t), 1e6)
+    return k.to(dtype), v.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("cur", [1, 255, 256, 513, 1024, "ragged",
+                                 "outside"])
+def test_decode_attention_kernel_matches_plain(cuda, dtype, cur):
+    layers, b, ctx, h, d = 3, 4, 1032, 16, 384
+    if cur == "ragged":
+        cur = torch.tensor([1, 255, 513, 1024], dtype=torch.int32,
+                           device="cuda")
+    elif cur == "outside":  # clamped to [0, ctx] on both routes
+        cur = torch.tensor([-3, 1032, 1100, 7], dtype=torch.int32,
+                           device="cuda")
+    k, v = _stack(cuda, layers, b, ctx, h * d, cur, dtype)
+    q3, kn, vn = (_randn(cuda, b, h * d, dtype=dtype, scale=s)
+                  for s in (d ** -0.5, 1.0, 1.0))
+    before = common.LAUNCHES["decode_attention"]
+    got = att.decode_attention_stacked(q3, k, v, kn, vn, cur, 1, head_dim=d)
+    assert common.LAUNCHES["decode_attention"] == before + 1
+    want = att.decode_attention_plain(q3, k[1], v[1], kn, vn, cur, d)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    if dtype == torch.bfloat16:
+        # the plain version rounds the weights, their sum with V and the
+        # quotient to bf16, the kernel sums in fp32 and rounds once: 2^-8
+        # of the largest |plain| + 2^-7 relative. Against the same function
+        # in fp32: one bf16 rounding of the output.
+        _close(got, want, dict(atol=2.0 ** -8 * float(want.float().abs().max()),
+                               rtol=2.0 ** -7))
+        want = att.decode_attention_plain(q3.float(), k[1].float(),
+                                          v[1].float(), kn.float(),
+                                          vn.float(), cur, d)
+        _close(got, want, dict(atol=2.0 ** -12 * float(want.abs().max()),
+                               rtol=2.0 ** -8))
+    else:  # another summation order
+        _close(got, want, dict(atol=1e-5, rtol=1e-5))
+
+
+def test_decode_attention_unstacked_cache(cuda):
+    b, ctx, h, d = 3, 64, 2, 64
+    k, v = _stack(cuda, 1, b, ctx, h * d, 40, torch.bfloat16)
+    q3, kn, vn = (_randn(cuda, b, h * d, dtype=torch.bfloat16)
+                  for _ in range(3))
+    got = att.decode_attention(q3 * d ** -0.5, k[0], v[0], kn, vn, 40,
+                               head_dim=d)
+    want = att.decode_attention_plain(q3 * d ** -0.5, k[0], v[0], kn, vn,
+                                      40, d)
+    _close(got, want, dict(atol=2.0 ** -8 * float(want.float().abs().max()),
+                           rtol=2.0 ** -7))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("cur", [0, 513, 1031, "ragged", "outside"])
+def test_cache_row_update_kernel_matches_plain(cuda, dtype, cur):
+    layers, b, ctx, c = 24, 8, 1032, 6144 if dtype == torch.bfloat16 else 64
+    if cur == "ragged":
+        cur = torch.tensor([0, 1, 5, 513, 700, 1000, 1030, 1031],
+                           dtype=torch.int32, device="cuda")
+    elif cur == "outside":  # rows outside [0, ctx) unwritten on both routes
+        cur = torch.tensor([-1, 1, 1032, 513, 5000, 1000, -7, 1031],
+                           dtype=torch.int32, device="cuda")
+    stack = _randn(cuda, layers, b, ctx, c, dtype=dtype)
+    news = _randn(cuda, layers, b, 1, c, dtype=dtype)
+    want = cache.cache_row_update_plain(stack.clone(), news, cur)
+    before = common.LAUNCHES["cache_row_update"]
+    got = cache.cache_row_update(stack, news, cur)
+    assert common.LAUNCHES["cache_row_update"] == before + 1
+    assert got.data_ptr() == stack.data_ptr()  # in place
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_gpt_cached_decode_matches_full_forward_on_card(cuda):
+    """Two layers at the prior's width (6144, 16 heads of 384) in bf16:
+    prefill + teacher-forced decode steps (B9, B10) give the logits of the
+    full forward (B8). Limits: 2^-4 of the largest logit (bf16 GEMMs at
+    other row counts round differently), argmax equal on 90% of positions."""
+    from enhancing_tpu_torch.models.stage2 import GPT
+    gpt = GPT(vocab_cond_size=1000, vocab_img_size=8192, embed_dim=6144,
+              cond_num_tokens=1, img_num_tokens=64, n_heads=16, n_layers=2,
+              dtype="bfloat16", device="cuda")
+    codes = torch.randint(0, 8192, (2, 64), generator=cuda, device="cuda")
+    conds = torch.randint(0, 1000, (2, 1), generator=cuda, device="cuda")
+    common.reset_launches()
+    with torch.inference_mode():
+        full = gpt(codes, conds).float()
+        cache_ = gpt.init_cache(2)
+        logits, cache_ = gpt.prefill(conds, cache_)
+        steps = [logits]
+        for step in range(1, 64):
+            logits, cache_ = gpt.decode_step(codes[:, step - 1], step, cache_)
+            steps.append(logits)
+    dec = torch.stack(steps, 1).float()
+    torch.cuda.synchronize()
+    assert common.LAUNCHES["attention_bnhd"] == 2 + 2
+    assert common.LAUNCHES["decode_attention"] == 2 * 63
+    assert common.LAUNCHES["cache_row_update"] == 2 * 63
+    err = float((dec - full).abs().max())
+    agree = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
+    assert err <= 2.0 ** -4 * float(full.abs().max()), err
+    assert agree >= 0.9, agree

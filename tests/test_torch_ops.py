@@ -15,11 +15,13 @@ import pytest
 import torch
 
 from enhancing_tpu.ops import attention as jatt
+from enhancing_tpu.ops import cache as jcache
 from enhancing_tpu.ops import fused_act as jfa
 from enhancing_tpu.ops import ln_gemm as jlg
 from enhancing_tpu.ops import upfirdn2d as jfir
 from enhancing_tpu.ops import vq as jvq
 from enhancing_tpu_torch.ops import attention as tatt
+from enhancing_tpu_torch.ops import cache as tcache
 from enhancing_tpu_torch.ops import common as tcommon
 from enhancing_tpu_torch.ops import fused_act as tfa
 from enhancing_tpu_torch.ops import ln_gemm as tlg
@@ -377,3 +379,156 @@ def test_force_plain_ops_counts_what_it_routes():
         assert tcommon.use_kernel(x, op="fir") is False
     assert tcommon.PLAIN_CALLS["fir"] == 0  # CPU tensors are not routed
     assert tcommon._FORCE_PLAIN_DEPTH == 0
+
+
+# -- the stage-2 GPT prior's ops ----------------------------------------------
+
+# (shape (B, N, H, D), mask mode, cond_len, JAX reference): the Pallas
+# packed kernel takes heads that fill 128-lane slabs, so (2, 40, 2, 32)
+# is held against the XLA twin alone
+BNHD_CASES = [((1, 33, 2, 384), "prefix_causal", 3, "pallas"),
+              ((1, 33, 2, 384), "prefix_causal", 3, "xla"),
+              ((2, 40, 4, 32), "prefix_causal", 2, "pallas"),
+              ((2, 40, 2, 32), "none", 0, "xla"),
+              ((2, 40, 2, 32), "prefix_causal", 1, "xla")]
+
+
+@pytest.mark.parametrize("shape,mode,cl,ref", BNHD_CASES)
+def test_attention_bnhd_plain_matches_jax(interpret, shape, mode, cl, ref):
+    b, n, h, d = shape
+    rng = np.random.default_rng(4)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for _ in range(3))
+    # the JAX kernel and its twin take q already scaled in its dtype
+    q3 = jnp.asarray(q * np.float32(d ** -0.5)).reshape(b, n, h * d)
+    k3, v3 = (jnp.asarray(t).reshape(b, n, h * d) for t in (k, v))
+    fn = (jatt._attention_packed_call if ref == "pallas"
+          else jatt._attention_xla_packed)
+    want = fn(q3, k3, v3, mode, cl, d)
+    out = tatt.multihead_attention_bnhd(_t(q), _t(k), _t(v), mask_mode=mode,
+                                        cond_len=cl)
+    assert out.shape == shape
+    # the tolerance of the JAX package's own packed attention test
+    np.testing.assert_allclose(out.reshape(b, n, h * d).numpy(),
+                               np.asarray(want), atol=3e-5, rtol=1e-4)
+
+
+def _stale_stack(rng, layers, b, m, hd, cur):
+    """(L, B, M, HD) k and v stacks whose rows past each row's cur_len
+    hold 1e6: a version that read them would show it."""
+    k = rng.standard_normal((layers, b, m, hd)).astype(np.float32)
+    v = rng.standard_normal((layers, b, m, hd)).astype(np.float32)
+    dead = np.arange(m)[None, :] >= np.reshape(cur, (-1, 1))
+    k[:, np.broadcast_to(dead, (b, m))] = 1e6
+    v[:, np.broadcast_to(dead, (b, m))] = 1e6
+    return k, v
+
+
+@pytest.mark.parametrize("ref", ["pallas", "xla"])
+@pytest.mark.parametrize("cur", [1, 5, 128, 200, 255, "ragged"])
+@pytest.mark.parametrize("head_dim,hd", [(64, 256), (384, 768)])
+def test_decode_attention_plain_matches_jax(interpret, ref, cur, head_dim,
+                                            hd):
+    layers, b, m, layer = 2, 3, 256, 1
+    rng = np.random.default_rng(5)
+    if cur == "ragged":
+        cur = np.array([1, 128, 255], np.int32)
+    k, v = _stale_stack(rng, layers, b, m, hd, cur)
+    q3, kn, vn = (rng.standard_normal((b, hd)).astype(np.float32)
+                  for _ in range(3))
+    q3 *= np.float32(head_dim ** -0.5)
+    cur_j = jnp.asarray(cur, jnp.int32)
+    if ref == "pallas":
+        want = jatt._decode_pallas(jnp.asarray(q3), jnp.asarray(k),
+                                   jnp.asarray(v), jnp.asarray(kn),
+                                   jnp.asarray(vn), cur_j, head_dim,
+                                   block_k=128, layer=jnp.int32(layer))
+    else:
+        want = jatt._decode_xla(jnp.asarray(q3), jnp.asarray(k[layer]),
+                                jnp.asarray(v[layer]), jnp.asarray(kn),
+                                jnp.asarray(vn), cur_j, head_dim)
+    cur_t = cur if isinstance(cur, int) else _t(cur)
+    out = tatt.decode_attention_stacked(_t(q3), _t(k), _t(v), _t(kn),
+                                        _t(vn), cur_t, layer,
+                                        head_dim=head_dim)
+    assert out.shape == (b, hd)
+    # the tolerance of the JAX package's own decode kernel test
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=2e-4)
+
+
+def test_decode_attention_unstacked_matches_jax():
+    rng = np.random.default_rng(6)
+    k, v = _stale_stack(rng, 1, 2, 64, 128, 17)
+    q3, kn, vn = (rng.standard_normal((2, 128)).astype(np.float32)
+                  for _ in range(3))
+    want = jatt.decode_attention(jnp.asarray(q3), jnp.asarray(k[0]),
+                                 jnp.asarray(v[0]), jnp.asarray(kn),
+                                 jnp.asarray(vn), jnp.int32(17), head_dim=64,
+                                 impl="xla")
+    out = tatt.decode_attention(_t(q3), _t(k[0]), _t(v[0]), _t(kn), _t(vn),
+                                17, head_dim=64)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), **F32_TOL)
+
+
+@pytest.mark.parametrize("cur", [0, 5, 15, "ragged"])
+def test_cache_row_update_plain_matches_jax_kernel(interpret, cur):
+    rng = np.random.default_rng(7)
+    stack = rng.standard_normal((2, 3, 16, 128)).astype(np.float32)
+    news = rng.standard_normal((2, 3, 1, 128)).astype(np.float32)
+    if cur == "ragged":
+        cur = np.array([0, 9, 15], np.int32)
+    want = jcache._cache_row_update_pallas(jnp.asarray(stack),
+                                           jnp.asarray(news),
+                                           jnp.asarray(cur, jnp.int32))
+    target = _t(stack.copy())
+    out = tcache.cache_row_update(
+        target, _t(news), cur if isinstance(cur, int) else _t(cur))
+    assert out.data_ptr() == target.data_ptr()  # in place
+    np.testing.assert_array_equal(out.numpy(), np.asarray(want))
+
+
+def test_cache_row_update_rows_outside_the_cache_match_jax_xla():
+    """A ragged row whose position lies outside [0, ctx) is left unwritten,
+    as the JAX package's ragged path leaves it; a scalar outside raises."""
+    rng = np.random.default_rng(8)
+    stack = rng.standard_normal((2, 4, 16, 128)).astype(np.float32)
+    news = rng.standard_normal((2, 4, 1, 128)).astype(np.float32)
+    cur = np.array([-1, 16, 7, 40], np.int32)
+    want = jcache.cache_row_update(jnp.asarray(stack), jnp.asarray(news),
+                                   jnp.asarray(cur), impl="xla")
+    out = tcache.cache_row_update(_t(stack.copy()), _t(news), _t(cur))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(out.numpy()[:, [0, 1, 3]],
+                                  stack[:, [0, 1, 3]])
+    for bad in (-1, 16):
+        with pytest.raises(IndexError):
+            tcache.cache_row_update(_t(stack.copy()), _t(news), bad)
+
+
+def test_decode_attention_rows_outside_the_cache_match_jax_xla():
+    """Per-row lengths outside [0, M] clamp, as _decode_xla's mask reads
+    them; a scalar outside raises."""
+    rng = np.random.default_rng(9)
+    cur = np.array([-3, 90, 17], np.int32)
+    k, v = _stale_stack(rng, 1, 3, 64, 128, cur)
+    q3, kn, vn = (rng.standard_normal((3, 128)).astype(np.float32)
+                  for _ in range(3))
+    want = jatt._decode_xla(jnp.asarray(q3), jnp.asarray(k[0]),
+                            jnp.asarray(v[0]), jnp.asarray(kn),
+                            jnp.asarray(vn), jnp.asarray(cur), 64)
+    out = tatt.decode_attention(_t(q3), _t(k[0]), _t(v[0]), _t(kn), _t(vn),
+                                _t(cur), head_dim=64)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), **F32_TOL)
+    for bad in (-1, 65):
+        with pytest.raises(ValueError):
+            tatt.decode_attention(_t(q3), _t(k[0]), _t(v[0]), _t(kn),
+                                  _t(vn), bad, head_dim=64)
+
+
+def test_decode_attention_refuses_the_int8_cache():
+    z = torch.zeros(2, 8, 64)
+    with pytest.raises(NotImplementedError, match="A8"):
+        tatt.decode_attention(z[:, 0], z, z, z[:, 0], z[:, 0], 3,
+                              head_dim=32, k_scale=torch.ones(2, 8),
+                              v_scale=torch.ones(2, 8))

@@ -201,6 +201,15 @@ from enhancing_tpu_torch.ops import cuda_lib
 from enhancing_tpu_torch.utils import load_config
 import enhancing_tpu_torch.data, enhancing_tpu_torch.losses
 import enhancing_tpu_torch.train
+import enhancing_tpu_torch.models.cond
+import torch
+from enhancing_tpu_torch.compat import load_gpt_from_jax
+from enhancing_tpu_torch.models.stage2 import GPT, sample_gpt
+gpt = GPT(vocab_cond_size=4, vocab_img_size=16, embed_dim=32,
+          cond_num_tokens=1, img_num_tokens=4, n_heads=2, n_layers=1,
+          device="cpu")
+_, codes = sample_gpt(gpt, torch.tensor([[1]]), torch.Generator(), top_k=2)
+assert tuple(codes.shape) == (1, 4)
 tower = dict(dim=64, depth=1, heads=2, mlp_dim=128)
 m = ViTVQ(image_size=16, patch_size=8, encoder=tower, decoder=tower,
           quantizer=dict(embed_dim=16, n_embed=32), device="cpu")
