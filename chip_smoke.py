@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Three paths, in bf16 with random weights from a seed; the first two at
+Four paths, in bf16 with random weights from a seed; the first two at
 ViT-VQGAN-Base's full widths and depth (256 px, 8x8 patches, width 768,
 12 heads of 64, MLP 3072, 12 + 12 layers, 8192 codes of 32):
 
@@ -13,7 +13,11 @@ ViT-VQGAN-Base's full widths and depth (256 px, 8x8 patches, width 768,
   discriminator steps at batch 8 with random-init LPIPS, step 0 with R1;
 - stage-2 sampling: class-conditional ``CondTransformer.sample`` of the
   GPT prior of ``configs/imagenet_gpt_vitvq_base.yaml`` (also held as a
-  dict) at batch 8.
+  dict) at batch 8;
+- int8 serving of that prior, as the JAX package's
+  ``scripts/serve_continuous.py --int8`` builds it: int8 weights
+  (``quantize_decode_params``, ``drop_quantized_kernels``) and an int8 KV
+  cache.
 
 Phases, each of which raises on failure:
 
@@ -47,7 +51,15 @@ Phases, each of which raises on failure:
    memory; the sampler's per-step logits against the teacher-forced full
    forward on its codes; the kernels against the plain path on the full
    forward and 32 decode steps; one decode step's device time by kernel
-   group.
+   group;
+8. int8 serving on phase 7's prior: 32 decode steps under
+   ENHANCING_TPU_DECODE_LNFUSE=all (B11 and B1 launches per step asserted,
+   logits held to the default path's); then ``quantize_decode_params``,
+   int8 against bf16 (teacher-forced on phase 7's codes), the drop and the
+   memory it frees, ``kv_int8``; one ``CondTransformer.sample`` with its
+   launches asserted exactly; tokens/s, ms per decode step against its
+   bound, peak memory; the kernels against the plain path on 32 decode
+   steps; one decode step's device time by kernel group.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``. With no card, or run
@@ -132,6 +144,10 @@ REPLACES = {
     "attention_bnhd": "enhancing_tpu/ops/attention.py:626",
     "decode_attention": "enhancing_tpu/ops/attention.py:1593",
     "cache_row_update": "enhancing_tpu/ops/cache.py:71",
+    "ln_shift_gemm": "enhancing_tpu/ops/ln_gemm.py:265",
+    "int8_gemm": "enhancing_tpu/ops/int8.py:246",
+    "int8_ln_gemm": "enhancing_tpu/ops/int8.py:373",
+    "int8_mlp": "enhancing_tpu/ops/int8.py:506",
 }
 # configs/imagenet_gpt_vitvq_base.yaml's model after load_config's target
 # remap (a CPU test holds the two equal), less the stage-1 checkpoint path:
@@ -174,6 +190,22 @@ SAMPLE_CALL = {"attention_bnhd": P_LAYERS,
                "decode_attention": P_LAYERS * P_STEPS,
                "cache_row_update": 2 * P_STEPS,
                "ln_gemm": 24, "attention": 12, "layernorm": 1}
+# per CondTransformer.sample of the int8 prior: the prefill (int8 qkv and
+# projection GEMMs, the int8 MLP, per layer; the int8 vocab head), then per
+# decode step and layer the int8 LN + shift + qkv, the int8 projection,
+# the int8 MLP and B9, the int8 head once, two B10 row writes; no B11
+INT8_SAMPLE_CALL = {"int8_gemm": 2 * P_LAYERS + P_LAYERS * P_STEPS,
+                    "int8_ln_gemm": 1 + (P_LAYERS + 1) * P_STEPS,
+                    "int8_mlp": P_LAYERS + P_LAYERS * P_STEPS,
+                    "attention_bnhd": P_LAYERS,
+                    "decode_attention": P_LAYERS * P_STEPS,
+                    "cache_row_update": 2 * P_STEPS,
+                    "ln_gemm": 24, "attention": 12, "layernorm": 1}
+# per decode step under ENHANCING_TPU_DECODE_LNFUSE=all: B11 at each
+# layer's qkv, B1 at each MLP and at the head
+LNFUSE_STEP = {"ln_shift_gemm": P_LAYERS, "ln_gemm": P_LAYERS + 1,
+               "decode_attention": P_LAYERS, "cache_row_update": 2}
+CHECK_STEPS = 32
 CLASSES = (1, 7, 42, 99, 207, 388, 812, 980)
 # the discriminator's activations at 256 px, batch 8: its 12 blur inputs
 # (each blurred with pads (2, 2) and (1, 1)) and its 15 bias + leaky ReLU
@@ -223,9 +255,9 @@ def plain_versions():
     of this script only. The package itself sends CUDA tensors to the
     kernels and has no such switch (``force_plain_ops`` aside, which R1
     alone uses)."""
-    from enhancing_tpu_torch.ops import (attention, cache, fused_act,
+    from enhancing_tpu_torch.ops import (attention, cache, fused_act, int8,
                                          ln_gemm, upfirdn2d, vq)
-    mods = (attention, ln_gemm, vq, upfirdn2d, fused_act, cache)
+    mods = (attention, ln_gemm, vq, upfirdn2d, fused_act, cache, int8)
     saved = [m.use_kernel for m in mods]
     for m in mods:
         m.use_kernel = lambda *tensors, **kw: False
@@ -307,12 +339,15 @@ def phase_compare() -> dict:
     errs = {}
 
     def close(name, label, got, want, atol, rtol):
+        """atol: a number, or a (rows, 1) tensor of per-row limits."""
         err = (got.float() - want.float()).abs()
-        worst = float((err - rtol * want.float().abs()).max())
-        ok = worst <= atol and bool(torch.isfinite(got).all())
+        worst = float((err - rtol * want.float().abs() - atol).max())
+        ok = worst <= 0 and bool(torch.isfinite(got).all())
         mae = float(err.max())
         errs[name] = max(errs.get(name, 0.0), mae)
-        log(f"[compare] {label}: max_abs_err {mae:.3e} tol atol {atol:g} + "
+        lim = (f"per-row atol {float(atol.min()):.3g}..{float(atol.max()):.3g}"
+               if torch.is_tensor(atol) else f"atol {atol:g}")
+        log(f"[compare] {label}: max_abs_err {mae:.3e} tol {lim} + "
             f"rtol {rtol:g}*|plain| -> {'pass' if ok else 'FAIL'}")
         check(ok, f"{label} disagrees with its plain version")
 
@@ -419,6 +454,7 @@ def phase_compare() -> dict:
               atol=0.0, rtol=0.0)
 
     compare_prior_kernels(gen, close, errs)
+    compare_int8_kernels(gen, close, errs)
     torch.cuda.synchronize()
     return errs
 
@@ -459,15 +495,19 @@ def compare_prior_kernels(gen, close, errs) -> None:
               att.attention_bnhd_plain(q, k, v, d ** -0.5, mode, cl),
               **atol_att)
 
-    # B9 on the prior's stack, each line held to its own output's scale
-    # (|out| falls as about (e / cur_len)^0.5). Against the plain version:
-    # it rounds the weights, their sum with V and the quotient to bf16,
-    # the kernel sums in fp32 and rounds once, so atol 2^-8 of the line's
-    # largest |plain| + rtol 2^-7. Against the same function in fp32 on the
-    # same inputs: one bf16 rounding of the kernel's output, rtol 2^-8, +
-    # atol 2^-12 of the largest |fp32| for fp32 sums in another order. A
-    # dropped key or new-token term moves an output by about |v| / cur_len,
-    # several times these limits at every cur_len here.
+    # B9 on the prior's stack, each batch row held to its own output's
+    # scale (|out| falls as about (e / cur_len)^0.5, so a ragged line's rows
+    # differ by 30x). Against the plain version: it rounds the weights,
+    # their sum with V and the quotient to bf16, the kernel sums in fp32
+    # and rounds once: two bf16 steps of an element x (at most 2^-6 x) in
+    # a row whose largest |plain| is M lie within 2^-7 M + 2^-7 x; atol
+    # 2^-7 of the row's M, never more than 2^-8 of the line's largest
+    # (enough where M is near it), + rtol 2^-7. Against the
+    # same function in fp32 on the same inputs, the tight gate: one bf16
+    # rounding of the kernel's output, rtol 2^-8, + atol 2^-12 of the row's
+    # largest |fp32| for fp32 sums in another order. A dropped key or
+    # new-token term moves an output by about |v| / cur_len, several times
+    # the fp32 limits at every cur_len here.
     hd, layer = P_WIDTH, 17
     ragged = torch.tensor([1, 100, 255, 256, 511, 513, 900, 1024],
                           dtype=torch.int32, device="cuda")
@@ -487,13 +527,14 @@ def compare_prior_kernels(gen, close, errs) -> None:
         what = (f"decode_attention bf16 stack {tuple(kc.shape)} layer "
                 f"{layer} cur_len {label} (rows past cur_len = 1e6)")
         close("decode_attention", what + " vs plain", got, want,
-              atol=2.0 ** -8 * float(want.float().abs().max()),
+              atol=row_atol(want, 2.0 ** -7).clamp(
+                  max=2.0 ** -8 * float(want.float().abs().max())),
               rtol=2.0 ** -7)
         want32 = att.decode_attention_plain(
             q3.float(), kc[layer].float(), vc[layer].float(), kn.float(),
             vn.float(), cur, P_HEAD_DIM)
         close("decode_attention", what + " vs fp32", got, want32,
-              atol=2.0 ** -12 * float(want32.abs().max()), rtol=2.0 ** -8)
+              atol=row_atol(want32, 2.0 ** -12), rtol=2.0 ** -8)
         del kc, vc, want32
 
     # B10: a copy, exact; a ragged row outside [0, ctx) is left unwritten
@@ -506,6 +547,187 @@ def compare_prior_kernels(gen, close, errs) -> None:
         close("cache_row_update", f"cache_row_update bf16 {tuple(stack.shape)}"
               f" cur_len {label}", got, want, atol=0.0, rtol=0.0)
         del want
+
+
+def row_atol(want, frac: float) -> torch.Tensor:
+    """``frac`` of each row's own largest |want|, (rows, 1): a decode
+    attention row at cur_len 1024 (|out| ~ 0.2) is held to its scale, not
+    to that of a row at cur_len 1 (~3) in the same ragged batch."""
+    return frac * want.float().abs().amax(dim=-1, keepdim=True)
+
+
+def own_limits(want, bf16: bool) -> dict:
+    """The limit of an int8-serving line, from its own output: fp32 sums
+    over thousands of terms in another order, 1e-5 of the largest |plain|
+    + 1e-5 relative; bf16 (an output or an operand rounded to bf16 on one
+    side only), one bf16 step: 2^-8 of the largest |plain| + 2^-7
+    relative."""
+    top = float(want.float().abs().max())
+    if bf16:
+        return dict(atol=2.0 ** -8 * top, rtol=2.0 ** -7)
+    return dict(atol=1e-5 * top, rtol=1e-5)
+
+
+def prior_int8_inputs(gen) -> dict:
+    """The int8 decode step's operands at batch 8 on the prior's widths:
+    the fp32 residual stream, LayerNorm and time_mix, the bf16 shift state,
+    int8 twins of seeded bf16 weights (std 0.02, as the prior draws them)
+    and their biases."""
+    from enhancing_tpu_torch.ops import int8
+    b, c = SAMPLE_BATCH, P_WIDTH
+
+    def twin(n, d):
+        w = rand((n, d), gen, scale=0.02)
+        return (w,) + int8.quantize_channelwise(w)
+
+    t = {"x": torch.randn((b, c), generator=gen, device="cuda"),
+         "x16": rand((b, c), gen),
+         "gamma": 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda"),
+         "beta": 0.1 * torch.randn(c, generator=gen, device="cuda"),
+         "tm": torch.linspace(0, 1, c, device="cuda"),
+         "prev": rand((b, c), gen)}
+    for name, n, d in (("qkv", 3 * c, c), ("proj", c, c), ("p0", 4 * c, c),
+                       ("p1", c, 4 * c), ("head", P_VOCAB, c)):
+        t[name], t[name + "_q"], t[name + "_s"] = twin(n, d)
+        t[name + "_b"] = rand((n,), gen, scale=0.02)
+    return t
+
+
+def compare_int8_kernels(gen, close, errs) -> None:
+    """B11-B14 and B9's new dtype pairs against their plain versions at the
+    int8 serving path's shapes, each line with the limit of its output;
+    B1 at the LNFUSE sites and B10 on int8 rows."""
+    from enhancing_tpu_torch.ops import attention as att
+    from enhancing_tpu_torch.ops import cache, int8
+    from enhancing_tpu_torch.ops import ln_gemm as lg
+    t = prior_int8_inputs(gen)
+    x, x16, g, bt, tm, prev = (t[k] for k in ("x", "x16", "gamma", "beta",
+                                              "tm", "prev"))
+
+    def line(name, label, got, want, bf16=False):
+        close(name, label, got, want, **own_limits(want, bf16))
+
+    line("int8_gemm", "int8_gemm decode proj f32 x (8, 6144) -> 6144",
+         int8.int8_gemm_kernel(x, t["proj_q"], t["proj_s"], t["proj_b"]),
+         int8.int8_gemm_plain(x, t["proj_q"], t["proj_s"], t["proj_b"]))
+    line("int8_gemm", "int8_gemm prefill qkv bf16 x (8, 6144) -> 18432",
+         int8.int8_gemm_kernel(x16, t["qkv_q"], t["qkv_s"], t["qkv_b"]),
+         int8.int8_gemm_plain(x16, t["qkv_q"], t["qkv_s"], t["qkv_b"]),
+         bf16=True)
+    for label, args in (
+            ("qkv with shift f32 x (8, 6144) -> 18432",
+             (x, g, bt, tm, prev, t["qkv_q"], t["qkv_s"], t["qkv_b"])),
+            ("head f32 x (8, 6144) -> 8192",
+             (x, g, bt, None, None, t["head_q"], t["head_s"], None))):
+        got, got_xn = int8.int8_ln_gemm_kernel(*args)
+        want, want_xn = int8.int8_ln_gemm_plain(*args)
+        line("int8_ln_gemm", "int8_ln_gemm " + label, got, want)
+        line("int8_ln_gemm", "int8_ln_gemm " + label + ", LN(x)", got_xn,
+             want_xn)
+    mlp = (x, g, bt, t["p0_q"], t["p0_s"], t["p0_b"], t["p1_q"], t["p1_s"],
+           t["p1_b"], x)
+    line("int8_mlp", "int8_mlp f32 x (8, 6144), hidden 24576",
+         int8.int8_mlp_kernel(*mlp), int8.int8_mlp_plain(*mlp))
+    got, got_xn = lg.ln_shift_gemm_kernel(x, g, bt, tm, prev, t["qkv"],
+                                          t["qkv_b"])
+    want, want_xn = lg.ln_shift_gemm_plain(x, g, bt, tm, prev, t["qkv"],
+                                           t["qkv_b"])
+    line("ln_shift_gemm", "ln_shift_gemm qkv f32 x, bf16 W (18432, 6144)",
+         got, want)
+    line("ln_shift_gemm", "ln_shift_gemm qkv f32 x, LN(x)", got_xn, want_xn)
+    # B1 at the LNFUSE mlp and head sites: fp32 x and the bf16 weight cast
+    # to fp32 (fused_ln_gemm), so its fp32 SIMT path
+    for label, w, b, act in (("mlp p0 sqrelu", t["p0"], t["p0_b"], "sqrelu"),
+                             ("head", t["head"], None, None)):
+        w32, b32 = w.float(), None if b is None else b.float()
+        line("ln_gemm", f"ln_gemm LNFUSE {label} f32 x (8, 6144) -> "
+             f"{w.shape[0]}", lg.ln_gemm_kernel(x, g, bt, w32, b32, act),
+             lg.ln_gemm_plain(x, g, bt, w32, b32, act))
+        del w32
+    del t, mlp
+
+    # B10 on the int8 cache: 6144-byte rows, exact; scalar, ragged, and
+    # ragged rows outside [0, ctx) left unwritten
+    shape = (P_LAYERS, SAMPLE_BATCH, P_CTX_PAD, P_WIDTH)
+    stack = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                          dtype=torch.int8)
+    news = torch.randint(-127, 128, shape[:2] + (1, P_WIDTH), generator=gen,
+                         device="cuda", dtype=torch.int8)
+    ragged = torch.tensor([1, 100, 255, 256, 511, 513, 900, 1024],
+                          dtype=torch.int32, device="cuda")
+    outside = torch.tensor([-3, 0, 1, 513, P_CTX_PAD, P_CTX_PAD + 9, 1024,
+                            1031], dtype=torch.int32, device="cuda")
+    for cur, label in ((513, 513), (ragged, "ragged"),
+                       (outside, "ragged, rows outside [0, ctx)")):
+        want = cache.cache_row_update_plain(stack.clone(), news, cur)
+        got = cache.cache_row_update_kernel(stack, news, cur)
+        close("cache_row_update", f"cache_row_update int8 {shape} cur_len "
+              f"{label}", got, want, atol=0.0, rtol=0.0)
+        del want
+    del stack, news
+
+    # B9's new (q, cache) pairs on the prior's stack, scalar and ragged
+    # cur_len; every row at or past cur_len is 1e6 (bf16) or 127 at a scale
+    # of 1e6 (int8)
+    hd, layer = P_WIDTH, 17
+    for cur, label in ((513, 513), (1024, 1024), (ragged, "ragged")):
+        kc, vc = prior_stack(gen, cur)
+        k8, ks = int8.quantize_channelwise(kc)
+        v8, vs = int8.quantize_channelwise(vc)
+        dead = (torch.arange(P_CTX_PAD, device="cuda")[None, :]
+                >= torch.as_tensor(cur, device="cuda").reshape(-1, 1))
+        for q8, sc in ((k8, ks), (v8, vs)):
+            q8.masked_fill_(dead[None, :, :, None], 127)
+            sc.masked_fill_(dead[None], 1e6)
+        for q_dtype, kv in ((torch.float32, "bf16"),
+                            (torch.float32, "int8"),
+                            (torch.bfloat16, "int8")):
+            q3 = rand((SAMPLE_BATCH, hd), gen, q_dtype, P_HEAD_DIM ** -0.5)
+            new_dtype = q_dtype if kv == "int8" else torch.bfloat16
+            kn, vn = (rand((SAMPLE_BATCH, hd), gen, new_dtype)
+                      for _ in range(2))
+            stacks = ((kc, vc, None, None) if kv == "bf16"
+                      else (k8, v8, ks, vs))
+            got = att.decode_attention_kernel(q3, stacks[0], stacks[1], kn,
+                                              vn, cur, layer, P_HEAD_DIM,
+                                              stacks[2], stacks[3])
+            what = (f"decode_attention q {q_dtype} cache {kv} stack "
+                    f"{tuple(kc.shape)} layer {layer} cur_len {label}")
+            kp, vp = stacks[0][layer], stacks[1][layer]
+            k32, v32 = kp.float(), vp.float()
+            if stacks[2] is not None:
+                k32, v32 = att.dequant_cache(kp, vp, stacks[2][layer],
+                                             stacks[3][layer], torch.float32)
+                kp, vp = att.dequant_cache(kp, vp, stacks[2][layer],
+                                           stacks[3][layer], q_dtype)
+            want = att.decode_attention_plain(q3, kp, vp, kn, vn, cur,
+                                              P_HEAD_DIM)
+            want32 = att.decode_attention_plain(
+                q3.float(), k32, v32, kn.float(), vn.float(), cur,
+                P_HEAD_DIM)
+            # every limit from each batch row's own largest |plain| (as
+            # in compare_prior_kernels)
+            if torch.bfloat16 in (q_dtype, kp.dtype):
+                # the plain version rounds PV's unnormalised sum, its sum
+                # with the new term and the quotient to bf16, and a bf16 q
+                # also the dequantised rows; the kernel sums in fp32 and
+                # rounds once: two bf16 steps of the row's largest |plain|
+                # + 2^-7 relative (one step, 2^-8, is exceeded at cur_len
+                # 1024 with a bf16 q)
+                close("decode_attention", what + " vs plain", got, want,
+                      atol=row_atol(want, 2.0 ** -7), rtol=2.0 ** -7)
+            else:
+                close("decode_attention", what + " vs plain", got, want,
+                      atol=row_atol(want, 1e-5), rtol=1e-5)
+            # the gate that sees a dropped tail key: the same function in
+            # fp32 on the same (dequantised) values, sums in another order
+            # and one bf16 rounding of a bf16 output
+            f32 = q_dtype == torch.float32
+            close("decode_attention", what + " vs fp32", got, want32,
+                  atol=row_atol(want32, 1e-5 if f32 else 2.0 ** -12),
+                  rtol=1e-5 if f32 else 2.0 ** -8)
+            del want, want32, k32, v32
+        del kc, vc, k8, v8, ks, vs
 
 
 def phase_times() -> dict:
@@ -643,6 +865,7 @@ def phase_times() -> dict:
             20)
     del xa
     time_prior_kernels(gen, row)
+    time_int8_kernels(gen, row)
     return rows
 
 
@@ -717,6 +940,148 @@ def time_prior_kernels(gen, row) -> None:
         lambda: cache.cache_row_update_plain(kc, news, cur),
         lambda: kc.__setitem__((slice(None), rows_b, cur_b), news[:, :, 0]),
         0.0, 2 * news.numel() * 2, PEAK_BF16, 50)
+
+
+def cycling(fn, copies):
+    """A call of ``fn`` on the next of ``copies`` in turn: weights that fit
+    the 50 MB L2 cache are then read from device memory, as a decode
+    step's layers find them."""
+    state = {"i": 0}
+
+    def call():
+        state["i"] = (state["i"] + 1) % len(copies)
+        return fn(copies[state["i"]])
+    return call
+
+
+def time_int8_kernels(gen, row) -> None:
+    """B11-B14 and B9 over an int8 cache at the int8 decode step's shapes
+    (batch 8, the prior's widths), fp32 x as the step gives it (B12 also at
+    the prefill's bf16 qkv). Library: one F.linear on the weight
+    dequantised beforehand, in x's dtype (dequantisation, LayerNorm and
+    shift not timed)."""
+    from enhancing_tpu_torch.ops import attention as att
+    from enhancing_tpu_torch.ops import int8
+    from enhancing_tpu_torch.ops import ln_gemm as lg
+    t = prior_int8_inputs(gen)
+    b, c = SAMPLE_BATCH, P_WIDTH
+    x, x16, g, bt, tm, prev = (t[k] for k in ("x", "x16", "gamma", "beta",
+                                              "tm", "prev"))
+    f4, h2 = b * c * 4, b * c * 2  # an fp32 / bf16 (8, 6144) activation
+
+    def deq(name, dtype):
+        return (t[name + "_q"].float() * t[name + "_s"][:, None]).to(dtype)
+
+    try:
+        torch._weight_int8pack_mm(x16, t["proj_q"], t["proj_s"].to(x16.dtype))
+        torch.cuda.synchronize()
+        packed = time_ms(lambda: torch._weight_int8pack_mm(
+            x16, t["proj_q"], t["proj_s"].to(x16.dtype)), 50)
+        log(f"[time] torch._weight_int8pack_mm bf16 x (8, 6144) -> 6144: "
+            f"{packed:.4f} ms")
+    except (RuntimeError, NotImplementedError) as exc:
+        log(f"[time] torch._weight_int8pack_mm does not run on CUDA here: "
+            f"{str(exc).splitlines()[0][:120]}")
+
+    copies = [(t["proj_q"].clone(), t["proj_s"].clone()) for _ in range(3)]
+    w32 = deq("proj", torch.float32)
+    row("int8_gemm", "int8_gemm decode proj f32 x (8, 6144) -> 6144 (3 "
+        "weight copies in turn)",
+        cycling(lambda w: int8.int8_gemm_kernel(x, w[0], w[1], t["proj_b"]),
+                copies),
+        lambda: int8.int8_gemm_plain(x, t["proj_q"], t["proj_s"],
+                                     t["proj_b"]),
+        lambda: F.linear(x, w32, t["proj_b"].float()),
+        2.0 * b * c * c, 2 * f4 + c * c + c * 6, PEAK_F32, 50)
+    del copies, w32
+    w16 = deq("qkv", torch.bfloat16)
+    row("int8_gemm", "int8_gemm prefill qkv bf16 x (8, 6144) -> 18432",
+        lambda: int8.int8_gemm_kernel(x16, t["qkv_q"], t["qkv_s"],
+                                      t["qkv_b"]),
+        lambda: int8.int8_gemm_plain(x16, t["qkv_q"], t["qkv_s"], t["qkv_b"]),
+        lambda: F.linear(x16, w16, t["qkv_b"]),
+        2.0 * b * c * 3 * c, h2 * 4 + 3 * c * c + 3 * c * 6, PEAK_F32, 30)
+    del w16
+    w32 = deq("qkv", torch.float32)
+    row("int8_ln_gemm", "int8_ln_gemm decode qkv + shift f32 x (8, 6144) -> "
+        "18432",
+        lambda: int8.int8_ln_gemm_kernel(x, g, bt, tm, prev, t["qkv_q"],
+                                         t["qkv_s"], t["qkv_b"]),
+        lambda: int8.int8_ln_gemm_plain(x, g, bt, tm, prev, t["qkv_q"],
+                                        t["qkv_s"], t["qkv_b"]),
+        lambda: F.linear(x, w32, t["qkv_b"].float()),
+        2.0 * b * c * 3 * c,
+        2 * f4 + 3 * c * 4 + h2 + 3 * c * c + 3 * c * 6 + 3 * f4, PEAK_F32,
+        30)
+    del w32
+    copies = [(t["head_q"].clone(), t["head_s"].clone()) for _ in range(3)]
+    w32 = deq("head", torch.float32)
+    row("int8_ln_gemm", "int8_ln_gemm vocab head f32 x (8, 6144) -> 8192 (3 "
+        "weight copies in turn)",
+        cycling(lambda w: int8.int8_ln_gemm_kernel(x, g, bt, None, None,
+                                                   w[0], w[1]), copies),
+        lambda: int8.int8_ln_gemm_plain(x, g, bt, None, None, t["head_q"],
+                                        t["head_s"]),
+        lambda: F.linear(x, w32),
+        2.0 * b * c * P_VOCAB,
+        2 * f4 + 2 * c * 4 + P_VOCAB * c + P_VOCAB * 4 + b * P_VOCAB * 4,
+        PEAK_F32, 50)
+    del copies, w32
+    mlp = (x, g, bt, t["p0_q"], t["p0_s"], t["p0_b"], t["p1_q"], t["p1_s"],
+           t["p1_b"], x)
+    w0, w1 = deq("p0", torch.float32), deq("p1", torch.float32)
+    b0, b1 = t["p0_b"].float(), t["p1_b"].float()
+    row("int8_mlp", "int8_mlp f32 x (8, 6144), hidden 24576 (library: "
+        "F.linear, squared ReLU, F.linear on the dequantised weights)",
+        lambda: int8.int8_mlp_kernel(*mlp), lambda: int8.int8_mlp_plain(*mlp),
+        lambda: F.linear(torch.square(torch.relu(F.linear(x, w0, b0))), w1,
+                         b1),
+        4.0 * b * c * 4 * c,
+        2 * f4 + 2 * c * 4 + 8 * c * c + 4 * c * 6 + c * 6, PEAK_F32, 20)
+    del w0, w1, mlp
+    w32 = t["qkv"].float()
+    row("ln_shift_gemm", "ln_shift_gemm LNFUSE qkv f32 x (8, 6144), bf16 W "
+        "-> 18432",
+        lambda: lg.ln_shift_gemm_kernel(x, g, bt, tm, prev, t["qkv"],
+                                        t["qkv_b"]),
+        lambda: lg.ln_shift_gemm_plain(x, g, bt, tm, prev, t["qkv"],
+                                       t["qkv_b"]),
+        lambda: F.linear(x, w32, t["qkv_b"].float()),
+        2.0 * b * c * 3 * c,
+        2 * f4 + 3 * c * 4 + h2 + 6 * c * c + 3 * c * 2 + 3 * f4, PEAK_F32,
+        30)
+    del w32, t
+
+    # B9 over an int8 cache at cur_len 512, fp32 q (the int8 decode step)
+    cur, layer, d = 512, 11, P_HEAD_DIM
+    kc, vc = prior_stack(gen, cur)
+    k8, ks = int8.quantize_channelwise(kc)
+    v8, vs = int8.quantize_channelwise(vc)
+    del kc, vc
+    q3 = torch.randn((b, c), generator=gen, device="cuda") * d ** -0.5
+    kn, vn = (torch.randn((b, c), generator=gen, device="cuda")
+              for _ in range(2))
+    split = lambda u: u.view(b, -1, P_HEADS, d).transpose(1, 2)  # noqa: E731
+    kd, vd = att.dequant_cache(k8[layer, :, :cur], v8[layer, :, :cur],
+                               ks[layer, :, :cur], vs[layer, :, :cur],
+                               torch.float32)
+    k_cat = torch.cat([split(kd), split(kn[:, None])], 2)
+    v_cat = torch.cat([split(vd), split(vn[:, None])], 2)
+    q_l = split(q3[:, None])
+    del kd, vd
+    layers = [layer, (layer + 7) % P_LAYERS, (layer + 14) % P_LAYERS]
+    row("decode_attention", f"decode_attention int8 cache, f32 q, B={b} "
+        f"cur_len {cur} of the {tuple(k8.shape)} stack, 3 layers in turn "
+        "(SDPA on the dequantised, concatenated k, v: neither timed)",
+        cycling(lambda li: att.decode_attention_kernel(
+            q3, k8, v8, kn, vn, cur, li, d, ks, vs), layers),
+        lambda: att.decode_attention_plain(
+            q3, *att.dequant_cache(k8[layer], v8[layer], ks[layer],
+                                   vs[layer], torch.float32), kn, vn, cur, d),
+        lambda: F.scaled_dot_product_attention(q_l, k_cat, v_cat, scale=1.0),
+        4.0 * b * c * (cur + 1),
+        2 * b * cur * c + 2 * b * cur * 4 + 4 * f4, PEAK_F32, 50)
+    del k8, v8, ks, vs, k_cat, v_cat
 
 
 def phase_main_path() -> dict:
@@ -1025,8 +1390,9 @@ def agreement(label, got, want, atol, argmax_min) -> float:
     return err
 
 
-def phase_sampling() -> dict:
-    """Class-conditional sampling of the published GPT prior."""
+def phase_sampling():
+    """Class-conditional sampling of the published GPT prior; returns the
+    launches, the model (for phase 8) and the sampled codes."""
     from enhancing_tpu_torch.models.stage2.sampling import sample_gpt
     from enhancing_tpu_torch.ops import LAUNCHES, reset_launches
     gc_cuda()
@@ -1140,9 +1506,191 @@ def phase_sampling() -> dict:
         log(f"[sample] decode step at cur_len 512: {step_512:.3f} ms on the "
             f"host clock, device busy {busy:.3f} ms -> device idle "
             f"{1 - busy / step_512:.1%} of the unprofiled step")
-    del cache, model, gpt
+    del cache, gpt
     gc_cuda()
-    return launches
+    return launches, model, codes
+
+
+# limits of phase 8. int8 against bf16 (the same weights before and after
+# quantisation, teacher-forced): argmax equal on more than half of the
+# positions, the JAX package's own bar (tests/test_stage2.py:355). The
+# LNFUSE path against the default one: phase 7's limits (bf16 GEMMs and
+# fp32 LNFUSE products round at other places). The int8 kernels against
+# the int8 plain path: fp32 products in another order, which move a cache
+# row's int8 rounding now and then; set from the first measurement on the
+# card (0.0174, argmax equal at 99.62%: one position of 264; NVIDIA H100
+# 80GB HBM3, 700 W) with a margin of 3x on the difference.
+INT8_VS_BF16_ARGMAX = 0.5
+INT8_KERNEL_VS_PLAIN_ATOL, INT8_KERNEL_VS_PLAIN_ARGMAX = 0.05, 0.97
+
+
+def counted(fn):
+    """(fn(), the launches it made)."""
+    from enhancing_tpu_torch.ops import LAUNCHES, reset_launches
+    torch.cuda.synchronize()
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in LAUNCHES.items() if v}
+
+
+def phase_int8(model, codes7) -> dict:
+    """Int8 serving of phase 7's prior, as the JAX package's
+    ``scripts/serve_continuous.py --int8`` builds it (quantize, drop,
+    kv_int8)."""
+    import os
+    from enhancing_tpu_torch.models.stage2 import (drop_quantized_kernels,
+                                                   quantize_decode_params)
+    from enhancing_tpu_torch.models.stage2.sampling import sample_gpt
+    from enhancing_tpu_torch.ops import LAUNCHES, reset_launches
+    gpt = model.transformer
+    conds = torch.tensor(CLASSES, device="cuda")[:, None]
+    steps = CHECK_STEPS
+
+    # (a) the bf16 prior, default decode and LNFUSE=all (host clock of
+    # each, prefill counted as a step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref16 = teacher_forced(gpt, codes7, conds, steps)
+    torch.cuda.synchronize()
+    t_default = (time.perf_counter() - t0) / (steps + 1) * 1e3
+    os.environ["ENHANCING_TPU_DECODE_LNFUSE"] = "all"
+    try:
+        t0 = time.perf_counter()
+        fused, lnfuse = counted(
+            lambda: teacher_forced(gpt, codes7, conds, steps))
+        t_fused = (time.perf_counter() - t0) / (steps + 1) * 1e3
+    finally:
+        del os.environ["ENHANCING_TPU_DECODE_LNFUSE"]
+    # the prefill runs no LNFUSE site: its launches are the default ones
+    want = {k: steps * v for k, v in LNFUSE_STEP.items()}
+    want["attention_bnhd"] = P_LAYERS
+    log(f"[int8] LNFUSE=all, prefill + {steps} decode steps batch "
+        f"{SAMPLE_BATCH}: {t_fused:.3f} ms a step against the default "
+        f"decode's {t_default:.3f} (host clock); launches {lnfuse}")
+    check(lnfuse == want, f"LNFUSE launches {lnfuse}, expected {want}")
+    agreement(f"LNFUSE=all vs default decode, prefill + {steps} steps",
+              fused, ref16, STEP_VS_FULL_ATOL, STEP_VS_FULL_ARGMAX)
+    del fused
+
+    # (b) quantise; int8 against bf16 while the bf16 weights exist
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    quantize_decode_params(gpt)
+    torch.cuda.synchronize()
+    twins = torch.cuda.memory_allocated() - before
+    log(f"[int8] quantize_decode_params: {time.perf_counter() - t0:.2f} s, "
+        f"int8 twins {twins / 2**30:.2f} GiB")
+    q_logits = teacher_forced(gpt, codes7, conds, steps)
+    agree = float((q_logits.argmax(-1) == ref16.argmax(-1)).float().mean())
+    err = float((q_logits - ref16).abs().max())
+    log(f"[int8] int8 weights vs bf16 weights, teacher-forced on phase 7's "
+        f"codes, prefill + {steps} steps: argmax equal at {agree:.2%} "
+        f"(limit > {INT8_VS_BF16_ARGMAX:.0%}), logits max_abs_diff "
+        f"{err:.4f} (|logits| max {float(ref16.abs().max()):.3f})")
+    check(agree > INT8_VS_BF16_ARGMAX, "int8 and bf16 argmax disagree")
+    del q_logits, ref16
+
+    # (c) drop the bf16 weights, int8 cache
+    gc_cuda()
+    before = torch.cuda.memory_allocated()
+    freed = drop_quantized_kernels(gpt)
+    gc_cuda()
+    log(f"[int8] drop_quantized_kernels freed {freed / 2**30:.2f} GiB of "
+        f"bf16 GEMM weights; allocated {before / 2**30:.2f} -> "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    check(before - torch.cuda.memory_allocated() >= freed,
+          "the dropped weights were not freed")
+    # as serve_continuous.py's tfm.clone(kv_int8=True): the cache that
+    # init_cache makes from now on is int8
+    gpt.kv_int8 = True
+    w_bytes = sum(t.numel() * t.element_size() for name, t in
+                  list(gpt.named_parameters()) + list(gpt.named_buffers())
+                  if not name.startswith(("tok_emb", "pos_emb"))
+                  and not (name.endswith(("weight_q", "scale"))
+                           and ".attn." in name
+                           and name.split(".")[-2] in ("query", "key",
+                                                       "value")))
+    cache_bytes = 2 * P_LAYERS * SAMPLE_BATCH * 512 * (P_WIDTH + 4)
+    step_bound = (w_bytes + cache_bytes) / PEAK_BYTES * 1e3
+
+    # (d) the entry point, counted
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    pixels, codes = model.sample(conds, top_k=100, seed=0, return_codes=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: INT8_SAMPLE_CALL.get(k, 0) for k in LAUNCHES}
+    log(f"[int8] CondTransformer.sample(8 classes, top_k=100), int8 weights"
+        f" and cache: {dt:.2f} s, launches {launches}")
+    check(launches == want, f"int8 sample launches {launches}, expected "
+          f"{want}")
+    check(codes.shape == (SAMPLE_BATCH, 1024) and codes.dtype == torch.int32,
+          f"codes {codes.shape} {codes.dtype}")
+    check(bool(((codes >= 0) & (codes < P_VOCAB)).all()), "codes range")
+    check(bool(torch.isfinite(pixels).all()) and float(pixels.min()) >= 0.0
+          and float(pixels.max()) <= 1.0, "pixels not finite in [0, 1]")
+    match7 = float((codes == codes7).float().mean())
+    log(f"[int8] codes int32 in [0, {P_VOCAB}), pixels finite in [0, 1]; "
+        f"{len(torch.unique(codes))} distinct codes; equal to phase 7's bf16"
+        f" sample (same seed) at {match7:.2%}")
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sample_gpt(gpt, conds, gen, top_k=100, with_logits=False)
+    torch.cuda.synchronize()
+    t_sampler = time.perf_counter() - t0
+    step_ms = t_sampler / (P_STEPS + 1) * 1e3
+    tokens = SAMPLE_BATCH * 1024
+    log(f"[int8] end to end {tokens / dt:.1f} tokens/s, "
+        f"{SAMPLE_BATCH / dt:.3f} images/s ({dt:.2f} s per call); sampler "
+        f"alone {t_sampler:.2f} s = {step_ms:.3f} ms per token step; bound "
+        f"{step_bound:.3f} ms per step ({(w_bytes + cache_bytes) / 1e9:.2f} "
+        f"GB: int8 weights, scales and the rest + the mean int8 cache read "
+        f"at cur_len 512) -> {step_bound / step_ms:.1%} of 3.35 TB/s; peak "
+        f"memory {peak / 2**30:.2f} GiB")
+
+    # (e) the kernels against the plain path, 32 steps of the int8 model
+    k_dec = teacher_forced(gpt, codes[:, :steps + 1], conds, steps)
+    mid = dict(LAUNCHES)
+    with plain_versions():
+        p_dec = teacher_forced(gpt, codes[:, :steps + 1], conds, steps)
+    check(LAUNCHES == mid, "the plain path launched a kernel")
+    agreement(f"int8 prefill + {steps} decode steps batch {SAMPLE_BATCH}, "
+              "kernels vs plain", k_dec, p_dec, INT8_KERNEL_VS_PLAIN_ATOL,
+              INT8_KERNEL_VS_PLAIN_ARGMAX)
+    del k_dec, p_dec
+
+    # (f) one decode step at cur_len 512
+    with torch.inference_mode():
+        cache = gpt.init_cache(SAMPLE_BATCH)
+        tok = codes[:, 0]
+        for _ in range(2):
+            gpt.decode_step(tok, 512, cache)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            gpt.decode_step(tok, 512, cache)
+        torch.cuda.synchronize()
+        step_512 = (time.perf_counter() - t0) / 20 * 1e3
+        busy = profile_device(f"one int8 decode step batch {SAMPLE_BATCH} at "
+                              "cur_len 512",
+                              lambda: gpt.decode_step(tok, 512, cache))
+    if busy is not None:
+        log(f"[int8] decode step at cur_len 512: {step_512:.3f} ms on the "
+            f"host clock (bound {step_bound:.3f} ms), device busy "
+            f"{busy:.3f} ms -> device idle {1 - busy / step_512:.1%} of the "
+            "unprofiled step")
+    del cache, gpt, model
+    gc_cuda()
+    # the kernels line counts both paths: the int8 sample and the LNFUSE
+    # decode (B11's only path)
+    return {k: v + lnfuse.get(k, 0) for k, v in launches.items()}
 
 
 def gc_cuda() -> None:
@@ -1152,7 +1700,11 @@ def gc_cuda() -> None:
 
 
 # kernel-name fragments -> the group of device time they belong to
-KERNEL_GROUPS = (("attn_bwd", "attention_bwd"),
+KERNEL_GROUPS = (("gemv_ln_kernel<signed char", "int8_ln_gemm"),
+                 ("gemv_ln_kernel<", "ln_shift_gemm"),
+                 ("gemv_kernel<signed char", "int8_gemm"),
+                 ("mlp_kernel", "int8_mlp"),
+                 ("attn_bwd", "attention_bwd"),
                  ("attn_bnhd", "attention_bnhd"),
                  ("decode_split", "decode_attention"),
                  ("decode_combine", "decode_attention"),
@@ -1214,7 +1766,9 @@ def main() -> int:
     times = phase_times()
     serving = phase_main_path()
     training = phase_train()
-    sampling = phase_sampling()
+    sampling, prior, codes = phase_sampling()
+    serving8 = phase_int8(prior, codes)
+    del prior
     kernels = []
     for kname in REPLACES:
         rows = times[kname]
@@ -1228,7 +1782,7 @@ def main() -> int:
         kernels.append(dict(name=kname, route="cuda", source=SOURCES[kname],
                             replaces=REPLACES[kname],
                             launches=serving[kname] + training[kname]
-                            + sampling[kname],
+                            + sampling[kname] + serving8[kname],
                             max_abs_err=errs[kname],
                             bound_by=rows[0]["bound_by"], **agg))
     print(json.dumps({"kernels": kernels}))

@@ -116,16 +116,57 @@ def _unstack_layers(tree: Mapping) -> dict:
     return tree
 
 
+def _load_gpt_quant(gpt: Any, quant: Mapping) -> None:
+    """Fill the int8 twins from JAX's ``quant`` collection: ``kernel_q``
+    (d, n) int8 becomes the port's (n, d) ``weight_q``, ``scale`` (n,)
+    stays; a stacked ``blocks`` tree splits per layer."""
+    from ..models.stage2.quantize import attach_int8_buffers
+    attach_int8_buffers(gpt)
+    modules = dict(gpt.named_modules())
+    filled = set()
+    for path, leaf in _leaves(_unstack_layers(quant)):
+        *owner, name = path
+        dense = modules.get(".".join(owner))
+        if name not in ("kernel_q", "scale") or dense is None or \
+                getattr(dense, "weight_q", None) is None:
+            raise KeyError(f"JAX quant leaf {'/'.join(path)} has no int8 "
+                           "twin in the port")
+        array = np.asarray(leaf)
+        if name == "kernel_q":
+            target, array = dense.weight_q, array.T
+        else:
+            target = dense.scale
+        if tuple(array.shape) != tuple(target.shape):
+            raise ValueError(f"{'/'.join(path)}: JAX shape {np.shape(leaf)}"
+                             f" does not fit {tuple(target.shape)}")
+        with torch.no_grad():
+            target.copy_(torch.from_numpy(np.ascontiguousarray(array)))
+        filled.add((".".join(owner), name))
+    wanted = {(n, leaf) for n, m in modules.items()
+              if getattr(m, "weight_q", None) is not None
+              for leaf in ("kernel_q", "scale")}
+    if wanted - filled:
+        raise KeyError(f"int8 twins with no JAX quant leaf: "
+                       f"{sorted(wanted - filled)}")
+
+
 def load_gpt_from_jax(model: Any, params: Mapping) -> Any:
     """Fill a port ``GPT`` (or the prior of a ``CondTransformer``) from the
-    JAX GPT's ``params`` tree with numpy leaves, of either layout: stacked
+    JAX GPT's parameters, numpy leaves, of either layout: stacked
     ``blocks`` (``scan_layers=True``, the JAX default) or ``blocks_{i}``.
     Dense kernels are transposed; ``embedding`` tables, ``time_mix`` and
-    the position embeddings keep their layout. Returns ``model``."""
-    if "quant" in params:
-        raise NotImplementedError(
-            "a 'quant' collection is int8 serving, a later slice of the "
-            "port (ROADMAP A8)")
+    the position embeddings keep their layout. ``params`` is the ``params``
+    tree, or the variables ``{"params": ..., "quant": ...}`` that the JAX
+    ``quantize_decode_params`` returns, whose int8 ``kernel_q`` and
+    ``scale`` fill the GEMMs' int8 twins (``kernel_q`` transposed to (out,
+    in)). Returns ``model``."""
     gpt = getattr(model, "transformer", model)
+    if "params" in params or "quant" in params:
+        quant = params.get("quant")
+        params = params["params"]
+    else:
+        quant = None
     load_from_jax(gpt, _unstack_layers(params), name_fn=_gpt_name)
+    if quant is not None:
+        _load_gpt_quant(gpt, quant)
     return model

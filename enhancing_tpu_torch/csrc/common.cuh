@@ -14,6 +14,7 @@
 // dtype codes passed by the Python wrappers
 constexpr int ETK_F32 = 0;
 constexpr int ETK_BF16 = 1;
+constexpr int ETK_INT8 = 2;  // weights and the int8 KV cache
 
 // activation codes of fused_ln_gemm
 constexpr int ACT_NONE = 0;

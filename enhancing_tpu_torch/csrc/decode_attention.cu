@@ -8,12 +8,19 @@
 // inside the kernel: the stack is neither sliced nor copied.
 //
 // Replaces enhancing_tpu/ops/attention.py::_decode_kernel (entered through
-// _decode_pallas) for a bf16 or f32 cache. What it keeps: only rows
-// < cur[b] of the selected layer are read, cur is per row (a scalar is
-// passed by value), the new token is the extra softmax term, and the
-// softmax is fp32. The TPU kernel's means (q masked per head to score all
-// heads in one MXU product, block sizes picked against a 16 MB VMEM limit,
-// index maps that clamp dead chunks) are not reproduced.
+// _decode_pallas). What it keeps: only rows < cur[b] of the selected layer
+// are read, cur is per row (a scalar is passed by value), the new token is
+// the extra softmax term, and the softmax is fp32. The TPU kernel's means
+// (q masked per head to score all heads in one MXU product, block sizes
+// picked against a 16 MB VMEM limit, index maps that clamp dead chunks) are
+// not reproduced.
+//
+// Types: q (and out) fp32 or bf16; the cache bf16, fp32 or int8. With an
+// int8 cache, per-row fp32 scales k_scale, v_scale (L, B, ctx) ride beside
+// it, k_new and v_new are in q's dtype, and, as the TPU kernel does, the
+// scores of a chunk are multiplied by their keys' scales and the softmax
+// weights by their values' scales before the sum with V (exact in the
+// scale factorization); otherwise k_new and v_new are in the cache's dtype.
 //
 // Bound on the H100: bytes. Each cached key and value is read once, 2 * D
 // * itemsize bytes per position per head for 4 * D flops: far below the
@@ -45,6 +52,10 @@ template <>
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+template <>
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -74,10 +85,12 @@ __host__ __device__ constexpr int split_smem_bytes(int d, int itemsize) {
          kChunk * 4;
 }
 
-template <typename T>
+template <typename Q, typename T>
 __global__ void __launch_bounds__(kThreads)
-    decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
+    decode_split_kernel(const Q* __restrict__ q, const T* __restrict__ kc,
                         const T* __restrict__ vc,
+                        const float* __restrict__ k_scale,
+                        const float* __restrict__ v_scale,
                         const int* __restrict__ cur_vec, int cur_scalar,
                         int layer, int b_total, int ctx, int heads, int d,
                         int n_splits, float* __restrict__ ws_o,
@@ -110,7 +123,7 @@ __global__ void __launch_bounds__(kThreads)
     cp_async_16(vs + r * pitch + c * 16, vb + off, 16);
   }
   cp_async_commit();
-  const T* qb = q + static_cast<size_t>(b) * hd + static_cast<size_t>(h) * d;
+  const Q* qb = q + static_cast<size_t>(b) * hd + static_cast<size_t>(h) * d;
   for (int i = threadIdx.x; i < d; i += kThreads) qs[i] = to_f32(qb[i]);
   cp_async_wait<0>();
   __syncthreads();
@@ -133,15 +146,19 @@ __global__ void __launch_bounds__(kThreads)
   // the chunk's max and sum of exp(s - m), fp32, in warp 0
   if (warp == 0) {
     float s = -INFINITY;
-    if (lane < nk)
+    if (lane < nk) {
       s = part[lane] + part[kChunk + lane] + part[2 * kChunk + lane] +
           part[3 * kChunk + lane];
+      if (k_scale != nullptr) s *= k_scale[row0 + lane];  // int8 keys
+    }
     float m = s;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
       m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
     const float e = lane < nk ? expf(s - m) : 0.f;
-    weight[lane] = e;
+    // int8 values: the weights carry their rows' scales into the sum
+    weight[lane] = (v_scale != nullptr && lane < nk) ? e * v_scale[row0 + lane]
+                                                     : e;
     const float l = warp_sum(e);
     if (lane == 0) {
       const size_t slot =
@@ -162,15 +179,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename Q, typename N>
 __global__ void __launch_bounds__(kThreads)
-    decode_combine_kernel(const T* __restrict__ q, const T* __restrict__ kn,
-                          const T* __restrict__ vn,
+    decode_combine_kernel(const Q* __restrict__ q, const N* __restrict__ kn,
+                          const N* __restrict__ vn,
                           const int* __restrict__ cur_vec, int cur_scalar,
                           int ctx, int heads, int d, int n_splits,
                           const float* __restrict__ ws_o,
                           const float* __restrict__ ws_ml,
-                          T* __restrict__ out) {
+                          Q* __restrict__ out) {
   const int h = blockIdx.x, b = blockIdx.y;
   const int cur = row_len(cur_vec, cur_scalar, b, ctx);
   const int ns = min((cur + kChunk - 1) / kChunk, n_splits);
@@ -201,51 +218,70 @@ __global__ void __launch_bounds__(kThreads)
     float o = e_self * to_f32(vn[base + c]);
     for (int s = 0; s < ns; ++s)
       o += ws_o[(slot0 + s) * d + c] * expf(ws_ml[2 * (slot0 + s)] - mx);
-    out[base + c] = from_f32<T>(o * inv);
+    out[base + c] = from_f32<Q>(o * inv);
   }
 }
 
-template <typename T>
+// N, the dtype of k_new and v_new: q's beside an int8 cache, else the
+// cache's
+template <typename Q, typename T>
+struct NewType {
+  using type = T;
+};
+template <typename Q>
+struct NewType<Q, int8_t> {
+  using type = Q;
+};
+
+template <typename Q, typename T>
 int launch(const void* q, const void* kc, const void* vc, const void* kn,
-           const void* vn, const void* cur_vec, int cur_scalar, int layer,
-           int b, int ctx, int heads, int d, int n_splits, void* ws,
-           void* out, cudaStream_t stream) {
+           const void* vn, const float* ks, const float* vs,
+           const void* cur_vec, int cur_scalar, int layer, int b, int ctx,
+           int heads, int d, int n_splits, void* ws, void* out,
+           cudaStream_t stream) {
+  using N = typename NewType<Q, T>::type;
+  constexpr bool kInt8 = sizeof(T) == 1;
   if ((d * static_cast<int>(sizeof(T))) % 16) return ETK_BAD_ARGS;
+  if (kInt8 != (ks != nullptr) || kInt8 != (vs != nullptr))
+    return ETK_BAD_ARGS;  // scales go with an int8 cache and only with it
   const int bytes = split_smem_bytes(d, sizeof(T));
   if (bytes > 227 * 1024) return ETK_BAD_ARGS;
   if (bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        decode_split_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
+        decode_split_kernel<Q, T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   float* ws_o = static_cast<float*>(ws);
   float* ws_ml = ws_o + static_cast<size_t>(b) * heads * n_splits * d;
   const int* cv = static_cast<const int*>(cur_vec);
-  decode_split_kernel<T><<<dim3(n_splits, heads, b), kThreads, bytes,
-                           stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), cv, cur_scalar, layer, b, ctx, heads, d,
-      n_splits, ws_o, ws_ml);
+  decode_split_kernel<Q, T><<<dim3(n_splits, heads, b), kThreads, bytes,
+                              stream>>>(
+      static_cast<const Q*>(q), static_cast<const T*>(kc),
+      static_cast<const T*>(vc), ks, vs, cv, cur_scalar, layer, b, ctx, heads,
+      d, n_splits, ws_o, ws_ml);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  decode_combine_kernel<T><<<dim3(heads, b), kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kn),
-      static_cast<const T*>(vn), cv, cur_scalar, ctx, heads, d, n_splits, ws_o,
-      ws_ml, static_cast<T*>(out));
+  decode_combine_kernel<Q, N><<<dim3(heads, b), kThreads, 0, stream>>>(
+      static_cast<const Q*>(q), static_cast<const N*>(kn),
+      static_cast<const N*>(vn), cv, cur_scalar, ctx, heads, d, n_splits, ws_o,
+      ws_ml, static_cast<Q*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // ws: b * heads * n_splits * (d + 2) floats; n_splits * 32 must cover
-// every row's cur (the wrapper sizes it).
+// every row's cur (the wrapper sizes it). (q dtype, cache dtype): (bf16,
+// bf16), (f32, f32), (f32, bf16), (f32, int8), (bf16, int8); k_scale and
+// v_scale (L, B, ctx) fp32 with an int8 cache, null otherwise.
 ETK_API int etk_decode_attention(const void* q, const void* kc, const void* vc,
                                  const void* kn, const void* vn,
                                  const void* cur_vec, int cur_scalar,
                                  int layer, int b, int ctx, int heads, int d,
                                  int n_splits, void* ws, void* out,
-                                 int dtype, void* stream) {
+                                 const void* k_scale, const void* v_scale,
+                                 int q_dtype, int cache_dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (b <= 0 || ctx <= 0 || heads <= 0 || d <= 0 || layer < 0 ||
       n_splits <= 0 || n_splits > 2147483647 / kChunk || heads > 65535 ||
@@ -254,12 +290,19 @@ ETK_API int etk_decode_attention(const void* q, const void* kc, const void* vc,
   if (cur_vec == nullptr &&
       (cur_scalar < 0 || cur_scalar > ctx || cur_scalar > n_splits * kChunk))
     return ETK_BAD_ARGS;
-  if (dtype == ETK_BF16)
-    return launch<__nv_bfloat16>(q, kc, vc, kn, vn, cur_vec, cur_scalar,
-                                 layer, b, ctx, heads, d, n_splits, ws, out,
-                                 s);
-  if (dtype == ETK_F32)
-    return launch<float>(q, kc, vc, kn, vn, cur_vec, cur_scalar, layer, b,
-                         ctx, heads, d, n_splits, ws, out, s);
+  const auto* ks = static_cast<const float*>(k_scale);
+  const auto* vs = static_cast<const float*>(v_scale);
+#define ETK_DECODE(Q, T)                                                    \
+  return launch<Q, T>(q, kc, vc, kn, vn, ks, vs, cur_vec, cur_scalar, layer, \
+                      b, ctx, heads, d, n_splits, ws, out, s)
+  if (q_dtype == ETK_BF16 && cache_dtype == ETK_BF16)
+    ETK_DECODE(__nv_bfloat16, __nv_bfloat16);
+  if (q_dtype == ETK_F32 && cache_dtype == ETK_F32) ETK_DECODE(float, float);
+  if (q_dtype == ETK_F32 && cache_dtype == ETK_BF16)
+    ETK_DECODE(float, __nv_bfloat16);
+  if (q_dtype == ETK_F32 && cache_dtype == ETK_INT8) ETK_DECODE(float, int8_t);
+  if (q_dtype == ETK_BF16 && cache_dtype == ETK_INT8)
+    ETK_DECODE(__nv_bfloat16, int8_t);
+#undef ETK_DECODE
   return ETK_BAD_ARGS;
 }

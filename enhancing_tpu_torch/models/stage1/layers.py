@@ -72,7 +72,13 @@ class Dense(nn.Linear):
     ``generator``, as the JAX package initialises its Dense kernels; the
     weight and bias, stored in ``param_dtype`` (fp32, as flax keeps them),
     are cast to ``dtype`` with the input, as a flax ``Dense(dtype=...)``
-    computes. The bias is added inside the GEMM (ROADMAP C)."""
+    computes. The bias is added inside the GEMM (ROADMAP C).
+
+    ``weight_q`` (int8, the weight's layout) and ``scale`` (fp32, one per
+    output channel) are None buffers until the stage-2 prior's
+    ``quantize_decode_params`` gives the GEMM its int8 twin; after
+    ``drop_quantized_kernels`` the weight is None and only the int8 paths
+    run."""
 
     def __init__(self, in_features: int, out_features: int, *,
                  bias: bool = True, dtype: torch.dtype = torch.float32,
@@ -86,8 +92,14 @@ class Dense(nn.Linear):
         if bias:
             self.bias = nn.Parameter(torch.zeros(out_features,
                                                  dtype=param_dtype))
+        self.register_buffer("weight_q", None)
+        self.register_buffer("scale", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.weight is None:
+            raise RuntimeError(
+                "this GEMM's weight was dropped by drop_quantized_kernels: "
+                "only its int8 twin remains, which the decode paths read")
         dt = self.compute_dtype
         return F.linear(x.to(dt), self.weight.to(dt),
                         None if self.bias is None else self.bias.to(dt))

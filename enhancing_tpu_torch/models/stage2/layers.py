@@ -30,13 +30,32 @@ casts them at each use, which gives the same numbers, and a bf16 prior
 stored so is cast once, when its weights are drawn or loaded, instead of
 at each of a sample's decode steps.
 
+Int8 serving (``models/stage2/quantize.py``), the JAX module's int8
+branches: once ``quantize_decode_params`` has given the GEMMs their int8
+twins, the prefill runs its fused qkv and its projection as int8 GEMMs
+(``ops.int8_gemm``, B12) and its MLP as one kernel (``int8_mlp_decode``,
+B14); a decode step folds LayerNorm and the token shift into the int8 qkv
+product (``int8_ln_gemm``, B13), projects with B12, runs its MLP as B14
+and its vocab head as B13 without the shift. Their activations are the
+fp32 residual stream, so these products are fp32 (ROADMAP C). With
+``kv_int8`` the cache is int8 with per-row fp32 scales (L, B, ctx); the
+new rows are quantised per row at each step. W8A8 (``act_int8``) raises.
+
+``ENHANCING_TPU_DECODE_LNFUSE`` (``all``, ``none`` or a comma list of
+``qkv``, ``mlp``, ``head``), read at each ``decode_step``, folds the
+LayerNorms of a full-precision decode step into its GEMMs as the JAX
+package does: the qkv site through ``fused_ln_shift_gemm`` (B11) on the
+one [query | key | value] weight whose row blocks the three Denses'
+weights are (``MultiHeadSelfAttention.fused_qkv``), the MLP and head sites
+through ``fused_ln_gemm`` (B1) on the fp32 residual stream, which casts
+those weights to fp32 at each call, as the JAX wrapper does.
+
 Submodules are named after the JAX tree with ``scan_layers=False``
 (``blocks_{i}.ln1``, ``blocks_{i}.attn.query``, ``blocks_{i}.mlp.p0``,
 ``tok_emb_code``, ``head``, ...); ``compat.load_gpt_from_jax`` also takes
-the stacked tree of ``scan_layers=True``. ``scan_layers`` and ``remat``
-choose how XLA compiles the JAX model and mean nothing here. The int8
-options (``kv_int8``, ``act_int8``; ROADMAP A8), ``sp_mesh`` (A9) and the
-opt-in ``ENHANCING_TPU_DECODE_LNFUSE`` fusions (queue B11) raise.
+the stacked tree of ``scan_layers=True`` and JAX's ``quant`` collection.
+``scan_layers`` and ``remat`` choose how XLA compiles the JAX model and
+mean nothing here. ``sp_mesh`` (ROADMAP A9) raises.
 """
 from __future__ import annotations
 
@@ -49,10 +68,15 @@ from torch import nn
 
 from ...ops.attention import (decode_attention_stacked,
                               multihead_attention_bnhd)
-from ...ops.cache import cache_row_update
+from ...ops.cache import cache_row_update, scale_row_update
 from ...ops.common import resolve_device
+from ...ops.int8 import (int8_gemm, int8_ln_gemm, int8_mlp_decode,
+                         quantize_channelwise)
+from ...ops.ln_gemm import fused_ln_gemm, fused_ln_shift_gemm
 from ..stage1.layers import Dense
 from ..stage1.vitvqgan import DTYPES
+
+LNFUSE_SITES = frozenset({"qkv", "mlp", "head"})
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -62,14 +86,20 @@ def _dtype(name: str) -> torch.dtype:
     return DTYPES[name]
 
 
-def refuse_lnfuse() -> None:
-    """The JAX decode folds LayerNorm into its GEMMs when
-    ENHANCING_TPU_DECODE_LNFUSE names a site; that kernel is not ported."""
-    if os.environ.get("ENHANCING_TPU_DECODE_LNFUSE", "none") not in (
-            "none", "0", ""):
-        raise NotImplementedError(
-            "ENHANCING_TPU_DECODE_LNFUSE: the fused LN + token shift + GEMM "
-            "decode kernel is not ported yet (ROADMAP queue B11)")
+def lnfuse_sites() -> frozenset:
+    """The decode step's LayerNorm fusions that ENHANCING_TPU_DECODE_LNFUSE
+    turns on: "all" (or "1"), "none" (or "0", "", unset), or a comma list
+    of qkv, mlp, head, as ``_lnfuse_sites`` of the JAX package reads it."""
+    v = os.environ.get("ENHANCING_TPU_DECODE_LNFUSE", "none")
+    if v in ("all", "1"):
+        return LNFUSE_SITES
+    if v in ("0", "none", ""):
+        return frozenset()
+    sites = frozenset(t.strip() for t in v.split(","))
+    if not sites <= LNFUSE_SITES:
+        raise ValueError(f"ENHANCING_TPU_DECODE_LNFUSE={v!r}: sites are "
+                         f"{sorted(LNFUSE_SITES)}, 'all' or 'none'")
+    return sites
 
 
 def _dense(in_features: int, out_features: int, bias: bool,
@@ -111,6 +141,39 @@ class MultiHeadSelfAttention(nn.Module):
         self.value = _dense(embed_dim, embed_dim, attn_bias, dtype)
         self.proj = _dense(embed_dim, embed_dim, attn_bias, dtype)
         self.time_mix = nn.Parameter(torch.empty(1, 1, embed_dim))
+        # the fused qkv product's [query | key | value] weight and bias, whose
+        # row blocks the three Denses' parameters are (fused_qkv)
+        self.qkv_tied: Dict[str, torch.Tensor] = {}
+        # int8 serving: the twins as one buffer, the Denses' weight_q and
+        # scale views of it (models/stage2/quantize.py)
+        self.register_buffer("qkv_q", None)
+        self.register_buffer("qkv_scale", None)
+
+    def fused_qkv(self, attr: str) -> Optional[torch.Tensor]:
+        """The [query | key | value] ``weight`` (3C, C) or ``bias`` (3C,) of
+        the fused qkv product, None where the Denses have none (or it was
+        dropped). It is one tensor whose row blocks the three Denses'
+        parameters are, so no step concatenates them; parameters that were
+        replaced since (``Module.to``, an assigning load) are tied again
+        here, with one copy."""
+        parts = [getattr(d, attr) for d in (self.query, self.key, self.value)]
+        if parts[0] is None:
+            self.qkv_tied.pop(attr, None)
+            return None
+        fused = self.qkv_tied.get(attr)
+        step = parts[0].numel() * parts[0].element_size()
+        if fused is None or any(p.data_ptr() != fused.data_ptr() + i * step
+                                for i, p in enumerate(parts)):
+            with torch.inference_mode(False), torch.no_grad():
+                fused = torch.cat(parts)
+                n = len(parts[0])
+                for i, (dense, p) in enumerate(zip(
+                        (self.query, self.key, self.value), parts)):
+                    setattr(dense, attr, nn.Parameter(
+                        fused[i * n:(i + 1) * n],
+                        requires_grad=p.requires_grad))
+            self.qkv_tied[attr] = fused
+        return fused
 
     def token_shift(self, x: torch.Tensor,
                     prev: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -123,13 +186,13 @@ class MultiHeadSelfAttention(nn.Module):
             shifted = F.pad(x, (0, 0, 1, 0))[:, :-1]
         return x * tm + shifted * (1.0 - tm)
 
+    def _split(self, t: torch.Tensor) -> torch.Tensor:
+        b, n, _ = t.shape
+        return t.view(b, n, self.n_heads, self.head_dim)
+
     def _attend(self, x: torch.Tensor):
-        b, t, c = x.shape
-        split = (b, t, self.n_heads, self.head_dim)
-        q = self.query(x).view(split)
-        k = self.key(x).view(split)
-        v = self.value(x).view(split)
-        return q, k, v
+        return (self._split(self.query(x)), self._split(self.key(x)),
+                self._split(self.value(x)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Full-sequence forward (training and the teacher-forced check)."""
@@ -141,39 +204,72 @@ class MultiHeadSelfAttention(nn.Module):
             cond_len=self.cond_len)
         return self.proj(y.reshape(b, t, c))
 
-    def prefill(self, x: torch.Tensor, k_cache: torch.Tensor,
-                v_cache: torch.Tensor) -> torch.Tensor:
-        """Forward of the T-token prefix, writing its keys and values into
-        rows [0, T) of this layer's (B, ctx, C) cache views in place."""
+    def _project(self, y: torch.Tensor) -> torch.Tensor:
+        if self.proj.weight_q is not None:  # int8 output projection
+            return int8_gemm(y, self.proj.weight_q, self.proj.scale,
+                             self.proj.bias)
+        return self.proj(y)
+
+    def prefill(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                                torch.Tensor]:
+        """Forward of the T-token prefix (x LayerNorm'd); returns (output,
+        k, v), k and v (B, T, C) for the caller's cache. With int8 twins
+        the qkv and the projection are int8 GEMMs."""
         b, t, c = x.shape
-        q, k, v = self._attend(self.token_shift(x))
-        k_cache[:, :t] = k.reshape(b, t, c)
-        v_cache[:, :t] = v.reshape(b, t, c)
+        x = self.token_shift(x)
+        if self.qkv_q is not None:
+            qkv = int8_gemm(x, self.qkv_q, self.qkv_scale,
+                            self.fused_qkv("bias"))
+            # contiguous: at T = 1 a lane slice's row stride is not the
+            # stride that B8 reads rows at
+            q, k, v = (self._split(u.contiguous())
+                       for u in qkv.split(c, dim=-1))
+        else:
+            q, k, v = self._attend(x)
         y = multihead_attention_bnhd(
             q, k, v, scale=self.head_dim ** -0.5,
             mask_mode="prefix_causal" if self.use_mask else "none",
             cond_len=self.cond_len)
-        return self.proj(y.reshape(b, t, c))
+        return (self._project(y.reshape(b, t, c)), k.reshape(b, t, c),
+                v.reshape(b, t, c))
 
-    def decode(self, x: torch.Tensor, k_stack: torch.Tensor,
-               v_stack: torch.Tensor, cur_len, shift_prev: torch.Tensor,
-               layer: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def decode(self, x, k_stack, v_stack, cur_len, shift_prev, layer,
+               k_scale=None, v_scale=None):
         """One-token decode, read-only on the stacked caches.
 
         x: (B, 1, C), already LayerNorm'd; k_stack / v_stack: the whole
         (L, B, ctx, C) stacks, rows < cur_len valid, ``layer`` selecting
-        this block's; shift_prev: (B, C). Returns (attention output,
-        k_new, v_new), each (B, 1, C): the caller writes k_new and v_new.
+        this block's (with an int8 cache, its (L, B, ctx) row scales);
+        shift_prev: (B, C). Returns (attention output, k_new, v_new), each
+        (B, 1, C): the caller writes k_new and v_new.
         """
         x = self.token_shift(x, prev=shift_prev)
         q, k_new, v_new = self.query(x), self.key(x), self.value(x)
+        return self.attend_project(q, k_new, v_new, k_stack, v_stack,
+                                   cur_len, layer, k_scale, v_scale)
+
+    def decode_qkv(self, qkv, k_stack, v_stack, cur_len, layer,
+                   k_scale=None, v_scale=None):
+        """``decode`` for a caller-computed fused (B, 1, 3C) qkv product
+        (LayerNorm and the token shift folded into it)."""
+        q, k_new, v_new = qkv.split(self.embed_dim, dim=-1)
+        return self.attend_project(q, k_new, v_new, k_stack, v_stack,
+                                   cur_len, layer, k_scale, v_scale)
+
+    def attend_project(self, q, k_new, v_new, k_stack, v_stack, cur_len,
+                       layer, k_scale=None, v_scale=None):
+        """Attention of the new token against the cache, then the output
+        projection. The new key and value go in q's dtype beside an int8
+        cache, in the cache's dtype otherwise; the output in q's dtype
+        (fp32 under int8 weights, whose products are fp32)."""
         # q scaled in its dtype by the scale rounded to that dtype
         scale = float(torch.tensor(self.head_dim ** -0.5, dtype=q.dtype))
+        new_dtype = q.dtype if k_scale is not None else k_stack.dtype
         y = decode_attention_stacked(
-            q[:, 0] * scale, k_stack, v_stack, k_new[:, 0].to(k_stack.dtype),
-            v_new[:, 0].to(v_stack.dtype), cur_len, layer,
-            head_dim=self.head_dim)
-        return self.proj(y[:, None, :].to(q.dtype)), k_new, v_new
+            q[:, 0] * scale, k_stack, v_stack, k_new[:, 0].to(new_dtype),
+            v_new[:, 0].to(new_dtype), cur_len, layer,
+            head_dim=self.head_dim, k_scale=k_scale, v_scale=v_scale)
+        return self._project(y[:, None, :].to(q.dtype)), k_new, v_new
 
 
 class FFN(nn.Module):
@@ -188,6 +284,13 @@ class FFN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.p1(torch.square(F.relu(self.p0(x))))
 
+    def int8_residual(self, x: torch.Tensor, ln: LayerNorm) -> torch.Tensor:
+        """x + the MLP of LN(x) over the int8 twins, one kernel."""
+        return int8_mlp_decode(x, ln.weight, ln.bias, self.p0.weight_q,
+                               self.p0.scale, self.p0.bias,
+                               self.p1.weight_q, self.p1.scale, self.p1.bias,
+                               residual=x, activation="sqrelu", eps=ln.eps)
+
 
 class Block(nn.Module):
     """Pre-LN attention + MLP residual block."""
@@ -196,6 +299,7 @@ class Block(nn.Module):
                  mlp_bias: bool = True, attn_bias: bool = True, *,
                  dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
+        self.dtype = dtype
         self.ln1 = LayerNorm(embed_dim, dtype=dtype)
         self.ln2 = LayerNorm(embed_dim, dtype=dtype)
         self.attn = MultiHeadSelfAttention(embed_dim, n_heads, cond_len,
@@ -206,24 +310,66 @@ class Block(nn.Module):
         x = x + self.attn(self.ln1(x))
         return x + self.mlp(self.ln2(x))
 
-    def prefill(self, x, k_cache, v_cache):
-        """Returns (x, new shift state (B, C)); fills the cache views."""
+    def prefill(self, x):
+        """Returns (x, new shift state (B, C), k, v (B, T, C))."""
         h = self.ln1(x)
-        x = x + self.attn.prefill(h, k_cache, v_cache)
-        return x + self.mlp(self.ln2(x)), h[:, -1, :]
-
-    def decode(self, x, k_stack, v_stack, cur_len, shift_prev, layer):
-        """Returns (x, k_new, v_new, new shift state); the caches are
-        read-only here."""
-        h = self.ln1(x)
-        a, k_new, v_new = self.attn.decode(h, k_stack, v_stack, cur_len,
-                                           shift_prev, layer)
+        a, k, v = self.attn.prefill(h)
         x = x + a
-        return x + self.mlp(self.ln2(x)), k_new, v_new, h[:, -1, :]
+        if self.mlp.p0.weight_q is not None:
+            x = self.mlp.int8_residual(x, self.ln2)
+        else:
+            x = x + self.mlp(self.ln2(x))
+        return x, h[:, -1, :], k, v
+
+    def decode(self, x, k_stack, v_stack, cur_len, shift_prev, layer,
+               k_scale=None, v_scale=None, sites: frozenset = frozenset()):
+        """Returns (x, k_new, v_new, new shift state); the caches are
+        read-only here. ``sites``: the LayerNorm fusions on (int8 twins
+        take precedence, as in the JAX module)."""
+        attn, ln1, ln2, mlp = self.attn, self.ln1, self.ln2, self.mlp
+        tm = attn.time_mix.reshape(-1)
+        if attn.qkv_q is not None:
+            qkv, xn = int8_ln_gemm(x, ln1.weight, ln1.bias, tm,
+                                   shift_prev[:, None, :], attn.qkv_q,
+                                   attn.qkv_scale, attn.fused_qkv("bias"),
+                                   eps=ln1.eps)
+        elif "qkv" in sites:
+            qkv, xn = fused_ln_shift_gemm(x, ln1.weight, ln1.bias, tm,
+                                          shift_prev[:, None, :],
+                                          attn.fused_qkv("weight"),
+                                          attn.fused_qkv("bias"), eps=ln1.eps)
+        else:
+            qkv = None
+        if qkv is not None:
+            new_shift = xn[:, -1, :]
+            a, k_new, v_new = attn.decode_qkv(qkv, k_stack, v_stack, cur_len,
+                                              layer, k_scale, v_scale)
+        else:
+            h = ln1(x)
+            new_shift = h[:, -1, :]
+            a, k_new, v_new = attn.decode(h, k_stack, v_stack, cur_len,
+                                          shift_prev, layer, k_scale, v_scale)
+        x = x + a
+        if mlp.p0.weight_q is not None:
+            x = mlp.int8_residual(x, ln2)
+        elif "mlp" in sites:
+            h = fused_ln_gemm(x, ln2.weight, ln2.bias, mlp.p0.weight,
+                              mlp.p0.bias, activation="sqrelu", eps=ln2.eps)
+            h = F.linear(h, mlp.p1.weight.to(h.dtype))
+            if mlp.p1.bias is not None:
+                h = h + mlp.p1.bias.to(self.dtype)
+            x = x + h
+        else:
+            x = x + mlp(ln2(x))
+        return x, k_new, v_new, new_shift
 
 
 class GPT(nn.Module):
     """Class-conditional GPT prior over tokenizer codes.
+
+    ``kv_int8``: the sampling cache is int8 with per-row fp32 scales
+    (halves the cache bytes a decode step reads); it composes with the
+    weights-only int8 of ``quantize_decode_params``.
 
     ``device`` defaults to ``cuda``; ``dtype`` is the compute dtype
     (``"float32"`` or ``"bfloat16"``), in which the GEMM weights are also
@@ -246,10 +392,11 @@ class GPT(nn.Module):
                  device: Union[str, torch.device, None] = None,
                  seed: int = 0) -> None:
         super().__init__()
-        if kv_int8 or act_int8:
+        if act_int8:
             raise NotImplementedError(
-                "kv_int8 / act_int8: int8 serving is a later slice of the "
-                "port (ROADMAP A8)")
+                "act_int8 (W8A8: int8 activations on int8 GEMMs) is not "
+                "ported; weights-only int8 (quantize_decode_params) and "
+                "kv_int8 are (ROADMAP A8)")
         if sp_mesh is not None:
             raise NotImplementedError(
                 "sp_mesh: multi-GPU parallelism is a later slice of the "
@@ -262,6 +409,7 @@ class GPT(nn.Module):
         self.cond_num_tokens = cond_num_tokens
         self.img_num_tokens = img_num_tokens
         self.dtype = _dtype(dtype)
+        self.kv_int8 = kv_int8
         self.device = resolve_device(device)
         with torch.device("meta"):
             # flax nn.Embed: fp32 tables whose lookups stay fp32
@@ -278,6 +426,9 @@ class GPT(nn.Module):
             self.layer_norm = LayerNorm(embed_dim, dtype=self.dtype)
             self.head = _dense(embed_dim, vocab_img_size, False, self.dtype)
         self.to_empty(device=self.device)
+        for block in self.blocks:  # before the draws, which write through
+            block.attn.fused_qkv("weight")
+            block.attn.fused_qkv("bias")
         self.reset_parameters(torch.Generator(self.device).manual_seed(seed))
         self.eval()
 
@@ -335,16 +486,52 @@ class GPT(nn.Module):
     def init_cache(self, batch: int, dtype: torch.dtype | None = None
                    ) -> Dict[str, torch.Tensor]:
         """Zeroed (L, B, ctx, C) k and v stacks, ctx padded to a multiple
-        of 8, and the (L, B, C) token-shift state, in the compute dtype."""
+        of 8, and the (L, B, C) token-shift state, in the compute dtype;
+        with ``kv_int8`` the stacks are int8 and (L, B, ctx) fp32
+        ``k_scale`` / ``v_scale`` ride beside them. (The JAX package pads
+        an int8 cache to a multiple of 128 for its kernel's scale blocks;
+        the port's kernels need no more than 8.)"""
         dt = self.dtype if dtype is None else dtype
         ctx_pad = -(-self.ctx_len // 8) * 8
         shape = (self.n_layers, batch, ctx_pad, self.embed_dim)
-        return {
-            "k": torch.zeros(shape, dtype=dt, device=self.device),
-            "v": torch.zeros(shape, dtype=dt, device=self.device),
+        kv_dtype = torch.int8 if self.kv_int8 else dt
+        cache = {
+            "k": torch.zeros(shape, dtype=kv_dtype, device=self.device),
+            "v": torch.zeros(shape, dtype=kv_dtype, device=self.device),
             "shift": torch.zeros((self.n_layers, batch, self.embed_dim),
                                  dtype=dt, device=self.device),
         }
+        if self.kv_int8:
+            for name in ("k_scale", "v_scale"):
+                cache[name] = torch.zeros(shape[:3], dtype=torch.float32,
+                                          device=self.device)
+        return cache
+
+    def _write_prefix(self, cache, i: int, name: str,
+                      rows: torch.Tensor) -> None:
+        """Rows [0, T) of layer i's k or v: quantised per row beside an
+        int8 cache (from the compute dtype, as the JAX package quantises
+        its prefix-sized temporary), else cast to the cache's dtype."""
+        t = rows.shape[1]
+        if self.kv_int8:
+            q, sc = quantize_channelwise(rows.to(self.dtype))
+            cache[name][i][:, :t] = q
+            cache[name + "_scale"][i][:, :t] = sc
+        else:
+            cache[name][i][:, :t] = rows
+
+    def _head(self, x: torch.Tensor, sites: frozenset) -> torch.Tensor:
+        """Final LayerNorm + vocab head of (B, C) rows: B13 over the int8
+        twin, B1 at the LNFUSE head site, else LayerNorm then the GEMM."""
+        ln, head = self.layer_norm, self.head
+        if head.weight_q is not None:
+            return int8_ln_gemm(x, ln.weight, ln.bias, None, None,
+                                head.weight_q, head.scale, None,
+                                eps=ln.eps)[0]
+        if "head" in sites:
+            return fused_ln_gemm(x, ln.weight, ln.bias, head.weight, None,
+                                 eps=ln.eps)
+        return head(ln(x))
 
     def prefill(self, conds: torch.Tensor, cache: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -354,11 +541,12 @@ class GPT(nn.Module):
         x = self.tok_emb_cond(conds) + self.pos_emb_cond.to(self.dtype)
         shifts = []
         for i, block in enumerate(self.blocks):
-            x, s = block.prefill(x, cache["k"][i], cache["v"][i])
+            x, s, k, v = block.prefill(x)
+            self._write_prefix(cache, i, "k", k)
+            self._write_prefix(cache, i, "v", v)
             shifts.append(s)
         cache["shift"] = torch.stack(shifts).to(cache["shift"].dtype)
-        x = self.layer_norm(x)
-        return self.head(x[:, self.cond_num_tokens - 1]), cache
+        return self._head(x[:, self.cond_num_tokens - 1], frozenset()), cache
 
     def decode_step(self, token: torch.Tensor, step,
                     cache: Dict[str, torch.Tensor]
@@ -371,7 +559,7 @@ class GPT(nn.Module):
         package's static ``window`` read bound has no counterpart: the
         kernel reads only rows < cur_len.)
         """
-        refuse_lnfuse()
+        sites = lnfuse_sites()
         if isinstance(step, int):
             pos = self.pos_emb_code[0, step - 1][None, None, :]
         else:
@@ -379,15 +567,23 @@ class GPT(nn.Module):
         x = self.tok_emb_code(token)[:, None, :] + pos.to(self.dtype)
         cur_len = self.cond_num_tokens + step - 1
         k_all, v_all = cache["k"], cache["v"]
+        ks, vs = cache.get("k_scale"), cache.get("v_scale")
         k_cols, v_cols, s_cols = [], [], []
         for i, block in enumerate(self.blocks):
             x, k, v, s = block.decode(x, k_all, v_all, cur_len,
-                                      cache["shift"][i], i)
+                                      cache["shift"][i], i, ks, vs, sites)
             k_cols.append(k)
             v_cols.append(v)
             s_cols.append(s)
         cache["shift"] = torch.stack(s_cols).to(cache["shift"].dtype)
-        # one in-place row write per stack, after the last layer
-        cache_row_update(k_all, torch.stack(k_cols), cur_len)
-        cache_row_update(v_all, torch.stack(v_cols), cur_len)
-        return self.head(self.layer_norm(x)[:, -1]), cache
+        # one in-place row write per stack, after the last layer; an int8
+        # cache takes the rows quantised and their scales
+        k_news, v_news = torch.stack(k_cols), torch.stack(v_cols)
+        if ks is not None:
+            k_news, k_sc = quantize_channelwise(k_news)
+            v_news, v_sc = quantize_channelwise(v_news)
+            scale_row_update(ks, k_sc, cur_len)
+            scale_row_update(vs, v_sc, cur_len)
+        cache_row_update(k_all, k_news, cur_len)
+        cache_row_update(v_all, v_news, cur_len)
+        return self._head(x[:, -1], sites), cache

@@ -31,8 +31,13 @@ Two more entry points serve the stage-2 GPT prior:
   ``csrc/decode_attention.cu`` (the counterpart of ``_decode_pallas``)
   selects the layer of a stacked cache inside the kernel. The plain
   version is ``_decode_xla`` (``attention.py:1314-1338``) on the layer's
-  slice; both clamp a per-row cur_len to [0, ctx], as its mask does. The
-  int8 cache (``k_scale``/``v_scale``) is a later slice.
+  slice; both clamp a per-row cur_len to [0, ctx], as its mask does. q may
+  be fp32 under a bf16 cache (the int8-weight decode step). An int8 cache
+  comes with per-row fp32 ``k_scale``/``v_scale`` (L, B, ctx); the plain
+  version dequantises the layer to q's dtype first (``_dequant_cache``,
+  ``attention.py:1604-1608``), the kernel scales the score columns by the
+  keys' scales and the softmax weights by the values', as
+  ``_decode_kernel`` does.
 """
 from __future__ import annotations
 
@@ -46,7 +51,12 @@ MASK_MODES = {"none": 0, "prefix_causal": 1}
 KERNEL_HEAD_DIMS = (32, 64, 128)
 BNHD_HEAD_DIMS = (32, 64, 128, 384)
 DECODE_CHUNK = 32  # keys per block of csrc/decode_attention.cu
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# (q dtype, cache dtype) pairs of csrc/decode_attention.cu
+DECODE_PAIRS = {(torch.bfloat16, torch.bfloat16), (torch.float32,
+                                                   torch.float32),
+                (torch.float32, torch.bfloat16), (torch.float32, torch.int8),
+                (torch.bfloat16, torch.int8)}
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -285,17 +295,37 @@ def decode_attention_plain(q3, kc, vc, kn, vn, cur_len, head_dim):
     return y.transpose(1, 2).reshape(b, hd).to(q3.dtype)
 
 
+def dequant_cache(kc, vc, k_scale, v_scale, dtype):
+    """``_dequant_cache``: int8 rows times their fp32 scales, in ``dtype``."""
+    k = kc.float() * k_scale[..., None].float()
+    v = vc.float() * v_scale[..., None].float()
+    return k.to(dtype), v.to(dtype)
+
+
 def decode_attention_kernel(q3, k_stack, v_stack, kn, vn, cur_len, layer,
-                            head_dim):
+                            head_dim, k_scale=None, v_scale=None):
     """Launch ``csrc/decode_attention.cu`` on CUDA q3, kn, vn (B, H*D) and
-    a stacked (L, B, M, H*D) cache of one dtype (bf16 or f32); ``layer``
-    is resolved inside the kernel. cur_len: int or (B,) tensor."""
+    a stacked (L, B, M, H*D) cache; ``layer`` is resolved inside the
+    kernel. (q, cache) dtypes: (bf16, bf16), (f32, f32), (f32, bf16), and
+    an int8 cache under f32 or bf16 q with fp32 (L, B, M) scales; kn, vn
+    in q's dtype beside an int8 cache, else in the cache's. The output is
+    in q's dtype. cur_len: int or (B,) tensor."""
     l, b, m, hd = k_stack.shape
-    dtype = k_stack.dtype
-    if dtype not in _DTYPES or any(t.dtype != dtype
-                                   for t in (q3, v_stack, kn, vn)):
-        raise TypeError("decode_attention kernel takes one dtype, bf16 or "
-                        "f32, for q, the cache and the new key and value")
+    qd, cd = q3.dtype, k_stack.dtype
+    int8 = cd == torch.int8
+    nd = qd if int8 else cd
+    if (qd, cd) not in DECODE_PAIRS or v_stack.dtype != cd or any(
+            t.dtype != nd for t in (kn, vn)):
+        raise TypeError(f"decode_attention kernel: q {qd}, cache {cd} / "
+                        f"{v_stack.dtype}, new key and value {kn.dtype} / "
+                        f"{vn.dtype} is not a pair it takes")
+    if int8 != (k_scale is not None) or int8 != (v_scale is not None):
+        raise ValueError("decode_attention kernel: k_scale and v_scale go "
+                         "with an int8 cache, and only with it")
+    if int8 and any(t.shape != (l, b, m) or t.dtype != torch.float32
+                    for t in (k_scale, v_scale)):
+        raise ValueError(f"decode_attention kernel: scales must be fp32 "
+                         f"{(l, b, m)}")
     if v_stack.shape != k_stack.shape or any(
             t.shape != (b, hd) for t in (q3, kn, vn)):
         raise ValueError(f"decode_attention kernel: q {tuple(q3.shape)}, "
@@ -314,25 +344,20 @@ def decode_attention_kernel(q3, k_stack, v_stack, kn, vn, cur_len, layer,
         cur_vec = row_positions(cur_len, b, k_stack.device)
         n_splits = -(-m // DECODE_CHUNK)
     check_kernel_args("decode_attention", q3, k_stack, v_stack, kn, vn,
-                      cur_vec)
+                      cur_vec, k_scale, v_scale)
     ws = torch.empty(b * heads * n_splits * (head_dim + 2),
                      dtype=torch.float32, device=q3.device)
-    out = torch.empty((b, hd), dtype=dtype, device=q3.device)
+    out = torch.empty((b, hd), dtype=qd, device=q3.device)
     cuda_lib.call("etk_decode_attention",
                   *(t.data_ptr() for t in (q3, k_stack, v_stack, kn, vn)),
                   None if cur_vec is None else cur_vec.data_ptr(),
                   cur_len if cur_vec is None else 0, int(layer), b, m, heads,
                   head_dim, n_splits, ws.data_ptr(), out.data_ptr(),
-                  _DTYPES[dtype], cuda_lib.stream())
+                  None if k_scale is None else k_scale.data_ptr(),
+                  None if v_scale is None else v_scale.data_ptr(),
+                  _DTYPES[qd], _DTYPES[cd], cuda_lib.stream())
     LAUNCHES["decode_attention"] += 1
     return out
-
-
-def _no_int8_cache(k_scale, v_scale) -> None:
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "the int8 KV cache (k_scale / v_scale) is ported with int8 "
-            "serving, a later slice of the port (ROADMAP A8)")
 
 
 def decode_attention(q3: torch.Tensor, k_cache: torch.Tensor,
@@ -344,14 +369,14 @@ def decode_attention(q3: torch.Tensor, k_cache: torch.Tensor,
     q3: the current token's query, softmax scale folded in; k_cache,
     v_cache: (B, ctx, H*D), rows < cur_len valid; k_new, v_new: (B, H*D),
     the current token's key and value (not in the cache); cur_len: an int
-    or a (B,) tensor of per-row lengths. Returns (B, H*D).
+    or a (B,) tensor of per-row lengths; k_scale, v_scale: (B, ctx) fp32
+    row scales of an int8 cache. Returns (B, H*D) in q3's dtype.
     """
-    _no_int8_cache(k_scale, v_scale)
-    if use_kernel(q3, k_cache, v_cache, k_new, v_new, op="decode_attention"):
-        return decode_attention_kernel(q3, k_cache[None], v_cache[None],
-                                       k_new, v_new, cur_len, 0, head_dim)
-    return decode_attention_plain(q3, k_cache, v_cache, k_new, v_new,
-                                  cur_len, head_dim)
+    return decode_attention_stacked(
+        q3, k_cache[None], v_cache[None], k_new, v_new, cur_len, 0,
+        head_dim=head_dim,
+        k_scale=None if k_scale is None else k_scale[None],
+        v_scale=None if v_scale is None else v_scale[None])
 
 
 def decode_attention_stacked(q3: torch.Tensor, k_stack: torch.Tensor,
@@ -360,10 +385,17 @@ def decode_attention_stacked(q3: torch.Tensor, k_stack: torch.Tensor,
                              head_dim: int, k_scale=None,
                              v_scale=None) -> torch.Tensor:
     """:func:`decode_attention` against layer ``layer`` of a stacked
-    (L, B, ctx, H*D) cache; on CUDA the kernel selects the layer itself."""
-    _no_int8_cache(k_scale, v_scale)
-    if use_kernel(q3, k_stack, v_stack, k_new, v_new, op="decode_attention"):
-        return decode_attention_kernel(q3, k_stack, v_stack, k_new, v_new,
-                                       cur_len, int(layer), head_dim)
-    return decode_attention_plain(q3, k_stack[layer], v_stack[layer], k_new,
-                                  v_new, cur_len, head_dim)
+    (L, B, ctx, H*D) cache (with an int8 cache, (L, B, ctx) scales); on
+    CUDA the kernel selects the layer itself."""
+    if use_kernel(q3, k_stack, v_stack, k_new, v_new, k_scale, v_scale,
+                  op="decode_attention"):
+        return decode_attention_kernel(
+            q3.contiguous(), k_stack, v_stack, k_new.contiguous(),
+            v_new.contiguous(), cur_len, int(layer), head_dim, k_scale,
+            v_scale)
+    kc, vc = k_stack[layer], v_stack[layer]
+    if k_scale is not None:
+        kc, vc = dequant_cache(kc, vc, k_scale[layer], v_scale[layer],
+                               q3.dtype)
+    return decode_attention_plain(q3, kc, vc, k_new, v_new, cur_len,
+                                  head_dim)

@@ -31,7 +31,8 @@ def _check_scalar(cur_len, ctx: int) -> None:
 def cache_row_update_plain(cache: torch.Tensor, news: torch.Tensor,
                            cur_len) -> torch.Tensor:
     """``cache[l, b, cur[b]] = news[l, b, 0]`` by indexed assignment, rows
-    with a position outside [0, ctx) skipped."""
+    with a position outside [0, ctx) skipped. ``cache`` may also be the
+    (L, B, ctx) row scales of an int8 cache, ``news`` (L, B, 1)."""
     rows = news[:, :, 0].to(cache.dtype)
     b, ctx = cache.shape[1], cache.shape[2]
     _check_scalar(cur_len, ctx)
@@ -82,3 +83,14 @@ def cache_row_update(cache: torch.Tensor, news: torch.Tensor,
     if use_kernel(cache, news, op="cache_row_update"):
         return cache_row_update_kernel(cache, news.to(cache.dtype), cur_len)
     return cache_row_update_plain(cache, news, cur_len)
+
+
+def scale_row_update(scales: torch.Tensor, news: torch.Tensor,
+                     cur_len) -> torch.Tensor:
+    """Write one position of the (L, B, ctx) fp32 row scales of an int8 KV
+    cache, in place: ``news`` (L, B, 1) at ``cur_len`` (an int, or a (B,)
+    tensor whose rows outside [0, ctx) are not written). Plain indexing on
+    both devices, as the JAX package keeps it plain XLA
+    (``enhancing_tpu/ops/cache.py:107-121``): a few bytes a row next to the
+    cache rows it describes. Returns ``scales``."""
+    return cache_row_update_plain(scales, news, cur_len)

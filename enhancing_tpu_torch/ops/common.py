@@ -20,7 +20,9 @@ import torch
 LAUNCHES: dict[str, int] = {"ln_gemm": 0, "attention": 0, "layernorm": 0,
                             "vq": 0, "attention_bwd": 0, "fir": 0,
                             "fused_act": 0, "attention_bnhd": 0,
-                            "decode_attention": 0, "cache_row_update": 0}
+                            "decode_attention": 0, "cache_row_update": 0,
+                            "ln_shift_gemm": 0, "int8_gemm": 0,
+                            "int8_ln_gemm": 0, "int8_mlp": 0}
 # Op calls on CUDA tensors that force_plain_ops sent to the plain version.
 PLAIN_CALLS: dict[str, int] = {name: 0 for name in LAUNCHES}
 

@@ -16,6 +16,10 @@ version recomputed from the saved inputs, as the JAX package's
 (``enhancing_tpu/ops/ln_gemm.py:174-181, 444``). On the CPU the plain
 version runs and autograd differentiates it directly.
 
+``fused_ln_shift_gemm`` (``csrc/ln_shift_gemm.cu``) is the decode step's
+opt-in LN -> token shift -> GEMM, returning LN(x) as the next token's shift
+state; inference only.
+
 Weights use torch's Linear layout, ``w: (n, d)``.
 """
 from __future__ import annotations
@@ -27,6 +31,9 @@ from .common import LAUNCHES, check_kernel_args, use_kernel
 
 ACTIVATIONS = {None: 0, "none": 0, "tanh": 1, "sqrelu": 2, "gelu": 3}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# dtype codes of the C entry points (csrc/common.cuh)
+DTYPE_CODES = {**_DTYPES, torch.int8: 2}
+X_DTYPES = tuple(_DTYPES)
 
 
 def _act(h: torch.Tensor, activation: str | None) -> torch.Tensor:
@@ -195,3 +202,127 @@ def fused_layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     else:
         out = layernorm(x2, gamma, beta, eps)
     return out.reshape(*batch_shape, x.shape[-1])
+
+
+def check_vec(name: str, what: str, t, n: int, dtypes=(torch.float32,)):
+    """Raise unless ``t`` is None or an (n,) vector of one of ``dtypes``."""
+    if t is not None and (t.shape != (n,) or t.dtype not in dtypes):
+        raise ValueError(f"{name}: {what} must be ({n},) of "
+                         f"{[str(d) for d in dtypes]}, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+
+
+def bias_code(b) -> int:
+    return 0 if b is None else DTYPE_CODES[b.dtype]
+
+
+# -- the decode step's LN -> token shift -> GEMM ------------------------------
+
+
+def ln_shift_mix(x, gamma, beta, tm, prev, eps=1e-5):
+    """(the GEMM's input, LN(x)): LN(x) in x's dtype, then with ``tm`` the
+    token shift ``xn * tm + prev * (1 - tm)`` in x's dtype."""
+    xn = layernorm(x, gamma, beta, eps)
+    if tm is None:
+        return xn, xn
+    t = tm.to(x.dtype)
+    return xn * t + prev.to(x.dtype) * (1.0 - t), xn
+
+
+def ln_kernel_checks(name, x, gamma, beta, tm, prev, n, b) -> None:
+    """Checks of the LN-prologue kernels (int8 and bf16 weights)."""
+    m, d = x.shape
+    if x.dtype not in X_DTYPES:
+        raise TypeError(f"{name} kernel takes fp32 or bf16 x, got {x.dtype}")
+    if d % 16:
+        raise ValueError(f"{name} kernel needs d % 16 == 0, got d={d}")
+    for what, t in (("gamma", gamma), ("beta", beta), ("tm", tm)):
+        check_vec(name, what, t, d)
+    if (tm is None) != (prev is None):
+        raise ValueError(f"{name}: tm and prev go together")
+    if prev is not None and (prev.shape != (m, d)
+                             or prev.dtype not in X_DTYPES):
+        raise ValueError(f"{name}: prev must be fp32 or bf16 ({m}, {d})")
+    check_vec(name, "bias", b, n, X_DTYPES)
+
+
+def ln_operands(x, gamma, beta, tm, prev):
+    """2-D contiguous operands of the LN-prologue entry points."""
+    d = x.shape[-1]
+    x2 = x.reshape(-1, d).contiguous()
+    tm1 = None if tm is None else tm.reshape(-1).float().contiguous()
+    p2 = None if tm is None else prev.reshape(-1, d).contiguous()
+    return x2, gamma.float().contiguous(), beta.float().contiguous(), tm1, p2
+
+
+def ln_shift_gemm_plain(x, gamma, beta, tm, prev, w, b=None, activation=None,
+                        eps=1e-5):
+    """Plain version of the LN -> shift -> GEMM kernel on 2-D operands: w
+    in x's dtype, fp32 products and sums, fp32 bias and activation."""
+    mixed, xn = ln_shift_mix(x, gamma, beta, tm, prev, eps)
+    h = mixed.float() @ w.to(x.dtype).float().t()
+    if b is not None:
+        h = h + b.float()
+    return _act(h, activation).to(x.dtype), xn
+
+
+def ln_shift_gemm_kernel(x, gamma, beta, tm, prev, w, b=None,
+                         activation=None, eps=1e-5):
+    """Launch ``csrc/ln_shift_gemm.cu``: x (m, d) fp32 or bf16; fp32
+    gamma, beta, tm (d,) (tm None: no shift); prev (m, d) fp32 or bf16;
+    w (n, d) bf16 (any x) or fp32 (fp32 x); b (n,) fp32 or bf16."""
+    m, d = x.shape
+    n = w.shape[0]
+    ln_kernel_checks("ln_shift_gemm", x, gamma, beta, tm, prev, n, b)
+    if w.shape != (n, d) or not (
+            w.dtype == torch.bfloat16
+            or (w.dtype == torch.float32 and x.dtype == torch.float32)):
+        raise ValueError(f"ln_shift_gemm kernel takes a bf16 (n, {d}) "
+                         f"weight, or an fp32 one under fp32 x; got "
+                         f"{tuple(w.shape)} {w.dtype} under {x.dtype}")
+    check_kernel_args("ln_shift_gemm", x, gamma, beta, tm, prev, w, b)
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    xn = torch.empty_like(x)
+    ws = torch.empty(8 * d, dtype=torch.float32, device=x.device)
+    cuda_lib.call("etk_ln_shift_gemm", x.data_ptr(), gamma.data_ptr(),
+                  beta.data_ptr(), None if tm is None else tm.data_ptr(),
+                  None if prev is None else prev.data_ptr(), w.data_ptr(),
+                  None if b is None else b.data_ptr(), out.data_ptr(),
+                  xn.data_ptr(), ws.data_ptr(), m, d, n,
+                  ACTIVATIONS[activation], eps,
+                  0 if prev is None else DTYPE_CODES[prev.dtype],
+                  bias_code(b), DTYPE_CODES[x.dtype], DTYPE_CODES[w.dtype],
+                  cuda_lib.stream())
+    LAUNCHES["ln_shift_gemm"] += 1
+    return out, xn
+
+
+def fused_ln_shift_gemm(x: torch.Tensor, gamma: torch.Tensor,
+                        beta: torch.Tensor, tm: torch.Tensor | None,
+                        prev: torch.Tensor | None, w: torch.Tensor,
+                        b: torch.Tensor | None = None, *,
+                        activation: str | None = None, eps: float = 1e-5
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(act((LN(x) * tm + prev * (1 - tm)) @ w^T + b), LN(x)) in one kernel.
+
+    x: (..., d); gamma, beta, tm: (d,) (tm None skips the shift and prev);
+    prev: (..., d), the previous token's LN output; w: (n, d), used in x's
+    dtype; b: (n,) or None. Returns ((..., n), (..., d)) in x's dtype. The
+    decode step's opt-in fusion (ENHANCING_TPU_DECODE_LNFUSE): inference
+    only, so a CUDA launch under autograd raises."""
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}")
+    batch_shape, n = x.shape[:-1], w.shape[0]
+    x2, g, bt, tm1, p2 = ln_operands(x, gamma, beta, tm, prev)
+    if use_kernel(x2, g, bt, tm1, p2, w, b, op="ln_shift_gemm"):
+        # a bf16 w is widened exactly in the kernel; only fp32 under bf16
+        # x needs the cast the JAX wrapper makes
+        if w.dtype == torch.float32 and x.dtype == torch.bfloat16:
+            w = w.to(x.dtype)
+        out, xn = ln_shift_gemm_kernel(
+            x2, g, bt, tm1, p2, w.contiguous(),
+            None if b is None else b.contiguous(), activation, eps)
+    else:
+        out, xn = ln_shift_gemm_plain(x2, g, bt, tm1, p2, w, b, activation,
+                                      eps)
+    return out.reshape(*batch_shape, n), xn.reshape(x.shape)

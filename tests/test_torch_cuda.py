@@ -14,6 +14,7 @@ from enhancing_tpu_torch.ops import attention as att
 from enhancing_tpu_torch.ops import cache
 from enhancing_tpu_torch.ops import common
 from enhancing_tpu_torch.ops import fused_act as fa
+from enhancing_tpu_torch.ops import int8
 from enhancing_tpu_torch.ops import ln_gemm as lg
 from enhancing_tpu_torch.ops import upfirdn2d as fir
 from enhancing_tpu_torch.ops import vq
@@ -43,6 +44,17 @@ def _randn(gen, *shape, dtype=torch.float32, scale=1.0):
 def _close(got, want, tol):
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def _row_close(got, want, frac, rtol):
+    """|got - want| <= frac * the row's largest |want| + rtol * |want|: a
+    decode-attention row is held to its own output's scale, which falls
+    with its cur_len, not to that of another row of a ragged batch."""
+    torch.cuda.synchronize()
+    want = want.float()
+    err = (got.float() - want).abs()
+    limit = frac * want.abs().amax(-1, keepdim=True) + rtol * want.abs()
+    assert bool((err <= limit).all()), float((err - limit).max())
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -130,7 +142,9 @@ def test_tiny_model_round_trip_goes_through_the_kernels(cuda):
     assert common.LAUNCHES == {"ln_gemm": 8, "attention": 4, "layernorm": 2,
                                "vq": 1, "attention_bwd": 0, "fir": 0,
                                "fused_act": 0, "attention_bnhd": 0,
-                               "decode_attention": 0, "cache_row_update": 0}
+                               "decode_attention": 0, "cache_row_update": 0,
+                               "ln_shift_gemm": 0, "int8_gemm": 0,
+                               "int8_ln_gemm": 0, "int8_mlp": 0}
     assert rec.shape == (3, 32, 32, 3) and torch.isfinite(rec).all()
 
 
@@ -294,7 +308,9 @@ def test_tiny_training_step_goes_through_every_kernel(cuda):
                                "layernorm": 4, "vq": 2, "attention_bwd": 4,
                                "fir": 18, "fused_act": 27,
                                "attention_bnhd": 0, "decode_attention": 0,
-                               "cache_row_update": 0}
+                               "cache_row_update": 0, "ln_shift_gemm": 0,
+                               "int8_gemm": 0, "int8_ln_gemm": 0,
+                               "int8_mlp": 0}
     assert {k: v for k, v in common.PLAIN_CALLS.items() if v} == {
         "fir": 6, "fused_act": 9}
     assert all(torch.isfinite(v).all() for v in log.values()), log
@@ -377,15 +393,13 @@ def test_decode_attention_kernel_matches_plain(cuda, dtype, cur):
     if dtype == torch.bfloat16:
         # the plain version rounds the weights, their sum with V and the
         # quotient to bf16, the kernel sums in fp32 and rounds once: 2^-8
-        # of the largest |plain| + 2^-7 relative. Against the same function
-        # in fp32: one bf16 rounding of the output.
-        _close(got, want, dict(atol=2.0 ** -8 * float(want.float().abs().max()),
-                               rtol=2.0 ** -7))
+        # of the row's largest |plain| + 2^-7 relative. Against the same
+        # function in fp32: one bf16 rounding of the output.
+        _row_close(got, want, 2.0 ** -8, 2.0 ** -7)
         want = att.decode_attention_plain(q3.float(), k[1].float(),
                                           v[1].float(), kn.float(),
                                           vn.float(), cur, d)
-        _close(got, want, dict(atol=2.0 ** -12 * float(want.abs().max()),
-                               rtol=2.0 ** -8))
+        _row_close(got, want, 2.0 ** -12, 2.0 ** -8)
     else:  # another summation order
         _close(got, want, dict(atol=1e-5, rtol=1e-5))
 
@@ -403,18 +417,24 @@ def test_decode_attention_unstacked_cache(cuda):
                            rtol=2.0 ** -7))
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.int8])
 @pytest.mark.parametrize("cur", [0, 513, 1031, "ragged", "outside"])
 def test_cache_row_update_kernel_matches_plain(cuda, dtype, cur):
-    layers, b, ctx, c = 24, 8, 1032, 6144 if dtype == torch.bfloat16 else 64
+    layers, b, ctx, c = 24, 8, 1032, 64 if dtype == torch.float32 else 6144
     if cur == "ragged":
         cur = torch.tensor([0, 1, 5, 513, 700, 1000, 1030, 1031],
                            dtype=torch.int32, device="cuda")
     elif cur == "outside":  # rows outside [0, ctx) unwritten on both routes
         cur = torch.tensor([-1, 1, 1032, 513, 5000, 1000, -7, 1031],
                            dtype=torch.int32, device="cuda")
-    stack = _randn(cuda, layers, b, ctx, c, dtype=dtype)
-    news = _randn(cuda, layers, b, 1, c, dtype=dtype)
+    if dtype == torch.int8:  # the int8 cache's 6144-byte rows
+        stack, news = (torch.randint(-127, 128, shape, generator=cuda,
+                                     device="cuda", dtype=dtype)
+                       for shape in ((layers, b, ctx, c), (layers, b, 1, c)))
+    else:
+        stack = _randn(cuda, layers, b, ctx, c, dtype=dtype)
+        news = _randn(cuda, layers, b, 1, c, dtype=dtype)
     want = cache.cache_row_update_plain(stack.clone(), news, cur)
     before = common.LAUNCHES["cache_row_update"]
     got = cache.cache_row_update(stack, news, cur)
@@ -453,3 +473,245 @@ def test_gpt_cached_decode_matches_full_forward_on_card(cuda):
     agree = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
     assert err <= 2.0 ** -4 * float(full.abs().max()), err
     assert agree >= 0.9, agree
+
+
+# -- int8 serving and the LNFUSE decode ---------------------------------------
+
+def _int8_limits(want):
+    """fp32 outputs: 1e-5 of the largest |plain| plus 1e-5 relative, for
+    fp32 sums over d in another order; bf16: one bf16 step (2^-8) of
+    each output plus 2^-8 of the largest, the sums' order moving a
+    rounding boundary."""
+    top = float(want.float().abs().max())
+    if want.dtype == torch.float32:
+        return dict(atol=1e-5 * top, rtol=1e-5)
+    return dict(atol=2.0 ** -8 * top, rtol=2.0 ** -8)
+
+
+def _quantized(gen, n, d):
+    return int8.quantize_channelwise(_randn(gen, n, d, scale=0.02))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,d,n,bias,residual,act", [
+    (8, 6144, 6144, True, False, None),       # the decode projection
+    (8, 6144, 18432, True, False, None),      # the prefill's fused qkv
+    (3, 256, 200, False, True, "sqrelu"),
+    (20, 1040, 96, True, True, "gelu")])      # rows past one tile of 8
+def test_int8_gemm_kernel_matches_plain(cuda, dtype, m, d, n, bias,
+                                        residual, act):
+    x = _randn(cuda, m, d, dtype=dtype)
+    w_q, scale = _quantized(cuda, n, d)
+    b = 0.1 * _randn(cuda, n) if bias else None
+    res = _randn(cuda, m, n) if residual else None
+    before = common.LAUNCHES["int8_gemm"]
+    got = int8.int8_gemm(x, w_q, scale, b, activation=act, residual=res)
+    assert common.LAUNCHES["int8_gemm"] == before + 1
+    want = int8.int8_gemm_plain(x, w_q, scale, b, res, act)
+    _close(got, want, _int8_limits(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,d,n,shift,bias", [
+    (8, 6144, 18432, True, True),   # the decode step's qkv
+    (8, 6144, 8192, False, False),  # the vocab head
+    (5, 512, 136, True, False)])
+def test_int8_ln_gemm_kernel_matches_plain(cuda, dtype, m, d, n, shift,
+                                           bias):
+    x = _randn(cuda, m, d, dtype=dtype, scale=2.0)
+    gamma, beta = 1.0 + 0.1 * _randn(cuda, d), 0.1 * _randn(cuda, d)
+    tm = torch.linspace(0, 1, d, device="cuda") if shift else None
+    prev = _randn(cuda, m, d, dtype=torch.bfloat16) if shift else None
+    w_q, scale = _quantized(cuda, n, d)
+    b = 0.1 * _randn(cuda, n, dtype=torch.bfloat16) if bias else None
+    before = common.LAUNCHES["int8_ln_gemm"]
+    got, xn = int8.int8_ln_gemm(x, gamma, beta, tm, prev, w_q, scale, b)
+    assert common.LAUNCHES["int8_ln_gemm"] == before + 1
+    want, want_xn = int8.int8_ln_gemm_plain(x, gamma, beta, tm, prev, w_q,
+                                            scale, b)
+    _close(got, want, _int8_limits(want))
+    _close(xn, want_xn, _int8_limits(want_xn))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,d,h,bias", [(8, 6144, 24576, True),
+                                        (3, 256, 1024, False),
+                                        (19, 512, 2048, True)])
+def test_int8_mlp_kernel_matches_plain(cuda, dtype, m, d, h, bias):
+    x = _randn(cuda, m, d, dtype=dtype)
+    gamma, beta = 1.0 + 0.1 * _randn(cuda, d), 0.1 * _randn(cuda, d)
+    w0_q, s0 = _quantized(cuda, h, d)
+    w1_q, s1 = _quantized(cuda, d, h)
+    b0 = 0.1 * _randn(cuda, h) if bias else None
+    b1 = 0.1 * _randn(cuda, d) if bias else None
+    before = common.LAUNCHES["int8_mlp"]
+    got = int8.int8_mlp_decode(x, gamma, beta, w0_q, s0, b0, w1_q, s1, b1,
+                               residual=x)
+    assert common.LAUNCHES["int8_mlp"] == before + 1
+    want = int8.int8_mlp_plain(x, gamma, beta, w0_q, s0, b0, w1_q, s1, b1,
+                               x.float())
+    # bf16: the hidden rounds to bf16 before W1; a sum in another order
+    # puts some hidden values on the other side of a rounding boundary
+    tol = _int8_limits(want)
+    if dtype == torch.bfloat16:
+        tol = dict(atol=2.0 ** -7 * float(want.float().abs().max()),
+                   rtol=2.0 ** -7)
+    _close(got, want, tol)
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype", [
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.float32)])
+@pytest.mark.parametrize("m,d,n,shift", [(8, 6144, 18432, True),
+                                         (4, 384, 264, False)])
+def test_ln_shift_gemm_kernel_matches_plain(cuda, x_dtype, w_dtype, m, d, n,
+                                            shift):
+    x = _randn(cuda, m, d, dtype=x_dtype, scale=2.0)
+    gamma, beta = 1.0 + 0.1 * _randn(cuda, d), 0.1 * _randn(cuda, d)
+    tm = torch.linspace(0, 1, d, device="cuda") if shift else None
+    prev = _randn(cuda, m, d, dtype=torch.bfloat16) if shift else None
+    w = _randn(cuda, n, d, dtype=w_dtype, scale=d ** -0.5)
+    b = 0.1 * _randn(cuda, n)
+    before = common.LAUNCHES["ln_shift_gemm"]
+    got, xn = lg.fused_ln_shift_gemm(x, gamma, beta, tm, prev, w, b)
+    assert common.LAUNCHES["ln_shift_gemm"] == before + 1
+    want, want_xn = lg.ln_shift_gemm_plain(x, gamma, beta, tm, prev, w, b)
+    _close(got, want, _int8_limits(want))
+    _close(xn, want_xn, _int8_limits(want_xn))
+
+
+def test_int8_kernels_refuse_autograd_and_odd_shapes(cuda):
+    x = _randn(cuda, 8, 256).requires_grad_()
+    g, bt = torch.ones(256, device="cuda"), torch.zeros(256, device="cuda")
+    w_q, scale = _quantized(cuda, 128, 256)
+    with pytest.raises(NotImplementedError):
+        int8.int8_gemm(x, w_q, scale)
+    with pytest.raises(NotImplementedError):
+        int8.int8_ln_gemm(x, g, bt, None, None, w_q, scale)
+    with pytest.raises(NotImplementedError):
+        lg.fused_ln_shift_gemm(x, g, bt, None, None,
+                               _randn(cuda, 128, 256, dtype=torch.bfloat16))
+    w1_q, s1 = _quantized(cuda, 256, 128)
+    with pytest.raises(NotImplementedError):
+        int8.int8_mlp_decode(x, g, bt, w_q, scale, None, w1_q, s1, None,
+                             residual=x)
+    with pytest.raises(ValueError):  # d % 16
+        int8.int8_gemm(_randn(cuda, 8, 200), *_quantized(cuda, 64, 200))
+
+
+def _int8_stack(gen, layers, b, ctx, hd, cur):
+    """An int8 (L, B, ctx, H*D) k and v and their fp32 row scales; rows at
+    or past each row's cur_len hold 127 at a scale of 1e6."""
+    out = []
+    dead = (torch.arange(ctx, device="cuda")[None, :]
+            >= torch.as_tensor(cur, device="cuda").reshape(-1, 1))
+    for _ in range(2):
+        q, sc = int8.quantize_channelwise(_randn(gen, layers, b, ctx, hd))
+        q.masked_fill_(dead[None, :, :, None].expand_as(q), 127)
+        sc.masked_fill_(dead[None].expand_as(sc), 1e6)
+        out += [q, sc]
+    return out
+
+
+@pytest.mark.parametrize("q_dtype,cache_dtype", [
+    (torch.float32, torch.bfloat16), (torch.float32, torch.int8),
+    (torch.bfloat16, torch.int8)])
+@pytest.mark.parametrize("cur", [1, 255, 513, 1024, "ragged"])
+def test_decode_attention_kernel_mixed_dtypes_match_plain(
+        cuda, q_dtype, cache_dtype, cur):
+    layers, b, ctx, h, d = 3, 4, 1032, 16, 384
+    if cur == "ragged":
+        cur = torch.tensor([1, 255, 513, 1024], dtype=torch.int32,
+                           device="cuda")
+    if cache_dtype == torch.int8:
+        k, ks, v, vs = _int8_stack(cuda, layers, b, ctx, h * d, cur)
+        new_dtype = q_dtype
+    else:
+        k, v = _stack(cuda, layers, b, ctx, h * d, cur, cache_dtype)
+        ks = vs = None
+        new_dtype = cache_dtype
+    q3 = _randn(cuda, b, h * d, dtype=q_dtype, scale=d ** -0.5)
+    kn, vn = (_randn(cuda, b, h * d, dtype=new_dtype) for _ in range(2))
+    before = common.LAUNCHES["decode_attention"]
+    got = att.decode_attention_stacked(q3, k, v, kn, vn, cur, 1, head_dim=d,
+                                       k_scale=ks, v_scale=vs)
+    assert common.LAUNCHES["decode_attention"] == before + 1
+    assert got.dtype == q_dtype
+    with common.force_plain_ops():
+        want = att.decode_attention_stacked(q3, k, v, kn, vn, cur, 1,
+                                            head_dim=d, k_scale=ks,
+                                            v_scale=vs)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    # the plain version computes PV in the value dtype it dequantises or
+    # reads to (bf16 under a bf16 cache or q) and rounds its unnormalised
+    # sum, the kernel sums in fp32: two bf16 steps of the row's largest
+    # output
+    if torch.bfloat16 in (q_dtype, cache_dtype):
+        _row_close(got, want, 2.0 ** -7, 2.0 ** -7)
+    else:
+        _row_close(got, want, 1e-5, 1e-5)
+    # against the same function in fp32 on the same (dequantised) values:
+    # another summation order, and one rounding of a bf16 output
+    if cache_dtype == torch.int8:
+        k32, v32 = att.dequant_cache(k[1], v[1], ks[1], vs[1], torch.float32)
+    else:
+        k32, v32 = k[1].float(), v[1].float()
+    want32 = att.decode_attention_plain(q3.float(), k32, v32, kn.float(),
+                                        vn.float(), cur, d)
+    if q_dtype == torch.float32:
+        _row_close(got, want32, 1e-5, 1e-5)
+    else:
+        _row_close(got, want32, 2.0 ** -12, 2.0 ** -8)
+
+
+def test_decode_attention_kernel_refuses_unpaired_dtypes(cuda):
+    k, v = _stack(cuda, 1, 2, 64, 128, 10, torch.float32)
+    q = _randn(cuda, 2, 128, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):  # (bf16 q, f32 cache) is no pair
+        att.decode_attention_stacked(q, k, v, q, q, 10, 0, head_dim=64)
+    kq, vq = k.to(torch.int8), v.to(torch.int8)
+    qf = q.float()
+    with pytest.raises(ValueError):  # an int8 cache needs its scales
+        att.decode_attention_stacked(qf, kq, vq, qf, qf, 10, 0, head_dim=64)
+
+
+def test_int8_gpt_decode_goes_through_the_int8_kernels(cuda):
+    """Two layers at the prior's width, bf16 weights quantised, an int8
+    cache: prefill + 8 decode steps launch B12 2 x 2 + 2 x 8, B14 2 + 2 x
+    8, B13 1 + 3 x 8, B9 2 x 8, B10 2 x 8, B8 2; the kernels' logits
+    against the plain
+    path's within 2^-6 of the largest."""
+    from enhancing_tpu_torch.models.stage2 import (GPT,
+                                                   drop_quantized_kernels,
+                                                   quantize_decode_params)
+    gpt = GPT(vocab_cond_size=1000, vocab_img_size=8192, embed_dim=6144,
+              cond_num_tokens=1, img_num_tokens=16, n_heads=16, n_layers=2,
+              dtype="bfloat16", kv_int8=True, device="cuda")
+    quantize_decode_params(gpt)
+    drop_quantized_kernels(gpt)
+    codes = torch.randint(0, 8192, (8, 16), generator=cuda, device="cuda")
+    conds = torch.randint(0, 1000, (8, 1), generator=cuda, device="cuda")
+
+    def run():
+        with torch.inference_mode():
+            cache_ = gpt.init_cache(8)
+            logits, cache_ = gpt.prefill(conds, cache_)
+            out = [logits]
+            for step in range(1, 9):
+                logits, cache_ = gpt.decode_step(codes[:, step - 1], step,
+                                                 cache_)
+                out.append(logits)
+        return torch.stack(out, 1).float()
+
+    common.reset_launches()
+    got = run()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in common.LAUNCHES.items() if v}
+    assert launches == {"int8_gemm": 20, "int8_mlp": 18, "int8_ln_gemm": 25,
+                        "decode_attention": 16, "attention_bnhd": 2,
+                        "cache_row_update": 16}, launches
+    with common.force_plain_ops():
+        want = run()
+    err = float((got - want).abs().max())
+    assert err <= 2.0 ** -6 * float(want.abs().max()), err

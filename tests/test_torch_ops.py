@@ -526,9 +526,19 @@ def test_decode_attention_rows_outside_the_cache_match_jax_xla():
                                   _t(vn), bad, head_dim=64)
 
 
-def test_decode_attention_refuses_the_int8_cache():
-    z = torch.zeros(2, 8, 64)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tatt.decode_attention(z[:, 0], z, z, z[:, 0], z[:, 0], 3,
-                              head_dim=32, k_scale=torch.ones(2, 8),
-                              v_scale=torch.ones(2, 8))
+def test_decode_attention_int8_cache_plain_is_the_dequantised_cache():
+    """An int8 cache's plain version dequantises the layer to q's dtype
+    (``_dequant_cache``) and runs the full-precision decode on it."""
+    rng = np.random.default_rng(10)
+    kq, vq = (rng.integers(-127, 128, (2, 3, 16, 64)).astype(np.int8)
+              for _ in range(2))
+    ks, vs = (rng.random((2, 3, 16)).astype(np.float32) for _ in range(2))
+    q3, kn, vn = (_t(rng.standard_normal((3, 64)).astype(np.float32))
+                  for _ in range(3))
+    got = tatt.decode_attention_stacked(q3, _t(kq), _t(vq), kn, vn, 9, 1,
+                                        head_dim=32, k_scale=_t(ks),
+                                        v_scale=_t(vs))
+    k = _t(kq[1]).float() * _t(ks[1])[..., None]
+    v = _t(vq[1]).float() * _t(vs[1])[..., None]
+    want = tatt.decode_attention_plain(q3, k, v, kn, vn, 9, 32)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)

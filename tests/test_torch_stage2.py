@@ -283,13 +283,9 @@ def test_flagship_config_builds_shrunk():
 
 def test_refused_options_raise():
     with pytest.raises(NotImplementedError, match="A8"):
-        GPT(**TINY, kv_int8=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
         GPT(**TINY, act_int8=True, device="cpu")
     with pytest.raises(NotImplementedError, match="A9"):
         GPT(**TINY, sp_mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        load_gpt_from_jax(GPT(**TINY, device="cpu"), {"quant": {}})
     cfg = load_config(REPO / "configs" / "fake_gpt_tiny.yaml").model
     rq = copy.deepcopy(cfg.to_dict())
     rq["params"]["transformer"]["target"] = \
@@ -304,11 +300,43 @@ def test_refused_options_raise():
 
 
 def test_decode_lnfuse_raises(monkeypatch):
+    """ENHANCING_TPU_DECODE_LNFUSE names sites of qkv, mlp and head (or
+    all / none); an unknown site raises at the decode step."""
     tm = GPT(**TINY, device="cpu")
     cache = tm.init_cache(1)
-    monkeypatch.setenv("ENHANCING_TPU_DECODE_LNFUSE", "qkv")
-    with pytest.raises(NotImplementedError, match="B11"):
+    monkeypatch.setenv("ENHANCING_TPU_DECODE_LNFUSE", "qkv,bogus")
+    with pytest.raises(ValueError, match="bogus"):
         tm.decode_step(torch.tensor([1]), 1, cache)
+
+
+@pytest.mark.parametrize("sites", ["qkv", "mlp", "head", "qkv,head", "all"])
+def test_decode_lnfuse_sites_give_the_default_logits(pair, monkeypatch,
+                                                     sites):
+    """Each LNFUSE site computes the default path's function: f32 logits
+    within the f32 tolerance of the unfused decode."""
+    _, _, tm = pair
+    codes, conds = _inputs(b=2, seed=11)
+    want = _port_decode(tm, codes, conds)
+    monkeypatch.setenv("ENHANCING_TPU_DECODE_LNFUSE", sites)
+    np.testing.assert_allclose(_port_decode(tm, codes, conds), want,
+                               **F32_TOL)
+
+
+def test_loader_takes_the_quant_collection_of_either_layout():
+    """A quant tree without params raises; the variables of the JAX
+    quantize_decode_params fill the twins (test_torch_int8 holds them to
+    JAX)."""
+    from enhancing_tpu.models.stage2 import \
+        quantize_decode_params as jax_quantize
+    for scan in (True, False):
+        jm = JaxGPT(**TINY, scan_layers=scan)
+        qvs = jax.tree_util.tree_map(
+            np.asarray, jax_quantize({"params": _jax_params(jm)}))
+        tm = load_gpt_from_jax(GPT(**TINY, device="cpu"), qvs)
+        assert tm.head.weight_q.shape == (128, 64)
+        assert tm.blocks_1.attn.qkv_q.shape == (192, 64)
+    with pytest.raises(KeyError):
+        load_gpt_from_jax(GPT(**TINY, device="cpu"), {"quant": {}})
 
 
 def test_loader_refuses_mismatches():
