@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Four paths, in bf16 with random weights from a seed; the first two at
+Five paths, in bf16 with random weights from a seed; the tokenizer's at
 ViT-VQGAN-Base's full widths and depth (256 px, 8x8 patches, width 768,
 12 heads of 64, MLP 3072, 12 + 12 layers, 8192 codes of 32):
 
@@ -17,7 +17,10 @@ ViT-VQGAN-Base's full widths and depth (256 px, 8x8 patches, width 768,
 - int8 serving of that prior, as the JAX package's
   ``scripts/serve_continuous.py --int8`` builds it: int8 weights
   (``quantize_decode_params``, ``drop_quantized_kernels``) and an int8 KV
-  cache.
+  cache;
+- fused serving: the tokenizer round trip with the JAX package's two
+  opt-in fusions, ``ENHANCING_TPU_ATTN_PROJ=1`` and ``ffn_impl: fused``
+  in the encoder and decoder configs.
 
 Phases, each of which raises on failure:
 
@@ -59,7 +62,19 @@ Phases, each of which raises on failure:
    memory it frees, ``kv_int8``; one ``CondTransformer.sample`` with its
    launches asserted exactly; tokens/s, ms per decode step against its
    bound, peak memory; the kernels against the plain path on 32 decode
-   steps; one decode step's device time by kernel group.
+   steps; one decode step's device time by kernel group;
+9. fused serving: requests of batch 1, 8 and 128 through
+   ``encode_codes`` -> ``decode_codes`` of a model built with ``ffn_impl:
+   fused`` under ENHANCING_TPU_ATTN_PROJ=1, counters reset just before
+   and read just after, launches per round trip asserted exactly (B1 24,
+   B15 24, B3 26, B16 24, B4 1); codes and reconstructions held to the
+   default path (same seed) and to the plain path at batch 8 with phase
+   5's limits; images/s and peak memory at batch 128 and one round
+   trip's device time by kernel group.
+
+Phases 3 and 4 also hold and time B17-B19, which no driven path runs
+(their JAX counterparts are a public op, a function with no caller and a
+kernel only a test reaches).
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``. With no card, or run
@@ -120,6 +135,12 @@ BASE = {k: FAKE_VITVQ_BASE["model"]["params"][k]
 TOKENS, WIDTH, HEADS, HEAD_DIM, MLP, CODES, EMBED = 1024, 768, 12, 64, 3072, 8192, 32
 CHECK_BATCH, TIME_BATCH, TRAIN_BATCH = 8, 128, 8
 ROUND_TRIP = {"ln_gemm": 48, "attention": 24, "layernorm": 2, "vq": 1}
+# the round trip with ENHANCING_TPU_ATTN_PROJ=1 and ffn_impl='fused', per
+# block of the 12 + 12: B1 at LN1 -> qkv, B15 for attention -> to_out ->
+# + residual, B3 at LN2, B16 for fc1 -> tanh -> fc2; then B3 at each
+# stack's final LayerNorm and B4 once
+FUSED_TRIP = {"ln_gemm": 24, "attn_proj": 24, "layernorm": 26, "ffn": 24,
+              "vq": 1}
 # per training step of fake_vitvq_base: two AE forwards (the AE update and
 # the D update's fresh reconstruction), one AE backward, three D forwards
 # (D on xrec in the AE phase, on x and xrec in the D phase) of 12 blurs
@@ -148,6 +169,11 @@ REPLACES = {
     "int8_gemm": "enhancing_tpu/ops/int8.py:246",
     "int8_ln_gemm": "enhancing_tpu/ops/int8.py:373",
     "int8_mlp": "enhancing_tpu/ops/int8.py:506",
+    "attn_proj": "enhancing_tpu/ops/attention.py:1164",
+    "ffn": "enhancing_tpu/ops/ffn.py:88",
+    "attention_bhnd": "enhancing_tpu/ops/attention.py:107",
+    "attention_fused_bnhd": "enhancing_tpu/ops/attention.py:838",
+    "attention_gridchunk": "enhancing_tpu/ops/attention.py:540",
 }
 # configs/imagenet_gpt_vitvq_base.yaml's model after load_config's target
 # remap (a CPU test holds the two equal), less the stage-1 checkpoint path:
@@ -217,7 +243,11 @@ D_ACTS = ([(TRAIN_BATCH, 256, 256, 128)] * 2
           + [(TRAIN_BATCH, 128, 128, 256)] * 2 + [(TRAIN_BATCH, 64, 64, 512)] * 2
           + [(TRAIN_BATCH, s, s, 512) for s in (32, 32, 16, 16, 8, 8, 4, 4)]
           + [(TRAIN_BATCH, 512)])
-SOURCES = {name: f"enhancing_tpu_torch/csrc/{name}.cu" for name in REPLACES}
+# B17-B19 run the generalised attention forward of B8's source
+SOURCES = {name: "enhancing_tpu_torch/csrc/" + {
+    "attention_bhnd": "attention_bnhd", "attention_fused_bnhd":
+    "attention_bnhd", "attention_gridchunk": "attention_bnhd"}.get(
+        name, name) + ".cu" for name in REPLACES}
 
 
 def log(msg: str) -> None:
@@ -255,9 +285,9 @@ def plain_versions():
     of this script only. The package itself sends CUDA tensors to the
     kernels and has no such switch (``force_plain_ops`` aside, which R1
     alone uses)."""
-    from enhancing_tpu_torch.ops import (attention, cache, fused_act, int8,
-                                         ln_gemm, upfirdn2d, vq)
-    mods = (attention, ln_gemm, vq, upfirdn2d, fused_act, cache, int8)
+    from enhancing_tpu_torch.ops import (attention, cache, ffn, fused_act,
+                                         int8, ln_gemm, upfirdn2d, vq)
+    mods = (attention, ln_gemm, vq, upfirdn2d, fused_act, cache, int8, ffn)
     saved = [m.use_kernel for m in mods]
     for m in mods:
         m.use_kernel = lambda *tensors, **kw: False
@@ -455,6 +485,7 @@ def phase_compare() -> dict:
 
     compare_prior_kernels(gen, close, errs)
     compare_int8_kernels(gen, close, errs)
+    compare_fused_kernels(gen, close, errs)
     torch.cuda.synchronize()
     return errs
 
@@ -866,6 +897,7 @@ def phase_times() -> dict:
     del xa
     time_prior_kernels(gen, row)
     time_int8_kernels(gen, row)
+    time_fused_kernels(gen, row)
     return rows
 
 
@@ -1084,6 +1116,166 @@ def time_int8_kernels(gen, row) -> None:
     del k8, v8, ks, vs, k_cat, v_cat
 
 
+def proj_inputs(gen, b, n, heads, ho):
+    """B15's operands: the lane slices of a bf16 (B, N, 3 * H * 64) qkv
+    buffer as (B, N, H, 64) views, a Xavier-scaled bf16 to_out weight
+    (HO, H * 64), an fp32 bias and a bf16 residual."""
+    hd = heads * HEAD_DIM
+    qkv = rand((b, n, 3 * hd), gen)
+    q, k, v = (t.unflatten(-1, (heads, HEAD_DIM)) for t in qkv.chunk(3, -1))
+    wp = rand((ho, hd), gen, scale=(2.0 / (hd + ho)) ** 0.5)
+    bp = 0.02 * torch.randn(ho, generator=gen, device="cuda")
+    return q, k, v, wp, bp, rand((b, n, ho), gen)
+
+
+def ffn_inputs(gen, m, d, h):
+    """B16's operands: bf16 x (m, d), Xavier-scaled bf16 fc1 (h, d) and fc2
+    (d, h) weights, fp32 biases."""
+    scale = (2.0 / (d + h)) ** 0.5
+    return (rand((m, d), gen), rand((h, d), gen, scale=scale),
+            0.02 * torch.randn(h, generator=gen, device="cuda"),
+            rand((d, h), gen, scale=scale),
+            0.02 * torch.randn(d, generator=gen, device="cuda"))
+
+
+def compare_fused_kernels(gen, close, errs) -> None:
+    """B15-B19 against their plain versions: B15 and B16 at the fused
+    round trip's Base shapes (batch 8), a ragged prefix-causal case and
+    imagenet_vitvq_large's decoder widths; B17 and B18 at ViT-Base's
+    attention shape and at M != N; B19 at the stage-2 training shape."""
+    from enhancing_tpu_torch.ops import attention as att
+    from enhancing_tpu_torch.ops import ffn
+    # B15 and B16: bf16 outputs of O(1) (the residual; the FFN), each side
+    # rounding its fp32 sum once; the attention tile's P rounds against the
+    # running row max in the kernel, which moves a projected output by
+    # ~1e-4 (768 terms of weights ~0.04). One bf16 step of each element
+    # (rtol 2^-7) + 2^-8 of its row's largest |plain| (row_atol)
+    for (b, n, heads, ho, mode, cl) in (
+            (CHECK_BATCH, TOKENS, HEADS, WIDTH, "none", 0),
+            (2, TOKENS + 1, HEADS, WIDTH, "prefix_causal", 5),
+            (1, TOKENS, 16, 1280, "none", 0)):
+        q, k, v, wp, bp, res = proj_inputs(gen, b, n, heads, ho)
+        scale = HEAD_DIM ** -0.5
+        got = att.attn_proj_kernel(q, k, v, wp, bp, res, scale, mode, cl)
+        want = att.attention_proj_plain(q, k, v, wp, bp, res, scale, mode,
+                                        cl).view(-1, ho)
+        close("attn_proj", f"attn_proj {mode} B={b} N={n} H={heads} D=64 "
+              f"HO={ho} (lane slices of qkv)", got.view(-1, ho), want,
+              atol=row_atol(want, 2.0 ** -8), rtol=2.0 ** -7)
+    for (m, d, h, act) in ((CHECK_BATCH * TOKENS, WIDTH, MLP, "tanh"),
+                           (1000, 1280, 5120, "tanh"),
+                           (1000, 512, 2048, "gelu"),
+                           (333, 64, 128, "sqrelu")):
+        args = ffn_inputs(gen, m, d, h)
+        want = ffn.ffn_plain(*args, act)
+        close("ffn", f"ffn {act} M={m} d={d} h={h}",
+              ffn.ffn_kernel(*args, act), want,
+              atol=row_atol(want, 2.0 ** -8), rtol=2.0 ** -7)
+
+    # B17-B19: as B2 and B8, P rounds to bf16 against the running row max
+    atol_att = dict(atol=1e-2, rtol=2.0 ** -7)
+    for (b, h, n, m, mode, cl) in (
+            (CHECK_BATCH, HEADS, TOKENS, TOKENS, "none", 0),
+            (2, 4, 300, 517, "prefix_causal", 5),
+            (2, 4, 517, 300, "none", 0)):
+        q = rand((b, h, n, HEAD_DIM), gen)
+        k, v = (rand((b, h, m, HEAD_DIM), gen) for _ in range(2))
+        close("attention_bhnd", f"attention_bhnd (B, H, N, D) {mode} B={b} "
+              f"H={h} N={n} M={m} D=64",
+              att.attention_bhnd_kernel(q, k, v, 0.125, mode, cl),
+              att.attention_plain(q, k, v, 0.125, mode, cl), **atol_att)
+    for (b, n, h, mode, cl) in ((CHECK_BATCH, TOKENS, HEADS, "none", 0),
+                                (2, TOKENS + 1, 4, "prefix_causal", 9)):
+        q, k, v = (rand((b, n, h, HEAD_DIM), gen) for _ in range(3))
+        close("attention_fused_bnhd", f"attention_fused_bnhd (B, N, H, D) "
+              f"{mode} B={b} N={n} H={h} D=64",
+              att.attention_strided_kernel("attention_fused_bnhd", q, k, v,
+                                           0.125, mode, cl,
+                                           score_scale=True),
+              att.attention_fused_bnhd_plain(q, k, v, 0.125, mode, cl),
+              **atol_att)
+    for cl in (1, 100):
+        q3 = rand((SAMPLE_BATCH, TOKENS + 1, 16 * HEAD_DIM), gen, scale=0.125)
+        k3, v3 = (rand(q3.shape, gen) for _ in range(2))
+        close("attention_gridchunk", f"attention_gridchunk prefix_causal "
+              f"cond_len {cl} B=8 H=16 N=1025 D=64 (packed, q pre-scaled)",
+              att.attention_packed_gridchunk(q3, k3, v3, "prefix_causal", cl,
+                                             HEAD_DIM),
+              att.attention_packed_plain(q3, k3, v3, "prefix_causal", cl,
+                                         HEAD_DIM), **atol_att)
+
+
+def time_fused_kernels(gen, row) -> None:
+    """B15-B18 at the serving batch 128 (B17 and B18 at ViT-Base's
+    attention shape), B19 at the stage-2 training shape (batch 8)."""
+    from enhancing_tpu_torch.ops import attention as att
+    from enhancing_tpu_torch.ops import ffn
+    b, n, h, d, hd = TIME_BATCH, TOKENS, HEADS, HEAD_DIM, HEADS * HEAD_DIM
+    scale = d ** -0.5
+    q, k, v, wp, bp, res = proj_inputs(gen, b, n, h, WIDTH)
+    bp16 = bp.to(torch.bfloat16)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    row("attn_proj", f"attn_proj B={b} N={n} H={h} D={d} HO={WIDTH} "
+        "(library: SDPA, F.linear, + residual)",
+        lambda: att.attn_proj_kernel(q, k, v, wp, bp, res, scale),
+        lambda: att.attention_proj_plain(q, k, v, wp, bp, res, scale),
+        lambda: F.linear(F.scaled_dot_product_attention(qt, kt, vt)
+                         .transpose(1, 2).reshape(b, n, hd), wp, bp16) + res,
+        4.0 * b * h * n * n * d + 2.0 * b * n * hd * WIDTH,
+        (3 * b * n * hd + 2 * b * n * WIDTH + WIDTH * hd) * 2 + WIDTH * 4,
+        PEAK_BF16, 10)
+    del q, k, v, qt, kt, vt, res
+
+    m = b * TOKENS
+    x, w1, b1, w2, b2 = ffn_inputs(gen, m, WIDTH, MLP)
+    b1h, b2h = b1.to(torch.bfloat16), b2.to(torch.bfloat16)
+    row("ffn", f"ffn tanh M={m} d={WIDTH} h={MLP} (library: F.linear, "
+        "tanh, F.linear)",
+        lambda: ffn.ffn_kernel(x, w1, b1, w2, b2, "tanh"),
+        lambda: ffn.ffn_plain(x, w1, b1, w2, b2, "tanh"),
+        lambda: F.linear(torch.tanh(F.linear(x, w1, b1h)), w2, b2h),
+        4.0 * m * WIDTH * MLP,
+        (2 * m * WIDTH + 2 * WIDTH * MLP) * 2 + (WIDTH + MLP) * 4,
+        PEAK_BF16, 10)
+    del x, w1, w2
+
+    flops = 4.0 * b * h * n * n * d
+    nbytes = 4 * b * h * n * d * 2
+    q, k, v = (rand((b, h, n, d), gen) for _ in range(3))
+    row("attention_bhnd", f"attention_bhnd (B, H, N, D) none B={b} H={h} "
+        f"N={n} D={d} (library: SDPA)",
+        lambda: att.attention_bhnd_kernel(q, k, v, scale),
+        lambda: att.attention_plain(q, k, v, scale),
+        lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+        flops, nbytes, PEAK_BF16, 10)
+    q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    row("attention_fused_bnhd", f"attention_fused_bnhd (B, N, H, D) none "
+        f"B={b} N={n} H={h} D={d} (library: SDPA on the transposed views)",
+        lambda: att.attention_strided_kernel("attention_fused_bnhd", q, k, v,
+                                             scale, score_scale=True),
+        lambda: att.attention_fused_bnhd_plain(q, k, v, scale),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale),
+        flops, nbytes, PEAK_BF16, 10)
+    del q, k, v, qt, kt, vt
+
+    bs, hs, ns = SAMPLE_BATCH, 16, TOKENS + 1
+    q3 = rand((bs, ns, hs * d), gen, scale=0.125)
+    k3, v3 = (rand(q3.shape, gen) for _ in range(2))
+    qt, kt, vt = (t.view(bs, ns, hs, d).transpose(1, 2) for t in (q3, k3, v3))
+    # causal with cond_len 1: row i sees i + 1 keys
+    pairs = bs * hs * ns * (ns + 1) / 2
+    row("attention_gridchunk", f"attention_gridchunk prefix_causal cond_len "
+        f"1 B={bs} H={hs} N={ns} D={d} (library: SDPA is_causal)",
+        lambda: att.attention_packed_gridchunk(q3, k3, v3, "prefix_causal",
+                                               1, d),
+        lambda: att.attention_packed_plain(q3, k3, v3, "prefix_causal", 1,
+                                           d),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               scale=1.0),
+        4.0 * pairs * d, 4 * bs * ns * hs * d * 2, PEAK_BF16, 20)
+
+
 def phase_main_path() -> dict:
     """The tokenizer round trip through the public entry points."""
     from enhancing_tpu_torch.models.stage1.vitvqgan import ViTVQ
@@ -1109,10 +1301,10 @@ def phase_main_path() -> dict:
     trips = len(outs)
     log(f"[main] launches over {trips} round trips: {launches}; per round "
         f"trip {({k: v / trips for k, v in launches.items()})}")
-    for name, per_trip in ROUND_TRIP.items():
-        check(launches[name] == trips * per_trip,
-              f"{name}: {launches[name]} launches, expected "
-              f"{trips * per_trip}")
+    for name in LAUNCHES:
+        want = trips * ROUND_TRIP.get(name, 0)
+        check(launches[name] == want,
+              f"{name}: {launches[name]} launches, expected {want}")
 
     for b, (codes, rec) in outs.items():
         check(codes.shape == (b, TOKENS) and codes.dtype == torch.int32,
@@ -1166,6 +1358,105 @@ def phase_main_path() -> dict:
         f"{TIME_BATCH / dt:.1f} images/s, peak memory {peak / 2**30:.2f} GiB")
     profile_device(f"one round trip batch {TIME_BATCH}",
                    lambda: model.decode_codes(model.encode_codes(x)))
+    return launches
+
+
+def phase_fused_serving() -> dict:
+    """The tokenizer round trip with both of the JAX package's opt-in
+    fusions: ENHANCING_TPU_ATTN_PROJ=1 and ``ffn_impl: fused`` in the
+    encoder and decoder configs, through the public entry points."""
+    import os
+
+    from enhancing_tpu_torch.models.stage1.vitvqgan import ViTVQ
+    from enhancing_tpu_torch.ops import LAUNCHES, reset_launches
+    fused_cfg = dict(BASE, encoder=dict(BASE["encoder"], ffn_impl="fused"),
+                     decoder=dict(BASE["decoder"], ffn_impl="fused"))
+    t0 = time.perf_counter()
+    model = ViTVQ(dtype="bfloat16", seed=0, device="cuda", **fused_cfg)
+    default = ViTVQ(dtype="bfloat16", seed=0, device="cuda", **BASE)
+    log(f"[fused] ViT-VQGAN-Base bf16 with ffn_impl 'fused', and the default"
+        f" model from the same seed, built in {time.perf_counter() - t0:.1f}"
+        " s")
+    rng = np.random.default_rng(3)
+    inputs = {b: torch.from_numpy(rng.random((b, 256, 256, 3),
+                                             dtype=np.float32)).cuda()
+              for b in (1, CHECK_BATCH, TIME_BATCH)}
+    saved = os.environ.get("ENHANCING_TPU_ATTN_PROJ")
+    os.environ["ENHANCING_TPU_ATTN_PROJ"] = "1"
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        outs = {}
+        for b in (1, CHECK_BATCH, TIME_BATCH):
+            codes = model.encode_codes(inputs[b])
+            outs[b] = (codes, model.decode_codes(codes))
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        trips = len(outs)
+        log(f"[fused] launches over {trips} round trips: {launches}")
+        want = {k: trips * FUSED_TRIP.get(k, 0) for k in LAUNCHES}
+        check(launches == want, f"fused round trips: launches {launches}, "
+              f"expected {want}")
+        for b, (codes, rec) in outs.items():
+            check(codes.shape == (b, TOKENS) and codes.dtype == torch.int32
+                  and bool(((codes >= 0) & (codes < CODES)).all()),
+                  f"fused codes of batch {b}: {codes.shape} {codes.dtype}")
+            check(rec.shape == (b, 256, 256, 3)
+                  and rec.dtype == torch.bfloat16
+                  and bool(torch.isfinite(rec).all()),
+                  f"fused reconstruction of batch {b}")
+        log("[fused] requests of batch 1, 8, 128: codes int32 in [0, 8192),"
+            " reconstructions finite (B, 256, 256, 3) bf16")
+
+        # against the default path (its kernels), and against the plain
+        # path on the same fused model: phase 5's limits
+        codes_f, rec_f = outs[CHECK_BATCH]
+        x8 = inputs[CHECK_BATCH]
+        os.environ.pop("ENHANCING_TPU_ATTN_PROJ")
+        codes_d = default.encode_codes(x8)
+        rec_d = default.decode_codes(codes_f)
+        os.environ["ENHANCING_TPU_ATTN_PROJ"] = "1"
+        before = dict(LAUNCHES)
+        with plain_versions():
+            codes_p = model.encode_codes(x8)
+            rec_p = model.decode_codes(codes_f)
+        check(LAUNCHES == before, "the plain path launched a kernel")
+        for label, codes_o, rec_o in (("the default path", codes_d, rec_d),
+                                      ("the plain path", codes_p, rec_p)):
+            match = float((codes_f == codes_o).float().mean()) * 100
+            err = float((rec_f.float() - rec_o.float()).abs().max())
+            log(f"[fused] batch {CHECK_BATCH}, fused kernels vs {label}: "
+                f"code match {match:.3f}% (threshold 95%), reconstruction "
+                f"from the same codes max_abs_err {err:.4e} (|other| max "
+                f"{float(rec_o.float().abs().max()):.3f}, threshold 0.1)")
+            check(match >= 95.0, f"fused codes disagree with {label}")
+            check(err <= 0.1, f"fused reconstructions disagree with {label}")
+        del default, rec_d, rec_p
+
+        torch.cuda.reset_peak_memory_stats()
+        x = inputs[TIME_BATCH]
+        for _ in range(2):
+            model.decode_codes(model.encode_codes(x))
+        torch.cuda.synchronize()
+        iters = 5
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            model.decode_codes(model.encode_codes(x))
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / iters
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[fused] round trip batch {TIME_BATCH}: {dt * 1e3:.2f} ms, "
+            f"{TIME_BATCH / dt:.1f} images/s, peak memory "
+            f"{peak / 2**30:.2f} GiB")
+        profile_device(f"one fused round trip batch {TIME_BATCH}",
+                       lambda: model.decode_codes(model.encode_codes(x)))
+    finally:
+        if saved is None:
+            os.environ.pop("ENHANCING_TPU_ATTN_PROJ", None)
+        else:
+            os.environ["ENHANCING_TPU_ATTN_PROJ"] = saved
+    del model
+    gc_cuda()
     return launches
 
 
@@ -1700,7 +1991,8 @@ def gc_cuda() -> None:
 
 
 # kernel-name fragments -> the group of device time they belong to
-KERNEL_GROUPS = (("gemv_ln_kernel<signed char", "int8_ln_gemm"),
+KERNEL_GROUPS = (("attn_proj_kernel", "attn_proj"), ("ffn_kernel", "ffn"),
+                 ("gemv_ln_kernel<signed char", "int8_ln_gemm"),
                  ("gemv_ln_kernel<", "ln_shift_gemm"),
                  ("gemv_kernel<signed char", "int8_gemm"),
                  ("mlp_kernel", "int8_mlp"),
@@ -1769,6 +2061,7 @@ def main() -> int:
     sampling, prior, codes = phase_sampling()
     serving8 = phase_int8(prior, codes)
     del prior
+    fused = phase_fused_serving()
     kernels = []
     for kname in REPLACES:
         rows = times[kname]
@@ -1782,7 +2075,8 @@ def main() -> int:
         kernels.append(dict(name=kname, route="cuda", source=SOURCES[kname],
                             replaces=REPLACES[kname],
                             launches=serving[kname] + training[kname]
-                            + sampling[kname] + serving8[kname],
+                            + sampling[kname] + serving8[kname]
+                            + fused[kname],
                             max_abs_err=errs[kname],
                             bound_by=rows[0]["bound_by"], **agg))
     print(json.dumps({"kernels": kernels}))

@@ -1,15 +1,29 @@
-// Attention on separate (B, N, H*D) q, k and v, each row-strided:
-// out[b, i, h*D:(h+1)*D] = softmax(q_i . K^T) V per head, q scaled first.
+// Attention on separate q (B, N, H, D), k and v (B, M, H, D), each read in
+// place through its own batch, head and row strides:
+// out[b, i, h] = softmax(s_i) V per head, s_i = q_i . K^T.
 //
-// Replaces enhancing_tpu/ops/attention.py::_attn_kernel_packed as entered
-// through _attention_packed_call (the GPT prior's attention, reached by
-// multihead_attention_bnhd) at head dims up to the prior's 384. Numerics
-// as there: q is scaled in bf16 (the scale rounded to bf16, then q * scale
-// rounded; the TPU wrapper scales q in its dtype before the call), QK^T
-// accumulates in fp32, the softmax is fp32, P is rounded to bf16 before
-// PV, and the fp32 output is multiplied by 1 / l and rounded once. Mask
-// modes 'none' and 'prefix_causal' (col <= row, or both < cond_len); rows
-// and columns past N are masked, so any N works, N = 1 included.
+// Replaces four TPU kernels of enhancing_tpu/ops/attention.py, one forward
+// for all of them:
+// - _attn_kernel_packed as entered through _attention_packed_call (B8: the
+//   GPT prior's attention, reached by multihead_attention_bnhd) at head
+//   dims up to the prior's 384;
+// - _attn_kernel (B17, _attention_pallas: (B, H, N, D) tensors, M may
+//   differ from N) and _attn_kernel_bnhd (B18, _attention_pallas_bnhd:
+//   (B, N, H, D) tensors), which put the scale on the fp32 scores
+//   (kScoreScale); the TPU kernels' whole-row softmax normalises P before
+//   rounding it to bf16, this one rounds the unnormalised P against the
+//   running row max and divides at the end, as B2 and B8 do;
+// - _attn_kernel_packed_gridchunk (B19): prefix-causal on pre-scaled
+//   packed q, k, v, whose point, key tiles past a block's last visible
+//   column neither loaded nor computed, this kernel has always had. Its
+//   block_q and k_chunk are TPU means and are not reproduced.
+// Numerics otherwise as B8's: q is scaled in bf16 (the scale rounded to
+// bf16, then q * scale rounded; the TPU wrapper scales q in its dtype
+// before the call) unless kScoreScale, QK^T accumulates in fp32, the
+// softmax is fp32, P is rounded to bf16 before PV, and the fp32 output is
+// multiplied by 1 / l and rounded once. Mask modes 'none' and
+// 'prefix_causal' (col <= row, or both < cond_len); rows past N and keys
+// past M are masked, so any N and M work, N = 1 included.
 //
 // Bound on the H100: tensor-core operations, 4 * B * H * N^2 * D flops
 // (about half with the causal mask) against 4 * B * N * H * D * 2 bytes.
@@ -28,7 +42,9 @@
 // at D = 384: q 64 x 392, two stages of K 64 x 392 and of V 64 x 136 bf16,
 // 181 KB, one block per SM. On the packed qkv buffer's lane slices at the
 // ViT's D = 64 it gives attention.cu's outputs bit for bit but runs
-// slower (PERF.md), so the ViT keeps attention.cu.
+// slower (PERF.md), so the ViT keeps attention.cu. The strides and the key
+// length are runtime arguments; the scale's place is a template argument,
+// so B8's instruction stream gains no branch.
 #include "common.cuh"
 
 namespace {
@@ -47,14 +63,19 @@ __host__ __device__ constexpr int smem_bytes() {
   return ((BQ + 2 * BKV) * (D + 8) + 2 * BKV * (slab<D>() + 8)) * 2;
 }
 
-template <int D>
+// element strides of one tensor: between batches, heads and rows
+struct Strides {
+  int batch, head, row;
+};
+
+template <int D, bool kScoreScale>
 __global__ void __launch_bounds__(kThreads)
     attn_bnhd_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ out, int q_stride,
-                     int k_stride, int v_stride, int o_stride, int n,
-                     int heads, float scale, int mask_mode, int cond_len) {
+                     __nv_bfloat16* __restrict__ out, Strides qs_, Strides ks_,
+                     Strides vs_, Strides os_, int n, int m, int heads,
+                     float scale, int mask_mode, int cond_len) {
   constexpr int DS = slab<D>();
   constexpr int SLABS = D / DS;
   constexpr int LD = D + 8, LDS = DS + 8;  // padded rows: conflict-free ldmatrix
@@ -68,15 +89,16 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = blockIdx.x * BQ, b = blockIdx.z;
   const int h = blockIdx.y / SLABS, sl = blockIdx.y % SLABS;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const __nv_bfloat16* qb =
-      q + static_cast<size_t>(b) * n * q_stride + h * D;
-  const __nv_bfloat16* kb =
-      k + static_cast<size_t>(b) * n * k_stride + h * D;
-  const __nv_bfloat16* vb =
-      v + static_cast<size_t>(b) * n * v_stride + h * D + sl * DS;
+  const __nv_bfloat16* qb = q + static_cast<size_t>(b) * qs_.batch +
+                            static_cast<size_t>(h) * qs_.head;
+  const __nv_bfloat16* kb = k + static_cast<size_t>(b) * ks_.batch +
+                            static_cast<size_t>(h) * ks_.head;
+  const __nv_bfloat16* vb = v + static_cast<size_t>(b) * vs_.batch +
+                            static_cast<size_t>(h) * vs_.head + sl * DS;
+  const int q_stride = qs_.row, k_stride = ks_.row, v_stride = vs_.row;
 
   const bool causal = mask_mode == MASK_PREFIX_CAUSAL;
-  int kv_tiles = (n + BKV - 1) / BKV;
+  int kv_tiles = (m + BKV - 1) / BKV;
   if (causal) {
     const int last_row = min(q0 + BQ, n) - 1;
     const int last_col = max(last_row, q0 < cond_len ? cond_len - 1 : 0);
@@ -87,31 +109,34 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = threadIdx.x; i < BKV * VPR; i += kThreads) {
       const int r = i / VPR, c = (i % VPR) * 8;
       const int key = t * BKV + r;
-      const size_t off = static_cast<size_t>(key < n ? key : 0) * k_stride + c;
-      cp_async_16(&ks[stage][r][c], kb + off, key < n ? 16 : 0);
+      const size_t off = static_cast<size_t>(key < m ? key : 0) * k_stride + c;
+      cp_async_16(&ks[stage][r][c], kb + off, key < m ? 16 : 0);
     }
     for (int i = threadIdx.x; i < BKV * VPRS; i += kThreads) {
       const int r = i / VPRS, c = (i % VPRS) * 8;
       const int key = t * BKV + r;
-      const size_t off = static_cast<size_t>(key < n ? key : 0) * v_stride + c;
-      cp_async_16(&vs[stage][r][c], vb + off, key < n ? 16 : 0);
+      const size_t off = static_cast<size_t>(key < m ? key : 0) * v_stride + c;
+      cp_async_16(&vs[stage][r][c], vb + off, key < m ? 16 : 0);
     }
     cp_async_commit();
   };
   load_kv(0, 0);
 
-  // q tile, scaled in bf16 on its way to shared memory
+  // q tile, scaled in bf16 on its way to shared memory (or as it is, when
+  // the scale goes on the scores)
   for (int i = threadIdx.x; i < BQ * VPR; i += kThreads) {
     const int r = i / VPR, c = (i % VPR) * 8;
     uint4 raw = make_uint4(0, 0, 0, 0);
     if (q0 + r < n)
       raw = *reinterpret_cast<const uint4*>(
           qb + static_cast<size_t>(q0 + r) * q_stride + c);
-    __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&raw);
+    if (!kScoreScale) {
+      __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&raw);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float2 f = __bfloat1622float2(p[e]);
-      p[e] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+      for (int e = 0; e < 4; ++e) {
+        float2 f = __bfloat1622float2(p[e]);
+        p[e] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+      }
     }
     *reinterpret_cast<uint4*>(&qs[r][c]) = raw;
   }
@@ -154,7 +179,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 
-    // mask, then the online softmax update in fp32
+    // scale (kScoreScale), mask, then the online softmax update in fp32
     float tile_max[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int ni = 0; ni < BKV / 8; ++ni) {
@@ -162,7 +187,8 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < 4; ++e) {
         const int row = row_a + (e / 2) * 8;
         const int col = t * BKV + ni * 8 + (lane % 4) * 2 + (e % 2);
-        bool ok = col < n;
+        if (kScoreScale) s[ni][e] *= scale;
+        bool ok = col < m;
         if (causal) ok = ok && (col <= row || (row < cond_len && col < cond_len));
         if (!ok) s[ni][e] = -INFINITY;
         tile_max[e / 2] = fmaxf(tile_max[e / 2], s[ni][e]);
@@ -225,8 +251,9 @@ __global__ void __launch_bounds__(kThreads)
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[hh] = 1.f / l;
   }
-  __nv_bfloat16* ob =
-      out + static_cast<size_t>(b) * n * o_stride + h * D + sl * DS;
+  __nv_bfloat16* ob = out + static_cast<size_t>(b) * os_.batch +
+                      static_cast<size_t>(h) * os_.head + sl * DS;
+  const int o_stride = os_.row;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int row = row_a + hh * 8;
@@ -241,57 +268,75 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D>
+template <int D, bool kScoreScale>
 int launch(const void* q, const void* k, const void* v, void* out,
-           int q_stride, int k_stride, int v_stride, int o_stride, int b,
-           int n, int heads, float scale, int mask_mode, int cond_len,
-           cudaStream_t stream) {
+           const Strides* st, int b, int n, int m, int heads, float scale,
+           int mask_mode, int cond_len, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<D>();
   if (bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        attn_bnhd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
+        attn_bnhd_kernel<D, kScoreScale>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   dim3 grid((n + BQ - 1) / BQ, heads * (D / slab<D>()), b);
-  attn_bnhd_kernel<D><<<grid, kThreads, bytes, stream>>>(
+  attn_bnhd_kernel<D, kScoreScale><<<grid, kThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      q_stride, k_stride, v_stride, o_stride, n, heads, scale, mask_mode,
-      cond_len);
+      st[0], st[1], st[2], st[3], n, m, heads, scale, mask_mode, cond_len);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_d(const void* q, const void* k, const void* v, void* out,
+             const Strides* st, int b, int n, int m, int heads, float scale,
+             int score_scale, int mask_mode, int cond_len,
+             cudaStream_t stream) {
+  return score_scale
+             ? launch<D, true>(q, k, v, out, st, b, n, m, heads, scale,
+                               mask_mode, cond_len, stream)
+             : launch<D, false>(q, k, v, out, st, b, n, m, heads, scale,
+                                mask_mode, cond_len, stream);
 }
 
 }  // namespace
 
-// q, k, v, out: bf16 (B, N, H*D) with rows `*_stride` elements apart (a
-// multiple of 8) and batches N rows apart.
+// q, out: bf16 (B, N, H, D); k, v: bf16 (B, M, H, D); each addressed as
+// base + b * batch + h * head + row * row_stride + lane, its three strides
+// in elements (multiples of 8) at strides[3 * i .. 3 * i + 2] for q, k, v,
+// out. score_scale: 1 puts the scale on the fp32 scores, 0 scales q in
+// bf16.
 ETK_API int etk_attention_bnhd(const void* q, const void* k, const void* v,
-                               void* out, int q_stride, int k_stride,
-                               int v_stride, int o_stride, int b, int n,
-                               int heads, int head_dim, float scale,
-                               int mask_mode, int cond_len, void* stream) {
+                               void* out, const int* strides, int b, int n,
+                               int m, int heads, int head_dim, float scale,
+                               int score_scale, int mask_mode, int cond_len,
+                               void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (b <= 0 || n <= 0 || heads <= 0 || b > 65535 || heads > 65535 / 3 ||
+  if (b <= 0 || n <= 0 || m <= 0 || heads <= 0 || b > 65535 ||
+      heads > 65535 / 3 ||
       (mask_mode != MASK_NONE && mask_mode != MASK_PREFIX_CAUSAL))
     return ETK_BAD_ARGS;
-  const int strides[4] = {q_stride, k_stride, v_stride, o_stride};
-  for (int i = 0; i < 4; ++i)
-    if (strides[i] < heads * head_dim || strides[i] % 8) return ETK_BAD_ARGS;
+  Strides st[4];
+  for (int i = 0; i < 4; ++i) {
+    st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+    if (st[i].batch < 0 || st[i].head < 0 || st[i].row < 0 ||
+        st[i].batch % 8 || st[i].head % 8 || st[i].row % 8)
+      return ETK_BAD_ARGS;
+  }
   switch (head_dim) {
     case 32:
-      return launch<32>(q, k, v, out, q_stride, k_stride, v_stride, o_stride,
-                        b, n, heads, scale, mask_mode, cond_len, s);
+      return launch_d<32>(q, k, v, out, st, b, n, m, heads, scale,
+                          score_scale, mask_mode, cond_len, s);
     case 64:
-      return launch<64>(q, k, v, out, q_stride, k_stride, v_stride, o_stride,
-                        b, n, heads, scale, mask_mode, cond_len, s);
+      return launch_d<64>(q, k, v, out, st, b, n, m, heads, scale,
+                          score_scale, mask_mode, cond_len, s);
     case 128:
-      return launch<128>(q, k, v, out, q_stride, k_stride, v_stride, o_stride,
-                         b, n, heads, scale, mask_mode, cond_len, s);
+      return launch_d<128>(q, k, v, out, st, b, n, m, heads, scale,
+                           score_scale, mask_mode, cond_len, s);
     case 384:
-      return launch<384>(q, k, v, out, q_stride, k_stride, v_stride, o_stride,
-                         b, n, heads, scale, mask_mode, cond_len, s);
+      return launch_d<384>(q, k, v, out, st, b, n, m, heads, scale,
+                           score_scale, mask_mode, cond_len, s);
     default:
       return ETK_BAD_ARGS;
   }

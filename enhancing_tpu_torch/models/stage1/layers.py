@@ -1,8 +1,8 @@
 """ViT encoder/decoder of the VQGAN tokenizer, in PyTorch.
 
-Counterpart of ``enhancing_tpu/models/stage1/layers.py`` (its default
-branches; the W8A8, ``ffn_impl='fused'`` and ``ENHANCING_TPU_ATTN_PROJ``
-options are later slices of the port):
+Counterpart of ``enhancing_tpu/models/stage1/layers.py`` with its
+default branches and its two opt-in fusions (the W8A8 option is a later
+slice of the port):
 
 - Images are NHWC. Patch embed and un-embed are reshape + Linear, with
   patch pixels flattened in (C, ph, pw) order.
@@ -11,6 +11,13 @@ options are later slices of the port):
   (``ops.fused_ln_gemm``): LN1 -> to_qkv -> attention -> to_out, added to
   the residual inside ``Attention``; LN2 -> fc1 + tanh -> fc2 -> residual;
   then a final single-pass LayerNorm (``ops.fused_layernorm``).
+- ``ENHANCING_TPU_ATTN_PROJ`` set (read at each call, as JAX reads it at
+  each trace): attention -> to_out -> + residual in one kernel
+  (``ops.attention_proj_packed``), reading q, k and v straight out of
+  the fused qkv buffer.
+- ``ffn_impl='fused'`` (a field of the encoder/decoder config, or the
+  ``ENHANCING_TPU_FUSED_FFN`` override): LN2 as the single-pass LayerNorm,
+  then fc1 + tanh -> fc2 in one kernel (``ops.fused_ffn``).
 
 Submodules are named after the JAX parameter tree (``layers_{i}.attn.
 to_qkv``, ``norm1``, ``ff.fc1``, ...), so ``compat.from_jax`` maps one
@@ -21,6 +28,7 @@ parameters and the fc1 bias enter the fused kernel in fp32.
 """
 from __future__ import annotations
 
+import os
 from typing import Sequence, Tuple, Union
 
 import numpy as np
@@ -28,7 +36,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.attention import multihead_attention_packed_qkv
+from ...ops.attention import (attention_proj_packed,
+                              multihead_attention_packed_qkv)
+from ...ops.ffn import fused_ffn
 from ...ops.ln_gemm import fused_layernorm, fused_ln_gemm
 
 Size = Union[int, Tuple[int, int], Sequence[int]]
@@ -115,19 +125,43 @@ class LayerNormParams(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
 
+def use_fused_attn_proj() -> bool:
+    """ENHANCING_TPU_ATTN_PROJ set (and not "0"): fold the output projection
+    and the residual add into the attention kernel."""
+    return os.environ.get("ENHANCING_TPU_ATTN_PROJ", "") not in ("", "0")
+
+
+def resolve_ffn_impl(ffn_impl: str | None) -> str:
+    """The FFN kernel choice: the ENHANCING_TPU_FUSED_FFN env var is an A/B
+    override; otherwise the module/config field decides ('dense', the
+    default, or 'fused')."""
+    env = os.environ.get("ENHANCING_TPU_FUSED_FFN")
+    if env is not None:
+        return "fused" if env not in ("", "0") else "dense"
+    return ffn_impl or "dense"
+
+
 class FeedForward(nn.Module):
-    """LN -> fc1 + tanh (one fused kernel) -> fc2. The stage-1 FFN uses
+    """LN -> fc1 + tanh (one fused kernel) -> fc2; with ``ffn_impl='fused'``
+    LN (one kernel) -> fc1 + tanh -> fc2 (one kernel). The stage-1 FFN uses
     tanh, not GELU."""
 
     def __init__(self, dim: int, hidden_dim: int, *,
                  dtype: torch.dtype = torch.float32,
+                 ffn_impl: str | None = None,
                  generator: torch.Generator | None = None) -> None:
         super().__init__()
         self.dtype = dtype
+        self.ffn_impl = ffn_impl
         self.fc1 = Dense(dim, hidden_dim, dtype=dtype, generator=generator)
         self.fc2 = Dense(hidden_dim, dim, dtype=dtype, generator=generator)
 
     def forward(self, x: torch.Tensor, ln: LayerNormParams) -> torch.Tensor:
+        if resolve_ffn_impl(self.ffn_impl) == "fused":
+            xn = fused_layernorm(x.to(self.dtype), ln.weight, ln.bias)
+            return fused_ffn(xn, self.fc1.weight, self.fc1.bias,
+                             self.fc2.weight, self.fc2.bias,
+                             activation="tanh")
         h = fused_ln_gemm(x.to(self.dtype), ln.weight, ln.bias,
                           self.fc1.weight, self.fc1.bias, activation="tanh")
         return self.fc2(h)
@@ -136,7 +170,9 @@ class FeedForward(nn.Module):
 class Attention(nn.Module):
     """Multi-head self-attention: LN -> to_qkv (no bias, one fused kernel)
     -> attention on the packed qkv buffer -> to_out (when (heads, dim_head)
-    != (1, dim)) -> + residual. scale = dim_head**-0.5."""
+    != (1, dim)) -> + residual. scale = dim_head**-0.5. With
+    ``ENHANCING_TPU_ATTN_PROJ`` set and a projection, attention -> to_out
+    -> + residual is one kernel on the qkv buffer's lane slices."""
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64, *,
                  dtype: torch.dtype = torch.float32,
@@ -155,6 +191,13 @@ class Attention(nn.Module):
         """Returns ``residual + to_out(attention(LN(x)))``."""
         qkv = fused_ln_gemm(x.to(self.dtype), ln.weight, ln.bias,
                             self.to_qkv.weight)
+        if self.has_proj and use_fused_attn_proj():
+            # q, k and v are views of the qkv buffer's lane slices: no copy
+            q, k, v = (t.unflatten(-1, (self.heads, self.dim_head))
+                       for t in qkv.chunk(3, dim=-1))
+            return attention_proj_packed(
+                q, k, v, self.to_out.weight, self.to_out.bias,
+                residual.to(self.dtype), scale=self.dim_head**-0.5)
         out = multihead_attention_packed_qkv(qkv, self.heads, self.dim_head,
                                              scale=self.dim_head**-0.5)
         if self.has_proj:
@@ -165,13 +208,15 @@ class Attention(nn.Module):
 class TransformerBlock(nn.Module):
     def __init__(self, dim: int, heads: int, dim_head: int, mlp_dim: int, *,
                  dtype: torch.dtype = torch.float32,
+                 ffn_impl: str | None = None,
                  generator: torch.Generator | None = None) -> None:
         super().__init__()
         self.norm1 = LayerNormParams(dim)
         self.attn = Attention(dim, heads, dim_head, dtype=dtype,
                               generator=generator)
         self.norm2 = LayerNormParams(dim)
-        self.ff = FeedForward(dim, mlp_dim, dtype=dtype, generator=generator)
+        self.ff = FeedForward(dim, mlp_dim, dtype=dtype, ffn_impl=ffn_impl,
+                              generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.attn(x, self.norm1, residual=x)
@@ -184,6 +229,7 @@ class Transformer(nn.Module):
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int,
                  mlp_dim: int, *, dtype: torch.dtype = torch.float32,
+                 ffn_impl: str | None = None,
                  generator: torch.Generator | None = None) -> None:
         super().__init__()
         self.dtype = dtype
@@ -191,7 +237,7 @@ class Transformer(nn.Module):
         for i in range(depth):
             self.add_module(f"layers_{i}", TransformerBlock(
                 dim, heads, dim_head, mlp_dim, dtype=dtype,
-                generator=generator))
+                ffn_impl=ffn_impl, generator=generator))
         self.norm = LayerNormParams(dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -208,6 +254,7 @@ class ViTEncoder(nn.Module):
                  depth: int, heads: int, mlp_dim: int, channels: int = 3,
                  dim_head: int = 64, *,
                  dtype: torch.dtype = torch.float32,
+                 ffn_impl: str | None = None,
                  generator: torch.Generator | None = None) -> None:
         super().__init__()
         ih, iw = _pair(image_size)
@@ -224,7 +271,8 @@ class ViTEncoder(nn.Module):
                              torch.from_numpy(pos[None]).to(dtype),
                              persistent=False)
         self.transformer = Transformer(dim, depth, heads, dim_head, mlp_dim,
-                                       dtype=dtype, generator=generator)
+                                       dtype=dtype, ffn_impl=ffn_impl,
+                                       generator=generator)
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
         """img: (B, H, W, C) in [0, 1] -> tokens (B, N, dim)."""
@@ -243,6 +291,7 @@ class ViTDecoder(nn.Module):
                  depth: int, heads: int, mlp_dim: int, channels: int = 3,
                  dim_head: int = 64, *,
                  dtype: torch.dtype = torch.float32,
+                 ffn_impl: str | None = None,
                  generator: torch.Generator | None = None) -> None:
         super().__init__()
         ih, iw = _pair(image_size)
@@ -257,7 +306,8 @@ class ViTDecoder(nn.Module):
                              torch.from_numpy(pos[None]).to(dtype),
                              persistent=False)
         self.transformer = Transformer(dim, depth, heads, dim_head, mlp_dim,
-                                       dtype=dtype, generator=generator)
+                                       dtype=dtype, ffn_impl=ffn_impl,
+                                       generator=generator)
         self.to_pixel = Dense(dim, channels * ph * pw, dtype=dtype,
                               generator=generator)
 

@@ -16,7 +16,8 @@ them and dO, chains dq through the scale and concatenates
 ``[dq | dk | dv]``. The backward's plain version is autograd of the plain
 forward.
 
-Two more entry points serve the stage-2 GPT prior:
+More entry points serve the stage-2 GPT prior and the JAX package's
+other attention forwards:
 
 - :func:`multihead_attention_bnhd`, the counterpart of the JAX function of
   that name (``attention.py:1810-1855``), takes separate (B, N, H, D) q, k
@@ -24,7 +25,18 @@ Two more entry points serve the stage-2 GPT prior:
   ``_attention_packed_call``) reads them in place at any N, N = 1
   included, and any head dim of 32, 64, 128 or 384 (the prior's). Same
   numerics as above. It has no backward yet: the prior's training step is
-  a later slice.
+  a later slice. The kernel reads each tensor through its own batch, head
+  and row strides and a key length of its own, and puts the scale on q
+  (in bf16) or on the fp32 scores, so it also serves
+  :func:`multihead_attention` ((B, H, N, D), the scale on the scores, the
+  JAX public op; backward autograd of the plain version),
+  :func:`_attention_fused_bnhd` ((B, N, H, D), likewise) and
+  :func:`attention_packed_gridchunk` (prefix-causal on pre-scaled packed
+  q, k, v).
+- :func:`attention_proj_packed`, attention -> output projection -> bias
+  -> residual in one kernel, ``csrc/attn_proj.cu``, on the lane slices of
+  the qkv buffer (the ViT's opt-in ``ENHANCING_TPU_ATTN_PROJ`` path);
+  under autograd the unfused B8 + projection, backward B5.
 - :func:`decode_attention` and :func:`decode_attention_stacked`, one
   token's attention against the rows < cur_len of a KV cache plus the
   token's own key and value (``attention.py:1722-1807``); on CUDA
@@ -41,10 +53,14 @@ Two more entry points serve the stage-2 GPT prior:
 """
 from __future__ import annotations
 
+import ctypes
+import struct
+
 import torch
 
 from . import cuda_lib
 from .common import LAUNCHES, check_kernel_args, row_positions, use_kernel
+from .ln_gemm import _plain_vjp
 
 NEG_INF = -1e30
 MASK_MODES = {"none": 0, "prefix_causal": 1}
@@ -57,6 +73,15 @@ DECODE_PAIRS = {(torch.bfloat16, torch.bfloat16), (torch.float32,
                                                    torch.float32),
                 (torch.float32, torch.bfloat16), (torch.float32, torch.int8),
                 (torch.bfloat16, torch.int8)}
+
+
+def bf16_round(x: float) -> float:
+    """``x`` rounded to the nearest bf16 (ties to even), as
+    ``float(torch.tensor(x, dtype=torch.bfloat16))`` gives it for a finite
+    x, without a tensor on the launch path."""
+    bits = struct.unpack("<I", struct.pack("<f", x))[0]
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    return struct.unpack("<f", struct.pack("<I", bits))[0]
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -111,7 +136,7 @@ def attention_packed_qkv_kernel(qkv, heads, head_dim, scale,
     out = torch.empty((b, n, heads * head_dim), dtype=qkv.dtype,
                       device=qkv.device)
     # the TPU kernel scales the bf16 q tile by the scale rounded to bf16
-    scale_c = float(torch.tensor(scale, dtype=qkv.dtype))
+    scale_c = bf16_round(float(scale))
     cuda_lib.call("etk_attention_qkv", qkv.data_ptr(), out.data_ptr(), b, n,
                   heads, head_dim, scale_c, MASK_MODES[mask_mode],
                   int(cond_len), cuda_lib.stream())
@@ -217,33 +242,84 @@ def attention_bnhd_plain(q, k, v, scale, mask_mode="none", cond_len=0):
     return out.transpose(1, 2)
 
 
-def attention_bnhd_kernel(q, k, v, scale, mask_mode="none", cond_len=0):
-    """Launch ``csrc/attention_bnhd.cu`` on CUDA bf16 (B, N, H, D) q, k, v
-    (self-attention: the same N), each a view whose (B, N, H*D) rows lie at
-    a common 16-byte aligned stride. Returns a contiguous (B, N, H, D)."""
+def strided_launch_args(name: str, tensors) -> list:
+    """The (batch, head, row) element strides of (B, N, H, D) views, 0 for
+    an axis of size 1 (never stepped), after the checks of the
+    stride-addressed attention kernels: each last axis contiguous, every
+    stride a multiple of 8 elements that fits an int, the data 16-byte
+    aligned (the kernel loads 16-byte vectors); one device; no autograd
+    graph, as ``check_kernel_args``."""
+    strides, device = [], tensors[0].device
+    grad = torch.is_grad_enabled()
+    for t in tensors:
+        st, sh = t.stride(), t.shape
+        s = (st[0] if sh[0] > 1 else 0, st[2] if sh[2] > 1 else 0,
+             st[1] if sh[1] > 1 else 0)
+        if (st[3] != 1 or any(x % 8 or x >= 2 ** 31 for x in s)
+                or t.data_ptr() % 16):
+            raise ValueError(f"{name}: kernel inputs need a contiguous last "
+                             "axis, strides that are multiples of 8 and "
+                             "16-byte aligned data")
+        if t.device != device:
+            raise ValueError(f"{name}: inputs on {device} and {t.device}")
+        if grad and t.requires_grad:
+            raise NotImplementedError(
+                f"{name}: a raw kernel launch records no gradient; call the "
+                "op's differentiable entry point or detach the inputs")
+        strides += s
+    return strides
+
+
+def attention_strided_kernel(name, q, k, v, scale, mask_mode="none",
+                             cond_len=0, *, layout="bnhd",
+                             score_scale=False):
+    """Launch ``csrc/attention_bnhd.cu`` on CUDA bf16 q (B, N, H, D) and k,
+    v (B, M, H, D), or with ``layout="bhnd"`` (B, H, N, D) and (B, H, M,
+    D), each read in place through its strides. ``score_scale`` puts the
+    scale on the fp32 scores (B17, B18), else q is scaled in bf16 (B8,
+    B19). Returns a contiguous tensor of q's layout; counts the launch
+    under ``name``."""
+    if (q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16
+            or v.dtype != torch.bfloat16):
+        raise TypeError(f"{name} kernel takes bf16 q, k, v")
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"{name} kernel takes 4-d q, k, v")
+    if layout == "bhnd":
+        q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     b, n, h, d = q.shape
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
-        raise TypeError("attention_bnhd kernel takes bf16 q, k, v")
+    m = k.shape[1]
     if d not in BNHD_HEAD_DIMS:
-        raise ValueError(f"attention_bnhd kernel takes head_dim in "
+        raise ValueError(f"{name} kernel takes head_dim in "
                          f"{BNHD_HEAD_DIMS}, got {d}")
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"attention_bnhd kernel: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)} differ")
+    if k.shape != (b, m, h, d) or v.shape != k.shape:
+        raise ValueError(f"{name} kernel: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit")
     if mask_mode not in MASK_MODES:
         raise ValueError(f"unknown mask_mode {mask_mode!r}")
-    q3, k3, v3 = (t.reshape(b, n, h * d) for t in (q, k, v))
-    check_kernel_args("attention_bnhd", q3, k3, v3, strided_rows=True)
-    out = torch.empty((b, n, h * d), dtype=q.dtype, device=q.device)
-    # the TPU wrapper scales q by the scale rounded to q's dtype
-    scale_c = float(torch.tensor(scale, dtype=q.dtype))
-    cuda_lib.call("etk_attention_bnhd",
-                  *(t.data_ptr() for t in (q3, k3, v3, out)),
-                  *(t.stride(1) for t in (q3, k3, v3, out)), b, n, h, d,
-                  scale_c, MASK_MODES[mask_mode], int(cond_len),
-                  cuda_lib.stream())
-    LAUNCHES["attention_bnhd"] += 1
-    return out.view(b, n, h, d)
+    strides = strided_launch_args(name, (q, k, v))
+    if layout == "bhnd":
+        out = torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
+        o = out.transpose(1, 2)
+    else:
+        out = o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    strides += strided_launch_args(name, (o,))
+    # the TPU wrappers scale q by the scale rounded to q's dtype (B8, B19);
+    # B17 and B18 multiply the fp32 scores by the scale
+    scale_c = float(scale) if score_scale else bf16_round(float(scale))
+    cuda_lib.call("etk_attention_bnhd", q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), o.data_ptr(), (ctypes.c_int * 12)(*strides),
+                  b, n, m, h, d, scale_c, int(score_scale),
+                  MASK_MODES[mask_mode], int(cond_len), cuda_lib.stream())
+    LAUNCHES[name] += 1
+    return out
+
+
+def attention_bnhd_kernel(q, k, v, scale, mask_mode="none", cond_len=0):
+    """Launch ``csrc/attention_bnhd.cu`` (B8) on CUDA bf16 (B, N, H, D) q
+    and (B, M, H, D) k, v, each a strided view (lane slices of a wider
+    buffer included). Returns a contiguous (B, N, H, D)."""
+    return attention_strided_kernel("attention_bnhd", q, k, v, scale,
+                                    mask_mode, cond_len)
 
 
 def multihead_attention_bnhd(q: torch.Tensor, k: torch.Tensor,
@@ -399,3 +475,260 @@ def decode_attention_stacked(q3: torch.Tensor, k_stack: torch.Tensor,
                                q3.dtype)
     return decode_attention_plain(q3, kc, vc, k_new, v_new, cur_len,
                                   head_dim)
+
+
+# -- B17-B19: the other TPU attention forwards, on csrc/attention_bnhd.cu ----
+
+
+def attention_bhnd_kernel(q, k, v, scale, mask_mode="none", cond_len=0):
+    """B17 (``_attention_pallas``) on CUDA bf16 (B, H, N, D) q and (B, H,
+    M, D) k, v: the scale on the fp32 scores. Returns (B, H, N, D)."""
+    return attention_strided_kernel("attention_bhnd", q, k, v, scale,
+                                    mask_mode, cond_len, layout="bhnd",
+                                    score_scale=True)
+
+
+def attention_fused_bnhd_plain(q, k, v, scale, mask_mode="none", cond_len=0):
+    """``_attention_xla_bnhd``: (B, N, H, D) q, (B, M, H, D) k, v, the scale
+    on the fp32 scores."""
+    out = attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), scale, mask_mode, cond_len)
+    return out.transpose(1, 2)
+
+
+# B17 and B18 by layout: (launch counter, plain version)
+SCORE_SCALE_LAYOUTS = {"bhnd": ("attention_bhnd", attention_plain),
+                       "bnhd": ("attention_fused_bnhd",
+                                attention_fused_bnhd_plain)}
+
+
+class _ScoreScaleAttention(torch.autograd.Function):
+    """B17 or B18 forward; the backward is autograd of the plain version
+    recomputed from the saved inputs, as both JAX ``custom_vjp``s take the
+    VJP of their XLA twin."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, mask_mode, cond_len, layout):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (scale, mask_mode, cond_len)
+        ctx.layout = layout
+        return attention_strided_kernel(
+            SCORE_SCALE_LAYOUTS[layout][0], q, k, v, scale, mask_mode,
+            cond_len, layout=layout, score_scale=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        plain = SCORE_SCALE_LAYOUTS[ctx.layout][1]
+        grads = _plain_vjp(lambda *t: plain(*t, *ctx.args),
+                           zip(ctx.saved_tensors, ctx.needs_input_grad[:3]),
+                           g)
+        return (*grads, None, None, None, None)
+
+
+def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, scale: float | None = None,
+                        mask_mode: str = "none",
+                        cond_len: int = 0) -> torch.Tensor:
+    """Scaled-dot-product attention over (batch, heads, seq, head_dim) q
+    and k, v of any key length: the counterpart of the JAX public
+    ``multihead_attention`` (``attention.py:171-189``). The scale (default
+    D**-0.5) multiplies the fp32 scores; mask_mode 'none' or
+    'prefix_causal'. On CUDA the forward is ``csrc/attention_bnhd.cu``
+    (B17) and the backward autograd of the plain version, as the JAX
+    ``custom_vjp`` takes the VJP of ``_attention_xla``."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if use_kernel(q, k, v, op="attention_bhnd"):
+        return _ScoreScaleAttention.apply(q, k, v, float(scale), mask_mode,
+                                          int(cond_len), "bhnd")
+    return attention_plain(q, k, v, float(scale), mask_mode, int(cond_len))
+
+
+def _attention_fused_bnhd(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, scale: float,
+                          mask_mode: str = "none",
+                          cond_len: int = 0) -> torch.Tensor:
+    """The counterpart of the JAX ``_attention_fused_bnhd`` (B18,
+    ``_attention_pallas_bnhd`` with the VJP of ``_attention_xla_bnhd``):
+    attention over (B, N, H, D) q and (B, M, H, D) k, v in place, the
+    scale on the fp32 scores. No caller in the package, as in JAX."""
+    if use_kernel(q, k, v, op="attention_fused_bnhd"):
+        return _ScoreScaleAttention.apply(q, k, v, float(scale), mask_mode,
+                                          int(cond_len), "bnhd")
+    return attention_fused_bnhd_plain(q, k, v, float(scale), mask_mode,
+                                      int(cond_len))
+
+
+def attention_packed_plain(q3, k3, v3, mask_mode, cond_len, head_dim):
+    """``_attention_xla_packed``: packed (B, N, H*D) q (pre-scaled) and
+    (B, M, H*D) k, v -> (B, N, H*D)."""
+    b, n, hd = q3.shape
+    m, h = k3.shape[1], hd // head_dim
+    q, k, v = (t.reshape(b, -1, h, head_dim).transpose(1, 2)
+               for t in (q3, k3, v3))
+    out = attention_plain(q, k, v, 1.0, mask_mode, cond_len)
+    return out.transpose(1, 2).reshape(b, n, hd)
+
+
+def attention_packed_gridchunk(q3: torch.Tensor, k3: torch.Tensor,
+                               v3: torch.Tensor, mask_mode: str,
+                               cond_len: int, head_dim: int) -> torch.Tensor:
+    """The counterpart of ``_attention_packed_gridchunk_call`` (B19): the
+    prefix-causal forward on pre-scaled packed q (B, N, H*D) and k, v (B,
+    M, H*D). The TPU kernel masks causally whatever ``mask_mode`` says, so
+    only 'prefix_causal' is taken. On CUDA ``csrc/attention_bnhd.cu`` with
+    a unit scale, which skips the key tiles past each block's last visible
+    column (the TPU kernel's dead-chunk skip); ``block_q`` and ``k_chunk``
+    are TPU means and are not taken. Forward only, as in JAX."""
+    if mask_mode != "prefix_causal":
+        raise ValueError("the grid-chunked kernel is prefix-causal only")
+    if use_kernel(q3, k3, v3, op="attention_gridchunk"):
+        b, n, hd = q3.shape
+        h = hd // head_dim
+        if hd != h * head_dim or k3.shape[-1] != hd or v3.shape != k3.shape:
+            raise ValueError(f"q {tuple(q3.shape)}, k {tuple(k3.shape)}, v "
+                             f"{tuple(v3.shape)} do not hold heads of "
+                             f"{head_dim}")
+        q, k, v = (t.unflatten(-1, (h, head_dim)) for t in (q3, k3, v3))
+        out = attention_strided_kernel("attention_gridchunk", q, k, v, 1.0,
+                                       mask_mode, cond_len)
+        return out.reshape(b, n, hd)
+    return attention_packed_plain(q3, k3, v3, mask_mode, int(cond_len),
+                                  head_dim)
+
+
+# -- B15: attention -> projection -> bias -> residual ----------------------
+
+PROJ_HEAD_DIMS = (64,)
+
+
+def attention_proj_plain(q, k, v, wp, bp, residual, scale, mask_mode="none",
+                         cond_len=0):
+    """``_attention_proj_xla``: q (B, N, H, D), k, v (B, M, H, D) with q
+    scaled in its dtype; the attention output in q's dtype times wp (HO,
+    H*D) cast to it, fp32 products and sums, + bp and the residual in fp32,
+    one rounding."""
+    b, n, h, d = q.shape
+    o = attention_bnhd_plain(q, k, v, scale, mask_mode, cond_len)
+    out = (o.reshape(b, n, h * d).float() @ wp.to(q.dtype).float().t()
+           + bp.float() + residual.float())
+    return out.to(q.dtype)
+
+
+def attn_proj_kernel(q, k, v, wp, bp, residual, scale, mask_mode="none",
+                     cond_len=0):
+    """Launch ``csrc/attn_proj.cu`` (B15) on CUDA bf16 q (B, N, H, 64) and
+    k, v (B, M, H, 64), each a view with a contiguous head axis and rows at
+    a common 16-byte aligned stride (the lane slices of the qkv buffer);
+    wp bf16 (HO, H*64); bp fp32 (HO,); residual bf16 (B, N, HO), all
+    contiguous. Returns (B, N, HO)."""
+    b, n, h, d = q.shape
+    m, ho = k.shape[1], wp.shape[0]
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v, wp, residual)) or (
+            bp.dtype != torch.float32):
+        raise TypeError("attn_proj kernel takes bf16 q, k, v, wp, residual "
+                        "and an fp32 bias")
+    if d not in PROJ_HEAD_DIMS or ho % 64:
+        raise ValueError(f"attn_proj kernel takes head_dim in "
+                         f"{PROJ_HEAD_DIMS} and HO % 64 == 0, got D={d}, "
+                         f"HO={ho}")
+    if (k.shape != (b, m, h, d) or v.shape != k.shape
+            or wp.shape != (ho, h * d) or bp.shape != (ho,)
+            or residual.shape != (b, n, ho)):
+        raise ValueError("attn_proj kernel: shapes of q, k, v, wp, bp and "
+                         "the residual do not fit")
+    if mask_mode not in MASK_MODES:
+        raise ValueError(f"unknown mask_mode {mask_mode!r}")
+    q3, k3, v3 = (t.reshape(t.shape[0], t.shape[1], h * d) for t in (q, k, v))
+    check_kernel_args("attn_proj", q3, k3, v3, strided_rows=True)
+    check_kernel_args("attn_proj", wp, bp, residual)
+    out = torch.empty((b, n, ho), dtype=q.dtype, device=q.device)
+    # the TPU wrapper scales q by the scale rounded to q's dtype
+    scale_c = bf16_round(float(scale))
+    cuda_lib.call("etk_attn_proj",
+                  *(t.data_ptr() for t in (q3, k3, v3, wp, bp, residual,
+                                           out)),
+                  q3.stride(1), k3.stride(1), v3.stride(1), b, n, m, h, d, ho,
+                  scale_c, MASK_MODES[mask_mode], int(cond_len),
+                  cuda_lib.stream())
+    LAUNCHES["attn_proj"] += 1
+    return out
+
+
+class _AttentionProj(torch.autograd.Function):
+    """The training forward of ``_attention_proj_fused``'s ``custom_vjp``
+    (``attention.py:1226-1262``): unfused, so the attention output is kept
+    for dWp. The attention is ``csrc/attention_bnhd.cu`` (B8, B2's function
+    bit for bit on the lane slices of the qkv buffer, PERF.md), the
+    projection an fp32-accumulated product with bp and the residual added
+    in fp32 and one rounding; the backward is the JAX one: dbp and dWp in
+    fp32, dO rounded to the compute dtype, then ``csrc/attention_bwd.cu``
+    (B5)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, wp, bp, residual, scale, mask_mode, cond_len):
+        b, n, h, d = q.shape
+        o3 = attention_bnhd_kernel(q, k, v, scale, mask_mode,
+                                   cond_len).reshape(b, n, h * d)
+        ctx.save_for_backward(q, k, v, wp, o3)
+        ctx.args = (scale, mask_mode, cond_len)
+        out = o3.float() @ wp.float().t() + bp.float() + residual.float()
+        return out.to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, wp, o3 = ctx.saved_tensors
+        scale, mask_mode, cond_len = ctx.args
+        b, n, h, d = q.shape
+        g32 = g.float()
+        dbp = g32.sum((0, 1))
+        dwp = torch.einsum("bno,bni->oi", g32, o3.float())
+        do = (g.to(wp.dtype).float() @ wp.float()).to(q.dtype)
+        q3s = q.reshape(b, n, h * d) * torch.tensor(scale, dtype=q.dtype)
+        dq, dk, dv = attention_bwd_kernel(
+            q3s, k.reshape(b, n, h * d), v.reshape(b, n, h * d), do, h, d,
+            mask_mode, cond_len)
+        dq = dq * torch.tensor(scale, dtype=dq.dtype)  # through q's scale
+        return (dq.view(q.shape), dk.view(k.shape), dv.view(v.shape),
+                dwp.to(wp.dtype), dbp, g, None, None, None)
+
+
+def attention_proj_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          wp: torch.Tensor, bp: torch.Tensor,
+                          residual: torch.Tensor, *,
+                          scale: float | None = None,
+                          mask_mode: str = "none",
+                          cond_len: int = 0) -> torch.Tensor:
+    """residual + attention(q, k, v) (as (B, N, H*D)) @ wp^T + bp, the
+    projection and residual folded into the attention kernel.
+
+    The counterpart of the JAX ``attention_proj_packed``
+    (``attention.py:1267-1300``): q (B, N, H, D), k, v (B, M, H, D),
+    lane slices of the packed qkv buffer taken in place; wp (dim_out,
+    H*D), torch's Linear layout (the transpose of JAX's (H*D, dim_out)),
+    cast to q's dtype; bp (dim_out,), added in fp32; residual (B, N,
+    dim_out). On CUDA, with no gradient to record (serving), one launch of
+    ``csrc/attn_proj.cu`` (B15); under autograd the unfused forward of
+    :class:`_AttentionProj`, as the JAX ``custom_vjp`` runs its unfused
+    forward for grad. The JAX dispatch limits that exist for VMEM and the
+    128 lanes (``_attn_proj_supported``, the packed grid's
+    ``_packed_supported``) are not reproduced: their fallbacks compute the
+    same function. The kernel takes bf16 and head_dim 64 (every stage-1
+    config's), and raises otherwise.
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    wp = wp.to(q.dtype)
+    residual = residual.to(q.dtype)
+    if use_kernel(q, k, v, wp, bp, residual, op="attn_proj"):
+        bp = bp.float()
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v, wp, bp, residual)):
+            return _AttentionProj.apply(q, k, v, wp, bp, residual,
+                                        float(scale), mask_mode,
+                                        int(cond_len))
+        return attn_proj_kernel(q, k, v, wp.contiguous(), bp.contiguous(),
+                                residual.contiguous(), float(scale),
+                                mask_mode, int(cond_len))
+    return attention_proj_plain(q, k, v, wp, bp, residual, float(scale),
+                                mask_mode, int(cond_len))

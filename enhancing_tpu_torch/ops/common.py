@@ -22,7 +22,10 @@ LAUNCHES: dict[str, int] = {"ln_gemm": 0, "attention": 0, "layernorm": 0,
                             "fused_act": 0, "attention_bnhd": 0,
                             "decode_attention": 0, "cache_row_update": 0,
                             "ln_shift_gemm": 0, "int8_gemm": 0,
-                            "int8_ln_gemm": 0, "int8_mlp": 0}
+                            "int8_ln_gemm": 0, "int8_mlp": 0,
+                            "attn_proj": 0, "ffn": 0, "attention_bhnd": 0,
+                            "attention_fused_bnhd": 0,
+                            "attention_gridchunk": 0}
 # Op calls on CUDA tensors that force_plain_ops sent to the plain version.
 PLAIN_CALLS: dict[str, int] = {name: 0 for name in LAUNCHES}
 

@@ -43,13 +43,16 @@ SIGNATURES = {
     "etk_attention_bwd": [_p] * 8 + [_i] * 13 + [_p],
     "etk_fir": [_p, _p, ctypes.POINTER(_f)] + [_i] * 11 + [_p],
     "etk_fused_act": [_p, _p, _p, ctypes.c_longlong, _i, _f, _f, _i, _p],
-    "etk_attention_bnhd": [_p] * 4 + [_i] * 8 + [_f, _i, _i, _p],
+    "etk_attention_bnhd": [_p] * 4 + [ctypes.POINTER(_i)] + [_i] * 5
+    + [_f, _i, _i, _i, _p],
     "etk_decode_attention": [_p] * 6 + [_i] * 7 + [_p] * 4 + [_i, _i, _p],
     "etk_cache_row_update": [_p] * 3 + [_i] * 5 + [_p],
     "etk_int8_gemm": [_p] * 6 + [_i] * 6 + [_p],
     "etk_int8_ln_gemm": [_p] * 11 + [_i] * 4 + [_f, _i, _i, _i, _p],
     "etk_ln_shift_gemm": [_p] * 10 + [_i] * 4 + [_f, _i, _i, _i, _i, _p],
     "etk_int8_mlp": [_p] * 12 + [_i] * 4 + [_f, _i, _i, _p],
+    "etk_attn_proj": [_p] * 7 + [_i] * 9 + [_f, _i, _i, _p],
+    "etk_ffn": [_p] * 6 + [_i] * 4 + [_p],
 }
 
 _lib: ctypes.CDLL | None = None

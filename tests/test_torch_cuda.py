@@ -13,6 +13,7 @@ import torch
 from enhancing_tpu_torch.ops import attention as att
 from enhancing_tpu_torch.ops import cache
 from enhancing_tpu_torch.ops import common
+from enhancing_tpu_torch.ops import ffn
 from enhancing_tpu_torch.ops import fused_act as fa
 from enhancing_tpu_torch.ops import int8
 from enhancing_tpu_torch.ops import ln_gemm as lg
@@ -144,7 +145,11 @@ def test_tiny_model_round_trip_goes_through_the_kernels(cuda):
                                "fused_act": 0, "attention_bnhd": 0,
                                "decode_attention": 0, "cache_row_update": 0,
                                "ln_shift_gemm": 0, "int8_gemm": 0,
-                               "int8_ln_gemm": 0, "int8_mlp": 0}
+                               "int8_ln_gemm": 0, "int8_mlp": 0,
+                               "attn_proj": 0, "ffn": 0,
+                               "attention_bhnd": 0,
+                               "attention_fused_bnhd": 0,
+                               "attention_gridchunk": 0}
     assert rec.shape == (3, 32, 32, 3) and torch.isfinite(rec).all()
 
 
@@ -310,7 +315,10 @@ def test_tiny_training_step_goes_through_every_kernel(cuda):
                                "attention_bnhd": 0, "decode_attention": 0,
                                "cache_row_update": 0, "ln_shift_gemm": 0,
                                "int8_gemm": 0, "int8_ln_gemm": 0,
-                               "int8_mlp": 0}
+                               "int8_mlp": 0, "attn_proj": 0, "ffn": 0,
+                               "attention_bhnd": 0,
+                               "attention_fused_bnhd": 0,
+                               "attention_gridchunk": 0}
     assert {k: v for k, v in common.PLAIN_CALLS.items() if v} == {
         "fir": 6, "fused_act": 9}
     assert all(torch.isfinite(v).all() for v in log.values()), log
@@ -715,3 +723,205 @@ def test_int8_gpt_decode_goes_through_the_int8_kernels(cuda):
         want = run()
     err = float((got - want).abs().max())
     assert err <= 2.0 ** -6 * float(want.abs().max()), err
+
+
+# -- the fused serving path's kernels and the other attention forwards ------
+
+def _proj_operands(gen, b, n, h, ho):
+    """The lane slices of a bf16 qkv buffer as (B, N, H, 64) views, a bf16
+    (HO, H*64) weight, an fp32 bias and a bf16 residual."""
+    qkv = _randn(gen, b, n, 3 * h * 64, dtype=torch.bfloat16)
+    q, k, v = (t.unflatten(-1, (h, 64)) for t in qkv.chunk(3, -1))
+    wp = _randn(gen, ho, h * 64, dtype=torch.bfloat16,
+                scale=(2.0 / (h * 64 + ho)) ** 0.5)
+    bp = _randn(gen, ho, scale=0.02)
+    res = _randn(gen, b, n, ho, dtype=torch.bfloat16)
+    return q, k, v, wp, bp, res
+
+
+@pytest.mark.parametrize("b,n,h,ho,mode,cl", [
+    (2, 1024, 12, 768, "none", 0),     # ViT-Base
+    (1, 1025, 12, 768, "none", 0),     # a ragged last row block
+    (2, 130, 4, 256, "prefix_causal", 5),
+    (1, 200, 2, 64, "prefix_causal", 100),  # cond_len past a block
+    (1, 256, 16, 1280, "none", 0),     # imagenet_vitvq_large's decoder
+    (1, 64, 3, 128, "none", 0),        # an odd head count
+])
+def test_attn_proj_kernel_matches_plain(cuda, b, n, h, ho, mode, cl):
+    """B15 on the qkv buffer's lane slices. bf16 outputs of O(1), each side
+    rounding its fp32 sum once; P rounds against the running row max in
+    the kernel: one bf16 step of each element + 2^-8 of its row's
+    largest."""
+    q, k, v, wp, bp, res = _proj_operands(cuda, b, n, h, ho)
+    before = common.LAUNCHES["attn_proj"]
+    with torch.no_grad():
+        got = att.attention_proj_packed(q, k, v, wp, bp, res, mask_mode=mode,
+                                        cond_len=cl)
+    assert common.LAUNCHES["attn_proj"] == before + 1
+    want = att.attention_proj_plain(q, k, v, wp, bp, res, 0.125, mode, cl)
+    _row_close(got.view(-1, ho), want.view(-1, ho), 2.0 ** -8, 2.0 ** -7)
+
+
+def test_attn_proj_under_autograd_runs_the_unfused_kernels(cuda):
+    """Under grad the entry point runs B8 and, backward, B5; its gradients
+    against autograd of the plain version (as in the B5 tests)."""
+    b, n, h, ho = 2, 130, 4, 256
+    q, k, v, wp, bp, res = _proj_operands(cuda, b, n, h, ho)
+    g = _randn(cuda, b, n, ho, dtype=torch.bfloat16)
+    grads = []
+    for kernels in (True, False):
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (q, k, v, wp, bp, res)]
+        before = dict(common.LAUNCHES)
+        if kernels:
+            out = att.attention_proj_packed(*leaves, mask_mode="prefix_causal",
+                                            cond_len=3)
+        else:
+            out = att.attention_proj_plain(*leaves, 0.125, "prefix_causal",
+                                           3)
+        out.backward(g)
+        used = {k_: v_ - before[k_] for k_, v_ in common.LAUNCHES.items()
+                if v_ != before[k_]}
+        assert used == ({"attention_bnhd": 1, "attention_bwd": 1}
+                        if kernels else {})
+        grads.append([t.grad for t in leaves])
+    for name, got, want in zip("qkvwbr", *grads):
+        _grad_close(got, want, name)
+
+
+@pytest.mark.parametrize("m,d,h,act", [
+    (8192, 768, 3072, "tanh"),   # ViT-Base at batch 8
+    (1000, 768, 3072, "tanh"),   # a ragged last row block
+    (300, 1280, 5120, "gelu"),   # imagenet_vitvq_large's decoder
+    (129, 512, 2048, "sqrelu"),  # imagenet_vitvq_small
+    (33, 64, 128, "tanh"),       # fake_vitvq_tiny
+])
+def test_ffn_kernel_matches_plain(cuda, m, d, h, act):
+    """B16: bf16 outputs, one rounding on each side of fp32 sums in another
+    order (a hidden element may round the other way): one bf16 step of
+    each element + 2^-8 of its row's largest."""
+    x = _randn(cuda, m, d, dtype=torch.bfloat16)
+    w1 = _randn(cuda, h, d, dtype=torch.bfloat16, scale=(2 / (d + h)) ** .5)
+    w2 = _randn(cuda, d, h, dtype=torch.bfloat16, scale=(2 / (d + h)) ** .5)
+    b1, b2 = _randn(cuda, h, scale=0.02), _randn(cuda, d, scale=0.02)
+    before = common.LAUNCHES["ffn"]
+    got = ffn.fused_ffn(x, w1, b1, w2, b2, activation=act)
+    assert common.LAUNCHES["ffn"] == before + 1
+    _row_close(got, ffn.ffn_plain(x, w1, b1, w2, b2, act), 2.0 ** -8,
+               2.0 ** -7)
+
+
+def test_ffn_backward_is_the_plain_gradient(cuda):
+    m, d, h = 200, 128, 256
+    args = [_randn(cuda, m, d, dtype=torch.bfloat16),
+            _randn(cuda, h, d, dtype=torch.bfloat16, scale=0.1),
+            _randn(cuda, h, scale=0.02),
+            _randn(cuda, d, h, dtype=torch.bfloat16, scale=0.1),
+            _randn(cuda, d, scale=0.02)]
+    g = _randn(cuda, m, d, dtype=torch.bfloat16)
+    grads = []
+    for fn in (lambda *t: ffn.fused_ffn(*t, activation="tanh"),
+               lambda *t: ffn.ffn_plain(*t, "tanh")):
+        leaves = [t.detach().clone().requires_grad_() for t in args]
+        fn(*leaves).backward(g)
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        _close(got, want, dict(atol=0.0, rtol=0.0))
+
+
+@pytest.mark.parametrize("b,h,n,m,mode,cl", [
+    (2, 12, 1024, 1024, "none", 0),
+    (2, 4, 300, 517, "prefix_causal", 5),
+    (1, 4, 517, 300, "none", 0),
+    (1, 2, 70, 70, "prefix_causal", 100),
+])
+def test_multihead_attention_kernel_matches_plain(cuda, b, h, n, m, mode, cl):
+    """B17: (B, H, N, D), the scale on the fp32 scores, M != N."""
+    q = _randn(cuda, b, h, n, 64, dtype=torch.bfloat16)
+    k, v = (_randn(cuda, b, h, m, 64, dtype=torch.bfloat16) for _ in "kv")
+    before = common.LAUNCHES["attention_bhnd"]
+    got = att.multihead_attention(q, k, v, mask_mode=mode, cond_len=cl)
+    assert common.LAUNCHES["attention_bhnd"] == before + 1
+    _close(got, att.attention_plain(q, k, v, 0.125, mode, cl), ATTN_TOL)
+
+
+@pytest.mark.parametrize("b,n,h,mode,cl", [(2, 1024, 12, "none", 0),
+                                           (1, 1025, 4, "prefix_causal", 9)])
+def test_attention_fused_bnhd_kernel_matches_plain(cuda, b, n, h, mode, cl):
+    """B18: (B, N, H, D), the scale on the fp32 scores."""
+    q, k, v = (_randn(cuda, b, n, h, 64, dtype=torch.bfloat16)
+               for _ in range(3))
+    before = common.LAUNCHES["attention_fused_bnhd"]
+    got = att._attention_fused_bnhd(q, k, v, 0.125, mode, cl)
+    assert common.LAUNCHES["attention_fused_bnhd"] == before + 1
+    _close(got, att.attention_fused_bnhd_plain(q, k, v, 0.125, mode, cl),
+           ATTN_TOL)
+
+
+@pytest.mark.parametrize("b,n,hd,d,cl", [(8, 1025, 1024, 64, 1),
+                                         (8, 1025, 1024, 64, 100),
+                                         (2, 160, 256, 64, 3),
+                                         (1, 130, 128, 128, 1)])
+def test_attention_gridchunk_kernel_matches_plain(cuda, b, n, hd, d, cl):
+    """B19 at the stage-2 training shape (cond_len 1 and 100, past a key
+    tile) and at the JAX test's shapes."""
+    q3 = _randn(cuda, b, n, hd, dtype=torch.bfloat16, scale=0.125)
+    k3, v3 = (_randn(cuda, b, n, hd, dtype=torch.bfloat16) for _ in "kv")
+    before = common.LAUNCHES["attention_gridchunk"]
+    got = att.attention_packed_gridchunk(q3, k3, v3, "prefix_causal", cl, d)
+    assert common.LAUNCHES["attention_gridchunk"] == before + 1
+    _close(got, att.attention_packed_plain(q3, k3, v3, "prefix_causal", cl,
+                                           d), ATTN_TOL)
+
+
+def test_bhnd_attention_backward_is_the_plain_gradient(cuda):
+    q, k, v = (_randn(cuda, 1, 2, 100, 64, dtype=torch.bfloat16)
+               for _ in range(3))
+    g = _randn(cuda, 1, 2, 100, 64, dtype=torch.bfloat16)
+    grads = []
+    for fn in (lambda *t: att.multihead_attention(*t),
+               lambda *t: att.attention_plain(*t, 0.125)):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        fn(*leaves).backward(g)
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        _close(got, want, dict(atol=0.0, rtol=0.0))
+
+
+def test_fused_kernels_refuse_what_they_do_not_take(cuda):
+    q, k, v, wp, bp, res = _proj_operands(cuda, 1, 64, 2, 128)
+    with pytest.raises(TypeError):  # fp32 activations
+        att.attn_proj_kernel(q.float(), k.float(), v.float(), wp.float(), bp,
+                             res.float(), 0.1)
+    with pytest.raises(ValueError):  # HO not a multiple of 64
+        att.attn_proj_kernel(q, k, v, wp[:100], bp[:100], res[..., :100],
+                             0.1)
+    x = _randn(cuda, 8, 96, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # d not a multiple of 64
+        ffn.ffn_kernel(x, _randn(cuda, 128, 96, dtype=torch.bfloat16),
+                       _randn(cuda, 128), _randn(cuda, 96, 128,
+                                                 dtype=torch.bfloat16),
+                       _randn(cuda, 96))
+    with pytest.raises(ValueError):  # head dim 48
+        att.multihead_attention(*(_randn(cuda, 1, 2, 8, 48,
+                                         dtype=torch.bfloat16),) * 3)
+
+
+def test_fused_tiny_round_trip_goes_through_the_fused_kernels(cuda,
+                                                              monkeypatch):
+    """fake_vitvq_tiny's towers with ffn_impl 'fused' and
+    ENHANCING_TPU_ATTN_PROJ=1: per block B1 (LN1 -> qkv), B15, B3 (LN2),
+    B16; B3 at each stack's end; B4."""
+    from enhancing_tpu_torch.models.stage1.vitvqgan import ViTVQ
+    monkeypatch.setenv("ENHANCING_TPU_ATTN_PROJ", "1")
+    tower = dict(dim=64, depth=2, heads=2, mlp_dim=128, ffn_impl="fused")
+    model = ViTVQ(image_size=32, patch_size=8, encoder=tower, decoder=tower,
+                  quantizer=dict(embed_dim=16, n_embed=128),
+                  dtype="bfloat16", device="cuda")
+    x = torch.rand(3, 32, 32, 3, generator=cuda, device="cuda")
+    common.reset_launches()
+    rec = model.decode_codes(model.encode_codes(x))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in common.LAUNCHES.items() if v} == {
+        "ln_gemm": 4, "attn_proj": 4, "layernorm": 6, "ffn": 4, "vq": 1}
+    assert rec.shape == (3, 32, 32, 3) and torch.isfinite(rec).all()
