@@ -26,7 +26,9 @@ Phases, each of which raises on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every kernel of ``enhancing_tpu_torch/csrc`` by ``nvcc`` for
-   sm_90a, with the ptxas register and shared-memory report;
+   sm_90a, with the ptxas register and shared-memory report; the SASS of
+   the bf16 LN -> GEMM and of the fused FFN must hold wgmma (HGMMA) and
+   TMA loads (UTMALDG) and no mma.sync (``cuobjdump``);
 3. each kernel against its plain PyTorch version on the card at the main
    paths' shapes, with the tolerance stated on its line;
 4. each kernel's time (CUDA events; the serving kernels at batch 128, the
@@ -320,6 +322,40 @@ def phase_build() -> None:
         if "Compiling entry" in line or "Used" in line or "spill" in line \
                 or line.startswith("=="):
             log("  " + line.strip())
+    check_sass(info["path"])
+
+
+# the bf16 LN -> GEMM and the fused FFN run on Hopper's warpgroup MMA fed
+# by TMA: their SASS holds HGMMA and UTMALDG, and no mma.sync (HMMA)
+SM90_KERNELS = ("ln_gemm_kernel<", "ln_gemm_kernelI", "ffn_kernel<",
+                "ffn_kernelI")
+
+
+def check_sass(lib_path: str) -> None:
+    """Count HGMMA, UTMALDG and HMMA in the SASS of the sm90 kernels."""
+    from pathlib import Path
+    from torch.utils.cpp_extension import CUDA_HOME
+    tool = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
+    if not tool.exists():
+        log("[build] cuobjdump not found: SASS not checked")
+        return
+    sass = subprocess.run([str(tool), "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    demangled = subprocess.run(["c++filt"], input=sass, capture_output=True,
+                               text=True).stdout or sass
+    found = 0
+    for block in demangled.split("Function : ")[1:]:
+        name = block.split("\n", 1)[0]
+        if not any(k in name for k in SM90_KERNELS):
+            continue
+        found += 1
+        counts = {op: block.count(op) for op in ("HGMMA", "UTMALDG",
+                                                 "UTMASTG", "HMMA")}
+        log(f"[build] SASS {name[:70]}: {counts}")
+        check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0
+              and counts["HMMA"] == 0,
+              f"{name}: expected wgmma fed by TMA and no mma.sync")
+    check(found >= 2, "the sm90 kernels are missing from the SASS")
 
 
 def rand(shape, gen, dtype=torch.bfloat16, scale=1.0):
@@ -391,6 +427,18 @@ def phase_compare() -> dict:
         got = lg.ln_gemm_kernel(t["x"], t["gamma"], t["beta"], w, b, act)
         want = lg.ln_gemm_plain(t["x"], t["gamma"], t["beta"], w, b, act)
         close("ln_gemm", label + " bf16 M=8192", got, want, **tol)
+    # the wgmma tiles' ragged edges: m past a 128-row block (and m = 1),
+    # n past a 128- or 256-column tile, d % 64 == 32 (a half k tile)
+    for (m, d, n, act) in ((1000, 1280, 2312, "sqrelu"), (1, 32, 8, "gelu"),
+                           (100, 256, 136, "tanh")):
+        x = rand((m, d), gen)
+        g = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+        bt = 0.1 * torch.randn(d, generator=gen, device="cuda")
+        w = rand((n, d), gen, scale=d ** -0.5)
+        b = 0.1 * torch.randn(n, generator=gen, device="cuda")
+        close("ln_gemm", f"ln_gemm bf16 ragged M={m} d={d} n={n} {act}",
+              lg.ln_gemm_kernel(x, g, bt, w, b, act),
+              lg.ln_gemm_plain(x, g, bt, w, b, act), **tol)
     # fp32 SIMT path: same products, another summation order
     x32, w32 = t["x"][:2048].float(), t["w_qkv"].float()
     close("ln_gemm", "ln_gemm f32 M=2048 n=2304",
@@ -1162,10 +1210,16 @@ def compare_fused_kernels(gen, close, errs) -> None:
         close("attn_proj", f"attn_proj {mode} B={b} N={n} H={heads} D=64 "
               f"HO={ho} (lane slices of qkv)", got.view(-1, ho), want,
               atol=row_atol(want, 2.0 ** -8), rtol=2.0 ** -7)
+    # the cluster plans (ops/ffn.py::ffn_plan): C = 4 with two group
+    # buffers, 8, 2, 1, 4 with one buffer, 2 with 160-column slabs; h = 3008
+    # leaves the last group of 4 chunks short
     for (m, d, h, act) in ((CHECK_BATCH * TOKENS, WIDTH, MLP, "tanh"),
                            (1000, 1280, 5120, "tanh"),
                            (1000, 512, 2048, "gelu"),
-                           (333, 64, 128, "sqrelu")):
+                           (333, 64, 128, "sqrelu"),
+                           (1000, 1024, 4096, "gelu"),
+                           (300, 320, 640, "tanh"),
+                           (129, WIDTH, 3008, "tanh")):
         args = ffn_inputs(gen, m, d, h)
         want = ffn.ffn_plain(*args, act)
         close("ffn", f"ffn {act} M={m} d={d} h={h}",

@@ -73,8 +73,11 @@ def load_from_jax(module: nn.Module, params: Mapping,
 
 def load_vitvq_from_jax(model: Any, params: Mapping) -> Any:
     """Fill ``model`` (a ``ViTVQ`` or its ``ViTVQModule``) from ``params``,
-    the JAX ``ViTVQ.params`` tree with numpy leaves. Returns ``model``."""
-    load_from_jax(getattr(model, "module", model), params)
+    the JAX ``ViTVQ.params`` tree with numpy leaves, each stack unrolled
+    (``layers_{i}``) or stacked (``layers``, ``scan_layers=True``).
+    Returns ``model``."""
+    load_from_jax(getattr(model, "module", model),
+                  _unstack_layers(params, "layers"))
     return model
 
 
@@ -97,23 +100,27 @@ def _gpt_name(path: Tuple[str, ...]) -> Tuple[str, bool]:
     return torch_name(path)
 
 
-def _unstack_layers(tree: Mapping) -> dict:
-    """``blocks`` of a ``scan_layers=True`` tree, whose leaves carry a
-    leading layer axis, split into ``blocks_{i}``."""
-    tree = dict(tree)
-    stacked = tree.pop("blocks", None)
-    if stacked is None:
-        return tree
+def _unstack_layers(tree: Mapping, key: str = "blocks") -> dict:
+    """A ``scan_layers=True`` tree with each stacked ``key`` subtree, whose
+    leaves carry a leading layer axis, split into ``{key}_{i}``: the GPT's
+    top-level ``blocks``, or each ViT stack's ``transformer/layers``."""
 
     def take(node, i):
         if isinstance(node, Mapping):
             return {k: take(v, i) for k, v in node.items()}
         return np.asarray(node)[i]
 
-    _, leaf = next(_leaves(stacked))
-    for i in range(np.shape(leaf)[0]):
-        tree[f"blocks_{i}"] = take(stacked, i)
-    return tree
+    out = {}
+    for name, node in tree.items():
+        if name == key and isinstance(node, Mapping):
+            _, leaf = next(_leaves(node))
+            for i in range(np.shape(leaf)[0]):
+                out[f"{key}_{i}"] = take(node, i)
+        elif isinstance(node, Mapping):
+            out[name] = _unstack_layers(node, key)
+        else:
+            out[name] = node
+    return out
 
 
 def _load_gpt_quant(gpt: Any, quant: Mapping) -> None:

@@ -1,6 +1,7 @@
-// Helpers shared by the kernels of this directory: dtype codes, bf16
-// packing, warp reductions, activations and the sm_80+ tensor-core
-// instructions (ldmatrix, mma.sync m16n8k16 bf16 with fp32 accumulation).
+// Helpers shared by the kernels of this directory: dtype codes, the SM
+// count, bf16 packing, warp reductions, activations and the sm_80+
+// tensor-core instructions (ldmatrix, mma.sync m16n8k16 bf16 with fp32
+// accumulation).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -24,6 +25,19 @@ constexpr int ACT_GELU = 3;
 
 // return code for arguments a kernel does not take
 constexpr int ETK_BAD_ARGS = -1;
+
+// SMs of the current card (0 if the query fails), asked once
+inline int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      count = 0;
+  }
+  return count;
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

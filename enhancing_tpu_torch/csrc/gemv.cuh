@@ -467,18 +467,6 @@ __host__ __forceinline__ bool bad_shape(int m, int d, int n, int act) {
          act > ACT_GELU || (m + kRows - 1) / kRows > 65535;
 }
 
-inline int sm_count() {
-  static int count = 0;
-  if (count == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      count = 0;
-  }
-  return count;
-}
-
 // a cooperative launch of as many blocks as fit on the card at once
 template <typename Args>
 int launch_cooperative(void (*kernel)(Args), Args args, cudaStream_t stream) {

@@ -6,22 +6,34 @@
 // normalised row is rounded to the compute dtype before the product;
 // fp32 accumulation; then fp32 bias, fp32 activation, one rounding.
 // W is (n, d) with d contiguous: torch's Linear layout, which is the
-// "col" operand that mma.sync wants.
+// K-major B operand that wgmma wants.
 //
 // Bound on the H100: tensor-core operations. At the main path's shapes
 // (M = B * 1024, d = 768, n = 2304 or 3072) it does 2*M*d*n flops against
 // ~2*(M*d + M*n) bytes, hundreds of flops per byte, above the ridge.
-// Design: a block owns a 128 x 128 output tile. It first computes mean and
-// rstd of its 128 rows over the whole d (one extra read of the x block,
-// which then stays in L2), then walks d in 32-wide tiles: each x tile is
-// normalised in registers on its way to shared memory, rounded to bf16,
-// and multiplied with the W tile by mma.sync m16n8k16 (eight warps, each
-// 64 x 32), with the next tile's global loads in flight during the
-// current tile's products and two shared-memory buffers so one barrier
-// per tile suffices. The normalised activation never reaches device
-// memory. fp32 inputs take a SIMT FMA path in full fp32 (no TF32).
-// wgmma, TMA and a persistent schedule are left for later work.
+// Design (bf16), on the Hopper core of sm90.cuh: a pre-pass writes each
+// row's fp32 mean and rstd (one read of x, ~60 us at batch 128; computing
+// them in every output tile would read the x block again from L2 for each
+// of the 9-12 column tiles). The GEMM is persistent, one block an SM
+// walking 128 x BN output tiles (BN 256, or 128 when 256-wide tiles would
+// not fill the SMs), the tiles in flight adjacent in one row block. A
+// producer warpgroup (one thread issuing, its registers given to the
+// consumers) streams 64-wide k slices of the raw x tile and of the W tile
+// through a TMA ring, running ahead into the next tile. Two consumer
+// warpgroups of 64 rows each load their x slice from shared memory into
+// mma.sync-layout A fragments (ldmatrix), normalise them in registers with
+// their rows' statistics and the slice's gamma and beta, round to bf16 and
+// issue register-A wgmma against the W tile, one k tile in flight while
+// the next is normalised. The normalised activation never reaches shared
+// or device memory. The epilogue adds the bias and applies the activation
+// in fp32, rounds once into a swizzled shared-memory tile and TMA-stores
+// it, asynchronously, while the next tile's products start. fp32 inputs
+// take a SIMT FMA path in full fp32 (no TF32): tensor cores cannot
+// compute it.
+#include <type_traits>
+
 #include "common.cuh"
+#include "sm90.cuh"
 #include "vec.cuh"
 
 namespace {
@@ -62,153 +74,275 @@ __device__ void row_stats(const T* __restrict__ x, int m, int d, float eps,
   }
 }
 
-// ---- bf16: tensor cores ----------------------------------------------------
+// ---- bf16: row statistics, then wgmma ----------------------------------
 
-constexpr int BM = 128, BN = 128, BK = 32, LDS = BK + 8;  // +8: no conflicts
-constexpr int kThreads = 256;                             // 2 x 4 warps
+// mean and rstd of every row of a bf16 (m, d) x, eight rows a block, into
+// stats: the m means, then the m rstds
+__global__ void __launch_bounds__(256)
+    ln_gemm_stats_kernel(const __nv_bfloat16* __restrict__ x,
+                         float* __restrict__ stats, int m, int d, float eps) {
+  const int row0 = blockIdx.x * 8;
+  row_stats(x, m, d, eps, row0, min(8, m - row0), stats + row0,
+            stats + m + row0);
+}
 
-struct TileRegs {
-  uint4 a[2];  // two 8-wide x vectors
-  uint4 b[2];  // two 8-wide W vectors
-};
+constexpr int BM = 128;
+constexpr int kConsumers = 256, kThreads = kConsumers + 128;
+constexpr int kXBytes = BM * sm90::kTileK * 2;
 
-__device__ __forceinline__ void load_tile(TileRegs& t,
-                                          const __nv_bfloat16* __restrict__ x,
-                                          const __nv_bfloat16* __restrict__ w,
-                                          int m, int n, int d, int row0,
-                                          int col0, int k0) {
+// the tile widths: kWideN, or 128 when kWideN-wide tiles would not fill
+// the SMs. 256 rather than 192 (4 ring stages instead of 3): the wider
+// tile reads the x block 9 times for n = 2304 instead of 12, and the L2
+// traffic, not the ring's depth, sets the pace (192 was 13% slower on the
+// H100)
+constexpr int kWideN = 256;
+
+__host__ __device__ constexpr int stage_bytes(int bn) {
+  return kXBytes + bn * sm90::kTileK * 2;
+}
+__host__ __device__ constexpr int out_bytes(int bn) { return 64 * bn * 2; }
+// as many ring stages as fit beside the output staging of 64 x BN bf16
+// per consumer warpgroup, at most 8: 3 at BN 256, 6 at BN 128
+__host__ __device__ constexpr int stages(int bn) {
+  return (sm90::kSmemLimit - 2 * out_bytes(bn)) / stage_bytes(bn) > 8
+             ? 8
+             : (sm90::kSmemLimit - 2 * out_bytes(bn)) / stage_bytes(bn);
+}
+__host__ __device__ constexpr int smem_bytes(int bn) {
+  return stages(bn) * stage_bytes(bn) + 2 * out_bytes(bn) + 1024;
+}
+
+// bf16 bits to fp32, the low and the high half of a packed pair
+__device__ __forceinline__ float bf16_lo(uint32_t u) {
+  return __uint_as_float(u << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+
+// A consumer thread's accumulators + bias, activation ACT, rounded to bf16
+// into its warpgroup's staging: 64 x BN as BN / 64 swizzled (64, 64)
+// tiles, the TMA store's layout. The accumulator of n8 block j holds
+// (row r, cols 2q, 2q + 1) and (row r + 8, the same), q = lane % 4.
+template <int ACT, int BN>
+__device__ __forceinline__ void stage_out(const float (&acc)[BN / 2],
+                                          uint8_t* st, int r,
+                                          const float* __restrict__ bias,
+                                          int col0, int n) {
+  const int lane = threadIdx.x % 32;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int v = threadIdx.x + i * kThreads;  // 0..511
-    const int r = v / 4, c = (v % 4) * 8;
-    const int gr = row0 + r, gn = col0 + r;
-    t.a[i] = gr < m ? *reinterpret_cast<const uint4*>(
-                          x + static_cast<size_t>(gr) * d + k0 + c)
-                    : make_uint4(0, 0, 0, 0);
-    t.b[i] = gn < n ? *reinterpret_cast<const uint4*>(
-                          w + static_cast<size_t>(gn) * d + k0 + c)
-                    : make_uint4(0, 0, 0, 0);
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = col0 + j * 8 + (lane % 4) * 2;
+    const float b0 = bias && col < n ? bias[col] : 0.f;
+    const float b1 = bias && col < n ? bias[col + 1] : 0.f;
+    uint8_t* tile = st + (j / 8) * 8192 + (lane % 4) * 4;
+    *reinterpret_cast<uint32_t*>(tile + sm90::swizzled(r, j % 8)) =
+        pack_bf16x2(apply_act(acc[4 * j] + b0, ACT),
+                    apply_act(acc[4 * j + 1] + b1, ACT));
+    *reinterpret_cast<uint32_t*>(tile + sm90::swizzled(r + 8, j % 8)) =
+        pack_bf16x2(apply_act(acc[4 * j + 2] + b0, ACT),
+                    apply_act(acc[4 * j + 3] + b1, ACT));
   }
 }
 
-__device__ __forceinline__ void store_tile(const TileRegs& t,
-                                           __nv_bfloat16 (*as)[LDS],
-                                           __nv_bfloat16 (*bs)[LDS],
-                                           const float* __restrict__ gamma,
-                                           const float* __restrict__ beta,
-                                           const float* mean_s,
-                                           const float* rstd_s, int k0) {
+// Persistent: one block an SM walks the output tiles tile = blockIdx.x +
+// i * gridDim.x, so the tiles in flight share row blocks; the producer
+// runs ahead into the next tile while the consumers finish this one.
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+    ln_gemm_kernel(const __grid_constant__ CUtensorMap tmap_x,
+                   const __grid_constant__ CUtensorMap tmap_w,
+                   const __grid_constant__ CUtensorMap tmap_out,
+                   const float* __restrict__ stats,
+                   const float* __restrict__ gamma,
+                   const float* __restrict__ beta,
+                   const float* __restrict__ bias, int m, int d, int n,
+                   int act, int tiles_n, int tiles) {
+  constexpr int S = stages(BN), SB = stage_bytes(BN);
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[S], empty[S];
+  uint8_t* smem = sm90::align_1024(smem_raw);
+  uint8_t* staging = smem + S * SB;  // two warpgroups' output tiles
+  const int ktiles = (d + sm90::kTileK - 1) / sm90::kTileK;
+  const sm90::Ring ring{S};
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // producer warpgroup: one thread drives the TMA ring
+    sm90::regs_dealloc<40>();
+    if (threadIdx.x == kConsumers) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int row0 = (tile / tiles_n) * BM, col0 = (tile % tiles_n) * BN;
+        for (int kt = 0; kt < ktiles; ++kt, ++it) {
+          const int s = ring.stage(it);
+          sm90::mbar_wait(&empty[s], ring.parity(it) ^ 1u);
+          uint8_t* st = smem + s * SB;
+          sm90::mbar_expect_tx(&full[s], SB);
+          sm90::tma_load(st, &tmap_x, &full[s], kt * sm90::kTileK, row0);
+          sm90::tma_load(st + kXBytes, &tmap_w, &full[s], kt * sm90::kTileK,
+                         col0);
+        }
+      }
+    }
+  } else {
+    // two consumer warpgroups, 64 rows each
+    sm90::regs_alloc<232>();
+    const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const bool leader = threadIdx.x % 128 == 0;
+    const int r_wg = warp * 16 + lane / 4;  // row in the warpgroup's 64
+    // ldmatrix: lanes 0-15 address rows 0-15 of the warp's 16 at the k16
+    // slice's first 8 columns, lanes 16-31 at its second 8
+    const int lrow = wg * 64 + warp * 16 + lane % 16, lchunk = lane / 16;
+    uint8_t* my_out = staging + wg * out_bytes(BN);
+    float acc[BN / 2];
+    uint32_t frag[2][4][4];  // A fragments of two k tiles: one in flight
+    int it = 0;
+
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int row0 = (tile / tiles_n) * BM, col0 = (tile % tiles_n) * BN;
+      const int ra = row0 + wg * 64 + r_wg, rb = ra + 8;
+      // (mean, rstd) of rows a and b; rows past m read as (0, 0)
+      const float2 sa = ra < m ? make_float2(stats[ra], stats[m + ra])
+                               : make_float2(0.f, 0.f);
+      const float2 sb = rb < m ? make_float2(stats[rb], stats[m + rb])
+                               : make_float2(0.f, 0.f);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int v = threadIdx.x + i * kThreads;
-    const int r = v / 4, c = (v % 4) * 8;
-    float xv[8], g[8], b[8];
-    Vec<__nv_bfloat16>::load(reinterpret_cast<const __nv_bfloat16*>(&t.a[i]),
-                             xv);
-    Vec<float>::load(gamma + k0 + c, *reinterpret_cast<float(*)[4]>(g));
-    Vec<float>::load(gamma + k0 + c + 4, *reinterpret_cast<float(*)[4]>(g + 4));
-    Vec<float>::load(beta + k0 + c, *reinterpret_cast<float(*)[4]>(b));
-    Vec<float>::load(beta + k0 + c + 4, *reinterpret_cast<float(*)[4]>(b + 4));
-    const float mean = mean_s[r], rstd = rstd_s[r];
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+
+      auto step = [&](int kt, auto set_c) {
+        constexpr int SET = decltype(set_c)::value;
+        const int s = ring.stage(it + kt);
+        sm90::mbar_wait(&full[s], ring.parity(it + kt));
+        const uint8_t* xs = smem + s * SB;
+        const uint64_t wdesc = sm90::smem_desc(xs + kXBytes);
+        const int k0 = kt * sm90::kTileK;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) xv[j] = (xv[j] - mean) * (rstd * g[j]) + b[j];
-    Vec<__nv_bfloat16>::store(&as[r][c], xv);
-    *reinterpret_cast<uint4*>(&bs[r][c]) = t.b[i];
+        for (int ks = 0; ks < 4; ++ks) {
+          if (k0 + ks * 16 >= d) break;  // d % 32: half of the last tile
+          uint32_t r[4];
+          ldmatrix_x4(r, xs + sm90::swizzled(lrow, ks * 2 + lchunk));
+          const int c = k0 + ks * 16 + (lane % 4) * 2;
+          const float2 g0 = *reinterpret_cast<const float2*>(gamma + c);
+          const float2 g1 = *reinterpret_cast<const float2*>(gamma + c + 8);
+          const float2 b0 = *reinterpret_cast<const float2*>(beta + c);
+          const float2 b1 = *reinterpret_cast<const float2*>(beta + c + 8);
+          // r[0]: row a, columns c, c+1; r[1]: row b; r[2], r[3]: c+8, c+9
+          frag[SET][ks][0] = pack_bf16x2(
+              (bf16_lo(r[0]) - sa.x) * (sa.y * g0.x) + b0.x,
+              (bf16_hi(r[0]) - sa.x) * (sa.y * g0.y) + b0.y);
+          frag[SET][ks][1] = pack_bf16x2(
+              (bf16_lo(r[1]) - sb.x) * (sb.y * g0.x) + b0.x,
+              (bf16_hi(r[1]) - sb.x) * (sb.y * g0.y) + b0.y);
+          frag[SET][ks][2] = pack_bf16x2(
+              (bf16_lo(r[2]) - sa.x) * (sa.y * g1.x) + b1.x,
+              (bf16_hi(r[2]) - sa.x) * (sa.y * g1.y) + b1.y);
+          frag[SET][ks][3] = pack_bf16x2(
+              (bf16_lo(r[3]) - sb.x) * (sb.y * g1.x) + b1.x,
+              (bf16_hi(r[3]) - sb.x) * (sb.y * g1.y) + b1.y);
+        }
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          if (k0 + ks * 16 >= d) break;
+          sm90::Wgmma<BN>::rs(acc, frag[SET][ks], sm90::desc_k(wdesc, ks));
+        }
+        sm90::wgmma_commit();
+        // the previous k tile's products are done: its fragments may be
+        // rewritten and its stage refilled
+        sm90::wgmma_wait<1>();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) sm90::hold(frag[SET ^ 1][ks]);
+        if (kt > 0 && leader) sm90::mbar_arrive(&empty[ring.stage(it + kt - 1)]);
+      };
+      for (int kt = 0; kt < ktiles; kt += 2) {
+        step(kt, std::integral_constant<int, 0>{});
+        if (kt + 1 < ktiles) step(kt + 1, std::integral_constant<int, 1>{});
+      }
+      sm90::wgmma_wait<0>();
+      sm90::hold(acc);
+      it += ktiles;
+      if (leader) sm90::mbar_arrive(&empty[ring.stage(it - 1)]);
+
+      // epilogue: once this warpgroup's previous TMA store has read the
+      // staging, bias + activation in fp32, one rounding, into the staging;
+      // then one thread stores it (the matrix clips the ragged edges)
+      if (leader) sm90::bulk_wait_read();
+      sm90::named_sync(1 + wg, 128);
+      switch (act) {
+        case ACT_TANH:
+          stage_out<ACT_TANH, BN>(acc, my_out, r_wg, bias, col0, n);
+          break;
+        case ACT_SQRELU:
+          stage_out<ACT_SQRELU, BN>(acc, my_out, r_wg, bias, col0, n);
+          break;
+        case ACT_GELU:
+          stage_out<ACT_GELU, BN>(acc, my_out, r_wg, bias, col0, n);
+          break;
+        default:
+          stage_out<ACT_NONE, BN>(acc, my_out, r_wg, bias, col0, n);
+      }
+      sm90::fence_async_cta();
+      sm90::named_sync(1 + wg, 128);
+      if (leader) {
+#pragma unroll
+        for (int q = 0; q < BN / 64; ++q)
+          sm90::tma_store(&tmap_out, my_out + q * 8192, col0 + q * 64,
+                          row0 + wg * 64);
+        sm90::bulk_commit();
+      }
+    }
+    if (leader) sm90::bulk_wait();
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
-    ln_gemm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                        const float* __restrict__ gamma,
-                        const float* __restrict__ beta,
-                        const __nv_bfloat16* __restrict__ w,
-                        const float* __restrict__ bias,
-                        __nv_bfloat16* __restrict__ out, int m, int d, int n,
-                        int act, float eps) {
-  __shared__ __align__(16) __nv_bfloat16 as[2][BM][LDS];
-  __shared__ __align__(16) __nv_bfloat16 bs[2][BN][LDS];
-  __shared__ float mean_s[BM], rstd_s[BM];
+// The tile width for an (m, n) product: kWideN unless such tiles would
+// leave SMs idle (ops/ln_gemm.py::ln_gemm_plan mirrors it).
+int tile_n(int m, int n, int sms) {
+  const long long rows = (m + BM - 1) / BM;
+  return rows * ((n + kWideN - 1) / kWideN) >= sms ? kWideN : 128;
+}
 
-  const int col0 = blockIdx.x * BN, row0 = blockIdx.y * BM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 4, wn = warp % 4;  // warp tile: 64 rows x 32 cols
+long long tile_count(int m, int n, int bn) {
+  return static_cast<long long>((m + BM - 1) / BM) * ((n + bn - 1) / bn);
+}
 
-  row_stats(x, m, d, eps, row0, BM, mean_s, rstd_s);
-  __syncthreads();
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  TileRegs regs;
-  load_tile(regs, x, w, m, n, d, row0, col0, 0);
-  store_tile(regs, as[0], bs[0], gamma, beta, mean_s, rstd_s, 0);
-  __syncthreads();
-
-  const int ktiles = d / BK;
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int cur = kt & 1;
-    const bool more = kt + 1 < ktiles;
-    if (more) load_tile(regs, x, w, m, n, d, row0, col0, (kt + 1) * BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[4][4], bf[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldmatrix_x4(af[mi], &as[cur][wm * 64 + mi * 16 + lane % 16]
-                                [kk + (lane / 16) * 8]);
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        uint32_t r[4];
-        ldmatrix_x4(r, &bs[cur][wn * 32 + nj * 16 + lane % 8 + (lane / 16) * 8]
-                          [kk + ((lane / 8) % 2) * 8]);
-        bf[2 * nj][0] = r[0];
-        bf[2 * nj][1] = r[1];
-        bf[2 * nj + 1][0] = r[2];
-        bf[2 * nj + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_bf16_16816(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);
-    }
-    if (more)
-      store_tile(regs, as[cur ^ 1], bs[cur ^ 1], gamma, beta, mean_s, rstd_s,
-                 (kt + 1) * BK);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int col = col0 + wn * 32 + ni * 8 + (lane % 4) * 2;
-      if (col >= n) continue;
-      const float b0 = bias ? bias[col] : 0.f;
-      const float b1 = bias ? bias[col + 1] : 0.f;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = row0 + wm * 64 + mi * 16 + lane / 4 + h * 8;
-        if (row >= m) continue;
-        const float y0 = apply_act(acc[mi][ni][2 * h] + b0, act);
-        const float y1 = apply_act(acc[mi][ni][2 * h + 1] + b1, act);
-        *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row) * n +
-                                     col) = pack_bf16x2(y0, y1);
-      }
-    }
-  }
+template <int BN>
+int launch_bf16(const void* x, const float* gamma, const float* beta,
+                const void* w, const float* bias, void* out, float* stats,
+                int m, int d, int n, int act, float eps, int sms,
+                cudaStream_t s) {
+  CUtensorMap tx, tw, to;
+  if (sm90::tensor_map(&tx, x, m, d, d, BM) ||
+      sm90::tensor_map(&tw, w, n, d, d, BN) ||
+      sm90::tensor_map(&to, out, m, n, n, 64))
+    return ETK_TMAP_FAILED;
+  const long long tiles = tile_count(m, n, BN);
+  if (tiles > 2147483647LL) return ETK_BAD_ARGS;
+  ln_gemm_stats_kernel<<<(m + 7) / 8, 256, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(x), stats, m, d, eps);
+  return static_cast<int>(sm90::launch_cluster(
+      ln_gemm_kernel<BN>, tiles < sms ? tiles : sms, 1, kThreads,
+      smem_bytes(BN), s, tx, tw, to, static_cast<const float*>(stats),
+      gamma, beta, bias, m, d, n, act, (n + BN - 1) / BN,
+      static_cast<int>(tiles)));
 }
 
 // ---- fp32: SIMT FMA ----------------------------------------------------------
 
 constexpr int FM = 64, FN = 64, FK = 16, FLD = FM + 4;
+constexpr int kF32Threads = 256;  // 16 x 16 threads, 4 x 4 outputs each
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kF32Threads)
     ln_gemm_f32_kernel(const float* __restrict__ x,
                        const float* __restrict__ gamma,
                        const float* __restrict__ beta,
@@ -269,31 +403,52 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
+// x, w: (m, d), (n, d) of one dtype; gamma, beta (d,) and bias (n,) fp32;
+// out (m, n); stats: a 2 * m fp32 workspace for the bf16 path's row
+// statistics (unused in fp32).
 ETK_API int etk_ln_gemm(const void* x, const void* gamma, const void* beta,
-                        const void* w, const void* bias, void* out, int m,
-                        int d, int n, int act, float eps, int dtype,
-                        void* stream) {
+                        const void* w, const void* bias, void* out,
+                        void* stats, int m, int d, int n, int act, float eps,
+                        int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (m <= 0 || n <= 0 || act < ACT_NONE || act > ACT_GELU)
     return ETK_BAD_ARGS;
   if (dtype == ETK_BF16) {
-    if (d % BK != 0 || n % 8 != 0) return ETK_BAD_ARGS;
-    dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-    ln_gemm_bf16_kernel<<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(gamma),
-        static_cast<const float*>(beta), static_cast<const __nv_bfloat16*>(w),
-        static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), m,
-        d, n, act, eps);
-  } else if (dtype == ETK_F32) {
+    if (d % 32 != 0 || n % 8 != 0 || stats == nullptr) return ETK_BAD_ARGS;
+    auto g = static_cast<const float*>(gamma);
+    auto b = static_cast<const float*>(beta);
+    auto bi = static_cast<const float*>(bias);
+    auto st = static_cast<float*>(stats);
+    const int sms = sm_count();
+    return tile_n(m, n, sms) == kWideN
+               ? launch_bf16<kWideN>(x, g, b, w, bi, out, st, m, d, n, act,
+                                     eps, sms, s)
+               : launch_bf16<128>(x, g, b, w, bi, out, st, m, d, n, act, eps,
+                                  sms, s);
+  }
+  if (dtype == ETK_F32) {
     if (d % FK != 0) return ETK_BAD_ARGS;
     dim3 grid((n + FN - 1) / FN, (m + FM - 1) / FM);
-    ln_gemm_f32_kernel<<<grid, kThreads, 0, s>>>(
+    ln_gemm_f32_kernel<<<grid, kF32Threads, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(gamma),
         static_cast<const float*>(beta), static_cast<const float*>(w),
         static_cast<const float*>(bias), static_cast<float*>(out), m, d, n,
         act, eps);
-  } else {
-    return ETK_BAD_ARGS;
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  return ETK_BAD_ARGS;
+}
+
+// the bf16 path's plan for an (m, n) product on this device: tile rows,
+// tile columns, stages, dynamic shared memory, grid
+ETK_API int etk_ln_gemm_plan(int m, int n, int* plan) {
+  const int sms = sm_count();
+  const int bn = tile_n(m, n, sms);
+  const long long tiles = tile_count(m, n, bn);
+  plan[0] = BM;
+  plan[1] = bn;
+  plan[2] = stages(bn);
+  plan[3] = smem_bytes(bn);
+  plan[4] = static_cast<int>(tiles < sms ? tiles : sms);
+  return 0;
 }

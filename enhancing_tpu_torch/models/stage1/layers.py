@@ -1,8 +1,10 @@
 """ViT encoder/decoder of the VQGAN tokenizer, in PyTorch.
 
 Counterpart of ``enhancing_tpu/models/stage1/layers.py`` with its
-default branches and its two opt-in fusions (the W8A8 option is a later
-slice of the port):
+default branches and its two opt-in fusions. The W8A8 option
+(``ENHANCING_TPU_STAGE1_GEMM=w8a8``) is a later slice of the port: a block
+refuses it when it is built or called rather than compute another
+function than the one asked for.
 
 - Images are NHWC. Patch embed and un-embed are reshape + Linear, with
   patch pixels flattened in (C, ph, pw) order.
@@ -131,6 +133,17 @@ def use_fused_attn_proj() -> bool:
     return os.environ.get("ENHANCING_TPU_ATTN_PROJ", "") not in ("", "0")
 
 
+def refuse_w8a8() -> None:
+    """Raise if ENHANCING_TPU_STAGE1_GEMM=w8a8 asks for int8 block GEMMs:
+    the JAX package then routes qkv, to_out, fc1 and fc2 through int8
+    activations and weights, which the port does not have yet."""
+    if os.environ.get("ENHANCING_TPU_STAGE1_GEMM") == "w8a8":
+        raise NotImplementedError(
+            "ENHANCING_TPU_STAGE1_GEMM=w8a8 (int8 activations on int8 "
+            "stage-1 GEMMs) is not ported (ROADMAP A8); unset it to run "
+            "the bf16/fp32 GEMMs")
+
+
 def resolve_ffn_impl(ffn_impl: str | None) -> str:
     """The FFN kernel choice: the ENHANCING_TPU_FUSED_FFN env var is an A/B
     override; otherwise the module/config field decides ('dense', the
@@ -211,6 +224,7 @@ class TransformerBlock(nn.Module):
                  ffn_impl: str | None = None,
                  generator: torch.Generator | None = None) -> None:
         super().__init__()
+        refuse_w8a8()
         self.norm1 = LayerNormParams(dim)
         self.attn = Attention(dim, heads, dim_head, dtype=dtype,
                               generator=generator)
@@ -219,6 +233,7 @@ class TransformerBlock(nn.Module):
                               generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        refuse_w8a8()  # read at each call, as JAX reads it at each trace
         x = self.attn(x, self.norm1, residual=x)
         return x + self.ff(x, self.norm2)
 

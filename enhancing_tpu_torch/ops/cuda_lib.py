@@ -33,10 +33,12 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 _p = ctypes.c_void_p
 _i = ctypes.c_int
 _f = ctypes.c_float
-# C entry points (see each csrc/*.cu); all return a cudaError_t, or -1 for
-# arguments the kernel does not take.
+# C entry points (see each csrc/*.cu); all return a cudaError_t, -1 for
+# arguments the kernel does not take, or -2 for a TMA tensor map that could
+# not be encoded.
 SIGNATURES = {
-    "etk_ln_gemm": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _f, _i, _p],
+    "etk_ln_gemm": [_p] * 7 + [_i, _i, _i, _i, _f, _i, _p],
+    "etk_ln_gemm_plan": [_i, _i, ctypes.POINTER(_i)],
     "etk_layernorm": [_p, _p, _p, _p, _i, _i, _f, _i, _p],
     "etk_attention_qkv": [_p, _p, _i, _i, _i, _i, _f, _i, _i, _p],
     "etk_vq_nearest": [_p, _p, _p, _p, _i, _i, _i, _p],
@@ -53,6 +55,7 @@ SIGNATURES = {
     "etk_int8_mlp": [_p] * 12 + [_i] * 4 + [_f, _i, _i, _p],
     "etk_attn_proj": [_p] * 7 + [_i] * 9 + [_f, _i, _i, _p],
     "etk_ffn": [_p] * 6 + [_i] * 4 + [_p],
+    "etk_ffn_plan": [_i, ctypes.POINTER(_i)],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -134,6 +137,14 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
+def plan(name: str, *args: int, size: int = 5) -> tuple:
+    """The ``size`` integers that C entry ``name`` (a kernel's host-side
+    tile or cluster choice) writes for ``args`` on this device."""
+    out = (_i * size)()
+    call(name, *args, out)
+    return tuple(out)
+
+
 def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
@@ -143,6 +154,7 @@ def call(name: str, *args) -> None:
     handle = lib()
     rc = getattr(handle, name)(*args)
     if rc != 0:
-        msg = ("arguments the kernel does not take" if rc == -1
-               else handle.etk_error_string(rc).decode())
+        msg = {-1: "arguments the kernel does not take",
+               -2: "a TMA tensor map could not be encoded"}.get(rc)
+        msg = msg or handle.etk_error_string(rc).decode()
         raise RuntimeError(f"{name} failed ({rc}): {msg}")

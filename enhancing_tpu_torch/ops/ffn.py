@@ -18,9 +18,9 @@ Weights use torch's Linear layout: ``w1: (h, d)``, ``w2: (d, h)``. The JAX
 dispatch limits that exist for VMEM and the 128 lanes (``_MAX_WEIGHT_BYTES``,
 ``d % 128``, ``_H_CHUNK`` divisibility, ``ffn.py:131-155``) are not
 reproduced: the XLA path they fall back to computes the same function in
-f32. The kernel takes bf16 x and weights, fp32 biases, and d and h
-multiples of 64 (every stage-1 config: d 64-1280, h 128-5120), and raises
-otherwise.
+f32. The kernel takes bf16 x and weights, fp32 biases, d and h multiples
+of 64 and d up to 2048 (every stage-1 config: d 64-1280, h 128-5120), and
+raises otherwise. ``ffn_plan`` mirrors the kernel's choice of cluster.
 """
 from __future__ import annotations
 
@@ -31,6 +31,37 @@ from .common import LAUNCHES, check_kernel_args, use_kernel
 from .ln_gemm import ACTIVATIONS, _act, _plain_vjp
 
 FFN_ACTIVATIONS = ("tanh", "sqrelu", "gelu")
+# the kernel's shapes (csrc/ffn.cu): 128-row blocks in clusters of C (1, 2,
+# 4 or 8), each block owning an output slab of DS columns, the hidden
+# walked in 64-wide chunks
+FFN_CLUSTERS, FFN_SLABS, FFN_CHUNK, FFN_TILE_M = (1, 2, 4, 8), \
+    (64, 128, 160, 192, 256), 64, 128
+FFN_MAX_STAGES, FFN_SMEM_LIMIT = 8, 232448 - 2048
+FFN_MAX_D = max(FFN_CLUSTERS) * max(FFN_SLABS)
+
+
+def ffn_plan(d: int) -> dict | None:
+    """The kernel's cluster for width d, as ``csrc/ffn.cu::ffn_plan`` picks
+    it (the C entry ``etk_ffn_plan`` returns the same numbers): C and DS
+    with C * DS >= d and the fewest padded columns, then the smallest C;
+    two group buffers of C hidden chunks (128 x 64 bf16 each) if four TMA
+    ring stages (an x tile and a W1 tile, or a W2 tile) fit beside them,
+    else one; then as many stages as shared memory holds, at most 8. None
+    where no cluster covers d."""
+    best = None
+    for c in FFN_CLUSTERS:
+        for ds in FFN_SLABS:
+            if c * ds >= d and (best is None or c * ds - d < best[0]):
+                best = (c * ds - d, c, ds)
+    if best is None:
+        return None
+    _, c, ds = best
+    stage = max((FFN_TILE_M + FFN_CHUNK) * 64 * 2, ds * 64 * 2)
+    slots = c * FFN_TILE_M * FFN_CHUNK * 2
+    buffers = 2 if (FFN_SMEM_LIMIT - 2 * slots) // stage >= 4 else 1
+    stages = min(FFN_MAX_STAGES, (FFN_SMEM_LIMIT - buffers * slots) // stage)
+    return dict(cluster=c, slab=ds, chunk=FFN_CHUNK, buffers=buffers,
+                stages=stages, smem=buffers * slots + stages * stage + 1024)
 
 
 def ffn_plain(x, w1, b1, w2, b2, activation="tanh"):
@@ -53,9 +84,9 @@ def ffn_kernel(x, w1, b1, w2, b2, activation="tanh"):
             or b2.shape != (d,)):
         raise ValueError(f"ffn: x {tuple(x.shape)}, w1 {tuple(w1.shape)}, "
                          f"w2 {tuple(w2.shape)} and the biases do not fit")
-    if d % 64 or h % 64:
-        raise ValueError(f"ffn kernel needs d % 64 == 0 and h % 64 == 0, "
-                         f"got d={d}, h={h}")
+    if d % 64 or h % 64 or d > FFN_MAX_D:
+        raise ValueError(f"ffn kernel needs d % 64 == 0, h % 64 == 0 and "
+                         f"d <= {FFN_MAX_D}, got d={d}, h={h}")
     if activation not in FFN_ACTIVATIONS:
         raise ValueError(f"ffn activation must be one of {FFN_ACTIVATIONS}")
     check_kernel_args("ffn", x, w1, b1, w2, b2)

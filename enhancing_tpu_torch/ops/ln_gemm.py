@@ -71,9 +71,36 @@ def ln_gemm_plain(x, gamma, beta, w, b=None, activation=None, eps=1e-5):
     return _act(h, activation).to(x.dtype)
 
 
+# the bf16 kernel's tiles (csrc/ln_gemm.cu): 128 rows (two 64-row wgmma
+# warpgroups) by 256 or 128 columns, 64-wide k slices
+LN_GEMM_TILE_M, LN_GEMM_WIDE_N, LN_GEMM_TILE_K = 128, 256, 64
+LN_GEMM_SMEM_LIMIT = 232448 - 2048
+
+
+def ln_gemm_plan(m: int, n: int, sms: int = 132) -> dict:
+    """The bf16 kernel's launch for an (m, d) x (n, d) product on a card of
+    ``sms`` SMs, as ``csrc/ln_gemm.cu`` makes it (the C entry
+    ``etk_ln_gemm_plan`` returns the same numbers): 256-wide tiles unless
+    they would leave SMs idle, then 128-wide; beside a 64 x tile_n bf16
+    output staging per consumer warpgroup, as many TMA ring stages (an x
+    tile and a W tile each) as shared memory holds, at most 8, and 1 KB
+    of alignment slack; one persistent block an SM, at most one a tile."""
+    rows = -(-m // LN_GEMM_TILE_M)
+    wide = LN_GEMM_WIDE_N
+    bn = wide if rows * -(-n // wide) >= sms else 128
+    stage = (LN_GEMM_TILE_M + bn) * LN_GEMM_TILE_K * 2
+    staging = 2 * 64 * bn * 2
+    stages = min(8, (LN_GEMM_SMEM_LIMIT - staging) // stage)
+    return dict(tile_m=LN_GEMM_TILE_M, tile_n=bn, stages=stages,
+                smem=stages * stage + staging + 1024,
+                grid=min(rows * -(-n // bn), sms))
+
+
 def ln_gemm_kernel(x, gamma, beta, w, b=None, activation=None, eps=1e-5):
     """Launch ``csrc/ln_gemm.cu`` on CUDA tensors x (m, d), w (n, d) of one
-    dtype (bf16 or f32), fp32 gamma/beta (d,) and bias (n,)."""
+    dtype (bf16 or f32), fp32 gamma/beta (d,) and bias (n,). The bf16 path
+    first writes each row's mean and rstd into a 2 * m fp32 workspace (one
+    wrapper call, one launch counted)."""
     m, d = x.shape
     n = w.shape[0]
     if x.dtype not in _DTYPES or w.dtype != x.dtype:
@@ -91,11 +118,15 @@ def ln_gemm_kernel(x, gamma, beta, w, b=None, activation=None, eps=1e-5):
         raise TypeError("ln_gemm kernel takes fp32 gamma, beta and bias")
     check_kernel_args("ln_gemm", x, gamma, beta, w, b)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    # the bf16 path's row statistics: m means, then m rstds
+    stats = (torch.empty(2 * m, dtype=torch.float32, device=x.device)
+             if x.dtype == torch.bfloat16 else None)
     cuda_lib.call("etk_ln_gemm", x.data_ptr(), gamma.data_ptr(),
                   beta.data_ptr(), w.data_ptr(),
-                  None if b is None else b.data_ptr(),
-                  out.data_ptr(), m, d, n, ACTIVATIONS[activation], eps,
-                  _DTYPES[x.dtype], cuda_lib.stream())
+                  None if b is None else b.data_ptr(), out.data_ptr(),
+                  None if stats is None else stats.data_ptr(), m, d, n,
+                  ACTIVATIONS[activation], eps, _DTYPES[x.dtype],
+                  cuda_lib.stream())
     LAUNCHES["ln_gemm"] += 1
     return out
 

@@ -75,6 +75,42 @@ def test_ln_gemm_kernel_matches_plain(cuda, dtype, activation, m, d, n, bias):
     _close(got, want, BF16_TOL if dtype == torch.bfloat16 else F32_TOL)
 
 
+@pytest.mark.parametrize("activation", [None, "tanh", "sqrelu", "gelu"])
+@pytest.mark.parametrize("d", [32, 768, 1280])
+@pytest.mark.parametrize("n", [8, 136, 2304, 2312])
+@pytest.mark.parametrize("m", [1, 100, 1000, 8192])
+def test_ln_gemm_wgmma_tiles_match_plain(cuda, m, n, d, activation):
+    """The bf16 wgmma path over its tile edges: m from 1 to several 128-row
+    blocks (ragged), n below, at and past 128- and 256-column tiles, d with
+    a half k tile (32) and whole ones; a bias with every activation but
+    none."""
+    x = _randn(cuda, m, d, dtype=torch.bfloat16, scale=2.0)
+    gamma = 1.0 + 0.1 * _randn(cuda, d)
+    beta = 0.1 * _randn(cuda, d)
+    w = _randn(cuda, n, d, dtype=torch.bfloat16, scale=d ** -0.5)
+    b = None if activation is None else 0.1 * _randn(cuda, n)
+    got = lg.fused_ln_gemm(x, gamma, beta, w, b, activation=activation)
+    _close(got, lg.ln_gemm_plain(x, gamma, beta, w, b, activation), BF16_TOL)
+
+
+def test_kernel_plans_mirror_the_c_entries(cuda):
+    """ops.ln_gemm.ln_gemm_plan and ops.ffn.ffn_plan give the numbers that
+    the kernels' own host code picks on this card."""
+    from enhancing_tpu_torch.ops import cuda_lib
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for m in (1, 100, 1024, 8192, 131072):
+        for n in (8, 136, 2304, 3072):
+            want = lg.ln_gemm_plan(m, n, sms)
+            assert cuda_lib.plan("etk_ln_gemm_plan", m, n) == tuple(
+                want[k] for k in ("tile_m", "tile_n", "stages", "smem",
+                                  "grid"))
+    for d in range(64, 2049, 64):
+        want = ffn.ffn_plan(d)
+        assert cuda_lib.plan("etk_ffn_plan", d, size=6) == tuple(
+            want[k] for k in ("cluster", "slab", "chunk", "buffers",
+                              "stages", "smem"))
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,d", [(37, 768), (4096, 768), (5, 64)])
 def test_layernorm_kernel_matches_plain(cuda, dtype, m, d):
@@ -807,6 +843,29 @@ def test_ffn_kernel_matches_plain(cuda, m, d, h, act):
     before = common.LAUNCHES["ffn"]
     got = ffn.fused_ffn(x, w1, b1, w2, b2, activation=act)
     assert common.LAUNCHES["ffn"] == before + 1
+    _row_close(got, ffn.ffn_plain(x, w1, b1, w2, b2, act), 2.0 ** -8,
+               2.0 ** -7)
+
+
+@pytest.mark.parametrize("m,d,h,act", [
+    (1000, 64, 192, "tanh"),     # C 1, slabs of 64
+    (1000, 128, 320, "gelu"),    # C 1, slabs of 128
+    (700, 320, 704, "sqrelu"),   # C 2, slabs of 160, last group short
+    (1000, 448, 704, "tanh"),    # C 2, slabs of 256 past d, short group
+    (1000, 768, 3008, "tanh"),   # C 4, two buffers, last group of 3
+    (300, 1024, 4032, "gelu"),   # C 4, one buffer, last group of 3
+    (300, 1280, 5056, "tanh"),   # C 8, last group of 7
+    (129, 2048, 1024, "tanh"),   # C 8, slabs of 256, the widest
+])
+def test_ffn_cluster_plans_match_plain(cuda, m, d, h, act):
+    """B16 at every cluster size, slab width and buffer count that
+    ops.ffn.ffn_plan picks, with a short last group where h / 64 is no
+    multiple of the cluster; limits as test_ffn_kernel_matches_plain."""
+    x = _randn(cuda, m, d, dtype=torch.bfloat16)
+    w1 = _randn(cuda, h, d, dtype=torch.bfloat16, scale=(2 / (d + h)) ** .5)
+    w2 = _randn(cuda, d, h, dtype=torch.bfloat16, scale=(2 / (d + h)) ** .5)
+    b1, b2 = _randn(cuda, h, scale=0.02), _randn(cuda, d, scale=0.02)
+    got = ffn.fused_ffn(x, w1, b1, w2, b2, activation=act)
     _row_close(got, ffn.ffn_plain(x, w1, b1, w2, b2, act), 2.0 ** -8,
                2.0 ** -7)
 

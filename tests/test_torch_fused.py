@@ -254,6 +254,9 @@ def _bf(*shape):
     # B16: a width that is no multiple of 64
     (lambda: tffn.ffn_kernel(_bf(8, 96), _bf(128, 96), torch.zeros(128),
                              _bf(96, 128), torch.zeros(96)), ValueError),
+    # B16: wider than the widest cluster's slabs (8 x 256)
+    (lambda: tffn.ffn_kernel(_bf(8, 2112), _bf(128, 2112), torch.zeros(128),
+                             _bf(2112, 128), torch.zeros(2112)), ValueError),
     # B16: fp32 x
     (lambda: tffn.ffn_kernel(torch.zeros(8, 64), _bf(128, 64),
                              torch.zeros(128), _bf(64, 128),
@@ -280,6 +283,70 @@ def test_raw_launch_under_autograd_raises():
     q = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16, requires_grad=True)
     with pytest.raises(NotImplementedError):
         tatt.attention_strided_kernel("attention_fused_bnhd", q, q, q, 0.1)
+
+
+# -- the kernels' host-side plans, mirrored in Python ---------------------
+
+# the H100's limits that a plan must respect: shared memory a block may
+# use (227 KB) with the kernels' static barriers (< 1 KB) beside it; a
+# consumer thread's registers (setmaxnreg 232), of which the kernels' own
+# addressing and staging take ~30
+SMEM_PER_BLOCK, STATIC_SMEM, CONSUMER_REGS = 232448, 1024, 232
+CLUSTER_LIMIT = 8
+
+
+@pytest.mark.parametrize("d", range(64, 2049, 64))
+def test_ffn_plan_fits_the_card(d):
+    """Every width the fused FFN takes gets a cluster of 1, 2, 4 or 8 (a
+    divisor of the portable cluster limit) whose slabs cover d with the
+    fewest padded columns, 128-row blocks of two 64-row wgmma warpgroups,
+    accumulators (a slab and a 64-wide hidden chunk, fp32, over 128
+    threads of 64 rows) within the register budget, a ring of at least 3
+    stages and shared memory within the block's limit."""
+    plan = tffn.ffn_plan(d)
+    c, ds = plan["cluster"], plan["slab"]
+    assert c in tffn.FFN_CLUSTERS and CLUSTER_LIMIT % c == 0
+    assert ds in tffn.FFN_SLABS and ds % 8 == 0 and ds <= 256
+    assert c * ds >= d
+    assert all(cc * dd < d or cc * dd - d >= c * ds - d
+               for cc in tffn.FFN_CLUSTERS for dd in tffn.FFN_SLABS)
+    assert tffn.FFN_TILE_M == 2 * 64 and plan["chunk"] % 16 == 0
+    assert (ds + plan["chunk"]) * 64 // 128 + 30 <= CONSUMER_REGS
+    assert plan["buffers"] in (1, 2) and 3 <= plan["stages"] <= 8
+    slots = plan["buffers"] * c * tffn.FFN_TILE_M * plan["chunk"] * 2
+    stage = max(16384 + plan["chunk"] * 128, ds * 128)
+    assert plan["smem"] == slots + plan["stages"] * stage + 1024
+    assert plan["smem"] + STATIC_SMEM <= SMEM_PER_BLOCK
+    # the flush stages the fp32 (128, DS + 8) accumulators in that memory
+    assert 128 * (ds + 8) * 4 <= slots + plan["stages"] * stage
+
+
+def test_ffn_plan_refuses_wider_widths():
+    assert tffn.ffn_plan(tffn.FFN_MAX_D + 64) is None
+    assert tffn.ffn_plan(768)["cluster"] == 4  # ViT-Base: 4 slabs of 192
+    assert tffn.ffn_plan(1280)["cluster"] == 8  # the large decoder
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("m", [1, 100, 1000, 1024, 8192, 131072])
+@pytest.mark.parametrize("n", [8, 136, 2304, 2312, 3072])
+def test_ln_gemm_plan_fits_the_card(sms, m, n):
+    """The bf16 LN -> GEMM's tiles: 128 rows (two 64-row wgmma warpgroups)
+    by 256 columns, or 128 when 256-wide tiles would leave SMs idle;
+    accumulators and two k tiles of A fragments within the register
+    budget; a persistent grid of at most one block an SM and a tile."""
+    from enhancing_tpu_torch.ops import ln_gemm as tlg
+    plan = tlg.ln_gemm_plan(m, n, sms)
+    rows = -(-m // 128)
+    assert plan["tile_m"] == 2 * 64
+    assert plan["tile_n"] == (256 if rows * -(-n // 256) >= sms else 128)
+    assert plan["tile_n"] // 2 + 2 * 4 * 4 + 30 <= CONSUMER_REGS
+    assert plan["stages"] >= 3
+    assert plan["smem"] + STATIC_SMEM <= SMEM_PER_BLOCK
+    # the epilogue stages 64 x tile_n bf16 per warpgroup beside the ring
+    ring = plan["stages"] * (128 + plan["tile_n"]) * 64 * 2
+    assert plan["smem"] == ring + 2 * 64 * plan["tile_n"] * 2 + 1024
+    assert 1 <= plan["grid"] == min(rows * -(-n // plan["tile_n"]), sms)
 
 
 # -- the slice: the tokenizer round trip with both fusions ------------------

@@ -185,6 +185,35 @@ def test_model_without_device_raises_when_there_is_no_card(monkeypatch):
         ViTVQ(**TINY)
 
 
+def test_scan_layers_tree_is_carried_across():
+    """A JAX tokenizer built with scan_layers=True stores each stack as one
+    stacked ``layers`` tree; carried across, it gives JAX's codes and
+    reconstruction."""
+    jm, tm = _pair(JaxViTVQ, ViTVQ, scan_layers=True, **TINY)
+    assert "layers" in jm.params["encoder"]["transformer"]
+    x = _images(3, 32, seed=5)
+    codes = tm.encode_codes(x)
+    np.testing.assert_array_equal(codes.numpy(),
+                                  np.asarray(jm.encode_codes(x)))
+    np.testing.assert_allclose(tm.decode_codes(codes).numpy(),
+                               np.asarray(jm.decode_codes(codes.numpy())),
+                               **REC_TOL)
+
+
+def test_stage1_w8a8_gemms_are_refused(monkeypatch):
+    """ENHANCING_TPU_STAGE1_GEMM=w8a8 routes JAX's block GEMMs through int8;
+    the port has no W8A8 yet, so a block refuses it when built or called
+    instead of computing another function."""
+    monkeypatch.setenv("ENHANCING_TPU_STAGE1_GEMM", "w8a8")
+    with pytest.raises(NotImplementedError, match="A8"):
+        ViTVQ(device="cpu", **TINY)
+    monkeypatch.delenv("ENHANCING_TPU_STAGE1_GEMM")
+    model = ViTVQ(device="cpu", **TINY)
+    monkeypatch.setenv("ENHANCING_TPU_STAGE1_GEMM", "w8a8")
+    with pytest.raises(NotImplementedError, match="A8"):
+        model.encode_codes(_images(1, 32))
+
+
 BLOCKER = """
 import sys
 class Blocker:
