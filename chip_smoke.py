@@ -27,14 +27,16 @@ Phases, each of which raises on failure:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every kernel of ``enhancing_tpu_torch/csrc`` by ``nvcc`` for
    sm_90a, with the ptxas register and shared-memory report; the SASS of
-   the bf16 LN -> GEMM and of the fused FFN must hold wgmma (HGMMA) and
-   TMA loads (UTMALDG) and no mma.sync (``cuobjdump``);
+   the bf16 LN -> GEMM, the fused FFN, attention -> projection and the
+   attention backward must hold wgmma (HGMMA) and TMA loads (UTMALDG) and
+   no mma.sync (``cuobjdump``);
 3. each kernel against its plain PyTorch version on the card at the main
    paths' shapes, with the tolerance stated on its line;
 4. each kernel's time (CUDA events; the serving kernels at batch 128, the
    training kernels at the training batch 8), beside its plain version,
    one PyTorch library call computing the same function (timed only; the
-   port never calls it) and its bound on an H100 SXM;
+   port never calls it) and its bound on an H100 SXM; B5's and B15's
+   kernel and library times are medians of 5 loops, their spread logged;
 5. serving through the public entry points: requests of batch 1, 8 and
    128 with launch counters reset just before and read just after,
    outputs checked, the kernels compared with the plain path on one small
@@ -87,6 +89,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -325,10 +328,15 @@ def phase_build() -> None:
     check_sass(info["path"])
 
 
-# the bf16 LN -> GEMM and the fused FFN run on Hopper's warpgroup MMA fed
-# by TMA: their SASS holds HGMMA and UTMALDG, and no mma.sync (HMMA)
-SM90_KERNELS = ("ln_gemm_kernel<", "ln_gemm_kernelI", "ffn_kernel<",
-                "ffn_kernelI")
+# the bf16 LN -> GEMM (B1), the fused FFN (B16), attention -> projection
+# (B15) and the attention backward's two kernels (B5) run on Hopper's
+# warpgroup MMA fed by TMA: their SASS holds HGMMA and UTMALDG, and no
+# mma.sync (HMMA). Each family by its demangled or mangled name.
+SM90_KERNELS = {"ln_gemm": ("ln_gemm_kernel<", "ln_gemm_kernelI"),
+                "ffn": ("ffn_kernel<", "ffn_kernelI"),
+                "attn_proj": ("attn_proj_kernel",),
+                "attention_bwd rows": ("attn_bwd_rows_kernel",),
+                "attention_bwd cols": ("attn_bwd_cols_kernel",)}
 
 
 def check_sass(lib_path: str) -> None:
@@ -343,19 +351,22 @@ def check_sass(lib_path: str) -> None:
                           text=True, check=True).stdout
     demangled = subprocess.run(["c++filt"], input=sass, capture_output=True,
                                text=True).stdout or sass
-    found = 0
+    found = set()
     for block in demangled.split("Function : ")[1:]:
         name = block.split("\n", 1)[0]
-        if not any(k in name for k in SM90_KERNELS):
+        family = next((f for f, frags in SM90_KERNELS.items()
+                       if any(k in name for k in frags)), None)
+        if family is None:
             continue
-        found += 1
+        found.add(family)
         counts = {op: block.count(op) for op in ("HGMMA", "UTMALDG",
                                                  "UTMASTG", "HMMA")}
         log(f"[build] SASS {name[:70]}: {counts}")
         check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0
               and counts["HMMA"] == 0,
               f"{name}: expected wgmma fed by TMA and no mma.sync")
-    check(found >= 2, "the sm90 kernels are missing from the SASS")
+    check(found == set(SM90_KERNELS),
+          f"sm90 kernels missing from the SASS: {set(SM90_KERNELS) - found}")
 
 
 def rand(shape, gen, dtype=torch.bfloat16, scale=1.0):
@@ -823,19 +834,29 @@ def phase_times() -> dict:
     m, d = TIME_BATCH * TOKENS, WIDTH
     rows: dict = {name: [] for name in REPLACES}
 
-    def row(name, label, kernel, plain, library, flops, nbytes, peak, iters):
+    def row(name, label, kernel, plain, library, flops, nbytes, peak, iters,
+            reps=1):
+        """reps > 1: kernel and library loops in turns, each number the
+        median of ``reps`` loops, their min-max logged."""
         b_ms, b_by = bound(flops, nbytes, peak)
-        r = dict(ms=time_ms(kernel, iters),
+        ks, ls = [], []
+        for _ in range(reps):
+            ks.append(time_ms(kernel, iters))
+            if library is not None:
+                ls.append(time_ms(library, iters))
+        r = dict(ms=statistics.median(ks),
                  plain_ms=time_ms(plain, 3, warmup=1),
-                 library_ms=None if library is None else time_ms(library,
-                                                                 iters),
+                 library_ms=statistics.median(ls) if ls else None,
                  bound_ms=b_ms, bound_by=b_by)
         rows[name].append(r)
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        spread = "" if reps == 1 else (
+            f" (medians of {reps} loops: kernel {min(ks):.4f}-{max(ks):.4f}"
+            + (f", library {min(ls):.4f}-{max(ls):.4f}" if ls else "") + ")")
         log(f"[time] {label}: kernel_ms {r['ms']:.4f} plain_ms "
             f"{r['plain_ms']:.4f} library_ms {lib} bound_ms {b_ms:.4f} "
             f"({b_by}); {flops / r['ms'] / 1e9:.1f} TFLOP/s, "
-            f"{nbytes / r['ms'] / 1e6:.1f} GB/s")
+            f"{nbytes / r['ms'] / 1e6:.1f} GB/s{spread}")
 
     x, g, b = t["x"], t["gamma"], t["beta"]
     for label, w, bias, act in (("ln_gemm qkv", t["w_qkv"], None, None),
@@ -912,7 +933,7 @@ def phase_times() -> dict:
         lambda: torch.autograd.grad(lib_out, (ql, kl, vl), lib_do,
                                     retain_graph=True),
         10.0 * bt * HEADS * TOKENS * TOKENS * HEAD_DIM,
-        7 * bt * TOKENS * hd * 2, PEAK_BF16, 10)
+        7 * bt * TOKENS * hd * 2, PEAK_BF16, 10, reps=5)
     del qkv, q3, k3, v3, do, ql, kl, vl, lib_out
 
     # the 12 blurs of one discriminator forward, f32: 2 flops per tap
@@ -1277,7 +1298,7 @@ def time_fused_kernels(gen, row) -> None:
                          .transpose(1, 2).reshape(b, n, hd), wp, bp16) + res,
         4.0 * b * h * n * n * d + 2.0 * b * n * hd * WIDTH,
         (3 * b * n * hd + 2 * b * n * WIDTH + WIDTH * hd) * 2 + WIDTH * 4,
-        PEAK_BF16, 10)
+        PEAK_BF16, 10, reps=5)
     del q, k, v, qt, kt, vt, res
 
     m = b * TOKENS

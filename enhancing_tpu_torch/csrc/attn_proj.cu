@@ -17,309 +17,364 @@
 //
 // Bound on the H100: tensor-core operations, 4 * B * H * N * M * D for the
 // attention plus 2 * B * N * HD * HO for the projection, against
-// (4 * B * N * HD + 2 * B * N * HO) * 2 bytes. Design: a block owns 64
-// query rows of one batch row and all heads. Two groups of four warps
-// each run the flash-attention tile of csrc/attention.cu (each warp 16
-// query rows; key tiles of 64 through cp.async double buffers; S and PV on
-// mma.sync m16n8k16, P from the S accumulators in registers) over the
-// heads g, g + 2, ..., synchronising on their own named barrier; each head
-// leaves its bf16 output in a (64, H*D) tile in shared memory (96 KiB at
-// ViT-Base, 128 KiB at H*D = 1024), which never reaches device memory.
-// Then all eight warps multiply that tile by Wp in column tiles of 128:
-// a (64, 128) fp32 accumulator is 32 registers a thread, so the 768-wide
-// (or 1280-wide) output row never has to live in registers at once; Wp
-// tiles of 128 x 64 arrive by cp.async into two stages that reuse the
-// first group's K/V buffers. bp and the residual are added at each tile's
-// flush, and the output is written once. Shared memory: 64 x (HD + 8) x 2
-// bytes for the tile plus 2 x 46 KiB for the groups' q, K and V stages,
-// 187 KiB at HD = 768, 219 KiB at 1024, one block an SM. Only D = 64, the
-// head dim of every stage-1 config, is built.
+// (4 * B * N * HD + 2 * B * N * HO) * 2 bytes. The projection of a row
+// block needs every head's output of those rows, and its fp32 accumulator
+// (64 x HO) does not fit the registers at once. Design, on the Hopper core
+// of sm90.cuh: a block owns 64 query rows of one batch row. Two consumer
+// warpgroups split the heads (warpgroup w takes heads w, w + 2, ...); each
+// head is a wgmma flash tile: q by TMA into one of the warpgroup's two q
+// tiles (the next head's arrives during this one) and scaled there in
+// bf16, S = q K^T from shared memory, the online softmax in fp32 (the
+// exponential as one FMA and ex2, common.cuh), P rounded to bf16 in
+// registers and O += P V register-A against the V tile read MN-major.
+// Each head's output, times 1 / l and rounded, goes into its (64, 64)
+// swizzled box of a (64, H*D) tile in shared memory (96 KiB at ViT-Base,
+// 128 KiB at H*D = 1024), which never reaches device memory. Then the
+// warpgroups split the output into 128-column chunks (w takes chunks w,
+// w + 2, ...): a shared-memory wgmma of the tile against Wp tiles, + bp and
+// the residual tile in fp32, one rounding in place in the residual's
+// stage, TMA store. A producer warp feeds each warpgroup its q tiles and
+// its own TMA ring (K and V; Wp; residual tiles, 16 KiB a stage) in the
+// order it consumes them: every attention tile of both rings before any
+// projection tile, since a warpgroup projects only once both have written
+// their heads. Each tile's two products are waited on before the next
+// step: issuing the next tile's S before this tile's softmax, or with its
+// P V, made ptxas serialise the wgmmas (C7515, C7518) and ran slower on
+// the H100, as did two blocks in a cluster sharing K, V and Wp by
+// multicast (each stage then waits for both blocks), and warpgroups taking
+// turns at the tensor cores (PERF.md §6).
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int D = 64, BQ = 64, BKV = 64, CT = 128, BK = 64;
-constexpr int kThreads = 256, kGroupThreads = 128;
-constexpr int LD = D + 8, LDW = BK + 8;  // padded rows: conflict-free ldmatrix
-constexpr int VPR = D / 8;               // 16-byte vectors per row
+constexpr int D = 64, BM = 64, BKV = 64, CW = 128, kMaxStages = 4;
+constexpr int kConsumers = 256, kThreads = kConsumers + 128;
+constexpr int kStageBytes = 16384;  // K + V tiles, a Wp tile or a residual
+constexpr int kBoxBytes = BM * D * 2;  // one (64, 64) bf16 box
 constexpr int MASK_NONE = 0, MASK_PREFIX_CAUSAL = 1;
-// one group's q tile and two stages of K and V
-constexpr int kGroupBytes = (BQ + 4 * BKV) * LD * 2;
-static_assert(2 * CT * LDW * 2 <= kGroupBytes, "Wp stages reuse a group");
 
-__host__ __device__ constexpr int smem_bytes(int hd) {
-  return BQ * (hd + 8) * 2 + 2 * kGroupBytes;
-}
+struct Plan {
+  int stages, smem;  // ring stages per warpgroup, dynamic shared memory
+};
 
-__device__ __forceinline__ void group_sync(int g) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(g + 1), "r"(kGroupThreads));
+// as many stages per ring as fit beside the (64, hd) tile and the four q
+// tiles (two per warpgroup), at most 4; a plan of fewer than 2 is refused
+Plan attn_proj_plan(int hd) {
+  const int fixed = BM * hd * 2 + 4 * kBoxBytes;
+  const int stages = (sm90::kSmemLimit - fixed) / (2 * kStageBytes);
+  Plan p;
+  p.stages = stages > kMaxStages ? kMaxStages : stages;
+  p.smem = fixed + 2 * p.stages * kStageBytes + 1024;
+  return p;
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
-    attn_proj_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const __nv_bfloat16* __restrict__ wp,
-                     const float* __restrict__ bp,
-                     const __nv_bfloat16* __restrict__ res,
-                     __nv_bfloat16* __restrict__ out, int q_row, int k_row,
-                     int v_row, int n, int m, int heads, int ho, float scale,
-                     int mask_mode, int cond_len) {
-  const int hd = heads * D, ldo = hd + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* os = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = warp / 4, lw = warp % 4, gt = threadIdx.x % kGroupThreads;
-  unsigned char* gbase = smem_raw + BQ * ldo * 2 + g * kGroupBytes;
-  auto qs = reinterpret_cast<__nv_bfloat16(*)[LD]>(gbase);
-  auto ks = reinterpret_cast<__nv_bfloat16(*)[BKV][LD]>(gbase + BQ * LD * 2);
-  auto vs = reinterpret_cast<__nv_bfloat16(*)[BKV][LD]>(
-      gbase + (BQ + 2 * BKV) * LD * 2);
+    attn_proj_kernel(const __grid_constant__ CUtensorMap tmap_q,
+                     const __grid_constant__ CUtensorMap tmap_k,
+                     const __grid_constant__ CUtensorMap tmap_v,
+                     const __grid_constant__ CUtensorMap tmap_w,
+                     const __grid_constant__ CUtensorMap tmap_res,
+                     const __grid_constant__ CUtensorMap tmap_out,
+                     const float* __restrict__ bp, int n, int m, int heads,
+                     int ho, float scale, int mask_mode, int cond_len,
+                     int stages) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[2][kMaxStages], empty[2][kMaxStages];
+  // per warpgroup: its head's q tile has arrived / has been read
+  __shared__ __align__(8) uint64_t qfull[2][2], qempty[2][2];
+  uint8_t* smem = sm90::align_1024(smem_raw);
+  const int hd = heads * D, ktiles = hd / 64;
+  uint8_t* otile = smem;  // ktiles boxes of (64, 64)
+  // two (64, 64) q tiles per warpgroup: the next head's arrives while
+  // this head runs
+  uint8_t* qbuf = smem + ktiles * kBoxBytes;
+  uint8_t* rings = qbuf + 4 * kBoxBytes;
+  const sm90::Ring ring{stages};
+  auto stage_mem = [&](int w, int s) {
+    return rings + (w * stages + s) * kStageBytes;
+  };
 
-  const int q0 = blockIdx.x * BQ, b = blockIdx.y;
-  const __nv_bfloat16* qbat = q + static_cast<size_t>(b) * n * q_row;
-  const __nv_bfloat16* kbat = k + static_cast<size_t>(b) * m * k_row;
-  const __nv_bfloat16* vbat = v + static_cast<size_t>(b) * m * v_row;
-
+  const int q0 = blockIdx.x * BM, b = blockIdx.y;
   const bool causal = mask_mode == MASK_PREFIX_CAUSAL;
   int kv_tiles = (m + BKV - 1) / BKV;
   if (causal) {
-    const int last_row = min(q0 + BQ, n) - 1;
+    const int last_row = min(q0 + BM, n) - 1;
     const int last_col = max(last_row, q0 < cond_len ? cond_len - 1 : 0);
     kv_tiles = min(kv_tiles, last_col / BKV + 1);
   }
-  const int row_a = q0 + lw * 16 + lane / 4;  // rows row_a and row_a + 8
+  const int chunks = (ho + CW - 1) / CW;
+  // items of warpgroup w's ring: per head q (into its q tile), then
+  // kv_tiles K + V; per chunk ktiles Wp tiles, then the residual
+  auto att_items = [&](int w) { return (heads - w + 1) / 2 * (1 + kv_tiles); };
+  auto proj_items = [&](int w) { return (chunks - w + 1) / 2 * (ktiles + 1); };
 
-  // ---- attention, head by head, group g taking heads g, g + 2, ... ----
-  for (int h = g; h < heads; h += 2) {
-    const __nv_bfloat16* kb = kbat + h * D;
-    const __nv_bfloat16* vb = vbat + h * D;
-    auto load_kv = [&](int t, int stage) {
-      for (int i = gt; i < BKV * VPR; i += kGroupThreads) {
-        const int r = i / VPR, c = (i % VPR) * 8;
-        const int key = t * BKV + r;
-        const int bytes = key < m ? 16 : 0;
-        const size_t kr = static_cast<size_t>(key < m ? key : 0);
-        cp_async_16(&ks[stage][r][c], kb + kr * k_row + c, bytes);
-        cp_async_16(&vs[stage][r][c], vb + kr * v_row + c, bytes);
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < 2; ++w)
+      for (int j = 0; j < 2; ++j) {
+        sm90::mbar_init(&qfull[w][j], 1);
+        sm90::mbar_init(&qempty[w][j], 1);
       }
-      cp_async_commit();
+    for (int w = 0; w < 2; ++w)
+      for (int s = 0; s < stages; ++s) {
+        sm90::mbar_init(&full[w][s], 1);
+        sm90::mbar_init(&empty[w][s], 1);
+      }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    sm90::regs_dealloc<40>();
+    if (threadIdx.x != kConsumers) return;
+    int it[2] = {0, 0};
+    auto slot = [&](int w, uint32_t bytes) {
+      const int s = ring.stage(it[w]);
+      sm90::mbar_wait(&empty[w][s], ring.parity(it[w]) ^ 1u);
+      sm90::mbar_expect_tx(&full[w][s], bytes);
+      ++it[w];
+      return s;
     };
-    group_sync(g);  // the previous head's q, K and V are no longer read
-    load_kv(0, 0);
-    for (int i = gt; i < BQ * VPR; i += kGroupThreads) {
-      const int r = i / VPR, c = (i % VPR) * 8;
-      uint4 raw = make_uint4(0, 0, 0, 0);
-      if (q0 + r < n)
-        raw = *reinterpret_cast<const uint4*>(
-            qbat + static_cast<size_t>(q0 + r) * q_row + h * D + c);
-      __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float2 f = __bfloat1622float2(p[e]);
-        p[e] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+    const int a0 = att_items(0), a1 = att_items(1);
+    for (int i = 0; i < (a0 > a1 ? a0 : a1); ++i) {
+      for (int w = 0; w < 2; ++w) {
+        if (i >= (w ? a1 : a0)) continue;
+        const int h = w + 2 * (i / (1 + kv_tiles)), t = i % (1 + kv_tiles);
+        if (t == 0) {
+          const uint32_t hi = static_cast<uint32_t>(i / (1 + kv_tiles));
+          const int j = hi & 1u;
+          sm90::mbar_wait(&qempty[w][j], ((hi >> 1) & 1u) ^ 1u);
+          sm90::mbar_expect_tx(&qfull[w][j], kBoxBytes);
+          sm90::tma_load_3d(qbuf + (2 * w + j) * kBoxBytes, &tmap_q,
+                            &qfull[w][j], h * D, q0, b);
+        } else {
+          const int s = slot(w, 2 * kBoxBytes);
+          sm90::tma_load_3d(stage_mem(w, s), &tmap_k, &full[w][s], h * D,
+                            (t - 1) * BKV, b);
+          sm90::tma_load_3d(stage_mem(w, s) + kBoxBytes, &tmap_v, &full[w][s],
+                            h * D, (t - 1) * BKV, b);
+        }
       }
-      *reinterpret_cast<uint4*>(&qs[r][c]) = raw;
     }
-    group_sync(g);
-    uint32_t qf[D / 16][4];
-#pragma unroll
-    for (int kd = 0; kd < D / 16; ++kd)
-      ldmatrix_x4(qf[kd], &qs[lw * 16 + lane % 16][kd * 16 + (lane / 16) * 8]);
+    const int p0 = proj_items(0), p1 = proj_items(1);
+    for (int i = 0; i < (p0 > p1 ? p0 : p1); ++i) {
+      for (int w = 0; w < 2; ++w) {
+        if (i >= (w ? p1 : p0)) continue;
+        const int c = w + 2 * (i / (ktiles + 1)), kt = i % (ktiles + 1);
+        if (kt < ktiles) {
+          const int s = slot(w, kStageBytes);
+          sm90::tma_load(stage_mem(w, s), &tmap_w, &full[w][s], kt * 64,
+                         c * CW);
+        } else {
+          const bool two = c * CW + 64 < ho;
+          const int s = slot(w, (two ? 2 : 1) * kBoxBytes);
+          sm90::tma_load_3d(stage_mem(w, s), &tmap_res, &full[w][s], c * CW,
+                            q0, b);
+          if (two)
+            sm90::tma_load_3d(stage_mem(w, s) + kBoxBytes, &tmap_res,
+                              &full[w][s], c * CW + 64, q0, b);
+        }
+      }
+    }
+    return;
+  }
 
-    float o[D / 8][4];
+  sm90::regs_alloc<232>();
+  const int w = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32, q = lane % 4;
+  const int r = warp * 16 + lane / 4;  // rows r and r + 8 of the block
+  const bool leader = threadIdx.x % 128 == 0;
+  int it = 0;
+  auto wait_full = [&]() {
+    const int s = ring.stage(it);
+    sm90::mbar_wait(&full[w][s], ring.parity(it));
+    return stage_mem(w, s);
+  };
+  auto release = [&]() {
+    if (leader) sm90::mbar_arrive(&empty[w][ring.stage(it)]);
+    ++it;
+  };
+
+  // ---- attention: heads w, w + 2, ... ----
+  for (int h = w, hi = 0; h < heads; h += 2, ++hi) {
+    // q scaled in bf16 in place, 8 values a 16-byte chunk
+    uint8_t* qs = qbuf + (2 * w + (hi & 1)) * kBoxBytes;
+    const uint64_t qdesc = sm90::smem_desc<128>(qs);
+    sm90::mbar_wait(&qfull[w][hi & 1], static_cast<uint32_t>(hi >> 1) & 1u);
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
+    for (int i = 0; i < kBoxBytes / 16 / 128; ++i) {
+      uint4* p = reinterpret_cast<uint4*>(qs) + threadIdx.x % 128 + 128 * i;
+      uint4 u = *p;
+      uint32_t* e = reinterpret_cast<uint32_t*>(&u);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+      for (int j = 0; j < 4; ++j)  // the low and high bf16 of each pair
+        e[j] = pack_bf16x2(__uint_as_float(e[j] << 16) * scale,
+                           __uint_as_float(e[j] & 0xffff0000u) * scale);
+      *p = u;
+    }
+    sm90::fence_async_cta();
+    sm90::named_sync(2 + w, 128);
+    float o[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
     float row_max[2] = {-INFINITY, -INFINITY};
-    float row_sum[2] = {0.f, 0.f};  // this lane's partial sums
+    float row_sum[2] = {0.f, 0.f};  // this thread's partial sums
 
     for (int t = 0; t < kv_tiles; ++t) {
-      const int stage = t & 1;
-      if (t + 1 < kv_tiles) {
-        load_kv(t + 1, stage ^ 1);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      group_sync(g);
+      const uint8_t* kv = wait_full();
+      float s[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+      const uint64_t kdesc = sm90::smem_desc<128>(kv);
+      sm90::hold(s);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::Wgmma<64>::ss(s, sm90::desc_k(qdesc, kk),
+                            sm90::desc_k(kdesc, kk));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::hold(s);
 
-      float s[BKV / 8][4];
+      if (causal || (t + 1) * BKV > m) {
 #pragma unroll
-      for (int i = 0; i < BKV / 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
-#pragma unroll
-      for (int kd = 0; kd < D / 16; ++kd) {
-#pragma unroll
-        for (int nj = 0; nj < BKV / 16; ++nj) {
-          uint32_t r[4];
-          ldmatrix_x4(r, &ks[stage][nj * 16 + lane % 8 + (lane / 16) * 8]
-                            [kd * 16 + ((lane / 8) % 2) * 8]);
-          mma_bf16_16816(s[2 * nj], qf[kd], r[0], r[1]);
-          mma_bf16_16816(s[2 * nj + 1], qf[kd], r[2], r[3]);
+        for (int i = 0; i < 32; ++i) {
+          const int row = q0 + r + ((i / 2) % 2) * 8;
+          const int col = t * BKV + (i / 4) * 8 + 2 * q + i % 2;
+          if (!visible(row, col, m, causal, cond_len)) s[i] = -INFINITY;
         }
       }
-
-      float tile_max[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int ni = 0; ni < BKV / 8; ++ni) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = row_a + (e / 2) * 8;
-          const int col = t * BKV + ni * 8 + (lane % 4) * 2 + (e % 2);
-          bool ok = col < m;
-          if (causal)
-            ok = ok && (col <= row || (row < cond_len && col < cond_len));
-          if (!ok) s[ni][e] = -INFINITY;
-          tile_max[e / 2] = fmaxf(tile_max[e / 2], s[ni][e]);
-        }
-      }
-      float alpha[2], m_use[2];
+      float alpha[2], ml2[2];
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
-        tile_max[hh] = fmaxf(tile_max[hh],
-                             __shfl_xor_sync(0xffffffffu, tile_max[hh], 1));
-        tile_max[hh] = fmaxf(tile_max[hh],
-                             __shfl_xor_sync(0xffffffffu, tile_max[hh], 2));
-        const float m_new = fmaxf(row_max[hh], tile_max[hh]);
+        float tmax = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          tmax = fmaxf(tmax, fmaxf(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]));
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+        const float m_new = fmaxf(row_max[hh], tmax);
         // a row with nothing visible yet keeps exp(-inf - -inf) out
-        m_use[hh] = m_new == -INFINITY ? 0.f : m_new;
-        alpha[hh] = expf(row_max[hh] - m_use[hh]);
+        ml2[hh] = (m_new == -INFINITY ? 0.f : m_new) * kLog2e;
+        alpha[hh] = exp_shifted(row_max[hh], ml2[hh]);
         row_max[hh] = m_new;
         row_sum[hh] *= alpha[hh];
       }
 #pragma unroll
-      for (int ni = 0; ni < BKV / 8; ++ni) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[ni][e] = expf(s[ni][e] - m_use[e / 2]);
-          row_sum[e / 2] += s[ni][e];
-        }
+      for (int i = 0; i < 32; ++i) {
+        const int hh = (i / 2) % 2;
+        s[i] = exp_shifted(s[i], ml2[hh]);
+        row_sum[hh] += s[i];
+        o[i] *= alpha[hh];
       }
+      uint32_t pf[4][4];
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i)
+      for (int kk = 0; kk < 4; ++kk) sm90::frag_from_acc(pf[kk], s, kk);
+      const uint64_t vdesc = sm90::smem_desc<128>(kv + kBoxBytes);
+      // the rescaled O and the P fragments are written before the fence
+      sm90::hold(o);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) o[i][e] *= alpha[e / 2];
-
+      for (int kk = 0; kk < 4; ++kk) sm90::hold(pf[kk]);
+      sm90::wgmma_fence();
 #pragma unroll
-      for (int kj = 0; kj < BKV / 16; ++kj) {
-        uint32_t pa[4];
-        pa[0] = pack_bf16x2(s[2 * kj][0], s[2 * kj][1]);
-        pa[1] = pack_bf16x2(s[2 * kj][2], s[2 * kj][3]);
-        pa[2] = pack_bf16x2(s[2 * kj + 1][0], s[2 * kj + 1][1]);
-        pa[3] = pack_bf16x2(s[2 * kj + 1][2], s[2 * kj + 1][3]);
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::Wgmma<64>::rs<1>(o, pf[kk], sm90::desc_mn<128>(vdesc, kk));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::hold(o);
+      // the P fragments stay live until the products that read them are
+      // done: else the next tile's values may take their registers
 #pragma unroll
-        for (int dp = 0; dp < D / 16; ++dp) {
-          uint32_t r[4];
-          ldmatrix_x4_trans(
-              r, &vs[stage][kj * 16 + lane % 8 + ((lane / 8) % 2) * 8]
-                    [dp * 16 + (lane / 16) * 8]);
-          mma_bf16_16816(o[2 * dp], pa, r[0], r[1]);
-          mma_bf16_16816(o[2 * dp + 1], pa, r[2], r[3]);
-        }
-      }
-      group_sync(g);  // this stage is refilled two tiles from now
+      for (int kk = 0; kk < 4; ++kk) sm90::hold(pf[kk]);
+      release();
     }
 
-    // the head's output, rounded to bf16, into the (64, H*D) tile
+    if (leader) sm90::mbar_arrive(&qempty[w][hi & 1]);  // its S are done
+
+    // the head's output, rounded to bf16, into its box of the tile
+    uint8_t* box = otile + h * kBoxBytes;
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       float l = row_sum[hh];
       l += __shfl_xor_sync(0xffffffffu, l, 1);
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       const float inv = 1.f / l;
-      const int r = lw * 16 + lane / 4 + hh * 8;
 #pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        const int col = h * D + dn * 8 + (lane % 4) * 2;
-        *reinterpret_cast<uint32_t*>(&os[r * ldo + col]) =
-            pack_bf16x2(o[dn][2 * hh] * inv, o[dn][2 * hh + 1] * inv);
-      }
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(box + sm90::swz<128>(r + 8 * hh, j) +
+                                     4 * q) =
+            pack_bf16x2(o[4 * j + 2 * hh] * inv, o[4 * j + 2 * hh + 1] * inv);
     }
   }
-  __syncthreads();  // every head is in the tile; the K/V stages are free
+  sm90::fence_async_cta();          // the tile, for wgmma
+  sm90::named_sync(1, kConsumers);  // every head of both warpgroups
 
-  // ---- projection: (64, HD) x Wp^T in column tiles of CT ----
-  auto ws = reinterpret_cast<__nv_bfloat16(*)[CT][LDW]>(
-      smem_raw + BQ * ldo * 2);
-  const int rg = warp % 4, ch = warp / 4;  // 16 rows, 64 of the CT columns
-  const int k_tiles = hd / BK, c_tiles = (ho + CT - 1) / CT;
-  const int n_tiles = k_tiles * c_tiles;
-  auto load_w = [&](int t, int stage) {
-    const int c0 = (t / k_tiles) * CT, k0 = (t % k_tiles) * BK;
-    for (int i = threadIdx.x; i < CT * (BK / 8); i += kThreads) {
-      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-      const int col = c0 + r;
-      const size_t off =
-          static_cast<size_t>(col < ho ? col : 0) * hd + k0 + c;
-      cp_async_16(&ws[stage][r][c], wp + off, col < ho ? 16 : 0);
+  // ---- projection: chunks w, w + 2, ... of 128 output columns ----
+  for (int c = w; c < chunks; c += 2) {
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < ktiles; ++kt) {
+      const uint8_t* ws = wait_full();
+      const uint64_t adesc = sm90::smem_desc<128>(otile + kt * kBoxBytes);
+      const uint64_t bdesc = sm90::smem_desc<128>(ws);
+      sm90::hold(acc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        sm90::Wgmma<CW>::ss(acc, sm90::desc_k(adesc, ks),
+                            sm90::desc_k(bdesc, ks));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();
+      // the previous Wp tile's products are done
+      if (kt > 0) {
+        if (leader) sm90::mbar_arrive(&empty[w][ring.stage(it - 1)]);
+      }
+      ++it;
     }
-    cp_async_commit();
-  };
-  load_w(0, 0);
-  float acc[8][4];
-  for (int t = 0; t < n_tiles; ++t) {
-    const int stage = t & 1, kt = t % k_tiles;
-    if (t + 1 < n_tiles) {
-      load_w(t + 1, stage ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (kt == 0) {
+    sm90::wgmma_wait<0>();
+    sm90::hold(acc);
+    if (leader) sm90::mbar_arrive(&empty[w][ring.stage(it - 1)]);
+
+    // + bp + residual in fp32, one rounding, in place in the residual's
+    // stage; then one TMA store per 64-column box
+    uint8_t* rs = wait_full();
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+    for (int j = 0; j < CW / 8; ++j) {
+      const int col = c * CW + 8 * j + 2 * q;
+      const float b0 = col < ho ? bp[col] : 0.f;
+      const float b1 = col < ho ? bp[col + 1] : 0.f;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t af[4];
-      ldmatrix_x4(af, &os[(rg * 16 + lane % 16) * ldo + kt * BK + kk * 16 +
-                          (lane / 16) * 8]);
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        uint32_t r[4];
-        ldmatrix_x4(r, &ws[stage][ch * 64 + nj * 16 + lane % 8 +
-                                  (lane / 16) * 8]
-                          [kk * 16 + ((lane / 8) % 2) * 8]);
-        mma_bf16_16816(acc[2 * nj], af, r[0], r[1]);
-        mma_bf16_16816(acc[2 * nj + 1], af, r[2], r[3]);
+      for (int hh = 0; hh < 2; ++hh) {
+        uint32_t* p = reinterpret_cast<uint32_t*>(
+            rs + (j / 8) * kBoxBytes + sm90::swz<128>(r + 8 * hh, j % 8) +
+            4 * q);
+        const float2 res = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(p));
+        *p = pack_bf16x2(acc[4 * j + 2 * hh] + b0 + res.x,
+                         acc[4 * j + 2 * hh + 1] + b1 + res.y);
       }
     }
-    if (kt == k_tiles - 1) {
-      // flush: + bp + residual in fp32, one rounding
-      const int c0 = (t / k_tiles) * CT + ch * 64;
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const int col = c0 + ni * 8 + (lane % 4) * 2;
-        if (col >= ho) continue;
-        const float b0 = bp[col], b1 = bp[col + 1];
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int row = q0 + rg * 16 + lane / 4 + hh * 8;
-          if (row >= n) continue;
-          const size_t off = (static_cast<size_t>(b) * n + row) * ho + col;
-          const float2 r2 = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(res + off));
-          *reinterpret_cast<uint32_t*>(out + off) =
-              pack_bf16x2(acc[ni][2 * hh] + b0 + r2.x,
-                          acc[ni][2 * hh + 1] + b1 + r2.y);
-        }
-      }
+    sm90::fence_async_cta();
+    sm90::named_sync(2 + w, 128);
+    if (leader) {
+      sm90::tma_store_3d(&tmap_out, rs, c * CW, q0, b);
+      if (c * CW + 64 < ho)
+        sm90::tma_store_3d(&tmap_out, rs + kBoxBytes, c * CW + 64, q0, b);
+      sm90::bulk_commit();
+      sm90::bulk_wait_read();  // the stage is read before it is refilled
     }
-    __syncthreads();  // this stage is refilled two tiles from now
+    release();
   }
+  if (leader) sm90::bulk_wait();
 }
 
 }  // namespace
 
 // q: bf16 (B, N, H*64) rows q_row elements apart; k, v: bf16 (B, M, H*64)
-// rows k_row, v_row apart (multiples of 8; batches N or M rows apart); wp:
-// bf16 (HO, H*64); bp: fp32 (HO,); res, out: bf16 (B, N, HO) contiguous.
+// rows k_row, v_row apart (multiples of 8; batches N or M rows apart; every
+// start 16-byte aligned); wp: bf16 (HO, H*64); bp: fp32 (HO,); res, out:
+// bf16 (B, N, HO) contiguous.
 ETK_API int etk_attn_proj(const void* q, const void* k, const void* v,
                           const void* wp, const void* bp, const void* res,
                           void* out, int q_row, int k_row, int v_row, int b,
@@ -333,19 +388,35 @@ ETK_API int etk_attn_proj(const void* q, const void* k, const void* v,
       q_row % 8 || k_row % 8 || v_row % 8 ||
       (mask_mode != MASK_NONE && mask_mode != MASK_PREFIX_CAUSAL))
     return ETK_BAD_ARGS;
-  const int bytes = smem_bytes(hd);
-  if (bytes > 232448) return ETK_BAD_ARGS;
+  const Plan plan = attn_proj_plan(hd);
+  if (plan.stages < 2) return ETK_BAD_ARGS;
+  CUtensorMap tq, tk, tv, tw, tres, tout;
+  const long long nl = n, ml = m;
+  if (sm90::tensor_map_3d(&tq, q, b, n, hd, q_row, nl * q_row, BM, 64) ||
+      sm90::tensor_map_3d(&tk, k, b, m, hd, k_row, ml * k_row, BKV, 64) ||
+      sm90::tensor_map_3d(&tv, v, b, m, hd, v_row, ml * v_row, BKV, 64) ||
+      sm90::tensor_map(&tw, wp, ho, hd, hd, CW) ||
+      sm90::tensor_map_3d(&tres, res, b, n, ho, ho, nl * ho, BM, 64) ||
+      sm90::tensor_map_3d(&tout, out, b, n, ho, ho, nl * ho, BM, 64))
+    return ETK_TMAP_FAILED;
   cudaError_t err = cudaFuncSetAttribute(
-      attn_proj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      attn_proj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      plan.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((n + BQ - 1) / BQ, b);
-  attn_proj_kernel<<<grid, kThreads, bytes, s>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(wp), static_cast<const float*>(bp),
-      static_cast<const __nv_bfloat16*>(res),
-      static_cast<__nv_bfloat16*>(out), q_row, k_row, v_row, n, m, heads, ho,
-      scale, mask_mode, cond_len);
+  dim3 grid((n + BM - 1) / BM, b);
+  attn_proj_kernel<<<grid, kThreads, plan.smem, s>>>(
+      tq, tk, tv, tw, tres, tout, static_cast<const float*>(bp), n, m, heads,
+      ho, scale, mask_mode, cond_len, plan.stages);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the plan for H*D = hd: rows a block, output columns a chunk, ring stages
+// per warpgroup, dynamic shared memory (stages < 2: hd is not taken)
+ETK_API int etk_attn_proj_plan(int hd, int* plan) {
+  const Plan p = attn_proj_plan(hd);
+  plan[0] = BM;
+  plan[1] = CW;
+  plan[2] = p.stages;
+  plan[3] = p.smem;
+  return 0;
 }

@@ -64,6 +64,25 @@ __device__ __forceinline__ float apply_act(float h, int act) {
   }
 }
 
+// key col of m exists and query row may see it under mask mode 'none'
+// (causal false) or 'prefix_causal' (col <= row, or both < cond_len)
+__device__ __forceinline__ bool visible(int row, int col, int m, bool causal,
+                                        int cond_len) {
+  return col < m &&
+         (!causal || col <= row || (row < cond_len && col < cond_len));
+}
+
+// e^(x - m) given ml2 = m log2(e): 2^(x log2(e) - ml2) by one fused
+// multiply-add and the hardware's base-2 exponential (ex2.approx, relative
+// error ~2^-22), an fp32 exponential as flash attention takes it; x = -inf
+// gives 0
+constexpr float kLog2e = 1.4426950408889634f;
+__device__ __forceinline__ float exp_shifted(float x, float ml2) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(fmaf(x, kLog2e, -ml2)));
+  return r;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);

@@ -229,11 +229,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int j = 0; j < HC / 8; ++j) {
           const int hc = own * HC + j * 8 + (lane % 4) * 2;
           const float bb0 = b1[hc], bb1 = b1[hc + 1];
-          *reinterpret_cast<uint32_t*>(mine + sm90::swizzled(r_lo, j) +
+          *reinterpret_cast<uint32_t*>(mine + sm90::swz<128>(r_lo, j) +
                                        (lane % 4) * 4) =
               pack_bf16x2(apply_act(sacc[4 * j] + bb0, act),
                           apply_act(sacc[4 * j + 1] + bb1, act));
-          *reinterpret_cast<uint32_t*>(mine + sm90::swizzled(r_lo + 8, j) +
+          *reinterpret_cast<uint32_t*>(mine + sm90::swz<128>(r_lo + 8, j) +
                                        (lane % 4) * 4) =
               pack_bf16x2(apply_act(sacc[4 * j + 2] + bb0, act),
                           apply_act(sacc[4 * j + 3] + bb1, act));

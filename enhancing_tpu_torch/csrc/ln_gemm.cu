@@ -136,10 +136,10 @@ __device__ __forceinline__ void stage_out(const float (&acc)[BN / 2],
     const float b0 = bias && col < n ? bias[col] : 0.f;
     const float b1 = bias && col < n ? bias[col + 1] : 0.f;
     uint8_t* tile = st + (j / 8) * 8192 + (lane % 4) * 4;
-    *reinterpret_cast<uint32_t*>(tile + sm90::swizzled(r, j % 8)) =
+    *reinterpret_cast<uint32_t*>(tile + sm90::swz<128>(r, j % 8)) =
         pack_bf16x2(apply_act(acc[4 * j] + b0, ACT),
                     apply_act(acc[4 * j + 1] + b1, ACT));
-    *reinterpret_cast<uint32_t*>(tile + sm90::swizzled(r + 8, j % 8)) =
+    *reinterpret_cast<uint32_t*>(tile + sm90::swz<128>(r + 8, j % 8)) =
         pack_bf16x2(apply_act(acc[4 * j + 2] + b0, ACT),
                     apply_act(acc[4 * j + 3] + b1, ACT));
   }
@@ -230,7 +230,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int ks = 0; ks < 4; ++ks) {
           if (k0 + ks * 16 >= d) break;  // d % 32: half of the last tile
           uint32_t r[4];
-          ldmatrix_x4(r, xs + sm90::swizzled(lrow, ks * 2 + lchunk));
+          ldmatrix_x4(r, xs + sm90::swz<128>(lrow, ks * 2 + lchunk));
           const int c = k0 + ks * 16 + (lane % 4) * 2;
           const float2 g0 = *reinterpret_cast<const float2*>(gamma + c);
           const float2 g1 = *reinterpret_cast<const float2*>(gamma + c + 8);

@@ -1,19 +1,29 @@
 // Hopper (sm_90a) building blocks shared by the bf16 LN -> GEMM (B1,
-// ln_gemm.cu) and the fused FFN (B16, ffn.cu), in raw PTX:
+// ln_gemm.cu), the fused FFN (B16, ffn.cu), attention -> projection (B15,
+// attn_proj.cu) and the attention backward (B5, attention_bwd.cu), in raw
+// PTX:
 //
-// - TMA: 2-D bf16 tensor maps encoded on the host with 128-byte swizzle
-//   (cuTensorMapEncodeTiled, reached through the runtime's driver entry
-//   point, so the library links no libcuda), passed to the kernel as
-//   __grid_constant__ parameters; tile loads that complete on an mbarrier.
+// - TMA: bf16 tensor maps encoded on the host (cuTensorMapEncodeTiled,
+//   looked up through the CUDA runtime, so the library links no libcuda),
+//   passed to the kernel as __grid_constant__ parameters; tile loads and
+//   bulk copies that complete on an mbarrier, TMA stores.
 // - A ring of stages, each with a "full" mbarrier (one producer arrival
 //   plus the TMA transaction bytes) and an "empty" one (one arrival per
 //   consumer warpgroup).
 // - wgmma.mma_async m64nNk16, bf16 in, fp32 accumulators: SS (A and B in
 //   shared memory) and RS (A from registers in mma.sync's m16n8k16
 //   fragment layout, B in shared memory), with fence / commit / wait.
-//   Every shared-memory operand is a K-major tile whose rows are 64 bf16
-//   (128 bytes), swizzled by the TMA in 8-row, 1024-byte atoms; its
-//   descriptor steps 32 bytes per k16.
+//   A shared-memory operand is a tile whose rows are 64 bf16 (128 bytes,
+//   swizzled by the TMA in 8-row, 1024-byte atoms) or 32 bf16 (64 bytes,
+//   8-row, 512-byte atoms). K-major (the reduced dimension along the row):
+//   the descriptor steps 32 bytes per k16. MN-major, B only (the row is
+//   the output's N; wgmma's transpose-B bit): one row per k, so the
+//   descriptor steps 16 rows per k16; the kernels run one product per
+//   row-wide box, so N never spans two swizzle atoms. The accumulator of
+//   one product converts in registers to the bf16 A fragments of the next
+//   (frag_from_acc).
+// - Tensor maps over the lane slices of a row-strided (B, N, cols) buffer:
+//   3-D, so that boxes clip at each batch's N.
 // - Warp specialisation: setmaxnreg moves registers from the producer
 //   warpgroup (40 a thread) to the two consumer warpgroups (232); each
 //   kernel branches once, at the top.
@@ -65,6 +75,34 @@ inline EncodeTiled encode_tiled() {
       fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
+}
+
+// Tensor map of bf16 (batches, rows, cols) with rows `ld` elements apart
+// and batches `batch_ld` apart, read or written in (box_rows, box_cols)
+// tiles with the swizzle of box_cols * 2 bytes (64 or 128); boxes clip at
+// every edge (loads fill zeros, stores drop). Returns 0 or ETK_TMAP_FAILED.
+inline int tensor_map_3d(CUtensorMap* map, const void* ptr, long long batches,
+                         long long rows, long long cols, long long ld,
+                         long long batch_ld, int box_rows, int box_cols) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr || (box_cols != 32 && box_cols != 64))
+    return ETK_TMAP_FAILED;
+  cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                        static_cast<cuuint64_t>(rows),
+                        static_cast<cuuint64_t>(batches)};
+  cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld) * 2,
+                           static_cast<cuuint64_t>(batch_ld) * 2};
+  cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
+                       static_cast<cuuint32_t>(box_rows), 1};
+  cuuint32_t unit[3] = {1, 1, 1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                      const_cast<void*>(ptr), dims, strides, box, unit,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : CU_TENSOR_MAP_SWIZZLE_64B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ETK_TMAP_FAILED;
 }
 
 // Tensor map of a row-major bf16 (rows, cols) matrix, rows `ld` elements
@@ -187,6 +225,39 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map,
       : "memory");
 }
 
+// TMA over a 3-D map: the (1, box_rows, box_cols) tile at (batch, row r0,
+// column c0) into dst (aligned to its swizzle atom), completing on `bar`
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int r0,
+                                            int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(r0), "r"(batch)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int r0,
+                                             int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(r0), "r"(batch)
+      : "memory");
+}
+
+// bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned) of
+// global memory into shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // Ring position of the i-th tile a role walks through: stage and the parity
 // of its pass over the ring.
 struct Ring {
@@ -205,19 +276,52 @@ __device__ __forceinline__ void named_sync(int id, int count) {
 
 // ---- device: wgmma ------------------------------------------------------
 
-// shared-memory descriptor of a K-major, 128-byte-swizzled tile starting
-// at p (1024-byte aligned, or stepped by 32 bytes per k16 from such a
-// start): leading offset unused by this layout, 1024 bytes between 8-row
-// groups
+// shared-memory descriptor of a tile of RB-byte rows (128: 128-byte
+// swizzle; 64: 64-byte swizzle) starting at p (aligned to the 8-row atom,
+// or stepped from such a start by 32 bytes per k16 along a K-major row, or
+// by whole atoms): leading offset unused (N never spans two atoms), 8 rows
+// between 8-row groups
+template <int RB = 128>
 __device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  static_assert(RB == 128 || RB == 64, "128- or 64-byte rows");
   const uint32_t a = smem_addr(p);
   return static_cast<uint64_t>((a & 0x3FFFF) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+         (static_cast<uint64_t>(8 * RB >> 4) << 32) |
+         ((RB == 128 ? 1ull : 2ull) << 62);
+}
+
+// the byte offset of 16-byte chunk `chunk` of row `row` in a tile of
+// RB-byte rows swizzled as the TMA writes it: the chunk index XOR address
+// bits 7.. (row % 8 for 128-byte rows, (row / 2) % 4 for 64-byte rows)
+template <int RB>
+__device__ __forceinline__ uint32_t swz(int row, int chunk) {
+  static_assert(RB == 128 || RB == 64, "128- or 64-byte rows");
+  const int phase = RB == 128 ? row & 7 : (row >> 1) & 3;
+  return static_cast<uint32_t>(row * RB + ((chunk ^ phase) << 4));
+}
+
+// The bf16 A fragment (mma.sync m16n8k16 layout) of k16 slice kk of a
+// product whose fp32 accumulator `acc` is the A operand's rows: n8 block j
+// of the accumulator holds (row r, cols 2q, 2q + 1) and (row r + 8, the
+// same), which is the A fragment's layout over two n8 blocks.
+template <int R>
+__device__ __forceinline__ void frag_from_acc(uint32_t (&a)[4],
+                                              const float (&acc)[R], int kk) {
+  a[0] = pack_bf16x2(acc[8 * kk], acc[8 * kk + 1]);
+  a[1] = pack_bf16x2(acc[8 * kk + 2], acc[8 * kk + 3]);
+  a[2] = pack_bf16x2(acc[8 * kk + 4], acc[8 * kk + 5]);
+  a[3] = pack_bf16x2(acc[8 * kk + 6], acc[8 * kk + 7]);
 }
 
 // the descriptor of the k16 slice `ks` of a tile (32 bytes a slice)
 __device__ __forceinline__ uint64_t desc_k(uint64_t desc, int ks) {
   return desc + static_cast<uint64_t>(2 * ks);
+}
+// the descriptor of the k16 slice `ks` of an MN-major tile of RB-byte
+// rows (16 rows a slice)
+template <int RB>
+__device__ __forceinline__ uint64_t desc_mn(uint64_t desc, int ks) {
+  return desc + static_cast<uint64_t>(ks * RB);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -234,7 +338,11 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Keep registers that an in-flight wgmma reads or writes live, and
 // unmoved, up to this point (the compiler does not know that the
-// instruction works asynchronously).
+// instruction works asynchronously): its accumulators and, for a
+// register-A product, its A fragments, after the wait that completes it;
+// and before wgmma_fence, so that every write to them (a zero fill, a
+// rescale, the packing of fragments) lands before the fence, as the fence
+// requires, and not between it and the product.
 template <int R>
 __device__ __forceinline__ void hold(float (&r)[R]) {
 #pragma unroll
@@ -323,17 +431,51 @@ __device__ __forceinline__ void fence_async_cta() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// The (row, 16-byte chunk) address inside a 128-byte-swizzled tile whose
-// rows are 128 bytes: chunk j of row r sits at chunk j ^ (r % 8).
-__device__ __forceinline__ uint32_t swizzled(int row, int chunk) {
-  return static_cast<uint32_t>(row * 128 + ((chunk ^ (row & 7)) << 4));
-}
 
 // wgmma.mma_async m64nNk16, bf16 x bf16 -> fp32, both operands K-major,
 // accumulating (scale-d 1). One wrapper per width N that a kernel uses;
 // the operand lists are written out, since an asm template is a literal.
 template <int N>
 struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  // d (64 x 32, fp32) += A (64 x 16) * B (32 x 16)^T, A and B in shared memory
+  __device__ __forceinline__ static void ss(float (&d)[16], uint64_t a,
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(1));
+  }
+  // d (64 x 32, fp32) += A (64 x 16, registers, mma.sync's fragment layout)
+  // * B; B in shared memory, K-major (TB 0: B is 32 x 16) or MN-major (TB
+  // 1: B is 16 x 32, rows of 32)
+  template <int TB = 0>
+  __device__ __forceinline__ static void rs(float (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+          "n"(TB));
+  }
+};
 
 template <>
 struct Wgmma<64> {
@@ -357,6 +499,32 @@ struct Wgmma<64> {
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "l"(a), "l"(b), "r"(1));
+  }
+  // d (64 x 64, fp32) += A (64 x 16, registers, mma.sync's fragment layout)
+  // * B; B in shared memory, K-major (TB 0: B is 64 x 16) or MN-major (TB
+  // 1: B is 16 x 64, rows of 64)
+  template <int TB = 0>
+  __device__ __forceinline__ static void rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+          "n"(TB));
   }
 };
 

@@ -177,7 +177,8 @@ def attention_bwd_kernel(q3, k3, v3, do3, heads, head_dim, mask_mode="none",
     check_kernel_args("attention_bwd", q3, k3, v3, do3, strided_rows=True)
     grads = [torch.empty((b, n, hd), dtype=q3.dtype, device=q3.device)
              for _ in range(3)]
-    n_pad = -(-n // 64) * 64
+    # the row statistics of every 128-row block of the rows kernel
+    n_pad = -(-n // 128) * 128
     stats = torch.empty((3, b, heads, n_pad), dtype=torch.float32,
                         device=q3.device)
     cuda_lib.call("etk_attention_bwd",
@@ -600,6 +601,31 @@ def attention_packed_gridchunk(q3: torch.Tensor, k3: torch.Tensor,
 # -- B15: attention -> projection -> bias -> residual ----------------------
 
 PROJ_HEAD_DIMS = (64,)
+# csrc/attn_proj.cu's shapes: 64-row blocks, 128-column projection chunks,
+# a TMA ring of 16 KiB stages per consumer warpgroup beside the (64, H*D)
+# bf16 tile of every head's output and four (64, 64) q tiles (two per
+# warpgroup)
+PROJ_ROWS, PROJ_CHUNK, PROJ_STAGE_BYTES, PROJ_MAX_STAGES = 64, 128, 16384, 4
+SMEM_LIMIT = 232448 - 2048
+
+
+def attn_proj_plan(heads: int, head_dim: int, ho: int) -> dict | None:
+    """The kernel's plan for H heads of D and HO output columns, as
+    ``csrc/attn_proj.cu::attn_proj_plan`` picks it (the C entry
+    ``etk_attn_proj_plan`` returns rows, chunk, stages and smem for H*D):
+    as many ring stages per warpgroup as fit beside the (64, H*D) tile and
+    the q tiles, at most 4. None where the kernel refuses the shape: D
+    other than 64, HO not a multiple of 64, or fewer than 2 stages (H*D
+    above 1024)."""
+    if head_dim not in PROJ_HEAD_DIMS or ho % 64 or heads <= 0:
+        return None
+    fixed = PROJ_ROWS * heads * head_dim * 2 + 4 * PROJ_ROWS * 64 * 2
+    stages = min(PROJ_MAX_STAGES,
+                 (SMEM_LIMIT - fixed) // (2 * PROJ_STAGE_BYTES))
+    if stages < 2:
+        return None
+    return dict(rows=PROJ_ROWS, chunk=PROJ_CHUNK, stages=stages,
+                smem=fixed + 2 * stages * PROJ_STAGE_BYTES + 1024)
 
 
 def attention_proj_plain(q, k, v, wp, bp, residual, scale, mask_mode="none",
@@ -615,6 +641,15 @@ def attention_proj_plain(q, k, v, wp, bp, residual, scale, mask_mode="none",
     return out.to(q.dtype)
 
 
+def _batch_rows(t: torch.Tensor) -> torch.Tensor:
+    """A (B, 1, C) view with its one row's stride set to the batches'
+    (torch may give a size-1 axis any stride; the kernel steps batches by
+    rows)."""
+    if t.shape[1] != 1:
+        return t
+    return t.as_strided(t.shape, (t.stride(0), t.stride(0), t.stride(2)))
+
+
 def attn_proj_kernel(q, k, v, wp, bp, residual, scale, mask_mode="none",
                      cond_len=0):
     """Launch ``csrc/attn_proj.cu`` (B15) on CUDA bf16 q (B, N, H, 64) and
@@ -628,10 +663,10 @@ def attn_proj_kernel(q, k, v, wp, bp, residual, scale, mask_mode="none",
             bp.dtype != torch.float32):
         raise TypeError("attn_proj kernel takes bf16 q, k, v, wp, residual "
                         "and an fp32 bias")
-    if d not in PROJ_HEAD_DIMS or ho % 64:
+    if attn_proj_plan(h, d, ho) is None:
         raise ValueError(f"attn_proj kernel takes head_dim in "
-                         f"{PROJ_HEAD_DIMS} and HO % 64 == 0, got D={d}, "
-                         f"HO={ho}")
+                         f"{PROJ_HEAD_DIMS}, HO % 64 == 0 and H*D up to "
+                         f"1024, got H={h}, D={d}, HO={ho}")
     if (k.shape != (b, m, h, d) or v.shape != k.shape
             or wp.shape != (ho, h * d) or bp.shape != (ho,)
             or residual.shape != (b, n, ho)):
@@ -639,7 +674,8 @@ def attn_proj_kernel(q, k, v, wp, bp, residual, scale, mask_mode="none",
                          "the residual do not fit")
     if mask_mode not in MASK_MODES:
         raise ValueError(f"unknown mask_mode {mask_mode!r}")
-    q3, k3, v3 = (t.reshape(t.shape[0], t.shape[1], h * d) for t in (q, k, v))
+    q3, k3, v3 = (_batch_rows(t.reshape(t.shape[0], t.shape[1], h * d))
+                  for t in (q, k, v))
     check_kernel_args("attn_proj", q3, k3, v3, strided_rows=True)
     check_kernel_args("attn_proj", wp, bp, residual)
     out = torch.empty((b, n, ho), dtype=q.dtype, device=q.device)

@@ -56,6 +56,8 @@ SIGNATURES = {
     "etk_attn_proj": [_p] * 7 + [_i] * 9 + [_f, _i, _i, _p],
     "etk_ffn": [_p] * 6 + [_i] * 4 + [_p],
     "etk_ffn_plan": [_i, ctypes.POINTER(_i)],
+    "etk_attn_proj_plan": [_i, ctypes.POINTER(_i)],
+    "etk_wgmma_probe": [_p, _p, _p, _i, _p],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -243,6 +243,84 @@ def test_attention_autograd_goes_through_both_kernels(cuda):
     _grad_close(got, want, "dqkv")
 
 
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+def test_wgmma_operand_layouts_match_matmul(cuda, mode):
+    """One lone wgmma per operand layout the attention kernels add to the
+    GEMMs' (csrc/wgmma_probe.cu): B MN-major with 128-byte rows (P V, dq,
+    dk, dv at D 64 and 128) and 64-byte rows (D 32), SS K-major with
+    64-byte rows (S at D 32) and RS with B K-major (B15's S). bf16
+    products summed in fp32 over 64 (or 32) terms: the same sum in
+    another order."""
+    from enhancing_tpu_torch.ops import cuda_lib
+    k = 32 if mode == 2 else 64
+    n = 32 if mode == 1 else 64
+    a = _randn(cuda, 64, k, dtype=torch.bfloat16)
+    b = _randn(cuda, n if mode >= 2 else k, k if mode >= 2 else n,
+               dtype=torch.bfloat16)
+    c = torch.empty(64, n, device="cuda")
+    cuda_lib.call("etk_wgmma_probe", a.data_ptr(), b.data_ptr(),
+                  c.data_ptr(), mode, cuda_lib.stream())
+    want = a.float() @ (b.float().t() if mode >= 2 else b.float())
+    _close(c, want, dict(atol=1e-4, rtol=1e-5))
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("mode,cl", [("none", 0), ("prefix_causal", 5)])
+@pytest.mark.parametrize("n", [1, 63, 64, 1025])
+def test_attention_bwd_kernel_head_dims_and_lengths(cuda, d, mode, cl, n):
+    """B5 at every head dim the wrapper takes, both masks, and lengths
+    below, at and past a tile, under chip_smoke's phase-3 limits."""
+    b, h = 2, 2
+    qkv = _randn(cuda, b, n, 3 * h * d, dtype=torch.bfloat16)
+    q3, k3, v3 = att.split_qkv_scaled(qkv, d ** -0.5)
+    do = _randn(cuda, b, n, h * d, dtype=torch.bfloat16)
+    got = att.attention_bwd_kernel(q3, k3, v3, do, h, d, mode, cl)
+    want = att.attention_bwd_plain(q3, k3, v3, do, h, d, mode, cl)
+    for name, g, w in zip("qkv", got, want):
+        assert torch.isfinite(g).all()
+        _grad_close(g, w, "d" + name)
+
+
+def test_attention_bwd_kernel_is_deterministic(cuda):
+    """No atomics: two launches on the same inputs are bit-equal."""
+    b, n, h, d = 2, 1025, 4, 64
+    qkv = _randn(cuda, b, n, 3 * h * d, dtype=torch.bfloat16)
+    q3, k3, v3 = att.split_qkv_scaled(qkv, d ** -0.5)
+    do = _randn(cuda, b, n, h * d, dtype=torch.bfloat16)
+    first = att.attention_bwd_kernel(q3, k3, v3, do, h, d)
+    second = att.attention_bwd_kernel(q3, k3, v3, do, h, d)
+    for g1, g2 in zip(first, second):
+        assert torch.equal(g1, g2)
+
+
+@pytest.mark.parametrize("b,n,h,ho,mode,cl", [
+    (8, 1024, 12, 768, "none", 0),           # the fused trip's, batch 8
+    (2, 1025, 12, 768, "prefix_causal", 5),  # ragged, prefix-causal
+    (1, 1024, 16, 1280, "none", 0),          # imagenet_vitvq_large's decoder
+    (2, 1, 12, 768, "none", 0),              # one token
+])
+def test_attn_proj_kernel_at_the_smoke_shapes(cuda, b, n, h, ho, mode, cl):
+    """B15 at chip_smoke's phase-3 shapes and N = 1, under its limits."""
+    q, k, v, wp, bp, res = _proj_operands(cuda, b, n, h, ho)
+    got = att.attn_proj_kernel(q, k, v, wp, bp, res, 0.125, mode, cl)
+    want = att.attention_proj_plain(q, k, v, wp, bp, res, 0.125, mode, cl)
+    _row_close(got.view(-1, ho), want.view(-1, ho), 2.0 ** -8, 2.0 ** -7)
+
+
+def test_attn_proj_plan_mirrors_the_c_entry(cuda):
+    """ops.attention.attn_proj_plan gives the numbers csrc/attn_proj.cu
+    picks, and refuses the widths whose plan has fewer than two stages."""
+    from enhancing_tpu_torch.ops import cuda_lib
+    for heads in range(1, 25):
+        got = cuda_lib.plan("etk_attn_proj_plan", heads * 64, size=4)
+        want = att.attn_proj_plan(heads, 64, 768)
+        if want is None:
+            assert got[2] < 2
+        else:
+            assert got == tuple(want[k] for k in ("rows", "chunk", "stages",
+                                                  "smem"))
+
+
 @pytest.mark.parametrize("shape", BLUR_SHAPES)
 @pytest.mark.parametrize("pad", [(2, 2), (1, 1)])
 def test_fir_kernel_matches_plain_at_the_discriminator_shapes(cuda, shape,
