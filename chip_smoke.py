@@ -27,9 +27,9 @@ Phases, each of which raises on failure:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every kernel of ``enhancing_tpu_torch/csrc`` by ``nvcc`` for
    sm_90a, with the ptxas register and shared-memory report; the SASS of
-   the bf16 LN -> GEMM, the fused FFN, attention -> projection and the
-   attention backward must hold wgmma (HGMMA) and TMA loads (UTMALDG) and
-   no mma.sync (``cuobjdump``);
+   the bf16 LN -> GEMM, the fused FFN, attention -> projection, the
+   attention forward and the attention backward must hold wgmma (HGMMA)
+   and TMA loads (UTMALDG) and no mma.sync (``cuobjdump``);
 3. each kernel against its plain PyTorch version on the card at the main
    paths' shapes, with the tolerance stated on its line;
 4. each kernel's time (CUDA events; the serving kernels at batch 128, the
@@ -37,6 +37,8 @@ Phases, each of which raises on failure:
    one PyTorch library call computing the same function (timed only; the
    port never calls it) and its bound on an H100 SXM; B5's and B15's
    kernel and library times are medians of 5 loops, their spread logged;
+   B2 on the qkv buffer and B8 on its three lane slices run one kernel
+   and must give the same output bit for bit;
 5. serving through the public entry points: requests of batch 1, 8 and
    128 with launch counters reset just before and read just after,
    outputs checked, the kernels compared with the plain path on one small
@@ -248,11 +250,12 @@ D_ACTS = ([(TRAIN_BATCH, 256, 256, 128)] * 2
           + [(TRAIN_BATCH, 128, 128, 256)] * 2 + [(TRAIN_BATCH, 64, 64, 512)] * 2
           + [(TRAIN_BATCH, s, s, 512) for s in (32, 32, 16, 16, 8, 8, 4, 4)]
           + [(TRAIN_BATCH, 512)])
-# B17-B19 run the generalised attention forward of B8's source
+# B2, B8 and B17-B19 run the attention forwards of one source
 SOURCES = {name: "enhancing_tpu_torch/csrc/" + {
-    "attention_bhnd": "attention_bnhd", "attention_fused_bnhd":
-    "attention_bnhd", "attention_gridchunk": "attention_bnhd"}.get(
-        name, name) + ".cu" for name in REPLACES}
+    "attention": "attention_bnhd", "attention_bhnd": "attention_bnhd",
+    "attention_fused_bnhd": "attention_bnhd",
+    "attention_gridchunk": "attention_bnhd"}.get(name, name) + ".cu"
+    for name in REPLACES}
 
 
 def log(msg: str) -> None:
@@ -329,12 +332,14 @@ def phase_build() -> None:
 
 
 # the bf16 LN -> GEMM (B1), the fused FFN (B16), attention -> projection
-# (B15) and the attention backward's two kernels (B5) run on Hopper's
-# warpgroup MMA fed by TMA: their SASS holds HGMMA and UTMALDG, and no
-# mma.sync (HMMA). Each family by its demangled or mangled name.
+# (B15), the attention forward (B2, B8 at head dims up to 128, B17-B19)
+# and the attention backward's two kernels (B5) run on Hopper's warpgroup
+# MMA fed by TMA: their SASS holds HGMMA and UTMALDG, and no mma.sync
+# (HMMA). Each family by its demangled or mangled name.
 SM90_KERNELS = {"ln_gemm": ("ln_gemm_kernel<", "ln_gemm_kernelI"),
                 "ffn": ("ffn_kernel<", "ffn_kernelI"),
                 "attn_proj": ("attn_proj_kernel",),
+                "attention fwd": ("attn_fwd_kernel",),
                 "attention_bwd rows": ("attn_bwd_rows_kernel",),
                 "attention_bwd cols": ("attn_bwd_cols_kernel",)}
 
@@ -470,10 +475,15 @@ def phase_compare() -> dict:
                                           HEAD_DIM ** -0.5)
     close("attention", "attention none B=8 N=1024 H=12 D=64", got, want,
           **atol_att)
+    # ... and at one token, at one row past a 64-row box, and at each head
+    # dim of the Hopper forward
     for (b, n, h, d, mode, cl) in ((2, 1025, 4, 64, "prefix_causal", 5),
                                    (2, 1025, 12, 64, "none", 0),
                                    (1, 200, 4, 32, "prefix_causal", 17),
-                                   (1, 300, 2, 128, "none", 0)):
+                                   (1, 300, 2, 128, "none", 0),
+                                   (3, 1, 4, 64, "none", 0),
+                                   (2, 65, 4, 64, "prefix_causal", 3),
+                                   (2, 65, 2, 128, "none", 0)):
         qkv = rand((b, n, 3 * h * d), gen)
         got = att.attention_packed_qkv_kernel(qkv, h, d, d ** -0.5, mode, cl)
         want = att.attention_packed_qkv_plain(qkv, h, d, d ** -0.5, mode, cl)
@@ -885,21 +895,22 @@ def phase_times() -> dict:
         lambda: F.scaled_dot_product_attention(q, k, v),
         4.0 * TIME_BATCH * HEADS * TOKENS * TOKENS * HEAD_DIM,
         (TIME_BATCH * TOKENS * 4 * hd) * 2, PEAK_BF16, 10)
-    # B8 on the same buffer's three lane slices computes B2's function:
-    # B2, B8, B8, B2 in turn
+    # B8 on the same buffer's three lane slices runs B2's kernel through
+    # the same tensor maps: the outputs must be equal bit for bit. B2, B8,
+    # B8, B2 in turn
     q_s, k_s, v_s = (u.view(TIME_BATCH, TOKENS, HEADS, HEAD_DIM)
                      for u in qkv.split(hd, dim=-1))
     b2 = lambda: att.attention_packed_qkv_kernel(  # noqa: E731
         qkv, HEADS, HEAD_DIM, HEAD_DIM ** -0.5)
     b8 = lambda: att.attention_bnhd_kernel(  # noqa: E731
         q_s, k_s, v_s, HEAD_DIM ** -0.5)
-    diff = float((b2().float() - b8().view(TIME_BATCH, TOKENS, hd).float())
-                 .abs().max())
+    equal = torch.equal(b2(), b8().view(TIME_BATCH, TOKENS, hd))
     ab = [time_ms(fn, 10) for fn in (b2, b8, b8, b2)]
     log(f"[time] attention B={TIME_BATCH} N={TOKENS} H={HEADS} D={HEAD_DIM}"
-        f" none: B2 csrc/attention.cu {ab[0]:.4f} / {ab[3]:.4f} ms, B8 "
-        f"csrc/attention_bnhd.cu on the lane slices {ab[1]:.4f} / "
-        f"{ab[2]:.4f} ms; outputs differ by at most {diff:.3e}")
+        f" none: B2 on the qkv buffer {ab[0]:.4f} / {ab[3]:.4f} ms, B8 on "
+        f"its lane slices {ab[1]:.4f} / {ab[2]:.4f} ms; outputs "
+        f"{'bit-equal' if equal else 'DIFFER'}")
+    check(equal, "B2 and B8 on the same lane slices differ")
 
     row("layernorm", f"layernorm B={TIME_BATCH}",
         lambda: lg.layernorm_kernel(x, g, b),
@@ -1252,7 +1263,10 @@ def compare_fused_kernels(gen, close, errs) -> None:
     for (b, h, n, m, mode, cl) in (
             (CHECK_BATCH, HEADS, TOKENS, TOKENS, "none", 0),
             (2, 4, 300, 517, "prefix_causal", 5),
-            (2, 4, 517, 300, "none", 0)):
+            (2, 4, 517, 300, "none", 0),
+            (2, 4, 1, 65, "none", 0),
+            (2, 4, 65, 1, "prefix_causal", 0),
+            (1, 4, 65, 130, "prefix_causal", 2)):
         q = rand((b, h, n, HEAD_DIM), gen)
         k, v = (rand((b, h, m, HEAD_DIM), gen) for _ in range(2))
         close("attention_bhnd", f"attention_bhnd (B, H, N, D) {mode} B={b} "
@@ -2078,7 +2092,7 @@ KERNEL_GROUPS = (("attn_proj_kernel", "attn_proj"), ("ffn_kernel", "ffn"),
                  ("row_write", "cache_row_update"),
                  ("layer_norm", "LayerNorm (PyTorch)"),
                  ("gemv", "cuBLAS"), ("ln_gemm", "ln_gemm"),
-                 ("attn_qkv", "attention"), ("layernorm_kernel", "layernorm"),
+                 ("attn_fwd", "attention"), ("layernorm_kernel", "layernorm"),
                  ("vq_nearest", "vq"), ("fir_kernel", "fir"),
                  ("fused_act", "fused_act"), ("conv", "cuDNN conv"),
                  ("dgrad", "cuDNN conv"), ("wgrad", "cuDNN conv"),

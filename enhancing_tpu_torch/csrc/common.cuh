@@ -75,11 +75,12 @@ __device__ __forceinline__ bool visible(int row, int col, int m, bool causal,
 // e^(x - m) given ml2 = m log2(e): 2^(x log2(e) - ml2) by one fused
 // multiply-add and the hardware's base-2 exponential (ex2.approx, relative
 // error ~2^-22), an fp32 exponential as flash attention takes it; x = -inf
-// gives 0
+// gives 0. With c = scale log2(e) and ml2 = m c, e^(scale (x - m)).
 constexpr float kLog2e = 1.4426950408889634f;
-__device__ __forceinline__ float exp_shifted(float x, float ml2) {
+__device__ __forceinline__ float exp_shifted(float x, float ml2,
+                                             float c = kLog2e) {
   float r;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(fmaf(x, kLog2e, -ml2)));
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(fmaf(x, c, -ml2)));
   return r;
 }
 

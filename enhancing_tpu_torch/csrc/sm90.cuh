@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the bf16 LN -> GEMM (B1,
 // ln_gemm.cu), the fused FFN (B16, ffn.cu), attention -> projection (B15,
-// attn_proj.cu) and the attention backward (B5, attention_bwd.cu), in raw
-// PTX:
+// attn_proj.cu), the attention backward (B5, attention_bwd.cu) and the
+// attention forward (B2, B8, B17-B19, attention_bnhd.cu), in raw PTX:
 //
 // - TMA: bf16 tensor maps encoded on the host (cuTensorMapEncodeTiled,
 //   looked up through the CUDA runtime, so the library links no libcuda),
@@ -23,7 +23,9 @@
 //   one product converts in registers to the bf16 A fragments of the next
 //   (frag_from_acc).
 // - Tensor maps over the lane slices of a row-strided (B, N, cols) buffer:
-//   3-D, so that boxes clip at each batch's N.
+//   3-D, so that boxes clip at each batch's N; and 4-D over (lanes, heads,
+//   rows, batches) with a stride per axis, for attention operands laid out
+//   (B, N, H, D), (B, H, N, D) or as lane slices of a packed qkv buffer.
 // - Warp specialisation: setmaxnreg moves registers from the producer
 //   warpgroup (40 a thread) to the two consumer warpgroups (232); each
 //   kernel branches once, at the top.
@@ -100,6 +102,44 @@ inline int tensor_map_3d(CUtensorMap* map, const void* ptr, long long batches,
                       CU_TENSOR_MAP_INTERLEAVE_NONE,
                       box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
                                      : CU_TENSOR_MAP_SWIZZLE_64B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ETK_TMAP_FAILED;
+}
+
+// Tensor map of a bf16 (batches, rows, heads, lanes) tensor, lanes
+// contiguous, heads `head_ld`, rows `row_ld` and batches `batch_ld`
+// elements apart (in any order of size), read or written in (1, box_rows,
+// 1, box_lanes) tiles with the swizzle of box_lanes * 2 bytes (64 or 128);
+// the map's dims run (lanes, heads, rows, batches). Boxes clip at every
+// edge (loads fill zeros, stores drop). An axis of extent 1 is never
+// stepped, so its stride, which may be 0, is replaced by `lanes` (the
+// encoder wants every stride a nonzero multiple of 16 bytes). Returns 0 or
+// ETK_TMAP_FAILED.
+inline int tensor_map_4d(CUtensorMap* map, const void* ptr, long long batches,
+                         long long rows, long long heads, long long lanes,
+                         long long head_ld, long long row_ld,
+                         long long batch_ld, int box_rows, int box_lanes) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr || (box_lanes != 32 && box_lanes != 64))
+    return ETK_TMAP_FAILED;
+  auto stride = [&](long long extent, long long ld) {
+    return static_cast<cuuint64_t>(extent == 1 ? lanes : ld) * 2;
+  };
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(lanes),
+                        static_cast<cuuint64_t>(heads),
+                        static_cast<cuuint64_t>(rows),
+                        static_cast<cuuint64_t>(batches)};
+  cuuint64_t strides[3] = {stride(heads, head_ld), stride(rows, row_ld),
+                           stride(batches, batch_ld)};
+  cuuint32_t box[4] = {static_cast<cuuint32_t>(box_lanes), 1,
+                       static_cast<cuuint32_t>(box_rows), 1};
+  cuuint32_t unit[4] = {1, 1, 1, 1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                      const_cast<void*>(ptr), dims, strides, box, unit,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      box_lanes == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                      : CU_TENSOR_MAP_SWIZZLE_64B,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ETK_TMAP_FAILED;
@@ -244,6 +284,31 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
       "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
       " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_addr(src)), "r"(c0), "r"(r0), "r"(batch)
+      : "memory");
+}
+
+// TMA over a 4-D map (tensor_map_4d): the (1, box_rows, 1, box_lanes) tile
+// at (batch, row r0, head, lane c0) into dst (aligned to its swizzle atom),
+// completing on `bar`; and the store of such a tile, in this thread's bulk
+// group
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int head,
+                                            int r0, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(head), "r"(r0), "r"(batch)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0,
+                                             int head, int r0, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(head), "r"(r0), "r"(batch)
       : "memory");
 }
 
@@ -530,9 +595,10 @@ struct Wgmma<64> {
 
 template <>
 struct Wgmma<128> {
-  // d (64 x 128, fp32) += A (64 x 16) * B (128 x 16)^T, A and B in shared memory
+  // d (64 x 128, fp32) += A (64 x 16) * B (128 x 16)^T, A and B in shared
+  // memory; with accumulate 0, d = A * B^T (d's old values are not read)
   __device__ __forceinline__ static void ss(float (&d)[64], uint64_t a,
-                                            uint64_t b) {
+                                            uint64_t b, int accumulate = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -561,7 +627,7 @@ struct Wgmma<128> {
           "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(accumulate));
   }
   // the same with A (64 x 16) from registers, in mma.sync's fragment layout
   __device__ __forceinline__ static void rs(float (&d)[64],

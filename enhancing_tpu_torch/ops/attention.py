@@ -1,9 +1,11 @@
 """Self-attention straight off the fused qkv projection output.
 
 Counterpart of ``multihead_attention_packed_qkv`` in
-``enhancing_tpu/ops/attention.py``. On CUDA the kernel
-``csrc/attention.cu`` reads q, k and v in place from the (B, N, 3*H*D)
-buffer; the plain version splits it, as ``_qkv_split_scaled`` and
+``enhancing_tpu/ops/attention.py``. On CUDA the Hopper flash forward
+``attn_fwd_kernel`` of ``csrc/attention_bnhd.cu`` (entry
+``etk_attention_qkv``) reads q, k and v in place from the (B, N, 3*H*D)
+buffer through 4-D TMA tensor maps (:func:`attention_fwd_maps` mirrors
+them); the plain version splits it, as ``_qkv_split_scaled`` and
 ``_attention_xla`` do (``attention.py:42-57,701-704``). Numerics: q is
 scaled in the compute dtype, scores and softmax are fp32, P is cast to
 v's dtype before PV, and the output is cast to the compute dtype.
@@ -22,12 +24,15 @@ other attention forwards:
 - :func:`multihead_attention_bnhd`, the counterpart of the JAX function of
   that name (``attention.py:1810-1855``), takes separate (B, N, H, D) q, k
   and v; on CUDA ``csrc/attention_bnhd.cu`` (the counterpart of
-  ``_attention_packed_call``) reads them in place at any N, N = 1
-  included, and any head dim of 32, 64, 128 or 384 (the prior's). Same
-  numerics as above. It has no backward yet: the prior's training step is
-  a later slice. The kernel reads each tensor through its own batch, head
-  and row strides and a key length of its own, and puts the scale on q
-  (in bf16) or on the fp32 scores, so it also serves
+  ``_attention_packed_call``, B8) reads them in place at any N, N = 1
+  included: head dims 32, 64 and 128 on ``attn_fwd_kernel``, B2's kernel,
+  so that B8 on the lane slices of a qkv buffer gives B2's output bit for
+  bit; the prior's 384 on the earlier mma.sync ``attn_bnhd_kernel``, kept
+  for that width (``ROADMAP.md`` queue B). Same numerics as above. It has
+  no backward yet: the prior's training step is a later slice. Both
+  kernels read each tensor through its own batch, head and row strides and
+  a key length of its own, and put the scale on q (in bf16) or on the fp32
+  scores, so they also serve
   :func:`multihead_attention` ((B, H, N, D), the scale on the scores, the
   JAX public op; backward autograd of the plain version),
   :func:`_attention_fused_bnhd` ((B, N, H, D), likewise) and
@@ -121,7 +126,8 @@ def attention_packed_qkv_plain(qkv, heads, head_dim, scale,
 
 def attention_packed_qkv_kernel(qkv, heads, head_dim, scale,
                                 mask_mode="none", cond_len=0):
-    """Launch ``csrc/attention.cu`` on a CUDA bf16 (B, N, 3*H*D) tensor."""
+    """Launch ``attn_fwd_kernel`` (``csrc/attention_bnhd.cu``, entry
+    ``etk_attention_qkv``) on a CUDA bf16 (B, N, 3*H*D) tensor (B2)."""
     b, n, hd3 = qkv.shape
     if qkv.dtype != torch.bfloat16:
         raise TypeError(f"attention kernel takes bf16, got {qkv.dtype}")
@@ -271,15 +277,71 @@ def strided_launch_args(name: str, tensors) -> list:
     return strides
 
 
+# csrc/attention_bnhd.cu's Hopper forward (attn_fwd_kernel): its head dims,
+# the rows of one TMA box (one consumer warpgroup's) and the grid's limits
+# on heads and batches
+FWD_HEAD_DIMS = (32, 64, 128)
+FWD_BOX_ROWS, FWD_GRID_LIMIT = 64, 65535
+
+
+def attention_fwd_maps(b: int, n: int, m: int, heads: int, head_dim: int,
+                       strides, offsets=(0, 0, 0, 0)) -> list:
+    """The four TMA tensor maps (q, k, v, out) that the host plan of
+    ``csrc/attention_bnhd.cu`` encodes for ``attn_fwd_kernel``, each as
+    (base offset in bytes, dims, strides in bytes, box): dims and box in the
+    map's order (lanes, heads, rows, batches), strides those of heads, rows
+    and batches (``sm90::tensor_map_4d``). ``strides`` holds each tensor's
+    (batch, head, row) element strides, as :func:`strided_launch_args` gives
+    them; ``offsets`` each base's bytes from the pointer the caller holds
+    (the packed qkv buffer's lane slices, :func:`packed_qkv_strides`). An
+    axis of extent 1 is never stepped and takes the stride of ``head_dim``
+    elements, whatever it was given. Raises ValueError where the C entries
+    return ETK_BAD_ARGS: a head dim other than 32, 64 or 128, an empty or
+    too large grid, a stride that is negative, no multiple of 8 elements,
+    past an int, or 0 on an axis of extent above 1."""
+    if head_dim not in FWD_HEAD_DIMS:
+        raise ValueError(f"the Hopper attention forward takes head_dim in "
+                         f"{FWD_HEAD_DIMS}, got {head_dim}")
+    if min(b, n, m, heads) <= 0 or max(b, heads) > FWD_GRID_LIMIT:
+        raise ValueError(f"attention forward: B={b}, N={n}, M={m}, "
+                         f"H={heads} is not a grid it takes")
+    box = (32 if head_dim == 32 else 64, 1, FWD_BOX_ROWS, 1)
+    maps = []
+    for i, rows in enumerate((n, m, m, n)):
+        batch, head, row = strides[3 * i:3 * i + 3]
+        byte_strides = []
+        for extent, st in ((heads, head), (rows, row), (b, batch)):
+            if st < 0 or st % 8 or st >= 2 ** 31 or (st == 0 and extent > 1):
+                raise ValueError(f"attention forward: stride {st} on an axis "
+                                 f"of {extent} (multiples of 8 elements, 0 "
+                                 "only on an axis of 1)")
+            byte_strides.append(2 * (head_dim if extent == 1 else st))
+        maps.append((offsets[i], (head_dim, heads, rows, b),
+                     tuple(byte_strides), box))
+    return maps
+
+
+def packed_qkv_strides(b: int, n: int, heads: int, head_dim: int):
+    """The element strides and byte offsets that ``etk_attention_qkv``
+    gives :func:`attention_fwd_maps`' C twin for a (B, N, 3*H*D) qkv buffer
+    and a contiguous (B, N, H*D) out: q, k and v its lane slices at H*D
+    element steps (head stride D, row stride 3*H*D, batch N*3*H*D)."""
+    hd = heads * head_dim
+    strides = [n * 3 * hd, head_dim, 3 * hd] * 3 + [n * hd, head_dim, hd]
+    return strides, (0, 2 * hd, 4 * hd, 0)
+
+
 def attention_strided_kernel(name, q, k, v, scale, mask_mode="none",
                              cond_len=0, *, layout="bnhd",
                              score_scale=False):
     """Launch ``csrc/attention_bnhd.cu`` on CUDA bf16 q (B, N, H, D) and k,
     v (B, M, H, D), or with ``layout="bhnd"`` (B, H, N, D) and (B, H, M,
-    D), each read in place through its strides. ``score_scale`` puts the
-    scale on the fp32 scores (B17, B18), else q is scaled in bf16 (B8,
-    B19). Returns a contiguous tensor of q's layout; counts the launch
-    under ``name``."""
+    D), each read in place through its strides: at head dims 32, 64 and
+    128 the Hopper forward ``attn_fwd_kernel`` through the tensor maps of
+    :func:`attention_fwd_maps` (B2's kernel), at 384 the mma.sync
+    ``attn_bnhd_kernel``. ``score_scale`` puts the scale on the fp32
+    scores (B17, B18), else q is scaled in bf16 (B8, B19). Returns a
+    contiguous tensor of q's layout; counts the launch under ``name``."""
     if (q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16
             or v.dtype != torch.bfloat16):
         raise TypeError(f"{name} kernel takes bf16 q, k, v")
@@ -304,6 +366,8 @@ def attention_strided_kernel(name, q, k, v, scale, mask_mode="none",
     else:
         out = o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     strides += strided_launch_args(name, (o,))
+    if d in FWD_HEAD_DIMS:
+        attention_fwd_maps(b, n, m, h, d, strides)  # refuses as the C entry
     # the TPU wrappers scale q by the scale rounded to q's dtype (B8, B19);
     # B17 and B18 multiply the fp32 scores by the scale
     scale_c = float(scale) if score_scale else bf16_round(float(scale))
@@ -318,7 +382,8 @@ def attention_strided_kernel(name, q, k, v, scale, mask_mode="none",
 def attention_bnhd_kernel(q, k, v, scale, mask_mode="none", cond_len=0):
     """Launch ``csrc/attention_bnhd.cu`` (B8) on CUDA bf16 (B, N, H, D) q
     and (B, M, H, D) k, v, each a strided view (lane slices of a wider
-    buffer included). Returns a contiguous (B, N, H, D)."""
+    buffer included): ``attn_fwd_kernel`` at D <= 128, ``attn_bnhd_kernel``
+    at 384. Returns a contiguous (B, N, H, D)."""
     return attention_strided_kernel("attention_bnhd", q, k, v, scale,
                                     mask_mode, cond_len)
 
@@ -479,6 +544,7 @@ def decode_attention_stacked(q3: torch.Tensor, k_stack: torch.Tensor,
 
 
 # -- B17-B19: the other TPU attention forwards, on csrc/attention_bnhd.cu ----
+# (attn_fwd_kernel at head dims 32, 64 and 128)
 
 
 def attention_bhnd_kernel(q, k, v, scale, mask_mode="none", cond_len=0):
@@ -534,8 +600,9 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and k, v of any key length: the counterpart of the JAX public
     ``multihead_attention`` (``attention.py:171-189``). The scale (default
     D**-0.5) multiplies the fp32 scores; mask_mode 'none' or
-    'prefix_causal'. On CUDA the forward is ``csrc/attention_bnhd.cu``
-    (B17) and the backward autograd of the plain version, as the JAX
+    'prefix_causal'. On CUDA the forward is ``csrc/attention_bnhd.cu``'s
+    ``attn_fwd_kernel`` (B17) and the backward autograd of the plain
+    version, as the JAX
     ``custom_vjp`` takes the VJP of ``_attention_xla``."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -578,9 +645,10 @@ def attention_packed_gridchunk(q3: torch.Tensor, k3: torch.Tensor,
     prefix-causal forward on pre-scaled packed q (B, N, H*D) and k, v (B,
     M, H*D). The TPU kernel masks causally whatever ``mask_mode`` says, so
     only 'prefix_causal' is taken. On CUDA ``csrc/attention_bnhd.cu`` with
-    a unit scale, which skips the key tiles past each block's last visible
-    column (the TPU kernel's dead-chunk skip); ``block_q`` and ``k_chunk``
-    are TPU means and are not taken. Forward only, as in JAX."""
+    a unit scale, which skips the key tiles past each warpgroup's last
+    visible column (the TPU kernel's dead-chunk skip); ``block_q`` and
+    ``k_chunk`` are TPU means and are not taken. Forward only, as in
+    JAX."""
     if mask_mode != "prefix_causal":
         raise ValueError("the grid-chunked kernel is prefix-causal only")
     if use_kernel(q3, k3, v3, op="attention_gridchunk"):
@@ -694,8 +762,8 @@ def attn_proj_kernel(q, k, v, wp, bp, residual, scale, mask_mode="none",
 class _AttentionProj(torch.autograd.Function):
     """The training forward of ``_attention_proj_fused``'s ``custom_vjp``
     (``attention.py:1226-1262``): unfused, so the attention output is kept
-    for dWp. The attention is ``csrc/attention_bnhd.cu`` (B8, B2's function
-    bit for bit on the lane slices of the qkv buffer, PERF.md), the
+    for dWp. The attention is ``csrc/attention_bnhd.cu`` (B8, B2's kernel
+    and output bit for bit on the lane slices of the qkv buffer), the
     projection an fp32-accumulated product with bp and the residual added
     in fp32 and one rounding; the backward is the JAX one: dbp and dWp in
     fp32, dO rounded to the compute dtype, then ``csrc/attention_bwd.cu``

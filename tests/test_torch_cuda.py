@@ -480,6 +480,102 @@ def test_attention_bnhd_kernel_refuses_what_it_does_not_take(cuda):
         att.multihead_attention_bnhd(q, q, q)
 
 
+# -- the Hopper attention forward (attn_fwd_kernel, csrc/attention_bnhd.cu) --
+
+def _device_kernels(fn):
+    """The names of the CUDA kernels one call of ``fn`` launches."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("n,mode,cl", [(1, "none", 0), (63, "prefix_causal", 2),
+                                       (64, "none", 0),
+                                       (65, "prefix_causal", 70),
+                                       (1025, "prefix_causal", 5)])
+def test_b2_and_the_strided_entry_are_bit_equal(cuda, d, n, mode, cl):
+    """B2 on the qkv buffer and B8 on its three lane slices run one kernel
+    through the same tensor maps: the outputs are equal bit for bit."""
+    b, h = 2, 3
+    qkv = _randn(cuda, b, n, 3 * h * d, dtype=torch.bfloat16)
+    got = att.attention_packed_qkv_kernel(qkv, h, d, d ** -0.5, mode, cl)
+    q, k, v = (t.view(b, n, h, d) for t in qkv.split(h * d, dim=-1))
+    strided = att.attention_bnhd_kernel(q, k, v, d ** -0.5, mode, cl)
+    torch.cuda.synchronize()
+    assert torch.equal(got, strided.view(b, n, h * d))
+    _close(got, att.attention_packed_qkv_plain(qkv, h, d, d ** -0.5, mode,
+                                               cl), ATTN_TOL)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("mode,cl", [("none", 0), ("prefix_causal", 3)])
+@pytest.mark.parametrize("n,m", [(1, 1), (63, 63), (64, 64), (65, 65),
+                                 (1025, 1025), (1, 130), (65, 1),
+                                 (130, 257)])
+def test_attention_fwd_lengths_masks_and_head_dims(cuda, d, mode, cl, n, m):
+    """Lengths below, at and past a 64-row box and a 128-key tile, M != N,
+    both masks, every head dim of the Hopper forward: B17 ((B, H, N, D),
+    the scale on the scores) and, at M = N, B8 ((B, N, H, D), q scaled in
+    bf16), under phase 3's limits."""
+    b, h = 2, 2
+    q = _randn(cuda, b, h, n, d, dtype=torch.bfloat16)
+    k, v = (_randn(cuda, b, h, m, d, dtype=torch.bfloat16) for _ in "kv")
+    scale = d ** -0.5
+    got = att.multihead_attention(q, k, v, mask_mode=mode, cond_len=cl)
+    assert torch.isfinite(got).all()
+    _close(got, att.attention_plain(q, k, v, scale, mode, cl), ATTN_TOL)
+    if n == m:
+        qb, kb, vb = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        got = att.multihead_attention_bnhd(qb, kb, vb, mask_mode=mode,
+                                           cond_len=cl)
+        _close(got, att.attention_bnhd_plain(qb, kb, vb, scale, mode, cl),
+               ATTN_TOL)
+
+
+def test_attention_forwards_route_by_head_dim(cuda):
+    """B2, and B8 at D <= 128, launch only attn_fwd_kernel; B8 at the
+    prior's D = 384 only the kept mma.sync attn_bnhd_kernel, which still
+    matches its plain version."""
+    qkv = _randn(cuda, 2, 100, 3 * 2 * 64, dtype=torch.bfloat16)
+    names = _device_kernels(
+        lambda: att.attention_packed_qkv_kernel(qkv, 2, 64, 0.125))
+    assert len(names) == 1 and "attn_fwd_kernel" in next(iter(names))
+    q, k, v = (_randn(cuda, 2, 100, 4, 128, dtype=torch.bfloat16)
+               for _ in range(3))
+    names = _device_kernels(lambda: att.attention_bnhd_kernel(q, k, v, 0.1))
+    assert len(names) == 1 and "attn_fwd_kernel" in next(iter(names))
+    q, k, v = (_randn(cuda, 2, 130, 4, 384, dtype=torch.bfloat16)
+               for _ in range(3))
+    fn = lambda: att.attention_bnhd_kernel(  # noqa: E731
+        q, k, v, 384 ** -0.5, "prefix_causal", 1)
+    names = _device_kernels(fn)
+    assert len(names) == 1 and "attn_bnhd_kernel" in next(iter(names))
+    _close(fn(), att.attention_bnhd_plain(q, k, v, 384 ** -0.5,
+                                          "prefix_causal", 1), ATTN_TOL)
+
+
+def test_attention_packed_qkv_kernel_refusals(cuda):
+    """What the B2 wrapper refused before its kernel was replaced, it
+    refuses still, before any launch."""
+    qkv = _randn(cuda, 1, 16, 3 * 2 * 64, dtype=torch.bfloat16)
+    for bad_d in (48, 96, 192, 384):
+        with pytest.raises(ValueError, match="head_dim"):
+            att.attention_packed_qkv_kernel(
+                _randn(cuda, 1, 16, 3 * 2 * bad_d, dtype=torch.bfloat16), 2,
+                bad_d, 0.1)
+    with pytest.raises(TypeError):
+        att.attention_packed_qkv_kernel(qkv.float(), 2, 64, 0.1)
+    with pytest.raises(ValueError, match="last dim"):
+        att.attention_packed_qkv_kernel(qkv[..., :-64], 2, 64, 0.1)
+    with pytest.raises(ValueError, match="mask_mode"):
+        att.attention_packed_qkv_kernel(qkv, 2, 64, 0.1, "causal")
+
+
 def _stack(gen, layers, b, ctx, hd, cur, dtype):
     """Random (L, B, ctx, H*D) k and v stacks whose rows at or past each
     row's cur_len hold 1e6, which a kernel that read them would show."""
