@@ -28,8 +28,9 @@ Phases, each of which raises on failure:
 2. build: every kernel of ``enhancing_tpu_torch/csrc`` by ``nvcc`` for
    sm_90a, with the ptxas register and shared-memory report; the SASS of
    the bf16 LN -> GEMM, the fused FFN, attention -> projection, the
-   attention forward and the attention backward must hold wgmma (HGMMA)
-   and TMA loads (UTMALDG) and no mma.sync (``cuobjdump``);
+   attention forwards (head dims up to 128, and the prior's 384) and the
+   attention backward must hold wgmma (HGMMA) and TMA loads (UTMALDG) and
+   no mma.sync (``cuobjdump``);
 3. each kernel against its plain PyTorch version on the card at the main
    paths' shapes, with the tolerance stated on its line;
 4. each kernel's time (CUDA events; the serving kernels at batch 128, the
@@ -38,7 +39,8 @@ Phases, each of which raises on failure:
    port never calls it) and its bound on an H100 SXM; B5's and B15's
    kernel and library times are medians of 5 loops, their spread logged;
    B2 on the qkv buffer and B8 on its three lane slices run one kernel
-   and must give the same output bit for bit;
+   and must give the same output bit for bit; B9 is timed at cur_len 1,
+   256, 512 and 1024 (512 in the ``kernels`` line);
 5. serving through the public entry points: requests of batch 1, 8 and
    128 with launch counters reset just before and read just after,
    outputs checked, the kernels compared with the plain path on one small
@@ -332,14 +334,15 @@ def phase_build() -> None:
 
 
 # the bf16 LN -> GEMM (B1), the fused FFN (B16), attention -> projection
-# (B15), the attention forward (B2, B8 at head dims up to 128, B17-B19)
-# and the attention backward's two kernels (B5) run on Hopper's warpgroup
-# MMA fed by TMA: their SASS holds HGMMA and UTMALDG, and no mma.sync
-# (HMMA). Each family by its demangled or mangled name.
+# (B15), the attention forwards (B2, B8 at head dims up to 128, B17-B19;
+# B8 at the prior's 384) and the attention backward's two kernels (B5) run
+# on Hopper's warpgroup MMA fed by TMA: their SASS holds HGMMA and UTMALDG,
+# and no mma.sync (HMMA). Each family by its demangled or mangled name.
 SM90_KERNELS = {"ln_gemm": ("ln_gemm_kernel<", "ln_gemm_kernelI"),
                 "ffn": ("ffn_kernel<", "ffn_kernelI"),
                 "attn_proj": ("attn_proj_kernel",),
                 "attention fwd": ("attn_fwd_kernel",),
+                "attention fwd D=384": ("attn_wide_kernel",),
                 "attention_bwd rows": ("attn_bwd_rows_kernel",),
                 "attention_bwd cols": ("attn_bwd_cols_kernel",)}
 
@@ -994,8 +997,10 @@ def kernel_names(fn) -> list:
 
 def time_prior_kernels(gen, row) -> None:
     """B8-B10 at the sampler's shapes (batch 8): B8 at the teacher-forced
-    full forward's N = 1025 and the prefill's N = 1, B9 at cur_len 512 (the
-    mean over a sample's steps), B10 on the prior's stack."""
+    full forward's N = 1025 and the prefill's N = 1, B9 at cur_len 1, 256,
+    512 and 1024 (512, the mean over a sample's steps, is the row of the
+    ``kernels`` line; three layers in turn, so that L2 holds none of a
+    call's K and V), B10 on the prior's stack at cur_len 512."""
     from enhancing_tpu_torch.ops import attention as att
     from enhancing_tpu_torch.ops import cache
     b, h, d, hd = SAMPLE_BATCH, P_HEADS, P_HEAD_DIM, P_WIDTH
@@ -1020,29 +1025,42 @@ def time_prior_kernels(gen, row) -> None:
             10 if n > 1 else 50)
         del q, k, v, qt, kt, vt
 
-    cur, layer = 512, 11
-    kc, vc = prior_stack(gen, cur)
+    layer = 11
+    layers = [layer, (layer + 7) % P_LAYERS, (layer + 14) % P_LAYERS]
+    kc, vc = prior_stack(gen, 1024)
     q3 = rand((b, hd), gen, scale=scale)
     kn, vn = rand((b, hd), gen), rand((b, hd), gen)
     split = lambda t: t.view(b, -1, h, d).transpose(1, 2)  # noqa: E731
-    k_cat = torch.cat([split(kc[layer, :, :cur]), split(kn[:, None])], 2)
-    v_cat = torch.cat([split(vc[layer, :, :cur]), split(vn[:, None])], 2)
     q_l = split(q3[:, None])
-    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        q_l, k_cat, v_cat, scale=1.0)
-    log(f"[time] SDPA at q (B, H, 1, D) against {tuple(k_cat.shape)} "
-        f"launches: {kernel_names(sdpa)}")
-    row("decode_attention", f"decode_attention B={b} cur_len {cur} of the "
-        f"{tuple(kc.shape)} stack (SDPA on the concatenated k, v: "
-        "concatenation not timed)",
-        lambda: att.decode_attention_kernel(q3, kc, vc, kn, vn, cur, layer,
-                                            d),
-        lambda: att.decode_attention_plain(q3, kc[layer], vc[layer], kn, vn,
-                                           cur, d),
-        sdpa, 4.0 * b * hd * (cur + 1),
-        (2 * b * cur * hd + 4 * b * hd) * 2, PEAK_BF16, 50)
+    for cur in (1, 256, 512, 1024):
+        k_cat = torch.cat([split(kc[layer, :, :cur]), split(kn[:, None])], 2)
+        v_cat = torch.cat([split(vc[layer, :, :cur]), split(vn[:, None])], 2)
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q_l, k_cat, v_cat, scale=1.0)
+        kernel = cycling(lambda li: att.decode_attention_kernel(  # noqa: B023
+            q3, kc, vc, kn, vn, cur, li, d), layers)
+        flops, nbytes = 4.0 * b * hd * (cur + 1), (2 * b * cur * hd
+                                                   + 4 * b * hd) * 2
+        if cur != 512:
+            ms, lib_ms = time_ms(kernel, 50), time_ms(sdpa, 50)
+            b_ms, b_by = bound(flops, nbytes, PEAK_BF16)
+            log(f"[time] decode_attention B={b} cur_len {cur} of the "
+                f"{tuple(kc.shape)} stack, 3 layers in turn: kernel_ms "
+                f"{ms:.4f} library_ms {lib_ms:.4f} (SDPA on the concatenated"
+                f" k, v) bound_ms {b_ms:.4f} ({b_by}); "
+                f"{nbytes / ms / 1e6:.1f} GB/s")
+            continue
+        log(f"[time] SDPA at q (B, H, 1, D) against {tuple(k_cat.shape)} "
+            f"launches: {kernel_names(sdpa)}")
+        row("decode_attention", f"decode_attention B={b} cur_len {cur} of "
+            f"the {tuple(kc.shape)} stack, 3 layers in turn (SDPA on the "
+            "concatenated k, v: concatenation not timed)", kernel,
+            lambda: att.decode_attention_plain(q3, kc[layer], vc[layer], kn,
+                                               vn, cur, d),
+            sdpa, flops, nbytes, PEAK_BF16, 50)
     del k_cat, v_cat
 
+    cur = 512
     news = rand((P_LAYERS, b, 1, hd), gen)
     rows_b = torch.arange(b, device="cuda")
     cur_b = torch.full((b,), cur, device="cuda")
@@ -1164,9 +1182,10 @@ def time_int8_kernels(gen, row) -> None:
         30)
     del w32, t
 
-    # B9 over an int8 cache at cur_len 512, fp32 q (the int8 decode step)
-    cur, layer, d = 512, 11, P_HEAD_DIM
-    kc, vc = prior_stack(gen, cur)
+    # B9 over an int8 cache, fp32 q (the int8 decode step), at cur_len 1,
+    # 256, 512 and 1024; 512 is the row of the kernels line
+    layer, d = 11, P_HEAD_DIM
+    kc, vc = prior_stack(gen, 1024)
     k8, ks = int8.quantize_channelwise(kc)
     v8, vs = int8.quantize_channelwise(vc)
     del kc, vc
@@ -1174,25 +1193,39 @@ def time_int8_kernels(gen, row) -> None:
     kn, vn = (torch.randn((b, c), generator=gen, device="cuda")
               for _ in range(2))
     split = lambda u: u.view(b, -1, P_HEADS, d).transpose(1, 2)  # noqa: E731
-    kd, vd = att.dequant_cache(k8[layer, :, :cur], v8[layer, :, :cur],
-                               ks[layer, :, :cur], vs[layer, :, :cur],
-                               torch.float32)
-    k_cat = torch.cat([split(kd), split(kn[:, None])], 2)
-    v_cat = torch.cat([split(vd), split(vn[:, None])], 2)
     q_l = split(q3[:, None])
-    del kd, vd
     layers = [layer, (layer + 7) % P_LAYERS, (layer + 14) % P_LAYERS]
-    row("decode_attention", f"decode_attention int8 cache, f32 q, B={b} "
-        f"cur_len {cur} of the {tuple(k8.shape)} stack, 3 layers in turn "
-        "(SDPA on the dequantised, concatenated k, v: neither timed)",
-        cycling(lambda li: att.decode_attention_kernel(
-            q3, k8, v8, kn, vn, cur, li, d, ks, vs), layers),
-        lambda: att.decode_attention_plain(
-            q3, *att.dequant_cache(k8[layer], v8[layer], ks[layer],
-                                   vs[layer], torch.float32), kn, vn, cur, d),
-        lambda: F.scaled_dot_product_attention(q_l, k_cat, v_cat, scale=1.0),
-        4.0 * b * c * (cur + 1),
-        2 * b * cur * c + 2 * b * cur * 4 + 4 * f4, PEAK_F32, 50)
+    for cur in (1, 256, 512, 1024):
+        kd, vd = att.dequant_cache(k8[layer, :, :cur], v8[layer, :, :cur],
+                                   ks[layer, :, :cur], vs[layer, :, :cur],
+                                   torch.float32)
+        k_cat = torch.cat([split(kd), split(kn[:, None])], 2)
+        v_cat = torch.cat([split(vd), split(vn[:, None])], 2)
+        del kd, vd
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q_l, k_cat, v_cat, scale=1.0)
+        kernel = cycling(lambda li: att.decode_attention_kernel(  # noqa: B023
+            q3, k8, v8, kn, vn, cur, li, d, ks, vs), layers)
+        flops, nbytes = 4.0 * b * c * (cur + 1), (2 * b * cur * c
+                                                  + 2 * b * cur * 4 + 4 * f4)
+        if cur != 512:
+            ms, lib_ms = time_ms(kernel, 50), time_ms(sdpa, 50)
+            b_ms, b_by = bound(flops, nbytes, PEAK_F32)
+            log(f"[time] decode_attention int8 cache, f32 q, B={b} cur_len "
+                f"{cur}, 3 layers in turn: kernel_ms {ms:.4f} library_ms "
+                f"{lib_ms:.4f} (SDPA on the dequantised, concatenated k, v)"
+                f" bound_ms {b_ms:.4f} ({b_by}); {nbytes / ms / 1e6:.1f} "
+                "GB/s")
+            continue
+        row("decode_attention", f"decode_attention int8 cache, f32 q, B={b} "
+            f"cur_len {cur} of the {tuple(k8.shape)} stack, 3 layers in turn "
+            "(SDPA on the dequantised, concatenated k, v: neither timed)",
+            kernel,
+            lambda: att.decode_attention_plain(
+                q3, *att.dequant_cache(k8[layer], v8[layer], ks[layer],
+                                       vs[layer], torch.float32), kn, vn,
+                cur, d),
+            sdpa, flops, nbytes, PEAK_F32, 50)
     del k8, v8, ks, vs, k_cat, v_cat
 
 
@@ -2086,9 +2119,8 @@ KERNEL_GROUPS = (("attn_proj_kernel", "attn_proj"), ("ffn_kernel", "ffn"),
                  ("gemv_kernel<signed char", "int8_gemm"),
                  ("mlp_kernel", "int8_mlp"),
                  ("attn_bwd", "attention_bwd"),
-                 ("attn_bnhd", "attention_bnhd"),
-                 ("decode_split", "decode_attention"),
-                 ("decode_combine", "decode_attention"),
+                 ("attn_wide", "attention_bnhd"),
+                 ("decode_kernel", "decode_attention"),
                  ("row_write", "cache_row_update"),
                  ("layer_norm", "LayerNorm (PyTorch)"),
                  ("gemv", "cuBLAS"), ("ln_gemm", "ln_gemm"),

@@ -9,7 +9,7 @@
 //   q, k and v are its lane slices at offsets 0, H*D and 2*H*D;
 //   etk_attention_qkv) and through _attention_packed_call (B8: the GPT
 //   prior's attention, reached by multihead_attention_bnhd, at head dims
-//   up to the prior's 384; etk_attention_bnhd);
+//   32, 64, 128 and the prior's 384; etk_attention_bnhd);
 // - _attn_kernel (B17, _attention_pallas: (B, H, N, D) tensors, M may
 //   differ from N) and _attn_kernel_bnhd (B18, _attention_pallas_bnhd:
 //   (B, N, H, D) tensors), which put the scale on the fp32 scores
@@ -29,12 +29,12 @@
 // and the fp32 output is multiplied by 1 / l and rounded once. Mask modes
 // 'none' and 'prefix_causal' (col <= row, or both < cond_len); rows past N
 // and keys past M are masked, so any N and M work, N = 1 included.
-// attn_fwd_kernel's key tiles are 128 wide, attn_bnhd_kernel's (and the
-// mma.sync kernels' before it) 64: the running max that P is rounded
-// against moves every 128 keys instead of 64, which moves an output by at
-// most about one bf16 step of P (2^-8 relative) times |V|, within phase
-// 3's limits; tests/test_torch_attention_fwd.py holds this recurrence to
-// the plain version and to the JAX kernel with 128-key chunks.
+// attn_fwd_kernel's key tiles are 128 wide, attn_wide_kernel's 64: the
+// running max that P is rounded against moves every 128 (64) keys, which
+// moves an output by at most about one bf16 step of P (2^-8 relative)
+// times |V|, within phase 3's limits; tests/test_torch_attention_fwd.py
+// holds both recurrences to the plain version and to the JAX kernel with
+// 128- and 64-key chunks.
 //
 // Bound on the H100: tensor-core operations, 4 * B * H * N * M * D flops
 // (about half with the causal mask) against 2 * (N + M) * B * H * D * 2
@@ -73,17 +73,31 @@
 // tiles that cross its diagonal, and the producer loads none past the
 // block's last column.
 //
-// attn_bnhd_kernel (D = 384 only): the earlier mma.sync forward, kept for
-// the prior's head dim until its Hopper redesign (ROADMAP.md queue B: at
-// 64 rows a q tile, two K and two V stages of a 128-lane slab take 176
-// KiB, and a 128-row tile does not fit beside the barriers). A 64 x 384
-// fp32 accumulator would be 192 registers a thread, so the output's head
-// dim is cut into 128-lane slabs along the grid's y axis and each block
-// recomputes S for its slab (at D = 384 three slabs, twice the operations
-// of one pass); the scaled q tile sits in shared memory and each k-step
-// loads its fragment with ldmatrix; K and V arrive by cp.async into two
-// stages. Shared memory: q 64 x 392, two stages of K 64 x 392 and of V
-// 64 x 136 bf16, 181 KB, one block per SM.
+// attn_wide_kernel (D = 384, the GPT prior's heads; B8 and, scale on the
+// scores, B17/B18): bound by the same operations, 4 D flops a visible
+// (query, key) pair. A 64 x 384 fp32 O is 192 registers a thread, more
+// than one warpgroup holds beside S, and attn_fwd_kernel's tiles (three
+// 64-row q tiles, 128-key K and V tiles of 96 KiB each) do not fit in
+// shared memory at this width. So the work is cut by role, not by output
+// slab (the mma.sync kernel it replaces recomputed S once per 128-lane
+// slab, twice the useful operations): a block owns 64 query rows; an S
+// warpgroup forms S = q K^T once per 64-key tile (six 64-lane K boxes,
+// 24 k16 steps of one m64n64 shared-memory wgmma into 32 registers), runs
+// the online softmax and writes P, rounded to bf16 as register-A
+// fragments (16 bytes a thread and k16 slice, no swizzle), and each row's
+// rescale factor into one of two slots; three O warpgroups own 128 lanes
+// of O each (64 registers) and add P V by register-A wgmma against V read
+// MN-major, one product per 64-lane box, while the S warpgroup already
+// forms the next tile's S. Named barriers hand the slots over (bar.arrive
+// by the writer, bar.sync by the reader); a producer warp streams K and V
+// as (64 keys, 64 lanes) TMA boxes through one ring of 20 8-KiB stages
+// (about 1.7 key tiles in flight beside the 48 KiB q tile and 16 KiB of
+// P), each stage freed by the four warps that read it. setmaxnreg gives
+// the producer 24 registers, S 96 and O 120. At the end the O warpgroups
+// scale by 1 / l (from the S warpgroup) and store through the q tile's
+// boxes by TMA. Under prefix_causal the block skips the key tiles past
+// its last visible column and starts with the last q tiles, which see the
+// most keys.
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -368,13 +382,12 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   }
 }
 
-// the map of one operand with `rows` rows: (lanes, heads, rows, batches),
-// boxes of (BOXC, 1, 64, 1)
-template <int D>
+// the map of one operand with `rows` rows and head dim d: (lanes, heads,
+// rows, batches), boxes of (32 or 64 lanes, 1, 64, 1)
 int fwd_map(CUtensorMap* map, const void* ptr, const Strides& st, int b,
-            int rows, int heads) {
-  return sm90::tensor_map_4d(map, ptr, b, rows, heads, D, st.head, st.row,
-                             st.batch, kWgRows, Geo<D>::BOXC);
+            int rows, int heads, int d) {
+  return sm90::tensor_map_4d(map, ptr, b, rows, heads, d, st.head, st.row,
+                             st.batch, kWgRows, d == 32 ? 32 : 64);
 }
 
 // ptrs and st: q, k, v, out
@@ -382,10 +395,10 @@ template <int D, bool kScoreScale>
 int launch_fwd(const void* const* ptrs, const Strides* st, int b, int n,
                int m, int heads, const FwdArgs& a, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, to;
-  if (fwd_map<D>(&tq, ptrs[0], st[0], b, n, heads) ||
-      fwd_map<D>(&tk, ptrs[1], st[1], b, m, heads) ||
-      fwd_map<D>(&tv, ptrs[2], st[2], b, m, heads) ||
-      fwd_map<D>(&to, ptrs[3], st[3], b, n, heads))
+  if (fwd_map(&tq, ptrs[0], st[0], b, n, heads, D) ||
+      fwd_map(&tk, ptrs[1], st[1], b, m, heads, D) ||
+      fwd_map(&tv, ptrs[2], st[2], b, m, heads, D) ||
+      fwd_map(&to, ptrs[3], st[3], b, n, heads, D))
     return ETK_TMAP_FAILED;
   constexpr int smem = Geo<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
@@ -394,6 +407,319 @@ int launch_fwd(const void* const* ptrs, const Strides* st, int b, int n,
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((n + FQ - 1) / FQ, heads, b);
   attn_fwd_kernel<D, kScoreScale><<<grid, kFwdThreads, smem, stream>>>(
+      tq, tk, tv, to, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- attn_wide_kernel: D = 384 ---------------------------------------------
+
+// The prior's heads of 384 lanes, six 64-lane boxes; 64 query rows a block
+// and key tiles of 64, each a (64, 64) bf16 box of 8 KiB per lane box.
+// Roles, one warpgroup each: S (scores, softmax, P), three O warpgroups
+// (WOBOX lane boxes, 128 lanes, of the output each) and a producer.
+constexpr int WD = 384, WBOXES = WD / 64, WKV = 64, WBOX = 64 * 128;
+constexpr int WTILE = WBOXES * WBOX;
+constexpr int WO = 3, WOBOX = WBOXES / WO;
+constexpr int kWideThreads = (2 + WO) * 128;
+constexpr int kRoleThreads = (1 + WO) * 128;  // S and O
+// named barriers: 1 the S warpgroup's q scaling, 2-4 each O warpgroup's
+// epilogue, 5-6 P slot filled, 7-8 P slot read, 9 the row sums written
+constexpr int BAR_PFULL = 5, BAR_PEMPTY = 7, BAR_LSUM = 9;
+// P: two slots of the (64, 64) bf16 tile as the A fragments of a
+// register-A wgmma, 16 bytes a thread and k16 slice; beside them each
+// slot's rescale factors and the final 1 / l, one float a row
+constexpr int WPSLOT = 4 * 128 * 16;
+constexpr int WFIXED = WTILE + 2 * WPSLOT + 3 * 64 * 4;
+// the ring: as many 8 KiB K / V boxes as fit beside q and P (20)
+constexpr int WRING = (sm90::kSmemLimit - WFIXED) / WBOX;
+constexpr int WSMEM = WFIXED + WRING * WBOX + 1024;
+static_assert(WRING >= 2 * WBOXES, "a K and a V tile in flight");
+// registers a thread (setmaxnreg): the launch gives 65536 / threads (96),
+// and what the roles take back can only come out of what the block was
+// given: the producer drops to 24, S keeps 96, O takes 120
+constexpr int WBASE = 65536 / kWideThreads / 8 * 8, WO_REGS = 120;
+static_assert(24 + WBASE + WO * WO_REGS <= (2 + WO) * WBASE,
+              "register budget");
+
+template <bool kScoreScale>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    attn_wide_kernel(const __grid_constant__ CUtensorMap tmap_q,
+                     const __grid_constant__ CUtensorMap tmap_k,
+                     const __grid_constant__ CUtensorMap tmap_v,
+                     const __grid_constant__ CUtensorMap tmap_o, FwdArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t qbar, full[WRING], empty[WRING];
+  uint8_t* smem = sm90::align_1024(smem_raw);
+  uint8_t* qs = smem;  // the q tile's six boxes, at the end the output's
+  uint8_t* ring = smem + WTILE;
+  uint4* pslot = reinterpret_cast<uint4*>(ring + WRING * WBOX);
+  float* alpha_s = reinterpret_cast<float*>(pslot + 2 * 4 * 128);  // [2][64]
+  float* linv_s = alpha_s + 2 * 64;                                // [64]
+  const sm90::Ring rp{WRING};
+
+  const int n = a.n, m = a.m;
+  const bool causal = a.mask_mode == MASK_PREFIX_CAUSAL;
+  // under the causal mask the last q tiles see the most keys: start them
+  // first
+  const int q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * 64;
+  const int h = blockIdx.y, b = blockIdx.z;
+  int kv_tiles = (m + WKV - 1) / WKV;
+  if (causal) {
+    const int last_row = min(q0 + 64, n) - 1;
+    const int last_col = max(last_row, q0 < a.cond_len ? a.cond_len - 1 : 0);
+    kv_tiles = min(kv_tiles, last_col / WKV + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&qbar, 1);
+    for (int s = 0; s < WRING; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 4);  // one arrival per consumer warp
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  if (wg == WO + 1) {
+    // producer: the q tile, then per key tile six K boxes and six V boxes,
+    // box i of the block in ring stage i % RING
+    sm90::regs_dealloc<24>();
+    if (tid != 0) return;
+    sm90::mbar_expect_tx(&qbar, WTILE);
+#pragma unroll
+    for (int bx = 0; bx < WBOXES; ++bx)
+      sm90::tma_load_4d(qs + bx * WBOX, &tmap_q, &qbar, bx * 64, h, q0, b);
+    int i = 0;
+    for (int t = 0; t < kv_tiles; ++t)
+      for (int j = 0; j < 2 * WBOXES; ++j, ++i) {
+        const int s = rp.stage(i);
+        sm90::mbar_wait(&empty[s], rp.parity(i) ^ 1u);
+        sm90::mbar_expect_tx(&full[s], WBOX);
+        sm90::tma_load_4d(ring + s * WBOX, j < WBOXES ? &tmap_k : &tmap_v,
+                          &full[s], (j % WBOXES) * 64, h, t * WKV, b);
+      }
+    return;
+  }
+
+  const int warp = tid / 32, lane = tid % 32, qd = lane % 4;
+  const int r = warp * 16 + lane / 4;  // rows r and r + 8 of the tile
+  if (wg == 0) {
+    // S warpgroup: S = q K^T by shared-memory wgmma, the online softmax,
+    // P and each row's rescale factor into a slot for the O warpgroups
+    sm90::mbar_wait(&qbar, 0);
+    if (!kScoreScale) {
+      // q scaled in bf16 in place, 8 values a 16-byte chunk
+#pragma unroll 4
+      for (int i = 0; i < WTILE / 16 / 128; ++i) {
+        uint4* p = reinterpret_cast<uint4*>(qs) + tid + 128 * i;
+        uint4 u = *p;
+        uint32_t* e = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          e[j] = pack_bf16x2(__uint_as_float(e[j] << 16) * a.scale,
+                             __uint_as_float(e[j] & 0xffff0000u) * a.scale);
+        *p = u;
+      }
+      sm90::fence_async_cta();
+      sm90::named_sync(1, 128);
+    }
+    float row_max[2] = {-INFINITY, -INFINITY};
+    float row_sum[2] = {0.f, 0.f};
+    const float c2 = kScoreScale ? a.scale * kLog2e : kLog2e;
+    const int row_a = q0 + r;
+    for (int t = 0; t < kv_tiles; ++t) {
+      const int i0 = t * 2 * WBOXES;  // the tile's first K box
+#pragma unroll
+      for (int bx = 0; bx < WBOXES; ++bx)
+        sm90::mbar_wait(&full[rp.stage(i0 + bx)], rp.parity(i0 + bx));
+      float s[WKV / 2];
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int bx = 0; bx < WBOXES; ++bx) {
+        const uint64_t qdsc = sm90::smem_desc<128>(qs + bx * WBOX);
+        const uint64_t kdsc =
+            sm90::smem_desc<128>(ring + rp.stage(i0 + bx) * WBOX);
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          sm90::Wgmma<64>::ss(s, sm90::desc_k(qdsc, ks),
+                              sm90::desc_k(kdsc, ks), bx > 0 || ks > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::hold(s);
+      if (lane == 0)
+#pragma unroll
+        for (int bx = 0; bx < WBOXES; ++bx)
+          sm90::mbar_arrive(&empty[rp.stage(i0 + bx)]);
+
+      if ((t + 1) * WKV > m || (causal && (t + 1) * WKV - 1 > q0)) {
+#pragma unroll
+        for (int i = 0; i < WKV / 2; ++i) {
+          const int row = row_a + ((i / 2) % 2) * 8;
+          const int col = t * WKV + (i / 4) * 8 + 2 * qd + i % 2;
+          if (!visible(row, col, m, causal, a.cond_len)) s[i] = -INFINITY;
+        }
+      }
+      float alpha[2], ml2[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+#pragma unroll
+        for (int j = 0; j < WKV / 8; ++j)
+          mx[j % 4] = fmaxf(mx[j % 4], fmaxf(s[4 * j + 2 * hh],
+                                             s[4 * j + 2 * hh + 1]));
+        float tmax = fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]));
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+        const float m_new = fmaxf(row_max[hh], tmax);
+        // a row with nothing visible yet keeps exp(-inf - -inf) out
+        ml2[hh] = (m_new == -INFINITY ? 0.f : m_new) * c2;
+        alpha[hh] = exp_shifted(row_max[hh], ml2[hh], c2);
+        row_max[hh] = m_new;
+      }
+      float part[2][4] = {};
+#pragma unroll
+      for (int i = 0; i < WKV / 2; ++i) {
+        const int hh = (i / 2) % 2;
+        s[i] = exp_shifted(s[i], ml2[hh], c2);
+        part[hh][(i / 4) % 4] += s[i];
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        row_sum[hh] = row_sum[hh] * alpha[hh] + ((part[hh][0] + part[hh][1]) +
+                                                 (part[hh][2] + part[hh][3]));
+      // P, rounded to bf16, into slot t % 2 once the O warpgroups have read
+      // tile t - 2 from it
+      const int slot = t & 1;
+      if (t >= 2) sm90::named_sync(BAR_PEMPTY + slot, kRoleThreads);
+      uint4* ps = pslot + slot * 4 * 128;
+#pragma unroll
+      for (int kk = 0; kk < WKV / 16; ++kk) {
+        uint32_t f[4];
+        sm90::frag_from_acc(f, s, kk);
+        ps[kk * 128 + tid] = make_uint4(f[0], f[1], f[2], f[3]);
+      }
+      if (qd == 0) {
+        alpha_s[slot * 64 + r] = alpha[0];
+        alpha_s[slot * 64 + r + 8] = alpha[1];
+      }
+      sm90::named_arrive(BAR_PFULL + slot, kRoleThreads);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float l = row_sum[hh];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      if (qd == 0) linv_s[r + 8 * hh] = 1.f / l;
+    }
+    sm90::named_arrive(BAR_LSUM, kRoleThreads);
+    return;
+  }
+
+  // O warpgroup o: lanes [o * OBOX * 64, (o + 1) * OBOX * 64) of the output;
+  // per key tile O = alpha O + P V, P from the slot as register A
+  // fragments against V read MN-major, one product per 64-lane box
+  sm90::regs_alloc<WO_REGS>();
+  const int o = wg - 1;
+  float acc[WOBOX][32];
+#pragma unroll
+  for (int j = 0; j < WOBOX; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+  for (int t = 0; t < kv_tiles; ++t) {
+    const int slot = t & 1;
+    sm90::named_sync(BAR_PFULL + slot, kRoleThreads);
+    const uint4* ps = pslot + slot * 4 * 128;
+    uint32_t pf[WKV / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < WKV / 16; ++kk) {
+      const uint4 u = ps[kk * 128 + tid];
+      pf[kk][0] = u.x;
+      pf[kk][1] = u.y;
+      pf[kk][2] = u.z;
+      pf[kk][3] = u.w;
+    }
+    const float al[2] = {alpha_s[slot * 64 + r], alpha_s[slot * 64 + r + 8]};
+    // the S warpgroup waits for this only where it refills the slot
+    if (t + 2 < kv_tiles)
+      sm90::named_arrive(BAR_PEMPTY + slot, kRoleThreads);
+    const int i0 = t * 2 * WBOXES + WBOXES + o * WOBOX;  // its V boxes
+#pragma unroll
+    for (int j = 0; j < WOBOX; ++j)
+      sm90::mbar_wait(&full[rp.stage(i0 + j)], rp.parity(i0 + j));
+#pragma unroll
+    for (int j = 0; j < WOBOX; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[j][i] *= al[(i / 2) % 2];
+    // the rescaled O and the P fragments are written before the fence
+#pragma unroll
+    for (int j = 0; j < WOBOX; ++j) sm90::hold(acc[j]);
+#pragma unroll
+    for (int kk = 0; kk < WKV / 16; ++kk) sm90::hold(pf[kk]);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < WOBOX; ++j) {
+      const uint64_t vd = sm90::smem_desc<128>(ring + rp.stage(i0 + j) * WBOX);
+#pragma unroll
+      for (int kk = 0; kk < WKV / 16; ++kk)
+        sm90::Wgmma<64>::template rs<1>(acc[j], pf[kk],
+                                        sm90::desc_mn<128>(vd, kk));
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < WOBOX; ++j) sm90::hold(acc[j]);
+#pragma unroll
+    for (int kk = 0; kk < WKV / 16; ++kk) sm90::hold(pf[kk]);
+    if (lane == 0)
+#pragma unroll
+      for (int j = 0; j < WOBOX; ++j)
+        sm90::mbar_arrive(&empty[rp.stage(i0 + j)]);
+  }
+
+  // the output, times 1 / l and rounded to bf16, into this warpgroup's
+  // boxes of the q tile (the S warpgroup's last product read q before it
+  // filled the last slot), then TMA stores that drop rows past n
+  sm90::named_sync(BAR_LSUM, kRoleThreads);
+  const float inv[2] = {linv_s[r], linv_s[r + 8]};
+#pragma unroll
+  for (int j = 0; j < WOBOX; ++j)
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<uint32_t*>(qs + (o * WOBOX + j) * WBOX +
+                                     sm90::swz<128>(r + 8 * hh, jj) + 4 * qd) =
+            pack_bf16x2(acc[j][4 * jj + 2 * hh] * inv[hh],
+                        acc[j][4 * jj + 2 * hh + 1] * inv[hh]);
+  sm90::fence_async_cta();
+  sm90::named_sync(2 + o, 128);
+  if (tid == 0 && q0 < n) {
+#pragma unroll
+    for (int j = 0; j < WOBOX; ++j)
+      sm90::tma_store_4d(&tmap_o, qs + (o * WOBOX + j) * WBOX,
+                         (o * WOBOX + j) * 64, h, q0, b);
+    sm90::bulk_commit();
+    sm90::bulk_wait();
+  }
+}
+
+template <bool kScoreScale>
+int launch_wide(const void* const* ptrs, const Strides* st, int b, int n,
+                int m, int heads, const FwdArgs& a, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, to;
+  if (fwd_map(&tq, ptrs[0], st[0], b, n, heads, WD) ||
+      fwd_map(&tk, ptrs[1], st[1], b, m, heads, WD) ||
+      fwd_map(&tv, ptrs[2], st[2], b, m, heads, WD) ||
+      fwd_map(&to, ptrs[3], st[3], b, n, heads, WD))
+    return ETK_TMAP_FAILED;
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_wide_kernel<kScoreScale>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, WSMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((n + 63) / 64, heads, b);
+  attn_wide_kernel<kScoreScale><<<grid, kWideThreads, WSMEM, stream>>>(
       tq, tk, tv, to, a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -410,244 +736,11 @@ int launch_fwd_d(int head_dim, const void* const* ptrs, const Strides* st,
     case 128:
       return launch_fwd<128, kScoreScale>(ptrs, st, b, n, m, heads, a,
                                           stream);
+    case WD:
+      return launch_wide<kScoreScale>(ptrs, st, b, n, m, heads, a, stream);
     default:
       return ETK_BAD_ARGS;
   }
-}
-
-// ---- attn_bnhd_kernel: D = 384 ---------------------------------------------
-
-constexpr int BQ = 64, BKV = 64, kThreads = 128;
-
-// output lanes per block: the whole head up to 128, else 128-lane slabs
-template <int D>
-__host__ __device__ constexpr int slab() {
-  return D <= 128 ? D : 128;
-}
-
-template <int D>
-__host__ __device__ constexpr int smem_bytes() {
-  return ((BQ + 2 * BKV) * (D + 8) + 2 * BKV * (slab<D>() + 8)) * 2;
-}
-
-template <int D, bool kScoreScale>
-__global__ void __launch_bounds__(kThreads)
-    attn_bnhd_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ out, Strides qs_, Strides ks_,
-                     Strides vs_, Strides os_, int n, int m, int heads,
-                     float scale, int mask_mode, int cond_len) {
-  constexpr int DS = slab<D>();
-  constexpr int SLABS = D / DS;
-  constexpr int LD = D + 8, LDS = DS + 8;  // padded rows: conflict-free ldmatrix
-  constexpr int VPR = D / 8, VPRS = DS / 8;  // 16-byte vectors per row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  auto qs = reinterpret_cast<__nv_bfloat16(*)[LD]>(smem_raw);
-  auto ks = reinterpret_cast<__nv_bfloat16(*)[BKV][LD]>(smem_raw + BQ * LD * 2);
-  auto vs = reinterpret_cast<__nv_bfloat16(*)[BKV][LDS]>(
-      smem_raw + (BQ + 2 * BKV) * LD * 2);
-
-  const int q0 = blockIdx.x * BQ, b = blockIdx.z;
-  const int h = blockIdx.y / SLABS, sl = blockIdx.y % SLABS;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const __nv_bfloat16* qb = q + static_cast<size_t>(b) * qs_.batch +
-                            static_cast<size_t>(h) * qs_.head;
-  const __nv_bfloat16* kb = k + static_cast<size_t>(b) * ks_.batch +
-                            static_cast<size_t>(h) * ks_.head;
-  const __nv_bfloat16* vb = v + static_cast<size_t>(b) * vs_.batch +
-                            static_cast<size_t>(h) * vs_.head + sl * DS;
-  const int q_stride = qs_.row, k_stride = ks_.row, v_stride = vs_.row;
-
-  const bool causal = mask_mode == MASK_PREFIX_CAUSAL;
-  int kv_tiles = (m + BKV - 1) / BKV;
-  if (causal) {
-    const int last_row = min(q0 + BQ, n) - 1;
-    const int last_col = max(last_row, q0 < cond_len ? cond_len - 1 : 0);
-    kv_tiles = min(kv_tiles, last_col / BKV + 1);
-  }
-
-  auto load_kv = [&](int t, int stage) {
-    for (int i = threadIdx.x; i < BKV * VPR; i += kThreads) {
-      const int r = i / VPR, c = (i % VPR) * 8;
-      const int key = t * BKV + r;
-      const size_t off = static_cast<size_t>(key < m ? key : 0) * k_stride + c;
-      cp_async_16(&ks[stage][r][c], kb + off, key < m ? 16 : 0);
-    }
-    for (int i = threadIdx.x; i < BKV * VPRS; i += kThreads) {
-      const int r = i / VPRS, c = (i % VPRS) * 8;
-      const int key = t * BKV + r;
-      const size_t off = static_cast<size_t>(key < m ? key : 0) * v_stride + c;
-      cp_async_16(&vs[stage][r][c], vb + off, key < m ? 16 : 0);
-    }
-    cp_async_commit();
-  };
-  load_kv(0, 0);
-
-  // q tile, scaled in bf16 on its way to shared memory (or as it is, when
-  // the scale goes on the scores)
-  for (int i = threadIdx.x; i < BQ * VPR; i += kThreads) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (q0 + r < n)
-      raw = *reinterpret_cast<const uint4*>(
-          qb + static_cast<size_t>(q0 + r) * q_stride + c);
-    if (!kScoreScale) {
-      __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float2 f = __bfloat1622float2(p[e]);
-        p[e] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
-      }
-    }
-    *reinterpret_cast<uint4*>(&qs[r][c]) = raw;
-  }
-
-  float o[DS / 8][4];
-#pragma unroll
-  for (int i = 0; i < DS / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
-  float row_max[2] = {-INFINITY, -INFINITY};
-  float row_sum[2] = {0.f, 0.f};  // this lane's partial sums
-  const int row_a = q0 + warp * 16 + lane / 4;  // rows row_a and row_a + 8
-
-  for (int t = 0; t < kv_tiles; ++t) {
-    const int stage = t & 1;
-    if (t + 1 < kv_tiles) {
-      load_kv(t + 1, stage ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // the tile (and, at t = 0, the q tile) is in place
-
-    float s[BKV / 8][4];
-#pragma unroll
-    for (int i = 0; i < BKV / 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
-#pragma unroll 4
-    for (int kd = 0; kd < D / 16; ++kd) {
-      uint32_t qf[4];
-      ldmatrix_x4(qf, &qs[warp * 16 + lane % 16][kd * 16 + (lane / 16) * 8]);
-#pragma unroll
-      for (int nj = 0; nj < BKV / 16; ++nj) {
-        uint32_t r[4];
-        ldmatrix_x4(r, &ks[stage][nj * 16 + lane % 8 + (lane / 16) * 8]
-                          [kd * 16 + ((lane / 8) % 2) * 8]);
-        mma_bf16_16816(s[2 * nj], qf, r[0], r[1]);
-        mma_bf16_16816(s[2 * nj + 1], qf, r[2], r[3]);
-      }
-    }
-
-    // scale (kScoreScale), mask, then the online softmax update in fp32
-    float tile_max[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int ni = 0; ni < BKV / 8; ++ni) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = row_a + (e / 2) * 8;
-        const int col = t * BKV + ni * 8 + (lane % 4) * 2 + (e % 2);
-        if (kScoreScale) s[ni][e] *= scale;
-        bool ok = col < m;
-        if (causal) ok = ok && (col <= row || (row < cond_len && col < cond_len));
-        if (!ok) s[ni][e] = -INFINITY;
-        tile_max[e / 2] = fmaxf(tile_max[e / 2], s[ni][e]);
-      }
-    }
-    float alpha[2], m_use[2];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      tile_max[hh] = fmaxf(tile_max[hh],
-                           __shfl_xor_sync(0xffffffffu, tile_max[hh], 1));
-      tile_max[hh] = fmaxf(tile_max[hh],
-                           __shfl_xor_sync(0xffffffffu, tile_max[hh], 2));
-      const float m_new = fmaxf(row_max[hh], tile_max[hh]);
-      // a row with nothing visible yet (a padded row past N, whose every
-      // column is masked) keeps exp() of -inf - -inf out of the sums
-      m_use[hh] = m_new == -INFINITY ? 0.f : m_new;
-      alpha[hh] = expf(row_max[hh] - m_use[hh]);
-      row_max[hh] = m_new;
-      row_sum[hh] *= alpha[hh];
-    }
-#pragma unroll
-    for (int ni = 0; ni < BKV / 8; ++ni) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[ni][e] = expf(s[ni][e] - m_use[e / 2]);
-        row_sum[e / 2] += s[ni][e];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < DS / 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[i][e] *= alpha[e / 2];
-
-    // O += P V on this block's slab, P (bf16) straight from the S
-    // accumulators
-#pragma unroll
-    for (int kj = 0; kj < BKV / 16; ++kj) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16x2(s[2 * kj][0], s[2 * kj][1]);
-      pa[1] = pack_bf16x2(s[2 * kj][2], s[2 * kj][3]);
-      pa[2] = pack_bf16x2(s[2 * kj + 1][0], s[2 * kj + 1][1]);
-      pa[3] = pack_bf16x2(s[2 * kj + 1][2], s[2 * kj + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < DS / 16; ++dp) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, &vs[stage][kj * 16 + lane % 8 + ((lane / 8) % 2) * 8]
-                                [dp * 16 + (lane / 16) * 8]);
-        mma_bf16_16816(o[2 * dp], pa, r[0], r[1]);
-        mma_bf16_16816(o[2 * dp + 1], pa, r[2], r[3]);
-      }
-    }
-    __syncthreads();  // this stage is refilled two tiles from now
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    float l = row_sum[hh];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    inv[hh] = 1.f / l;
-  }
-  __nv_bfloat16* ob = out + static_cast<size_t>(b) * os_.batch +
-                      static_cast<size_t>(h) * os_.head + sl * DS;
-  const int o_stride = os_.row;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = row_a + hh * 8;
-    if (row >= n) continue;
-#pragma unroll
-    for (int dn = 0; dn < DS / 8; ++dn) {
-      const int col = dn * 8 + (lane % 4) * 2;
-      *reinterpret_cast<uint32_t*>(ob + static_cast<size_t>(row) * o_stride +
-                                   col) =
-          pack_bf16x2(o[dn][2 * hh] * inv[hh], o[dn][2 * hh + 1] * inv[hh]);
-    }
-  }
-}
-
-template <bool kScoreScale>
-int launch_384(const void* const* ptrs, const Strides* st, int b, int n,
-               int m, int heads, float scale, int mask_mode, int cond_len,
-               cudaStream_t stream) {
-  constexpr int D = 384;
-  constexpr int bytes = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_bnhd_kernel<D, kScoreScale>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((n + BQ - 1) / BQ, heads * (D / slab<D>()), b);
-  attn_bnhd_kernel<D, kScoreScale><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(ptrs[0]),
-      static_cast<const __nv_bfloat16*>(ptrs[1]),
-      static_cast<const __nv_bfloat16*>(ptrs[2]),
-      static_cast<__nv_bfloat16*>(const_cast<void*>(ptrs[3])), st[0], st[1],
-      st[2], st[3], n, m, heads, scale, mask_mode, cond_len);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -657,16 +750,15 @@ int launch_384(const void* const* ptrs, const Strides* st, int b, int n,
 // in elements (multiples of 8; 0 only on an axis of size 1) at
 // strides[3 * i .. 3 * i + 2] for q, k, v, out; every base 16-byte
 // aligned. score_scale: 1 puts the scale on the fp32 scores, 0 scales q in
-// bf16. D 32, 64 and 128 run attn_fwd_kernel, D 384 attn_bnhd_kernel.
+// bf16. D 32, 64 and 128 run attn_fwd_kernel, D 384 attn_wide_kernel.
 ETK_API int etk_attention_bnhd(const void* q, const void* k, const void* v,
                                void* out, const int* strides, int b, int n,
                                int m, int heads, int head_dim, float scale,
                                int score_scale, int mask_mode, int cond_len,
                                void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  const bool wide = head_dim == 384;
   if (b <= 0 || n <= 0 || m <= 0 || heads <= 0 || b > 65535 ||
-      heads > (wide ? 65535 / 3 : 65535) ||
+      heads > 65535 ||
       (mask_mode != MASK_NONE && mask_mode != MASK_PREFIX_CAUSAL))
     return ETK_BAD_ARGS;
   Strides st[4];
@@ -675,17 +767,11 @@ ETK_API int etk_attention_bnhd(const void* q, const void* k, const void* v,
     const int rows = i == 1 || i == 2 ? m : n;
     if (st[i].batch < 0 || st[i].head < 0 || st[i].row < 0 ||
         st[i].batch % 8 || st[i].head % 8 || st[i].row % 8 ||
-        (!wide && ((st[i].batch == 0 && b > 1) ||
-                   (st[i].head == 0 && heads > 1) ||
-                   (st[i].row == 0 && rows > 1))))
+        (st[i].batch == 0 && b > 1) || (st[i].head == 0 && heads > 1) ||
+        (st[i].row == 0 && rows > 1))
       return ETK_BAD_ARGS;
   }
   const void* ptrs[4] = {q, k, v, out};
-  if (wide)
-    return score_scale ? launch_384<true>(ptrs, st, b, n, m, heads, scale,
-                                          mask_mode, cond_len, s)
-                       : launch_384<false>(ptrs, st, b, n, m, heads, scale,
-                                           mask_mode, cond_len, s);
   const FwdArgs a{n, m, mask_mode, cond_len, scale};
   return score_scale
              ? launch_fwd_d<true>(head_dim, ptrs, st, b, n, m, heads, a, s)

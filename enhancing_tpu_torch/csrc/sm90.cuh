@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the bf16 LN -> GEMM (B1,
 // ln_gemm.cu), the fused FFN (B16, ffn.cu), attention -> projection (B15,
-// attn_proj.cu), the attention backward (B5, attention_bwd.cu) and the
-// attention forward (B2, B8, B17-B19, attention_bnhd.cu), in raw PTX:
+// attn_proj.cu), the attention backward (B5, attention_bwd.cu), the
+// attention forwards (B2, B8, B17-B19, attention_bnhd.cu) and the decode
+// attention (B9, decode_attention.cu), in raw PTX:
 //
 // - TMA: bf16 tensor maps encoded on the host (cuTensorMapEncodeTiled,
 //   looked up through the CUDA runtime, so the library links no libcuda),
@@ -27,11 +28,12 @@
 //   rows, batches) with a stride per axis, for attention operands laid out
 //   (B, N, H, D), (B, H, N, D) or as lane slices of a packed qkv buffer.
 // - Warp specialisation: setmaxnreg moves registers from the producer
-//   warpgroup (40 a thread) to the two consumer warpgroups (232); each
-//   kernel branches once, at the top.
-// - Thread-block clusters: rank, barrier, arrivals on a peer's mbarrier
-//   and bulk copies into a peer's shared memory (distributed shared
-//   memory), for B16; a launch helper for both kernels.
+//   warpgroup to the consumer warpgroups, within what the block was
+//   launched with; each kernel branches once, at the top; named barriers
+//   (bar.sync, bar.arrive) hand data between warpgroups.
+// - Thread-block clusters: rank, barrier, arrivals on a peer's mbarrier,
+//   bulk copies into and loads from a peer's shared memory (distributed
+//   shared memory), for B16 and B9; a launch helper.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; no driver library linked
@@ -338,6 +340,12 @@ struct Ring {
 __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
+// bar.arrive on named barrier `id`: counts this thread toward `count`
+// without waiting; its earlier memory accesses are performed for the
+// threads that bar.sync on the barrier
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
 
 // ---- device: wgmma ------------------------------------------------------
 
@@ -457,6 +465,12 @@ __device__ __forceinline__ uint32_t peer_addr(uint32_t a, uint32_t rank) {
                : "r"(a), "r"(rank));
   return r;
 }
+// the fp32 at cluster address `a` (a peer's shared memory, peer_addr)
+__device__ __forceinline__ float ld_peer(uint32_t a) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(a));
+  return v;
+}
 // one arrival on the barrier `bar` of every block of a cluster of `n`
 __device__ __forceinline__ void mbar_arrive_all(uint64_t* bar, int n) {
   const uint32_t a = smem_addr(bar);
@@ -544,9 +558,10 @@ struct Wgmma<32> {
 
 template <>
 struct Wgmma<64> {
-  // d (64 x 64, fp32) += A (64 x 16) * B (64 x 16)^T, A and B in shared memory
+  // d (64 x 64, fp32) += A (64 x 16) * B (64 x 16)^T, A and B in shared
+  // memory; with accumulate 0, d = A * B^T (d's old values are not read)
   __device__ __forceinline__ static void ss(float (&d)[32], uint64_t a,
-                                            uint64_t b) {
+                                            uint64_t b, int accumulate = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -563,7 +578,7 @@ struct Wgmma<64> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(accumulate));
   }
   // d (64 x 64, fp32) += A (64 x 16, registers, mma.sync's fragment layout)
   // * B; B in shared memory, K-major (TB 0: B is 64 x 16) or MN-major (TB

@@ -27,12 +27,13 @@ other attention forwards:
   ``_attention_packed_call``, B8) reads them in place at any N, N = 1
   included: head dims 32, 64 and 128 on ``attn_fwd_kernel``, B2's kernel,
   so that B8 on the lane slices of a qkv buffer gives B2's output bit for
-  bit; the prior's 384 on the earlier mma.sync ``attn_bnhd_kernel``, kept
-  for that width (``ROADMAP.md`` queue B). Same numerics as above. It has
-  no backward yet: the prior's training step is a later slice. Both
-  kernels read each tensor through its own batch, head and row strides and
-  a key length of its own, and put the scale on q (in bf16) or on the fp32
-  scores, so they also serve
+  bit; the prior's 384 on ``attn_wide_kernel`` (an S warpgroup hands P to
+  three O warpgroups that own 128 lanes of O each). Same numerics as
+  above. It has no backward yet: the prior's training step is a later
+  slice. Both kernels read each tensor through its own batch, head and row
+  strides (4-D TMA maps, :func:`attention_fwd_maps`) and a key length of
+  its own, and put the scale on q (in bf16) or on the fp32 scores, so they
+  also serve
   :func:`multihead_attention` ((B, H, N, D), the scale on the scores, the
   JAX public op; backward autograd of the plain version),
   :func:`_attention_fused_bnhd` ((B, N, H, D), likewise) and
@@ -45,7 +46,8 @@ other attention forwards:
 - :func:`decode_attention` and :func:`decode_attention_stacked`, one
   token's attention against the rows < cur_len of a KV cache plus the
   token's own key and value (``attention.py:1722-1807``); on CUDA
-  ``csrc/decode_attention.cu`` (the counterpart of ``_decode_pallas``)
+  ``csrc/decode_attention.cu`` (the counterpart of ``_decode_pallas``),
+  one launch of a cluster kernel whose plan :func:`decode_plan` mirrors,
   selects the layer of a stacked cache inside the kernel. The plain
   version is ``_decode_xla`` (``attention.py:1314-1338``) on the layer's
   slice; both clamp a per-row cur_len to [0, ctx], as its mask does. q may
@@ -70,8 +72,6 @@ from .ln_gemm import _plain_vjp
 NEG_INF = -1e30
 MASK_MODES = {"none": 0, "prefix_causal": 1}
 KERNEL_HEAD_DIMS = (32, 64, 128)
-BNHD_HEAD_DIMS = (32, 64, 128, 384)
-DECODE_CHUNK = 32  # keys per block of csrc/decode_attention.cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # (q dtype, cache dtype) pairs of csrc/decode_attention.cu
 DECODE_PAIRS = {(torch.bfloat16, torch.bfloat16), (torch.float32,
@@ -277,17 +277,18 @@ def strided_launch_args(name: str, tensors) -> list:
     return strides
 
 
-# csrc/attention_bnhd.cu's Hopper forward (attn_fwd_kernel): its head dims,
-# the rows of one TMA box (one consumer warpgroup's) and the grid's limits
-# on heads and batches
-FWD_HEAD_DIMS = (32, 64, 128)
+# csrc/attention_bnhd.cu's Hopper forwards (attn_fwd_kernel at 32, 64 and
+# 128, attn_wide_kernel at 384): their head dims, the rows of one TMA box
+# (one warpgroup's) and the grid's limits on heads and batches
+FWD_HEAD_DIMS = (32, 64, 128, 384)
 FWD_BOX_ROWS, FWD_GRID_LIMIT = 64, 65535
 
 
 def attention_fwd_maps(b: int, n: int, m: int, heads: int, head_dim: int,
                        strides, offsets=(0, 0, 0, 0)) -> list:
     """The four TMA tensor maps (q, k, v, out) that the host plan of
-    ``csrc/attention_bnhd.cu`` encodes for ``attn_fwd_kernel``, each as
+    ``csrc/attention_bnhd.cu`` encodes for ``attn_fwd_kernel`` and
+    ``attn_wide_kernel``, each as
     (base offset in bytes, dims, strides in bytes, box): dims and box in the
     map's order (lanes, heads, rows, batches), strides those of heads, rows
     and batches (``sm90::tensor_map_4d``). ``strides`` holds each tensor's
@@ -296,9 +297,9 @@ def attention_fwd_maps(b: int, n: int, m: int, heads: int, head_dim: int,
     (the packed qkv buffer's lane slices, :func:`packed_qkv_strides`). An
     axis of extent 1 is never stepped and takes the stride of ``head_dim``
     elements, whatever it was given. Raises ValueError where the C entries
-    return ETK_BAD_ARGS: a head dim other than 32, 64 or 128, an empty or
-    too large grid, a stride that is negative, no multiple of 8 elements,
-    past an int, or 0 on an axis of extent above 1."""
+    return ETK_BAD_ARGS: a head dim other than 32, 64, 128 or 384, an empty
+    or too large grid, a stride that is negative, no multiple of 8
+    elements, past an int, or 0 on an axis of extent above 1."""
     if head_dim not in FWD_HEAD_DIMS:
         raise ValueError(f"the Hopper attention forward takes head_dim in "
                          f"{FWD_HEAD_DIMS}, got {head_dim}")
@@ -336,12 +337,12 @@ def attention_strided_kernel(name, q, k, v, scale, mask_mode="none",
                              score_scale=False):
     """Launch ``csrc/attention_bnhd.cu`` on CUDA bf16 q (B, N, H, D) and k,
     v (B, M, H, D), or with ``layout="bhnd"`` (B, H, N, D) and (B, H, M,
-    D), each read in place through its strides: at head dims 32, 64 and
-    128 the Hopper forward ``attn_fwd_kernel`` through the tensor maps of
-    :func:`attention_fwd_maps` (B2's kernel), at 384 the mma.sync
-    ``attn_bnhd_kernel``. ``score_scale`` puts the scale on the fp32
-    scores (B17, B18), else q is scaled in bf16 (B8, B19). Returns a
-    contiguous tensor of q's layout; counts the launch under ``name``."""
+    D), each read in place through its strides by the tensor maps of
+    :func:`attention_fwd_maps`: at head dims 32, 64 and 128 the Hopper
+    forward ``attn_fwd_kernel`` (B2's kernel), at 384 ``attn_wide_kernel``.
+    ``score_scale`` puts the scale on the fp32 scores (B17, B18), else q
+    is scaled in bf16 (B8, B19). Returns a contiguous tensor of q's
+    layout; counts the launch under ``name``."""
     if (q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16
             or v.dtype != torch.bfloat16):
         raise TypeError(f"{name} kernel takes bf16 q, k, v")
@@ -351,9 +352,9 @@ def attention_strided_kernel(name, q, k, v, scale, mask_mode="none",
         q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     b, n, h, d = q.shape
     m = k.shape[1]
-    if d not in BNHD_HEAD_DIMS:
+    if d not in FWD_HEAD_DIMS:
         raise ValueError(f"{name} kernel takes head_dim in "
-                         f"{BNHD_HEAD_DIMS}, got {d}")
+                         f"{FWD_HEAD_DIMS}, got {d}")
     if k.shape != (b, m, h, d) or v.shape != k.shape:
         raise ValueError(f"{name} kernel: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit")
@@ -366,8 +367,7 @@ def attention_strided_kernel(name, q, k, v, scale, mask_mode="none",
     else:
         out = o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     strides += strided_launch_args(name, (o,))
-    if d in FWD_HEAD_DIMS:
-        attention_fwd_maps(b, n, m, h, d, strides)  # refuses as the C entry
+    attention_fwd_maps(b, n, m, h, d, strides)  # refuses as the C entry
     # the TPU wrappers scale q by the scale rounded to q's dtype (B8, B19);
     # B17 and B18 multiply the fp32 scores by the scale
     scale_c = float(scale) if score_scale else bf16_round(float(scale))
@@ -382,7 +382,7 @@ def attention_strided_kernel(name, q, k, v, scale, mask_mode="none",
 def attention_bnhd_kernel(q, k, v, scale, mask_mode="none", cond_len=0):
     """Launch ``csrc/attention_bnhd.cu`` (B8) on CUDA bf16 (B, N, H, D) q
     and (B, M, H, D) k, v, each a strided view (lane slices of a wider
-    buffer included): ``attn_fwd_kernel`` at D <= 128, ``attn_bnhd_kernel``
+    buffer included): ``attn_fwd_kernel`` at D <= 128, ``attn_wide_kernel``
     at 384. Returns a contiguous (B, N, H, D)."""
     return attention_strided_kernel("attention_bnhd", q, k, v, scale,
                                     mask_mode, cond_len)
@@ -444,6 +444,59 @@ def dequant_cache(kc, vc, k_scale, v_scale, dtype):
     return k.to(dtype), v.to(dtype)
 
 
+# csrc/decode_attention.cu's plan: a (batch row, head) pair is one
+# thread-block cluster of DECODE_CLUSTER blocks of DECODE_WARPS warps, and
+# each warp takes one of the pair's DECODE_SPLITS contiguous splits of its
+# keys through a ring of DECODE_STAGES stages of 4 / itemsize keys; head
+# dims up to DECODE_MAX_HEAD_DIM (4 lanes a lane per 128)
+DECODE_CLUSTER, DECODE_WARPS, DECODE_STAGES = 2, 8, 3
+DECODE_SPLITS = DECODE_CLUSTER * DECODE_WARPS
+DECODE_MAX_HEAD_DIM = 512
+
+
+def decode_plan(head_dim: int, itemsize: int) -> dict:
+    """The plan that ``etk_decode_plan`` returns for head dim D and a cache
+    of ``itemsize``-byte elements: blocks a cluster, warps a block, keys a
+    ring stage, ring stages and the bytes of dynamic shared memory (every
+    warp's ring of K and V rows, which at the end holds the warp's partial
+    O and (m, l)). Raises ValueError for a head dim the kernel does not
+    take: not a multiple of 4, above 512, or head rows that are not a
+    multiple of 16 bytes."""
+    if itemsize not in (1, 2, 4):
+        raise ValueError(f"decode_attention: cache elements of {itemsize} "
+                         "bytes")
+    if (head_dim <= 0 or head_dim % 4 or head_dim > DECODE_MAX_HEAD_DIM
+            or (head_dim * itemsize) % 16):
+        raise ValueError(f"decode_attention kernel: head_dim {head_dim} "
+                         f"(a multiple of 4 up to {DECODE_MAX_HEAD_DIM}, "
+                         "16-byte head rows)")
+    keys = 4 // itemsize
+    smem = DECODE_WARPS * DECODE_STAGES * 2 * keys * head_dim * itemsize
+    return dict(cluster=DECODE_CLUSTER, warps=DECODE_WARPS,
+                keys_per_stage=keys, stages=DECODE_STAGES, smem=smem)
+
+
+def decode_key_splits(cur_len, ctx: int) -> list:
+    """Each batch row's DECODE_SPLITS key ranges [k0, k1), as the kernel's
+    warps take them: the row's length clamped to [0, ctx] (a (B,) vector;
+    a scalar outside raises, :func:`_check_decode_len`), cut into
+    contiguous splits of ceil(len / DECODE_SPLITS) keys, the last ones
+    short or empty. One list of ranges for an int, one per row for a
+    vector."""
+    _check_decode_len(cur_len, ctx)
+
+    def splits(cur):
+        per = -(-cur // DECODE_SPLITS)
+        out = []
+        for i in range(DECODE_SPLITS):
+            k0 = min(cur, i * per)
+            out.append((k0, min(cur, k0 + per)))
+        return out
+    if isinstance(cur_len, int):
+        return splits(cur_len)
+    return [splits(min(max(int(c), 0), ctx)) for c in cur_len]
+
+
 def decode_attention_kernel(q3, k_stack, v_stack, kn, vn, cur_len, layer,
                             head_dim, k_scale=None, v_scale=None):
     """Launch ``csrc/decode_attention.cu`` on CUDA q3, kn, vn (B, H*D) and
@@ -451,7 +504,8 @@ def decode_attention_kernel(q3, k_stack, v_stack, kn, vn, cur_len, layer,
     kernel. (q, cache) dtypes: (bf16, bf16), (f32, f32), (f32, bf16), and
     an int8 cache under f32 or bf16 q with fp32 (L, B, M) scales; kn, vn
     in q's dtype beside an int8 cache, else in the cache's. The output is
-    in q's dtype. cur_len: int or (B,) tensor."""
+    in q's dtype. cur_len: int or (B,) tensor. One launch, no workspace:
+    the splits of a row's keys merge inside their cluster."""
     l, b, m, hd = k_stack.shape
     qd, cd = q3.dtype, k_stack.dtype
     int8 = cd == torch.int8
@@ -473,28 +527,24 @@ def decode_attention_kernel(q3, k_stack, v_stack, kn, vn, cur_len, layer,
         raise ValueError(f"decode_attention kernel: q {tuple(q3.shape)}, "
                          f"cache {tuple(k_stack.shape)}, new "
                          f"{tuple(kn.shape)} {tuple(vn.shape)} do not fit")
-    if hd % head_dim or (head_dim * k_stack.element_size()) % 16:
+    if hd % head_dim:
         raise ValueError(f"decode_attention kernel: head_dim {head_dim} of "
-                         f"{hd} lanes (16-byte head rows)")
+                         f"{hd} lanes")
+    decode_plan(head_dim, k_stack.element_size())  # refuses as the C entry
     if not 0 <= layer < l:
         raise IndexError(f"layer {layer} of a stack of {l}")
     heads = hd // head_dim
     _check_decode_len(cur_len, m)
-    if isinstance(cur_len, int):
-        cur_vec, n_splits = None, max(1, -(-cur_len // DECODE_CHUNK))
-    else:
-        cur_vec = row_positions(cur_len, b, k_stack.device)
-        n_splits = -(-m // DECODE_CHUNK)
+    cur_vec = (None if isinstance(cur_len, int)
+               else row_positions(cur_len, b, k_stack.device))
     check_kernel_args("decode_attention", q3, k_stack, v_stack, kn, vn,
                       cur_vec, k_scale, v_scale)
-    ws = torch.empty(b * heads * n_splits * (head_dim + 2),
-                     dtype=torch.float32, device=q3.device)
     out = torch.empty((b, hd), dtype=qd, device=q3.device)
     cuda_lib.call("etk_decode_attention",
                   *(t.data_ptr() for t in (q3, k_stack, v_stack, kn, vn)),
                   None if cur_vec is None else cur_vec.data_ptr(),
                   cur_len if cur_vec is None else 0, int(layer), b, m, heads,
-                  head_dim, n_splits, ws.data_ptr(), out.data_ptr(),
+                  head_dim, out.data_ptr(),
                   None if k_scale is None else k_scale.data_ptr(),
                   None if v_scale is None else v_scale.data_ptr(),
                   _DTYPES[qd], _DTYPES[cd], cuda_lib.stream())

@@ -47,7 +47,8 @@ SIGNATURES = {
     "etk_fused_act": [_p, _p, _p, ctypes.c_longlong, _i, _f, _f, _i, _p],
     "etk_attention_bnhd": [_p] * 4 + [ctypes.POINTER(_i)] + [_i] * 5
     + [_f, _i, _i, _i, _p],
-    "etk_decode_attention": [_p] * 6 + [_i] * 7 + [_p] * 4 + [_i, _i, _p],
+    "etk_decode_attention": [_p] * 6 + [_i] * 6 + [_p] * 3 + [_i, _i, _p],
+    "etk_decode_plan": [_i, _i, ctypes.POINTER(_i)],
     "etk_cache_row_update": [_p] * 3 + [_i] * 5 + [_p],
     "etk_int8_gemm": [_p] * 6 + [_i] * 6 + [_p],
     "etk_int8_ln_gemm": [_p] * 11 + [_i] * 4 + [_f, _i, _i, _i, _p],

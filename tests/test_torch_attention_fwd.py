@@ -1,6 +1,7 @@
-"""The host side and the arithmetic of the port's Hopper attention forward
-(``attn_fwd_kernel`` in ``csrc/attention_bnhd.cu``: B2, B8 at head dims up
-to 128, B17-B19), on the CPU.
+"""The host side and the arithmetic of the port's Hopper attention forwards
+(``csrc/attention_bnhd.cu``: ``attn_fwd_kernel`` for B2, B8 at head dims up
+to 128 and B17-B19; ``attn_wide_kernel`` for B8 at the GPT prior's 384),
+on the CPU.
 
 The kernel addresses q, k, v and its output through 4-D TMA tensor maps
 over (lanes, heads, rows, batches), one stride per axis.
@@ -10,10 +11,10 @@ addresses must be the one ``torch.as_strided`` gives, every stride a
 nonzero multiple of 16 bytes and every box within the TMA's limits, and
 the mirror must refuse what the C entry refuses.
 
-The kernel walks the keys in tiles of 128 and rounds P to bf16 against the
-running row max. That recurrence is written out here and held to the
-plain version and to the JAX packed kernel (128-key chunks, interpret
-mode). Inputs are made with numpy from a seed.
+The kernels walk the keys in tiles of 128 (64 at D = 384) and round P to
+bf16 against the running row max. That recurrence is written out here and
+held to the plain version and to the JAX packed kernel (128- or 64-key
+chunks, interpret mode). Inputs are made with numpy from a seed.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +24,7 @@ from enhancing_tpu.ops import attention as jatt
 from enhancing_tpu_torch.ops import attention as tatt
 
 KEYS = 128  # keys a tile of attn_fwd_kernel
+WIDE_KEYS = 64  # keys a tile of attn_wide_kernel (D = 384)
 # the TMA's limits (cuTensorMapEncodeTiled): a box edge of at most 256
 # elements, an inner box edge of at most the swizzle span (128 bytes),
 # global dims up to 2^32 and strides below 2^40
@@ -75,9 +77,11 @@ def _offset(view, base):
     return (view.data_ptr() - base.data_ptr())
 
 
-# (B, N, M, H, D) shapes, N = 1, size-1 batch and head axes included
+# (B, N, M, H, D) shapes, N = 1, size-1 batch and head axes included; at
+# D = 384 the int8 prefill's contiguous q, k, v (B8, N = 1) and M != N
 SHAPES = [(2, 100, 100, 3, 64), (1, 1, 1, 1, 32), (3, 1, 65, 4, 128),
-          (1, 65, 130, 1, 64), (2, 64, 63, 2, 32)]
+          (1, 65, 130, 1, 64), (2, 64, 63, 2, 32), (8, 1, 1, 16, 384),
+          (2, 70, 130, 2, 384)]
 
 
 @pytest.mark.parametrize("b,n,m,h,d", SHAPES)
@@ -125,6 +129,22 @@ def test_maps_of_the_packed_qkv_buffer(b, n, h, d):
         assert mp[1:] == sp[1:]
 
 
+@pytest.mark.parametrize("b,n", [(2, 1025), (8, 1)])
+def test_maps_of_the_prior_qkv_lane_slices(b, n):
+    """B8 at D = 384: q, k and v as the lane slices of the prior's (B, N,
+    3 * 6144) qkv buffer (16 heads of 384), at the teacher-forced forward's
+    N = 1025 and the prefill's N = 1, out contiguous (B, N, 16, 384)."""
+    h, d = 16, 384
+    rng = np.random.default_rng(b + n)
+    qkv = torch.from_numpy(rng.integers(-30000, 30000, (b, n, 3 * h * d),
+                                        dtype=np.int16)).view(torch.bfloat16)
+    out = torch.zeros(b, n, h, d, dtype=torch.bfloat16)
+    views = [t.view(b, n, h, d) for t in qkv.split(h * d, dim=-1)] + [out]
+    for base, view, mp in zip((qkv, qkv, qkv, out), views,
+                              _strided_maps(*views)):
+        _check_map(base, mp[0] + _offset(view, base), *mp[1:], view, rng)
+
+
 @pytest.mark.parametrize("b,n,h,d", [(2, 1025, 16, 64), (1, 3, 2, 128),
                                      (4, 1, 8, 32)])
 def test_maps_of_the_gridchunk_operands(b, n, h, d):
@@ -146,7 +166,7 @@ def test_extent_one_axes_take_a_legal_stride():
         assert mp[2] == (128, 128, 128)
 
 
-@pytest.mark.parametrize("d", [16, 48, 96, 192, 256, 384])
+@pytest.mark.parametrize("d", [16, 48, 96, 192, 256])
 def test_mirror_refuses_head_dims_the_kernel_does_not_take(d):
     with pytest.raises(ValueError, match="head_dim"):
         tatt.attention_fwd_maps(1, 8, 8, 2, d, [0] * 12)
@@ -226,8 +246,8 @@ def tile_recurrence(q, k, v, mask_mode, cond_len, keys=KEYS):
     return (o * (1.0 / l)[..., None]).to(q.dtype)
 
 
-def _attention_inputs(rng, n):
-    b, h, d = 2, 2, 64
+def _attention_inputs(rng, n, d=64):
+    b, h = 2, 2
     q, k, v = (rng.standard_normal((b, n, h * d)).astype(np.float32)
                for _ in range(3))
     q = q * np.float32(d ** -0.5)
@@ -239,14 +259,14 @@ def _heads(a, h, d, dtype):
     return torch.from_numpy(a).to(dtype).reshape(b, n, h, d).transpose(1, 2)
 
 
-def _jax_chunked(q3, k3, v3, mode, cl, d, dtype):
-    """The JAX packed kernel with the online softmax over 128-key chunks
-    (padding keys masked), P cast to v's dtype against the running max:
-    the recurrence above, run in interpret mode."""
+def _jax_chunked(q3, k3, v3, mode, cl, d, dtype, keys=KEYS):
+    """The JAX packed kernel with the online softmax over ``keys``-key
+    chunks (padding keys masked), P cast to v's dtype against the running
+    max: the recurrence above, run in interpret mode."""
     jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
     out = jatt._attention_packed_call(
         *(jnp.asarray(a).astype(jdt) for a in (q3, k3, v3)), mode, cl, d,
-        k_chunk=KEYS)
+        k_chunk=keys)
     return np.asarray(out.astype(jnp.float32))
 
 
@@ -288,6 +308,52 @@ def test_tile_recurrence_bf16_matches_plain_and_jax(interpret, mode, cl, n):
     got = tile_recurrence(q, k, v, mode, cl).float()
     got3 = got.transpose(1, 2).reshape(b, n, h * d).numpy()
     want = _jax_chunked(q3, k3, v3, mode, cl, d, torch.bfloat16)
+    np.testing.assert_allclose(got3, want, atol=2.0 ** -8 * np.abs(
+        want).max(), rtol=2.0 ** -7)
+    plain = tatt.attention_plain(q, k, v, 1.0, mode, cl).float()
+    scale = float(plain.abs().max())
+    np.testing.assert_allclose(got.numpy(), plain.numpy(),
+                               atol=2.0 ** -7 * scale, rtol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("mode,cl", [("none", 0), ("prefix_causal", 3)])
+@pytest.mark.parametrize("n", [63, 64, 65, 130])
+def test_wide_tile_recurrence_f32_matches_plain_and_jax(interpret, mode, cl,
+                                                        n):
+    """attn_wide_kernel's recurrence at the prior's D = 384, 64-key tiles,
+    2 heads: in fp32 the softmax of the whole row, held to the plain
+    version and to the JAX kernel with 64-key chunks at the limits of the
+    128-key test above."""
+    b, h, d, q3, k3, v3 = _attention_inputs(np.random.default_rng(n + 2), n,
+                                            384)
+    q, k, v = (_heads(a, h, d, torch.float32) for a in (q3, k3, v3))
+    got = tile_recurrence(q, k, v, mode, cl, WIDE_KEYS)
+    got3 = got.transpose(1, 2).reshape(b, n, h * d).numpy()
+    want = tatt.attention_plain(q, k, v, 1.0, mode, cl)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=3e-5,
+                               rtol=1e-4)
+    np.testing.assert_allclose(got3, _jax_chunked(q3, k3, v3, mode, cl, d,
+                                                  torch.float32, WIDE_KEYS),
+                               atol=3e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("mode,cl", [("none", 0), ("prefix_causal", 3)])
+@pytest.mark.parametrize("n", [63, 64, 65, 130])
+def test_wide_tile_recurrence_bf16_matches_plain_and_jax(interpret, mode, cl,
+                                                         n):
+    """The same in bf16, P rounded against a running max that moves every
+    64 keys: against the JAX kernel with 64-key chunks, 2^-8 of the largest
+    |output| + 2^-7 relative; against the plain version (which rounds the
+    normalised P), 2^-7 of the largest |plain| + 2^-7 relative; the reasons
+    of the 128-key bf16 test above."""
+    b, h, d, q3, k3, v3 = _attention_inputs(np.random.default_rng(n + 3), n,
+                                            384)
+    q3, k3, v3 = (torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+                  for a in (q3, k3, v3))
+    q, k, v = (_heads(a, h, d, torch.bfloat16) for a in (q3, k3, v3))
+    got = tile_recurrence(q, k, v, mode, cl, WIDE_KEYS).float()
+    got3 = got.transpose(1, 2).reshape(b, n, h * d).numpy()
+    want = _jax_chunked(q3, k3, v3, mode, cl, d, torch.bfloat16, WIDE_KEYS)
     np.testing.assert_allclose(got3, want, atol=2.0 ** -8 * np.abs(
         want).max(), rtol=2.0 ** -7)
     plain = tatt.attention_plain(q, k, v, 1.0, mode, cl).float()

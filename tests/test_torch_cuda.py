@@ -539,8 +539,8 @@ def test_attention_fwd_lengths_masks_and_head_dims(cuda, d, mode, cl, n, m):
 
 def test_attention_forwards_route_by_head_dim(cuda):
     """B2, and B8 at D <= 128, launch only attn_fwd_kernel; B8 at the
-    prior's D = 384 only the kept mma.sync attn_bnhd_kernel, which still
-    matches its plain version."""
+    prior's D = 384 only attn_wide_kernel, which matches its plain
+    version."""
     qkv = _randn(cuda, 2, 100, 3 * 2 * 64, dtype=torch.bfloat16)
     names = _device_kernels(
         lambda: att.attention_packed_qkv_kernel(qkv, 2, 64, 0.125))
@@ -554,7 +554,7 @@ def test_attention_forwards_route_by_head_dim(cuda):
     fn = lambda: att.attention_bnhd_kernel(  # noqa: E731
         q, k, v, 384 ** -0.5, "prefix_causal", 1)
     names = _device_kernels(fn)
-    assert len(names) == 1 and "attn_bnhd_kernel" in next(iter(names))
+    assert len(names) == 1 and "attn_wide_kernel" in next(iter(names))
     _close(fn(), att.attention_bnhd_plain(q, k, v, 384 ** -0.5,
                                           "prefix_causal", 1), ATTN_TOL)
 
@@ -620,6 +620,87 @@ def test_decode_attention_kernel_matches_plain(cuda, dtype, cur):
         _row_close(got, want, 2.0 ** -12, 2.0 ** -8)
     else:  # another summation order
         _close(got, want, dict(atol=1e-5, rtol=1e-5))
+
+
+_DECODE_PAIRS = [(torch.bfloat16, torch.bfloat16),
+                 (torch.float32, torch.float32),
+                 (torch.float32, torch.bfloat16),
+                 (torch.float32, torch.int8), (torch.bfloat16, torch.int8)]
+
+
+@pytest.mark.parametrize("q_dtype,cache_dtype", _DECODE_PAIRS)
+@pytest.mark.parametrize("cur", [0, 1, 33, 512, 1024, "ragged", "outside"])
+def test_decode_attention_every_pair_and_length(cuda, q_dtype, cache_dtype,
+                                                cur):
+    """The one-launch split-K kernel on all five (q, cache) pairs at the
+    prior's head dim, from cur_len 0 (only the new token) to 1024, a
+    ragged vector and rows outside [0, ctx) (clamped): against the plain
+    version under the limits of the two tests above, each call
+    synchronised before it is read."""
+    layers, b, ctx, h, d = 3, 4, 1032, 16, 384
+    if cur == "ragged":
+        cur = torch.tensor([0, 33, 512, 1024], dtype=torch.int32,
+                           device="cuda")
+    elif cur == "outside":
+        cur = torch.tensor([-3, 1032, 1100, 7], dtype=torch.int32,
+                           device="cuda")
+    if cache_dtype == torch.int8:
+        k, ks, v, vs = _int8_stack(cuda, layers, b, ctx, h * d, cur)
+        new_dtype = q_dtype
+    else:
+        k, v = _stack(cuda, layers, b, ctx, h * d, cur, cache_dtype)
+        ks = vs = None
+        new_dtype = cache_dtype
+    q3 = _randn(cuda, b, h * d, dtype=q_dtype, scale=d ** -0.5)
+    kn, vn = (_randn(cuda, b, h * d, dtype=new_dtype) for _ in range(2))
+    before = common.LAUNCHES["decode_attention"]
+    got = att.decode_attention_stacked(q3, k, v, kn, vn, cur, 2, head_dim=d,
+                                       k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert common.LAUNCHES["decode_attention"] == before + 1
+    assert got.dtype == q_dtype and torch.isfinite(got).all()
+    with common.force_plain_ops():
+        want = att.decode_attention_stacked(q3, k, v, kn, vn, cur, 2,
+                                            head_dim=d, k_scale=ks,
+                                            v_scale=vs)
+    if torch.bfloat16 in (q_dtype, cache_dtype):
+        _row_close(got, want, 2.0 ** -7, 2.0 ** -7)
+    else:
+        _row_close(got, want, 1e-5, 1e-5)
+    if not isinstance(cur, int) or cur == 0:
+        # cur_len 0 and the clamped rows at 0: the output is v_new
+        rows = (torch.tensor([True] * b, device="cuda") if isinstance(
+            cur, int) else cur <= 0)
+        _close(got[rows], vn[rows].to(q_dtype), dict(atol=0.0, rtol=0.0))
+
+
+def test_decode_attention_is_one_launch(cuda):
+    """One decode_attention_kernel call launches exactly one device kernel
+    (the split-K kernel; the splits merge inside their cluster), for a
+    scalar and a vector cur_len and an int8 cache; its plan is the one
+    ops.attention.decode_plan mirrors."""
+    from enhancing_tpu_torch.ops import cuda_lib
+    layers, b, ctx, h, d = 2, 8, 1032, 16, 384
+    k, v = _stack(cuda, layers, b, ctx, h * d, 700, torch.bfloat16)
+    q3, kn, vn = (_randn(cuda, b, h * d, dtype=torch.bfloat16)
+                  for _ in range(3))
+    vec = torch.full((b,), 700, dtype=torch.int32, device="cuda")
+    for cur in (700, vec):
+        names = _device_kernels(lambda: att.decode_attention_kernel(
+            q3, k, v, kn, vn, cur, 1, d))
+        assert len(names) == 1 and "decode_kernel" in next(iter(names))
+    k8, ks, v8, vs = _int8_stack(cuda, layers, b, ctx, h * d, 700)
+    q32 = q3.float()
+    names = _device_kernels(lambda: att.decode_attention_kernel(
+        q32, k8, v8, q32, q32, 700, 1, d, ks, vs))
+    assert len(names) == 1 and "decode_kernel" in next(iter(names))
+    for d_ in (32, 64, 128, 384, 512):
+        for itemsize in (1, 2, 4):
+            if (d_ * itemsize) % 16 == 0:
+                want = att.decode_plan(d_, itemsize)
+                assert cuda_lib.plan("etk_decode_plan", d_, itemsize) == (
+                    want["cluster"], want["warps"], want["keys_per_stage"],
+                    want["stages"], want["smem"])
 
 
 def test_decode_attention_unstacked_cache(cuda):
