@@ -28,11 +28,13 @@ Phases, each of which raises on failure:
 2. build: every kernel of ``enhancing_tpu_torch/csrc`` by ``nvcc`` for
    sm_90a, with the ptxas register and shared-memory report; the SASS of
    the bf16 LN -> GEMM, the fused FFN, attention -> projection, the
-   attention forwards (head dims up to 128, and the prior's 384) and the
-   attention backward must hold wgmma (HGMMA) and TMA loads (UTMALDG) and
-   no mma.sync (``cuobjdump``);
+   attention forwards (head dims up to 128, and the prior's 384), the
+   attention backward and the int8 decode MLP must hold wgmma (HGMMA) and
+   TMA loads (UTMALDG) and no mma.sync (``cuobjdump``);
 3. each kernel against its plain PyTorch version on the card at the main
-   paths' shapes, with the tolerance stated on its line;
+   paths' shapes, with the tolerance stated on its line; the int8 decode
+   MLP and its plain version are also held (logged) against an fp64
+   evaluation of the same function;
 4. each kernel's time (CUDA events; the serving kernels at batch 128, the
    training kernels at the training batch 8), beside its plain version,
    one PyTorch library call computing the same function (timed only; the
@@ -40,7 +42,8 @@ Phases, each of which raises on failure:
    kernel and library times are medians of 5 loops, their spread logged;
    B2 on the qkv buffer and B8 on its three lane slices run one kernel
    and must give the same output bit for bit; B9 is timed at cur_len 1,
-   256, 512 and 1024 (512 in the ``kernels`` line);
+   256, 512 and 1024 (512 in the ``kernels`` line); B3, its library call
+   and B14 (fp32 and bf16 x) also as device time (``torch.profiler``);
 5. serving through the public entry points: requests of batch 1, 8 and
    128 with launch counters reset just before and read just after,
    outputs checked, the kernels compared with the plain path on one small
@@ -284,6 +287,22 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, calls: int = 20) -> float:
+    """Device ms per call of ``fn``, summed over its kernels
+    (torch.profiler): back-to-back CUDA-event times of a short call are
+    the host's launch time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               ) / 1e3 / calls
+
+
 def bound(flops: float, nbytes: float, peak_flops: float):
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -335,16 +354,18 @@ def phase_build() -> None:
 
 # the bf16 LN -> GEMM (B1), the fused FFN (B16), attention -> projection
 # (B15), the attention forwards (B2, B8 at head dims up to 128, B17-B19;
-# B8 at the prior's 384) and the attention backward's two kernels (B5) run
-# on Hopper's warpgroup MMA fed by TMA: their SASS holds HGMMA and UTMALDG,
-# and no mma.sync (HMMA). Each family by its demangled or mangled name.
+# B8 at the prior's 384), the attention backward's two kernels (B5) and the
+# int8 decode MLP (B14) run on Hopper's warpgroup MMA fed by TMA: their
+# SASS holds HGMMA and UTMALDG, and no mma.sync (HMMA). Each family by its
+# demangled or mangled name.
 SM90_KERNELS = {"ln_gemm": ("ln_gemm_kernel<", "ln_gemm_kernelI"),
                 "ffn": ("ffn_kernel<", "ffn_kernelI"),
                 "attn_proj": ("attn_proj_kernel",),
                 "attention fwd": ("attn_fwd_kernel",),
                 "attention fwd D=384": ("attn_wide_kernel",),
                 "attention_bwd rows": ("attn_bwd_rows_kernel",),
-                "attention_bwd cols": ("attn_bwd_cols_kernel",)}
+                "attention_bwd cols": ("attn_bwd_cols_kernel",),
+                "int8_mlp": ("int8_mlp_kernel",)}
 
 
 def check_sass(lib_path: str) -> None:
@@ -696,6 +717,24 @@ def prior_int8_inputs(gen) -> dict:
     return t
 
 
+def int8_mlp_f64(x, gamma, beta, w0_q, s0, b0, w1_q, s1, b1, residual,
+                 activation="sqrelu", eps=1e-5):
+    """The int8 decode MLP in fp64, with the roundings the function itself
+    makes (LN(x) and the hidden to x's dtype) and no others."""
+    from enhancing_tpu_torch.ops import ln_gemm as lg
+    x64 = x.double()
+    mean = x64.mean(-1, keepdim=True)
+    var = ((x64 * x64).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+    xn = ((x64 - mean) * (torch.rsqrt(var + eps) * gamma.double())
+          + beta.double()).to(x.dtype).double()
+    h = xn @ w0_q.double().t() * s0.double()
+    if b0 is not None:
+        h = h + b0.double()
+    h = lg._act(h, activation).to(x.dtype).double()
+    res = residual.double() + (0.0 if b1 is None else b1.double())
+    return (h @ w1_q.double().t()) * s1.double() + res
+
+
 def compare_int8_kernels(gen, close, errs) -> None:
     """B11-B14 and B9's new dtype pairs against their plain versions at the
     int8 serving path's shapes, each line with the limit of its output;
@@ -729,8 +768,14 @@ def compare_int8_kernels(gen, close, errs) -> None:
              want_xn)
     mlp = (x, g, bt, t["p0_q"], t["p0_s"], t["p0_b"], t["p1_q"], t["p1_s"],
            t["p1_b"], x)
-    line("int8_mlp", "int8_mlp f32 x (8, 6144), hidden 24576",
-         int8.int8_mlp_kernel(*mlp), int8.int8_mlp_plain(*mlp))
+    got, want = int8.int8_mlp_kernel(*mlp), int8.int8_mlp_plain(*mlp)
+    line("int8_mlp", "int8_mlp f32 x (8, 6144), hidden 24576", got, want)
+    exact = int8_mlp_f64(*mlp)
+    log("[compare] int8_mlp f32 x (8, 6144), hidden 24576, against an fp64 "
+        f"evaluation (|fp64| max {float(exact.abs().max()):.4f}): kernel "
+        f"max_abs_err {float((got.double() - exact).abs().max()):.3e}, "
+        f"plain {float((want.double() - exact).abs().max()):.3e} (logged)")
+    del got, want, exact
     got, got_xn = lg.ln_shift_gemm_kernel(x, g, bt, tm, prev, t["qkv"],
                                           t["qkv_b"])
     want, want_xn = lg.ln_shift_gemm_plain(x, g, bt, tm, prev, t["qkv"],
@@ -920,6 +965,10 @@ def phase_times() -> dict:
         lambda: lg.layernorm(x, g, b),
         lambda: F.layer_norm(x, (d,), g.to(x.dtype), b.to(x.dtype), 1e-5),
         8.0 * m * d, 2 * m * d * 2 + 2 * d * 4, PEAK_BF16, 50)
+    g16, b16 = g.to(x.dtype), b.to(x.dtype)
+    log(f"[time] layernorm B={TIME_BATCH} device ms (torch.profiler, 20 "
+        f"calls): kernel {device_ms(lambda: lg.layernorm_kernel(x, g, b)):.4f}"
+        f", library {device_ms(lambda: F.layer_norm(x, (d,), g16, b16)):.4f}")
 
     z, cb = t["z"], t["codebook"]
     row("vq", f"vq B={TIME_BATCH}",
@@ -1168,6 +1217,11 @@ def time_int8_kernels(gen, row) -> None:
                          b1),
         4.0 * b * c * 4 * c,
         2 * f4 + 2 * c * 4 + 8 * c * c + 4 * c * 6 + c * 6, PEAK_F32, 20)
+    mlp16 = (x16,) + mlp[1:]
+    log("[time] int8_mlp device ms (torch.profiler, 20 calls): f32 x "
+        f"{device_ms(lambda: int8.int8_mlp_kernel(*mlp)):.4f}, bf16 x "
+        f"{device_ms(lambda: int8.int8_mlp_kernel(*mlp16)):.4f}; bf16 x by "
+        f"events {time_ms(lambda: int8.int8_mlp_kernel(*mlp16), 20):.4f}")
     del w0, w1, mlp
     w32 = t["qkv"].float()
     row("ln_shift_gemm", "ln_shift_gemm LNFUSE qkv f32 x (8, 6144), bf16 W "

@@ -1,7 +1,8 @@
-// Weight-streaming products for the decode step's few rows: the shared
-// core of the int8 GEMM (int8_gemm.cu), the int8 LN + token-shift GEMM
-// (int8_ln_gemm.cu), the bf16 LN + token-shift GEMM (ln_shift_gemm.cu) and
-// the one-launch int8 MLP (int8_mlp.cu).
+// Weight-streaming products for the decode step's few rows on CUDA cores:
+// the shared core of the int8 GEMM (int8_gemm.cu), the int8 LN +
+// token-shift GEMM (int8_ln_gemm.cu) and the bf16 LN + token-shift GEMM
+// (ln_shift_gemm.cu). (The one-launch int8 MLP runs on the tensor cores:
+// int8_wgmma.cuh.)
 //
 //   y[r, n] = epilogue(sum_k a[r, k] * W[n, k])   for up to 8 rows r
 //
@@ -30,12 +31,13 @@
 // staging each with all of a thread's loads in flight at once. With a
 // LayerNorm in front, the rows are normalised once into an fp32 workspace
 // by a cooperative launch (gemv_ln_kernel), not by every block.
-// wgmma, TMA and split-K are left for later work.
+// wgmma, TMA and split-K: int8_wgmma.cuh (B14), where B11-B13 may move.
 #pragma once
 
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "vec.cuh"
 
 namespace gemv {
 
@@ -47,68 +49,12 @@ constexpr int kChunk = 1024;             // k staged in shared memory
 constexpr int kPasses = kChunk / kPass;
 constexpr int kStageFloats = kRows * kChunk;
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32(float x) {
-  return __float2bfloat16(x);
-}
-
-// x rounded to T's precision, kept as fp32
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
-// an element of an fp32 or bf16 vector chosen at run time (biases, the
-// shift state), widened to fp32; a null pointer reads 0
-__device__ __forceinline__ float load_any(const void* p, int dtype,
-                                          size_t i) {
-  if (p == nullptr) return 0.f;
-  return dtype == ETK_BF16
-             ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-             : static_cast<const float*>(p)[i];
-}
-
-// four consecutive elements, 16-byte (fp32) or 8-byte (bf16) aligned,
-// through the read-only cache, widened to fp32
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  return make_float4(__uint_as_float(u.x << 16),
-                     __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16),
-                     __uint_as_float(u.y & 0xffff0000u));
-}
-__device__ __forceinline__ float4 ld4_any(const void* p, int dtype,
-                                          size_t i) {
-  return dtype == ETK_BF16
-             ? ld4(static_cast<const __nv_bfloat16*>(p) + i)
-             : ld4(static_cast<const float*>(p) + i);
-}
-// four values already rounded to T's precision, stored as T
-__device__ __forceinline__ void st4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ void st4(__nv_bfloat16* p, float4 v) {
-  uint2 u;
-  u.x = pack_bf16x2(v.x, v.y);
-  u.y = pack_bf16x2(v.z, v.w);
-  *reinterpret_cast<uint2*>(p) = u;
-}
+using cvt::from_f32;
+using cvt::ld4;
+using cvt::ld4_any;
+using cvt::load_any;
+using cvt::round_to;
+using cvt::st4;
 
 // ---- weight vectors: 16 weights per lane per pass -------------------------
 
@@ -315,8 +261,8 @@ __device__ __forceinline__ float mix_one(float xr, float t, float p) {
 }
 
 // One block normalises row `row` of x (m, d): LN(x) rounded to x's dtype
-// into xn (if not null, x's dtype), and the product's input (LN(x), or
-// with tm its token shift against prev) into the fp32 row ws_row.
+// into xn (x's dtype), and the product's input (LN(x), or with tm its
+// token shift against prev) into the fp32 row ws_row.
 // `red`: 2 * kWarps floats of shared memory. Every thread must call it.
 template <typename XT>
 __device__ __forceinline__ void ln_row(const XT* __restrict__ x,
@@ -358,7 +304,7 @@ __device__ __forceinline__ void ln_row(const XT* __restrict__ x,
                            ln_one<XT>(v.y, g.y, b.y, mean, rstd),
                            ln_one<XT>(v.z, g.z, b.z, mean, rstd),
                            ln_one<XT>(v.w, g.w, b.w, mean, rstd));
-    if (xn != nullptr) st4(xn + i, o);
+    st4(xn + i, o);
     if (tm != nullptr) {
       const float4 t = ld4(tm + k), p = ld4_any(prev, prev_dtype, i);
       o = make_float4(mix_one<XT>(o.x, t.x, p.x), mix_one<XT>(o.y, t.y, p.y),

@@ -2,7 +2,8 @@
 // ln_gemm.cu), the fused FFN (B16, ffn.cu), attention -> projection (B15,
 // attn_proj.cu), the attention backward (B5, attention_bwd.cu), the
 // attention forwards (B2, B8, B17-B19, attention_bnhd.cu) and the decode
-// attention (B9, decode_attention.cu), in raw PTX:
+// attention (B9, decode_attention.cu), and under int8_wgmma.cuh the int8
+// decode MLP (B14, int8_mlp.cu), in raw PTX:
 //
 // - TMA: bf16 tensor maps encoded on the host (cuTensorMapEncodeTiled,
 //   looked up through the CUDA runtime, so the library links no libcuda),
@@ -516,6 +517,43 @@ __device__ __forceinline__ void fence_async_cta() {
 // the operand lists are written out, since an asm template is a literal.
 template <int N>
 struct Wgmma;
+
+template <>
+struct Wgmma<8> {
+  // d (64 x 8, fp32) = A (64 x 16, registers, mma.sync's fragment layout)
+  // * B (8 x 16)^T, B K-major in shared memory, + d unless accumulate is 0
+  __device__ __forceinline__ static void rs(float (&d)[4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int accumulate = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate));
+  }
+};
+
+template <>
+struct Wgmma<24> {
+  // d (64 x 24, fp32) = A (64 x 16, registers, mma.sync's fragment layout)
+  // * B (24 x 16)^T, B K-major in shared memory, + d unless accumulate is 0
+  __device__ __forceinline__ static void rs(float (&d)[12],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int accumulate = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
+        "{%12, %13, %14, %15}, %16, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate));
+  }
+};
 
 template <>
 struct Wgmma<32> {

@@ -40,6 +40,7 @@ SIGNATURES = {
     "etk_ln_gemm": [_p] * 7 + [_i, _i, _i, _i, _f, _i, _p],
     "etk_ln_gemm_plan": [_i, _i, ctypes.POINTER(_i)],
     "etk_layernorm": [_p, _p, _p, _p, _i, _i, _f, _i, _p],
+    "etk_layernorm_plan": [_i, _i, _i, ctypes.POINTER(_i)],
     "etk_attention_qkv": [_p, _p, _i, _i, _i, _i, _f, _i, _i, _p],
     "etk_vq_nearest": [_p, _p, _p, _p, _i, _i, _i, _p],
     "etk_attention_bwd": [_p] * 8 + [_i] * 13 + [_p],
@@ -53,7 +54,8 @@ SIGNATURES = {
     "etk_int8_gemm": [_p] * 6 + [_i] * 6 + [_p],
     "etk_int8_ln_gemm": [_p] * 11 + [_i] * 4 + [_f, _i, _i, _i, _p],
     "etk_ln_shift_gemm": [_p] * 10 + [_i] * 4 + [_f, _i, _i, _i, _i, _p],
-    "etk_int8_mlp": [_p] * 12 + [_i] * 4 + [_f, _i, _i, _p],
+    "etk_int8_mlp": [_p] * 13 + [_i] * 4 + [_f, _i, _i, _p],
+    "etk_int8_mlp_plan": [_i, _i, _i, _i, ctypes.POINTER(_i)],
     "etk_attn_proj": [_p] * 7 + [_i] * 9 + [_f, _i, _i, _p],
     "etk_ffn": [_p] * 6 + [_i] * 4 + [_p],
     "etk_ffn_plan": [_i, ctypes.POINTER(_i)],

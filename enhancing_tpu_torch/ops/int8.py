@@ -11,9 +11,11 @@ axis, so ``(x @ w_q^T) * scale`` is exact in the factorisation.
   b) [+ residual]``.
 - :func:`int8_ln_gemm` (``csrc/int8_ln_gemm.cu``): LayerNorm, the token
   shift (``tm`` None skips it), the product; returns ``(y, LN(x))``.
-- :func:`int8_mlp_decode` (``csrc/int8_mlp.cu``): the whole pre-norm MLP
-  ``residual + (act(LN(x) @ w0_q^T * s0 + b0) @ w1_q^T) * s1 + b1`` in one
-  launch.
+- :func:`int8_mlp_decode` (``csrc/int8_mlp.cu`` on ``csrc/int8_wgmma.cuh``):
+  the whole pre-norm MLP ``residual + (act(LN(x) @ w0_q^T * s0 + b0) @
+  w1_q^T) * s1 + b1`` in one launch, its products on the tensor cores as
+  exact fp32 products of bf16 pieces (:func:`int8_mlp_plan` mirrors its
+  launch).
 
 Numerics are the Pallas kernels': the int8 weight is cast exactly to the
 activations' dtype (fp32 on the decode path, whose residual stream is
@@ -32,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
-from .common import LAUNCHES, check_kernel_args, use_kernel
+from .common import LAUNCHES, cdiv, check_kernel_args, use_kernel
 from .ln_gemm import (ACTIVATIONS, DTYPE_CODES, X_DTYPES, _act, bias_code,
                       check_vec, layernorm, ln_kernel_checks, ln_operands,
                       ln_shift_mix)
@@ -213,11 +215,76 @@ def int8_mlp_plain(x, gamma, beta, w0_q, s0, b0, w1_q, s1, b1, residual,
     return (acc * s1.float() + res).to(x.dtype)
 
 
+# csrc/int8_mlp.cu: three consumer warpgroups of 64 channels a block, 128-k
+# stages (a 192 x 128 int8 weight box and two 64-k boxes of 8 x P bf16
+# activation pieces), at most 6 stages under the 227 KB a block may use
+MLP_TILE_N, MLP_WGS, MLP_CHUNK, MLP_ROWS, MLP_MAX_STAGES = 64, 3, 128, 8, 6
+MLP_SMEM_LIMIT = 232448 - 2048
+
+
+def int8_mlp_plan(m: int, d: int, h: int, sms: int = 132,
+                  pieces: int = 3) -> dict:
+    """The int8 MLP kernel's launch for an (m, d) x with hidden width h on a
+    card of ``sms`` SMs, ``pieces`` bf16 pieces an activation (3 for fp32
+    x, 1 for bf16), as ``csrc/int8_mlp.cu`` makes it (the C entry
+    ``etk_int8_mlp_plan`` returns the same numbers):
+
+    - ``groups_b``: phase B units, 192 hidden channels each over all of d;
+    - ``splits`` of the hidden axis in phase C (``split_chunks`` 128-wide
+      chunks each, none empty) and ``groups_c`` units, 192 output channels
+      of one split each, as many as fill the SMs;
+    - ``grid``: one block an SM, at most one a unit of the larger phase;
+    - ``stages`` of the TMA ring and the ``smem`` they take (+ 1 KB of
+      alignment slack);
+    - ``ws_bytes``: LN(x)'s and the hidden's pieces (8 P rows of d and of
+      h bf16) and, with more than one split, the fp32 partials;
+    - ``sync_words``: the persistent grid barrier's count and generation
+      and one arrival count an output tile of 64.
+
+    Raises ValueError for a shape the kernel refuses."""
+    if m <= 0 or d <= 0 or h <= 0 or d % 16 or h % 16 or pieces not in (1, 3):
+        raise ValueError(f"int8_mlp kernel takes m, d, h > 0 with d and h % "
+                         f"16 == 0 and 1 or 3 pieces; got m={m}, d={d}, "
+                         f"h={h}, pieces={pieces}")
+    tiles_c = cdiv(d, MLP_TILE_N)
+    groups_c0, chunks_c = cdiv(tiles_c, MLP_WGS), cdiv(h, MLP_CHUNK)
+    groups_b = cdiv(cdiv(h, MLP_TILE_N), MLP_WGS)
+    split_chunks = cdiv(chunks_c, max(1, min(sms // groups_c0, chunks_c)))
+    splits = cdiv(chunks_c, split_chunks)
+    groups_c = groups_c0 * splits
+    stage = MLP_WGS * MLP_TILE_N * MLP_CHUNK + 2 * MLP_ROWS * pieces * 128
+    stages = min(MLP_MAX_STAGES, MLP_SMEM_LIMIT // stage)
+    ws = 2 * MLP_ROWS * pieces * (d + h)
+    if splits > 1:
+        ws += 4 * splits * MLP_ROWS * d
+    return dict(grid=max(1, min(sms, max(groups_b, groups_c))),
+                groups_b=groups_b, groups_c=groups_c, splits=splits,
+                split_chunks=split_chunks, stages=stages,
+                smem=stages * stage + 1024, ws_bytes=ws,
+                sync_words=2 + tiles_c)
+
+
+# The kernel's grid barriers and split counts: int32 words that start at
+# zero once and that every launch leaves at zero (the barrier's generation
+# aside), one buffer per device and stream, grown when a wider d needs it.
+_MLP_SYNC: dict = {}
+
+
+def _mlp_sync(device: torch.device, words: int) -> torch.Tensor:
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _MLP_SYNC.get(key)
+    if buf is None or buf.numel() < words:
+        buf = torch.zeros(max(words, 256), dtype=torch.int32, device=device)
+        _MLP_SYNC[key] = buf
+    return buf
+
+
 def int8_mlp_kernel(x, gamma, beta, w0_q, s0, b0, w1_q, s1, b1, residual,
                     activation="sqrelu", eps=1e-5):
     """Launch ``csrc/int8_mlp.cu``: x (m, d) fp32 or bf16, w0_q (h, d) and
     w1_q (d, h) int8 with fp32 scales, biases fp32 or bf16 (one dtype),
-    residual (m, d) fp32; d and h % 16 == 0."""
+    residual (m, d) fp32; d and h % 16 == 0. One cooperative launch; it
+    raises if the card cannot hold its grid at once."""
     m, d = x.shape
     h = w0_q.shape[0]
     _check_x("int8_mlp", x)
@@ -238,15 +305,21 @@ def int8_mlp_kernel(x, gamma, beta, w0_q, s0, b0, w1_q, s1, b1, residual,
         raise ValueError("int8_mlp kernel takes an fp32 (m, d) residual")
     check_kernel_args("int8_mlp", x, gamma, beta, w0_q, s0, b0, w1_q, s1, b1,
                       residual)
+    if any(t.data_ptr() % 16 for t in (x, gamma, beta, w0_q, w1_q)):
+        raise ValueError("int8_mlp kernel needs x, gamma, beta and the "
+                         "weights 16-byte aligned")
+    plan = int8_mlp_plan(m, d, h, torch.cuda.get_device_properties(
+        x.device).multi_processor_count, 3 if x.dtype == torch.float32 else 1)
     out = torch.empty_like(x)
-    ws = torch.empty(8 * (d + h), dtype=torch.float32, device=x.device)
+    ws = torch.empty(plan["ws_bytes"], dtype=torch.uint8, device=x.device)
+    sync = _mlp_sync(x.device, plan["sync_words"])
     bias = b0 if b0 is not None else b1
     cuda_lib.call("etk_int8_mlp", x.data_ptr(), gamma.data_ptr(),
                   beta.data_ptr(), w0_q.data_ptr(), s0.data_ptr(), _ptr(b0),
                   w1_q.data_ptr(), s1.data_ptr(), _ptr(b1),
-                  residual.data_ptr(), out.data_ptr(), ws.data_ptr(), m, d, h,
-                  ACTIVATIONS[activation], eps, bias_code(bias),
-                  DTYPE_CODES[x.dtype], cuda_lib.stream())
+                  residual.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                  sync.data_ptr(), m, d, h, ACTIVATIONS[activation], eps,
+                  bias_code(bias), DTYPE_CODES[x.dtype], cuda_lib.stream())
     LAUNCHES["int8_mlp"] += 1
     return out
 

@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
-from .common import LAUNCHES, check_kernel_args, use_kernel
+from .common import LAUNCHES, cdiv, check_kernel_args, use_kernel
 
 ACTIVATIONS = {None: 0, "none": 0, "tanh": 1, "sqrelu": 2, "gelu": 3}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -201,15 +201,44 @@ def fused_ln_gemm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return out.reshape(*batch_shape, w.shape[0])
 
 
+# csrc/layernorm.cu: eight consumer warps (a row each), tiles of at least
+# 8 KB (up to 8 rows a warp), a ring of at most 96 KB and 4 stages, three
+# blocks an SM where shared memory holds them
+LN_WARPS, LN_TILE_TARGET, LN_RING_BUDGET, LN_MAX_STAGES = 8, 8192, 98304, 4
+LN_BLOCKS_PER_SM, LN_MAX_D = 3, 2048
+
+
+def layernorm_plan(m: int, d: int, itemsize: int, sms: int = 132) -> dict:
+    """The LayerNorm kernel's launch for an (m, d) input of ``itemsize``-
+    byte elements on a card of ``sms`` SMs, as ``csrc/layernorm.cu`` makes
+    it (the C entry ``etk_layernorm_plan`` returns the same numbers): rows
+    a tile, ring stages, dynamic shared memory (the ring, fp32 gamma and
+    beta) and a persistent grid. Raises ValueError for a shape the kernel
+    refuses."""
+    if itemsize not in (2, 4) or m <= 0 or d <= 0 or d > LN_MAX_D \
+            or d % (16 // itemsize):
+        raise ValueError(f"layernorm kernel needs 0 < d <= {LN_MAX_D}, "
+                         f"d % {16 // itemsize} == 0 and m > 0; got "
+                         f"m={m}, d={d}, itemsize={itemsize}")
+    row_bytes = d * itemsize
+    rows = LN_WARPS * min(max(LN_TILE_TARGET // (LN_WARPS * row_bytes), 1), 8)
+    tile = rows * row_bytes
+    stages = min(max(LN_RING_BUDGET // tile, 2), LN_MAX_STAGES)
+    smem = stages * tile + 2 * d * 4
+    per_sm = min(max(233472 // (smem + 2048), 1), LN_BLOCKS_PER_SM)
+    return dict(rows=rows, stages=stages, smem=smem,
+                grid=min(cdiv(m, rows), sms * per_sm))
+
+
 def layernorm_kernel(x, gamma, beta, eps=1e-5):
-    """Launch ``csrc/layernorm.cu`` on a CUDA (m, d) bf16/f32 tensor."""
+    """Launch ``csrc/layernorm.cu`` on a CUDA (m, d) bf16/f32 tensor whose
+    data and output start 16-byte aligned (bulk copies, vector stores)."""
     m, d = x.shape
     if x.dtype not in _DTYPES:
         raise TypeError(f"layernorm kernel takes bf16 or f32, got {x.dtype}")
-    vec = 8 if x.dtype == torch.bfloat16 else 4
-    if d % vec or d > 2048:
-        raise ValueError(f"layernorm kernel needs d % {vec} == 0 and "
-                         f"d <= 2048, got d={d}")
+    layernorm_plan(m, d, x.element_size())
+    if x.data_ptr() % 16:
+        raise ValueError("layernorm kernel needs x 16-byte aligned")
     if gamma.shape != (d,) or beta.shape != (d,) or any(
             t.dtype != torch.float32 for t in (gamma, beta)):
         raise ValueError("layernorm kernel takes fp32 gamma and beta of (d,)")

@@ -121,6 +121,42 @@ def test_layernorm_kernel_matches_plain(cuda, dtype, m, d):
     _close(got, want, BF16_TOL if dtype == torch.bfloat16 else F32_TOL)
 
 
+# csrc/layernorm.cu at d = 768: 8-row tiles (bf16 and fp32), a grid of up to
+# two blocks an SM, each block a contiguous run of tiles
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 7, 9, 100, 264 * 8 * 3 + 5])
+def test_layernorm_streaming_kernel_ragged_rows(cuda, dtype, m):
+    """m = 1, a tile less and more one row, fewer tiles than the grid, and
+    runs of tiles that the grid does not divide, the last tile ragged; two
+    calls bit-equal."""
+    d = 768
+    x = _randn(cuda, m, d, dtype=dtype, scale=3.0) + 1.0
+    gamma, beta = 1.0 + 0.1 * _randn(cuda, d), 0.1 * _randn(cuda, d)
+    got = lg.layernorm_kernel(x, gamma, beta)
+    again = lg.layernorm_kernel(x, gamma, beta)
+    want = lg.layernorm(x, gamma, beta)
+    _close(got, want, BF16_TOL if dtype == torch.bfloat16 else F32_TOL)
+    assert torch.equal(got, again)
+
+
+def test_layernorm_plan_mirrors_the_c_entry(cuda):
+    """ops.ln_gemm.layernorm_plan gives the numbers csrc/layernorm.cu picks
+    on this card, and both refuse the same shapes."""
+    from enhancing_tpu_torch.ops import cuda_lib
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for m in (1, 9, 100, 131072):
+        for d, item in ((768, 2), (768, 4), (64, 2), (2048, 4), (8, 2)):
+            want = lg.layernorm_plan(m, d, item, sms)
+            assert cuda_lib.plan("etk_layernorm_plan", m, d, item,
+                                 size=4) == tuple(
+                want[k] for k in ("rows", "stages", "smem", "grid"))
+    for m, d, item in ((0, 768, 2), (8, 772, 2), (8, 2056, 4)):
+        with pytest.raises(ValueError):
+            lg.layernorm_plan(m, d, item, sms)
+        with pytest.raises(RuntimeError):
+            cuda_lib.plan("etk_layernorm_plan", m, d, item, size=4)
+
+
 @pytest.mark.parametrize("b,n,h,d,mode,cl", [
     (2, 1024, 12, 64, "none", 0),
     (1, 16, 2, 64, "none", 0),
@@ -856,6 +892,54 @@ def test_int8_mlp_kernel_matches_plain(cuda, dtype, m, d, h, bias):
         tol = dict(atol=2.0 ** -7 * float(want.float().abs().max()),
                    rtol=2.0 ** -7)
     _close(got, want, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,d,h", [(1, 512, 1040), (8, 512, 1040),
+                                   (9, 6144, 24576), (17, 256, 1040)])
+def test_int8_mlp_wgmma_rows_and_ragged_tiles(cuda, dtype, m, d, h):
+    """csrc/int8_mlp.cu at m = 1, 8, 9 and 17 (one, two and three tiles of
+    8 rows), h not a multiple of the 64-channel tile (1040), both x dtypes,
+    bf16 biases; two calls bit-equal."""
+    x = _randn(cuda, m, d, dtype=dtype)
+    gamma, beta = 1.0 + 0.1 * _randn(cuda, d), 0.1 * _randn(cuda, d)
+    w0_q, s0 = _quantized(cuda, h, d)
+    w1_q, s1 = _quantized(cuda, d, h)
+    b0 = 0.1 * _randn(cuda, h, dtype=torch.bfloat16)
+    b1 = 0.1 * _randn(cuda, d, dtype=torch.bfloat16)
+    res = _randn(cuda, m, d)
+    args = (x, gamma, beta, w0_q, s0, b0, w1_q, s1, b1, res, "gelu")
+    got = int8.int8_mlp_kernel(*args)
+    again = int8.int8_mlp_kernel(*args)
+    want = int8.int8_mlp_plain(*args)
+    tol = _int8_limits(want)
+    if dtype == torch.bfloat16:  # as test_int8_mlp_kernel_matches_plain
+        tol = dict(atol=2.0 ** -7 * float(want.float().abs().max()),
+                   rtol=2.0 ** -7)
+    _close(got, want, tol)
+    assert torch.equal(got, again)
+
+
+def test_int8_mlp_plan_mirrors_the_c_entry(cuda):
+    """ops.int8.int8_mlp_plan gives the numbers csrc/int8_mlp.cu picks on
+    this card, at the prior's widths and the tests' shapes, and both refuse
+    the same shapes."""
+    from enhancing_tpu_torch.ops import cuda_lib
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    keys = ("grid", "groups_b", "groups_c", "splits", "split_chunks",
+            "stages", "smem", "ws_bytes", "sync_words")
+    for m, d, h in ((8, 6144, 24576), (3, 256, 1024), (19, 512, 2048),
+                    (1, 512, 1040), (9, 16, 16)):
+        for pieces in (1, 3):
+            want = int8.int8_mlp_plan(m, d, h, sms, pieces)
+            assert cuda_lib.plan("etk_int8_mlp_plan", m, d, h, pieces,
+                                 size=9) == tuple(want[k] for k in keys)
+    for m, d, h, pieces in ((0, 256, 1024, 3), (8, 200, 1024, 3),
+                            (8, 256, 1000, 1), (8, 256, 1024, 2)):
+        with pytest.raises(ValueError):
+            int8.int8_mlp_plan(m, d, h, sms, pieces)
+        with pytest.raises(RuntimeError):
+            cuda_lib.plan("etk_int8_mlp_plan", m, d, h, pieces, size=9)
 
 
 @pytest.mark.parametrize("x_dtype,w_dtype", [
