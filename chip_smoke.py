@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Five paths, in bf16 with random weights from a seed; the tokenizer's at
-ViT-VQGAN-Base's full widths and depth (256 px, 8x8 patches, width 768,
-12 heads of 64, MLP 3072, 12 + 12 layers, 8192 codes of 32):
+Five paths in bf16, then the shipped configurations in their own fp32,
+with random weights from a seed; the tokenizer's at ViT-VQGAN-Base's full
+widths and depth (256 px, 8x8 patches, width 768, 12 heads of 64, MLP
+3072, 12 + 12 layers, 8192 codes of 32):
 
 - serving: the tokenizer round trip ``encode_codes`` -> ``decode_codes``;
 - training: ``Trainer.fit`` on ``configs/fake_vitvq_base.yaml`` (held
@@ -20,7 +21,12 @@ ViT-VQGAN-Base's full widths and depth (256 px, 8x8 patches, width 768,
   cache;
 - fused serving: the tokenizer round trip with the JAX package's two
   opt-in fusions, ``ENHANCING_TPU_ATTN_PROJ=1`` and ``ffn_impl: fused``
-  in the encoder and decoder configs.
+  in the encoder and decoder configs;
+- the shipped configs in fp32: ``configs/imagenet_vitvq_base.yaml`` and
+  ``imagenet_vitvq_large.yaml`` (and Large with heads of 80 in the
+  decoder, fp32 and bf16) round trips, a ``fake_vitvq_base`` training step
+  with ``dtype: float32``, and the fp32 prior of
+  ``imagenet_gpt_vitvq_base.yaml``'s prefill and decode steps.
 
 Phases, each of which raises on failure:
 
@@ -81,8 +87,27 @@ Phases, each of which raises on failure:
    B15 24, B3 26, B16 24, B4 1); codes and reconstructions held to the
    default path (same seed) and to the plain path at batch 8 with phase
    5's limits; images/s and peak memory at batch 128 and one round
-   trip's device time by kernel group.
+   trip's device time by kernel group;
+10. shipped configs: the two tokenizer configs through ``load_config`` +
+    ``initialize_from_config(device="cuda")`` in their own fp32, and the
+    Large config with the decoder's ``dim_head`` set to 80 (1280 / 16) in
+    fp32 and bf16, a round trip each at batch 8 with launches a trip
+    asserted exactly (Base B1 48, B2 24, B3 2, B4 1; Large B1 80, B2 40,
+    B3 2, B4 1; every attention launch fp32 in fp32), codes and
+    reconstructions against the plain path, time and peak memory;
+11. the fp32 training step: ``fake_vitvq_base`` with ``dtype: float32``,
+    one AE and D step with its launches asserted (phase 6's, every
+    attention and attention backward launch fp32), one step's losses and
+    gradients against the plain path (1e-4 relative, cosines 0.99999);
+12. the fp32 prior: ``imagenet_gpt_vitvq_base.yaml``'s GPT at full width
+    and depth (24 x 6144, 16 heads of 384) in fp32, prefill (B8 fp32) and
+    16 teacher-forced decode steps, launches asserted, logits against the
+    plain path within 1e-3 and argmax equal at 99% of positions.
 
+Phases 3 and 4 hold and time the fp32 attention kernels
+(``csrc/attention_f32.cu``: B2, B8 at 384, B5, B17-B19 in fp32) and the
+bf16 forward and backward at heads of 80 (the 128 tile); the SASS of the
+fp32 kernels must hold fp32 FMAs and no tensor-core instruction.
 Phases 3 and 4 also hold and time B17-B19, which no driven path runs
 (their JAX counterparts are a public op, a function with no caller and a
 kernel only a test reaches).
@@ -255,11 +280,20 @@ D_ACTS = ([(TRAIN_BATCH, 256, 256, 128)] * 2
           + [(TRAIN_BATCH, 128, 128, 256)] * 2 + [(TRAIN_BATCH, 64, 64, 512)] * 2
           + [(TRAIN_BATCH, s, s, 512) for s in (32, 32, 16, 16, 8, 8, 4, 4)]
           + [(TRAIN_BATCH, 512)])
+# the fp32 attention kernels (csrc/attention_f32.cu), each beside the bf16
+# kernel whose launch counter it shares (ops.F32_LAUNCHES tells them apart)
+F32_OF = {"attention_f32": "attention", "attention_bnhd_f32": "attention_bnhd",
+          "attention_bwd_f32": "attention_bwd",
+          "attention_bhnd_f32": "attention_bhnd",
+          "attention_fused_bnhd_f32": "attention_fused_bnhd",
+          "attention_gridchunk_f32": "attention_gridchunk"}
+REPLACES.update({name: REPLACES[bf16] for name, bf16 in F32_OF.items()})
 # B2, B8 and B17-B19 run the attention forwards of one source
 SOURCES = {name: "enhancing_tpu_torch/csrc/" + {
     "attention": "attention_bnhd", "attention_bhnd": "attention_bnhd",
     "attention_fused_bnhd": "attention_bnhd",
-    "attention_gridchunk": "attention_bnhd"}.get(name, name) + ".cu"
+    "attention_gridchunk": "attention_bnhd"}.get(
+        name, "attention_f32" if name in F32_OF else name) + ".cu"
     for name in REPLACES}
 
 
@@ -368,6 +402,10 @@ SM90_KERNELS = {"ln_gemm": ("ln_gemm_kernel<", "ln_gemm_kernelI"),
                 "int8_mlp": ("int8_mlp_kernel",)}
 
 
+F32_SIMT_KERNELS = ("attn_f32_fwd_kernel", "attn_f32_bwd_rows_kernel",
+                    "attn_f32_bwd_cols_kernel")
+
+
 def check_sass(lib_path: str) -> None:
     """Count HGMMA, UTMALDG and HMMA in the SASS of the sm90 kernels."""
     from pathlib import Path
@@ -396,6 +434,21 @@ def check_sass(lib_path: str) -> None:
               f"{name}: expected wgmma fed by TMA and no mma.sync")
     check(found == set(SM90_KERNELS),
           f"sm90 kernels missing from the SASS: {set(SM90_KERNELS) - found}")
+    # the fp32 attention kernels run on the SIMT cores in fp32 FMAs: no
+    # tensor-core instruction (so no TF32), each one present
+    simt = set()
+    for block in demangled.split("Function : ")[1:]:
+        name = block.split("\n", 1)[0]
+        family = next((f for f in F32_SIMT_KERNELS if f in name), None)
+        if family is None:
+            continue
+        simt.add(family)
+        counts = {op: block.count(op) for op in ("FFMA", "HGMMA", "HMMA")}
+        log(f"[build] SASS {name[:70]}: {counts}")
+        check(counts["FFMA"] > 0 and counts["HGMMA"] == counts["HMMA"] == 0,
+              f"{name}: expected fp32 FMAs and no tensor-core instruction")
+    check(simt == set(F32_SIMT_KERNELS),
+          f"fp32 kernels missing from the SASS: {set(F32_SIMT_KERNELS) - simt}")
 
 
 def rand(shape, gen, dtype=torch.bfloat16, scale=1.0):
@@ -579,6 +632,7 @@ def phase_compare() -> dict:
     compare_prior_kernels(gen, close, errs)
     compare_int8_kernels(gen, close, errs)
     compare_fused_kernels(gen, close, errs)
+    compare_f32_kernels(gen, close, errs)
     torch.cuda.synchronize()
     return errs
 
@@ -1030,6 +1084,7 @@ def phase_times() -> dict:
     time_prior_kernels(gen, row)
     time_int8_kernels(gen, row)
     time_fused_kernels(gen, row)
+    time_f32_kernels(gen, row)
     return rows
 
 
@@ -1452,8 +1507,465 @@ def time_fused_kernels(gen, row) -> None:
         4.0 * pairs * d, 4 * bs * ns * hs * d * 2, PEAK_BF16, 20)
 
 
-def phase_main_path() -> dict:
-    """The tokenizer round trip through the public entry points."""
+
+# -- fp32 attention and head dims between the tiles (csrc/attention_f32.cu,
+# the bf16 kernels' next tile) ----------------------------------------------
+
+F32_TOL = dict(atol=1e-4, rtol=1e-5)  # tests/test_torch_cuda.py's
+F32_BWD_TOL = dict(atol=1e-4, rtol=1e-4)
+# a 1280-wide tower over 16 heads: heads of 80 lanes (a config that sets
+# dim_head to dim / heads; the shipped Large config leaves it at 64)
+D80_HEADS, D80 = 16, 80
+
+
+def compare_f32_kernels(gen, close, errs) -> None:
+    """The fp32 attention kernels against their plain versions (fp32 sums
+    in another order: F32_TOL forward, 1e-4 + 1e-4 relative backward, over
+    N-term sums): B2 at ViT-VQGAN-Base's shape (batch 8) and at heads of
+    80, ragged and causal cases; B8 at the prior's prefill (N = 1025 and
+    1); B17-B19; B5 at the training shape. And the bf16 Hopper kernels at
+    heads of 80 (the 128 tile), at phase 3's bf16 limits."""
+    from enhancing_tpu_torch.ops import attention as att
+    f32 = torch.float32
+    for (b, n, h, d, mode, cl) in ((CHECK_BATCH, TOKENS, HEADS, HEAD_DIM,
+                                    "none", 0),
+                                   (CHECK_BATCH, TOKENS, D80_HEADS, D80,
+                                    "none", 0),
+                                   (2, 1025, 4, 64, "prefix_causal", 5),
+                                   (1, 300, 2, 128, "none", 0),
+                                   (3, 1, 4, 64, "none", 0),
+                                   (2, 65, 3, 48, "prefix_causal", 70)):
+        qkv = rand((b, n, 3 * h * d), gen, f32)
+        close("attention_f32", f"attention f32 {mode} B={b} N={n} H={h} "
+              f"D={d}",
+              att.attention_packed_qkv_kernel(qkv, h, d, d ** -0.5, mode, cl),
+              att.attention_packed_qkv_plain(qkv, h, d, d ** -0.5, mode, cl),
+              **F32_TOL)
+    for (b, n, h, d, cl) in ((SAMPLE_BATCH, P_CTX, P_HEADS, P_HEAD_DIM, 1),
+                             (SAMPLE_BATCH, 1, P_HEADS, P_HEAD_DIM, 1),
+                             (2, 300, 4, 64, 5)):
+        q, k, v = (rand((b, n, h, d), gen, f32) for _ in range(3))
+        close("attention_bnhd_f32", f"attention_bnhd f32 prefix_causal "
+              f"cond_len {cl} B={b} N={n} H={h} D={d}",
+              att.attention_bnhd_kernel(q, k, v, d ** -0.5, "prefix_causal",
+                                        cl),
+              att.attention_bnhd_plain(q, k, v, d ** -0.5, "prefix_causal",
+                                       cl), **F32_TOL)
+    for (n, m, d, mode) in ((300, 257, 64, "none"), (65, 130, 80,
+                                                    "prefix_causal")):
+        q = rand((2, 4, n, d), gen, f32)
+        k, v = rand((2, 4, m, d), gen, f32), rand((2, 4, m, d), gen, f32)
+        close("attention_bhnd_f32", f"attention_bhnd f32 {mode} N={n} M={m}"
+              f" D={d}", att.attention_bhnd_kernel(q, k, v, d ** -0.5, mode,
+                                                   3),
+              att.attention_plain(q, k, v, d ** -0.5, mode, 3), **F32_TOL)
+        qb, kb, vb = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        close("attention_fused_bnhd_f32", f"attention_fused_bnhd f32 {mode} "
+              f"N={n} M={m} D={d}",
+              att.attention_strided_kernel("attention_fused_bnhd", qb, kb, vb,
+                                           d ** -0.5, mode, 3,
+                                           score_scale=True),
+              att.attention_fused_bnhd_plain(qb, kb, vb, d ** -0.5, mode, 3),
+              **F32_TOL)
+    q3, k3, v3 = (rand((2, 1025, 16 * 64), gen, f32, 0.5) for _ in range(3))
+    close("attention_gridchunk_f32", "attention_gridchunk f32 prefix_causal "
+          "cond_len 1 B=2 N=1025 H=16 D=64",
+          att.attention_packed_gridchunk(q3, k3, v3, "prefix_causal", 1, 64),
+          att.attention_packed_plain(q3, k3, v3, "prefix_causal", 1, 64),
+          **F32_TOL)
+    for (b, n, h, d, mode, cl) in ((TRAIN_BATCH, TOKENS, HEADS, HEAD_DIM,
+                                    "none", 0),
+                                   (TRAIN_BATCH, TOKENS, D80_HEADS, D80,
+                                    "none", 0),
+                                   (2, 1025, 4, 64, "prefix_causal", 5)):
+        qkv = rand((b, n, 3 * h * d), gen, f32)
+        q3, k3, v3 = att.split_qkv_scaled(qkv, d ** -0.5)
+        do = rand((b, n, h * d), gen, f32)
+        got = att.attention_bwd_kernel(q3, k3, v3, do, h, d, mode, cl)
+        want = att.attention_bwd_plain(q3, k3, v3, do, h, d, mode, cl)
+        for name, g, w in zip("qkv", got, want):
+            close("attention_bwd_f32", f"attention_bwd f32 d{name} {mode} "
+                  f"B={b} N={n} H={h} D={d}", g, w, **F32_BWD_TOL)
+    del qkv, q3, k3, v3, do, got, want
+
+    # bf16 at heads of 80: B2 and B8 on the same lane slices bit-equal,
+    # B5 at phase 3's backward limit
+    b, n, h, d = CHECK_BATCH, TOKENS, D80_HEADS, D80
+    qkv = rand((b, n, 3 * h * d), gen)
+    got = att.attention_packed_qkv_kernel(qkv, h, d, d ** -0.5)
+    q, k, v = (t.view(b, n, h, d) for t in qkv.split(h * d, dim=-1))
+    equal = torch.equal(got, att.attention_bnhd_kernel(q, k, v, d ** -0.5)
+                        .view(b, n, h * d))
+    log(f"[compare] attention bf16 D={d}: B2 and B8 on its lane slices "
+        f"{'bit-equal' if equal else 'DIFFER'}")
+    check(equal, "B2 and B8 differ at D = 80")
+    close("attention", f"attention bf16 none B={b} N={n} H={h} D={d} (the "
+          "128 tile)", got,
+          att.attention_packed_qkv_plain(qkv, h, d, d ** -0.5),
+          atol=1e-2, rtol=2.0 ** -7)
+    q3, k3, v3 = att.split_qkv_scaled(qkv, d ** -0.5)
+    do = rand((b, n, h * d), gen)
+    got = att.attention_bwd_kernel(q3, k3, v3, do, h, d)
+    want = att.attention_bwd_plain(q3, k3, v3, do, h, d)
+    for name, g, w in zip("qkv", got, want):
+        close("attention_bwd", f"attention_bwd bf16 d{name} none B={b} N={n}"
+              f" H={h} D={d} (the 128 tile)", g, w,
+              atol=2.0 ** -6 * float(w.float().abs().max()), rtol=2.0 ** -6)
+
+
+def time_f32_kernels(gen, row) -> None:
+    """The fp32 kernels at the shipped fp32 configs' shapes: B2 at
+    ViT-VQGAN-Base's batch 8 (the shipped-configs phase's batch), B5 at
+    the training batch 8, B8 at the prior's teacher-forced prefill, B17-B19
+    at their bf16 rows' shapes but batch 8; the fp32 bound at 67 TFLOP/s;
+    the library call SDPA in fp32 with TF32 off. Then, logged, heads of 80
+    in bf16 and fp32 beside heads of 64 at the same width."""
+    from enhancing_tpu_torch.ops import attention as att
+    f32 = torch.float32
+    b, n, h, d = CHECK_BATCH, TOKENS, HEADS, HEAD_DIM
+    qkv = rand((b, n, 3 * h * d), gen, f32)
+    q, k, v = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4)
+    row("attention_f32", f"attention f32 B={b} N={n} H={h} D={d} (library: "
+        "SDPA fp32, TF32 off)",
+        lambda: att.attention_packed_qkv_kernel(qkv, h, d, d ** -0.5),
+        lambda: att.attention_packed_qkv_plain(qkv, h, d, d ** -0.5),
+        lambda: F.scaled_dot_product_attention(q, k, v),
+        4.0 * b * h * n * n * d, 4 * b * n * h * d * 4, PEAK_F32, 5)
+    q3, k3, v3 = att.split_qkv_scaled(qkv, d ** -0.5)
+    do = rand((b, n, h * d), gen, f32)
+    ql, kl, vl = (u.reshape(b, n, h, d).transpose(1, 2).detach()
+                  .requires_grad_() for u in (q3, k3, v3))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, scale=1.0)
+    lib_do = do.reshape(b, n, h, d).transpose(1, 2)
+    row("attention_bwd_f32", f"attention_bwd f32 B={b} N={n} H={h} D={d} "
+        "(library: autograd of SDPA fp32)",
+        lambda: att.attention_bwd_kernel(q3, k3, v3, do, h, d),
+        lambda: att.attention_bwd_plain(q3, k3, v3, do, h, d),
+        lambda: torch.autograd.grad(lib_out, (ql, kl, vl), lib_do,
+                                    retain_graph=True),
+        10.0 * b * h * n * n * d, 7 * b * n * h * d * 4, PEAK_F32, 5)
+    del qkv, q, k, v, q3, k3, v3, do, ql, kl, vl, lib_out
+
+    bs, ns, hs, ds = SAMPLE_BATCH, P_CTX, P_HEADS, P_HEAD_DIM
+    q, k, v = (rand((bs, ns, hs, ds), gen, f32) for _ in range(3))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    pairs = bs * hs * ns * (ns + 1) / 2
+    row("attention_bnhd_f32", f"attention_bnhd f32 prefix_causal B={bs} "
+        f"N={ns} H={hs} D={ds} (library: SDPA fp32 is_causal)",
+        lambda: att.attention_bnhd_kernel(q, k, v, ds ** -0.5,
+                                          "prefix_causal", 1),
+        lambda: att.attention_bnhd_plain(q, k, v, ds ** -0.5,
+                                         "prefix_causal", 1),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               scale=ds ** -0.5),
+        4.0 * pairs * ds, 4 * bs * ns * hs * ds * 4, PEAK_F32, 3)
+    del q, k, v, qt, kt, vt
+
+    scale = d ** -0.5
+    q, k, v = (rand((b, h, n, d), gen, f32) for _ in range(3))
+    row("attention_bhnd_f32", f"attention_bhnd f32 (B, H, N, D) none B={b} "
+        f"H={h} N={n} D={d} (library: SDPA fp32)",
+        lambda: att.attention_bhnd_kernel(q, k, v, scale),
+        lambda: att.attention_plain(q, k, v, scale),
+        lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+        4.0 * b * h * n * n * d, 4 * b * h * n * d * 4, PEAK_F32, 5)
+    q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    row("attention_fused_bnhd_f32", f"attention_fused_bnhd f32 (B, N, H, D) "
+        f"none B={b} N={n} H={h} D={d} (library: SDPA fp32 on the "
+        "transposed views)",
+        lambda: att.attention_strided_kernel("attention_fused_bnhd", q, k, v,
+                                             scale, score_scale=True),
+        lambda: att.attention_fused_bnhd_plain(q, k, v, scale),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale),
+        4.0 * b * h * n * n * d, 4 * b * h * n * d * 4, PEAK_F32, 5)
+    del q, k, v, qt, kt, vt
+    ns, hs = TOKENS + 1, 16
+    q3 = rand((bs, ns, hs * d), gen, f32, 0.125)
+    k3, v3 = (rand(q3.shape, gen, f32) for _ in range(2))
+    qt, kt, vt = (t.view(bs, ns, hs, d).transpose(1, 2) for t in (q3, k3, v3))
+    pairs = bs * hs * ns * (ns + 1) / 2
+    row("attention_gridchunk_f32", f"attention_gridchunk f32 prefix_causal "
+        f"cond_len 1 B={bs} H={hs} N={ns} D={d} (library: SDPA fp32 "
+        "is_causal)",
+        lambda: att.attention_packed_gridchunk(q3, k3, v3, "prefix_causal", 1,
+                                               d),
+        lambda: att.attention_packed_plain(q3, k3, v3, "prefix_causal", 1, d),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               scale=1.0),
+        4.0 * pairs * d, 4 * bs * ns * hs * d * 4, PEAK_F32, 5)
+    del q3, k3, v3, qt, kt, vt
+
+    # heads of 80 beside heads of 64 at the width of 16 heads, batch 8:
+    # forward and backward, bf16 and fp32, each with its bound
+    for dtype, peak in ((torch.bfloat16, PEAK_BF16), (f32, PEAK_F32)):
+        for d in (64, D80):
+            h = D80_HEADS
+            qkv = rand((b, n, 3 * h * d), gen, dtype)
+            q3, k3, v3 = att.split_qkv_scaled(qkv, d ** -0.5)
+            do = rand((b, n, h * d), gen, dtype)
+            fwd = time_ms(lambda: att.attention_packed_qkv_kernel(
+                qkv, h, d, d ** -0.5), 5)
+            bwd = time_ms(lambda: att.attention_bwd_kernel(  # noqa: B023
+                q3, k3, v3, do, h, d), 5)
+            size = dtype.itemsize
+            fb, _ = bound(4.0 * b * h * n * n * d, 4 * b * n * h * d * size,
+                          peak)
+            bb, _ = bound(10.0 * b * h * n * n * d, 7 * b * n * h * d * size,
+                          peak)
+            log(f"[time] attention {str(dtype)[6:]} B={b} N={n} H={h} D={d}:"
+                f" forward {fwd:.4f} ms (bound {fb:.4f}), backward "
+                f"{bwd:.4f} ms (bound {bb:.4f})")
+            del qkv, q3, k3, v3, do
+
+
+def kernel_counts() -> dict:
+    """The launches since the last reset by kernels-line name: each bf16
+    kernel's (its LAUNCHES less the fp32 ones counted under its name) and
+    each fp32 kernel's."""
+    from enhancing_tpu_torch.ops import F32_LAUNCHES, LAUNCHES
+    out = {k: v - F32_LAUNCHES[k] for k, v in LAUNCHES.items()}
+    out.update({k: F32_LAUNCHES[v] for k, v in F32_OF.items()})
+    return out
+
+
+# configs/*.yaml as shipped, their own dtype (fp32): launches a round trip
+SHIPPED = {"imagenet_vitvq_base": {"ln_gemm": 48, "attention": 24,
+                                   "layernorm": 2, "vq": 1},
+           "imagenet_vitvq_large": {"ln_gemm": 80, "attention": 40,
+                                    "layernorm": 2, "vq": 1}}
+# kernels against the plain path at batch 8: codes equal at 99% of tokens
+# (the rest near-ties of random weights); reconstructions from the same
+# codes within 1e-3 in fp32 (sums in another order over 12 or 32 layers)
+# and phase 5's limits in bf16
+SHIPPED_MATCH, SHIPPED_REC_ATOL = {"float32": 99.0, "bfloat16": 95.0}, {
+    "float32": 1e-3, "bfloat16": 0.1}
+
+
+def phase_shipped_configs(x8, codes_bf16) -> dict:
+    """configs/imagenet_vitvq_base.yaml and imagenet_vitvq_large.yaml
+    through load_config + initialize_from_config(device='cuda'), in their
+    own fp32; then the Large config with the decoder's dim_head set to
+    1280 / 16 = 80, in fp32 and bf16, which puts heads of 80 on the path.
+    Each: a round trip at batch 8 with its launches asserted, against the
+    plain path, its time and peak memory. Returns the launches by
+    kernels-line name."""
+    from pathlib import Path
+
+    from enhancing_tpu_torch.ops import F32_LAUNCHES, LAUNCHES, reset_launches
+    from enhancing_tpu_torch.utils.config import (initialize_from_config,
+                                                  load_config)
+    configs = Path(__file__).resolve().parent / "configs"
+    total: dict = {}
+    variants = [(name, {}) for name in SHIPPED] + [
+        ("imagenet_vitvq_large", {"dim_head": D80}),
+        ("imagenet_vitvq_large", {"dim_head": D80, "dtype": "bfloat16"})]
+    for name, change in variants:
+        cfg = load_config(configs / f"{name}.yaml")
+        params = cfg.model.params
+        if "dtype" in change:
+            params["dtype"] = change["dtype"]
+        if "dim_head" in change:
+            params.decoder["dim_head"] = change["dim_head"]
+        dtype = params.get("dtype", "float32")
+        label = f"{name}{' dec dim_head 80' if change else ''} {dtype}"
+        gc_cuda()
+        t0 = time.perf_counter()
+        model = initialize_from_config(cfg.model, device="cuda")
+        torch.cuda.synchronize()
+        enc, dec = params.encoder, params.decoder
+        log(f"[shipped] {label}: encoder {enc.depth} x {enc.dim} ({enc.heads} "
+            f"heads of {enc.get('dim_head', 64)}), decoder {dec.depth} x "
+            f"{dec.dim} ({dec.heads} heads of {dec.get('dim_head', 64)}), "
+            f"built in {time.perf_counter() - t0:.1f} s")
+        reset_launches()
+        codes = model.encode_codes(x8)
+        rec = model.decode_codes(codes)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in LAUNCHES.items() if v}
+        want = SHIPPED[name]
+        f32 = F32_LAUNCHES["attention"]
+        log(f"[shipped] {label}: launches a round trip {got}, fp32 attention"
+            f" launches {f32}")
+        check(got == want, f"{label}: launches {got}, expected {want}")
+        check(f32 == (want["attention"] if dtype == "float32" else 0),
+              f"{label}: {f32} fp32 attention launches")
+        for k, v in kernel_counts().items():
+            total[k] = total.get(k, 0) + v
+        check(codes.shape == (CHECK_BATCH, TOKENS)
+              and bool(((codes >= 0) & (codes < CODES)).all()),
+              f"{label}: codes {codes.shape}")
+        check(rec.shape == (CHECK_BATCH, 256, 256, 3)
+              and rec.dtype == model.dtype and bool(torch.isfinite(rec).all()),
+              f"{label}: reconstruction {rec.shape} {rec.dtype}")
+        before = dict(LAUNCHES)
+        with plain_versions():
+            codes_p = model.encode_codes(x8)
+            rec_p = model.decode_codes(codes)
+        check(LAUNCHES == before, "the plain path launched a kernel")
+        match = float((codes == codes_p).float().mean()) * 100
+        err = float((rec.float() - rec_p.float()).abs().max())
+        log(f"[shipped] {label}, kernels vs plain at batch {CHECK_BATCH}: "
+            f"code match {match:.3f}% (threshold {SHIPPED_MATCH[dtype]}%), "
+            f"reconstruction from the same codes max_abs_err {err:.4e} "
+            f"(|plain| max {float(rec_p.float().abs().max()):.3f}, threshold"
+            f" {SHIPPED_REC_ATOL[dtype]})")
+        check(match >= SHIPPED_MATCH[dtype], f"{label}: codes disagree")
+        check(err <= SHIPPED_REC_ATOL[dtype], f"{label}: reconstructions "
+              "disagree")
+        if name == "imagenet_vitvq_base" and not change:
+            # phase 5's bf16 model has this config's widths and seed
+            log(f"[shipped] bf16 kernels (phase 5) vs f32 kernels, batch "
+                f"{CHECK_BATCH}: code match "
+                f"{float((codes_bf16 == codes).float().mean()) * 100:.3f}%; "
+                f"vs f32 plain "
+                f"{float((codes_bf16 == codes_p).float().mean()) * 100:.3f}%")
+        del codes_p, rec_p
+        torch.cuda.reset_peak_memory_stats()
+        model.decode_codes(model.encode_codes(x8))
+        torch.cuda.synchronize()
+        iters = 3
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            model.decode_codes(model.encode_codes(x8))
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / iters
+        log(f"[shipped] {label} round trip batch {CHECK_BATCH}: "
+            f"{dt * 1e3:.2f} ms, {CHECK_BATCH / dt:.1f} images/s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del model, codes, rec
+    gc_cuda()
+    return total
+
+
+# limits of the fp32 training step, kernels against the plain path: fp32
+# sums in another order
+F32_LOSS_RTOL_LIMIT, F32_COS_LIMIT = 1e-4, 0.99999
+
+
+def phase_train_f32() -> dict:
+    """configs/fake_vitvq_base.yaml with dtype float32: one train step (AE
+    update, then D update, no R1) with its launches asserted; one step's
+    losses and gradients through the kernels against the plain path."""
+    from enhancing_tpu_torch.ops import F32_LAUNCHES, reset_launches
+    from enhancing_tpu_torch.train import Trainer
+    from enhancing_tpu_torch.utils.config import initialize_from_config
+    gc_cuda()
+    cfg = json.loads(json.dumps(FAKE_VITVQ_BASE))
+    cfg["model"]["params"]["dtype"] = "float32"
+    model = initialize_from_config(cfg["model"], device="cuda")
+    data = initialize_from_config(cfg["dataset"])
+    data.setup()
+    module, disc = model.module, model.loss.discriminator
+    x = model.get_input(next(iter(data.val_dataloader())), "image")
+    state, train_step, _ = Trainer(max_steps=1)._build_stage1(model)
+    module.train()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    metrics = train_step(state, x, do_r1=False)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = kernel_counts()
+    got = {k: v for k, v in counts.items() if v}
+    want = dict(TRAIN_STEP, attention=0, attention_bwd=0, attention_f32=48,
+                attention_bwd_f32=24)
+    want = {k: v for k, v in want.items() if v}
+    log(f"[train32] fake_vitvq_base float32, one step (no R1) batch "
+        f"{TRAIN_BATCH}: {ms:.1f} ms (first call), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+        f"{got}; fp32 attention {dict(F32_LAUNCHES)['attention']}")
+    check(got == want, f"fp32 step launches {got}, expected {want}")
+    bad = [k for k, v in metrics.items() if not torch.isfinite(v).all()]
+    check(not bad, f"fp32 step: non-finite {bad}")
+
+    k_logs, k_ae, k_d, k_codes = one_step_grads(model, x)
+    with plain_versions():
+        p_logs, p_ae, p_d, p_codes = one_step_grads(model, x)
+    module.eval()
+    rel = {k: abs(k_logs[k] - p_logs[k]) / max(abs(p_logs[k]), 1e-6)
+           for k in p_logs}
+    worst = max(rel.items(), key=lambda kv: kv[1])
+    ae_cos = worst_cosine([n for n, _ in module.named_parameters()], k_ae,
+                          p_ae)
+    d_cos = worst_cosine([n for n, _ in disc.named_parameters()], k_d, p_d)
+    match = float((k_codes == p_codes).float().mean()) * 100
+    log(f"[train32] one step, fp32 kernels vs fp32 plain: code match "
+        f"{match:.3f}%; largest loss difference {worst[1]:.3e} relative "
+        f"({worst[0]}; limit {F32_LOSS_RTOL_LIMIT}); least gradient cosine "
+        f"AE {ae_cos[0]:.7f} ({ae_cos[1]}), D {d_cos[0]:.7f} ({d_cos[1]}) "
+        f"(limit {F32_COS_LIMIT})")
+    check(worst[1] <= F32_LOSS_RTOL_LIMIT, "fp32 losses disagree")
+    check(min(ae_cos[0], d_cos[0]) >= F32_COS_LIMIT,
+          "fp32 gradients disagree")
+    del model, k_ae, k_d, p_ae, p_d, state
+    gc_cuda()
+    return counts
+
+
+# the fp32 prior of configs/imagenet_gpt_vitvq_base.yaml (CondTransformer's
+# own dtype) at full width; its layers, and the teacher-forced decode steps
+# after the prefill
+PRIOR_F32_LAYERS, PRIOR_F32_STEPS = 24, 16
+PRIOR_F32_ATOL, PRIOR_F32_ARGMAX = 1e-3, 0.99
+
+
+def phase_prior_f32() -> dict:
+    """The fp32 GPT prior at full width (6144, 16 heads of 384), its
+    prefill (B8 fp32) plus 16 decode steps (B9 and B10 on an fp32 cache)
+    teacher-forced on random codes, against the plain path."""
+    from enhancing_tpu_torch.ops import F32_LAUNCHES, reset_launches
+    from enhancing_tpu_torch.utils.config import initialize_from_config
+    gc_cuda()
+    cfg = json.loads(json.dumps(GPT_VITVQ_BASE))
+    cfg["params"]["transformer"]["params"]["n_layers"] = PRIOR_F32_LAYERS
+    t0 = time.perf_counter()
+    model = initialize_from_config(cfg, device="cuda")
+    gpt = model.transformer
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in gpt.parameters())
+    log(f"[prior32] prior {PRIOR_F32_LAYERS} x {P_WIDTH} float32, "
+        f"{n_params / 1e9:.3f} G parameters, built on the card in "
+        f"{time.perf_counter() - t0:.1f} s; allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    conds = torch.tensor(CLASSES, device="cuda")[:, None]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    codes = torch.randint(0, P_VOCAB, (SAMPLE_BATCH, PRIOR_F32_STEPS + 1),
+                          generator=gen, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    got = teacher_forced(gpt, codes, conds, PRIOR_F32_STEPS)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (PRIOR_F32_STEPS + 1) * 1e3
+    counts = kernel_counts()
+    launches = {k: v for k, v in counts.items() if v}
+    want = {"attention_bnhd_f32": PRIOR_F32_LAYERS,
+            "decode_attention": PRIOR_F32_LAYERS * PRIOR_F32_STEPS,
+            "cache_row_update": 2 * PRIOR_F32_STEPS}
+    log(f"[prior32] prefill + {PRIOR_F32_STEPS} decode steps batch "
+        f"{SAMPLE_BATCH}: {ms:.2f} ms a step (host clock, prefill counted "
+        f"as a step), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+        f"{launches}; fp32 B8 {F32_LAUNCHES['attention_bnhd']}")
+    check(launches == want, f"fp32 prior launches {launches}, expected "
+          f"{want}")
+    check(bool(torch.isfinite(got).all()), "fp32 prior logits not finite")
+    with plain_versions():
+        want_logits = teacher_forced(gpt, codes, conds, PRIOR_F32_STEPS)
+    agreement(f"fp32 prior, prefill + {PRIOR_F32_STEPS} decode steps batch "
+              f"{SAMPLE_BATCH}, kernels vs plain", got, want_logits,
+              PRIOR_F32_ATOL, PRIOR_F32_ARGMAX)
+    del model, gpt, got, want_logits
+    gc_cuda()
+    return counts
+
+
+def phase_main_path() -> tuple:
+    """The tokenizer round trip through the public entry points; returns
+    the launches, the batch-8 images and their bf16 kernel codes."""
     from enhancing_tpu_torch.models.stage1.vitvqgan import ViTVQ
     from enhancing_tpu_torch.ops import LAUNCHES, reset_launches
     log(f"[main] allow_tf32 matmul {torch.backends.cuda.matmul.allow_tf32} "
@@ -1510,14 +2022,6 @@ def phase_main_path() -> dict:
     check(match >= 95.0, "bf16 kernel codes disagree with the plain path")
     check(rec_err <= 0.1, "reconstructions disagree with the plain path")
 
-    model32 = ViTVQ(dtype="float32", seed=0, device="cuda", **BASE)
-    with plain_versions():
-        codes_32 = model32.encode_codes(inputs[CHECK_BATCH])
-    match32 = float((codes_k == codes_32).float().mean()) * 100
-    log(f"[main] bf16 kernels vs f32 plain, batch {CHECK_BATCH}: code match "
-        f"{match32:.3f}%")
-    del model32
-
     torch.cuda.reset_peak_memory_stats()
     x = inputs[TIME_BATCH]
     for _ in range(2):
@@ -1534,7 +2038,7 @@ def phase_main_path() -> dict:
         f"{TIME_BATCH / dt:.1f} images/s, peak memory {peak / 2**30:.2f} GiB")
     profile_device(f"one round trip batch {TIME_BATCH}",
                    lambda: model.decode_codes(model.encode_codes(x)))
-    return launches
+    return launches, inputs[CHECK_BATCH], codes_k
 
 
 def phase_fused_serving() -> dict:
@@ -2168,6 +2672,8 @@ def gc_cuda() -> None:
 
 # kernel-name fragments -> the group of device time they belong to
 KERNEL_GROUPS = (("attn_proj_kernel", "attn_proj"), ("ffn_kernel", "ffn"),
+                 ("attn_f32_fwd", "attention f32"),
+                 ("attn_f32_bwd", "attention_bwd f32"),
                  ("gemv_ln_kernel<signed char", "int8_ln_gemm"),
                  ("gemv_ln_kernel<", "ln_shift_gemm"),
                  ("gemv_kernel<signed char", "int8_gemm"),
@@ -2231,12 +2737,17 @@ def main() -> int:
     phase_build()
     errs = phase_compare()
     times = phase_times()
-    serving = phase_main_path()
+    serving, x8, codes8 = phase_main_path()
     training = phase_train()
     sampling, prior, codes = phase_sampling()
     serving8 = phase_int8(prior, codes)
     del prior
     fused = phase_fused_serving()
+    shipped = phase_shipped_configs(x8, codes8)
+    training32 = phase_train_f32()
+    prior32 = phase_prior_f32()
+    phases = (serving, training, sampling, serving8, fused, shipped,
+              training32, prior32)
     kernels = []
     for kname in REPLACES:
         rows = times[kname]
@@ -2249,9 +2760,7 @@ def main() -> int:
                              else sum(r["library_ms"] for r in rows))
         kernels.append(dict(name=kname, route="cuda", source=SOURCES[kname],
                             replaces=REPLACES[kname],
-                            launches=serving[kname] + training[kname]
-                            + sampling[kname] + serving8[kname]
-                            + fused[kname],
+                            launches=sum(p.get(kname, 0) for p in phases),
                             max_abs_err=errs[kname],
                             bound_by=rows[0]["bound_by"], **agg))
     print(json.dumps({"kernels": kernels}))

@@ -9,7 +9,7 @@
 //   q, k and v are its lane slices at offsets 0, H*D and 2*H*D;
 //   etk_attention_qkv) and through _attention_packed_call (B8: the GPT
 //   prior's attention, reached by multihead_attention_bnhd, at head dims
-//   32, 64, 128 and the prior's 384; etk_attention_bnhd);
+//   up to 128 and the prior's 384; etk_attention_bnhd);
 // - _attn_kernel (B17, _attention_pallas: (B, H, N, D) tensors, M may
 //   differ from N) and _attn_kernel_bnhd (B18, _attention_pallas_bnhd:
 //   (B, N, H, D) tensors), which put the scale on the fp32 scores
@@ -45,7 +45,11 @@
 // operations bound; and at D = 64 the softmax's exponentials (16 a clock
 // an SM) take as long as the products.
 //
-// attn_fwd_kernel (D = 32, 64, 128), on the Hopper core of sm90.cuh: a
+// attn_fwd_kernel (tiles of D = 32, 64, 128 lanes; a head dim between them,
+// a multiple of 8 such as ViT-VQGAN-Large's 80, runs on the next tile: its
+// maps' lane extent is the head dim, so the boxes past it load zeros, which
+// add nothing to S, and the stores drop the lanes of O past it; no copy
+// pads the operands), on the Hopper core of sm90.cuh: a
 // block owns 192 query rows of one (batch, head), which cuts that L2
 // traffic to a third. One producer warp issues TMA: the q tile once, then
 // 128-key K and V tiles into a ring of 4 stages (2 at D = 128, 64 KiB a
@@ -110,7 +114,7 @@ struct Strides {
   int batch, head, row;
 };
 
-// ---- attn_fwd_kernel: D = 32, 64, 128 ------------------------------------
+// ---- attn_fwd_kernel: tiles of D = 32, 64, 128 ---------------------------
 
 // keys a tile; consumer warpgroups of 64 rows each, so 192 query rows a
 // block; a producer warpgroup beside them
@@ -383,22 +387,27 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
 }
 
 // the map of one operand with `rows` rows and head dim d: (lanes, heads,
-// rows, batches), boxes of (32 or 64 lanes, 1, 64, 1)
+// rows, batches), boxes of (box lanes, 1, 64, 1). The lane extent is the
+// head dim, so a box that runs past it (a head dim between the tiles)
+// loads zeros there and its store drops those lanes.
 int fwd_map(CUtensorMap* map, const void* ptr, const Strides& st, int b,
-            int rows, int heads, int d) {
+            int rows, int heads, int d, int box_lanes) {
   return sm90::tensor_map_4d(map, ptr, b, rows, heads, d, st.head, st.row,
-                             st.batch, kWgRows, d == 32 ? 32 : 64);
+                             st.batch, kWgRows, box_lanes);
 }
 
-// ptrs and st: q, k, v, out
+// ptrs and st: q, k, v, out; D the tile (32, 64 or 128), head_dim the
+// lanes of a head (a multiple of 8 up to D)
 template <int D, bool kScoreScale>
 int launch_fwd(const void* const* ptrs, const Strides* st, int b, int n,
-               int m, int heads, const FwdArgs& a, cudaStream_t stream) {
+               int m, int heads, int head_dim, const FwdArgs& a,
+               cudaStream_t stream) {
+  constexpr int BL = Geo<D>::BOXC;
   CUtensorMap tq, tk, tv, to;
-  if (fwd_map(&tq, ptrs[0], st[0], b, n, heads, D) ||
-      fwd_map(&tk, ptrs[1], st[1], b, m, heads, D) ||
-      fwd_map(&tv, ptrs[2], st[2], b, m, heads, D) ||
-      fwd_map(&to, ptrs[3], st[3], b, n, heads, D))
+  if (fwd_map(&tq, ptrs[0], st[0], b, n, heads, head_dim, BL) ||
+      fwd_map(&tk, ptrs[1], st[1], b, m, heads, head_dim, BL) ||
+      fwd_map(&tv, ptrs[2], st[2], b, m, heads, head_dim, BL) ||
+      fwd_map(&to, ptrs[3], st[3], b, n, heads, head_dim, BL))
     return ETK_TMAP_FAILED;
   constexpr int smem = Geo<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
@@ -709,10 +718,10 @@ template <bool kScoreScale>
 int launch_wide(const void* const* ptrs, const Strides* st, int b, int n,
                 int m, int heads, const FwdArgs& a, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, to;
-  if (fwd_map(&tq, ptrs[0], st[0], b, n, heads, WD) ||
-      fwd_map(&tk, ptrs[1], st[1], b, m, heads, WD) ||
-      fwd_map(&tv, ptrs[2], st[2], b, m, heads, WD) ||
-      fwd_map(&to, ptrs[3], st[3], b, n, heads, WD))
+  if (fwd_map(&tq, ptrs[0], st[0], b, n, heads, WD, 64) ||
+      fwd_map(&tk, ptrs[1], st[1], b, m, heads, WD, 64) ||
+      fwd_map(&tv, ptrs[2], st[2], b, m, heads, WD, 64) ||
+      fwd_map(&to, ptrs[3], st[3], b, n, heads, WD, 64))
     return ETK_TMAP_FAILED;
   cudaError_t err = cudaFuncSetAttribute(
       attn_wide_kernel<kScoreScale>,
@@ -724,18 +733,31 @@ int launch_wide(const void* const* ptrs, const Strides* st, int b, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the tile of a head dim: a multiple of 8 up to 128 runs on the next of
+// attn_fwd_kernel's tiles (32, 64, 128), 384 on attn_wide_kernel; 0 for a
+// head dim neither takes (ops.attention.attention_route mirrors it)
+__host__ __device__ constexpr int fwd_tile(int head_dim) {
+  return head_dim == WD                                   ? WD
+         : head_dim <= 0 || head_dim % 8 || head_dim > 128 ? 0
+         : head_dim <= 32                                  ? 32
+         : head_dim <= 64                                  ? 64
+                                                           : 128;
+}
+
 template <bool kScoreScale>
 int launch_fwd_d(int head_dim, const void* const* ptrs, const Strides* st,
                  int b, int n, int m, int heads, const FwdArgs& a,
                  cudaStream_t stream) {
-  switch (head_dim) {
+  switch (fwd_tile(head_dim)) {
     case 32:
-      return launch_fwd<32, kScoreScale>(ptrs, st, b, n, m, heads, a, stream);
+      return launch_fwd<32, kScoreScale>(ptrs, st, b, n, m, heads, head_dim,
+                                         a, stream);
     case 64:
-      return launch_fwd<64, kScoreScale>(ptrs, st, b, n, m, heads, a, stream);
+      return launch_fwd<64, kScoreScale>(ptrs, st, b, n, m, heads, head_dim,
+                                         a, stream);
     case 128:
-      return launch_fwd<128, kScoreScale>(ptrs, st, b, n, m, heads, a,
-                                          stream);
+      return launch_fwd<128, kScoreScale>(ptrs, st, b, n, m, heads, head_dim,
+                                          a, stream);
     case WD:
       return launch_wide<kScoreScale>(ptrs, st, b, n, m, heads, a, stream);
     default:
@@ -750,7 +772,8 @@ int launch_fwd_d(int head_dim, const void* const* ptrs, const Strides* st,
 // in elements (multiples of 8; 0 only on an axis of size 1) at
 // strides[3 * i .. 3 * i + 2] for q, k, v, out; every base 16-byte
 // aligned. score_scale: 1 puts the scale on the fp32 scores, 0 scales q in
-// bf16. D 32, 64 and 128 run attn_fwd_kernel, D 384 attn_wide_kernel.
+// bf16. A multiple of 8 up to 128 runs attn_fwd_kernel on the next tile
+// of 32, 64 or 128 lanes, D 384 attn_wide_kernel.
 ETK_API int etk_attention_bnhd(const void* q, const void* k, const void* v,
                                void* out, const int* strides, int b, int n,
                                int m, int heads, int head_dim, float scale,

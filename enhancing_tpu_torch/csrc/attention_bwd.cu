@@ -10,7 +10,11 @@
 // rounded to bf16 before the dq / dk and dv products; dk and dv accumulate
 // in fp32 over every query and are rounded once. Mask modes 'none' and
 // 'prefix_causal' (col <= row, or both < cond_len); rows and columns past
-// N are masked, so any N works. Head dims 32, 64 and 128.
+// N are masked, so any N works. Head dims: multiples of 8 up to 128, each
+// on the next tile of 32, 64 or 128 lanes (a head dim between them, as
+// ViT-VQGAN-Large's 80, loads zeros past its lanes through 4-D maps whose
+// lane extent is the head dim; they add nothing to S, dP, dq, dk or dv,
+// and the stores drop them).
 //
 // Bound on the H100: tensor-core operations, 5 products of 2*N^2*D flops
 // per (batch, head) against ~7 * B * N * H * D * 2 bytes. The TPU kernel
@@ -159,9 +163,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     sm90::mbar_expect_tx(&qbar, 2 * G::tile(BQ));
 #pragma unroll
     for (int bx = 0; bx < G::NBOX; ++bx) {
-      const int c0 = h * D + bx * G::BOXC;
-      sm90::tma_load_3d(qs + bx * BQ * RB, &tmap_q, &qbar, c0, q0, b);
-      sm90::tma_load_3d(dos + bx * BQ * RB, &tmap_do, &qbar, c0, q0, b);
+      const int c0 = bx * G::BOXC;
+      sm90::tma_load_4d(qs + bx * BQ * RB, &tmap_q, &qbar, c0, h, q0, b);
+      sm90::tma_load_4d(dos + bx * BQ * RB, &tmap_do, &qbar, c0, h, q0, b);
     }
     for (int it = 0; it < 2 * kv_tiles; ++it) {
       const int s = ring.stage(it), t = it % kv_tiles;
@@ -170,11 +174,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       sm90::mbar_expect_tx(&full[s], SB);
 #pragma unroll
       for (int bx = 0; bx < G::NBOX; ++bx) {
-        const int c0 = h * D + bx * G::BOXC;
-        sm90::tma_load_3d(st + bx * BKV * RB, &tmap_k, &full[s], c0, t * BKV,
-                          b);
-        sm90::tma_load_3d(st + G::tile(BKV) + bx * BKV * RB, &tmap_v,
-                          &full[s], c0, t * BKV, b);
+        const int c0 = bx * G::BOXC;
+        sm90::tma_load_4d(st + bx * BKV * RB, &tmap_k, &full[s], c0, h,
+                          t * BKV, b);
+        sm90::tma_load_4d(st + G::tile(BKV) + bx * BKV * RB, &tmap_v,
+                          &full[s], c0, h, t * BKV, b);
       }
     }
     return;
@@ -341,8 +345,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (leader && q0 + w * 64 < n) {
 #pragma unroll
     for (int bx = 0; bx < G::NBOX; ++bx)
-      sm90::tma_store_3d(&tmap_dq, qs + bx * BQ * RB + w * 64 * RB,
-                         h * D + bx * G::BOXC, q0 + w * 64, b);
+      sm90::tma_store_4d(&tmap_dq, qs + bx * BQ * RB + w * 64 * RB,
+                         bx * G::BOXC, h, q0 + w * 64, b);
     sm90::bulk_commit();
     sm90::bulk_wait();
   }
@@ -396,9 +400,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     sm90::mbar_expect_tx(&kvbar, 2 * G::tile(BK));
 #pragma unroll
     for (int bx = 0; bx < G::NBOX; ++bx) {
-      const int c0 = h * D + bx * G::BOXC;
-      sm90::tma_load_3d(ks + bx * BK * RB, &tmap_k, &kvbar, c0, k0, b);
-      sm90::tma_load_3d(vs + bx * BK * RB, &tmap_v, &kvbar, c0, k0, b);
+      const int c0 = bx * G::BOXC;
+      sm90::tma_load_4d(ks + bx * BK * RB, &tmap_k, &kvbar, c0, h, k0, b);
+      sm90::tma_load_4d(vs + bx * BK * RB, &tmap_v, &kvbar, c0, h, k0, b);
     }
     for (int t = t_first, it = 0; t < t_end; ++t, ++it) {
       const int s = ring.stage(it);
@@ -407,11 +411,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       sm90::mbar_expect_tx(&full[s], 2 * G::tile(QT) + 3 * QT * 4);
 #pragma unroll
       for (int bx = 0; bx < G::NBOX; ++bx) {
-        const int c0 = h * D + bx * G::BOXC;
-        sm90::tma_load_3d(st + bx * QT * RB, &tmap_q, &full[s], c0, t * QT,
-                          b);
-        sm90::tma_load_3d(st + G::tile(QT) + bx * QT * RB, &tmap_do, &full[s],
-                          c0, t * QT, b);
+        const int c0 = bx * G::BOXC;
+        sm90::tma_load_4d(st + bx * QT * RB, &tmap_q, &full[s], c0, h,
+                          t * QT, b);
+        sm90::tma_load_4d(st + G::tile(QT) + bx * QT * RB, &tmap_do,
+                          &full[s], c0, h, t * QT, b);
       }
       for (int p = 0; p < 3; ++p)
         sm90::bulk_load(st + 2 * G::tile(QT) + p * QT * 4,
@@ -552,10 +556,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (leader && k0 + w * 64 < n) {
 #pragma unroll
     for (int bx = 0; bx < G::NBOX; ++bx) {
-      const int c0 = h * D + bx * G::BOXC;
-      sm90::tma_store_3d(&tmap_dk, ks + bx * BK * RB + w * 64 * RB, c0,
+      const int c0 = bx * G::BOXC;
+      sm90::tma_store_4d(&tmap_dk, ks + bx * BK * RB + w * 64 * RB, c0, h,
                          k0 + w * 64, b);
-      sm90::tma_store_3d(&tmap_dv, vs + bx * BK * RB + w * 64 * RB, c0,
+      sm90::tma_store_4d(&tmap_dv, vs + bx * BK * RB + w * 64 * RB, c0, h,
                          k0 + w * 64, b);
     }
     sm90::bulk_commit();
@@ -569,13 +573,19 @@ struct Ptrs {
   int ld_q, ld_k, ld_v, ld_do, ld_dq, ld_dk, ld_dv;
 };
 
+// D: the tile (32, 64 or 128); head_dim: the lanes of a head, a multiple
+// of 8 up to D. Each operand is a 4-D map over (lanes, heads, rows,
+// batches) whose lane extent is the head dim: boxes past it load zeros and
+// stores drop those lanes.
 template <int D>
-int launch(const Ptrs& p, BwdArgs a, int b, cudaStream_t stream) {
+int launch(const Ptrs& p, BwdArgs a, int b, int head_dim,
+           cudaStream_t stream) {
   using G = Geo<D>;
-  const int n = a.n, hd = a.heads * D;
+  const int n = a.n;
   const long long nl = n;
   auto map = [&](CUtensorMap* m, const void* ptr, int ld, int rows) {
-    return sm90::tensor_map_3d(m, ptr, b, n, hd, ld, nl * ld, rows, G::BOXC);
+    return sm90::tensor_map_4d(m, ptr, b, n, a.heads, head_dim, head_dim, ld,
+                               nl * ld, rows, G::BOXC);
   };
   CUtensorMap tq, tdo, tk, tv, tdq, tkc, tvc, tqc, tdoc, tdk, tdv;
   if (map(&tq, p.q, p.ld_q, BQ) || map(&tdo, p.dout, p.ld_do, BQ) ||
@@ -635,14 +645,8 @@ ETK_API int etk_attention_bwd(const void* q, const void* k, const void* v,
   const BwdArgs a{static_cast<float*>(stats), n, (n + BQ - 1) / BQ * BQ,
                   heads, mask_mode, cond_len, 0};
   auto s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 32:
-      return launch<32>(p, a, b, s);
-    case 64:
-      return launch<64>(p, a, b, s);
-    case 128:
-      return launch<128>(p, a, b, s);
-    default:
-      return ETK_BAD_ARGS;
-  }
+  if (head_dim <= 0 || head_dim % 8 || head_dim > 128) return ETK_BAD_ARGS;
+  if (head_dim <= 32) return launch<32>(p, a, b, head_dim, s);
+  if (head_dim <= 64) return launch<64>(p, a, b, head_dim, s);
+  return launch<128>(p, a, b, head_dim, s);
 }

@@ -25,7 +25,7 @@ other attention forwards:
   that name (``attention.py:1810-1855``), takes separate (B, N, H, D) q, k
   and v; on CUDA ``csrc/attention_bnhd.cu`` (the counterpart of
   ``_attention_packed_call``, B8) reads them in place at any N, N = 1
-  included: head dims 32, 64 and 128 on ``attn_fwd_kernel``, B2's kernel,
+  included: head dims up to 128 on ``attn_fwd_kernel``, B2's kernel,
   so that B8 on the lane slices of a qkv buffer gives B2's output bit for
   bit; the prior's 384 on ``attn_wide_kernel`` (an S warpgroup hands P to
   three O warpgroups that own 128 lanes of O each). Same numerics as
@@ -57,6 +57,14 @@ other attention forwards:
   ``attention.py:1604-1608``), the kernel scales the score columns by the
   keys' scales and the softmax weights by the values', as
   ``_decode_kernel`` does.
+
+Every attention entry takes bf16 and fp32 (:func:`attention_route`): the
+Hopper kernels above run bf16, a head dim that is a multiple of 8 up to
+128 on the next of their tiles of 32, 64 and 128 lanes (zeros past it
+through the tensor maps); fp32 runs ``csrc/attention_f32.cu``, forward
+(B2, B8 up to 128 and at 384, B17-B19) and backward (B5), fp32 sums
+throughout and no TF32, counted under the bf16 kernel's name and in
+``F32_LAUNCHES``.
 """
 from __future__ import annotations
 
@@ -66,12 +74,52 @@ import struct
 import torch
 
 from . import cuda_lib
-from .common import LAUNCHES, check_kernel_args, row_positions, use_kernel
+from .common import (F32_LAUNCHES, LAUNCHES, check_kernel_args,
+                     row_positions, use_kernel)
 from .ln_gemm import _plain_vjp
 
 NEG_INF = -1e30
 MASK_MODES = {"none": 0, "prefix_causal": 1}
-KERNEL_HEAD_DIMS = (32, 64, 128)
+# The head dims of the attention kernels. bf16: attn_fwd_kernel
+# (csrc/attention_bnhd.cu) and csrc/attention_bwd.cu run a head dim that is
+# a multiple of 8 up to 128 on the next of their tiles of 32, 64 and 128
+# lanes (the lanes past it are zeros that their 4-D tensor maps load and
+# their stores drop), attn_wide_kernel the prior's 384 (forward only).
+# fp32: csrc/attention_f32.cu, tiles of 32, 64, 96 and 128 lanes up to 128,
+# and 384 (forward only).
+KERNEL_TILES = (32, 64, 128)
+F32_TILES = (32, 64, 96, 128)
+WIDE_HEAD_DIM = 384
+
+
+def attention_route(dtype: torch.dtype, head_dim: int,
+                    backward: bool = False) -> tuple:
+    """(kernel, tile) that the attention entries launch for ``dtype`` and
+    ``head_dim``, as the C entries choose them: bf16 forwards on
+    ``attn_fwd_kernel`` (tile 32, 64 or 128) or ``attn_wide_kernel`` (384),
+    the bf16 backward on ``attn_bwd`` (``csrc/attention_bwd.cu``), fp32 on
+    ``attn_f32_fwd_kernel`` / ``attn_f32_bwd`` (``csrc/attention_f32.cu``).
+    Raises TypeError for another dtype and ValueError for a head dim no
+    kernel takes: not a multiple of 8, above 128 but not 384, or 384 in
+    the backward (ROADMAP.md queue B)."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"attention kernels take bf16 or fp32, got {dtype}")
+    tiles = KERNEL_TILES if dtype == torch.bfloat16 else F32_TILES
+    if head_dim == WIDE_HEAD_DIM and not backward:
+        return ("attn_wide_kernel" if dtype == torch.bfloat16
+                else "attn_f32_fwd_kernel", WIDE_HEAD_DIM)
+    if head_dim <= 0 or head_dim % 8 or head_dim > tiles[-1]:
+        raise ValueError(
+            f"attention {'backward ' if backward else ''}kernel takes a "
+            f"head_dim that is a multiple of 8 up to {tiles[-1]}"
+            + ("" if backward else f" or {WIDE_HEAD_DIM}")
+            + f", got {head_dim}")
+    tile = next(t for t in tiles if head_dim <= t)
+    if dtype == torch.bfloat16:
+        return ("attn_bwd" if backward else "attn_fwd_kernel", tile)
+    return ("attn_f32_bwd" if backward else "attn_f32_fwd_kernel", tile)
+
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # (q dtype, cache dtype) pairs of csrc/decode_attention.cu
 DECODE_PAIRS = {(torch.bfloat16, torch.bfloat16), (torch.float32,
@@ -127,13 +175,13 @@ def attention_packed_qkv_plain(qkv, heads, head_dim, scale,
 def attention_packed_qkv_kernel(qkv, heads, head_dim, scale,
                                 mask_mode="none", cond_len=0):
     """Launch ``attn_fwd_kernel`` (``csrc/attention_bnhd.cu``, entry
-    ``etk_attention_qkv``) on a CUDA bf16 (B, N, 3*H*D) tensor (B2)."""
+    ``etk_attention_qkv``) on a CUDA bf16 (B, N, 3*H*D) tensor (B2), or
+    ``attn_f32_fwd_kernel`` (``csrc/attention_f32.cu``) on an fp32 one;
+    head dims that are multiples of 8 up to 128."""
     b, n, hd3 = qkv.shape
-    if qkv.dtype != torch.bfloat16:
-        raise TypeError(f"attention kernel takes bf16, got {qkv.dtype}")
-    if head_dim not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"attention kernel takes head_dim in "
-                         f"{KERNEL_HEAD_DIMS}, got {head_dim}")
+    if attention_route(qkv.dtype, head_dim)[1] == WIDE_HEAD_DIM:
+        raise ValueError(f"attention kernel takes a head_dim up to 128 on "
+                         f"the qkv buffer, got {head_dim}")
     if hd3 != 3 * heads * head_dim:
         raise ValueError(f"qkv last dim {hd3} != 3 * {heads} * {head_dim}")
     if mask_mode not in MASK_MODES:
@@ -141,6 +189,11 @@ def attention_packed_qkv_kernel(qkv, heads, head_dim, scale,
     check_kernel_args("attention", qkv)
     out = torch.empty((b, n, heads * head_dim), dtype=qkv.dtype,
                       device=qkv.device)
+    if qkv.dtype == torch.float32:
+        views = [t.view(b, n, heads, head_dim)
+                 for t in (*qkv.split(heads * head_dim, dim=-1), out)]
+        return attention_f32_launch("attention", *views, scale, False,
+                                    mask_mode, cond_len).view(out.shape)
     # the TPU kernel scales the bf16 q tile by the scale rounded to bf16
     scale_c = bf16_round(float(scale))
     cuda_lib.call("etk_attention_qkv", qkv.data_ptr(), out.data_ptr(), b, n,
@@ -167,14 +220,17 @@ def attention_bwd_plain(q3, k3, v3, do3, heads, head_dim, mask_mode="none",
 def attention_bwd_kernel(q3, k3, v3, do3, heads, head_dim, mask_mode="none",
                          cond_len=0):
     """Launch ``csrc/attention_bwd.cu`` on CUDA bf16 (B, N, H*D) q (already
-    scaled), k, v and dO, each contiguous or a lane slice of a wider buffer
-    with 16-byte aligned rows. Returns contiguous dq, dk and dv."""
+    scaled), k, v and dO, or ``csrc/attention_f32.cu``'s backward on fp32
+    ones, each contiguous or a lane slice of a wider buffer with 16-byte
+    aligned rows; head dims that are multiples of 8 up to 128. Returns
+    contiguous dq, dk and dv."""
     b, n, hd = q3.shape
-    if any(t.dtype != torch.bfloat16 for t in (q3, k3, v3, do3)):
-        raise TypeError("attention backward kernel takes bf16 q, k, v, dO")
-    if head_dim not in KERNEL_HEAD_DIMS or hd != heads * head_dim:
-        raise ValueError(f"attention backward kernel takes head_dim in "
-                         f"{KERNEL_HEAD_DIMS} and H*D lanes, got "
+    if any(t.dtype != q3.dtype for t in (k3, v3, do3)):
+        raise TypeError("attention backward kernel takes q, k, v, dO of one "
+                        "dtype")
+    attention_route(q3.dtype, head_dim, backward=True)
+    if hd != heads * head_dim:
+        raise ValueError(f"attention backward kernel takes H*D lanes, got "
                          f"{tuple(q3.shape)} for {heads} x {head_dim}")
     if any(t.shape != q3.shape for t in (k3, v3, do3)):
         raise ValueError("attention backward: q, k, v and dO shapes differ")
@@ -187,12 +243,15 @@ def attention_bwd_kernel(q3, k3, v3, do3, heads, head_dim, mask_mode="none",
     n_pad = -(-n // 128) * 128
     stats = torch.empty((3, b, heads, n_pad), dtype=torch.float32,
                         device=q3.device)
-    cuda_lib.call("etk_attention_bwd",
+    f32 = q3.dtype == torch.float32
+    cuda_lib.call("etk_attention_bwd_f32" if f32 else "etk_attention_bwd",
                   *(t.data_ptr() for t in (q3, k3, v3, do3, *grads, stats)),
                   *(t.stride(1) for t in (q3, k3, v3, do3, *grads)),
                   b, n, heads, head_dim, MASK_MODES[mask_mode],
                   int(cond_len), cuda_lib.stream())
     LAUNCHES["attention_bwd"] += 1
+    if f32:
+        F32_LAUNCHES["attention_bwd"] += 1
     return tuple(grads)
 
 
@@ -277,10 +336,9 @@ def strided_launch_args(name: str, tensors) -> list:
     return strides
 
 
-# csrc/attention_bnhd.cu's Hopper forwards (attn_fwd_kernel at 32, 64 and
-# 128, attn_wide_kernel at 384): their head dims, the rows of one TMA box
-# (one warpgroup's) and the grid's limits on heads and batches
-FWD_HEAD_DIMS = (32, 64, 128, 384)
+# csrc/attention_bnhd.cu's Hopper forwards (attn_fwd_kernel on tiles of 32,
+# 64 and 128 lanes, attn_wide_kernel at 384): the rows of one TMA box (one
+# warpgroup's) and the grid's limits on heads and batches
 FWD_BOX_ROWS, FWD_GRID_LIMIT = 64, 65535
 
 
@@ -296,17 +354,16 @@ def attention_fwd_maps(b: int, n: int, m: int, heads: int, head_dim: int,
     them; ``offsets`` each base's bytes from the pointer the caller holds
     (the packed qkv buffer's lane slices, :func:`packed_qkv_strides`). An
     axis of extent 1 is never stepped and takes the stride of ``head_dim``
-    elements, whatever it was given. Raises ValueError where the C entries
-    return ETK_BAD_ARGS: a head dim other than 32, 64, 128 or 384, an empty
-    or too large grid, a stride that is negative, no multiple of 8
+    elements, whatever it was given. The lane extent is the head dim, also
+    where the kernel's tile (``fwd_tile`` of the C source, mirrored by
+    :func:`attention_route`) is wider: its boxes load zeros past it and
+    its stores drop those lanes. Raises ValueError where the C entries
+    return ETK_BAD_ARGS: a head dim :func:`attention_route` refuses, an
+    empty or too large grid, a stride that is negative, no multiple of 8
     elements, past an int, or 0 on an axis of extent above 1."""
-    if head_dim not in FWD_HEAD_DIMS:
-        raise ValueError(f"the Hopper attention forward takes head_dim in "
-                         f"{FWD_HEAD_DIMS}, got {head_dim}")
-    if min(b, n, m, heads) <= 0 or max(b, heads) > FWD_GRID_LIMIT:
-        raise ValueError(f"attention forward: B={b}, N={n}, M={m}, "
-                         f"H={heads} is not a grid it takes")
-    box = (32 if head_dim == 32 else 64, 1, FWD_BOX_ROWS, 1)
+    tile = attention_route(torch.bfloat16, head_dim)[1]
+    check_grid("attention forward", b, n, m, heads)
+    box = (32 if tile == 32 else 64, 1, FWD_BOX_ROWS, 1)
     maps = []
     for i, rows in enumerate((n, m, m, n)):
         batch, head, row = strides[3 * i:3 * i + 3]
@@ -332,41 +389,71 @@ def packed_qkv_strides(b: int, n: int, heads: int, head_dim: int):
     return strides, (0, 2 * hd, 4 * hd, 0)
 
 
+def check_grid(name: str, b: int, n: int, m: int, heads: int) -> None:
+    """Refuse, as the C entries do, a grid the forwards cannot launch."""
+    if min(b, n, m, heads) <= 0 or max(b, heads) > FWD_GRID_LIMIT:
+        raise ValueError(f"{name}: B={b}, N={n}, M={m}, H={heads} is not a "
+                         "grid it takes")
+
+
+def attention_f32_launch(name, q, k, v, o, scale, score_scale, mask_mode,
+                         cond_len):
+    """Launch ``attn_f32_fwd_kernel`` (``csrc/attention_f32.cu``, entry
+    ``etk_attention_f32``) on fp32 (B, N, H, D) q and out and (B, M, H, D)
+    k, v, each read or written in place through its strides (the checks of
+    :func:`strided_launch_args`). The scale multiplies q in fp32, or the
+    fp32 scores with ``score_scale``. Counts the launch under ``name``, in
+    ``LAUNCHES`` with the bf16 launches and in ``F32_LAUNCHES``; returns
+    o."""
+    b, n, h, d = q.shape
+    attention_route(torch.float32, d)
+    check_grid(f"{name} kernel", b, n, k.shape[1], h)
+    strides = strided_launch_args(name, (q, k, v, o))
+    cuda_lib.call("etk_attention_f32", q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), o.data_ptr(), (ctypes.c_int * 12)(*strides),
+                  b, n, k.shape[1], h, d, float(scale), int(score_scale),
+                  MASK_MODES[mask_mode], int(cond_len), cuda_lib.stream())
+    LAUNCHES[name] += 1
+    F32_LAUNCHES[name] += 1
+    return o
+
+
 def attention_strided_kernel(name, q, k, v, scale, mask_mode="none",
                              cond_len=0, *, layout="bnhd",
                              score_scale=False):
     """Launch ``csrc/attention_bnhd.cu`` on CUDA bf16 q (B, N, H, D) and k,
     v (B, M, H, D), or with ``layout="bhnd"`` (B, H, N, D) and (B, H, M,
     D), each read in place through its strides by the tensor maps of
-    :func:`attention_fwd_maps`: at head dims 32, 64 and 128 the Hopper
-    forward ``attn_fwd_kernel`` (B2's kernel), at 384 ``attn_wide_kernel``.
+    :func:`attention_fwd_maps`: at head dims up to 128 the Hopper forward
+    ``attn_fwd_kernel`` (B2's kernel), at 384 ``attn_wide_kernel``; or on
+    fp32 ones ``csrc/attention_f32.cu`` (:func:`attention_f32_launch`).
     ``score_scale`` puts the scale on the fp32 scores (B17, B18), else q
-    is scaled in bf16 (B8, B19). Returns a contiguous tensor of q's
+    is scaled in its dtype (B8, B19). Returns a contiguous tensor of q's
     layout; counts the launch under ``name``."""
-    if (q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16
-            or v.dtype != torch.bfloat16):
-        raise TypeError(f"{name} kernel takes bf16 q, k, v")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name} kernel takes q, k, v of one dtype")
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"{name} kernel takes 4-d q, k, v")
     if layout == "bhnd":
         q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     b, n, h, d = q.shape
     m = k.shape[1]
-    if d not in FWD_HEAD_DIMS:
-        raise ValueError(f"{name} kernel takes head_dim in "
-                         f"{FWD_HEAD_DIMS}, got {d}")
+    attention_route(q.dtype, d)
     if k.shape != (b, m, h, d) or v.shape != k.shape:
         raise ValueError(f"{name} kernel: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit")
     if mask_mode not in MASK_MODES:
         raise ValueError(f"unknown mask_mode {mask_mode!r}")
-    strides = strided_launch_args(name, (q, k, v))
     if layout == "bhnd":
         out = torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
         o = out.transpose(1, 2)
     else:
         out = o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
-    strides += strided_launch_args(name, (o,))
+    if q.dtype == torch.float32:
+        attention_f32_launch(name, q, k, v, o, scale, score_scale, mask_mode,
+                             cond_len)
+        return out
+    strides = strided_launch_args(name, (q, k, v, o))
     attention_fwd_maps(b, n, m, h, d, strides)  # refuses as the C entry
     # the TPU wrappers scale q by the scale rounded to q's dtype (B8, B19);
     # B17 and B18 multiply the fp32 scores by the scale
@@ -780,11 +867,13 @@ def attn_proj_kernel(q, k, v, wp, bp, residual, scale, mask_mode="none",
     if any(t.dtype != torch.bfloat16 for t in (q, k, v, wp, residual)) or (
             bp.dtype != torch.float32):
         raise TypeError("attn_proj kernel takes bf16 q, k, v, wp, residual "
-                        "and an fp32 bias")
+                        "and an fp32 bias (fp32 is not ported yet: "
+                        "ROADMAP.md C1)")
     if attn_proj_plan(h, d, ho) is None:
         raise ValueError(f"attn_proj kernel takes head_dim in "
                          f"{PROJ_HEAD_DIMS}, HO % 64 == 0 and H*D up to "
-                         f"1024, got H={h}, D={d}, HO={ho}")
+                         f"1024, got H={h}, D={d}, HO={ho} (other head dims "
+                         "are not ported yet: ROADMAP.md C1)")
     if (k.shape != (b, m, h, d) or v.shape != k.shape
             or wp.shape != (ho, h * d) or bp.shape != (ho,)
             or residual.shape != (b, n, ho)):

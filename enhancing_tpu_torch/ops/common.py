@@ -26,6 +26,9 @@ LAUNCHES: dict[str, int] = {"ln_gemm": 0, "attention": 0, "layernorm": 0,
                             "attn_proj": 0, "ffn": 0, "attention_bhnd": 0,
                             "attention_fused_bnhd": 0,
                             "attention_gridchunk": 0}
+# The fp32 launches among them (csrc/attention_f32.cu's, counted in
+# LAUNCHES under the name of the bf16 kernel they stand beside too).
+F32_LAUNCHES: dict[str, int] = {name: 0 for name in LAUNCHES}
 # Op calls on CUDA tensors that force_plain_ops sent to the plain version.
 PLAIN_CALLS: dict[str, int] = {name: 0 for name in LAUNCHES}
 
@@ -33,7 +36,7 @@ _FORCE_PLAIN_DEPTH = 0
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, PLAIN_CALLS):
+    for counts in (LAUNCHES, F32_LAUNCHES, PLAIN_CALLS):
         for name in counts:
             counts[name] = 0
 

@@ -79,7 +79,8 @@ def ffn_kernel(x, w1, b1, w2, b2, activation="tanh"):
     h = w1.shape[0]
     if any(t.dtype != torch.bfloat16 for t in (x, w1, w2)) or any(
             t.dtype != torch.float32 for t in (b1, b2)):
-        raise TypeError("ffn kernel takes bf16 x, w1, w2 and fp32 biases")
+        raise TypeError("ffn kernel takes bf16 x, w1, w2 and fp32 biases "
+                        "(fp32 is not ported yet: ROADMAP.md C1)")
     if (w1.shape != (h, d) or w2.shape != (d, h) or b1.shape != (h,)
             or b2.shape != (d,)):
         raise ValueError(f"ffn: x {tuple(x.shape)}, w1 {tuple(w1.shape)}, "

@@ -11,10 +11,18 @@ addresses must be the one ``torch.as_strided`` gives, every stride a
 nonzero multiple of 16 bytes and every box within the TMA's limits, and
 the mirror must refuse what the C entry refuses.
 
+A head dim that is a multiple of 8 up to 128 runs on the next of the
+kernel's tiles of 32, 64 and 128 lanes: the maps' lane extent stays the
+head dim, so the boxes load zeros past it and the stores drop those lanes.
+``ops.attention.attention_route`` names the kernel and tile each dtype and
+head dim takes, as the C entries choose them.
+
 The kernels walk the keys in tiles of 128 (64 at D = 384) and round P to
 bf16 against the running row max. That recurrence is written out here and
 held to the plain version and to the JAX packed kernel (128- or 64-key
-chunks, interpret mode). Inputs are made with numpy from a seed.
+chunks, interpret mode), and at D = 80 on inputs zero-padded to the 128
+tile to the JAX ``multihead_attention_bnhd``, which pads D = 80 itself.
+Inputs are made with numpy from a seed.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -51,7 +59,9 @@ def _check_map(base, offset, dims, strides, box, view, rng):
     assert all(0 < e <= BOX_EDGE for e in box)
     assert box[0] * 2 <= SWIZZLE_BYTES and box[0] * 2 in (64, 128)
     assert box[1] == box[3] == 1 and offset % 16 == 0
-    assert dims[0] % box[0] == 0
+    # the kernel's boxes cover its tile, which holds the head dim's lanes
+    tile = tatt.attention_route(torch.bfloat16, dims[0])[1]
+    assert tile % box[0] == 0 and dims[0] <= tile
     flat = base.reshape(-1)
     want_view = torch.as_strided(base, view.shape, view.stride(),
                                  view.storage_offset())
@@ -78,10 +88,12 @@ def _offset(view, base):
 
 
 # (B, N, M, H, D) shapes, N = 1, size-1 batch and head axes included; at
-# D = 384 the int8 prefill's contiguous q, k, v (B8, N = 1) and M != N
+# D = 384 the int8 prefill's contiguous q, k, v (B8, N = 1) and M != N;
+# head dims between the tiles (16, 48, 80, 96)
 SHAPES = [(2, 100, 100, 3, 64), (1, 1, 1, 1, 32), (3, 1, 65, 4, 128),
           (1, 65, 130, 1, 64), (2, 64, 63, 2, 32), (8, 1, 1, 16, 384),
-          (2, 70, 130, 2, 384)]
+          (2, 70, 130, 2, 384), (2, 33, 33, 3, 16), (1, 65, 70, 2, 48),
+          (2, 100, 100, 16, 80), (1, 1, 9, 1, 96)]
 
 
 @pytest.mark.parametrize("b,n,m,h,d", SHAPES)
@@ -107,7 +119,8 @@ def test_maps_of_bhnd_tensors(b, n, m, h, d):
 
 
 @pytest.mark.parametrize("b,n,h,d", [(2, 77, 3, 64), (1, 1, 2, 32),
-                                     (3, 65, 1, 128), (1, 130, 4, 64)])
+                                     (3, 65, 1, 128), (1, 130, 4, 64),
+                                     (2, 65, 16, 80), (1, 9, 2, 48)])
 def test_maps_of_the_packed_qkv_buffer(b, n, h, d):
     """B2: q, k and v as lane slices of one (B, N, 3*H*D) buffer, as
     etk_attention_qkv plans them, and as the strided entry sees the same
@@ -166,10 +179,62 @@ def test_extent_one_axes_take_a_legal_stride():
         assert mp[2] == (128, 128, 128)
 
 
-@pytest.mark.parametrize("d", [16, 48, 96, 192, 256])
+@pytest.mark.parametrize("d", [20, 100, 136, 192, 256])
 def test_mirror_refuses_head_dims_the_kernel_does_not_take(d):
+    """Not a multiple of 8, or above 128 but not the prior's 384."""
     with pytest.raises(ValueError, match="head_dim"):
         tatt.attention_fwd_maps(1, 8, 8, 2, d, [0] * 12)
+
+
+@pytest.mark.parametrize("d,tile", [(8, 32), (16, 32), (32, 32), (48, 64),
+                                    (64, 64), (80, 128), (96, 128),
+                                    (128, 128), (384, 384)])
+def test_mirror_takes_head_dims_between_the_tiles(d, tile):
+    """A multiple of 8 up to 128 runs on the next tile; the maps keep the
+    head dim as their lane extent, with the tile's boxes (32 lanes on the
+    32 tile, else 64)."""
+    assert tatt.attention_route(torch.bfloat16, d)[1] == tile
+    maps = tatt.attention_fwd_maps(1, 8, 8, 1, d, [0, 0, d] * 4)
+    for _, dims, _, box in maps:
+        assert dims[0] == d and box[0] == (32 if tile == 32 else 64)
+
+
+# (dtype, head dim, backward) -> (kernel, tile), as the C entries choose
+ROUTES = [
+    (torch.bfloat16, 16, False, ("attn_fwd_kernel", 32)),
+    (torch.bfloat16, 64, False, ("attn_fwd_kernel", 64)),
+    (torch.bfloat16, 80, False, ("attn_fwd_kernel", 128)),
+    (torch.bfloat16, 384, False, ("attn_wide_kernel", 384)),
+    (torch.bfloat16, 48, True, ("attn_bwd", 64)),
+    (torch.bfloat16, 80, True, ("attn_bwd", 128)),
+    (torch.float32, 64, False, ("attn_f32_fwd_kernel", 64)),
+    (torch.float32, 80, False, ("attn_f32_fwd_kernel", 96)),
+    (torch.float32, 120, False, ("attn_f32_fwd_kernel", 128)),
+    (torch.float32, 384, False, ("attn_f32_fwd_kernel", 384)),
+    (torch.float32, 80, True, ("attn_f32_bwd", 96)),
+    (torch.float32, 32, True, ("attn_f32_bwd", 32)),
+]
+
+
+@pytest.mark.parametrize("dtype,d,backward,want", ROUTES)
+def test_attention_route_by_dtype_and_head_dim(dtype, d, backward, want):
+    assert tatt.attention_route(dtype, d, backward) == want
+
+
+@pytest.mark.parametrize("dtype,d,backward,err", [
+    (torch.float16, 64, False, TypeError),
+    (torch.int8, 64, True, TypeError),
+    (torch.bfloat16, 20, False, ValueError),
+    (torch.bfloat16, 192, False, ValueError),
+    (torch.float32, 256, False, ValueError),
+    (torch.bfloat16, 384, True, ValueError),
+    (torch.float32, 384, True, ValueError),
+    (torch.float32, 4, True, ValueError)])
+def test_attention_route_refusals(dtype, d, backward, err):
+    """fp16, int8, head dims not a multiple of 8 or above 128 (but the
+    forward's 384), and 384 in the backward (ROADMAP.md queue B)."""
+    with pytest.raises(err):
+        tatt.attention_route(dtype, d, backward)
 
 
 @pytest.mark.parametrize("which,stride", [(0, 12), (1, 4), (2, -8),
@@ -201,10 +266,10 @@ def test_mirror_refuses_grids_the_kernel_does_not_take(b, h):
 
 def test_strided_entry_refuses_before_any_launch():
     """The wrapper runs the mirror before the C call: a CPU tensor with a
-    head dim of 96 or strides off by 8 elements raises ValueError, never a
+    head dim of 192 or strides off by 8 elements raises ValueError, never a
     build or launch."""
     with pytest.raises(ValueError):
-        tatt.attention_bnhd_kernel(*(torch.zeros(1, 8, 2, 96,
+        tatt.attention_bnhd_kernel(*(torch.zeros(1, 8, 2, 192,
                                                  dtype=torch.bfloat16),) * 3,
                                    0.1)
     # lane slices of rows 132 elements apart
@@ -360,3 +425,41 @@ def test_wide_tile_recurrence_bf16_matches_plain_and_jax(interpret, mode, cl,
     scale = float(plain.abs().max())
     np.testing.assert_allclose(got.numpy(), plain.numpy(),
                                atol=2.0 ** -7 * scale, rtol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,cl", [("none", 0), ("prefix_causal", 3)])
+def test_head_dim_80_on_the_128_tile(interpret, dtype, mode, cl):
+    """A head dim of 80 (a 1280-wide tower over 16 heads) as
+    attn_fwd_kernel runs it on its 128-lane tile: q, k and v zero-padded to
+    128 lanes (the TMA's fill), the 128-key recurrence, the lanes past 80
+    dropped (the store's clip). The zero lanes add nothing: held to the
+    unpadded plain version and to the JAX ``multihead_attention_bnhd``,
+    which pads D = 80 to 128 itself and runs its packed kernel (interpret
+    mode), at the limits of the recurrence tests above (in bf16 against
+    JAX's whole-row softmax, the plain version's limits)."""
+    b, n, h, d = 2, 130, 2, 80
+    rng = np.random.default_rng(80)
+    q, k, v = (rng.standard_normal((b, n, h, d)).astype(np.float32)
+               for _ in range(3))
+    if dtype == torch.bfloat16:
+        q, k, v = (torch.from_numpy(a).to(dtype).float().numpy()
+                   for a in (q, k, v))
+    scale = d ** -0.5
+    qt, kt, vt = (torch.from_numpy(a).to(dtype) for a in (q, k, v))
+    qs = qt * torch.tensor(scale, dtype=dtype)  # q scaled in its dtype
+    pad = [torch.nn.functional.pad(t, (0, 128 - d)).transpose(1, 2)
+           for t in (qs, kt, vt)]
+    got = tile_recurrence(*pad, mode, cl)[..., :d].transpose(1, 2).float()
+    plain = tatt.attention_bnhd_plain(qt, kt, vt, scale, mode, cl).float()
+    want = np.asarray(jatt.multihead_attention_bnhd(
+        *(jnp.asarray(a).astype(jnp.float32 if dtype == torch.float32
+                                else jnp.bfloat16) for a in (q, k, v)),
+        scale=scale, mask_mode=mode, cond_len=cl,
+        impl="pallas").astype(jnp.float32))
+    if dtype == torch.float32:
+        lim = dict(atol=3e-5, rtol=1e-4)
+    else:
+        lim = dict(atol=2.0 ** -7 * float(plain.abs().max()), rtol=2.0 ** -7)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **lim)
+    np.testing.assert_allclose(got.numpy(), want, **lim)

@@ -173,12 +173,20 @@ def test_attention_kernel_matches_plain(cuda, b, n, h, d, mode, cl):
 
 
 def test_attention_kernel_refuses_what_it_does_not_take(cuda):
+    """A head dim between the tiles (bf16 48) and fp32 now compute: held
+    to the plain version. Still refused: D = 192 and fp16."""
     qkv = _randn(cuda, 1, 16, 3 * 2 * 48, dtype=torch.bfloat16)
+    _close(att.multihead_attention_packed_qkv(qkv, 2, 48),
+           att.attention_packed_qkv_plain(qkv, 2, 48, 48 ** -0.5), ATTN_TOL)
+    qkv = _randn(cuda, 1, 16, 3 * 2 * 64)
+    _close(att.multihead_attention_packed_qkv(qkv, 2, 64),
+           att.attention_packed_qkv_plain(qkv, 2, 64, 0.125), F32_TOL)
     with pytest.raises(ValueError):
-        att.multihead_attention_packed_qkv(qkv, 2, 48)
+        att.multihead_attention_packed_qkv(
+            _randn(cuda, 1, 16, 3 * 2 * 192, dtype=torch.bfloat16), 2, 192)
     with pytest.raises(TypeError):
         att.multihead_attention_packed_qkv(
-            _randn(cuda, 1, 16, 3 * 2 * 64), 2, 64)
+            _randn(cuda, 1, 16, 3 * 2 * 64, dtype=torch.float16), 2, 64)
 
 
 @pytest.mark.parametrize("m,n,d", [(300, 1000, 32), (4096, 8192, 32),
@@ -429,9 +437,17 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
         fa.fused_leaky_relu(_randn(cuda, 4, 6), _randn(cuda, 6))
     with pytest.raises(ValueError):
         fir.upfirdn2d(_randn(cuda, 1, 8, 8, 6), fir.make_blur_kernel([1, 1]))
-    q = _randn(cuda, 1, 16, 2 * 48, dtype=torch.bfloat16)
+    # B5 at a head dim between the tiles (48) now computes; 192 is refused
+    qkv = _randn(cuda, 1, 16, 3 * 2 * 48, dtype=torch.bfloat16)
+    q3, k3, v3 = att.split_qkv_scaled(qkv, 48 ** -0.5)
+    do = _randn(cuda, 1, 16, 2 * 48, dtype=torch.bfloat16)
+    for g, w in zip(att.attention_bwd_kernel(q3, k3, v3, do, 2, 48),
+                    att.attention_bwd_plain(q3, k3, v3, do, 2, 48)):
+        _close(g, w, dict(atol=2.0 ** -6 * float(w.float().abs().max()),
+                          rtol=2.0 ** -6))
+    q = _randn(cuda, 1, 16, 2 * 192, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
-        att.attention_bwd_kernel(q, q, q, q, 2, 48)
+        att.attention_bwd_kernel(q, q, q, q, 2, 192)
 
 
 def test_tiny_training_step_goes_through_every_kernel(cuda):
@@ -508,10 +524,18 @@ def test_attention_bnhd_kernel_reads_lane_slices(cuda):
 
 
 def test_attention_bnhd_kernel_refuses_what_it_does_not_take(cuda):
+    """bf16 at D = 96 (the 128 tile) and fp32 now compute: held to the
+    plain version. Still refused: D = 192 and fp16."""
     q = _randn(cuda, 1, 16, 2, 96, dtype=torch.bfloat16)
+    _close(att.multihead_attention_bnhd(q, q, q),
+           att.attention_bnhd_plain(q, q, q, 96 ** -0.5), ATTN_TOL)
+    q = _randn(cuda, 1, 16, 2, 64)
+    _close(att.multihead_attention_bnhd(q, q, q),
+           att.attention_bnhd_plain(q, q, q, 0.125), F32_TOL)
+    q = _randn(cuda, 1, 16, 2, 192, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         att.multihead_attention_bnhd(q, q, q)
-    q = _randn(cuda, 1, 16, 2, 64)
+    q = _randn(cuda, 1, 16, 2, 64, dtype=torch.float16)
     with pytest.raises(TypeError):
         att.multihead_attention_bnhd(q, q, q)
 
@@ -596,16 +620,23 @@ def test_attention_forwards_route_by_head_dim(cuda):
 
 
 def test_attention_packed_qkv_kernel_refusals(cuda):
-    """What the B2 wrapper refused before its kernel was replaced, it
-    refuses still, before any launch."""
+    """What the B2 wrapper refuses, it refuses before any launch: D = 192
+    and 384 (the prior's heads are no ViT's), fp16. D = 48 and 96 (on the
+    64 and 128 tiles) and fp32 now compute, held to the plain version."""
     qkv = _randn(cuda, 1, 16, 3 * 2 * 64, dtype=torch.bfloat16)
-    for bad_d in (48, 96, 192, 384):
+    for d in (48, 96):
+        x = _randn(cuda, 1, 16, 3 * 2 * d, dtype=torch.bfloat16)
+        _close(att.attention_packed_qkv_kernel(x, 2, d, 0.1),
+               att.attention_packed_qkv_plain(x, 2, d, 0.1), ATTN_TOL)
+    for bad_d in (192, 384):
         with pytest.raises(ValueError, match="head_dim"):
             att.attention_packed_qkv_kernel(
                 _randn(cuda, 1, 16, 3 * 2 * bad_d, dtype=torch.bfloat16), 2,
                 bad_d, 0.1)
+    _close(att.attention_packed_qkv_kernel(qkv.float(), 2, 64, 0.1),
+           att.attention_packed_qkv_plain(qkv.float(), 2, 64, 0.1), F32_TOL)
     with pytest.raises(TypeError):
-        att.attention_packed_qkv_kernel(qkv.float(), 2, 64, 0.1)
+        att.attention_packed_qkv_kernel(qkv.half(), 2, 64, 0.1)
     with pytest.raises(ValueError, match="last dim"):
         att.attention_packed_qkv_kernel(qkv[..., :-64], 2, 64, 0.1)
     with pytest.raises(ValueError, match="mask_mode"):
@@ -1300,8 +1331,12 @@ def test_fused_kernels_refuse_what_they_do_not_take(cuda):
                        _randn(cuda, 128), _randn(cuda, 96, 128,
                                                  dtype=torch.bfloat16),
                        _randn(cuda, 96))
-    with pytest.raises(ValueError):  # head dim 48
-        att.multihead_attention(*(_randn(cuda, 1, 2, 8, 48,
+    # head dim 48 now runs on the 64 tile; 192 is refused
+    q48 = _randn(cuda, 1, 2, 8, 48, dtype=torch.bfloat16)
+    _close(att.multihead_attention(q48, q48, q48),
+           att.attention_plain(q48, q48, q48, 48 ** -0.5), ATTN_TOL)
+    with pytest.raises(ValueError):  # head dim 192
+        att.multihead_attention(*(_randn(cuda, 1, 2, 8, 192,
                                          dtype=torch.bfloat16),) * 3)
 
 

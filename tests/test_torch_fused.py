@@ -261,11 +261,13 @@ def _bf(*shape):
     (lambda: tffn.ffn_kernel(torch.zeros(8, 64), _bf(128, 64),
                              torch.zeros(128), _bf(64, 128),
                              torch.zeros(64)), TypeError),
-    # B17-B19: a head dim the attention kernel is not built for
-    (lambda: tatt.attention_bhnd_kernel(*(_bf(1, 2, 8, 48),) * 3, 0.1),
+    # B17-B19: a head dim no attention kernel takes (not a multiple of 8
+    # up to 128, nor 384), and fp16 (bf16 and fp32 run)
+    (lambda: tatt.attention_bhnd_kernel(*(_bf(1, 2, 8, 192),) * 3, 0.1),
      ValueError),
     (lambda: tatt.attention_strided_kernel(
-        "attention_fused_bnhd", *(torch.zeros(1, 8, 2, 64),) * 3, 0.1),
+        "attention_fused_bnhd",
+        *(torch.zeros(1, 8, 2, 64, dtype=torch.float16),) * 3, 0.1),
      TypeError),
     # B19 is prefix-causal only, as the TPU kernel masks
     (lambda: tatt.attention_packed_gridchunk(_bf(1, 8, 64), _bf(1, 8, 64),

@@ -47,6 +47,60 @@ def tiny():
     return _pair(JaxViTVQ, ViTVQ, **TINY)
 
 
+# ViT-VQGAN-Large's shape at a tiny size: towers of different widths, the
+# decoder wider, with heads of 80 lanes (the width over the heads, which
+# lies between the attention kernels' tiles of 64 and 128). dim_head is
+# set on both towers: a config that sets none has heads of 64, in the JAX
+# package and in the port alike.
+LARGE_SHAPED = dict(
+    image_size=32, patch_size=8,
+    encoder=dict(dim=64, depth=2, heads=2, mlp_dim=128, dim_head=32),
+    decoder=dict(dim=160, depth=2, heads=2, mlp_dim=320, dim_head=80),
+    quantizer=dict(embed_dim=16, n_embed=128))
+
+
+@pytest.fixture(scope="module")
+def large_shaped():
+    return _pair(JaxViTVQ, ViTVQ, **LARGE_SHAPED)
+
+
+def test_large_shaped_encode_codes_equal(large_shaped):
+    jm, tm = large_shaped
+    x = _images(4, 32, seed=11)
+    np.testing.assert_array_equal(tm.encode_codes(x).numpy(),
+                                  np.asarray(jm.encode_codes(x)))
+
+
+def test_large_shaped_decode_codes_close(large_shaped):
+    """The decoder's attention at D = 80 (JAX pads it to 128 lanes and
+    slices back; the port's plain version takes it as it is)."""
+    jm, tm = large_shaped
+    attn = tm.module.decoder.transformer.layers_0.attn
+    assert (attn.heads, attn.dim_head) == (2, 80)
+    codes = np.random.default_rng(12).integers(0, 128, (3, 16)).astype(
+        np.int32)
+    np.testing.assert_allclose(tm.decode_codes(codes).numpy(),
+                               np.asarray(jm.decode_codes(codes)), **REC_TOL)
+
+
+def test_shipped_large_config_has_heads_of_64():
+    """configs/imagenet_vitvq_large.yaml sets no dim_head: its 512-wide
+    encoder has 8 heads of 64 and its 1280-wide decoder 16 heads of 64
+    (inner width 1024, projected to 1280), as the JAX package builds it.
+    Built here at depth 1 of each tower, on the CPU."""
+    cfg = load_config(REPO / "configs" / "imagenet_vitvq_large.yaml")
+    params = cfg.model.params
+    assert "dim_head" not in params.encoder and "dim_head" not in \
+        params.decoder
+    params.encoder.depth = params.decoder.depth = 1
+    model = initialize_from_config(cfg.model, device="cpu")
+    enc = model.module.encoder.transformer.layers_0.attn
+    dec = model.module.decoder.transformer.layers_0.attn
+    assert (enc.heads, enc.dim_head) == (8, 64)
+    assert (dec.heads, dec.dim_head) == (16, 64)
+    assert dec.to_out.weight.shape == (1280, 1024)
+
+
 def test_encode_codes_equal(tiny):
     jm, tm = tiny
     x = _images(4, 32)
