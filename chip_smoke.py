@@ -35,8 +35,10 @@ Phases, each of which raises on failure:
    sm_90a, with the ptxas register and shared-memory report; the SASS of
    the bf16 LN -> GEMM, the fused FFN, attention -> projection, the
    attention forwards (head dims up to 128, and the prior's 384), the
-   attention backward and the int8 decode MLP must hold wgmma (HGMMA) and
-   TMA loads (UTMALDG) and no mma.sync (``cuobjdump``);
+   attention backward, their fp32 counterparts and the int8 decode MLP
+   must hold wgmma (HGMMA) and TMA loads (UTMALDG) and no mma.sync
+   (``cuobjdump``), and the fp32 attention kernels' wgmma must all be
+   bf16 (exact pieces; no TF32);
 3. each kernel against its plain PyTorch version on the card at the main
    paths' shapes, with the tolerance stated on its line; the int8 decode
    MLP and its plain version are also held (logged) against an fp64
@@ -87,7 +89,11 @@ Phases, each of which raises on failure:
    B15 24, B3 26, B16 24, B4 1); codes and reconstructions held to the
    default path (same seed) and to the plain path at batch 8 with phase
    5's limits; images/s and peak memory at batch 128 and one round
-   trip's device time by kernel group;
+   trip's device time by kernel group; then where the fusions' routes
+   send a block to the unfused form, batch-8 trips of the same model in
+   fp32 and of ``imagenet_vitvq_large.yaml`` in bf16 with the decoder's
+   heads of 80, launches, fp32 launches, unfused calls and each tower's
+   routes asserted exactly, held to the plain path at phase 10's limits;
 10. shipped configs: the two tokenizer configs through ``load_config`` +
     ``initialize_from_config(device="cuda")`` in their own fp32, and the
     Large config with the decoder's ``dim_head`` set to 80 (1280 / 16) in
@@ -97,7 +103,8 @@ Phases, each of which raises on failure:
     reconstructions against the plain path, time and peak memory;
 11. the fp32 training step: ``fake_vitvq_base`` with ``dtype: float32``,
     one AE and D step with its launches asserted (phase 6's, every
-    attention and attention backward launch fp32), one step's losses and
+    attention and attention backward launch fp32), steps 1-2 timed after
+    it and one step's device time by kernel group, one step's losses and
     gradients against the plain path (1e-4 relative, cosines 0.99999);
 12. the fp32 prior: ``imagenet_gpt_vitvq_base.yaml``'s GPT at full width
     and depth (24 x 6144, 16 heads of 384) in fp32, prefill (B8 fp32) and
@@ -105,9 +112,10 @@ Phases, each of which raises on failure:
     plain path within 1e-3 and argmax equal at 99% of positions.
 
 Phases 3 and 4 hold and time the fp32 attention kernels
-(``csrc/attention_f32.cu``: B2, B8 at 384, B5, B17-B19 in fp32) and the
-bf16 forward and backward at heads of 80 (the 128 tile); the SASS of the
-fp32 kernels must hold fp32 FMAs and no tensor-core instruction.
+(``csrc/attention_f32.cu``: B2, B8 at 384, B5, B17-B19 in fp32, each
+fp32 product as six bf16 wgmma products of exact pieces; two bounds each,
+the pieces' at the bf16 rate and fp32 SIMT's) and the bf16 forward and
+backward at heads of 80 (the 128 tile).
 Phases 3 and 4 also hold and time B17-B19, which no driven path runs
 (their JAX counterparts are a public op, a function with no caller and a
 kernel only a test reaches).
@@ -388,10 +396,11 @@ def phase_build() -> None:
 
 # the bf16 LN -> GEMM (B1), the fused FFN (B16), attention -> projection
 # (B15), the attention forwards (B2, B8 at head dims up to 128, B17-B19;
-# B8 at the prior's 384), the attention backward's two kernels (B5) and the
-# int8 decode MLP (B14) run on Hopper's warpgroup MMA fed by TMA: their
-# SASS holds HGMMA and UTMALDG, and no mma.sync (HMMA). Each family by its
-# demangled or mangled name.
+# B8 at the prior's 384), the attention backward's two kernels (B5), their
+# fp32 counterparts on exact bf16 pieces and the int8 decode MLP (B14) run
+# on Hopper's warpgroup MMA fed by TMA: their SASS holds HGMMA and
+# UTMALDG, and no mma.sync (HMMA). Each family by its demangled or mangled
+# name.
 SM90_KERNELS = {"ln_gemm": ("ln_gemm_kernel<", "ln_gemm_kernelI"),
                 "ffn": ("ffn_kernel<", "ffn_kernelI"),
                 "attn_proj": ("attn_proj_kernel",),
@@ -399,11 +408,16 @@ SM90_KERNELS = {"ln_gemm": ("ln_gemm_kernel<", "ln_gemm_kernelI"),
                 "attention fwd D=384": ("attn_wide_kernel",),
                 "attention_bwd rows": ("attn_bwd_rows_kernel",),
                 "attention_bwd cols": ("attn_bwd_cols_kernel",),
+                "attention fwd f32": ("attn_f32_fwd_kernel",),
+                "attention fwd f32 D=384": ("attn_f32_wide_kernel",),
+                "attention_bwd f32 rows": ("attn_f32_bwd_rows_kernel",),
+                "attention_bwd f32 cols": ("attn_f32_bwd_cols_kernel",),
                 "int8_mlp": ("int8_mlp_kernel",)}
-
-
-F32_SIMT_KERNELS = ("attn_f32_fwd_kernel", "attn_f32_bwd_rows_kernel",
-                    "attn_f32_bwd_cols_kernel")
+# the fp32 attention kernels (csrc/attention_f32.cu) compute fp32 products
+# as six bf16 products of exact pieces: every HGMMA of theirs is BF16, and
+# none is TF32 (a single TF32 pass misses the fp32 limits)
+F32_PIECE_FAMILIES = ("attention fwd f32", "attention fwd f32 D=384",
+                      "attention_bwd f32 rows", "attention_bwd f32 cols")
 
 
 def check_sass(lib_path: str) -> None:
@@ -428,27 +442,17 @@ def check_sass(lib_path: str) -> None:
         found.add(family)
         counts = {op: block.count(op) for op in ("HGMMA", "UTMALDG",
                                                  "UTMASTG", "HMMA")}
-        log(f"[build] SASS {name[:70]}: {counts}")
+        hgmma = [ln for ln in block.splitlines() if "HGMMA" in ln]
+        kinds = sorted({ln.split("HGMMA", 1)[1].split()[0] for ln in hgmma})
+        log(f"[build] SASS {name[:70]}: {counts} {kinds}")
         check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0
               and counts["HMMA"] == 0,
               f"{name}: expected wgmma fed by TMA and no mma.sync")
+        if family in F32_PIECE_FAMILIES:
+            check(all(".BF16" in k and "TF32" not in k for k in kinds),
+                  f"{name}: expected bf16 wgmma of exact pieces, no TF32")
     check(found == set(SM90_KERNELS),
           f"sm90 kernels missing from the SASS: {set(SM90_KERNELS) - found}")
-    # the fp32 attention kernels run on the SIMT cores in fp32 FMAs: no
-    # tensor-core instruction (so no TF32), each one present
-    simt = set()
-    for block in demangled.split("Function : ")[1:]:
-        name = block.split("\n", 1)[0]
-        family = next((f for f in F32_SIMT_KERNELS if f in name), None)
-        if family is None:
-            continue
-        simt.add(family)
-        counts = {op: block.count(op) for op in ("FFMA", "HGMMA", "HMMA")}
-        log(f"[build] SASS {name[:70]}: {counts}")
-        check(counts["FFMA"] > 0 and counts["HGMMA"] == counts["HMMA"] == 0,
-              f"{name}: expected fp32 FMAs and no tensor-core instruction")
-    check(simt == set(F32_SIMT_KERNELS),
-          f"fp32 kernels missing from the SASS: {set(F32_SIMT_KERNELS) - simt}")
 
 
 def rand(shape, gen, dtype=torch.bfloat16, scale=1.0):
@@ -949,7 +953,15 @@ def phase_times() -> dict:
     def row(name, label, kernel, plain, library, flops, nbytes, peak, iters,
             reps=1):
         """reps > 1: kernel and library loops in turns, each number the
-        median of ``reps`` loops, their min-max logged."""
+        median of ``reps`` loops, their min-max logged. The fp32 attention
+        kernels (``peak`` PEAK_F32) compute six bf16 products of exact
+        pieces for each fp32 one: their bound is those products at the bf16
+        peak (989 / 6 = 165 TFLOP/s), and the fp32 SIMT bound (67 TFLOP/s)
+        is logged and kept beside it."""
+        simt = None
+        if name in F32_OF:
+            simt = bound(flops, nbytes, PEAK_F32)[0]
+            flops, peak = 6 * flops, PEAK_BF16
         b_ms, b_by = bound(flops, nbytes, peak)
         ks, ls = [], []
         for _ in range(reps):
@@ -960,15 +972,20 @@ def phase_times() -> dict:
                  plain_ms=time_ms(plain, 3, warmup=1),
                  library_ms=statistics.median(ls) if ls else None,
                  bound_ms=b_ms, bound_by=b_by)
+        if simt is not None:
+            r["bound_f32_simt_ms"] = simt
         rows[name].append(r)
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         spread = "" if reps == 1 else (
             f" (medians of {reps} loops: kernel {min(ks):.4f}-{max(ks):.4f}"
             + (f", library {min(ls):.4f}-{max(ls):.4f}" if ls else "") + ")")
+        simt_note = ("" if simt is None else
+                     f", fp32 SIMT bound {simt:.4f} ms (67 TFLOP/s), "
+                     f"{flops / 6 / r['ms'] / 1e9:.1f} fp32 TFLOP/s")
         log(f"[time] {label}: kernel_ms {r['ms']:.4f} plain_ms "
             f"{r['plain_ms']:.4f} library_ms {lib} bound_ms {b_ms:.4f} "
             f"({b_by}); {flops / r['ms'] / 1e9:.1f} TFLOP/s, "
-            f"{nbytes / r['ms'] / 1e6:.1f} GB/s{spread}")
+            f"{nbytes / r['ms'] / 1e6:.1f} GB/s{simt_note}{spread}")
 
     x, g, b = t["x"], t["gamma"], t["beta"]
     for label, w, bias, act in (("ln_gemm qkv", t["w_qkv"], None, None),
@@ -1617,9 +1634,11 @@ def time_f32_kernels(gen, row) -> None:
     """The fp32 kernels at the shipped fp32 configs' shapes: B2 at
     ViT-VQGAN-Base's batch 8 (the shipped-configs phase's batch), B5 at
     the training batch 8, B8 at the prior's teacher-forced prefill, B17-B19
-    at their bf16 rows' shapes but batch 8; the fp32 bound at 67 TFLOP/s;
-    the library call SDPA in fp32 with TF32 off. Then, logged, heads of 80
-    in bf16 and fp32 beside heads of 64 at the same width."""
+    at their bf16 rows' shapes but batch 8; two bounds (row(): six bf16
+    products at 989 TFLOP/s, and the fp32 SIMT rate of 67); the library
+    call SDPA in fp32 with TF32 off. Then, logged, heads of 80 in bf16 and
+    fp32 beside heads of 64 at the same width, and SDPA in fp32 at heads of
+    80 (forward and autograd backward)."""
     from enhancing_tpu_torch.ops import attention as att
     f32 = torch.float32
     b, n, h, d = CHECK_BATCH, TOKENS, HEADS, HEAD_DIM
@@ -1713,9 +1732,28 @@ def time_f32_kernels(gen, row) -> None:
                           peak)
             bb, _ = bound(10.0 * b * h * n * n * d, 7 * b * n * h * d * size,
                           peak)
+            if dtype == f32:  # the pieces' bound and SDPA fp32 beside them
+                fb, _ = bound(6 * 4.0 * b * h * n * n * d,
+                              4 * b * n * h * d * size, PEAK_BF16)
+                bb, _ = bound(6 * 10.0 * b * h * n * n * d,
+                              7 * b * n * h * d * size, PEAK_BF16)
+                ql, kl, vl = (u.reshape(b, n, h, d).transpose(1, 2).detach()
+                              .requires_grad_() for u in (q3, k3, v3))
+                lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+                    ql, kl, vl, scale=1.0), 5)
+                lib_out = F.scaled_dot_product_attention(ql, kl, vl,
+                                                         scale=1.0)
+                lib_do = do.reshape(b, n, h, d).transpose(1, 2)
+                lib_bwd = time_ms(lambda: torch.autograd.grad(
+                    lib_out, (ql, kl, vl), lib_do, retain_graph=True), 5)
+                lib = (f"; SDPA fp32 forward {lib_fwd:.4f} ms, autograd "
+                       f"backward {lib_bwd:.4f} ms")
+                del ql, kl, vl, lib_out
+            else:
+                lib = ""
             log(f"[time] attention {str(dtype)[6:]} B={b} N={n} H={h} D={d}:"
                 f" forward {fwd:.4f} ms (bound {fb:.4f}), backward "
-                f"{bwd:.4f} ms (bound {bb:.4f})")
+                f"{bwd:.4f} ms (bound {bb:.4f}){lib}")
             del qkv, q3, k3, v3, do
 
 
@@ -1879,6 +1917,17 @@ def phase_train_f32() -> dict:
     check(got == want, f"fp32 step launches {got}, expected {want}")
     bad = [k for k, v in metrics.items() if not torch.isfinite(v).all()]
     check(not bad, f"fp32 step: non-finite {bad}")
+    # steps 1-2 after that warm-up, then one step's device time by group
+    warm = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        train_step(state, x, do_r1=False)
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    log(f"[train32] steps 1-2 after the first: {warm[0]:.1f}, {warm[1]:.1f} "
+        f"ms")
+    profile_device("one fp32 training step (no R1)",
+                   lambda: train_step(state, x, do_r1=False))
 
     k_logs, k_ae, k_d, k_codes = one_step_grads(model, x)
     with plain_versions():
@@ -2138,6 +2187,135 @@ def phase_fused_serving() -> dict:
     del model
     gc_cuda()
     return launches
+
+
+# the opt-in fusions where their routes (ops.attention.attn_proj_route,
+# ops.ffn.ffn_route) send a block to the unfused form, a round trip at
+# batch 8: ViT-VQGAN-Base in fp32 (B8 fp32 then the fp32 projection for
+# attention -> to_out, two fp32 library products for the FFN), and
+# imagenet_vitvq_large.yaml in bf16 with the decoder's heads of 80 (its
+# 8 encoder blocks on B15, its 32 decoder blocks on B8 at D = 80 + the
+# projection; every FFN on B16): (launches, fp32 launches, unfused calls,
+# the routes of each tower's attention -> to_out and FFN). Base's fp32
+# attention -> to_out is "unported": the JAX package runs its kernel
+# there, the port has no one-launch fp32 B15 yet (ROADMAP.md queue B
+# item 0); its fp32 FFN (18.9 MB of weights) and Large's heads of 80 are
+# unfused in the JAX package too.
+FUSED_ROUTES = {
+    "base float32": ({"ln_gemm": 24, "attention_bnhd": 24, "layernorm": 26,
+                      "vq": 1}, {"attention_bnhd": 24},
+                     {"attn_proj": 24, "ffn": 24},
+                     {"encoder": ("unported", "unfused"),
+                      "decoder": ("unported", "unfused")}),
+    "large dec dim_head 80 bfloat16": (
+        {"ln_gemm": 40, "attn_proj": 8, "attention_bnhd": 32,
+         "layernorm": 42, "ffn": 40, "vq": 1}, {},
+        {"attn_proj": 32, "ffn": 0},
+        {"encoder": ("attn_proj", "ffn"), "decoder": ("unfused", "ffn")})}
+
+
+def phase_fused_routes(x8) -> dict:
+    """Phase 9's fp32 and heads-of-80 fused round trips under
+    ENHANCING_TPU_ATTN_PROJ=1 and ``ffn_impl: fused``: launches, fp32
+    launches and unfused calls a trip asserted exactly, codes and
+    reconstructions held to the plain path at phase 10's limits, the host
+    time of a trip; each tower's routes asserted. Returns the launches by
+    kernels-line name."""
+    import os
+    from pathlib import Path
+
+    from enhancing_tpu_torch.models.stage1.vitvqgan import ViTVQ
+    from enhancing_tpu_torch.ops import (F32_LAUNCHES, LAUNCHES,
+                                         UNFUSED_CALLS, reset_launches)
+    from enhancing_tpu_torch.ops.attention import attn_proj_route
+    from enhancing_tpu_torch.ops.ffn import ffn_route
+    from enhancing_tpu_torch.utils.config import (initialize_from_config,
+                                                  load_config)
+    total: dict = {}
+    saved = os.environ.get("ENHANCING_TPU_ATTN_PROJ")
+    os.environ["ENHANCING_TPU_ATTN_PROJ"] = "1"
+    try:
+        for label, (want, want32, want_unf, want_routes) in \
+                FUSED_ROUTES.items():
+            gc_cuda()
+            if label.startswith("base"):
+                cfg = dict(BASE, encoder=dict(BASE["encoder"],
+                                              ffn_impl="fused"),
+                           decoder=dict(BASE["decoder"], ffn_impl="fused"))
+                model = ViTVQ(dtype="float32", seed=0, device="cuda", **cfg)
+                towers = cfg
+            else:
+                cfg = load_config(Path(__file__).resolve().parent /
+                                  "configs" / "imagenet_vitvq_large.yaml")
+                params = cfg.model.params
+                params["dtype"] = "bfloat16"
+                params.decoder["dim_head"] = D80
+                for tower in (params.encoder, params.decoder):
+                    tower["ffn_impl"] = "fused"
+                model = initialize_from_config(cfg.model, device="cuda")
+                towers = params
+            dtype = str(model.dtype)[6:]
+            routes = {
+                name: (attn_proj_route(model.dtype, t["heads"],
+                                       t.get("dim_head", 64), t["dim"],
+                                       TOKENS, TOKENS),
+                       ffn_route(model.dtype, CHECK_BATCH * TOKENS,
+                                 t["dim"], t["mlp_dim"]))
+                for name, t in (("encoder", towers["encoder"]),
+                                ("decoder", towers["decoder"]))}
+            log(f"[fused] {label}: routes (attention -> to_out, FFN) "
+                f"{routes}")
+            check(routes == want_routes,
+                  f"{label}: routes {routes}, expected {want_routes}")
+            torch.cuda.synchronize()
+            reset_launches()
+            codes = model.encode_codes(x8)
+            rec = model.decode_codes(codes)
+            torch.cuda.synchronize()
+            got = {k: v for k, v in LAUNCHES.items() if v}
+            got32 = {k: v for k, v in F32_LAUNCHES.items() if v}
+            unf = dict(UNFUSED_CALLS)
+            log(f"[fused] {label} batch {CHECK_BATCH}: launches a round trip "
+                f"{got}, fp32 {got32}, unfused calls {unf}")
+            check(got == want and got32 == want32 and unf == want_unf,
+                  f"{label}: launches {got}, fp32 {got32}, unfused {unf}; "
+                  f"expected {want}, {want32}, {want_unf}")
+            for k, v in kernel_counts().items():
+                total[k] = total.get(k, 0) + v
+            check(codes.shape == (CHECK_BATCH, TOKENS)
+                  and bool(((codes >= 0) & (codes < CODES)).all())
+                  and bool(torch.isfinite(rec).all()),
+                  f"{label}: codes {codes.shape}, reconstruction not finite")
+            before = dict(LAUNCHES)
+            with plain_versions():
+                codes_p = model.encode_codes(x8)
+                rec_p = model.decode_codes(codes)
+            check(LAUNCHES == before, "the plain path launched a kernel")
+            match = float((codes == codes_p).float().mean()) * 100
+            err = float((rec.float() - rec_p.float()).abs().max())
+            log(f"[fused] {label}, kernels vs plain: code match {match:.3f}% "
+                f"(threshold {SHIPPED_MATCH[dtype]}%), reconstruction from "
+                f"the same codes max_abs_err {err:.4e} (threshold "
+                f"{SHIPPED_REC_ATOL[dtype]})")
+            check(match >= SHIPPED_MATCH[dtype], f"{label}: codes disagree")
+            check(err <= SHIPPED_REC_ATOL[dtype],
+                  f"{label}: reconstructions disagree")
+            model.decode_codes(model.encode_codes(x8))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                model.decode_codes(model.encode_codes(x8))
+            torch.cuda.synchronize()
+            log(f"[fused] {label} round trip batch {CHECK_BATCH}: "
+                f"{(time.perf_counter() - t0) / 3 * 1e3:.2f} ms")
+            del model, codes, rec, codes_p, rec_p
+    finally:
+        if saved is None:
+            os.environ.pop("ENHANCING_TPU_ATTN_PROJ", None)
+        else:
+            os.environ["ENHANCING_TPU_ATTN_PROJ"] = saved
+    gc_cuda()
+    return total
 
 
 class StepRecorder:
@@ -2673,7 +2851,9 @@ def gc_cuda() -> None:
 # kernel-name fragments -> the group of device time they belong to
 KERNEL_GROUPS = (("attn_proj_kernel", "attn_proj"), ("ffn_kernel", "ffn"),
                  ("attn_f32_fwd", "attention f32"),
+                 ("attn_f32_wide", "attention f32"),
                  ("attn_f32_bwd", "attention_bwd f32"),
+                 ("f32_split", "attention f32 split"),
                  ("gemv_ln_kernel<signed char", "int8_ln_gemm"),
                  ("gemv_ln_kernel<", "ln_shift_gemm"),
                  ("gemv_kernel<signed char", "int8_gemm"),
@@ -2743,11 +2923,12 @@ def main() -> int:
     serving8 = phase_int8(prior, codes)
     del prior
     fused = phase_fused_serving()
+    fused_routes = phase_fused_routes(x8)
     shipped = phase_shipped_configs(x8, codes8)
     training32 = phase_train_f32()
     prior32 = phase_prior_f32()
-    phases = (serving, training, sampling, serving8, fused, shipped,
-              training32, prior32)
+    phases = (serving, training, sampling, serving8, fused, fused_routes,
+              shipped, training32, prior32)
     kernels = []
     for kname in REPLACES:
         rows = times[kname]
@@ -2758,6 +2939,9 @@ def main() -> int:
                for key in ("ms", "plain_ms", "bound_ms")}
         agg["library_ms"] = (None if rows[0]["library_ms"] is None
                              else sum(r["library_ms"] for r in rows))
+        if "bound_f32_simt_ms" in rows[0]:
+            agg["bound_f32_simt_ms"] = sum(r["bound_f32_simt_ms"]
+                                           for r in rows)
         kernels.append(dict(name=kname, route="cuda", source=SOURCES[kname],
                             replaces=REPLACES[kname],
                             launches=sum(p.get(kname, 0) for p in phases),

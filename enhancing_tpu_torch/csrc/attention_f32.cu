@@ -1,6 +1,6 @@
-// fp32 attention, forward and backward, on the SIMT cores: the fp32 blocks
-// that the TPU kernels take and the Hopper kernels of attention_bnhd.cu and
-// attention_bwd.cu (bf16 wgmma) do not.
+// fp32 attention, forward and backward, on Hopper's bf16 tensor cores with
+// exact products: the fp32 blocks that the TPU kernels take beside the bf16
+// ones of attention_bnhd.cu and attention_bwd.cu.
 //
 // Replaces, for fp32 q, k and v, the TPU kernels of
 // enhancing_tpu/ops/attention.py that those two files replace in bf16:
@@ -9,44 +9,78 @@
 //   _attention_packed_call (B8, the GPT prior's prefill, D up to 128 and
 //   the prior's 384); _attn_kernel (B17) and _attn_kernel_bnhd (B18), the
 //   scale on the scores; _attn_kernel_packed_gridchunk (B19, unit scale):
-//   one forward, attn_f32_fwd_kernel, entry etk_attention_f32;
-// - _attn_bwd_kernel as entered through _attention_packed_bwd_call (B5):
-//   attn_f32_bwd_rows_kernel and attn_f32_bwd_cols_kernel, entry
-//   etk_attention_bwd_f32, at D up to 128.
-// Numerics: every product, the softmax and every sum in fp32 with fp32
-// FMAs, no TF32 (its 10-bit mantissa misses the fp32 limits). q is scaled
-// in fp32 (one rounding, as the plain version's q * scale) unless the
-// scale goes on the scores (B17, B18: e^(scale (s - m)) by one FMA in the
-// exponent). The forward's softmax is online over 64-key tiles with O and
-// l rescaled whenever the row max moves; O is multiplied by 1 / l at the
-// end. The backward recomputes P from the rows' max and sum, as
+//   attn_f32_fwd_kernel (head dims up to 128) and attn_f32_wide_kernel
+//   (384), entry etk_attention_f32;
+// - _attn_kernel_packed's backward _attn_bwd_kernel as entered through
+//   _attention_packed_bwd_call (B5): attn_f32_bwd_rows_kernel and
+//   attn_f32_bwd_cols_kernel, entry etk_attention_bwd_f32, D up to 128.
+//
+// Numerics: the TPU kernels' fp32 function. Every product is exact: a
+// split pass (f32_split_kernel) writes each fp32 operand as three bf16
+// pieces whose sum is the value exactly (sm90.cuh, "exact products"), and
+// each product of the function is the six cross terms of the pieces on
+// bf16 wgmma, hi*hi in one fp32 accumulator and the five small terms in
+// another, folded with a round-to-nearest add. P and dS, formed in fp32
+// registers, are split into pieces the same way. The sums run in another
+// order than fp32 FMAs (and the tensor cores' adds inside a product
+// truncate), so the outputs differ from the plain version by fp32
+// rounding, not by bf16 or TF32 rounding (a single TF32 pass misses the
+// fp32 limits). q is scaled in fp32 in the split pass (one rounding, as
+// the plain version's q * scale) unless the scale goes on the scores
+// (B17, B18: e^(scale (s - m)) by one FMA in the exponent). The forward's
+// softmax is online over 64-key tiles with O and l rescaled whenever the
+// row max moves; O is multiplied by 1 / l at the end and stored in fp32.
+// The backward recomputes P from the rows' max and sum, as
 // attention_bwd.cu does: a rows kernel takes m, l and delta = rowsum(P *
 // dP) in one online sweep and dq = dS K in a second; a cols kernel takes
-// dk = dS^T q and dv = P^T dO per 64-key block over every query tile.
-// Nothing is summed with atomics: two calls give the same bits. Mask modes
-// 'none' and 'prefix_causal' (col <= row, or both < cond_len); rows past N
-// and keys past M are masked, so any N and M work.
+// dk = dS^T q and dv = P^T dO over every query tile. Nothing is summed
+// with atomics: two calls give the same bits. Mask modes 'none' and
+// 'prefix_causal' (col <= row, or both < cond_len); rows past N and keys
+// past M are masked, so any N and M work.
 //
-// Bound on the H100: fp32 operations outside the tensor cores, 4 D flops a
-// visible (query, key) pair forward and 9 backward (as computed here; 5 as
-// the function needs) at 67 TFLOP/s, against (N + 2 M) D * 4 bytes a
-// (batch, head). This is the simple design: a block of 128 threads owns
-// 64 query rows (32 at D = 384) of one (batch, head), each thread a 4-row
-// by 8-column tile of every product (outer products of one 16-byte load
-// of A and 8 scalar loads of B from shared memory per step), operands
-// stored in shared memory with the contraction index outermost, loaded
-// synchronously (no ring) and transposed on the way in. D runs in tiles of
-// 32, 64, 96 or 128 lanes (the lanes past D are zeros) and 384. A
-// tensor-core design (exact bf16 pieces, as int8_wgmma.cuh splits fp32
-// activations, or 3xTF32) is later work.
+// Bound on the H100: six bf16 products for each fp32 one, 4 D flops a
+// visible (query, key) pair forward and 10 backward (the function's five
+// products; the kernels compute nine) at 989 / 6 = 165 TFLOP/s, against
+// the fp32 operands' bytes. The split pass reads each operand once and
+// writes 1.5x its bytes; the pieces are read through L2 by every block of
+// a (batch, head).
+//
+// Design. The pieces are (3 B, rows, H, D) bf16 tensors, piece p of batch
+// b at batch index p B + b, so one 4-D tensor map per operand
+// (sm90::tensor_map_4d, lanes past the head dim filled with zeros) feeds
+// every box, as the bf16 kernels' maps do. Head dims that are multiples of
+// 8 up to 128 run on the next tile of 32, 64 or 128 lanes (a head dim
+// between them, as ViT-VQGAN-Large's 80, loads zeros past its lanes, which
+// add nothing to any product, and the fp32 stores skip them).
+// - attn_fwd (D <= 128): two consumer warpgroups of 64 query rows and a
+//   producer warp; the q tile's three pieces stay in shared memory, the 64-
+//   key K and V tiles (three pieces each) stream through one TMA ring, K and
+//   V in stages of their own, read by both warpgroups. Per key tile: S = q
+//   K^T by shared-memory wgmma (6 x D / 16 products of m64n64k16), the
+//   online softmax in fp32, P split into register-A fragments of its three
+//   pieces, O += P V by register-A wgmma against V read MN-major.
+// - attn_wide (D = 384, the GPT prior's heads): a 64-row q tile in three
+//   pieces is 147 KB, so q cannot stay beside K and V. Roles by warpgroup,
+//   as attention_bnhd.cu's attn_wide_kernel: an S warpgroup streams q's
+//   and K's 64-lane boxes (three pieces each) through the ring, forms S
+//   once per 64-key tile, runs the softmax and writes P's three pieces
+//   into a shared-memory slot (swizzled as wgmma's A operand) and the
+//   rows' rescale factors beside it; three O warpgroups own 128 lanes of O
+//   each and add P V by shared-memory wgmma against V read MN-major; named
+//   barriers hand the two slots over.
+// - the backward (D <= 128): attention_bwd.cu's rows and cols kernels with
+//   the products on pieces. At D = 128 a block has one consumer warpgroup
+//   (64 rows or keys: q and dO, or K and V, in three pieces fill 96 KB),
+//   else two; the cols kernel streams 32-query tiles, which keeps its dk and
+//   dv accumulators and the pieces of P^T and dS^T in registers.
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
 constexpr int MASK_NONE = 0, MASK_PREFIX_CAUSAL = 1;
-constexpr int kThreads = 128;
-constexpr int RS = 4;   // rows of a thread's tile
-constexpr int BK = 64;  // keys a tile (and queries a tile of the cols kernel)
+constexpr int NP = sm90::kPieces;
+constexpr int KT = 64;  // keys a tile, rows of a box
 
 // element strides of one tensor: between batches, heads and rows
 struct Strides {
@@ -60,465 +94,1251 @@ __device__ __forceinline__ long long offset(const Strides& s, int b, int h,
          static_cast<long long>(row) * s.row;
 }
 
-// rows [row0, row0 + R) of one (batch, head) of x, lanes [0, DP), times
-// mul, transposed into xt[lane * LD + r]; zeros past nrows and past the
-// head dim d (a multiple of 4, so a 16-byte chunk is all in or all out)
-template <int R, int DP, int LD>
-__device__ __forceinline__ void load_t(float* xt, const float* x,
-                                       const Strides& s, int b, int h,
-                                       int row0, int nrows, int d,
-                                       float mul) {
-  for (int i = threadIdx.x; i < R * (DP / 4); i += kThreads) {
-    const int r = i % R, c = 4 * (i / R), row = row0 + r;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < nrows && c < d)
-      v = *reinterpret_cast<const float4*>(x + offset(s, b, h, row) + c);
-    xt[(c + 0) * LD + r] = v.x * mul;
-    xt[(c + 1) * LD + r] = v.y * mul;
-    xt[(c + 2) * LD + r] = v.z * mul;
-    xt[(c + 3) * LD + r] = v.w * mul;
-  }
-}
+// ---- the split pass ----------------------------------------------------------
 
-// acc[i][j] += sum over k < K of A[k * lda + r0 + i] * B(k, c0 + TX * j):
-// A with the contraction outermost (four rows, one 16-byte load a step);
-// B as B[k * ldb + col] or, kColMajor, B[col * ldb + k]
-template <int K, int CS, int TX, bool kColMajor>
-__device__ __forceinline__ void tile_fma(float (&acc)[RS][CS], const float* A,
-                                         int lda, int r0, const float* B,
-                                         int ldb, int c0) {
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    const float4 a = *reinterpret_cast<const float4*>(A + k * lda + r0);
-    float bv[CS];
+// Up to four fp32 (B, rows, H, d) tensors, each read through its strides and
+// multiplied by mul (one fp32 rounding; 1 leaves it exact), into three
+// contiguous bf16 pieces each: piece p at dst + p * (B rows H d).
+struct SplitArgs {
+  const float* src[4];
+  __nv_bfloat16* dst[4];
+  Strides st[4];
+  int rows[4];
+  float mul[4];
+  int b, heads, d;
+};
+
+__global__ void __launch_bounds__(256) f32_split_kernel(SplitArgs a) {
+  const int t = blockIdx.y, d4 = a.d / 4, rows = a.rows[t];
+  const long long per = static_cast<long long>(a.b) * rows * a.heads * d4;
+  const long long plane = per * 4;
+  const float* src = a.src[t];
+  __nv_bfloat16* dst = a.dst[t];
+  const Strides st = a.st[t];
+  const float mul = a.mul[t];
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < per; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int c = static_cast<int>(i % d4) * 4;
+    long long r = i / d4;
+    const int h = static_cast<int>(r % a.heads);
+    r /= a.heads;
+    const int row = static_cast<int>(r % rows), bb = static_cast<int>(r / rows);
+    const float4 v =
+        *reinterpret_cast<const float4*>(src + offset(st, bb, h, row) + c);
+    const float x[4] = {__fmul_rn(v.x, mul), __fmul_rn(v.y, mul),
+                        __fmul_rn(v.z, mul), __fmul_rn(v.w, mul)};
+    uint32_t w[NP][2];
 #pragma unroll
-    for (int j = 0; j < CS; ++j)
-      bv[j] = kColMajor ? B[(c0 + TX * j) * ldb + k] : B[k * ldb + c0 + TX * j];
+    for (int j = 0; j < 2; ++j) {
+      float lo[3], hi[3];
+      sm90::bf16_pieces(x[2 * j], lo);
+      sm90::bf16_pieces(x[2 * j + 1], hi);
 #pragma unroll
-    for (int j = 0; j < CS; ++j) {
-      acc[0][j] = fmaf(a.x, bv[j], acc[0][j]);
-      acc[1][j] = fmaf(a.y, bv[j], acc[1][j]);
-      acc[2][j] = fmaf(a.z, bv[j], acc[2][j]);
-      acc[3][j] = fmaf(a.w, bv[j], acc[3][j]);
+      for (int p = 0; p < NP; ++p) w[p][j] = pack_bf16x2(lo[p], hi[p]);
     }
+    __nv_bfloat16* out = dst + i * 4;  // (b, row, h, c) is i * 4 contiguous
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      *reinterpret_cast<uint2*>(out + p * plane) = make_uint2(w[p][0], w[p][1]);
   }
 }
 
-template <int R, int C>
-__device__ __forceinline__ void zero(float (&a)[R][C]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < C; ++j) a[i][j] = 0.f;
+int launch_split(const SplitArgs& a, int count, cudaStream_t stream) {
+  int rows = 0;
+  for (int i = 0; i < count; ++i) rows = a.rows[i] > rows ? a.rows[i] : rows;
+  const long long most =
+      static_cast<long long>(a.b) * a.heads * (a.d / 4) * rows;
+  long long blocks = (most + 255) / 256;
+  const long long cap = 8LL * (sm_count() > 0 ? sm_count() : 132);
+  if (blocks > cap) blocks = cap;
+  f32_split_kernel<<<dim3(static_cast<unsigned>(blocks), count), 256, 0,
+                     stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// max and sum over the TX lanes that hold one row (adjacent lanes)
-template <int TX>
-__device__ __forceinline__ float row_max_lanes(float x) {
-#pragma unroll
-  for (int o = 1; o < TX; o <<= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-template <int TX>
-__device__ __forceinline__ float row_sum_lanes(float x) {
-#pragma unroll
-  for (int o = 1; o < TX; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// the 4-D map of a piece tensor (3 B, rows, heads, d): boxes of (box
+// lanes, 1, box rows, 1); piece p of batch b is batch p B + b
+int piece_map(CUtensorMap* map, const void* ptr, int b, int rows, int heads,
+              int d, int box_rows, int box_lanes) {
+  const long long hd = static_cast<long long>(heads) * d;
+  return sm90::tensor_map_4d(map, ptr, NP * static_cast<long long>(b), rows,
+                             heads, d, d, hd, rows * hd, box_rows, box_lanes);
 }
 
-// the key tiles rows r0 .. r0 + rows - 1 (those < n) may see
+// a tile's geometry at head-dim tile D: boxes of BOXC lanes (rows of RB
+// bytes, 64- or 128-byte swizzle) and `rows` rows, NBOX of them across D
+template <int D>
+struct Geo {
+  static constexpr int BOXC = D == 32 ? 32 : 64;
+  static constexpr int RB = BOXC * 2;
+  static constexpr int NBOX = D / BOXC;
+  static constexpr int KS = BOXC / 16;  // k16 slices a box
+  // bytes of one piece of a (rows, D) tile, and of its three pieces
+  __host__ __device__ static constexpr int tile(int rows) {
+    return rows * D * 2;
+  }
+  __host__ __device__ static constexpr int ptile(int rows) {
+    return NP * tile(rows);
+  }
+};
+
+__host__ __device__ constexpr int fit_stages(int fixed, int stage, int most) {
+  return (sm90::kSmemLimit - fixed - 1024) / stage < most
+             ? (sm90::kSmemLimit - fixed - 1024) / stage
+             : most;
+}
+
+// the key tiles that rows r0 .. r0 + rows - 1 (those < n) may see
 __device__ __forceinline__ int key_tiles(int r0, int rows, int n, int m,
                                          bool causal, int cond_len) {
-  int t = (m + BK - 1) / BK;
+  if (r0 >= n) return 0;
+  int t = (m + KT - 1) / KT;
   if (causal) {
     const int last_row = min(r0 + rows, n) - 1;
     const int last_col = max(last_row, r0 < cond_len ? cond_len - 1 : 0);
-    t = min(t, last_col / BK + 1);
+    t = min(t, last_col / KT + 1);
   }
   return t;
 }
 
-// ---- forward ---------------------------------------------------------------
+// the online softmax of one 64-key tile of S (an m64n64 accumulator, rows
+// r and r + 8 of the thread): row max and this thread's partial sums
+// updated, s replaced by e^(c2 (s - m)), alpha the rescale of O
+__device__ __forceinline__ void softmax_tile(float (&s)[32],
+                                             float (&row_max)[2],
+                                             float (&row_sum)[2],
+                                             float (&alpha)[2], float c2) {
+  float ml2[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      mx[j % 4] =
+          fmaxf(mx[j % 4], fmaxf(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]));
+    float tmax = fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]));
+    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+    const float m_new = fmaxf(row_max[hh], tmax);
+    // a row with nothing visible yet keeps exp(-inf - -inf) out
+    ml2[hh] = (m_new == -INFINITY ? 0.f : m_new) * c2;
+    alpha[hh] = exp_shifted(row_max[hh], ml2[hh], c2);
+    row_max[hh] = m_new;
+  }
+  float part[2][4] = {};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int hh = (i / 2) % 2;
+    s[i] = exp_shifted(s[i], ml2[hh], c2);
+    part[hh][(i / 4) % 4] += s[i];
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    row_sum[hh] = row_sum[hh] * alpha[hh] +
+                  ((part[hh][0] + part[hh][1]) + (part[hh][2] + part[hh][3]));
+}
 
-// head-dim tile DP; TY x TX threads, each 4 rows by BK / TX keys of S and
-// 4 rows by DP / TX lanes of O
-template <int DP, int TY, int TX>
+// big + small, element by element, rounded to nearest
+template <int R>
+__device__ __forceinline__ void fold(float (&s)[R], const float (&big)[R],
+                                     const float (&small)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) s[i] = __fadd_rn(small[i], big[i]);
+}
+
+// mask the accumulator s of rows row_a, row_a + 8 and columns col0 + 8j +
+// 2q (+ 1): invisible entries become -inf
+template <int R>
+__device__ __forceinline__ void mask_tile(float (&s)[R], int row_a, int col0,
+                                          int q, int m, bool causal,
+                                          int cond_len) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = row_a + ((i / 2) % 2) * 8;
+    const int col = col0 + (i / 4) * 8 + 2 * q + i % 2;
+    if (!visible(row, col, m, causal, cond_len)) s[i] = -INFINITY;
+  }
+}
+
+// A thread's (rows, lanes) accumulator, times scale per row, stored as fp32
+// pairs at out + row * ld + lane for rows < n and lanes < d: n8 block j of
+// box bx holds rows row_a, row_a + 8 and lanes bx BOXC + 8j + 2q (+ 1)
+template <int BOXC, int NBOX>
+__device__ __forceinline__ void store_f32(float* out, long long ld,
+                                          const float (&acc)[NBOX][BOXC / 2],
+                                          int row_a, int q, int n, int d,
+                                          const float (&scale)[2]) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row_a + 8 * hh;
+    if (row >= n) continue;
+    float* o = out + row * ld;
+#pragma unroll
+    for (int bx = 0; bx < NBOX; ++bx)
+#pragma unroll
+      for (int j = 0; j < BOXC / 8; ++j) {
+        const int lane = bx * BOXC + 8 * j + 2 * q;
+        if (lane < d)
+          *reinterpret_cast<float2*>(o + lane) =
+              make_float2(acc[bx][4 * j + 2 * hh] * scale[hh],
+                          acc[bx][4 * j + 2 * hh + 1] * scale[hh]);
+      }
+  }
+}
+
+// ---- forward, D <= 128 ---------------------------------------------------------
+
+constexpr int FWG = 2, FQ = FWG * 64;  // consumer warpgroups, rows a block
+constexpr int kFwdThreads = (FWG + 1) * 128;
+
+template <int D>
 struct FwdGeo {
-  static constexpr int BQ = TY * RS, LQ = BQ + 4, LK = BK + 4;
-  static constexpr int CS = BK / TX, CO = DP / TX;
-  // q^T, the tile's K^T and then V^T in one buffer, P^T
-  static constexpr int SMEM = (DP * LQ + DP * LK + BK * LQ) * 4;
-  static_assert(TY * TX == kThreads && DP % TX == 0, "thread tile");
+  using G = Geo<D>;
+  static constexpr int QBYTES = FWG * G::ptile(64);  // q's pieces, per WG
+  static constexpr int STAGE = G::ptile(KT);         // a K or a V tile
+  static constexpr int STAGES = fit_stages(QBYTES, STAGE, 6);
+  static constexpr int SMEM = QBYTES + STAGES * STAGE + 1024;
+  static_assert(STAGES >= 2, "a K and a V tile in flight");
+  static_assert(SMEM <= sm90::kSmemLimit, "shared memory of a block");
 };
 
 struct FwdArgs {
   int n, m, d, mask_mode, cond_len;
   float scale;
+  Strides so;  // out: fp32 (B, N, H, D), the strides of its batches, heads
+               // and rows
 };
 
-template <int DP, int TY, int TX, bool kScoreScale>
-__global__ void __launch_bounds__(kThreads)
-    attn_f32_fwd_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v, float* __restrict__ o,
-                        Strides sq, Strides sk, Strides sv, Strides so,
-                        FwdArgs a) {
-  using G = FwdGeo<DP, TY, TX>;
-  constexpr int BQ = G::BQ, LQ = G::LQ, LK = G::LK, CS = G::CS, CO = G::CO;
-  extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);  // [DP][LQ]
-  float* kvt = qt + DP * LQ;                     // [DP][LK]
-  float* pt = kvt + DP * LK;                     // [BK][LQ]
+template <int D, bool kScoreScale>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    attn_f32_fwd_kernel(const __grid_constant__ CUtensorMap tmap_q,
+                        const __grid_constant__ CUtensorMap tmap_k,
+                        const __grid_constant__ CUtensorMap tmap_v,
+                        float* __restrict__ out, FwdArgs a) {
+  using G = Geo<D>;
+  using F = FwdGeo<D>;
+  constexpr int RB = G::RB, BOX = 64 * RB, PT = G::ptile(64);
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t qbar, full[F::STAGES], empty[F::STAGES];
+  uint8_t* smem = sm90::align_1024(smem_raw);
+  uint8_t* qs = smem;  // per warpgroup: piece p, box bx at (p NBOX + bx) BOX
+  uint8_t* ring_mem = smem + F::QBYTES;
+  const sm90::Ring ring{F::STAGES};
 
+  const int q0 = blockIdx.x * FQ, h = blockIdx.y, b = blockIdx.z;
+  const int nb = gridDim.z, n = a.n, m = a.m;
   const bool causal = a.mask_mode == MASK_PREFIX_CAUSAL;
-  // under the causal mask the last row blocks see the most keys: first
-  const int qb = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int q0 = qb * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int tx = threadIdx.x % TX, r0 = (threadIdx.x / TX) * RS;
-  const int tiles = key_tiles(q0, BQ, a.n, a.m, causal, a.cond_len);
+  const int kv_tiles = key_tiles(q0, FQ, n, m, causal, a.cond_len);
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&qbar, 1);
+    for (int s = 0; s < F::STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], FWG);  // one arrival per warpgroup
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= FWG * 128) {
+    // producer: q's pieces once, then K_t, V_t in stages of their own
+    sm90::regs_dealloc<40>();
+    if (threadIdx.x != FWG * 128) return;
+    sm90::mbar_expect_tx(&qbar, F::QBYTES);
+#pragma unroll
+    for (int w = 0; w < FWG; ++w)
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int bx = 0; bx < G::NBOX; ++bx)
+          sm90::tma_load_4d(qs + w * PT + (p * G::NBOX + bx) * BOX, &tmap_q,
+                            &qbar, bx * G::BOXC, h, q0 + w * 64, p * nb + b);
+    for (int i = 0; i < 2 * kv_tiles; ++i) {
+      const int s = ring.stage(i), t = i / 2;
+      sm90::mbar_wait(&empty[s], ring.parity(i) ^ 1u);
+      uint8_t* st = ring_mem + s * F::STAGE;
+      sm90::mbar_expect_tx(&full[s], F::STAGE);
+      const CUtensorMap* map = i % 2 ? &tmap_v : &tmap_k;
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int bx = 0; bx < G::NBOX; ++bx)
+          sm90::tma_load_4d(st + (p * G::NBOX + bx) * BOX, map, &full[s],
+                            bx * G::BOXC, h, t * KT, p * nb + b);
+    }
+    return;
+  }
+
+  sm90::regs_alloc<232>();
+  const int w = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32, q = lane % 4;
+  const int wq0 = q0 + w * 64, row_a = wq0 + warp * 16 + lane / 4;
+  const bool leader = threadIdx.x % 128 == 0;
+  const int my_tiles = key_tiles(wq0, 64, n, m, causal, a.cond_len);
+  const uint8_t* qw = qs + w * PT;
+  sm90::mbar_wait(&qbar, 0);
+
+  float o[G::NBOX][G::BOXC / 2];
+#pragma unroll
+  for (int bx = 0; bx < G::NBOX; ++bx)
+#pragma unroll
+    for (int i = 0; i < G::BOXC / 2; ++i) o[bx][i] = 0.f;
+  float row_max[2] = {-INFINITY, -INFINITY}, row_sum[2] = {0.f, 0.f};
   const float c2 = kScoreScale ? a.scale * kLog2e : kLog2e;
 
-  load_t<BQ, DP, LQ>(qt, q, sq, b, h, q0, a.n, a.d,
-                     kScoreScale ? 1.f : a.scale);
-  float acc[RS][CO];
-  zero(acc);
-  float row_max[RS], row_sum[RS];
+  for (int t = 0; t < kv_tiles; ++t) {
+    const int sk = ring.stage(2 * t), sv = ring.stage(2 * t + 1);
+    sm90::mbar_wait(&full[sk], ring.parity(2 * t));
+    float s[32];
+    if (t < my_tiles) {
+      // S = q K^T: hi*hi into sb, the five small terms into ss
+      const uint8_t* kt = ring_mem + sk * F::STAGE;
+      float sb[32], ss[32];
+      sm90::wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < RS; ++i) {
-    row_max[i] = -INFINITY;
-    row_sum[i] = 0.f;
-  }
-
-  for (int t = 0; t < tiles; ++t) {
-    __syncthreads();  // q stored; the last tile's P V done with kvt and pt
-    load_t<BK, DP, LK>(kvt, k, sk, b, h, t * BK, a.m, a.d, 1.f);
-    __syncthreads();
-    float s[RS][CS];
-    zero(s);
-    tile_fma<DP, CS, TX, false>(s, qt, LQ, r0, kvt, LK, tx);
-    if ((t + 1) * BK > a.m || (causal && (t + 1) * BK - 1 > q0)) {
+      for (int bx = 0; bx < G::NBOX; ++bx) {
+        uint64_t qd[NP], kd[NP];
 #pragma unroll
-      for (int i = 0; i < RS; ++i)
+        for (int p = 0; p < NP; ++p) {
+          qd[p] = sm90::smem_desc<RB>(qw + (p * G::NBOX + bx) * BOX);
+          kd[p] = sm90::smem_desc<RB>(kt + (p * G::NBOX + bx) * BOX);
+        }
 #pragma unroll
-        for (int j = 0; j < CS; ++j)
-          if (!visible(q0 + r0 + i, t * BK + tx + TX * j, a.m, causal,
-                       a.cond_len))
-            s[i][j] = -INFINITY;
-    }
+        for (int ks = 0; ks < G::KS; ++ks) {
+          const bool acc = bx > 0 || ks > 0;
+          sm90::Wgmma<64>::ss(sb, sm90::desc_k(qd[0], ks),
+                              sm90::desc_k(kd[0], ks), acc);
 #pragma unroll
-    for (int i = 0; i < RS; ++i) {
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < CS; ++j) tmax = fmaxf(tmax, s[i][j]);
-      const float m_new = fmaxf(row_max[i], row_max_lanes<TX>(tmax));
-      // a row with nothing visible yet keeps exp(-inf - -inf) out
-      const float ml2 = (m_new == -INFINITY ? 0.f : m_new) * c2;
-      const float alpha = exp_shifted(row_max[i], ml2, c2);
-      row_max[i] = m_new;
-      float part = 0.f;
-#pragma unroll
-      for (int j = 0; j < CS; ++j) {
-        const float p = exp_shifted(s[i][j], ml2, c2);
-        part += p;
-        pt[(tx + TX * j) * LQ + r0 + i] = p;
+          for (int i = 0; i < 5; ++i)
+            sm90::Wgmma<64>::ss(ss, sm90::desc_k(qd[sm90::small_a(i)], ks),
+                                sm90::desc_k(kd[sm90::small_b(i)], ks),
+                                acc || i > 0);
+        }
       }
-      row_sum[i] = row_sum[i] * alpha + part;
-#pragma unroll
-      for (int j = 0; j < CO; ++j) acc[i][j] *= alpha;
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::hold(sb);
+      sm90::hold(ss);
+      fold(s, sb, ss);
     }
-    __syncthreads();  // K read by every thread, P written
-    load_t<BK, DP, LK>(kvt, v, sv, b, h, t * BK, a.m, a.d, 1.f);
-    __syncthreads();
-    // O[r][lane] += sum over keys c of P^T[c][r] V^T[lane][c]
-    tile_fma<BK, CO, TX, true>(acc, pt, LQ, r0, kvt, LK, tx);
+    if (leader) sm90::mbar_arrive(&empty[sk]);
+    sm90::mbar_wait(&full[sv], ring.parity(2 * t + 1));
+    if (t < my_tiles) {
+      // a tile needs the mask where it passes m or, causal, where one of
+      // its keys lies past this warpgroup's first row
+      if ((t + 1) * KT > m || (causal && (t + 1) * KT - 1 > wq0))
+        mask_tile(s, row_a, t * KT, q, m, causal, a.cond_len);
+      float alpha[2];
+      softmax_tile(s, row_max, row_sum, alpha, c2);
+#pragma unroll
+      for (int bx = 0; bx < G::NBOX; ++bx)
+#pragma unroll
+        for (int i = 0; i < G::BOXC / 2; ++i) o[bx][i] *= alpha[(i / 2) % 2];
+      uint32_t pf[KT / 16][NP][4];
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk) sm90::frag_pieces(pf[kk], s, kk);
+      // O += P V: the rescaled O and the fragments are written before the
+      // fence, and stay live until the products that read them are done
+#pragma unroll
+      for (int bx = 0; bx < G::NBOX; ++bx) sm90::hold(o[bx]);
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk)
+#pragma unroll
+        for (int p = 0; p < NP; ++p) sm90::hold(pf[kk][p]);
+      const uint8_t* vt = ring_mem + sv * F::STAGE;
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int bx = 0; bx < G::NBOX; ++bx) {
+        uint64_t vd[NP];
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+          vd[p] = sm90::smem_desc<RB>(vt + (p * G::NBOX + bx) * BOX);
+#pragma unroll
+        for (int kk = 0; kk < KT / 16; ++kk) {
+#pragma unroll
+          for (int i = 0; i < 5; ++i)
+            sm90::Wgmma<G::BOXC>::template rs<1>(
+                o[bx], pf[kk][sm90::small_a(i)],
+                sm90::desc_mn<RB>(vd[sm90::small_b(i)], kk));
+          sm90::Wgmma<G::BOXC>::template rs<1>(o[bx], pf[kk][0],
+                                               sm90::desc_mn<RB>(vd[0], kk));
+        }
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+#pragma unroll
+      for (int bx = 0; bx < G::NBOX; ++bx) sm90::hold(o[bx]);
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk)
+#pragma unroll
+        for (int p = 0; p < NP; ++p) sm90::hold(pf[kk][p]);
+    }
+    if (leader) sm90::mbar_arrive(&empty[sv]);
   }
 
+  float inv[2];
 #pragma unroll
-  for (int i = 0; i < RS; ++i) {
-    const int row = q0 + r0 + i;
-    const float inv = 1.f / row_sum_lanes<TX>(row_sum[i]);
-    if (row >= a.n) continue;
-    float* out = o + offset(so, b, h, row);
-#pragma unroll
-    for (int j = 0; j < CO; ++j) {
-      const int lane = tx + TX * j;
-      if (lane < a.d) out[lane] = acc[i][j] * inv;
-    }
+  for (int hh = 0; hh < 2; ++hh) {
+    float l = row_sum[hh];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[hh] = 1.f / l;
   }
+  if (wq0 < n)
+    store_f32<G::BOXC, G::NBOX>(out + offset(a.so, b, h, 0), a.so.row, o,
+                                row_a, q, n, a.d, inv);
 }
 
-template <int DP, int TY, int TX, bool kScoreScale>
-int launch_fwd(const float* const* p, const Strides* st, int b, int heads,
-               const FwdArgs& a, cudaStream_t stream) {
-  using G = FwdGeo<DP, TY, TX>;
-  auto kernel = attn_f32_fwd_kernel<DP, TY, TX, kScoreScale>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((a.n + G::BQ - 1) / G::BQ, heads, b);
-  kernel<<<grid, kThreads, G::SMEM, stream>>>(p[0], p[1], p[2],
-                                              const_cast<float*>(p[3]), st[0],
-                                              st[1], st[2], st[3], a);
-  return static_cast<int>(cudaGetLastError());
-}
+// ---- forward, D = 384 ------------------------------------------------------------
+
+constexpr int WD = 384, WBOXES = WD / 64, WO = 3, WOBOX = WBOXES / WO;
+constexpr int WBOX = 64 * 128;       // one piece of a (64, 64) box
+constexpr int WSTAGE = NP * WBOX;    // its three pieces: a ring stage
+constexpr int WTILE = 3 * WBOXES;    // stages a key tile: q, K, then V boxes
+constexpr int kWideThreads = (2 + WO) * 128;
+constexpr int kRoleThreads = (1 + WO) * 128;  // S and O
+// named barriers: 5-6 P slot filled, 7-8 P slot read, 9 the row sums
+constexpr int BAR_PFULL = 5, BAR_PEMPTY = 7, BAR_LSUM = 9;
+// two slots of P's three pieces, each a (64, 64) K-major A operand; beside
+// them each slot's rescale factors and the final 1 / l, a float a row
+constexpr int WFIXED = 2 * WSTAGE + 3 * 64 * 4;
+constexpr int WRING = fit_stages(WFIXED, WSTAGE, 8);
+constexpr int WSMEM = WRING * WSTAGE + WFIXED + 1024;
+static_assert(WRING >= 4, "a q and a K box in flight beside the next two");
+static_assert(WSMEM <= sm90::kSmemLimit, "shared memory of a block");
+// registers a thread (setmaxnreg): the launch gives 65536 / threads (96);
+// the producer drops to 24, S takes 144, each O warpgroup 104
+constexpr int WBASE = 65536 / kWideThreads / 8 * 8, WS_REGS = 144,
+              WO_REGS = 104;
+static_assert(24 + WS_REGS + WO * WO_REGS <= (2 + WO) * WBASE,
+              "register budget");
 
 template <bool kScoreScale>
-int launch_fwd_d(const float* const* p, const Strides* st, int b, int heads,
-                 const FwdArgs& a, cudaStream_t s) {
-  const int d = a.d;
-  if (d == 384) return launch_fwd<384, 8, 16, kScoreScale>(p, st, b, heads, a, s);
-  if (d <= 0 || d % 8 || d > 128) return ETK_BAD_ARGS;
-  if (d <= 32) return launch_fwd<32, 16, 8, kScoreScale>(p, st, b, heads, a, s);
-  if (d <= 64) return launch_fwd<64, 16, 8, kScoreScale>(p, st, b, heads, a, s);
-  if (d <= 96) return launch_fwd<96, 16, 8, kScoreScale>(p, st, b, heads, a, s);
-  return launch_fwd<128, 16, 8, kScoreScale>(p, st, b, heads, a, s);
+__global__ void __launch_bounds__(kWideThreads, 1)
+    attn_f32_wide_kernel(const __grid_constant__ CUtensorMap tmap_q,
+                         const __grid_constant__ CUtensorMap tmap_k,
+                         const __grid_constant__ CUtensorMap tmap_v,
+                         float* __restrict__ out, FwdArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[WRING], empty[WRING];
+  uint8_t* smem = sm90::align_1024(smem_raw);
+  uint8_t* ring = smem;
+  uint8_t* pslot = smem + WRING * WSTAGE;  // two slots of WSTAGE bytes
+  float* alpha_s = reinterpret_cast<float*>(pslot + 2 * WSTAGE);  // [2][64]
+  float* linv_s = alpha_s + 2 * 64;                                // [64]
+  const sm90::Ring rp{WRING};
+
+  const int n = a.n, m = a.m, nb = gridDim.z;
+  const bool causal = a.mask_mode == MASK_PREFIX_CAUSAL;
+  // under the causal mask the last q tiles see the most keys: start them
+  // first
+  const int q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * 64;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kv_tiles = key_tiles(q0, 64, n, m, causal, a.cond_len);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WRING; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 4);  // one arrival per reading warp
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  if (wg == WO + 1) {
+    // producer: per key tile q box 0, K box 0, ..., q box 5, K box 5, then
+    // V boxes 0-5, each box's three pieces one ring stage
+    sm90::regs_dealloc<24>();
+    if (tid != 0) return;
+    int i = 0;
+    for (int t = 0; t < kv_tiles; ++t)
+      for (int j = 0; j < WTILE; ++j, ++i) {
+        const int s = rp.stage(i);
+        sm90::mbar_wait(&empty[s], rp.parity(i) ^ 1u);
+        sm90::mbar_expect_tx(&full[s], WSTAGE);
+        const bool qk = j < 2 * WBOXES, is_q = qk && j % 2 == 0;
+        const CUtensorMap* map = is_q ? &tmap_q : qk ? &tmap_k : &tmap_v;
+        const int box = qk ? j / 2 : j - 2 * WBOXES;
+        const int row = is_q ? q0 : t * KT;
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+          sm90::tma_load_4d(ring + s * WSTAGE + p * WBOX, map, &full[s],
+                            box * 64, h, row, p * nb + b);
+      }
+    return;
+  }
+
+  const int warp = tid / 32, lane = tid % 32, qd = lane % 4;
+  const int r = warp * 16 + lane / 4;  // rows r and r + 8 of the tile
+  if (wg == 0) {
+    // S warpgroup: S = q K^T box by box (a commit group each, so that a
+    // box's stages go back to the producer while the next box's products
+    // run), the online softmax, P's pieces and the rescale into a slot
+    sm90::regs_alloc<WS_REGS>();
+    float row_max[2] = {-INFINITY, -INFINITY}, row_sum[2] = {0.f, 0.f};
+    const float c2 = kScoreScale ? a.scale * kLog2e : kLog2e;
+    for (int t = 0; t < kv_tiles; ++t) {
+      const int i0 = t * WTILE;
+      float sb[32], ss[32];
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int bx = 0; bx < WBOXES; ++bx) {
+        const int iq = i0 + 2 * bx, ik = iq + 1;
+        sm90::mbar_wait(&full[rp.stage(iq)], rp.parity(iq));
+        sm90::mbar_wait(&full[rp.stage(ik)], rp.parity(ik));
+        uint64_t qdsc[NP], kdsc[NP];
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          qdsc[p] = sm90::smem_desc<128>(ring + rp.stage(iq) * WSTAGE +
+                                         p * WBOX);
+          kdsc[p] = sm90::smem_desc<128>(ring + rp.stage(ik) * WSTAGE +
+                                         p * WBOX);
+        }
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          const bool acc = bx > 0 || ks > 0;
+          sm90::Wgmma<64>::ss(sb, sm90::desc_k(qdsc[0], ks),
+                              sm90::desc_k(kdsc[0], ks), acc);
+#pragma unroll
+          for (int i = 0; i < 5; ++i)
+            sm90::Wgmma<64>::ss(ss, sm90::desc_k(qdsc[sm90::small_a(i)], ks),
+                                sm90::desc_k(kdsc[sm90::small_b(i)], ks),
+                                acc || i > 0);
+        }
+        sm90::wgmma_commit();
+        if (bx > 0) {
+          sm90::wgmma_wait<1>();  // the previous box's products are done
+          if (lane == 0) {
+            sm90::mbar_arrive(&empty[rp.stage(iq - 2)]);
+            sm90::mbar_arrive(&empty[rp.stage(ik - 2)]);
+          }
+        }
+      }
+      sm90::wgmma_wait<0>();
+      sm90::hold(sb);
+      sm90::hold(ss);
+      if (lane == 0) {
+        sm90::mbar_arrive(&empty[rp.stage(i0 + 2 * WBOXES - 2)]);
+        sm90::mbar_arrive(&empty[rp.stage(i0 + 2 * WBOXES - 1)]);
+      }
+      float s[32];
+      fold(s, sb, ss);
+      if ((t + 1) * KT > m || (causal && (t + 1) * KT - 1 > q0))
+        mask_tile(s, q0 + r, t * KT, qd, m, causal, a.cond_len);
+      float alpha[2];
+      softmax_tile(s, row_max, row_sum, alpha, c2);
+      // P's pieces into slot t % 2 once the O warpgroups have read tile
+      // t - 2 from it
+      const int slot = t & 1;
+      if (t >= 2) sm90::named_sync(BAR_PEMPTY + slot, kRoleThreads);
+      sm90::stage_pieces(pslot + slot * WSTAGE, WBOX, s, r, qd);
+      if (qd == 0) {
+        alpha_s[slot * 64 + r] = alpha[0];
+        alpha_s[slot * 64 + r + 8] = alpha[1];
+      }
+      sm90::fence_async_cta();  // the O warpgroups' wgmma reads P
+      sm90::named_arrive(BAR_PFULL + slot, kRoleThreads);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float l = row_sum[hh];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      if (qd == 0) linv_s[r + 8 * hh] = 1.f / l;
+    }
+    sm90::named_arrive(BAR_LSUM, kRoleThreads);
+    return;
+  }
+
+  // O warpgroup o: lanes [o WOBOX 64, (o + 1) WOBOX 64) of the output; per
+  // key tile O = alpha O + P V, P's pieces from the slot (shared-memory A)
+  // against V read MN-major, one product per term and 64-lane box
+  sm90::regs_alloc<WO_REGS>();
+  const int o = wg - 1;
+  float acc[WOBOX][32];
+#pragma unroll
+  for (int j = 0; j < WOBOX; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+  for (int t = 0; t < kv_tiles; ++t) {
+    const int slot = t & 1;
+    sm90::named_sync(BAR_PFULL + slot, kRoleThreads);
+    const float al[2] = {alpha_s[slot * 64 + r], alpha_s[slot * 64 + r + 8]};
+    const int i0 = t * WTILE + 2 * WBOXES + o * WOBOX;  // its V boxes
+#pragma unroll
+    for (int j = 0; j < WOBOX; ++j)
+      sm90::mbar_wait(&full[rp.stage(i0 + j)], rp.parity(i0 + j));
+#pragma unroll
+    for (int j = 0; j < WOBOX; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[j][i] *= al[(i / 2) % 2];
+#pragma unroll
+    for (int j = 0; j < WOBOX; ++j) sm90::hold(acc[j]);
+    uint64_t pd[NP];
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      pd[p] = sm90::smem_desc<128>(pslot + slot * WSTAGE + p * WBOX);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < WOBOX; ++j) {
+      uint64_t vd[NP];
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        vd[p] = sm90::smem_desc<128>(ring + rp.stage(i0 + j) * WSTAGE +
+                                     p * WBOX);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int i = 0; i < 5; ++i)
+          sm90::Wgmma<64>::ss<1>(acc[j],
+                                 sm90::desc_k(pd[sm90::small_a(i)], kk),
+                                 sm90::desc_mn<128>(vd[sm90::small_b(i)], kk));
+        sm90::Wgmma<64>::ss<1>(acc[j], sm90::desc_k(pd[0], kk),
+                               sm90::desc_mn<128>(vd[0], kk));
+      }
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < WOBOX; ++j) sm90::hold(acc[j]);
+    if (lane == 0)
+#pragma unroll
+      for (int j = 0; j < WOBOX; ++j)
+        sm90::mbar_arrive(&empty[rp.stage(i0 + j)]);
+    // the S warpgroup waits for this only where it refills the slot
+    if (t + 2 < kv_tiles) sm90::named_arrive(BAR_PEMPTY + slot, kRoleThreads);
+  }
+
+  sm90::named_sync(BAR_LSUM, kRoleThreads);
+  const float inv[2] = {linv_s[r], linv_s[r + 8]};
+  if (q0 < n)
+    store_f32<64, WOBOX>(out + offset(a.so, b, h, 0) + o * WOBOX * 64,
+                         a.so.row, acc, q0 + r, qd, n, WD - o * WOBOX * 64,
+                         inv);
 }
 
-// ---- backward ----------------------------------------------------------------
+// ---- backward (D <= 128) -----------------------------------------------------
 
-constexpr int BTY = 16, BTX = 8;                 // 128 threads
-constexpr int BBQ = BTY * RS, BLQ = BBQ + 4;     // 64 rows a tile
-constexpr int BLK = BK + 4, BCS = BK / BTX;      // 8 key columns a thread
-static_assert(BBQ == BK, "the cols kernel's query tiles are key tiles");
+// consumer warpgroups a block (64 rows or keys each), query rows a cols
+// tile
+template <int D>
+struct BwdGeo {
+  using G = Geo<D>;
+  static constexpr int NWG = D == 128 ? 1 : 2;
+  static constexpr int ROWS = NWG * 64;
+  static constexpr int QT = 32;
+  static constexpr int THREADS = (NWG + 1) * 128;
+  // rows: q and dO in pieces, then K or V tiles of 64 keys
+  static constexpr int ROWS_FIXED = 2 * NWG * G::ptile(64);
+  static constexpr int ROWS_STAGE = G::ptile(KT);
+  static constexpr int ROWS_STAGES = fit_stages(ROWS_FIXED, ROWS_STAGE, 6);
+  static constexpr int ROWS_SMEM = ROWS_FIXED + ROWS_STAGES * ROWS_STAGE + 1024;
+  // cols: K and V in pieces, then q, dO and 3 x QT statistics a stage
+  static constexpr int COLS_FIXED = ROWS_FIXED;
+  static constexpr int COLS_STAGE = 2 * G::ptile(QT) + 1024;
+  static constexpr int COLS_STAGES = fit_stages(COLS_FIXED, COLS_STAGE, 6);
+  static constexpr int COLS_SMEM = COLS_FIXED + COLS_STAGES * COLS_STAGE + 1024;
+  static_assert(ROWS_STAGES >= 2 && COLS_STAGES >= 2, "ring");
+  static_assert(ROWS_SMEM <= sm90::kSmemLimit &&
+                    COLS_SMEM <= sm90::kSmemLimit,
+                "shared memory of a block");
+};
 
 struct BwdArgs {
-  const float *q, *k, *v, *dout;
   float *dq, *dk, *dv, *stats;  // stats: row max, 1 / row sum, delta
-  Strides sq, sk, sv, sdo, sdq, sdk, sdv;
+  long long ld_dq, ld_dk, ld_dv;
   int n, n_pad, heads, d, mask_mode, cond_len;
 };
 
-template <int DP>
-constexpr int rows_smem() {
-  return (2 * DP * BLQ + 2 * DP * BLK + BK * BLQ) * 4;
-}
-template <int DP>
-constexpr int cols_smem() {
-  return (2 * DP * BLK + 2 * DP * BLQ + 2 * BBQ * BLK + 3 * BBQ) * 4;
-}
-
-// rows: a block owns 64 query rows; sweep 1 takes m, l and sum(e dP)
-// online, sweep 2 forms dS and dq += dS K
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-    attn_f32_bwd_rows_kernel(BwdArgs a) {
-  constexpr int CO = DP / BTX;
-  extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);  // [DP][BLQ]
-  float* dot = qt + DP * BLQ;                    // [DP][BLQ]
-  float* kt = dot + DP * BLQ;                    // [DP][BLK]
-  float* vt = kt + DP * BLK;                     // [DP][BLK]
-  float* dst = vt + DP * BLK;                    // [BK][BLQ]
-
-  const bool causal = a.mask_mode == MASK_PREFIX_CAUSAL;
-  const int q0 = blockIdx.x * BBQ, h = blockIdx.y, b = blockIdx.z;
-  const int tx = threadIdx.x % BTX, r0 = (threadIdx.x / BTX) * RS;
-  const int n = a.n;
-  const int tiles = key_tiles(q0, BBQ, n, n, causal, a.cond_len);
-  load_t<BBQ, DP, BLQ>(qt, a.q, a.sq, b, h, q0, n, a.d, 1.f);
-  load_t<BBQ, DP, BLQ>(dot, a.dout, a.sdo, b, h, q0, n, a.d, 1.f);
-
-  // S = q K^T and dP = dO V^T of key tile t, masked
-  auto scores = [&](int t, float (&s)[RS][BCS], float (&dp)[RS][BCS]) {
-    __syncthreads();  // q and dO stored; the last tile's products done
-    load_t<BK, DP, BLK>(kt, a.k, a.sk, b, h, t * BK, n, a.d, 1.f);
-    load_t<BK, DP, BLK>(vt, a.v, a.sv, b, h, t * BK, n, a.d, 1.f);
-    __syncthreads();
-    zero(s);
-    zero(dp);
-    tile_fma<DP, BCS, BTX, false>(s, qt, BLQ, r0, kt, BLK, tx);
-    tile_fma<DP, BCS, BTX, false>(dp, dot, BLQ, r0, vt, BLK, tx);
-    // rows past n keep the keys they may see: their statistics stay
-    // finite, and the cols kernel masks them
-    if ((t + 1) * BK > n || causal) {
+// S = A B^T over D, six terms: hi*hi into big, the small five into small,
+// both started afresh; a and b hold each piece's descriptor per box
+template <int N, int NBOX, int KS, int R>
+__device__ __forceinline__ void piece_product(float (&big)[R],
+                                              float (&small)[R],
+                                              const uint64_t (&a)[NBOX][NP],
+                                              const uint64_t (&b)[NBOX][NP]) {
 #pragma unroll
-      for (int i = 0; i < RS; ++i)
+  for (int bx = 0; bx < NBOX; ++bx)
 #pragma unroll
-        for (int j = 0; j < BCS; ++j)
-          if (!visible(q0 + r0 + i, t * BK + tx + BTX * j, n, causal,
-                       a.cond_len))
-            s[i][j] = -INFINITY;
+    for (int ks = 0; ks < KS; ++ks) {
+      const bool acc = bx > 0 || ks > 0;
+      sm90::Wgmma<N>::ss(big, sm90::desc_k(a[bx][0], ks),
+                         sm90::desc_k(b[bx][0], ks), acc);
+#pragma unroll
+      for (int i = 0; i < 5; ++i)
+        sm90::Wgmma<N>::ss(small, sm90::desc_k(a[bx][sm90::small_a(i)], ks),
+                           sm90::desc_k(b[bx][sm90::small_b(i)], ks),
+                           acc || i > 0);
     }
+}
+
+// acc[bx] += F B: F the register-A pieces of KK k16 slices, B's pieces
+// MN-major (16 rows a slice), one product per term and box
+template <int BOXC, int RB, int NBOX, int KK>
+__device__ __forceinline__ void piece_product_rs(
+    float (&acc)[NBOX][BOXC / 2], const uint32_t (&f)[KK][NP][4],
+    const uint64_t (&b)[NBOX][NP]) {
+#pragma unroll
+  for (int bx = 0; bx < NBOX; ++bx)
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+#pragma unroll
+      for (int i = 0; i < 5; ++i)
+        sm90::Wgmma<BOXC>::template rs<1>(
+            acc[bx], f[kk][sm90::small_a(i)],
+            sm90::desc_mn<RB>(b[bx][sm90::small_b(i)], kk));
+      sm90::Wgmma<BOXC>::template rs<1>(acc[bx], f[kk][0],
+                                        sm90::desc_mn<RB>(b[bx][0], kk));
+    }
+}
+
+// 1. rows: statistics and dq. Ring positions: sweep s, key tile t: K at
+// 2 (s T + t), V at 2 (s T + t) + 1.
+template <int D>
+__global__ void __launch_bounds__(BwdGeo<D>::THREADS, 1)
+    attn_f32_bwd_rows_kernel(const __grid_constant__ CUtensorMap tmap_q,
+                             const __grid_constant__ CUtensorMap tmap_do,
+                             const __grid_constant__ CUtensorMap tmap_k,
+                             const __grid_constant__ CUtensorMap tmap_v,
+                             BwdArgs a) {
+  using G = Geo<D>;
+  using B = BwdGeo<D>;
+  constexpr int RB = G::RB, BOX = 64 * RB, PT = G::ptile(64);
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t qbar, full[B::ROWS_STAGES],
+      empty[B::ROWS_STAGES];
+  uint8_t* smem = sm90::align_1024(smem_raw);
+  uint8_t* qs = smem;                    // per warpgroup: q's pieces
+  uint8_t* dos = smem + B::NWG * PT;     // dO's
+  uint8_t* ring_mem = smem + B::ROWS_FIXED;
+  const sm90::Ring ring{B::ROWS_STAGES};
+
+  const int q0 = blockIdx.x * B::ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int nb = gridDim.z, n = a.n;
+  const bool causal = a.mask_mode == MASK_PREFIX_CAUSAL;
+  // rows past n keep the keys they may see: their statistics stay finite,
+  // and the cols kernel masks them
+  int kv_tiles = (n + KT - 1) / KT;
+  if (causal) {
+    const int last_row = min(q0 + B::ROWS, n) - 1;
+    const int last_col = max(last_row, q0 < a.cond_len ? a.cond_len - 1 : 0);
+    kv_tiles = min(kv_tiles, last_col / KT + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&qbar, 1);
+    for (int s = 0; s < B::ROWS_STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], B::NWG);
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= B::NWG * 128) {
+    // producer: q and dO once, then K_t, V_t over the key tiles twice
+    if constexpr (B::NWG > 1) sm90::regs_dealloc<40>();
+    if (threadIdx.x != B::NWG * 128) return;
+    sm90::mbar_expect_tx(&qbar, B::ROWS_FIXED);
+#pragma unroll
+    for (int w = 0; w < B::NWG; ++w)
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int bx = 0; bx < G::NBOX; ++bx) {
+          const int off = w * PT + (p * G::NBOX + bx) * BOX;
+          sm90::tma_load_4d(qs + off, &tmap_q, &qbar, bx * G::BOXC, h,
+                            q0 + w * 64, p * nb + b);
+          sm90::tma_load_4d(dos + off, &tmap_do, &qbar, bx * G::BOXC, h,
+                            q0 + w * 64, p * nb + b);
+        }
+    for (int i = 0; i < 4 * kv_tiles; ++i) {
+      const int s = ring.stage(i), t = (i / 2) % kv_tiles;
+      sm90::mbar_wait(&empty[s], ring.parity(i) ^ 1u);
+      uint8_t* st = ring_mem + s * B::ROWS_STAGE;
+      sm90::mbar_expect_tx(&full[s], B::ROWS_STAGE);
+      const CUtensorMap* map = i % 2 ? &tmap_v : &tmap_k;
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int bx = 0; bx < G::NBOX; ++bx)
+          sm90::tma_load_4d(st + (p * G::NBOX + bx) * BOX, map, &full[s],
+                            bx * G::BOXC, h, t * KT, p * nb + b);
+    }
+    return;
+  }
+
+  // two consumer warpgroups take the producer's registers; one keeps what
+  // the launch gives (setmaxnreg cannot hand out more than that)
+  if constexpr (B::NWG > 1) sm90::regs_alloc<232>();
+  const int w = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32, q = lane % 4;
+  const int row_a = q0 + w * 64 + warp * 16 + lane / 4;  // and row_a + 8
+  const bool leader = threadIdx.x % 128 == 0;
+  uint64_t qd[G::NBOX][NP], dd[G::NBOX][NP];
+#pragma unroll
+  for (int bx = 0; bx < G::NBOX; ++bx)
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      const int off = w * PT + (p * G::NBOX + bx) * BOX;
+      qd[bx][p] = sm90::smem_desc<RB>(qs + off);
+      dd[bx][p] = sm90::smem_desc<RB>(dos + off);
+    }
+  sm90::mbar_wait(&qbar, 0);
+
+  // S = q K^T and dP = dO V^T of the tile at ring position i (K) and i + 1
+  // (V), folded into s and dp
+  auto scores = [&](int i, float (&s)[32], float (&dp)[32]) {
+    const int sk = ring.stage(i), sv = ring.stage(i + 1);
+    sm90::mbar_wait(&full[sk], ring.parity(i));
+    sm90::mbar_wait(&full[sv], ring.parity(i + 1));
+    uint64_t kd[G::NBOX][NP], vd[G::NBOX][NP];
+#pragma unroll
+    for (int bx = 0; bx < G::NBOX; ++bx)
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        const int off = (p * G::NBOX + bx) * BOX;
+        kd[bx][p] = sm90::smem_desc<RB>(ring_mem + sk * B::ROWS_STAGE + off);
+        vd[bx][p] = sm90::smem_desc<RB>(ring_mem + sv * B::ROWS_STAGE + off);
+      }
+    float sb[32], ss[32], db[32], ds[32];
+    sm90::wgmma_fence();
+    piece_product<64, G::NBOX, G::KS>(sb, ss, qd, kd);
+    piece_product<64, G::NBOX, G::KS>(db, ds, dd, vd);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::hold(sb);
+    sm90::hold(ss);
+    sm90::hold(db);
+    sm90::hold(ds);
+    fold(s, sb, ss);
+    fold(dp, db, ds);
+  };
+  auto mask = [&](float (&s)[32], int t) {
+    if (causal || (t + 1) * KT > n)
+      mask_tile(s, row_a, t * KT, q, n, causal, a.cond_len);
   };
 
-  float row_max[RS], row_sum[RS], row_edp[RS];
+  // sweep 1: online m, l and sum(e * dP)
+  float row_max[2] = {-INFINITY, -INFINITY};
+  float row_sum[2] = {0.f, 0.f}, row_edp[2] = {0.f, 0.f};  // partial
+  for (int t = 0; t < kv_tiles; ++t) {
+    float s[32], dp[32];
+    scores(2 * t, s, dp);
+    if (leader) {
+      sm90::mbar_arrive(&empty[ring.stage(2 * t)]);
+      sm90::mbar_arrive(&empty[ring.stage(2 * t + 1)]);
+    }
+    mask(s, t);
 #pragma unroll
-  for (int i = 0; i < RS; ++i) {
-    row_max[i] = -INFINITY;
-    row_sum[i] = row_edp[i] = 0.f;
-  }
-  for (int t = 0; t < tiles; ++t) {
-    float s[RS][BCS], dp[RS][BCS];
-    scores(t, s, dp);
-#pragma unroll
-    for (int i = 0; i < RS; ++i) {
+    for (int hh = 0; hh < 2; ++hh) {
       float tmax = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < BCS; ++j) tmax = fmaxf(tmax, s[i][j]);
-      const float m_new = fmaxf(row_max[i], row_max_lanes<BTX>(tmax));
+      for (int j = 0; j < 8; ++j)
+        tmax = fmaxf(tmax, fmaxf(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]));
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+      const float m_new = fmaxf(row_max[hh], tmax);
       const float ml2 = (m_new == -INFINITY ? 0.f : m_new) * kLog2e;
-      const float alpha = exp_shifted(row_max[i], ml2);
-      row_max[i] = m_new;
-      float l = row_sum[i] * alpha, g = row_edp[i] * alpha;
+      const float alpha = exp_shifted(row_max[hh], ml2);
+      row_max[hh] = m_new;
+      float l = row_sum[hh] * alpha, g = row_edp[hh] * alpha;
 #pragma unroll
-      for (int j = 0; j < BCS; ++j) {
-        const float e = exp_shifted(s[i][j], ml2);
-        l += e;
-        g = fmaf(e, dp[i][j], g);
-      }
-      row_sum[i] = l;
-      row_edp[i] = g;
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float ex = exp_shifted(s[4 * j + 2 * hh + e], ml2);
+          l += ex;
+          g = fmaf(ex, dp[4 * j + 2 * hh + e], g);
+        }
+      row_sum[hh] = l;
+      row_edp[hh] = g;
     }
   }
-  float inv[RS], delta[RS], ml2[RS];
+  float inv[2], delta[2], ml2[2];
 #pragma unroll
-  for (int i = 0; i < RS; ++i) {
-    ml2[i] = row_max[i] * kLog2e;
-    inv[i] = 1.f / row_sum_lanes<BTX>(row_sum[i]);
-    delta[i] = row_sum_lanes<BTX>(row_edp[i]) * inv[i];
+  for (int hh = 0; hh < 2; ++hh) {
+    ml2[hh] = row_max[hh] * kLog2e;
+    float l = row_sum[hh], g = row_edp[hh];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    g += __shfl_xor_sync(0xffffffffu, g, 1);
+    g += __shfl_xor_sync(0xffffffffu, g, 2);
+    inv[hh] = 1.f / l;
+    delta[hh] = g * inv[hh];
   }
 
-  float dq[RS][CO];
-  zero(dq);
-  for (int t = 0; t < tiles; ++t) {
-    float s[RS][BCS], dp[RS][BCS];
-    scores(t, s, dp);
+  // sweep 2: dS and dq += dS K (K MN-major)
+  float dq[G::NBOX][G::BOXC / 2];
 #pragma unroll
-    for (int i = 0; i < RS; ++i)
+  for (int bx = 0; bx < G::NBOX; ++bx)
 #pragma unroll
-      for (int j = 0; j < BCS; ++j) {
-        const float p = exp_shifted(s[i][j], ml2[i]) * inv[i];
-        dst[(tx + BTX * j) * BLQ + r0 + i] = p * (dp[i][j] - delta[i]);
-      }
-    __syncthreads();
-    // dq[r][lane] += sum over keys c of dS^T[c][r] K^T[lane][c]
-    tile_fma<BK, CO, BTX, true>(dq, dst, BLQ, r0, kt, BLK, tx);
+    for (int i = 0; i < G::BOXC / 2; ++i) dq[bx][i] = 0.f;
+  for (int t = 0; t < kv_tiles; ++t) {
+    const int i = 2 * (kv_tiles + t);
+    float s[32], dp[32];
+    scores(i, s, dp);
+    mask(s, t);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int hh = (e / 2) % 2;
+      const float p = exp_shifted(s[e], ml2[hh]) * inv[hh];
+      s[e] = p * (dp[e] - delta[hh]);
+    }
+    uint32_t df[KT / 16][NP][4];
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) sm90::frag_pieces(df[kk], s, kk);
+    uint64_t kd[G::NBOX][NP];
+#pragma unroll
+    for (int bx = 0; bx < G::NBOX; ++bx)
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        kd[bx][p] = sm90::smem_desc<RB>(ring_mem +
+                                        ring.stage(i) * B::ROWS_STAGE +
+                                        (p * G::NBOX + bx) * BOX);
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk)
+#pragma unroll
+      for (int p = 0; p < NP; ++p) sm90::hold(df[kk][p]);
+#pragma unroll
+    for (int bx = 0; bx < G::NBOX; ++bx) sm90::hold(dq[bx]);
+    sm90::wgmma_fence();
+    piece_product_rs<G::BOXC, RB, G::NBOX, KT / 16>(dq, df, kd);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int bx = 0; bx < G::NBOX; ++bx) sm90::hold(dq[bx]);
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk)
+#pragma unroll
+      for (int p = 0; p < NP; ++p) sm90::hold(df[kk][p]);  // read until done
+    if (leader) {
+      sm90::mbar_arrive(&empty[ring.stage(i)]);
+      sm90::mbar_arrive(&empty[ring.stage(i + 1)]);
+    }
   }
 
   // the statistics of every row of the block, padding rows included (the
   // cols kernel reads whole tiles), and dq
   const size_t stat_row =
       (static_cast<size_t>(b) * a.heads + h) * static_cast<size_t>(a.n_pad);
-  const size_t plane = static_cast<size_t>(gridDim.z) * a.heads * a.n_pad;
+  const size_t plane = static_cast<size_t>(nb) * a.heads * a.n_pad;
+  if (q == 0) {
 #pragma unroll
-  for (int i = 0; i < RS; ++i) {
-    const int row = q0 + r0 + i;
-    if (tx == 0) {
-      a.stats[stat_row + row] = row_max[i];
-      a.stats[plane + stat_row + row] = inv[i];
-      a.stats[2 * plane + stat_row + row] = delta[i];
-    }
-    if (row >= n) continue;
-    float* out = a.dq + offset(a.sdq, b, h, row);
-#pragma unroll
-    for (int j = 0; j < CO; ++j) {
-      const int lane = tx + BTX * j;
-      if (lane < a.d) out[lane] = dq[i][j];
+    for (int hh = 0; hh < 2; ++hh) {
+      const size_t i = stat_row + row_a + 8 * hh;
+      a.stats[i] = row_max[hh];
+      a.stats[plane + i] = inv[hh];
+      a.stats[2 * plane + i] = delta[hh];
     }
   }
+  const float one[2] = {1.f, 1.f};
+  store_f32<G::BOXC, G::NBOX>(
+      a.dq + static_cast<long long>(b) * n * a.ld_dq + h * a.d, a.ld_dq, dq,
+      row_a, q, n, a.d, one);
 }
 
-// cols: a block owns 64 keys; K and V come once, the query tiles stream by
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-    attn_f32_bwd_cols_kernel(BwdArgs a) {
-  constexpr int CO = DP / BTX;
-  extern __shared__ float4 smem4[];
-  float* kt = reinterpret_cast<float*>(smem4);  // [DP][BLK]
-  float* vt = kt + DP * BLK;                     // [DP][BLK]
-  float* qt = vt + DP * BLK;                     // [DP][BLQ]
-  float* dot = qt + DP * BLQ;                    // [DP][BLQ]
-  float* pm = dot + DP * BLQ;                    // [BBQ][BLK]: P[i][key]
-  float* dsm = pm + BBQ * BLK;                   // [BBQ][BLK]: dS[i][key]
-  float* st = dsm + BBQ * BLK;                   // [3][BBQ]
+// 2. cols: dk and dv. A block owns ROWS keys; K and V come once in pieces,
+// the q and dO tiles (32 queries) and their statistics stream by.
+template <int D>
+__global__ void __launch_bounds__(BwdGeo<D>::THREADS, 1)
+    attn_f32_bwd_cols_kernel(const __grid_constant__ CUtensorMap tmap_k,
+                             const __grid_constant__ CUtensorMap tmap_v,
+                             const __grid_constant__ CUtensorMap tmap_q,
+                             const __grid_constant__ CUtensorMap tmap_do,
+                             BwdArgs a) {
+  using G = Geo<D>;
+  using B = BwdGeo<D>;
+  constexpr int RB = G::RB, BOX = 64 * RB, PT = G::ptile(64);
+  constexpr int QT = B::QT, QBOX = QT * RB, QPT = G::ptile(QT);
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t kvbar, full[B::COLS_STAGES],
+      empty[B::COLS_STAGES];
+  uint8_t* smem = sm90::align_1024(smem_raw);
+  uint8_t* ks = smem;                  // per warpgroup: K's pieces
+  uint8_t* vs = smem + B::NWG * PT;    // V's
+  uint8_t* ring_mem = smem + B::COLS_FIXED;
+  const sm90::Ring ring{B::COLS_STAGES};
 
+  const int k0 = blockIdx.x * B::ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int nb = gridDim.z, n = a.n;
   const bool causal = a.mask_mode == MASK_PREFIX_CAUSAL;
-  const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
-  const int tx = threadIdx.x % BTX, r0 = (threadIdx.x / BTX) * RS;
-  const int n = a.n;
   // query rows before k0 see these keys only inside the prefix
-  const int t_first = (causal && k0 >= a.cond_len) ? k0 / BBQ : 0;
-  const int t_end = (n + BBQ - 1) / BBQ;
+  const int t_first = (causal && k0 >= a.cond_len) ? k0 / QT : 0;
+  const int t_end = (n + QT - 1) / QT;
   const size_t stat_row =
       (static_cast<size_t>(b) * a.heads + h) * static_cast<size_t>(a.n_pad);
-  const size_t plane = static_cast<size_t>(gridDim.z) * a.heads * a.n_pad;
-  load_t<BK, DP, BLK>(kt, a.k, a.sk, b, h, k0, n, a.d, 1.f);
-  load_t<BK, DP, BLK>(vt, a.v, a.sv, b, h, k0, n, a.d, 1.f);
+  const size_t plane = static_cast<size_t>(nb) * a.heads * a.n_pad;
 
-  float dk[RS][CO], dv[RS][CO];
-  zero(dk);
-  zero(dv);
-  for (int t = t_first; t < t_end; ++t) {
-    const int i0 = t * BBQ;
-    __syncthreads();  // K, V stored; the last tile's products done
-    load_t<BBQ, DP, BLQ>(qt, a.q, a.sq, b, h, i0, n, a.d, 1.f);
-    load_t<BBQ, DP, BLQ>(dot, a.dout, a.sdo, b, h, i0, n, a.d, 1.f);
-    for (int i = threadIdx.x; i < 3 * BBQ; i += kThreads)
-      st[i] = a.stats[(i / BBQ) * plane + stat_row + i0 + i % BBQ];
-    __syncthreads();
-    // S^T = K q^T and dP^T = V dO^T: 4 keys by 8 queries a thread
-    float s[RS][BCS], dp[RS][BCS];
-    zero(s);
-    zero(dp);
-    tile_fma<DP, BCS, BTX, false>(s, kt, BLK, r0, qt, BLQ, tx);
-    tile_fma<DP, BCS, BTX, false>(dp, vt, BLK, r0, dot, BLQ, tx);
-    const bool edge = causal || i0 + BBQ > n || k0 + BK > n;
-#pragma unroll
-    for (int j = 0; j < BCS; ++j) {
-      const int ic = tx + BTX * j, query = i0 + ic;
-      const float ml2 = st[ic] * kLog2e, inv = st[BBQ + ic];
-      const float delta = st[2 * BBQ + ic];
-#pragma unroll
-      for (int i = 0; i < RS; ++i) {
-        float p = exp_shifted(s[i][j], ml2) * inv;
-        float ds = p * (dp[i][j] - delta);
-        if (edge && (query >= n || !visible(query, k0 + r0 + i, n, causal,
-                                            a.cond_len)))
-          p = ds = 0.f;
-        pm[ic * BLK + r0 + i] = p;
-        dsm[ic * BLK + r0 + i] = ds;
-      }
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&kvbar, 1);
+    for (int s = 0; s < B::COLS_STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], B::NWG);
     }
-    __syncthreads();
-    // dv[key][lane] += sum over queries of P[i][key] dO^T[lane][i], and
-    // dk likewise with dS and q
-    tile_fma<BBQ, CO, BTX, true>(dv, pm, BLK, r0, dot, BLQ, tx);
-    tile_fma<BBQ, CO, BTX, true>(dk, dsm, BLK, r0, qt, BLQ, tx);
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= B::NWG * 128) {
+    // producer: K and V once, then q, dO and statistics tile by tile
+    if constexpr (B::NWG > 1) sm90::regs_dealloc<40>();
+    if (threadIdx.x != B::NWG * 128) return;
+    sm90::mbar_expect_tx(&kvbar, B::COLS_FIXED);
+#pragma unroll
+    for (int w = 0; w < B::NWG; ++w)
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int bx = 0; bx < G::NBOX; ++bx) {
+          const int off = w * PT + (p * G::NBOX + bx) * BOX;
+          sm90::tma_load_4d(ks + off, &tmap_k, &kvbar, bx * G::BOXC, h,
+                            k0 + w * 64, p * nb + b);
+          sm90::tma_load_4d(vs + off, &tmap_v, &kvbar, bx * G::BOXC, h,
+                            k0 + w * 64, p * nb + b);
+        }
+    for (int t = t_first, it = 0; t < t_end; ++t, ++it) {
+      const int s = ring.stage(it);
+      sm90::mbar_wait(&empty[s], ring.parity(it) ^ 1u);
+      uint8_t* st = ring_mem + s * B::COLS_STAGE;
+      sm90::mbar_expect_tx(&full[s], 2 * QPT + 3 * QT * 4);
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int bx = 0; bx < G::NBOX; ++bx) {
+          const int off = (p * G::NBOX + bx) * QBOX;
+          sm90::tma_load_4d(st + off, &tmap_q, &full[s], bx * G::BOXC, h,
+                            t * QT, p * nb + b);
+          sm90::tma_load_4d(st + QPT + off, &tmap_do, &full[s], bx * G::BOXC,
+                            h, t * QT, p * nb + b);
+        }
+      for (int p = 0; p < 3; ++p)
+        sm90::bulk_load(st + 2 * QPT + p * QT * 4,
+                        a.stats + p * plane + stat_row + t * QT, QT * 4,
+                        &full[s]);
+    }
+    return;
   }
 
+  if constexpr (B::NWG > 1) sm90::regs_alloc<232>();
+  const int w = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32, q = lane % 4;
+  const int key_a = k0 + w * 64 + warp * 16 + lane / 4;  // and key_a + 8
+  const bool leader = threadIdx.x % 128 == 0;
+  uint64_t kd[G::NBOX][NP], vd[G::NBOX][NP];
 #pragma unroll
-  for (int i = 0; i < RS; ++i) {
-    const int key = k0 + r0 + i;
-    if (key >= n) continue;
-    float* dkr = a.dk + offset(a.sdk, b, h, key);
-    float* dvr = a.dv + offset(a.sdv, b, h, key);
+  for (int bx = 0; bx < G::NBOX; ++bx)
 #pragma unroll
-    for (int j = 0; j < CO; ++j) {
-      const int lane = tx + BTX * j;
-      if (lane < a.d) {
-        dkr[lane] = dk[i][j];
-        dvr[lane] = dv[i][j];
+    for (int p = 0; p < NP; ++p) {
+      const int off = w * PT + (p * G::NBOX + bx) * BOX;
+      kd[bx][p] = sm90::smem_desc<RB>(ks + off);
+      vd[bx][p] = sm90::smem_desc<RB>(vs + off);
+    }
+  float dk[G::NBOX][G::BOXC / 2], dv[G::NBOX][G::BOXC / 2];
+#pragma unroll
+  for (int bx = 0; bx < G::NBOX; ++bx)
+#pragma unroll
+    for (int i = 0; i < G::BOXC / 2; ++i) dk[bx][i] = dv[bx][i] = 0.f;
+  sm90::mbar_wait(&kvbar, 0);
+
+  for (int t = t_first, it = 0; t < t_end; ++t, ++it) {
+    const int s_i = ring.stage(it);
+    sm90::mbar_wait(&full[s_i], ring.parity(it));
+    const uint8_t* st = ring_mem + s_i * B::COLS_STAGE;
+    const float* stat = reinterpret_cast<const float*>(st + 2 * QPT);
+    uint64_t qd[G::NBOX][NP], dd[G::NBOX][NP];
+#pragma unroll
+    for (int bx = 0; bx < G::NBOX; ++bx)
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        const int off = (p * G::NBOX + bx) * QBOX;
+        qd[bx][p] = sm90::smem_desc<RB>(st + off);
+        dd[bx][p] = sm90::smem_desc<RB>(st + QPT + off);
+      }
+
+    // S^T = K q^T and dP^T = V dO^T: this warpgroup's 64 keys x QT queries
+    float s[QT / 2], dp[QT / 2];
+    {
+      float sb[QT / 2], ss[QT / 2], db[QT / 2], ds[QT / 2];
+      sm90::wgmma_fence();
+      piece_product<QT, G::NBOX, G::KS>(sb, ss, kd, qd);
+      piece_product<QT, G::NBOX, G::KS>(db, ds, vd, dd);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::hold(sb);
+      sm90::hold(ss);
+      sm90::hold(db);
+      sm90::hold(ds);
+      fold(s, sb, ss);
+      fold(dp, db, ds);
+    }
+
+    // P^T and dS^T in place. This thread's columns are 8j + 2q and + 1:
+    // their statistics, two at a time; masked entries (only on a causal or
+    // ragged tile) are exactly 0
+    const bool edge = causal || (t + 1) * QT > n || k0 + B::ROWS > n;
+#pragma unroll
+    for (int j = 0; j < QT / 8; ++j) {
+      const float2 mc = *reinterpret_cast<const float2*>(stat + 8 * j + 2 * q);
+      const float2 ic =
+          *reinterpret_cast<const float2*>(stat + QT + 8 * j + 2 * q);
+      const float2 dc =
+          *reinterpret_cast<const float2*>(stat + 2 * QT + 8 * j + 2 * q);
+#pragma unroll
+      for (int e4 = 0; e4 < 4; ++e4) {
+        const int i = 4 * j + e4, e = i % 2;
+        const float ml2 = (e ? mc.y : mc.x) * kLog2e;
+        float p = exp_shifted(s[i], ml2) * (e ? ic.y : ic.x);
+        float ds = p * (dp[i] - (e ? dc.y : dc.x));
+        if (edge) {
+          const int key = key_a + ((i / 2) % 2) * 8;
+          const int query = t * QT + 8 * j + 2 * q + e;
+          if (query >= n || !visible(query, key, n, causal, a.cond_len))
+            p = ds = 0.f;
+        }
+        s[i] = p;
+        dp[i] = ds;
       }
     }
+    uint32_t pf[QT / 16][NP][4], df[QT / 16][NP][4];
+#pragma unroll
+    for (int kk = 0; kk < QT / 16; ++kk) {
+      sm90::frag_pieces(pf[kk], s, kk);
+      sm90::frag_pieces(df[kk], dp, kk);
+    }
+    // dv += P^T dO and dk += dS^T q, dO and q MN-major
+#pragma unroll
+    for (int kk = 0; kk < QT / 16; ++kk)
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        sm90::hold(pf[kk][p]);
+        sm90::hold(df[kk][p]);
+      }
+#pragma unroll
+    for (int bx = 0; bx < G::NBOX; ++bx) {
+      sm90::hold(dv[bx]);
+      sm90::hold(dk[bx]);
+    }
+    sm90::wgmma_fence();
+    piece_product_rs<G::BOXC, RB, G::NBOX, QT / 16>(dv, pf, dd);
+    piece_product_rs<G::BOXC, RB, G::NBOX, QT / 16>(dk, df, qd);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int bx = 0; bx < G::NBOX; ++bx) {
+      sm90::hold(dv[bx]);
+      sm90::hold(dk[bx]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < QT / 16; ++kk)
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {  // read until done
+        sm90::hold(pf[kk][p]);
+        sm90::hold(df[kk][p]);
+      }
+    if (leader) sm90::mbar_arrive(&empty[s_i]);
+  }
+
+  const float one[2] = {1.f, 1.f};
+  const long long base = static_cast<long long>(b) * n;
+  store_f32<G::BOXC, G::NBOX>(a.dk + base * a.ld_dk + h * a.d, a.ld_dk, dk,
+                              key_a, q, n, a.d, one);
+  store_f32<G::BOXC, G::NBOX>(a.dv + base * a.ld_dv + h * a.d, a.ld_dv, dv,
+                              key_a, q, n, a.d, one);
+}
+
+// ---- host ------------------------------------------------------------------------
+
+// the tile of a head dim: a multiple of 8 up to 128 runs on the next of 32,
+// 64 and 128 lanes, 384 on attn_f32_wide_kernel (forward only); 0 for a
+// head dim no kernel takes (ops.attention.attention_route mirrors it)
+__host__ __device__ constexpr int f32_tile(int head_dim, bool backward) {
+  return head_dim == WD && !backward                      ? WD
+         : head_dim <= 0 || head_dim % 8 || head_dim > 128 ? 0
+         : head_dim <= 32                                  ? 32
+         : head_dim <= 64                                  ? 64
+                                                           : 128;
+}
+
+// elements of the pieces of one (B, rows, H, d) operand
+long long piece_elems(int b, int rows, int heads, int d) {
+  return static_cast<long long>(NP) * b * rows * heads * d;
+}
+
+template <int D, bool kScoreScale>
+int launch_fwd(const CUtensorMap* maps, float* out, int b, int n, int heads,
+               const FwdArgs& a, cudaStream_t stream) {
+  constexpr int smem = FwdGeo<D>::SMEM;
+  auto kernel = attn_f32_fwd_kernel<D, kScoreScale>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((n + FQ - 1) / FQ, heads, b);
+  kernel<<<grid, kFwdThreads, smem, stream>>>(maps[0], maps[1], maps[2], out,
+                                              a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kScoreScale>
+int launch_wide(const CUtensorMap* maps, float* out, int b, int n, int heads,
+                const FwdArgs& a, cudaStream_t stream) {
+  auto kernel = attn_f32_wide_kernel<kScoreScale>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WSMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((n + 63) / 64, heads, b);
+  kernel<<<grid, kWideThreads, WSMEM, stream>>>(maps[0], maps[1], maps[2],
+                                                out, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kScoreScale>
+int launch_fwd_tile(int tile, const CUtensorMap* maps, float* out, int b,
+                    int n, int heads, const FwdArgs& a, cudaStream_t s) {
+  switch (tile) {
+    case 32:
+      return launch_fwd<32, kScoreScale>(maps, out, b, n, heads, a, s);
+    case 64:
+      return launch_fwd<64, kScoreScale>(maps, out, b, n, heads, a, s);
+    case 128:
+      return launch_fwd<128, kScoreScale>(maps, out, b, n, heads, a, s);
+    default:
+      return launch_wide<kScoreScale>(maps, out, b, n, heads, a, s);
   }
 }
 
-template <int DP>
-int launch_bwd(const BwdArgs& a, int b, cudaStream_t stream) {
-  constexpr int rs = rows_smem<DP>(), cs = cols_smem<DP>();
+template <int D>
+int launch_bwd(const void* const* pieces, BwdArgs a, int b,
+               cudaStream_t stream) {
+  using G = Geo<D>;
+  using B = BwdGeo<D>;
+  const int n = a.n, heads = a.heads, d = a.d;
+  auto map = [&](CUtensorMap* m, const void* ptr, int rows) {
+    return piece_map(m, ptr, b, n, heads, d, rows, G::BOXC);
+  };
+  // pieces: q, k, v, dO
+  CUtensorMap tq, tdo, tk, tv, tqc, tdoc;
+  if (map(&tq, pieces[0], 64) || map(&tdo, pieces[3], 64) ||
+      map(&tk, pieces[1], 64) || map(&tv, pieces[2], 64) ||
+      map(&tqc, pieces[0], B::QT) || map(&tdoc, pieces[3], B::QT))
+    return ETK_TMAP_FAILED;
   cudaError_t err = cudaFuncSetAttribute(
-      attn_f32_bwd_rows_kernel<DP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, rs);
+      attn_f32_bwd_rows_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, B::ROWS_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(attn_f32_bwd_cols_kernel<DP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, cs);
+  err = cudaFuncSetAttribute(attn_f32_bwd_cols_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             B::COLS_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((a.n + BK - 1) / BK, a.heads, b);
-  attn_f32_bwd_rows_kernel<DP><<<grid, kThreads, rs, stream>>>(a);
+  dim3 grid((n + B::ROWS - 1) / B::ROWS, heads, b);
+  attn_f32_bwd_rows_kernel<D><<<grid, B::THREADS, B::ROWS_SMEM, stream>>>(
+      tq, tdo, tk, tv, a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_f32_bwd_cols_kernel<DP><<<grid, kThreads, cs, stream>>>(a);
+  attn_f32_bwd_cols_kernel<D><<<grid, B::THREADS, B::COLS_SMEM, stream>>>(
+      tk, tv, tqc, tdoc, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -528,15 +1348,18 @@ int launch_bwd(const BwdArgs& a, int b, cudaStream_t stream) {
 // base + b * batch + h * head + row * row_stride + lane, its three strides
 // in elements (multiples of 8; 0 only on an axis of size 1) at
 // strides[3 * i .. 3 * i + 2] for q, k, v, out; every base 16-byte
-// aligned. score_scale: 1 puts the scale on the fp32 scores, 0 scales q.
-// Head dims: multiples of 8 up to 128, and 384.
+// aligned. pieces: bf16 scratch of 3 * B * (N + 2 M) * H * D elements, 16-
+// byte aligned (q's pieces, then k's, then v's). score_scale: 1 puts the
+// scale on the fp32 scores, 0 scales q in fp32. Head dims: multiples of 8
+// up to 128, and 384. Two launches: the split pass, then the attention.
 ETK_API int etk_attention_f32(const void* q, const void* k, const void* v,
-                              void* out, const int* strides, int b, int n,
-                              int m, int heads, int head_dim, float scale,
-                              int score_scale, int mask_mode, int cond_len,
-                              void* stream) {
+                              void* out, const int* strides, void* pieces,
+                              int b, int n, int m, int heads, int head_dim,
+                              float scale, int score_scale, int mask_mode,
+                              int cond_len, void* stream) {
+  const int tile = f32_tile(head_dim, false);
   if (b <= 0 || n <= 0 || m <= 0 || heads <= 0 || b > 65535 ||
-      heads > 65535 ||
+      heads > 65535 || tile == 0 ||
       (mask_mode != MASK_NONE && mask_mode != MASK_PREFIX_CAUSAL))
     return ETK_BAD_ARGS;
   Strides st[4];
@@ -549,49 +1372,91 @@ ETK_API int etk_attention_f32(const void* q, const void* k, const void* v,
         (st[i].row == 0 && rows > 1))
       return ETK_BAD_ARGS;
   }
-  const float* p[4] = {static_cast<const float*>(q),
-                       static_cast<const float*>(k),
-                       static_cast<const float*>(v),
-                       static_cast<const float*>(out)};
-  const FwdArgs a{n, m, head_dim, mask_mode, cond_len, scale};
+  auto* pq = static_cast<__nv_bfloat16*>(pieces);
+  __nv_bfloat16* pk = pq + piece_elems(b, n, heads, head_dim);
+  __nv_bfloat16* pv = pk + piece_elems(b, m, heads, head_dim);
+  SplitArgs sa{};
+  const void* src[3] = {q, k, v};
+  __nv_bfloat16* dst[3] = {pq, pk, pv};
+  for (int i = 0; i < 3; ++i) {
+    sa.src[i] = static_cast<const float*>(src[i]);
+    sa.dst[i] = dst[i];
+    sa.st[i] = st[i];
+    sa.rows[i] = i == 0 ? n : m;
+    sa.mul[i] = i == 0 && !score_scale ? scale : 1.f;
+  }
+  sa.b = b;
+  sa.heads = heads;
+  sa.d = head_dim;
   auto s = static_cast<cudaStream_t>(stream);
-  return score_scale ? launch_fwd_d<true>(p, st, b, heads, a, s)
-                     : launch_fwd_d<false>(p, st, b, heads, a, s);
+  int rc = launch_split(sa, 3, s);
+  if (rc) return rc;
+  const int box = tile == 32 ? 32 : 64;
+  CUtensorMap maps[3];
+  if (piece_map(&maps[0], pq, b, n, heads, head_dim, 64, box) ||
+      piece_map(&maps[1], pk, b, m, heads, head_dim, 64, box) ||
+      piece_map(&maps[2], pv, b, m, heads, head_dim, 64, box))
+    return ETK_TMAP_FAILED;
+  const FwdArgs a{n, m, head_dim, mask_mode, cond_len, scale, st[3]};
+  float* o = static_cast<float*>(out);
+  return score_scale
+             ? launch_fwd_tile<true>(tile, maps, o, b, n, heads, a, s)
+             : launch_fwd_tile<false>(tile, maps, o, b, n, heads, a, s);
 }
 
 // The backward of etk_attention_f32 with q already scaled, on fp32 (B, N,
 // H*D) q, k, v and dO with rows ld_* elements apart (multiples of 8,
 // 16-byte aligned rows; batches n rows apart), into dq, dk and dv likewise.
-// stats: 3 * b * heads * n_pad fp32 scratch, n_pad = n rounded up to 128.
-// Head dims: multiples of 8 up to 128.
+// stats: 3 * b * heads * n_pad fp32 scratch, n_pad = n rounded up to 128;
+// pieces: bf16 scratch of 12 * B * N * H * D elements (q's, k's, v's and
+// dO's three pieces). Head dims: multiples of 8 up to 128. Three launches:
+// the split pass, the rows kernel, the cols kernel.
 ETK_API int etk_attention_bwd_f32(const void* q, const void* k, const void* v,
                                   const void* dout, void* dq, void* dk,
-                                  void* dv, void* stats, int ld_q, int ld_k,
-                                  int ld_v, int ld_do, int ld_dq, int ld_dk,
-                                  int ld_dv, int b, int n, int heads,
-                                  int head_dim, int mask_mode, int cond_len,
-                                  void* stream) {
+                                  void* dv, void* stats, void* pieces,
+                                  int ld_q, int ld_k, int ld_v, int ld_do,
+                                  int ld_dq, int ld_dk, int ld_dv, int b,
+                                  int n, int heads, int head_dim,
+                                  int mask_mode, int cond_len, void* stream) {
   const int hd = heads * head_dim;
   const int lds[7] = {ld_q, ld_k, ld_v, ld_do, ld_dq, ld_dk, ld_dv};
   for (int ld : lds)
     if (ld < hd || ld % 8) return ETK_BAD_ARGS;
+  const int tile = f32_tile(head_dim, true);
   if (b <= 0 || n <= 0 || heads <= 0 || b > 65535 || heads > 65535 ||
-      head_dim <= 0 || head_dim % 8 || head_dim > 128 ||
+      tile == 0 ||
       (mask_mode != MASK_NONE && mask_mode != MASK_PREFIX_CAUSAL))
     return ETK_BAD_ARGS;
-  auto strides = [&](int ld) {
-    return Strides{n * ld, head_dim, ld};
-  };
-  BwdArgs a{static_cast<const float*>(q), static_cast<const float*>(k),
-            static_cast<const float*>(v), static_cast<const float*>(dout),
-            static_cast<float*>(dq), static_cast<float*>(dk),
-            static_cast<float*>(dv), static_cast<float*>(stats),
-            strides(ld_q), strides(ld_k), strides(ld_v), strides(ld_do),
-            strides(ld_dq), strides(ld_dk), strides(ld_dv),
-            n, (n + 127) / 128 * 128, heads, head_dim, mask_mode, cond_len};
+  SplitArgs sa{};
+  const void* src[4] = {q, k, v, dout};
+  const int ld_in[4] = {ld_q, ld_k, ld_v, ld_do};
+  const void* pc[4];
+  auto* base = static_cast<__nv_bfloat16*>(pieces);
+  const long long per = piece_elems(b, n, heads, head_dim);
+  for (int i = 0; i < 4; ++i) {
+    sa.src[i] = static_cast<const float*>(src[i]);
+    sa.dst[i] = base + i * per;
+    sa.st[i] = Strides{n * ld_in[i], head_dim, ld_in[i]};
+    sa.rows[i] = n;
+    sa.mul[i] = 1.f;
+    pc[i] = sa.dst[i];
+  }
+  sa.b = b;
+  sa.heads = heads;
+  sa.d = head_dim;
   auto s = static_cast<cudaStream_t>(stream);
-  if (head_dim <= 32) return launch_bwd<32>(a, b, s);
-  if (head_dim <= 64) return launch_bwd<64>(a, b, s);
-  if (head_dim <= 96) return launch_bwd<96>(a, b, s);
-  return launch_bwd<128>(a, b, s);
+  int rc = launch_split(sa, 4, s);
+  if (rc) return rc;
+  const BwdArgs a{static_cast<float*>(dq), static_cast<float*>(dk),
+                  static_cast<float*>(dv), static_cast<float*>(stats),
+                  ld_dq, ld_dk, ld_dv, n, (n + 127) / 128 * 128, heads,
+                  head_dim, mask_mode, cond_len};
+  switch (tile) {
+    case 32:
+      return launch_bwd<32>(pc, a, b, s);
+    case 64:
+      return launch_bwd<64>(pc, a, b, s);
+    default:
+      return launch_bwd<128>(pc, a, b, s);
+  }
 }

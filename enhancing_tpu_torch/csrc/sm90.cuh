@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the bf16 LN -> GEMM (B1,
 // ln_gemm.cu), the fused FFN (B16, ffn.cu), attention -> projection (B15,
 // attn_proj.cu), the attention backward (B5, attention_bwd.cu), the
-// attention forwards (B2, B8, B17-B19, attention_bnhd.cu) and the decode
+// attention forwards (B2, B8, B17-B19, attention_bnhd.cu), their fp32
+// counterparts on exact bf16 pieces (attention_f32.cu) and the decode
 // attention (B9, decode_attention.cu), and under int8_wgmma.cuh the int8
 // decode MLP (B14, int8_mlp.cu), in raw PTX:
 //
@@ -23,7 +24,8 @@
 //   descriptor steps 16 rows per k16; the kernels run one product per
 //   row-wide box, so N never spans two swizzle atoms. The accumulator of
 //   one product converts in registers to the bf16 A fragments of the next
-//   (frag_from_acc).
+//   (frag_from_acc), or of its three exact bf16 pieces (frag_pieces,
+//   stage_pieces), so that fp32 products run on the bf16 tensor cores.
 // - Tensor maps over the lane slices of a row-strided (B, N, cols) buffer:
 //   3-D, so that boxes clip at each batch's N; and 4-D over (lanes, heads,
 //   rows, batches) with a stride per axis, for attention operands laid out
@@ -387,6 +389,74 @@ __device__ __forceinline__ void frag_from_acc(uint32_t (&a)[4],
   a[3] = pack_bf16x2(acc[8 * kk + 6], acc[8 * kk + 7]);
 }
 
+// ---- exact products of fp32 values on bf16 tensor cores ---------------------
+//
+// Every fp32 value a is the exact sum of three bf16 pieces: hi = bf16(a),
+// mid = bf16(a - hi), lo = bf16(a - hi - mid) (each difference is exact in
+// fp32, and 8 + 8 + 8 significant bits cover a's 24). A product of two
+// bf16 pieces has at most 16 significant bits, so wgmma forms it exactly
+// in fp32; a * b is then the six cross terms hi*hi, hi*mid, mid*hi,
+// hi*lo, lo*hi and mid*mid (what is left, mid*lo, lo*mid and lo*lo, is
+// 2^-24 of a * b and below). The kernels of attention_f32.cu sum hi*hi in
+// one accumulator and the five small terms in another, folded smallest
+// first with a round-to-nearest add (the tensor cores' own adds are not
+// round-to-nearest). Small cross term i multiplies A piece small_a(i) by
+// B piece small_b(i).
+constexpr int kPieces = 3;
+__host__ __device__ constexpr int small_a(int i) {
+  return i == 1 || i == 4 ? 1 : i == 3 ? 2 : 0;  // hi mid hi lo mid
+}
+__host__ __device__ constexpr int small_b(int i) {
+  return i == 0 || i == 4 ? 1 : i == 2 ? 2 : 0;  // mid hi lo hi mid
+}
+
+// the three pieces of a as fp32 values, each exactly a bf16
+__device__ __forceinline__ void bf16_pieces(float a, float (&p)[3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    p[i] = __bfloat162float(__float2bfloat16_rn(a));
+    a = __fsub_rn(a, p[i]);
+  }
+}
+
+// frag_from_acc for each piece: f[p] is the bf16 A fragment of piece p of
+// k16 slice kk of the fp32 accumulator acc
+template <int R>
+__device__ __forceinline__ void frag_pieces(uint32_t (&f)[3][4],
+                                            const float (&acc)[R], int kk) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    float x[3], y[3];
+    bf16_pieces(acc[8 * kk + 2 * e], x);
+    bf16_pieces(acc[8 * kk + 2 * e + 1], y);
+#pragma unroll
+    for (int p = 0; p < 3; ++p) f[p][e] = pack_bf16x2(x[p], y[p]);
+  }
+}
+
+// The pieces of a consumer thread's fp32 accumulator of 64 rows x 2R
+// columns (n8 block j: rows r, r + 8, columns 8j + 2q, + 1), written into
+// three swizzled boxes of 128-byte rows `piece_bytes` apart, as a
+// shared-memory wgmma reads its K-major A operand (the columns are K)
+template <int R>
+__device__ __forceinline__ void stage_pieces(uint8_t* box, int piece_bytes,
+                                             const float (&acc)[R], int r,
+                                             int q) {
+#pragma unroll
+  for (int j = 0; j < R / 4; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float x[3], y[3];
+      bf16_pieces(acc[4 * j + 2 * hh], x);
+      bf16_pieces(acc[4 * j + 2 * hh + 1], y);
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+        *reinterpret_cast<uint32_t*>(box + p * piece_bytes +
+                                     swz<128>(r + 8 * hh, j) + 4 * q) =
+            pack_bf16x2(x[p], y[p]);
+    }
+}
+
 // the descriptor of the k16 slice `ks` of a tile (32 bytes a slice)
 __device__ __forceinline__ uint64_t desc_k(uint64_t desc, int ks) {
   return desc + static_cast<uint64_t>(2 * ks);
@@ -557,9 +627,10 @@ struct Wgmma<24> {
 
 template <>
 struct Wgmma<32> {
-  // d (64 x 32, fp32) += A (64 x 16) * B (32 x 16)^T, A and B in shared memory
+  // d (64 x 32, fp32) += A (64 x 16) * B (32 x 16)^T, A and B in shared
+  // memory; with accumulate 0, d = A * B^T (d's old values are not read)
   __device__ __forceinline__ static void ss(float (&d)[16], uint64_t a,
-                                            uint64_t b) {
+                                            uint64_t b, int accumulate = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
@@ -570,7 +641,7 @@ struct Wgmma<32> {
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(accumulate));
   }
   // d (64 x 32, fp32) += A (64 x 16, registers, mma.sync's fragment layout)
   // * B; B in shared memory, K-major (TB 0: B is 32 x 16) or MN-major (TB
@@ -596,8 +667,10 @@ struct Wgmma<32> {
 
 template <>
 struct Wgmma<64> {
-  // d (64 x 64, fp32) += A (64 x 16) * B (64 x 16)^T, A and B in shared
-  // memory; with accumulate 0, d = A * B^T (d's old values are not read)
+  // d (64 x 64, fp32) += A (64 x 16) * B, A and B in shared memory, B
+  // K-major (TB 0: B is 64 x 16) or MN-major (TB 1: B is 16 x 64, rows of
+  // 64); with accumulate 0, d = A * B (d's old values are not read)
+  template <int TB = 0>
   __device__ __forceinline__ static void ss(float (&d)[32], uint64_t a,
                                             uint64_t b, int accumulate = 1) {
     asm volatile(
@@ -607,7 +680,7 @@ struct Wgmma<64> {
         "%8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, "
         "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -616,7 +689,7 @@ struct Wgmma<64> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(accumulate));
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TB));
   }
   // d (64 x 64, fp32) += A (64 x 16, registers, mma.sync's fragment layout)
   // * B; B in shared memory, K-major (TB 0: B is 64 x 16) or MN-major (TB

@@ -74,8 +74,8 @@ import struct
 import torch
 
 from . import cuda_lib
-from .common import (F32_LAUNCHES, LAUNCHES, check_kernel_args,
-                     row_positions, use_kernel)
+from .common import (F32_LAUNCHES, LAUNCHES, UNFUSED_CALLS,
+                     check_kernel_args, row_positions, use_kernel)
 from .ln_gemm import _plain_vjp
 
 NEG_INF = -1e30
@@ -85,10 +85,9 @@ MASK_MODES = {"none": 0, "prefix_causal": 1}
 # a multiple of 8 up to 128 on the next of their tiles of 32, 64 and 128
 # lanes (the lanes past it are zeros that their 4-D tensor maps load and
 # their stores drop), attn_wide_kernel the prior's 384 (forward only).
-# fp32: csrc/attention_f32.cu, tiles of 32, 64, 96 and 128 lanes up to 128,
-# and 384 (forward only).
+# fp32: csrc/attention_f32.cu on the same tiles (attn_f32_fwd_kernel and
+# the backward) and attn_f32_wide_kernel at 384 (forward only).
 KERNEL_TILES = (32, 64, 128)
-F32_TILES = (32, 64, 96, 128)
 WIDE_HEAD_DIM = 384
 
 
@@ -98,23 +97,23 @@ def attention_route(dtype: torch.dtype, head_dim: int,
     ``head_dim``, as the C entries choose them: bf16 forwards on
     ``attn_fwd_kernel`` (tile 32, 64 or 128) or ``attn_wide_kernel`` (384),
     the bf16 backward on ``attn_bwd`` (``csrc/attention_bwd.cu``), fp32 on
-    ``attn_f32_fwd_kernel`` / ``attn_f32_bwd`` (``csrc/attention_f32.cu``).
+    ``attn_f32_fwd_kernel`` (the same tiles) or ``attn_f32_wide_kernel``
+    (384) and ``attn_f32_bwd`` (``csrc/attention_f32.cu``).
     Raises TypeError for another dtype and ValueError for a head dim no
     kernel takes: not a multiple of 8, above 128 but not 384, or 384 in
     the backward (ROADMAP.md queue B)."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"attention kernels take bf16 or fp32, got {dtype}")
-    tiles = KERNEL_TILES if dtype == torch.bfloat16 else F32_TILES
     if head_dim == WIDE_HEAD_DIM and not backward:
         return ("attn_wide_kernel" if dtype == torch.bfloat16
-                else "attn_f32_fwd_kernel", WIDE_HEAD_DIM)
-    if head_dim <= 0 or head_dim % 8 or head_dim > tiles[-1]:
+                else "attn_f32_wide_kernel", WIDE_HEAD_DIM)
+    if head_dim <= 0 or head_dim % 8 or head_dim > KERNEL_TILES[-1]:
         raise ValueError(
             f"attention {'backward ' if backward else ''}kernel takes a "
-            f"head_dim that is a multiple of 8 up to {tiles[-1]}"
+            f"head_dim that is a multiple of 8 up to {KERNEL_TILES[-1]}"
             + ("" if backward else f" or {WIDE_HEAD_DIM}")
             + f", got {head_dim}")
-    tile = next(t for t in tiles if head_dim <= t)
+    tile = next(t for t in KERNEL_TILES if head_dim <= t)
     if dtype == torch.bfloat16:
         return ("attn_bwd" if backward else "attn_fwd_kernel", tile)
     return ("attn_f32_bwd" if backward else "attn_f32_fwd_kernel", tile)
@@ -220,7 +219,8 @@ def attention_bwd_plain(q3, k3, v3, do3, heads, head_dim, mask_mode="none",
 def attention_bwd_kernel(q3, k3, v3, do3, heads, head_dim, mask_mode="none",
                          cond_len=0):
     """Launch ``csrc/attention_bwd.cu`` on CUDA bf16 (B, N, H*D) q (already
-    scaled), k, v and dO, or ``csrc/attention_f32.cu``'s backward on fp32
+    scaled), k, v and dO, or ``csrc/attention_f32.cu``'s backward (the split
+    pass, then its rows and cols kernels on exact bf16 pieces) on fp32
     ones, each contiguous or a lane slice of a wider buffer with 16-byte
     aligned rows; head dims that are multiples of 8 up to 128. Returns
     contiguous dq, dk and dv."""
@@ -244,9 +244,12 @@ def attention_bwd_kernel(q3, k3, v3, do3, heads, head_dim, mask_mode="none",
     stats = torch.empty((3, b, heads, n_pad), dtype=torch.float32,
                         device=q3.device)
     f32 = q3.dtype == torch.float32
+    # fp32: the exact bf16 pieces of q, k, v and dO (csrc/attention_f32.cu)
+    pieces = ((f32_pieces(4 * b * n * hd, q3.device).data_ptr(),) if f32
+              else ())
     cuda_lib.call("etk_attention_bwd_f32" if f32 else "etk_attention_bwd",
                   *(t.data_ptr() for t in (q3, k3, v3, do3, *grads, stats)),
-                  *(t.stride(1) for t in (q3, k3, v3, do3, *grads)),
+                  *pieces, *(t.stride(1) for t in (q3, k3, v3, do3, *grads)),
                   b, n, heads, head_dim, MASK_MODES[mask_mode],
                   int(cond_len), cuda_lib.stream())
     LAUNCHES["attention_bwd"] += 1
@@ -396,23 +399,40 @@ def check_grid(name: str, b: int, n: int, m: int, heads: int) -> None:
                          "grid it takes")
 
 
+# the bf16 pieces that csrc/attention_f32.cu's split pass writes per fp32
+# element
+F32_PIECES = 3
+
+
+def f32_pieces(rows: int, device) -> torch.Tensor:
+    """The bf16 scratch of ``csrc/attention_f32.cu``'s split pass: three
+    exact bf16 pieces of ``rows`` fp32 elements (the operands' elements
+    summed)."""
+    return torch.empty(F32_PIECES * rows, dtype=torch.bfloat16,
+                       device=device)
+
+
 def attention_f32_launch(name, q, k, v, o, scale, score_scale, mask_mode,
                          cond_len):
-    """Launch ``attn_f32_fwd_kernel`` (``csrc/attention_f32.cu``, entry
-    ``etk_attention_f32``) on fp32 (B, N, H, D) q and out and (B, M, H, D)
-    k, v, each read or written in place through its strides (the checks of
-    :func:`strided_launch_args`). The scale multiplies q in fp32, or the
-    fp32 scores with ``score_scale``. Counts the launch under ``name``, in
-    ``LAUNCHES`` with the bf16 launches and in ``F32_LAUNCHES``; returns
-    o."""
+    """Launch ``csrc/attention_f32.cu`` (entry ``etk_attention_f32``: the
+    split pass into exact bf16 pieces, then ``attn_f32_fwd_kernel`` or, at
+    384, ``attn_f32_wide_kernel``) on fp32 (B, N, H, D) q and out and (B,
+    M, H, D) k, v, each read or written in place through its strides (the
+    checks of :func:`strided_launch_args`). The scale multiplies q in
+    fp32, or the fp32 scores with ``score_scale``. Counts the launch under
+    ``name``, in ``LAUNCHES`` with the bf16 launches and in
+    ``F32_LAUNCHES``; returns o."""
     b, n, h, d = q.shape
+    m = k.shape[1]
     attention_route(torch.float32, d)
-    check_grid(f"{name} kernel", b, n, k.shape[1], h)
+    check_grid(f"{name} kernel", b, n, m, h)
     strides = strided_launch_args(name, (q, k, v, o))
+    pieces = f32_pieces(b * (n + 2 * m) * h * d, q.device)
     cuda_lib.call("etk_attention_f32", q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), o.data_ptr(), (ctypes.c_int * 12)(*strides),
-                  b, n, k.shape[1], h, d, float(scale), int(score_scale),
-                  MASK_MODES[mask_mode], int(cond_len), cuda_lib.stream())
+                  pieces.data_ptr(), b, n, m, h, d, float(scale),
+                  int(score_scale), MASK_MODES[mask_mode], int(cond_len),
+                  cuda_lib.stream())
     LAUNCHES[name] += 1
     F32_LAUNCHES[name] += 1
     return o
@@ -833,6 +853,65 @@ def attn_proj_plan(heads: int, head_dim: int, ho: int) -> dict | None:
                 smem=fixed + 2 * stages * PROJ_STAGE_BYTES + 1024)
 
 
+def jax_fuses_attn_proj(heads: int, head_dim: int, ho: int, n: int,
+                        m: int) -> bool:
+    """Whether the JAX ``attention_proj_packed`` runs its kernel
+    (``_attn_proj_kernel``) on the TPU at this shape, in either dtype:
+    heads that divide or fill its 128-lane slabs, H*D whole slabs, N and M
+    of at least 16 (``_packed_supported``), HO a multiple of 128 up to
+    4096 (``_attn_proj_supported``); elsewhere it computes
+    ``_attention_proj_xla`` (``enhancing_tpu/ops/attention.py:779-792,
+    1198-1223,1267-1293``)."""
+    slab = head_dim if head_dim % 128 == 0 else 128
+    return (head_dim > 0 and (head_dim % 128 == 0 or 128 % head_dim == 0)
+            and heads * head_dim % slab == 0 and min(n, m) >= 16
+            and ho % 128 == 0 and ho <= 4096)
+
+
+def attn_proj_route(dtype: torch.dtype, heads: int, head_dim: int, ho: int,
+                    n: int, m: int) -> str:
+    """Where a serving call of :func:`attention_proj_packed` on CUDA goes,
+    decided from dtype and shape before any launch:
+
+    - ``"attn_proj"``: one launch of ``csrc/attn_proj.cu`` (B15), bf16 at
+      a shape :func:`attn_proj_plan` takes (heads of 64);
+    - ``"unfused"``: :func:`attention_proj_unfused` (the attention forward
+      kernel, then the projection, bias and residual summed in fp32 with
+      one rounding) where the JAX package too computes
+      ``_attention_proj_xla`` (:func:`jax_fuses_attn_proj` is false: heads
+      of 80 or 96, for example);
+    - ``"unported"``: the same unfused form where the JAX package runs its
+      kernel: fp32 (heads of 32, 64 or 128 at the ViT's widths) and bf16
+      heads of 32 or 128. The port has no one-launch kernel for these yet
+      (ROADMAP.md queue B item 0); the form computes the same function.
+
+    Raises TypeError for a dtype neither takes."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"attention_proj_packed takes bf16 or fp32, got "
+                        f"{dtype}")
+    if dtype == torch.bfloat16 and attn_proj_plan(heads, head_dim,
+                                                  ho) is not None:
+        return "attn_proj"
+    if jax_fuses_attn_proj(heads, head_dim, ho, n, m):
+        return "unported"
+    return "unfused"
+
+
+def attention_proj_unfused(q, k, v, wp, bp, residual, scale,
+                           mask_mode="none", cond_len=0):
+    """The unfused form of B15: :func:`multihead_attention_bnhd` on q (B,
+    N, H, D) and k, v (B, M, H, D) in place (on CUDA the B8 kernel, counted
+    there; on the CPU its plain version), then o (B, N, H*D) @ wp^T + bp +
+    residual as fp32 library products and sums (TF32 as the caller set it:
+    off by default) with one rounding to q's dtype:
+    ``_attention_proj_xla``. Returns (out, o)."""
+    b, n, h, d = q.shape
+    o3 = multihead_attention_bnhd(q, k, v, scale=scale, mask_mode=mask_mode,
+                                  cond_len=cond_len).reshape(b, n, h * d)
+    out = o3.float() @ wp.float().t() + bp.float() + residual.float()
+    return out.to(q.dtype), o3
+
+
 def attention_proj_plain(q, k, v, wp, bp, residual, scale, mask_mode="none",
                          cond_len=0):
     """``_attention_proj_xla``: q (B, N, H, D), k, v (B, M, H, D) with q
@@ -867,13 +946,14 @@ def attn_proj_kernel(q, k, v, wp, bp, residual, scale, mask_mode="none",
     if any(t.dtype != torch.bfloat16 for t in (q, k, v, wp, residual)) or (
             bp.dtype != torch.float32):
         raise TypeError("attn_proj kernel takes bf16 q, k, v, wp, residual "
-                        "and an fp32 bias (fp32 is not ported yet: "
-                        "ROADMAP.md C1)")
+                        "and an fp32 bias (attention_proj_packed sends fp32 "
+                        "to the unfused form: attn_proj_route)")
     if attn_proj_plan(h, d, ho) is None:
         raise ValueError(f"attn_proj kernel takes head_dim in "
                          f"{PROJ_HEAD_DIMS}, HO % 64 == 0 and H*D up to "
-                         f"1024, got H={h}, D={d}, HO={ho} (other head dims "
-                         "are not ported yet: ROADMAP.md C1)")
+                         f"1024, got H={h}, D={d}, HO={ho} "
+                         "(attention_proj_packed sends other shapes to the "
+                         "unfused form: attn_proj_route)")
     if (k.shape != (b, m, h, d) or v.shape != k.shape
             or wp.shape != (ho, h * d) or bp.shape != (ho,)
             or residual.shape != (b, n, ho)):
@@ -910,13 +990,11 @@ class _AttentionProj(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, wp, bp, residual, scale, mask_mode, cond_len):
-        b, n, h, d = q.shape
-        o3 = attention_bnhd_kernel(q, k, v, scale, mask_mode,
-                                   cond_len).reshape(b, n, h * d)
+        out, o3 = attention_proj_unfused(q, k, v, wp, bp, residual, scale,
+                                         mask_mode, cond_len)
         ctx.save_for_backward(q, k, v, wp, o3)
         ctx.args = (scale, mask_mode, cond_len)
-        out = o3.float() @ wp.float().t() + bp.float() + residual.float()
-        return out.to(q.dtype)
+        return out
 
     @staticmethod
     def backward(ctx, g):
@@ -950,14 +1028,16 @@ def attention_proj_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lane slices of the packed qkv buffer taken in place; wp (dim_out,
     H*D), torch's Linear layout (the transpose of JAX's (H*D, dim_out)),
     cast to q's dtype; bp (dim_out,), added in fp32; residual (B, N,
-    dim_out). On CUDA, with no gradient to record (serving), one launch of
-    ``csrc/attn_proj.cu`` (B15); under autograd the unfused forward of
-    :class:`_AttentionProj`, as the JAX ``custom_vjp`` runs its unfused
-    forward for grad. The JAX dispatch limits that exist for VMEM and the
-    128 lanes (``_attn_proj_supported``, the packed grid's
-    ``_packed_supported``) are not reproduced: their fallbacks compute the
-    same function. The kernel takes bf16 and head_dim 64 (every stage-1
-    config's), and raises otherwise.
+    dim_out). On CUDA, with no gradient to record (serving),
+    :func:`attn_proj_route` decides from dtype and shape: one launch of
+    ``csrc/attn_proj.cu`` (B15: bf16, head_dim 64, every stage-1 config's
+    default), or the unfused form (:func:`attention_proj_unfused`, counted
+    in ``UNFUSED_CALLS``) for fp32 and other head dims. JAX computes that
+    form too at head dims its packed grid refuses (80, 96); in fp32 and at
+    heads of 32 or 128 it runs its kernel, which the port has no one-launch
+    counterpart of yet (the route ``"unported"``). Under autograd the
+    unfused forward of :class:`_AttentionProj`, as the JAX ``custom_vjp``
+    runs its unfused forward for grad.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -970,6 +1050,13 @@ def attention_proj_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return _AttentionProj.apply(q, k, v, wp, bp, residual,
                                         float(scale), mask_mode,
                                         int(cond_len))
+        b, n, h, d = q.shape
+        if attn_proj_route(q.dtype, h, d, wp.shape[0], n,
+                           k.shape[1]) != "attn_proj":
+            UNFUSED_CALLS["attn_proj"] += 1
+            return attention_proj_unfused(q, k, v, wp, bp, residual,
+                                          float(scale), mask_mode,
+                                          int(cond_len))[0]
         return attn_proj_kernel(q, k, v, wp.contiguous(), bp.contiguous(),
                                 residual.contiguous(), float(scale),
                                 mask_mode, int(cond_len))

@@ -31,12 +31,18 @@ LAUNCHES: dict[str, int] = {"ln_gemm": 0, "attention": 0, "layernorm": 0,
 F32_LAUNCHES: dict[str, int] = {name: 0 for name in LAUNCHES}
 # Op calls on CUDA tensors that force_plain_ops sent to the plain version.
 PLAIN_CALLS: dict[str, int] = {name: 0 for name in LAUNCHES}
+# Calls of an opt-in fusion on CUDA tensors that its route (a function of
+# dtype and shape: ops.attention.attn_proj_route, ops.ffn.ffn_route) sent
+# to the unfused form (the attention kernel and library products, each
+# counted where it launches): the form the JAX package computes there, or
+# one it fuses and the port has no one-launch kernel for yet.
+UNFUSED_CALLS: dict[str, int] = {"attn_proj": 0, "ffn": 0}
 
 _FORCE_PLAIN_DEPTH = 0
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, F32_LAUNCHES, PLAIN_CALLS):
+    for counts in (LAUNCHES, F32_LAUNCHES, PLAIN_CALLS, UNFUSED_CALLS):
         for name in counts:
             counts[name] = 0
 

@@ -13,9 +13,16 @@ port's LN -> GEMM copies its kernel likewise, ROADMAP §C).
 On CUDA the entry point is a ``torch.autograd.Function``: the forward is
 the kernel, the backward autograd of the plain version recomputed from
 the saved inputs, as ``_ffn_fused_bwd`` takes the VJP of ``_ffn_xla``.
+fp32 x takes the unfused form, two fp32 library products
+(:func:`ffn_route`, :func:`ffn_unfused`). The JAX package computes that
+form, ``_ffn_xla``, where its weights pass ``_MAX_WEIGHT_BYTES`` (12 MiB,
+``ffn.py:133,146-160``), as every fp32 FFN of Base width or wider does
+(2 x 768 x 3072 x 4 bytes = 18.9 MB). Below that (Small's 2 x 512 x 2048 x
+4 = 8.4 MB) it runs its kernel in fp32, which the port has no one-launch
+counterpart of yet (ROADMAP.md queue B item 0).
 
-Weights use torch's Linear layout: ``w1: (h, d)``, ``w2: (d, h)``. The JAX
-dispatch limits that exist for VMEM and the 128 lanes (``_MAX_WEIGHT_BYTES``,
+Weights use torch's Linear layout: ``w1: (h, d)``, ``w2: (d, h)``. For
+bf16 x the JAX dispatch limits that exist for VMEM and the 128 lanes (``_MAX_WEIGHT_BYTES``,
 ``d % 128``, ``_H_CHUNK`` divisibility, ``ffn.py:131-155``) are not
 reproduced: the XLA path they fall back to computes the same function in
 f32. The kernel takes bf16 x and weights, fp32 biases, d and h multiples
@@ -27,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
-from .common import LAUNCHES, check_kernel_args, use_kernel
+from .common import LAUNCHES, UNFUSED_CALLS, check_kernel_args, use_kernel
 from .ln_gemm import ACTIVATIONS, _act, _plain_vjp
 
 FFN_ACTIVATIONS = ("tanh", "sqrelu", "gelu")
@@ -72,6 +79,47 @@ def ffn_plain(x, w1, b1, w2, b2, activation="tanh"):
     return out.to(x.dtype)
 
 
+# the JAX fused_ffn's kernel limits (enhancing_tpu/ops/ffn.py:50,133,
+# 146-156): weights of at most 12 MiB, d and h multiples of 128, h whole
+# 512-wide chunks (or below 512), at least 8 rows
+JAX_FFN_MAX_WEIGHT_BYTES, JAX_FFN_H_CHUNK = 12 * 1024 * 1024, 512
+
+
+def jax_fuses_ffn(dtype: torch.dtype, rows: int, d: int, h: int) -> bool:
+    """Whether the JAX ``fused_ffn`` (``impl="pallas"``, as the stage-1
+    FFN calls it) runs its kernel ``_ffn_pallas`` at this shape, else
+    ``_ffn_xla``."""
+    weight_bytes = 2 * d * h * (4 if dtype == torch.float32 else 2)
+    return (rows >= 8 and weight_bytes <= JAX_FFN_MAX_WEIGHT_BYTES
+            and d % 128 == 0 and h % 128 == 0
+            and h % min(JAX_FFN_H_CHUNK, h) == 0)
+
+
+def ffn_route(dtype: torch.dtype, rows: int, d: int, h: int) -> str:
+    """Where ``fused_ffn`` on CUDA goes, decided from x's dtype and the
+    shape before any launch: ``"ffn"`` (``csrc/ffn.cu``, B16) for bf16 x,
+    which raises there for a width it does not take; for fp32 x
+    :func:`ffn_unfused`, as ``"unfused"`` where the JAX package too
+    computes ``_ffn_xla`` and as ``"unported"`` where it runs its kernel
+    (:func:`jax_fuses_ffn`), which the port has not ported in fp32 yet
+    (ROADMAP.md queue B item 0). Raises TypeError for another dtype."""
+    if dtype == torch.bfloat16:
+        return "ffn"
+    if dtype == torch.float32:
+        return ("unported" if jax_fuses_ffn(dtype, rows, d, h)
+                else "unfused")
+    raise TypeError(f"fused_ffn takes bf16 or fp32 x, got {dtype}")
+
+
+def ffn_unfused(x, w1, b1, w2, b2, activation="tanh"):
+    """``_ffn_xla`` on 2-D x (m, d) with torch's Linear layout: fc1 + b1 ->
+    activation -> fc2 + b2 in x's dtype, two library products (fp32 with
+    TF32 as the caller set it: off by default). In fp32 the same function
+    as :func:`ffn_plain`."""
+    hidden = _act(x @ w1.t() + b1.to(x.dtype), activation)
+    return hidden @ w2.t() + b2.to(x.dtype)
+
+
 def ffn_kernel(x, w1, b1, w2, b2, activation="tanh"):
     """Launch ``csrc/ffn.cu`` on CUDA bf16 x (m, d), w1 (h, d), w2 (d, h)
     and fp32 b1 (h,), b2 (d,), all contiguous."""
@@ -80,7 +128,8 @@ def ffn_kernel(x, w1, b1, w2, b2, activation="tanh"):
     if any(t.dtype != torch.bfloat16 for t in (x, w1, w2)) or any(
             t.dtype != torch.float32 for t in (b1, b2)):
         raise TypeError("ffn kernel takes bf16 x, w1, w2 and fp32 biases "
-                        "(fp32 is not ported yet: ROADMAP.md C1)")
+                        "(fused_ffn sends fp32 x to the unfused form: "
+                        "ffn_route)")
     if (w1.shape != (h, d) or w2.shape != (d, h) or b1.shape != (h,)
             or b2.shape != (d,)):
         raise ValueError(f"ffn: x {tuple(x.shape)}, w1 {tuple(w1.shape)}, "
@@ -119,8 +168,10 @@ def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     """y = act(x @ w1^T + b1) @ w2^T + b2 with the hidden kept on chip.
 
     x: (..., d); w1: (h, d) and w2: (d, h), cast to x's dtype; b1: (h,),
-    b2: (d,), applied in fp32. CUDA tensors run the kernel, CPU tensors
-    the plain version.
+    b2: (d,), applied in fp32. CUDA tensors go where :func:`ffn_route`
+    sends them (bf16: the kernel; fp32: :func:`ffn_unfused`, counted in
+    ``UNFUSED_CALLS``, at every width), CPU tensors to the plain
+    version.
     """
     if activation not in FFN_ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}")
@@ -128,9 +179,13 @@ def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     x2 = x.reshape(-1, d)
     w1, w2 = w1.to(x.dtype), w2.to(x.dtype)
     if use_kernel(x2, w1, b1, w2, b2, op="ffn"):
-        out = _FusedFFN.apply(x2.contiguous(), w1.contiguous(),
-                              b1.float().contiguous(), w2.contiguous(),
-                              b2.float().contiguous(), activation)
+        if ffn_route(x.dtype, x2.shape[0], d, w1.shape[0]) != "ffn":
+            UNFUSED_CALLS["ffn"] += 1
+            out = ffn_unfused(x2, w1, b1, w2, b2, activation)
+        else:
+            out = _FusedFFN.apply(x2.contiguous(), w1.contiguous(),
+                                  b1.float().contiguous(), w2.contiguous(),
+                                  b2.float().contiguous(), activation)
     else:
         out = ffn_plain(x2, w1, b1, w2, b2, activation)
     return out.reshape(*batch_shape, d)

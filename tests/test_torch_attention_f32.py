@@ -3,10 +3,12 @@ tiles, on the card, against their plain PyTorch versions.
 
 ``csrc/attention_f32.cu`` computes the fp32 forward (B2 on the packed qkv
 buffer, B8 at head dims up to 128 and at the prior's 384, B17-B19) and
-the fp32 backward (B5); the bf16 Hopper kernels run a head dim that is a
-multiple of 8 up to 128 on their next tile (D = 48, 80, 96 here). Every
-test needs an NVIDIA card and skips without one. The file imports neither
-JAX nor the JAX package:
+the fp32 backward (B5) on the bf16 tensor cores, each fp32 product as six
+products of exact bf16 pieces; the bf16 Hopper kernels run a head dim that
+is a multiple of 8 up to 128 on their next tile (D = 48, 80, 96 here).
+The opt-in fusions B15 and B16 send fp32 (and B15 head dims other than 64)
+to the unfused form their routes name. Every test needs an NVIDIA card
+and skips without one. The file imports neither JAX nor the JAX package:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_attention_f32.py
@@ -171,8 +173,9 @@ def test_bf16_head_dims_between_the_tiles(cuda, d, b, n, h, mode, cl):
 
 
 def test_f32_kernels_refuse_what_they_do_not_take(cuda):
-    """fp32 D = 192, the backward at 384, fp16, mixed dtypes; fp32 and
-    D = 80 under the opt-in fusions B15 and B16 (ROADMAP.md C1)."""
+    """fp32 D = 192, the backward at 384, fp16, mixed dtypes; the raw
+    launches of the opt-in fusions B15 and B16 refuse fp32 and D = 80,
+    naming the route that sends those calls to the unfused form."""
     from enhancing_tpu_torch.ops import ffn
     with pytest.raises(ValueError, match="head_dim"):
         att.attention_packed_qkv_kernel(_randn(cuda, 1, 16, 3 * 2 * 192), 2,
@@ -189,16 +192,16 @@ def test_f32_kernels_refuse_what_they_do_not_take(cuda):
     k = _randn(cuda, 1, 16, 2, 64)
     wp, bp, res = _randn(cuda, 128, 128), _randn(cuda, 128), _randn(cuda, 1,
                                                                      16, 128)
-    with pytest.raises(TypeError, match="C1"):
+    with pytest.raises(TypeError, match="attn_proj_route"):
         att.attn_proj_kernel(q, k, k, wp, bp, res, 0.1)
     q80 = _randn(cuda, 1, 16, 2, 80, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="C1"):
+    with pytest.raises(ValueError, match="attn_proj_route"):
         att.attn_proj_kernel(q80, q80, q80,
                              _randn(cuda, 128, 160, dtype=torch.bfloat16),
                              bp, _randn(cuda, 1, 16, 128,
                                         dtype=torch.bfloat16), 0.1)
     x = _randn(cuda, 8, 128)
-    with pytest.raises(TypeError, match="C1"):
+    with pytest.raises(TypeError, match="ffn_route"):
         ffn.ffn_kernel(x, _randn(cuda, 128, 128), _randn(cuda, 128),
                        _randn(cuda, 128, 128), _randn(cuda, 128))
 
@@ -227,3 +230,77 @@ def test_f32_tiny_round_trip_matches_the_plain_path(cuda, dec_head):
         rec_p = model.decode_codes(codes)
     assert torch.equal(codes, codes_p)
     _close(rec, rec_p, dict(atol=1e-4, rtol=1e-4))
+
+
+@pytest.mark.parametrize("mode,cl", [("none", 0), ("prefix_causal", 3)])
+@pytest.mark.parametrize("n,m", [(1, 1), (63, 130), (130, 65), (257, 257)])
+def test_f32_wide_forward_ragged(cuda, mode, cl, n, m):
+    """attn_f32_wide_kernel (D = 384): B17 at ragged N and M (the scale on
+    the fp32 scores) and, at M = N, B8 on (B, N, H, D) (q scaled in
+    fp32)."""
+    d = 384
+    q = _randn(cuda, 2, 2, n, d)
+    k, v = _randn(cuda, 2, 2, m, d), _randn(cuda, 2, 2, m, d)
+    got = att.multihead_attention(q, k, v, mask_mode=mode, cond_len=cl)
+    _close(got, att.attention_plain(q, k, v, d ** -0.5, mode, cl), F32_TOL)
+    if n == m:
+        qb, kb, vb = (t.transpose(1, 2) for t in (q, k, v))
+        got = att.multihead_attention_bnhd(qb, kb, vb, mask_mode=mode,
+                                           cond_len=cl)
+        _close(got, att.attention_bnhd_plain(qb, kb, vb, d ** -0.5, mode,
+                                             cl), F32_TOL)
+
+
+def test_fused_routes_take_fp32_and_heads_of_80(cuda):
+    """attention_proj_packed in fp32 (D 64) and in bf16 at D = 80, and
+    fused_ffn in fp32, serve on the card by their unfused forms: the B8
+    kernel (fp32 or bf16) and fp32 library products, counted in
+    UNFUSED_CALLS, with no launch of B15 or B16; results those of the
+    plain versions (fp32: F32_TOL; bf16: the attention's bf16 limits). The
+    routes name both the shapes JAX computes unfused too ("unfused") and
+    those it fuses where the port has no one-launch kernel yet
+    ("unported")."""
+    from enhancing_tpu_torch.ops import ffn
+    b, n = 2, 77
+    for dtype, h, d, ho, route, tol in (
+            (torch.float32, 4, 64, 96, "unfused", F32_TOL),
+            (torch.float32, 2, 64, 128, "unported", F32_TOL),
+            (torch.bfloat16, 2, 80, 96, "unfused", ATTN_TOL)):
+        qkv = _randn(cuda, b, n, 3 * h * d, dtype=dtype)
+        q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.chunk(3, dim=-1))
+        wp = _randn(cuda, ho, h * d) * 0.05
+        bp, res = _randn(cuda, ho), _randn(cuda, b, n, ho, dtype=dtype)
+        assert att.attn_proj_route(dtype, h, d, ho, n, n) == route
+        common.reset_launches()
+        with torch.no_grad():
+            got = att.attention_proj_packed(q, k, v, wp, bp, res)
+        torch.cuda.synchronize()
+        assert common.UNFUSED_CALLS["attn_proj"] == 1
+        assert {k: v for k, v in common.LAUNCHES.items() if v} == {
+            "attention_bnhd": 1}
+        want = att.attention_proj_plain(q, k, v, wp.to(dtype), bp, res,
+                                        d ** -0.5)
+        _close(got, want, tol)
+    x = _randn(cuda, 2, 50, 128)
+    w1, b1 = _randn(cuda, 256, 128) * 0.1, _randn(cuda, 256)
+    w2, b2 = _randn(cuda, 128, 256) * 0.1, _randn(cuda, 128)
+    assert ffn.ffn_route(torch.float32, 100, 128, 256) == "unported"
+    common.reset_launches()
+    got = ffn.fused_ffn(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert common.UNFUSED_CALLS["ffn"] == 1
+    assert not any(common.LAUNCHES.values())
+    _close(got, ffn.ffn_plain(x.reshape(-1, 128), w1, b1, w2, b2).reshape(
+        x.shape), F32_TOL)
+    # bf16 at head dim 64 is still one launch of B15
+    qkv = _randn(cuda, b, n, 3 * 2 * 64, dtype=torch.bfloat16)
+    q, k, v = (t.unflatten(-1, (2, 64)) for t in qkv.chunk(3, dim=-1))
+    common.reset_launches()
+    with torch.no_grad():
+        att.attention_proj_packed(q, k, v, _randn(cuda, 128, 128),
+                                  _randn(cuda, 128),
+                                  _randn(cuda, b, n, 128,
+                                         dtype=torch.bfloat16))
+    torch.cuda.synchronize()
+    assert common.LAUNCHES["attn_proj"] == 1
+    assert common.UNFUSED_CALLS["attn_proj"] == 0

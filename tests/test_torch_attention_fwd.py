@@ -208,10 +208,10 @@ ROUTES = [
     (torch.bfloat16, 48, True, ("attn_bwd", 64)),
     (torch.bfloat16, 80, True, ("attn_bwd", 128)),
     (torch.float32, 64, False, ("attn_f32_fwd_kernel", 64)),
-    (torch.float32, 80, False, ("attn_f32_fwd_kernel", 96)),
+    (torch.float32, 80, False, ("attn_f32_fwd_kernel", 128)),
     (torch.float32, 120, False, ("attn_f32_fwd_kernel", 128)),
-    (torch.float32, 384, False, ("attn_f32_fwd_kernel", 384)),
-    (torch.float32, 80, True, ("attn_f32_bwd", 96)),
+    (torch.float32, 384, False, ("attn_f32_wide_kernel", 384)),
+    (torch.float32, 80, True, ("attn_f32_bwd", 128)),
     (torch.float32, 32, True, ("attn_f32_bwd", 32)),
 ]
 
