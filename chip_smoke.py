@@ -35,10 +35,10 @@ Phases, each of which raises on failure:
    sm_90a, with the ptxas register and shared-memory report; the SASS of
    the bf16 LN -> GEMM, the fused FFN, attention -> projection, the
    attention forwards (head dims up to 128, and the prior's 384), the
-   attention backward, their fp32 counterparts and the int8 decode MLP
-   must hold wgmma (HGMMA) and TMA loads (UTMALDG) and no mma.sync
-   (``cuobjdump``), and the fp32 attention kernels' wgmma must all be
-   bf16 (exact pieces; no TF32);
+   attention backward, their fp32 counterparts (fp32 attention -> projection
+   and FFN among them) and the int8 decode MLP must hold wgmma (HGMMA) and
+   TMA loads (UTMALDG) and no mma.sync (``cuobjdump``), and the fp32
+   kernels' wgmma must all be bf16 (exact pieces; no TF32);
 3. each kernel against its plain PyTorch version on the card at the main
    paths' shapes, with the tolerance stated on its line; the int8 decode
    MLP and its plain version are also held (logged) against an fp64
@@ -89,11 +89,15 @@ Phases, each of which raises on failure:
    B15 24, B3 26, B16 24, B4 1); codes and reconstructions held to the
    default path (same seed) and to the plain path at batch 8 with phase
    5's limits; images/s and peak memory at batch 128 and one round
-   trip's device time by kernel group; then where the fusions' routes
-   send a block to the unfused form, batch-8 trips of the same model in
-   fp32 and of ``imagenet_vitvq_large.yaml`` in bf16 with the decoder's
-   heads of 80, launches, fp32 launches, unfused calls and each tower's
-   routes asserted exactly, held to the plain path at phase 10's limits;
+   trip's device time by kernel group; then batch-8 trips of
+   ``imagenet_vitvq_small.yaml`` as shipped (fp32, 8 + 8 blocks of 512:
+   fp32 B15 16, fp32 B16 16, no unfused call), of the same Base model in
+   fp32 (fp32 B15 24, its FFN unfused as in JAX) and of
+   ``imagenet_vitvq_large.yaml`` in bf16 with the decoder's heads of 80,
+   launches, fp32 launches, unfused calls and each tower's routes asserted
+   exactly, held to the plain path at phase 10's limits, each fp32 trip's
+   host time beside its model's default trip and its device time by
+   kernel group;
 10. shipped configs: the two tokenizer configs through ``load_config`` +
     ``initialize_from_config(device="cuda")`` in their own fp32, and the
     Large config with the decoder's ``dim_head`` set to 80 (1280 / 16) in
@@ -114,8 +118,10 @@ Phases, each of which raises on failure:
 Phases 3 and 4 hold and time the fp32 attention kernels
 (``csrc/attention_f32.cu``: B2, B8 at 384, B5, B17-B19 in fp32, each
 fp32 product as six bf16 wgmma products of exact pieces; two bounds each,
-the pieces' at the bf16 rate and fp32 SIMT's) and the bf16 forward and
-backward at heads of 80 (the 128 tile).
+the pieces' at the bf16 rate and fp32 SIMT's), the fp32 fusions on the
+same pieces (``csrc/attn_proj_f32.cu``, B15 at head dims 32, 64 and 128;
+``csrc/ffn_f32.cu``, B16; each also beside the unfused form) and the bf16
+forward and backward at heads of 80 (the 128 tile).
 Phases 3 and 4 also hold and time B17-B19, which no driven path runs
 (their JAX counterparts are a public op, a function with no caller and a
 kernel only a test reaches).
@@ -290,17 +296,22 @@ D_ACTS = ([(TRAIN_BATCH, 256, 256, 128)] * 2
           + [(TRAIN_BATCH, 512)])
 # the fp32 attention kernels (csrc/attention_f32.cu), each beside the bf16
 # kernel whose launch counter it shares (ops.F32_LAUNCHES tells them apart)
+# and the fp32 fusions on the same pieces (csrc/attn_proj_f32.cu,
+# csrc/ffn_f32.cu)
 F32_OF = {"attention_f32": "attention", "attention_bnhd_f32": "attention_bnhd",
           "attention_bwd_f32": "attention_bwd",
           "attention_bhnd_f32": "attention_bhnd",
           "attention_fused_bnhd_f32": "attention_fused_bnhd",
-          "attention_gridchunk_f32": "attention_gridchunk"}
+          "attention_gridchunk_f32": "attention_gridchunk",
+          "attn_proj_f32": "attn_proj", "ffn_f32": "ffn"}
 REPLACES.update({name: REPLACES[bf16] for name, bf16 in F32_OF.items()})
-# B2, B8 and B17-B19 run the attention forwards of one source
+# B2, B8 and B17-B19 run the attention forwards of one source, their fp32
+# forms another
 SOURCES = {name: "enhancing_tpu_torch/csrc/" + {
     "attention": "attention_bnhd", "attention_bhnd": "attention_bnhd",
     "attention_fused_bnhd": "attention_bnhd",
-    "attention_gridchunk": "attention_bnhd"}.get(
+    "attention_gridchunk": "attention_bnhd", "attn_proj_f32": "attn_proj_f32",
+    "ffn_f32": "ffn_f32"}.get(
         name, "attention_f32" if name in F32_OF else name) + ".cu"
     for name in REPLACES}
 
@@ -397,7 +408,8 @@ def phase_build() -> None:
 # the bf16 LN -> GEMM (B1), the fused FFN (B16), attention -> projection
 # (B15), the attention forwards (B2, B8 at head dims up to 128, B17-B19;
 # B8 at the prior's 384), the attention backward's two kernels (B5), their
-# fp32 counterparts on exact bf16 pieces and the int8 decode MLP (B14) run
+# fp32 counterparts on exact bf16 pieces (B15 and B16 among them) and the
+# int8 decode MLP (B14) run
 # on Hopper's warpgroup MMA fed by TMA: their SASS holds HGMMA and
 # UTMALDG, and no mma.sync (HMMA). Each family by its demangled or mangled
 # name.
@@ -412,12 +424,16 @@ SM90_KERNELS = {"ln_gemm": ("ln_gemm_kernel<", "ln_gemm_kernelI"),
                 "attention fwd f32 D=384": ("attn_f32_wide_kernel",),
                 "attention_bwd f32 rows": ("attn_f32_bwd_rows_kernel",),
                 "attention_bwd f32 cols": ("attn_f32_bwd_cols_kernel",),
+                "attn_proj f32": ("attn_proj_f32_kernel",),
+                "ffn f32": ("ffn_f32_kernel",),
                 "int8_mlp": ("int8_mlp_kernel",)}
-# the fp32 attention kernels (csrc/attention_f32.cu) compute fp32 products
-# as six bf16 products of exact pieces: every HGMMA of theirs is BF16, and
-# none is TF32 (a single TF32 pass misses the fp32 limits)
+# the fp32 kernels (csrc/attention_f32.cu, attn_proj_f32.cu, ffn_f32.cu)
+# compute fp32 products as six bf16 products of exact pieces: every HGMMA
+# of theirs is BF16, and none is TF32 (a single TF32 pass misses the fp32
+# limits)
 F32_PIECE_FAMILIES = ("attention fwd f32", "attention fwd f32 D=384",
-                      "attention_bwd f32 rows", "attention_bwd f32 cols")
+                      "attention_bwd f32 rows", "attention_bwd f32 cols",
+                      "attn_proj f32", "ffn f32")
 
 
 def check_sass(lib_path: str) -> None:
@@ -637,6 +653,7 @@ def phase_compare() -> dict:
     compare_int8_kernels(gen, close, errs)
     compare_fused_kernels(gen, close, errs)
     compare_f32_kernels(gen, close, errs)
+    compare_f32_fusions(gen, close, errs)
     torch.cuda.synchronize()
     return errs
 
@@ -1102,6 +1119,7 @@ def phase_times() -> dict:
     time_int8_kernels(gen, row)
     time_fused_kernels(gen, row)
     time_f32_kernels(gen, row)
+    time_f32_fusions(gen, row)
     return rows
 
 
@@ -1367,13 +1385,13 @@ def proj_inputs(gen, b, n, heads, ho):
     return q, k, v, wp, bp, rand((b, n, ho), gen)
 
 
-def ffn_inputs(gen, m, d, h):
-    """B16's operands: bf16 x (m, d), Xavier-scaled bf16 fc1 (h, d) and fc2
-    (d, h) weights, fp32 biases."""
+def ffn_inputs(gen, m, d, h, dtype=torch.bfloat16):
+    """B16's operands: x (m, d), Xavier-scaled fc1 (h, d) and fc2 (d, h)
+    weights in ``dtype``, fp32 biases."""
     scale = (2.0 / (d + h)) ** 0.5
-    return (rand((m, d), gen), rand((h, d), gen, scale=scale),
+    return (rand((m, d), gen, dtype), rand((h, d), gen, dtype, scale),
             0.02 * torch.randn(h, generator=gen, device="cuda"),
-            rand((d, h), gen, scale=scale),
+            rand((d, h), gen, dtype, scale),
             0.02 * torch.randn(d, generator=gen, device="cuda"))
 
 
@@ -1755,6 +1773,122 @@ def time_f32_kernels(gen, row) -> None:
                 f" forward {fwd:.4f} ms (bound {fb:.4f}), backward "
                 f"{bwd:.4f} ms (bound {bb:.4f}){lib}")
             del qkv, q3, k3, v3, do
+
+
+# -- the fp32 fusions on exact bf16 pieces (csrc/attn_proj_f32.cu, B15;
+# csrc/ffn_f32.cu, B16) ---------------------------------------------------
+
+# the towers of the shipped stage-1 configs: (heads, head dim, H*D = HO):
+# imagenet_vitvq_small (and Large's encoder), imagenet_vitvq_base, and
+# Large's decoder (16 heads of 64 into a 1280-wide residual)
+PROJ_F32_TOWERS = ((8, 64, 512), (12, 64, 768), (16, 64, 1280))
+SMALL_WIDTH, SMALL_MLP = 512, 2048
+
+
+def proj_inputs_f32(gen, b, n, m, heads, d, ho):
+    """fp32 B15's operands: q a (B, N, H, D) view of an fp32 (B, N, H * D)
+    buffer, k and v the lane slices of an fp32 (B, M, 2 * H * D) buffer,
+    a Xavier-scaled fp32 to_out weight (HO, H * D), an fp32 bias and an
+    fp32 residual."""
+    f32 = torch.float32
+    hd = heads * d
+    q = rand((b, n, hd), gen, f32).unflatten(-1, (heads, d))
+    k, v = (t.unflatten(-1, (heads, d))
+            for t in rand((b, m, 2 * hd), gen, f32).chunk(2, -1))
+    wp = rand((ho, hd), gen, f32, scale=(2.0 / (hd + ho)) ** 0.5)
+    bp = 0.02 * torch.randn(ho, generator=gen, device="cuda")
+    return q, k, v, wp, bp, rand((b, n, ho), gen, f32)
+
+
+def compare_f32_fusions(gen, close, errs) -> None:
+    """fp32 B15 and B16 against their plain versions at the fp32 attention
+    forward's limits (F32_TOL: fp32 sums in another order): B15 at head
+    dims 32, 64 and 128, odd N and M, both masks, the shipped towers'
+    (H*D, HO); B16 at Small's shape and other fused fp32 shapes (a short
+    last hidden group, the 64-column slab), the three activations. Two
+    calls of each are bit-equal (no atomics)."""
+    from enhancing_tpu_torch.ops import attention as att
+    from enhancing_tpu_torch.ops import ffn
+    f32 = torch.float32
+    cases = [(CHECK_BATCH, TOKENS, TOKENS, h, d, ho, "none", 0)
+             for h, d, ho in PROJ_F32_TOWERS]
+    cases += [(2, 77, 77, 16, 32, 512, "prefix_causal", 5),
+              (2, 77, 130, 8, 64, 512, "none", 0),
+              (1, 130, 77, 4, 128, 512, "prefix_causal", 70),
+              (3, 17, 17, 2, 128, 256, "none", 0),
+              (2, 65, 65, 24, 32, 768, "none", 0)]
+    for (b, n, m, h, d, ho, mode, cl) in cases:
+        q, k, v, wp, bp, res = proj_inputs_f32(gen, b, n, m, h, d, ho)
+        scale = d ** -0.5
+        got = att.attn_proj_kernel(q, k, v, wp, bp, res, scale, mode, cl)
+        want = att.attention_proj_plain(q, k, v, wp, bp, res, scale, mode, cl)
+        close("attn_proj_f32", f"attn_proj f32 {mode} B={b} N={n} M={m} "
+              f"H={h} D={d} HO={ho}", got, want, **F32_TOL)
+    same = torch.equal(got, att.attn_proj_kernel(q, k, v, wp, bp, res, scale,
+                                                 mode, cl))
+    log(f"[compare] attn_proj f32: two calls {'bit-equal' if same else 'DIFFER'}")
+    check(same, "fp32 B15: two calls differ")
+    # the cluster plans (ops/ffn.py::ffn_f32_plan): C = 4 (Small), 6, 2
+    # with a short last group of 1 chunk (h = 1088: 17 chunks), 1 with a
+    # 64-column slab, 8
+    for (m, d, h, act) in ((CHECK_BATCH * TOKENS, SMALL_WIDTH, SMALL_MLP,
+                            "tanh"),
+                           (1000, 768, 2048, "gelu"),
+                           (333, 256, 1088, "sqrelu"),
+                           (129, 64, 256, "tanh"),
+                           (200, 1024, 1024, "gelu")):
+        args = ffn_inputs(gen, m, d, h, torch.float32)
+        want = ffn.ffn_plain(*args, act)
+        got = ffn.ffn_kernel(*args, act)
+        close("ffn_f32", f"ffn f32 {act} M={m} d={d} h={h}", got, want,
+              **F32_TOL)
+    same = torch.equal(got, ffn.ffn_kernel(*args, act))
+    log(f"[compare] ffn f32: two calls {'bit-equal' if same else 'DIFFER'}")
+    check(same, "fp32 B16: two calls differ")
+
+
+def time_f32_fusions(gen, row) -> None:
+    """fp32 B15 at imagenet_vitvq_small's and ViT-VQGAN-Base's towers and
+    fp32 B16 at Small's, batch 8 (phase 9's fp32 trips): two bounds
+    (row(): the pieces' at the bf16 rate, fp32 SIMT's at 67); the library
+    call computes the same function in PyTorch (SDPA fp32, F.linear, +
+    residual; F.linear, the activation, F.linear; TF32 off). Logged
+    beside them: the unfused form the route ran before this kernel (B8
+    fp32, then the fp32 projection)."""
+    from enhancing_tpu_torch.ops import attention as att
+    from enhancing_tpu_torch.ops import ffn
+    b, n = CHECK_BATCH, TOKENS
+    for h, d, ho in PROJ_F32_TOWERS[:2]:
+        hd = h * d
+        q, k, v, wp, bp, res = proj_inputs_f32(gen, b, n, n, h, d, ho)
+        scale = d ** -0.5
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        row("attn_proj_f32", f"attn_proj f32 B={b} N={n} H={h} D={d} HO={ho}"
+            " (library: SDPA fp32, F.linear, + residual)",
+            lambda: att.attn_proj_kernel(q, k, v, wp, bp, res, scale),
+            lambda: att.attention_proj_plain(q, k, v, wp, bp, res, scale),
+            lambda: F.linear(F.scaled_dot_product_attention(qt, kt, vt)
+                             .transpose(1, 2).reshape(b, n, hd), wp, bp) + res,
+            4.0 * b * h * n * n * d + 2.0 * b * n * hd * ho,
+            (3 * b * n * hd + 2 * b * n * ho + ho * hd + ho) * 4, PEAK_F32, 5,
+            reps=3)
+        unfused = time_ms(lambda: att.attention_proj_unfused(
+            q, k, v, wp, bp, res, scale), 5)
+        log(f"[time] attn_proj f32 H={h} HO={ho}: the unfused form (B8 fp32,"
+            f" then the fp32 projection) {unfused:.4f} ms")
+        del q, k, v, wp, bp, res, qt, kt, vt
+    m = b * n
+    x, w1, b1, w2, b2 = ffn_inputs(gen, m, SMALL_WIDTH, SMALL_MLP,
+                                   torch.float32)
+    row("ffn_f32", f"ffn f32 tanh M={m} d={SMALL_WIDTH} h={SMALL_MLP} "
+        "(library: F.linear, tanh, F.linear in fp32; the unfused form)",
+        lambda: ffn.ffn_kernel(x, w1, b1, w2, b2, "tanh"),
+        lambda: ffn.ffn_plain(x, w1, b1, w2, b2, "tanh"),
+        lambda: ffn.ffn_unfused(x, w1, b1, w2, b2, "tanh"),
+        4.0 * m * SMALL_WIDTH * SMALL_MLP,
+        (2 * m * SMALL_WIDTH + 2 * SMALL_WIDTH * SMALL_MLP + SMALL_WIDTH
+         + SMALL_MLP) * 4, PEAK_F32, 5, reps=3)
+    del x, w1, w2
 
 
 def kernel_counts() -> dict:
@@ -2189,24 +2323,29 @@ def phase_fused_serving() -> dict:
     return launches
 
 
-# the opt-in fusions where their routes (ops.attention.attn_proj_route,
-# ops.ffn.ffn_route) send a block to the unfused form, a round trip at
-# batch 8: ViT-VQGAN-Base in fp32 (B8 fp32 then the fp32 projection for
-# attention -> to_out, two fp32 library products for the FFN), and
-# imagenet_vitvq_large.yaml in bf16 with the decoder's heads of 80 (its
+# the opt-in fusions in the shipped configs' own fp32, and where their
+# routes (ops.attention.attn_proj_route, ops.ffn.ffn_route) send a block to
+# the unfused form, a round trip at batch 8: imagenet_vitvq_small.yaml as
+# shipped (fp32, 8 + 8 blocks of 512, 8 heads of 64, MLP 2048: every block
+# on fp32 B15 and fp32 B16, csrc/attn_proj_f32.cu and csrc/ffn_f32.cu);
+# ViT-VQGAN-Base in fp32 (fp32 B15; its FFN, 18.9 MB of fp32 weights, on
+# two fp32 library products, as the JAX package computes it above 12 MiB);
+# and imagenet_vitvq_large.yaml in bf16 with the decoder's heads of 80 (its
 # 8 encoder blocks on B15, its 32 decoder blocks on B8 at D = 80 + the
-# projection; every FFN on B16): (launches, fp32 launches, unfused calls,
-# the routes of each tower's attention -> to_out and FFN). Base's fp32
-# attention -> to_out is "unported": the JAX package runs its kernel
-# there, the port has no one-launch fp32 B15 yet (ROADMAP.md queue B
-# item 0); its fp32 FFN (18.9 MB of weights) and Large's heads of 80 are
-# unfused in the JAX package too.
+# projection, unfused in the JAX package too; every FFN on B16):
+# (launches, fp32 launches, unfused calls, the routes of each tower's
+# attention -> to_out and FFN).
 FUSED_ROUTES = {
-    "base float32": ({"ln_gemm": 24, "attention_bnhd": 24, "layernorm": 26,
-                      "vq": 1}, {"attention_bnhd": 24},
-                     {"attn_proj": 24, "ffn": 24},
-                     {"encoder": ("unported", "unfused"),
-                      "decoder": ("unported", "unfused")}),
+    "small float32": ({"ln_gemm": 16, "attn_proj": 16, "layernorm": 18,
+                       "ffn": 16, "vq": 1}, {"attn_proj": 16, "ffn": 16},
+                      {"attn_proj": 0, "ffn": 0},
+                      {"encoder": ("attn_proj", "ffn"),
+                       "decoder": ("attn_proj", "ffn")}),
+    "base float32": ({"ln_gemm": 24, "attn_proj": 24, "layernorm": 26,
+                      "vq": 1}, {"attn_proj": 24},
+                     {"attn_proj": 0, "ffn": 24},
+                     {"encoder": ("attn_proj", "unfused"),
+                      "decoder": ("attn_proj", "unfused")}),
     "large dec dim_head 80 bfloat16": (
         {"ln_gemm": 40, "attn_proj": 8, "attention_bnhd": 32,
          "layernorm": 42, "ffn": 40, "vq": 1}, {},
@@ -2214,13 +2353,27 @@ FUSED_ROUTES = {
         {"encoder": ("attn_proj", "ffn"), "decoder": ("unfused", "ffn")})}
 
 
+def trip_ms(model, x, iters: int = 3) -> float:
+    """Host ms of one encode_codes -> decode_codes round trip, after one
+    warm-up trip."""
+    model.decode_codes(model.encode_codes(x))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        model.decode_codes(model.encode_codes(x))
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
 def phase_fused_routes(x8) -> dict:
     """Phase 9's fp32 and heads-of-80 fused round trips under
     ENHANCING_TPU_ATTN_PROJ=1 and ``ffn_impl: fused``: launches, fp32
     launches and unfused calls a trip asserted exactly, codes and
     reconstructions held to the plain path at phase 10's limits, the host
-    time of a trip; each tower's routes asserted. Returns the launches by
-    kernels-line name."""
+    time of a trip (in fp32 beside the same model's default trip: the same
+    config and seed without the fusions, and the fused trip's device time
+    by kernel group); each tower's routes asserted. Returns the launches
+    by kernels-line name."""
     import os
     from pathlib import Path
 
@@ -2238,18 +2391,26 @@ def phase_fused_routes(x8) -> dict:
         for label, (want, want32, want_unf, want_routes) in \
                 FUSED_ROUTES.items():
             gc_cuda()
+            default = None
             if label.startswith("base"):
                 cfg = dict(BASE, encoder=dict(BASE["encoder"],
                                               ffn_impl="fused"),
                            decoder=dict(BASE["decoder"], ffn_impl="fused"))
                 model = ViTVQ(dtype="float32", seed=0, device="cuda", **cfg)
+                default = ViTVQ(dtype="float32", seed=0, device="cuda",
+                                **BASE)
                 towers = cfg
             else:
+                name = label.split()[0]
                 cfg = load_config(Path(__file__).resolve().parent /
-                                  "configs" / "imagenet_vitvq_large.yaml")
+                                  "configs" / f"imagenet_vitvq_{name}.yaml")
                 params = cfg.model.params
-                params["dtype"] = "bfloat16"
-                params.decoder["dim_head"] = D80
+                if name == "large":
+                    params["dtype"] = "bfloat16"
+                    params.decoder["dim_head"] = D80
+                else:
+                    default = initialize_from_config(cfg.model,
+                                                     device="cuda")
                 for tower in (params.encoder, params.decoder):
                     tower["ffn_impl"] = "fused"
                 model = initialize_from_config(cfg.model, device="cuda")
@@ -2300,15 +2461,21 @@ def phase_fused_routes(x8) -> dict:
             check(match >= SHIPPED_MATCH[dtype], f"{label}: codes disagree")
             check(err <= SHIPPED_REC_ATOL[dtype],
                   f"{label}: reconstructions disagree")
-            model.decode_codes(model.encode_codes(x8))
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(3):
-                model.decode_codes(model.encode_codes(x8))
-            torch.cuda.synchronize()
-            log(f"[fused] {label} round trip batch {CHECK_BATCH}: "
-                f"{(time.perf_counter() - t0) / 3 * 1e3:.2f} ms")
-            del model, codes, rec, codes_p, rec_p
+            trip = trip_ms(model, x8)
+            if default is None:
+                log(f"[fused] {label} round trip batch {CHECK_BATCH}: "
+                    f"{trip:.2f} ms")
+            else:
+                os.environ.pop("ENHANCING_TPU_ATTN_PROJ")
+                plain_trip = trip_ms(default, x8)
+                os.environ["ENHANCING_TPU_ATTN_PROJ"] = "1"
+                log(f"[fused] {label} round trip batch {CHECK_BATCH}: "
+                    f"{trip:.2f} ms; the same model's default trip (same "
+                    f"config and seed, no fusions) {plain_trip:.2f} ms")
+                profile_device(f"one {label} fused round trip batch "
+                               f"{CHECK_BATCH}", lambda: model.decode_codes(
+                                   model.encode_codes(x8)))
+            del model, default, codes, rec, codes_p, rec_p
     finally:
         if saved is None:
             os.environ.pop("ENHANCING_TPU_ATTN_PROJ", None)
@@ -2850,10 +3017,11 @@ def gc_cuda() -> None:
 
 # kernel-name fragments -> the group of device time they belong to
 KERNEL_GROUPS = (("attn_proj_kernel", "attn_proj"), ("ffn_kernel", "ffn"),
+                 ("attn_proj_f32", "attn_proj f32"), ("ffn_f32", "ffn f32"),
                  ("attn_f32_fwd", "attention f32"),
                  ("attn_f32_wide", "attention f32"),
                  ("attn_f32_bwd", "attention_bwd f32"),
-                 ("f32_split", "attention f32 split"),
+                 ("f32_split", "fp32 split pass"),
                  ("gemv_ln_kernel<signed char", "int8_ln_gemm"),
                  ("gemv_ln_kernel<", "ln_shift_gemm"),
                  ("gemv_kernel<signed char", "int8_gemm"),

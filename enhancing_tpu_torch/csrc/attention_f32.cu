@@ -16,7 +16,9 @@
 //   attn_f32_bwd_cols_kernel, entry etk_attention_bwd_f32, D up to 128.
 //
 // Numerics: the TPU kernels' fp32 function. Every product is exact: a
-// split pass (f32_split_kernel) writes each fp32 operand as three bf16
+// split pass (f32_split_kernel, f32_pieces.cuh, shared with the fp32
+// fusions attn_proj_f32.cu and ffn_f32.cu) writes each fp32 operand as
+// three bf16
 // pieces whose sum is the value exactly (sm90.cuh, "exact products"), and
 // each product of the function is the six cross terms of the pieces on
 // bf16 wgmma, hi*hi in one fp32 accumulator and the five small terms in
@@ -74,192 +76,10 @@
 //   else two; the cols kernel streams 32-query tiles, which keeps its dk and
 //   dv accumulators and the pieces of P^T and dS^T in registers.
 #include "common.cuh"
+#include "f32_pieces.cuh"
 #include "sm90.cuh"
 
 namespace {
-
-constexpr int MASK_NONE = 0, MASK_PREFIX_CAUSAL = 1;
-constexpr int NP = sm90::kPieces;
-constexpr int KT = 64;  // keys a tile, rows of a box
-
-// element strides of one tensor: between batches, heads and rows
-struct Strides {
-  int batch, head, row;
-};
-
-__device__ __forceinline__ long long offset(const Strides& s, int b, int h,
-                                            int row) {
-  return static_cast<long long>(b) * s.batch +
-         static_cast<long long>(h) * s.head +
-         static_cast<long long>(row) * s.row;
-}
-
-// ---- the split pass ----------------------------------------------------------
-
-// Up to four fp32 (B, rows, H, d) tensors, each read through its strides and
-// multiplied by mul (one fp32 rounding; 1 leaves it exact), into three
-// contiguous bf16 pieces each: piece p at dst + p * (B rows H d).
-struct SplitArgs {
-  const float* src[4];
-  __nv_bfloat16* dst[4];
-  Strides st[4];
-  int rows[4];
-  float mul[4];
-  int b, heads, d;
-};
-
-__global__ void __launch_bounds__(256) f32_split_kernel(SplitArgs a) {
-  const int t = blockIdx.y, d4 = a.d / 4, rows = a.rows[t];
-  const long long per = static_cast<long long>(a.b) * rows * a.heads * d4;
-  const long long plane = per * 4;
-  const float* src = a.src[t];
-  __nv_bfloat16* dst = a.dst[t];
-  const Strides st = a.st[t];
-  const float mul = a.mul[t];
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < per; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int c = static_cast<int>(i % d4) * 4;
-    long long r = i / d4;
-    const int h = static_cast<int>(r % a.heads);
-    r /= a.heads;
-    const int row = static_cast<int>(r % rows), bb = static_cast<int>(r / rows);
-    const float4 v =
-        *reinterpret_cast<const float4*>(src + offset(st, bb, h, row) + c);
-    const float x[4] = {__fmul_rn(v.x, mul), __fmul_rn(v.y, mul),
-                        __fmul_rn(v.z, mul), __fmul_rn(v.w, mul)};
-    uint32_t w[NP][2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      float lo[3], hi[3];
-      sm90::bf16_pieces(x[2 * j], lo);
-      sm90::bf16_pieces(x[2 * j + 1], hi);
-#pragma unroll
-      for (int p = 0; p < NP; ++p) w[p][j] = pack_bf16x2(lo[p], hi[p]);
-    }
-    __nv_bfloat16* out = dst + i * 4;  // (b, row, h, c) is i * 4 contiguous
-#pragma unroll
-    for (int p = 0; p < NP; ++p)
-      *reinterpret_cast<uint2*>(out + p * plane) = make_uint2(w[p][0], w[p][1]);
-  }
-}
-
-int launch_split(const SplitArgs& a, int count, cudaStream_t stream) {
-  int rows = 0;
-  for (int i = 0; i < count; ++i) rows = a.rows[i] > rows ? a.rows[i] : rows;
-  const long long most =
-      static_cast<long long>(a.b) * a.heads * (a.d / 4) * rows;
-  long long blocks = (most + 255) / 256;
-  const long long cap = 8LL * (sm_count() > 0 ? sm_count() : 132);
-  if (blocks > cap) blocks = cap;
-  f32_split_kernel<<<dim3(static_cast<unsigned>(blocks), count), 256, 0,
-                     stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// the 4-D map of a piece tensor (3 B, rows, heads, d): boxes of (box
-// lanes, 1, box rows, 1); piece p of batch b is batch p B + b
-int piece_map(CUtensorMap* map, const void* ptr, int b, int rows, int heads,
-              int d, int box_rows, int box_lanes) {
-  const long long hd = static_cast<long long>(heads) * d;
-  return sm90::tensor_map_4d(map, ptr, NP * static_cast<long long>(b), rows,
-                             heads, d, d, hd, rows * hd, box_rows, box_lanes);
-}
-
-// a tile's geometry at head-dim tile D: boxes of BOXC lanes (rows of RB
-// bytes, 64- or 128-byte swizzle) and `rows` rows, NBOX of them across D
-template <int D>
-struct Geo {
-  static constexpr int BOXC = D == 32 ? 32 : 64;
-  static constexpr int RB = BOXC * 2;
-  static constexpr int NBOX = D / BOXC;
-  static constexpr int KS = BOXC / 16;  // k16 slices a box
-  // bytes of one piece of a (rows, D) tile, and of its three pieces
-  __host__ __device__ static constexpr int tile(int rows) {
-    return rows * D * 2;
-  }
-  __host__ __device__ static constexpr int ptile(int rows) {
-    return NP * tile(rows);
-  }
-};
-
-__host__ __device__ constexpr int fit_stages(int fixed, int stage, int most) {
-  return (sm90::kSmemLimit - fixed - 1024) / stage < most
-             ? (sm90::kSmemLimit - fixed - 1024) / stage
-             : most;
-}
-
-// the key tiles that rows r0 .. r0 + rows - 1 (those < n) may see
-__device__ __forceinline__ int key_tiles(int r0, int rows, int n, int m,
-                                         bool causal, int cond_len) {
-  if (r0 >= n) return 0;
-  int t = (m + KT - 1) / KT;
-  if (causal) {
-    const int last_row = min(r0 + rows, n) - 1;
-    const int last_col = max(last_row, r0 < cond_len ? cond_len - 1 : 0);
-    t = min(t, last_col / KT + 1);
-  }
-  return t;
-}
-
-// the online softmax of one 64-key tile of S (an m64n64 accumulator, rows
-// r and r + 8 of the thread): row max and this thread's partial sums
-// updated, s replaced by e^(c2 (s - m)), alpha the rescale of O
-__device__ __forceinline__ void softmax_tile(float (&s)[32],
-                                             float (&row_max)[2],
-                                             float (&row_sum)[2],
-                                             float (&alpha)[2], float c2) {
-  float ml2[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      mx[j % 4] =
-          fmaxf(mx[j % 4], fmaxf(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]));
-    float tmax = fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]));
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-    const float m_new = fmaxf(row_max[hh], tmax);
-    // a row with nothing visible yet keeps exp(-inf - -inf) out
-    ml2[hh] = (m_new == -INFINITY ? 0.f : m_new) * c2;
-    alpha[hh] = exp_shifted(row_max[hh], ml2[hh], c2);
-    row_max[hh] = m_new;
-  }
-  float part[2][4] = {};
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const int hh = (i / 2) % 2;
-    s[i] = exp_shifted(s[i], ml2[hh], c2);
-    part[hh][(i / 4) % 4] += s[i];
-  }
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh)
-    row_sum[hh] = row_sum[hh] * alpha[hh] +
-                  ((part[hh][0] + part[hh][1]) + (part[hh][2] + part[hh][3]));
-}
-
-// big + small, element by element, rounded to nearest
-template <int R>
-__device__ __forceinline__ void fold(float (&s)[R], const float (&big)[R],
-                                     const float (&small)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) s[i] = __fadd_rn(small[i], big[i]);
-}
-
-// mask the accumulator s of rows row_a, row_a + 8 and columns col0 + 8j +
-// 2q (+ 1): invisible entries become -inf
-template <int R>
-__device__ __forceinline__ void mask_tile(float (&s)[R], int row_a, int col0,
-                                          int q, int m, bool causal,
-                                          int cond_len) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = row_a + ((i / 2) % 2) * 8;
-    const int col = col0 + (i / 4) * 8 + 2 * q + i % 2;
-    if (!visible(row, col, m, causal, cond_len)) s[i] = -INFINITY;
-  }
-}
 
 // A thread's (rows, lanes) accumulator, times scale per row, stored as fp32
 // pairs at out + row * ld + lane for rows < n and lanes < d: n8 block j of
@@ -478,13 +298,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   }
 
   float inv[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    float l = row_sum[hh];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    inv[hh] = 1.f / l;
-  }
+  inv_row_sums(row_sum, inv);
   if (wq0 < n)
     store_f32<G::BOXC, G::NBOX>(out + offset(a.so, b, h, 0), a.so.row, o,
                                 row_a, q, n, a.d, inv);
@@ -1262,11 +1076,6 @@ __host__ __device__ constexpr int f32_tile(int head_dim, bool backward) {
                                                            : 128;
 }
 
-// elements of the pieces of one (B, rows, H, d) operand
-long long piece_elems(int b, int rows, int heads, int d) {
-  return static_cast<long long>(NP) * b * rows * heads * d;
-}
-
 template <int D, bool kScoreScale>
 int launch_fwd(const CUtensorMap* maps, float* out, int b, int n, int heads,
                const FwdArgs& a, cudaStream_t stream) {
@@ -1378,16 +1187,9 @@ ETK_API int etk_attention_f32(const void* q, const void* k, const void* v,
   SplitArgs sa{};
   const void* src[3] = {q, k, v};
   __nv_bfloat16* dst[3] = {pq, pk, pv};
-  for (int i = 0; i < 3; ++i) {
-    sa.src[i] = static_cast<const float*>(src[i]);
-    sa.dst[i] = dst[i];
-    sa.st[i] = st[i];
-    sa.rows[i] = i == 0 ? n : m;
-    sa.mul[i] = i == 0 && !score_scale ? scale : 1.f;
-  }
-  sa.b = b;
-  sa.heads = heads;
-  sa.d = head_dim;
+  for (int i = 0; i < 3; ++i)
+    sa.set(i, src[i], dst[i], st[i], b, i == 0 ? n : m, heads, head_dim,
+           i == 0 && !score_scale ? scale : 1.f);
   auto s = static_cast<cudaStream_t>(stream);
   int rc = launch_split(sa, 3, s);
   if (rc) return rc;
@@ -1434,16 +1236,10 @@ ETK_API int etk_attention_bwd_f32(const void* q, const void* k, const void* v,
   auto* base = static_cast<__nv_bfloat16*>(pieces);
   const long long per = piece_elems(b, n, heads, head_dim);
   for (int i = 0; i < 4; ++i) {
-    sa.src[i] = static_cast<const float*>(src[i]);
-    sa.dst[i] = base + i * per;
-    sa.st[i] = Strides{n * ld_in[i], head_dim, ld_in[i]};
-    sa.rows[i] = n;
-    sa.mul[i] = 1.f;
+    sa.set(i, src[i], base + i * per,
+           Strides{n * ld_in[i], head_dim, ld_in[i]}, b, n, heads, head_dim);
     pc[i] = sa.dst[i];
   }
-  sa.b = b;
-  sa.heads = heads;
-  sa.d = head_dim;
   auto s = static_cast<cudaStream_t>(stream);
   int rc = launch_split(sa, 4, s);
   if (rc) return rc;

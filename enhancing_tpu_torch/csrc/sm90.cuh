@@ -2,7 +2,8 @@
 // ln_gemm.cu), the fused FFN (B16, ffn.cu), attention -> projection (B15,
 // attn_proj.cu), the attention backward (B5, attention_bwd.cu), the
 // attention forwards (B2, B8, B17-B19, attention_bnhd.cu), their fp32
-// counterparts on exact bf16 pieces (attention_f32.cu) and the decode
+// counterparts on exact bf16 pieces (attention_f32.cu), the fp32 B15 and
+// B16 on the same pieces (attn_proj_f32.cu, ffn_f32.cu) and the decode
 // attention (B9, decode_attention.cu), and under int8_wgmma.cuh the int8
 // decode MLP (B14, int8_mlp.cu), in raw PTX:
 //
@@ -36,7 +37,8 @@
 //   (bar.sync, bar.arrive) hand data between warpgroups.
 // - Thread-block clusters: rank, barrier, arrivals on a peer's mbarrier,
 //   bulk copies into and loads from a peer's shared memory (distributed
-//   shared memory), for B16 and B9; a launch helper.
+//   shared memory; vector loads of a peer's shared memory), for B16 (and
+//   its fp32 form), B9 and fp32 B15; a launch helper.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; no driver library linked
@@ -397,8 +399,9 @@ __device__ __forceinline__ void frag_from_acc(uint32_t (&a)[4],
 // bf16 pieces has at most 16 significant bits, so wgmma forms it exactly
 // in fp32; a * b is then the six cross terms hi*hi, hi*mid, mid*hi,
 // hi*lo, lo*hi and mid*mid (what is left, mid*lo, lo*mid and lo*lo, is
-// 2^-24 of a * b and below). The kernels of attention_f32.cu sum hi*hi in
-// one accumulator and the five small terms in another, folded smallest
+// 2^-24 of a * b and below). The fp32 kernels (attention_f32.cu,
+// attn_proj_f32.cu, ffn_f32.cu) sum hi*hi in one accumulator and the five
+// small terms in another, folded smallest
 // first with a round-to-nearest add (the tensor cores' own adds are not
 // round-to-nearest). Small cross term i multiplies A piece small_a(i) by
 // B piece small_b(i).
@@ -541,6 +544,33 @@ __device__ __forceinline__ float ld_peer(uint32_t a) {
   float v;
   asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(a));
   return v;
+}
+// the 16 bytes at cluster address `a` (16-byte aligned; this block's or a
+// peer's shared memory, peer_addr)
+__device__ __forceinline__ uint4 ld_peer_v4(uint32_t a) {
+  uint4 v;
+  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+// mbar_wait with acquire at cluster scope: the writes that peers released
+// with their arrivals (mbar_arrive_all) are visible after it
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 // one arrival on the barrier `bar` of every block of a cluster of `n`
 __device__ __forceinline__ void mbar_arrive_all(uint64_t* bar, int n) {

@@ -40,9 +40,10 @@ other attention forwards:
   :func:`attention_packed_gridchunk` (prefix-causal on pre-scaled packed
   q, k, v).
 - :func:`attention_proj_packed`, attention -> output projection -> bias
-  -> residual in one kernel, ``csrc/attn_proj.cu``, on the lane slices of
-  the qkv buffer (the ViT's opt-in ``ENHANCING_TPU_ATTN_PROJ`` path);
-  under autograd the unfused B8 + projection, backward B5.
+  -> residual in one kernel, ``csrc/attn_proj.cu`` in bf16 and
+  ``csrc/attn_proj_f32.cu`` in fp32, on the lane slices of the qkv buffer
+  (the ViT's opt-in ``ENHANCING_TPU_ATTN_PROJ`` path); under autograd the
+  unfused B8 + projection, backward B5.
 - :func:`decode_attention` and :func:`decode_attention_stacked`, one
   token's attention against the rows < cur_len of a KV cache plus the
   token's own key and value (``attention.py:1722-1807``); on CUDA
@@ -853,6 +854,42 @@ def attn_proj_plan(heads: int, head_dim: int, ho: int) -> dict | None:
                 smem=fixed + 2 * stages * PROJ_STAGE_BYTES + 1024)
 
 
+# csrc/attn_proj_f32.cu's shapes: a cluster of 1-8 blocks shares a 64-row
+# query tile; each block has two consumer warpgroups at heads of 32 or 64,
+# one at 128, each with its own q tile and TMA ring (a K or V tile of 64
+# keys, or a (64, 64) Wp box, in three bf16 pieces), and holds its heads'
+# outputs as fragments (64 x D in three pieces a head)
+PROJ_F32_HEAD_DIMS, PROJ_F32_MAX_CLUSTER, PROJ_F32_MAX_STAGES = (32, 64,
+                                                                128), 8, 4
+
+
+def attn_proj_f32_plan(heads: int, head_dim: int, ho: int) -> dict | None:
+    """The fp32 kernel's plan for H heads of D and HO output columns, as
+    ``csrc/attn_proj_f32.cu::proj_plan`` picks it (the C entry
+    ``etk_attn_proj_f32_plan`` returns the same numbers): W consumer
+    warpgroups a block (2 at D <= 64, 1 at 128), the smallest cluster C of
+    at most 8 blocks whose blocks hold their warpgroups' heads (ceil(H /
+    (C W)) each) as fragments beside the q tiles and rings of at least 2
+    stages, then as many stages as fit, at most 4. None where the kernel
+    refuses the shape: D other than 32, 64 or 128, HO or H*D not a multiple
+    of 64, or no cluster that fits."""
+    if (head_dim not in PROJ_F32_HEAD_DIMS or heads <= 0 or ho <= 0
+            or ho % 64 or heads * head_dim % 64):
+        return None
+    w = 2 if head_dim <= 64 else 1
+    tile = F32_PIECES * 64 * head_dim * 2
+    stage = max(tile, F32_PIECES * 64 * 64 * 2)
+    for c in range(1, PROJ_F32_MAX_CLUSTER + 1):
+        hw = -(-heads // (c * w))
+        fixed = w * tile * (1 + hw) + 1024
+        stages = (SMEM_LIMIT - fixed) // (w * stage)
+        if stages >= 2:
+            stages = min(stages, PROJ_F32_MAX_STAGES)
+            return dict(cluster=c, heads_per_wg=hw, stages=stages,
+                        smem=fixed + w * stages * stage, warpgroups=w)
+    return None
+
+
 def jax_fuses_attn_proj(heads: int, head_dim: int, ho: int, n: int,
                         m: int) -> bool:
     """Whether the JAX ``attention_proj_packed`` runs its kernel
@@ -873,17 +910,22 @@ def attn_proj_route(dtype: torch.dtype, heads: int, head_dim: int, ho: int,
     """Where a serving call of :func:`attention_proj_packed` on CUDA goes,
     decided from dtype and shape before any launch:
 
-    - ``"attn_proj"``: one launch of ``csrc/attn_proj.cu`` (B15), bf16 at
-      a shape :func:`attn_proj_plan` takes (heads of 64);
+    - ``"attn_proj"``: one launch of B15 after its dtype's preparation:
+      bf16 on ``csrc/attn_proj.cu`` at a shape :func:`attn_proj_plan`
+      takes (heads of 64); fp32 on ``csrc/attn_proj_f32.cu`` (after its
+      split pass) where the JAX package runs its kernel
+      (:func:`jax_fuses_attn_proj`) and :func:`attn_proj_f32_plan` takes
+      the shape (heads of 32, 64 and 128 at every shipped width);
     - ``"unfused"``: :func:`attention_proj_unfused` (the attention forward
       kernel, then the projection, bias and residual summed in fp32 with
       one rounding) where the JAX package too computes
       ``_attention_proj_xla`` (:func:`jax_fuses_attn_proj` is false: heads
-      of 80 or 96, for example);
+      of 80 or 96, N or M below 16, for example);
     - ``"unported"``: the same unfused form where the JAX package runs its
-      kernel: fp32 (heads of 32, 64 or 128 at the ViT's widths) and bf16
-      heads of 32 or 128. The port has no one-launch kernel for these yet
-      (ROADMAP.md queue B item 0); the form computes the same function.
+      kernel and the port's plans refuse the shape: bf16 heads of 32 or
+      128 or H*D above 1024, fp32 shapes :func:`attn_proj_f32_plan`
+      refuses (ROADMAP.md queue B item 0); the form computes the same
+      function.
 
     Raises TypeError for a dtype neither takes."""
     if dtype not in (torch.bfloat16, torch.float32):
@@ -893,6 +935,9 @@ def attn_proj_route(dtype: torch.dtype, heads: int, head_dim: int, ho: int,
                                                   ho) is not None:
         return "attn_proj"
     if jax_fuses_attn_proj(heads, head_dim, ho, n, m):
+        if dtype == torch.float32 and attn_proj_f32_plan(
+                heads, head_dim, ho) is not None:
+            return "attn_proj"
         return "unported"
     return "unfused"
 
@@ -936,24 +981,30 @@ def _batch_rows(t: torch.Tensor) -> torch.Tensor:
 
 def attn_proj_kernel(q, k, v, wp, bp, residual, scale, mask_mode="none",
                      cond_len=0):
-    """Launch ``csrc/attn_proj.cu`` (B15) on CUDA bf16 q (B, N, H, 64) and
-    k, v (B, M, H, 64), each a view with a contiguous head axis and rows at
-    a common 16-byte aligned stride (the lane slices of the qkv buffer);
-    wp bf16 (HO, H*64); bp fp32 (HO,); residual bf16 (B, N, HO), all
-    contiguous. Returns (B, N, HO)."""
+    """Launch B15 on CUDA q (B, N, H, D) and k, v (B, M, H, D), each a
+    view with a contiguous head axis and rows at a common 16-byte aligned
+    stride (the lane slices of the qkv buffer); wp (HO, H*D); bp fp32
+    (HO,); residual (B, N, HO), all contiguous: bf16 on ``csrc/attn_proj.cu``
+    (D = 64), fp32 on ``csrc/attn_proj_f32.cu`` (the split pass into exact
+    bf16 pieces, then one launch; D 32, 64 or 128), counted under
+    ``attn_proj`` and, in fp32, in ``F32_LAUNCHES``. Returns (B, N, HO)."""
     b, n, h, d = q.shape
     m, ho = k.shape[1], wp.shape[0]
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v, wp, residual)) or (
+    dtype = q.dtype
+    if dtype not in (torch.bfloat16, torch.float32) or any(
+            t.dtype != dtype for t in (k, v, wp, residual)) or (
             bp.dtype != torch.float32):
-        raise TypeError("attn_proj kernel takes bf16 q, k, v, wp, residual "
-                        "and an fp32 bias (attention_proj_packed sends fp32 "
-                        "to the unfused form: attn_proj_route)")
-    if attn_proj_plan(h, d, ho) is None:
-        raise ValueError(f"attn_proj kernel takes head_dim in "
-                         f"{PROJ_HEAD_DIMS}, HO % 64 == 0 and H*D up to "
-                         f"1024, got H={h}, D={d}, HO={ho} "
-                         "(attention_proj_packed sends other shapes to the "
-                         "unfused form: attn_proj_route)")
+        raise TypeError("attn_proj kernel takes q, k, v, wp and the residual "
+                        "all bf16 or all fp32, and an fp32 bias")
+    f32 = dtype == torch.float32
+    if (attn_proj_f32_plan if f32 else attn_proj_plan)(h, d, ho) is None:
+        raise ValueError(
+            f"attn_proj kernel takes head_dim in "
+            f"{PROJ_F32_HEAD_DIMS if f32 else PROJ_HEAD_DIMS}, HO % 64 == 0 "
+            "and " + ("heads that a cluster of 8 blocks holds" if f32
+                      else "H*D up to 1024") + f" in {str(dtype)[6:]}, got "
+            f"H={h}, D={d}, HO={ho} (attention_proj_packed sends other "
+            "shapes to the unfused form: attn_proj_route)")
     if (k.shape != (b, m, h, d) or v.shape != k.shape
             or wp.shape != (ho, h * d) or bp.shape != (ho,)
             or residual.shape != (b, n, ho)):
@@ -966,14 +1017,20 @@ def attn_proj_kernel(q, k, v, wp, bp, residual, scale, mask_mode="none",
     check_kernel_args("attn_proj", q3, k3, v3, strided_rows=True)
     check_kernel_args("attn_proj", wp, bp, residual)
     out = torch.empty((b, n, ho), dtype=q.dtype, device=q.device)
-    # the TPU wrapper scales q by the scale rounded to q's dtype
-    scale_c = bf16_round(float(scale))
-    cuda_lib.call("etk_attn_proj",
-                  *(t.data_ptr() for t in (q3, k3, v3, wp, bp, residual,
-                                           out)),
-                  q3.stride(1), k3.stride(1), v3.stride(1), b, n, m, h, d, ho,
-                  scale_c, MASK_MODES[mask_mode], int(cond_len),
-                  cuda_lib.stream())
+    ptrs = [t.data_ptr() for t in (q3, k3, v3, wp, bp, residual, out)]
+    rows = (q3.stride(1), k3.stride(1), v3.stride(1))
+    if f32:
+        # q scaled in fp32 by the split pass, as the TPU wrapper scales it
+        pieces = f32_pieces((b * (n + 2 * m) + ho) * h * d, q.device)
+        cuda_lib.call("etk_attn_proj_f32", *ptrs, pieces.data_ptr(), *rows,
+                      b, n, m, h, d, ho, float(scale),
+                      MASK_MODES[mask_mode], int(cond_len), cuda_lib.stream())
+        F32_LAUNCHES["attn_proj"] += 1
+    else:
+        # the TPU wrapper scales q by the scale rounded to q's dtype
+        cuda_lib.call("etk_attn_proj", *ptrs, *rows, b, n, m, h, d, ho,
+                      bf16_round(float(scale)), MASK_MODES[mask_mode],
+                      int(cond_len), cuda_lib.stream())
     LAUNCHES["attn_proj"] += 1
     return out
 
@@ -1030,14 +1087,16 @@ def attention_proj_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     cast to q's dtype; bp (dim_out,), added in fp32; residual (B, N,
     dim_out). On CUDA, with no gradient to record (serving),
     :func:`attn_proj_route` decides from dtype and shape: one launch of
-    ``csrc/attn_proj.cu`` (B15: bf16, head_dim 64, every stage-1 config's
-    default), or the unfused form (:func:`attention_proj_unfused`, counted
-    in ``UNFUSED_CALLS``) for fp32 and other head dims. JAX computes that
-    form too at head dims its packed grid refuses (80, 96); in fp32 and at
-    heads of 32 or 128 it runs its kernel, which the port has no one-launch
-    counterpart of yet (the route ``"unported"``). Under autograd the
-    unfused forward of :class:`_AttentionProj`, as the JAX ``custom_vjp``
-    runs its unfused forward for grad.
+    B15 (bf16 on ``csrc/attn_proj.cu`` at heads of 64, every stage-1
+    config's default; fp32 on ``csrc/attn_proj_f32.cu`` at heads of 32, 64
+    and 128, every shipped config in its own dtype), or the unfused form
+    (:func:`attention_proj_unfused`, counted in ``UNFUSED_CALLS``)
+    elsewhere. JAX computes that form too at head dims its packed grid
+    refuses (80, 96) and below 16 rows; where it runs its kernel and the
+    port's plans refuse the shape (bf16 heads of 32 or 128) the route is
+    ``"unported"``. Under autograd the unfused forward of
+    :class:`_AttentionProj`, as the JAX ``custom_vjp`` runs its unfused
+    forward for grad.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5

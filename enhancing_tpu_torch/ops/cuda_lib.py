@@ -60,9 +60,13 @@ SIGNATURES = {
     "etk_int8_mlp": [_p] * 13 + [_i] * 4 + [_f, _i, _i, _p],
     "etk_int8_mlp_plan": [_i, _i, _i, _i, ctypes.POINTER(_i)],
     "etk_attn_proj": [_p] * 7 + [_i] * 9 + [_f, _i, _i, _p],
+    "etk_attn_proj_f32": [_p] * 8 + [_i] * 9 + [_f, _i, _i, _p],
     "etk_ffn": [_p] * 6 + [_i] * 4 + [_p],
+    "etk_ffn_f32": [_p] * 7 + [_i] * 4 + [_p],
     "etk_ffn_plan": [_i, ctypes.POINTER(_i)],
+    "etk_ffn_f32_plan": [_i, ctypes.POINTER(_i)],
     "etk_attn_proj_plan": [_i, ctypes.POINTER(_i)],
+    "etk_attn_proj_f32_plan": [_i, _i, _i, ctypes.POINTER(_i)],
     "etk_wgmma_probe": [_p, _p, _p, _i, _p],
 }
 

@@ -6,8 +6,9 @@ buffer, B8 at head dims up to 128 and at the prior's 384, B17-B19) and
 the fp32 backward (B5) on the bf16 tensor cores, each fp32 product as six
 products of exact bf16 pieces; the bf16 Hopper kernels run a head dim that
 is a multiple of 8 up to 128 on their next tile (D = 48, 80, 96 here).
-The opt-in fusions B15 and B16 send fp32 (and B15 head dims other than 64)
-to the unfused form their routes name. Every test needs an NVIDIA card
+The opt-in fusions B15 and B16 run fp32 on their fp32 kernels on the same
+pieces (``csrc/attn_proj_f32.cu``, ``csrc/ffn_f32.cu``) where their
+routes name them, and the unfused form elsewhere. Every test needs an NVIDIA card
 and skips without one. The file imports neither JAX nor the JAX package:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
@@ -17,7 +18,7 @@ import pytest
 import torch
 
 from enhancing_tpu_torch.ops import attention as att
-from enhancing_tpu_torch.ops import common
+from enhancing_tpu_torch.ops import common, ffn
 
 pytestmark = pytest.mark.cuda
 
@@ -174,9 +175,10 @@ def test_bf16_head_dims_between_the_tiles(cuda, d, b, n, h, mode, cl):
 
 def test_f32_kernels_refuse_what_they_do_not_take(cuda):
     """fp32 D = 192, the backward at 384, fp16, mixed dtypes; the raw
-    launches of the opt-in fusions B15 and B16 refuse fp32 and D = 80,
-    naming the route that sends those calls to the unfused form."""
-    from enhancing_tpu_torch.ops import ffn
+    launches of the opt-in fusions B15 and B16 run fp32 on their fp32
+    kernels (the plain versions' results) and refuse mixed dtypes and the
+    shapes their plans refuse (D = 80), naming the route that sends those
+    calls to the unfused form."""
     with pytest.raises(ValueError, match="head_dim"):
         att.attention_packed_qkv_kernel(_randn(cuda, 1, 16, 3 * 2 * 192), 2,
                                         192, 0.1)
@@ -192,18 +194,26 @@ def test_f32_kernels_refuse_what_they_do_not_take(cuda):
     k = _randn(cuda, 1, 16, 2, 64)
     wp, bp, res = _randn(cuda, 128, 128), _randn(cuda, 128), _randn(cuda, 1,
                                                                      16, 128)
-    with pytest.raises(TypeError, match="attn_proj_route"):
-        att.attn_proj_kernel(q, k, k, wp, bp, res, 0.1)
-    q80 = _randn(cuda, 1, 16, 2, 80, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="attn_proj_route"):
-        att.attn_proj_kernel(q80, q80, q80,
-                             _randn(cuda, 128, 160, dtype=torch.bfloat16),
-                             bp, _randn(cuda, 1, 16, 128,
-                                        dtype=torch.bfloat16), 0.1)
+    _close(att.attn_proj_kernel(q, k, k, wp, bp, res, 0.1),
+           att.attention_proj_plain(q, k, k, wp, bp, res, 0.1), F32_TOL)
+    with pytest.raises(TypeError):
+        att.attn_proj_kernel(q, k, k, wp.bfloat16(), bp, res, 0.1)
+    for dtype in (torch.bfloat16, torch.float32):
+        q80 = _randn(cuda, 1, 16, 2, 80, dtype=dtype)
+        with pytest.raises(ValueError, match="attn_proj_route"):
+            att.attn_proj_kernel(q80, q80, q80,
+                                 _randn(cuda, 128, 160, dtype=dtype), bp,
+                                 _randn(cuda, 1, 16, 128, dtype=dtype), 0.1)
     x = _randn(cuda, 8, 128)
-    with pytest.raises(TypeError, match="ffn_route"):
-        ffn.ffn_kernel(x, _randn(cuda, 128, 128), _randn(cuda, 128),
-                       _randn(cuda, 128, 128), _randn(cuda, 128))
+    w1, b1 = _randn(cuda, 128, 128) * 0.1, _randn(cuda, 128)
+    w2, b2 = _randn(cuda, 128, 128) * 0.1, _randn(cuda, 128)
+    _close(ffn.ffn_kernel(x, w1, b1, w2, b2),
+           ffn.ffn_plain(x, w1, b1, w2, b2), F32_TOL)
+    with pytest.raises(TypeError):
+        ffn.ffn_kernel(x, w1.bfloat16(), b1, w2, b2)
+    with pytest.raises(ValueError, match="ffn_route"):
+        ffn.ffn_kernel(_randn(cuda, 8, 1088), _randn(cuda, 128, 1088),
+                       b1, _randn(cuda, 1088, 128), _randn(cuda, 1088))
 
 
 @pytest.mark.parametrize("dec_head", [64, 80])
@@ -252,20 +262,21 @@ def test_f32_wide_forward_ragged(cuda, mode, cl, n, m):
 
 
 def test_fused_routes_take_fp32_and_heads_of_80(cuda):
-    """attention_proj_packed in fp32 (D 64) and in bf16 at D = 80, and
-    fused_ffn in fp32, serve on the card by their unfused forms: the B8
-    kernel (fp32 or bf16) and fp32 library products, counted in
-    UNFUSED_CALLS, with no launch of B15 or B16; results those of the
-    plain versions (fp32: F32_TOL; bf16: the attention's bf16 limits). The
-    routes name both the shapes JAX computes unfused too ("unfused") and
-    those it fuses where the port has no one-launch kernel yet
-    ("unported")."""
-    from enhancing_tpu_torch.ops import ffn
+    """attention_proj_packed and fused_ffn on the card by their routes:
+    one launch of B15 in fp32 at heads of 64 (csrc/attn_proj_f32.cu,
+    counted in F32_LAUNCHES) and in bf16 (csrc/attn_proj.cu); the unfused
+    form (the B8 kernel, fp32 or bf16, and fp32 library products, counted
+    in UNFUSED_CALLS, no launch of B15) where the JAX package computes it
+    too: HO off the 128-lane grid, heads of 80. fused_ffn in fp32: B16 up
+    to 12 MiB of weights (csrc/ffn_f32.cu), the unfused form above.
+    Results those of the plain versions (fp32: F32_TOL; bf16: the
+    attention's bf16 limits)."""
     b, n = 2, 77
     for dtype, h, d, ho, route, tol in (
             (torch.float32, 4, 64, 96, "unfused", F32_TOL),
-            (torch.float32, 2, 64, 128, "unported", F32_TOL),
-            (torch.bfloat16, 2, 80, 96, "unfused", ATTN_TOL)):
+            (torch.float32, 2, 64, 128, "attn_proj", F32_TOL),
+            (torch.bfloat16, 2, 80, 96, "unfused", ATTN_TOL),
+            (torch.bfloat16, 2, 64, 128, "attn_proj", ATTN_TOL)):
         qkv = _randn(cuda, b, n, 3 * h * d, dtype=dtype)
         q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.chunk(3, dim=-1))
         wp = _randn(cuda, ho, h * d) * 0.05
@@ -275,32 +286,144 @@ def test_fused_routes_take_fp32_and_heads_of_80(cuda):
         with torch.no_grad():
             got = att.attention_proj_packed(q, k, v, wp, bp, res)
         torch.cuda.synchronize()
-        assert common.UNFUSED_CALLS["attn_proj"] == 1
+        fused = route == "attn_proj"
+        assert common.UNFUSED_CALLS["attn_proj"] == (0 if fused else 1)
         assert {k: v for k, v in common.LAUNCHES.items() if v} == {
-            "attention_bnhd": 1}
+            "attn_proj" if fused else "attention_bnhd": 1}
+        assert common.F32_LAUNCHES["attn_proj"] == int(
+            fused and dtype == torch.float32)
         want = att.attention_proj_plain(q, k, v, wp.to(dtype), bp, res,
                                         d ** -0.5)
         _close(got, want, tol)
-    x = _randn(cuda, 2, 50, 128)
-    w1, b1 = _randn(cuda, 256, 128) * 0.1, _randn(cuda, 256)
-    w2, b2 = _randn(cuda, 128, 256) * 0.1, _randn(cuda, 128)
-    assert ffn.ffn_route(torch.float32, 100, 128, 256) == "unported"
+    for d, h, route in ((128, 256, "ffn"), (768, 3072, "unfused")):
+        x = _randn(cuda, 2, 50, d)
+        w1, b1 = _randn(cuda, h, d) * d ** -0.5, _randn(cuda, h)
+        w2, b2 = _randn(cuda, d, h) * h ** -0.5, _randn(cuda, d)
+        assert ffn.ffn_route(torch.float32, 100, d, h) == route
+        common.reset_launches()
+        got = ffn.fused_ffn(x, w1, b1, w2, b2)
+        torch.cuda.synchronize()
+        fused = route == "ffn"
+        assert common.UNFUSED_CALLS["ffn"] == (0 if fused else 1)
+        assert common.LAUNCHES["ffn"] == common.F32_LAUNCHES["ffn"] == int(
+            fused)
+        _close(got, ffn.ffn_plain(x.reshape(-1, d), w1, b1, w2,
+                                  b2).reshape(x.shape), F32_TOL)
+
+
+@pytest.mark.parametrize("h,d,ho", [(8, 64, 512), (12, 64, 768),
+                                    (16, 64, 1280), (16, 32, 512),
+                                    (4, 128, 512), (3, 128, 384)])
+@pytest.mark.parametrize("n,m,mode,cl", [(77, 77, "none", 0),
+                                         (130, 65, "prefix_causal", 5),
+                                         (17, 130, "prefix_causal", 70)])
+def test_attn_proj_f32_kernel_matches_plain(cuda, h, d, ho, n, m, mode, cl):
+    """fp32 B15 (csrc/attn_proj_f32.cu) at head dims 32, 64 and 128, the
+    shipped towers' (H*D, HO), odd N and M, both masks, q, k and v lane
+    slices of wider buffers: against the plain version at F32_TOL, one
+    launch counted under attn_proj and in F32_LAUNCHES."""
+    hd = h * d
+    q = _randn(cuda, 2, n, 2 * hd)[..., :hd].unflatten(-1, (h, d))
+    k, v = (t.unflatten(-1, (h, d))
+            for t in _randn(cuda, 2, m, 2 * hd).chunk(2, -1))
+    wp = _randn(cuda, ho, hd) * (2.0 / (hd + ho)) ** 0.5
+    bp, res = _randn(cuda, ho) * 0.02, _randn(cuda, 2, n, ho)
     common.reset_launches()
-    got = ffn.fused_ffn(x, w1, b1, w2, b2)
+    got = att.attn_proj_kernel(q, k, v, wp, bp, res, d ** -0.5, mode, cl)
     torch.cuda.synchronize()
-    assert common.UNFUSED_CALLS["ffn"] == 1
-    assert not any(common.LAUNCHES.values())
-    _close(got, ffn.ffn_plain(x.reshape(-1, 128), w1, b1, w2, b2).reshape(
-        x.shape), F32_TOL)
-    # bf16 at head dim 64 is still one launch of B15
-    qkv = _randn(cuda, b, n, 3 * 2 * 64, dtype=torch.bfloat16)
-    q, k, v = (t.unflatten(-1, (2, 64)) for t in qkv.chunk(3, dim=-1))
+    assert common.LAUNCHES["attn_proj"] == common.F32_LAUNCHES[
+        "attn_proj"] == 1
+    _close(got, att.attention_proj_plain(q, k, v, wp, bp, res, d ** -0.5,
+                                         mode, cl), F32_TOL)
+
+
+@pytest.mark.parametrize("m,d,h", [(8192, 512, 2048), (1000, 768, 2048),
+                                   (333, 256, 1088), (129, 64, 256),
+                                   (200, 1024, 1024)])
+@pytest.mark.parametrize("act", ["tanh", "sqrelu", "gelu"])
+def test_ffn_f32_kernel_matches_plain(cuda, m, d, h, act):
+    """fp32 B16 (csrc/ffn_f32.cu): clusters of 4 (ViT-VQGAN-Small's
+    shape), 6, 2 with a short last hidden group, 1 with a 64-column slab,
+    and 8, against the plain version at F32_TOL."""
+    sc = (2.0 / (d + h)) ** 0.5
+    x, w1, b1 = _randn(cuda, m, d), _randn(cuda, h, d) * sc, _randn(cuda, h)
+    w2, b2 = _randn(cuda, d, h) * sc, _randn(cuda, d)
     common.reset_launches()
-    with torch.no_grad():
-        att.attention_proj_packed(q, k, v, _randn(cuda, 128, 128),
-                                  _randn(cuda, 128),
-                                  _randn(cuda, b, n, 128,
-                                         dtype=torch.bfloat16))
+    got = ffn.ffn_kernel(x, w1, b1 * 0.02, w2, b2 * 0.02, act)
     torch.cuda.synchronize()
-    assert common.LAUNCHES["attn_proj"] == 1
-    assert common.UNFUSED_CALLS["attn_proj"] == 0
+    assert common.LAUNCHES["ffn"] == common.F32_LAUNCHES["ffn"] == 1
+    _close(got, ffn.ffn_plain(x, w1, b1 * 0.02, w2, b2 * 0.02, act), F32_TOL)
+
+
+def test_f32_fusions_are_deterministic(cuda):
+    """No atomics in fp32 B15 and B16: two calls give the same bits."""
+    q = _randn(cuda, 2, 100, 12, 64)
+    k, v = _randn(cuda, 2, 100, 12, 64), _randn(cuda, 2, 100, 12, 64)
+    wp, bp, res = _randn(cuda, 768, 768) * 0.04, _randn(cuda, 768), _randn(
+        cuda, 2, 100, 768)
+    assert torch.equal(att.attn_proj_kernel(q, k, v, wp, bp, res, 0.125),
+                       att.attn_proj_kernel(q, k, v, wp, bp, res, 0.125))
+    x, w1, w2 = (_randn(cuda, 300, 512), _randn(cuda, 2048, 512) * 0.03,
+                 _randn(cuda, 512, 2048) * 0.03)
+    b1, b2 = _randn(cuda, 2048), _randn(cuda, 512)
+    assert torch.equal(ffn.ffn_kernel(x, w1, b1, w2, b2),
+                       ffn.ffn_kernel(x, w1, b1, w2, b2))
+
+
+def test_f32_fusion_plans_mirror_the_c_entries(cuda):
+    """ops.attention.attn_proj_f32_plan and ops.ffn.ffn_f32_plan give the
+    numbers csrc/attn_proj_f32.cu and csrc/ffn_f32.cu pick, and zeros
+    where the mirrors refuse."""
+    from enhancing_tpu_torch.ops import cuda_lib
+    for h, d, ho in ((8, 64, 512), (12, 64, 768), (16, 64, 1280),
+                     (16, 32, 512), (24, 32, 768), (4, 128, 512),
+                     (2, 64, 128), (12, 128, 1536), (4, 80, 512),
+                     (4, 64, 96)):
+        want = att.attn_proj_f32_plan(h, d, ho)
+        got = cuda_lib.plan("etk_attn_proj_f32_plan", h, d, ho, size=5)
+        assert got == ((0,) * 5 if want is None else (
+            want["cluster"], want["heads_per_wg"], want["stages"],
+            want["smem"], want["warpgroups"])), (h, d, ho)
+    for d in (64, 128, 512, 640, 1024, 1088, 96):
+        want = ffn.ffn_f32_plan(d)
+        got = cuda_lib.plan("etk_ffn_f32_plan", d, size=5)
+        assert got == ((0,) * 5 if want is None else (
+            want["cluster"], want["slab"], want["chunk"], want["stages"],
+            want["smem"])), d
+
+
+def test_f32_fused_round_trip_goes_through_the_fusions(cuda):
+    """A tiny fp32 tokenizer with both fusions (``ffn_impl: fused``,
+    ENHANCING_TPU_ATTN_PROJ=1) on the 128-lane grid: every block runs fp32
+    B15 and fp32 B16 (B1 2, B15 2, B3 4, B16 2, B4 1 a trip, no unfused
+    call), and the round trip agrees with the same model's plain path."""
+    import os
+
+    from enhancing_tpu_torch.models.stage1.vitvqgan import ViTVQ
+    tower = dict(dim=128, depth=1, heads=4, dim_head=32, mlp_dim=512,
+                 ffn_impl="fused")
+    model = ViTVQ(image_size=32, patch_size=8, encoder=tower, decoder=tower,
+                  quantizer=dict(embed_dim=16, n_embed=128), device="cuda")
+    x = torch.rand(3, 32, 32, 3, generator=cuda, device="cuda")
+    saved = os.environ.get("ENHANCING_TPU_ATTN_PROJ")
+    os.environ["ENHANCING_TPU_ATTN_PROJ"] = "1"
+    try:
+        common.reset_launches()
+        codes = model.encode_codes(x)
+        rec = model.decode_codes(codes)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in common.LAUNCHES.items() if v} == {
+            "ln_gemm": 2, "attn_proj": 2, "layernorm": 4, "ffn": 2, "vq": 1}
+        assert {k: v for k, v in common.F32_LAUNCHES.items() if v} == {
+            "attn_proj": 2, "ffn": 2}
+        assert not any(common.UNFUSED_CALLS.values())
+        with common.force_plain_ops():
+            codes_p = model.encode_codes(x)
+            rec_p = model.decode_codes(codes)
+    finally:
+        if saved is None:
+            os.environ.pop("ENHANCING_TPU_ATTN_PROJ", None)
+        else:
+            os.environ["ENHANCING_TPU_ATTN_PROJ"] = saved
+    assert torch.equal(codes, codes_p)
+    _close(rec, rec_p, dict(atol=1e-4, rtol=1e-4))

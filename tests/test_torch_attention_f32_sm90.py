@@ -11,10 +11,13 @@ arithmetic is written out in fp32: the piece product against an fp64
 product, and the kernels' orders of work (64-key tiles and the online
 softmax forward; the rows kernel's one-sweep statistics and the cols
 kernel's 32-query tiles backward) against the JAX kernels run in
-interpret mode. Also here: the routes of the two opt-in fusions against
-the JAX package's own dispatch, and their unfused forms against the JAX
-functions they compute (``_attention_proj_xla``, ``_ffn_xla``). Inputs are
-made with numpy from a seed.
+interpret mode, and the fp32 fusions' (``attn_proj_f32.cu``,
+``ffn_f32.cu``: heads projected by piece products over all of H*D; the
+FFN's hidden) against their plain versions. Also here: the fp32 fusions'
+plans, the routes of the two opt-in fusions against the JAX package's own
+dispatch, and their unfused forms against the JAX functions they compute
+(``_attention_proj_xla``, ``_ffn_xla``). Inputs are made with numpy from
+a seed.
 """
 import importlib.util
 import re
@@ -29,6 +32,7 @@ from enhancing_tpu.ops import attention as jatt
 from enhancing_tpu.ops import ffn as jffn
 from enhancing_tpu_torch.ops import attention as tatt
 from enhancing_tpu_torch.ops import ffn as tffn
+from enhancing_tpu_torch.ops.ln_gemm import _act
 
 ROOT = Path(__file__).resolve().parents[1]
 # chip_smoke.py's phase 3 limits: fp32 sums in another order
@@ -276,6 +280,135 @@ def test_backward_mirror_matches_jax_and_plain(interpret, d, mode, cl):
                                    **F32_BWD_TOL, err_msg=name)
 
 
+# -- the fp32 fusions: csrc/attn_proj_f32.cu (B15) and csrc/ffn_f32.cu (B16) --
+
+def proj_mirror(q, k, v, wp, bp, res, mask_mode, cond_len):
+    """attn_proj_f32_kernel's arithmetic on (B, H, N, D) q (scaled in
+    fp32), (B, H, M, D) k, v, wp (HO, H*D), bp and the residual: each head
+    by the forward's tile recurrence (one warpgroup a head), O / l of every
+    head times Wp^T by piece products summed over all of H*D (two
+    accumulators folded once), then + bp, then + the residual."""
+    b, h, n, d = q.shape
+    o = fwd_mirror(q, k, v, mask_mode, cond_len)
+    o = o.transpose(1, 2).reshape(b, n, h * d)
+    return (piece_matmul(o, wp.t()) + bp) + res
+
+
+@pytest.mark.parametrize("d,mode,cl", [(32, "prefix_causal", 5),
+                                       (64, "none", 0),
+                                       (128, "prefix_causal", 2)])
+def test_attn_proj_f32_mirror_matches_plain(d, mode, cl):
+    """fp32 B15: the mirror against the plain version (q scaled in fp32
+    before either), which ``tests/test_torch_fused.py`` holds to
+    ``_attention_proj_packed_call`` in interpret mode at these head
+    dims."""
+    b, n, ho = 1, 40, 128
+    h = 256 // d
+    rng = np.random.default_rng(d + 11)
+    q, k, v = _bnhd(rng, b, n, h, d)
+    q = q * np.float32(d ** -0.5)
+    wp = (rng.standard_normal((ho, h * d)) * 0.05).astype(np.float32)
+    bp = rng.standard_normal(ho).astype(np.float32)
+    res = rng.standard_normal((b, n, ho)).astype(np.float32)
+    got = proj_mirror(*(_t(a) for a in (q, k, v)),
+                      *(torch.from_numpy(a) for a in (wp, bp, res)), mode, cl)
+    plain = tatt.attention_proj_plain(
+        *(torch.from_numpy(a) for a in (q, k, v, wp, bp, res)), 1.0, mode, cl)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **F32_TOL)
+
+
+def ffn_mirror(x, w1, b1, w2, b2, activation):
+    """ffn_f32_kernel's arithmetic: the hidden by piece products over d, +
+    b1, the activation in fp32; the output by piece products summed over
+    all of h (two accumulators across every hidden chunk, folded once), +
+    b2."""
+    hidden = _act(piece_matmul(x, w1.t()) + b1, activation)
+    return piece_matmul(hidden, w2.t()) + b2
+
+
+@pytest.mark.parametrize("activation", ["tanh", "sqrelu", "gelu"])
+def test_ffn_f32_mirror_matches_jax(activation):
+    """fp32 B16: the mirror against ``_ffn_xla`` (in fp32 the function of
+    ``_ffn_pallas``, which ``tests/test_torch_fused.py`` holds the plain
+    version to in interpret mode) and the plain version."""
+    m, d, h = 40, 128, 1024
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((m, d)).astype(np.float32)
+    w1 = (rng.standard_normal((h, d)) * d ** -0.5).astype(np.float32)
+    w2 = (rng.standard_normal((d, h)) * h ** -0.5).astype(np.float32)
+    b1, b2 = (rng.standard_normal(s).astype(np.float32) * 0.1
+              for s in (h, d))
+    args = [torch.from_numpy(a) for a in (x, w1, b1, w2, b2)]
+    got = ffn_mirror(*args, activation)
+    want = np.asarray(jffn._ffn_xla(
+        *(jnp.asarray(a) for a in (x, w1.T, b1, w2.T, b2)), activation))
+    np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+    np.testing.assert_allclose(
+        got.numpy(), tffn.ffn_plain(*args, activation).numpy(), **F32_TOL)
+
+
+# the H100's limits that the fp32 fusions' plans respect: shared memory a
+# block may use (227 KB) with the kernels' static barriers (< 1 KB) beside
+# it; at most 8 blocks a portable cluster
+SMEM_PER_BLOCK, STATIC_SMEM, CLUSTER_LIMIT = 232448, 1024, 8
+
+
+@pytest.mark.parametrize("h,d,ho", [(8, 64, 512), (12, 64, 768),
+                                    (16, 64, 1280), (16, 32, 512),
+                                    (24, 32, 768), (4, 128, 512),
+                                    (8, 128, 1024), (2, 64, 128),
+                                    (6, 32, 256), (3, 128, 384)])
+def test_attn_proj_f32_plan_fits_the_card(h, d, ho):
+    """fp32 B15's plan: the cluster's warpgroups (two a block at D <= 64,
+    one at 128) take every head, ceil(H / (C W)) each, in the smallest
+    cluster of at most 8 whose blocks hold their heads' outputs as
+    fragments (64 x D x 3 pieces x 2 bytes a head) beside a q tile and a
+    ring of 2-4 stages per warpgroup (a K or V tile, or a (64, 64) Wp box,
+    in three pieces) within a block's shared memory."""
+    plan = tatt.attn_proj_f32_plan(h, d, ho)
+    c, w, hw = plan["cluster"], plan["warpgroups"], plan["heads_per_wg"]
+    assert 1 <= c <= CLUSTER_LIMIT and w == (2 if d <= 64 else 1)
+    assert hw == -(-h // (c * w)) and c * w * hw >= h
+    assert 2 <= plan["stages"] <= 4
+    tile, stage = 64 * d * 6, max(64 * d * 6, 64 * 64 * 6)
+    assert plan["smem"] == w * (tile * (1 + hw) + plan["stages"] * stage) + 1024
+    assert plan["smem"] + STATIC_SMEM <= SMEM_PER_BLOCK
+    if c > 1:  # the smallest: one block fewer holds no ring of 2 stages
+        fixed = w * tile * (1 + -(-h // ((c - 1) * w))) + 1024
+        assert (SMEM_PER_BLOCK - 2 * STATIC_SMEM - fixed) // (w * stage) < 2
+
+
+@pytest.mark.parametrize("h,d,ho", [(12, 128, 1536), (4, 80, 512),
+                                    (4, 64, 96), (3, 32, 512), (0, 64, 512)])
+def test_attn_proj_f32_plan_refuses(h, d, ho):
+    """No plan for head dims other than 32, 64 and 128, HO or H*D off the
+    64-column grid, or more heads than 8 blocks hold."""
+    assert tatt.attn_proj_f32_plan(h, d, ho) is None
+
+
+@pytest.mark.parametrize("d", range(64, 1025, 64))
+def test_ffn_f32_plan_fits_the_card(d):
+    """fp32 B16's plan: ceil(d / 128) blocks of 128-column slabs (64 at d
+    = 64) in a cluster of at most 8, two hidden buffers of one (64, 64)
+    chunk's fragments in three pieces beside a ring of 3 stages (an x and a
+    W1 tile, or a W2 box, in three pieces) within a block's shared
+    memory."""
+    plan = tffn.ffn_f32_plan(d)
+    c, ds = plan["cluster"], plan["slab"]
+    assert c == -(-d // 128) <= CLUSTER_LIMIT and c * ds >= d
+    assert ds == (64 if d == 64 else 128) and plan["chunk"] == 64
+    tile = 64 * 64 * 6
+    stage = max(2 * tile, ds * 64 * 6)
+    assert plan["stages"] == 3
+    assert plan["smem"] == 2 * tile + 3 * stage + 1024
+    assert plan["smem"] + STATIC_SMEM <= SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("d", [0, 96, 1088, 1280])
+def test_ffn_f32_plan_refuses(d):
+    assert tffn.ffn_f32_plan(d) is None
+
+
 # -- the opt-in fusions' routes and unfused forms ------------------------------
 
 class _Shaped:
@@ -325,8 +458,12 @@ def jax_runs_ffn_kernel(monkeypatch, dtype, rows, d, h):
     (torch.bfloat16, 12, 64, 768, 256, "attn_proj"),
     (torch.bfloat16, 16, 64, 1280, 1024, "attn_proj"),
     (torch.bfloat16, 16, 64, 1280, 8, "attn_proj"),
-    (torch.float32, 12, 64, 768, 256, "unported"),
-    (torch.float32, 8, 64, 512, 1024, "unported"),
+    (torch.float32, 12, 64, 768, 256, "attn_proj"),
+    (torch.float32, 8, 64, 512, 1024, "attn_proj"),
+    (torch.float32, 16, 64, 1280, 1024, "attn_proj"),
+    (torch.float32, 16, 32, 512, 256, "attn_proj"),
+    (torch.float32, 4, 128, 512, 256, "attn_proj"),
+    (torch.float32, 12, 128, 1536, 256, "unported"),
     (torch.float32, 4, 64, 96, 77, "unfused"),
     (torch.float32, 12, 64, 768, 12, "unfused"),
     (torch.bfloat16, 16, 80, 1280, 1024, "unfused"),
@@ -338,11 +475,17 @@ def jax_runs_ffn_kernel(monkeypatch, dtype, rows, d, h):
     (torch.bfloat16, 18, 64, 768, 256, "unported"),
     (torch.bfloat16, 3, 32, 96, 256, "unfused")])
 def test_attn_proj_route(dtype, h, d, ho, n, want):
-    """B15 for bf16 where its plan takes the shape; else the unfused form,
-    as the JAX package computes it there ("unfused") or where it runs its
-    kernel and the port has none yet ("unported"); decided before any
-    launch from dtype and shape."""
+    """B15 where its plan for the dtype takes the shape (fp32: only where
+    the JAX package runs its kernel); else the unfused form, as the JAX
+    package computes it there ("unfused") or where it runs its kernel and
+    the port's plans refuse the shape ("unported"); decided before any
+    launch from dtype and shape; in fp32 "unfused" exactly where the JAX
+    dispatch computes ``_attention_proj_xla`` (bf16 takes B15 at any
+    length)."""
     assert tatt.attn_proj_route(dtype, h, d, ho, n, n) == want
+    if dtype == torch.float32:
+        assert (want != "unfused") == jax_runs_attn_proj_kernel(h, d, ho, n,
+                                                                n)
 
 
 @pytest.mark.parametrize("d", [8, 16, 32, 48, 64, 80, 96, 128, 192, 256,
@@ -362,17 +505,21 @@ def test_jax_fuses_attn_proj_mirrors_the_jax_dispatch(d, h, ho, n, m):
     (torch.float32, 256, 512, 2048), (torch.float32, 256, 768, 3072),
     (torch.float32, 256, 1280, 5120), (torch.float32, 7, 512, 2048),
     (torch.float32, 256, 64, 128), (torch.float32, 256, 128, 640),
-    (torch.float32, 256, 384, 1536), (torch.bfloat16, 256, 768, 3072),
+    (torch.float32, 256, 384, 1536), (torch.float32, 256, 768, 2048),
+    (torch.float32, 256, 1536, 1024), (torch.bfloat16, 256, 768, 3072),
     (torch.bfloat16, 256, 1280, 5120), (torch.bfloat16, 256, 512, 2048)])
 def test_ffn_route(monkeypatch, dtype, rows, d, h):
-    """bf16 on B16 at every width; fp32 on the unfused form, "unported"
-    exactly where the JAX package runs its kernel (weights of at most 12
-    MiB: Small's 8.4 MB in fp32, not Base's 18.9 MB)."""
+    """bf16 on B16 at every width; fp32 on B16 exactly where the JAX
+    package runs its kernel (weights of at most 12 MiB: Small's 8.4 MB in
+    fp32, not Base's 18.9 MB) and the fp32 plan takes d, "unported" where
+    it runs its kernel at a width the plan refuses (d = 1536), else on the
+    unfused form."""
     np_dtype = np.float32 if dtype == torch.float32 else jnp.bfloat16
     fused = jax_runs_ffn_kernel(monkeypatch, np_dtype, rows, d, h)
     assert tffn.jax_fuses_ffn(dtype, rows, d, h) == fused
     want = "ffn" if dtype == torch.bfloat16 else (
-        "unported" if fused else "unfused")
+        "unfused" if not fused else
+        "ffn" if tffn.ffn_f32_plan(d) is not None else "unported")
     assert tffn.ffn_route(dtype, rows, d, h) == want
 
 
@@ -385,8 +532,9 @@ def test_routes_refuse_other_dtypes():
 
 def test_shipped_stage1_configs_route_by_dtype(monkeypatch):
     """Every shipped stage-1 tower: bf16 takes B15 (heads of 64) and B16;
-    fp32 takes both unfused forms, named "unported" exactly where the JAX
-    package runs its kernel at the tower's shape."""
+    fp32 takes B15 and B16 exactly where the JAX package runs its kernel
+    at the tower's shape, and the unfused forms where it computes them
+    too: no shipped tower is "unported" in either dtype."""
     paths = sorted((ROOT / "configs").glob("*vitvq_*.yaml"))
     assert len(paths) >= 5
     for path in paths:
@@ -398,21 +546,21 @@ def test_shipped_stage1_configs_route_by_dtype(monkeypatch):
             h, d, dim = tower["heads"], tower.get("dim_head", 64), tower["dim"]
             fused = jax_runs_attn_proj_kernel(h, d, dim, n, n)
             assert tatt.attn_proj_route(torch.float32, h, d, dim, n, n) == (
-                "unported" if fused else "unfused"), path.name
+                "attn_proj" if fused else "unfused"), path.name
             assert tatt.attn_proj_route(torch.bfloat16, h, d, dim, n,
                                         n) == "attn_proj"
             fused = jax_runs_ffn_kernel(monkeypatch, np.float32, n, dim,
                                         tower["mlp_dim"])
             assert tffn.ffn_route(torch.float32, n, dim, tower["mlp_dim"]) == (
-                "unported" if fused else "unfused"), path.name
+                "ffn" if fused else "unfused"), path.name
             assert tffn.ffn_route(torch.bfloat16, n, dim,
                                   tower["mlp_dim"]) == "ffn"
 
 
 def test_chip_smoke_fused_routes_are_the_routes():
-    """The routes that chip_smoke.py's phase 9 asserts for its fp32 Base and
-    bf16 Large-with-heads-of-80 trips are those the route functions give
-    at those towers."""
+    """The routes that chip_smoke.py's phase 9 asserts for its fp32 Small
+    and Base and bf16 Large-with-heads-of-80 trips are those the route
+    functions give at those towers."""
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
@@ -420,8 +568,12 @@ def test_chip_smoke_fused_routes_are_the_routes():
     large = yaml.safe_load((ROOT / "configs/imagenet_vitvq_large.yaml")
                            .read_text())["model"]["params"]
     large["decoder"]["dim_head"] = smoke.D80
+    small = yaml.safe_load((ROOT / "configs/imagenet_vitvq_small.yaml")
+                           .read_text())["model"]["params"]
     n = smoke.TOKENS
+    assert len(smoke.FUSED_ROUTES) == 3
     for label, towers, dtype in (
+            ("small float32", small, torch.float32),
             ("base float32", smoke.BASE, torch.float32),
             ("large dec dim_head 80 bfloat16", large, torch.bfloat16)):
         want = smoke.FUSED_ROUTES[label][3]

@@ -1319,8 +1319,12 @@ def test_bhnd_attention_backward_is_the_plain_gradient(cuda):
 
 def test_fused_kernels_refuse_what_they_do_not_take(cuda):
     q, k, v, wp, bp, res = _proj_operands(cuda, 1, 64, 2, 128)
-    with pytest.raises(TypeError):  # fp32 activations
-        att.attn_proj_kernel(q.float(), k.float(), v.float(), wp.float(), bp,
+    # fp32 runs csrc/attn_proj_f32.cu; mixed dtypes are refused
+    f32 = [t.float() for t in (q, k, v, wp)] + [bp, res.float()]
+    _close(att.attn_proj_kernel(*f32, 0.1),
+           att.attention_proj_plain(*f32, 0.1), dict(atol=1e-4, rtol=1e-5))
+    with pytest.raises(TypeError):  # fp32 activations, a bf16 weight
+        att.attn_proj_kernel(q.float(), k.float(), v.float(), wp, bp,
                              res.float(), 0.1)
     with pytest.raises(ValueError):  # HO not a multiple of 64
         att.attn_proj_kernel(q, k, v, wp[:100], bp[:100], res[..., :100],

@@ -52,6 +52,9 @@ def _normal(rng, shape, scale=1.0):
 # the cases of tests/test_ops.py::test_attention_proj_fused_matches_xla
 PROJ_CASES = [((2, 64, 4, 64), "none", 0), ((1, 64, 2, 128), "none", 0),
               ((1, 33, 4, 64), "prefix_causal", 3)]
+# and the other head dims and mask of the fp32 kernel (csrc/attn_proj_f32.cu)
+PROJ_F32_CASES = [((2, 33, 8, 32), "prefix_causal", 5),
+                  ((1, 40, 2, 128), "prefix_causal", 2)]
 
 
 def _proj_inputs(shape, seed):
@@ -66,8 +69,10 @@ def _proj_inputs(shape, seed):
     return q3, k3, v3, wp, bp, res, g
 
 
-@pytest.mark.parametrize("shape,mode,cl", PROJ_CASES)
+@pytest.mark.parametrize("shape,mode,cl", PROJ_CASES + PROJ_F32_CASES)
 def test_attention_proj_matches_jax(interpret, shape, mode, cl):
+    """fp32 B15 at head dims 32, 64 and 128 and both masks against the TPU
+    kernel in interpret mode."""
     b, n, h, d = shape
     q3, k3, v3, wp, bp, res, _ = _proj_inputs(shape, 0)
     want = jatt._attention_proj_packed_call(*map(jnp.asarray, (
@@ -247,17 +252,30 @@ def _bf(*shape):
                                    _bf(1, 8, 2, 32), _bf(64, 64),
                                    torch.zeros(64), _bf(1, 8, 64), 0.1),
      ValueError),
-    # B15: fp32 activations
+    # B15: fp32 activations with a bf16 weight (one dtype: bf16 or fp32)
     (lambda: tatt.attn_proj_kernel(*(torch.zeros(1, 8, 2, 64),) * 3,
-                                   torch.zeros(64, 128), torch.zeros(64),
+                                   _bf(64, 128), torch.zeros(64),
                                    torch.zeros(1, 8, 64), 0.1), TypeError),
+    # fp32 B15: head dim 80 (the fp32 kernel takes 32, 64 and 128), and
+    # 12 heads of 128 (no cluster of at most 8 blocks holds them)
+    (lambda: tatt.attn_proj_kernel(*(torch.zeros(1, 8, 2, 80),) * 3,
+                                   torch.zeros(128, 160), torch.zeros(128),
+                                   torch.zeros(1, 8, 128), 0.1), ValueError),
+    (lambda: tatt.attn_proj_kernel(*(torch.zeros(1, 8, 12, 128),) * 3,
+                                   torch.zeros(1536, 1536),
+                                   torch.zeros(1536),
+                                   torch.zeros(1, 8, 1536), 0.1), ValueError),
+    # fp32 B16: wider than the fp32 cluster's slabs (8 x 128)
+    (lambda: tffn.ffn_kernel(torch.zeros(8, 1088), torch.zeros(128, 1088),
+                             torch.zeros(128), torch.zeros(1088, 128),
+                             torch.zeros(1088)), ValueError),
     # B16: a width that is no multiple of 64
     (lambda: tffn.ffn_kernel(_bf(8, 96), _bf(128, 96), torch.zeros(128),
                              _bf(96, 128), torch.zeros(96)), ValueError),
     # B16: wider than the widest cluster's slabs (8 x 256)
     (lambda: tffn.ffn_kernel(_bf(8, 2112), _bf(128, 2112), torch.zeros(128),
                              _bf(2112, 128), torch.zeros(2112)), ValueError),
-    # B16: fp32 x
+    # B16: fp32 x with bf16 weights
     (lambda: tffn.ffn_kernel(torch.zeros(8, 64), _bf(128, 64),
                              torch.zeros(128), _bf(64, 128),
                              torch.zeros(64)), TypeError),
@@ -404,7 +422,12 @@ def _count_fused_calls(monkeypatch):
     # ViT-VQGAN-Base widths at depth 2: JAX runs B15; its B16 takes
     # _ffn_xla, the f32 weights (18.9 MB) being over the kernel's 12 MB
     (dict(dim=768, depth=2, heads=12, mlp_dim=3072), 256, 1, {"attn_proj"}),
-], ids=["tiny", "small-widths", "base-widths"])
+    # a tiny fp32 tokenizer on the 128-lane grid (heads of 32, 16 tokens):
+    # JAX runs both kernels, as the port's CUDA routes send both blocks to
+    # fp32 B15 and fp32 B16
+    (dict(dim=128, depth=1, heads=4, dim_head=32, mlp_dim=512), 32, 2,
+     {"attn_proj", "ffn"}),
+], ids=["tiny", "small-widths", "base-widths", "tiny-fp32-fused"])
 def test_fused_round_trip_matches_jax(interpret, monkeypatch, tower,
                                       image_size, batch, jax_kernels):
     """Codes equal, reconstructions from them within f32 tolerance (1e-4:
