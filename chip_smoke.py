@@ -26,7 +26,10 @@ widths and depth (256 px, 8x8 patches, width 768, 12 heads of 64, MLP
   ``imagenet_vitvq_large.yaml`` (and Large with heads of 80 in the
   decoder, fp32 and bf16) round trips, a ``fake_vitvq_base`` training step
   with ``dtype: float32``, and the fp32 prior of
-  ``imagenet_gpt_vitvq_base.yaml``'s prefill and decode steps.
+  ``imagenet_gpt_vitvq_base.yaml``'s prefill and decode steps;
+- stage-2 training: ``Trainer.fit`` on ``imagenet_gpt_vitvq_base.yaml``'s
+  prior at its published widths (depth cut to 4 in bf16 and 2 in its own
+  fp32) over its frozen tokenizer, batch 4 of FakeImages at 256 px.
 
 Phases, each of which raises on failure:
 
@@ -113,7 +116,21 @@ Phases, each of which raises on failure:
 12. the fp32 prior: ``imagenet_gpt_vitvq_base.yaml``'s GPT at full width
     and depth (24 x 6144, 16 heads of 384) in fp32, prefill (B8 fp32) and
     16 teacher-forced decode steps, launches asserted, logits against the
-    plain path within 1e-3 and argmax equal at 99% of positions.
+    plain path within 1e-3 and argmax equal at 99% of positions;
+13. prior training: that config's prior through ``Trainer.fit`` at full
+    width (6144, 16 heads of 384, 8192 codes, 1025 tokens), the depth cut
+    for 7.25 GB of training state a layer: 4 layers in bf16 (fp32 master
+    weights) for 3 steps, 2 layers in fp32 for 1 step, each then one
+    validation batch; batch 4 of FakeImages (256 px, 1000 classes) over
+    the frozen fp32 ViT-VQGAN-Base tokenizer with random weights. First
+    one step's loss and per-leaf gradients through the kernels against
+    ``plain_versions()`` on the same weights and codes (5e-3 relative and
+    cosine 0.999 in bf16, 1e-4 and 0.99999 in fp32; the key biases, whose
+    gradient is zero in exact arithmetic, held near zero instead); then
+    the launches of each step (B1 24, fp32 B2 12, B3 1, B4 1, B8 and B5 at
+    D = 384 once a layer) and of the validation batch asserted exactly,
+    finite losses, every prior parameter moved, ms a step, peak memory and
+    one step's device time by kernel group.
 
 Phases 3 and 4 hold and time the fp32 attention kernels
 (``csrc/attention_f32.cu``: B2, B8 at 384, B5, B17-B19 in fp32, each
@@ -122,6 +139,9 @@ the pieces' at the bf16 rate and fp32 SIMT's), the fp32 fusions on the
 same pieces (``csrc/attn_proj_f32.cu``, B15 at head dims 32, 64 and 128;
 ``csrc/ffn_f32.cu``, B16; each also beside the unfused form) and the bf16
 forward and backward at heads of 80 (the 128 tile).
+Phases 3 and 4 also hold and time B5 at the prior's head dim 384 in bf16
+and fp32 (``csrc/attention_bwd_wide.cu``), its library column the
+fastest ``scaled_dot_product_attention`` backward that takes D = 384.
 Phases 3 and 4 also hold and time B17-B19, which no driven path runs
 (their JAX counterparts are a public op, a function with no caller and a
 kernel only a test reaches).
@@ -305,13 +325,19 @@ F32_OF = {"attention_f32": "attention", "attention_bnhd_f32": "attention_bnhd",
           "attention_gridchunk_f32": "attention_gridchunk",
           "attn_proj_f32": "attn_proj", "ffn_f32": "ffn"}
 REPLACES.update({name: REPLACES[bf16] for name, bf16 in F32_OF.items()})
+# B5 at the prior's head dim 384, bf16 and fp32: kernels of their own
+# (csrc/attention_bwd_wide.cu), counted under attention_bwd too and told
+# apart by ops.WIDE_LAUNCHES (kernel_counts)
+WIDE_BWD = {"attention_bwd_wide": "attn_bwd_wide",
+            "attention_bwd_wide_f32": "attn_f32_bwd_wide"}
+REPLACES.update({name: REPLACES["attention_bwd"] for name in WIDE_BWD})
 # B2, B8 and B17-B19 run the attention forwards of one source, their fp32
 # forms another
 SOURCES = {name: "enhancing_tpu_torch/csrc/" + {
     "attention": "attention_bnhd", "attention_bhnd": "attention_bnhd",
     "attention_fused_bnhd": "attention_bnhd",
     "attention_gridchunk": "attention_bnhd", "attn_proj_f32": "attn_proj_f32",
-    "ffn_f32": "ffn_f32"}.get(
+    "ffn_f32": "ffn_f32", "attention_bwd_wide_f32": "attention_bwd_wide"}.get(
         name, "attention_f32" if name in F32_OF else name) + ".cu"
     for name in REPLACES}
 
@@ -436,8 +462,16 @@ F32_PIECE_FAMILIES = ("attention fwd f32", "attention fwd f32 D=384",
                       "attn_proj f32", "ffn f32")
 
 
+# B5 at head dim 384 (csrc/attention_bwd_wide.cu), bf16 and fp32, runs on
+# warp-level mma.sync (HMMA) fed by cp.async: its SASS holds HMMA, every
+# one bf16 (the fp32 form's exact pieces), and no TF32 and no HGMMA
+MMA_SYNC_KERNELS = {"attention_bwd D=384 rows": ("attn_bwd_wide_rows_kernel",),
+                    "attention_bwd D=384 cols": ("attn_bwd_wide_cols_kernel",)}
+
+
 def check_sass(lib_path: str) -> None:
-    """Count HGMMA, UTMALDG and HMMA in the SASS of the sm90 kernels."""
+    """Count HGMMA, UTMALDG and HMMA in the SASS of the sm90 kernels and
+    of the mma.sync kernels."""
     from pathlib import Path
     from torch.utils.cpp_extension import CUDA_HOME
     tool = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
@@ -449,15 +483,24 @@ def check_sass(lib_path: str) -> None:
     demangled = subprocess.run(["c++filt"], input=sass, capture_output=True,
                                text=True).stdout or sass
     found = set()
+    families = {**SM90_KERNELS, **MMA_SYNC_KERNELS}
     for block in demangled.split("Function : ")[1:]:
         name = block.split("\n", 1)[0]
-        family = next((f for f, frags in SM90_KERNELS.items()
+        family = next((f for f, frags in families.items()
                        if any(k in name for k in frags)), None)
         if family is None:
             continue
         found.add(family)
         counts = {op: block.count(op) for op in ("HGMMA", "UTMALDG",
                                                  "UTMASTG", "HMMA")}
+        if family in MMA_SYNC_KERNELS:
+            hmma = [ln for ln in block.splitlines() if "HMMA" in ln]
+            kinds = sorted({ln.split("HMMA", 1)[1].split()[0] for ln in hmma})
+            log(f"[build] SASS {name[:70]}: {counts} {kinds}")
+            check(counts["HMMA"] > 0 and counts["HGMMA"] == 0
+                  and all(".BF16" in k and "TF32" not in k for k in kinds),
+                  f"{name}: expected bf16 mma.sync only (no TF32)")
+            continue
         hgmma = [ln for ln in block.splitlines() if "HGMMA" in ln]
         kinds = sorted({ln.split("HGMMA", 1)[1].split()[0] for ln in hgmma})
         log(f"[build] SASS {name[:70]}: {counts} {kinds}")
@@ -467,8 +510,8 @@ def check_sass(lib_path: str) -> None:
         if family in F32_PIECE_FAMILIES:
             check(all(".BF16" in k and "TF32" not in k for k in kinds),
                   f"{name}: expected bf16 wgmma of exact pieces, no TF32")
-    check(found == set(SM90_KERNELS),
-          f"sm90 kernels missing from the SASS: {set(SM90_KERNELS) - found}")
+    check(found == set(families),
+          f"kernels missing from the SASS: {set(families) - found}")
 
 
 def rand(shape, gen, dtype=torch.bfloat16, scale=1.0):
@@ -654,6 +697,7 @@ def phase_compare() -> dict:
     compare_fused_kernels(gen, close, errs)
     compare_f32_kernels(gen, close, errs)
     compare_f32_fusions(gen, close, errs)
+    compare_wide_bwd(gen, close, errs)
     torch.cuda.synchronize()
     return errs
 
@@ -976,7 +1020,7 @@ def phase_times() -> dict:
         peak (989 / 6 = 165 TFLOP/s), and the fp32 SIMT bound (67 TFLOP/s)
         is logged and kept beside it."""
         simt = None
-        if name in F32_OF:
+        if name in F32_OF or name == "attention_bwd_wide_f32":
             simt = bound(flops, nbytes, PEAK_F32)[0]
             flops, peak = 6 * flops, PEAK_BF16
         b_ms, b_by = bound(flops, nbytes, peak)
@@ -1120,6 +1164,7 @@ def phase_times() -> dict:
     time_fused_kernels(gen, row)
     time_f32_kernels(gen, row)
     time_f32_fusions(gen, row)
+    time_wide_bwd(gen, row)
     return rows
 
 
@@ -1891,13 +1936,167 @@ def time_f32_fusions(gen, row) -> None:
     del x, w1, w2
 
 
+# -- B5 at the prior's head dim 384 (csrc/attention_bwd_wide.cu) -----------
+
+# the prior's training batch (configs/imagenet_gpt_vitvq_base.yaml's
+# dataset batch_size) and its attention: 16 heads of 384 over 1 + 1024
+# tokens, prefix-causal with the one condition token
+PRIOR_TRAIN_BATCH = 4
+
+
+# B5 at D = 384: ||kernel - plain|| / ||plain|| over each (batch, head,
+# band of BAND rows, the ragged tail joining the last) block of dq, dk and
+# dv, against the plain version computed in fp32 on the same inputs. The
+# elementwise limit of bf16 scales with the largest |dq|, which the first
+# prefix-causal rows (a few keys visible) make ~70x the median, so it alone
+# would pass most rows wrong by a few per cent; this one scales with no row
+# outside its band. The bf16 plain version is no reference here: in a
+# band of few rows its own roundings can outweigh the kernel's.
+BAND, BAND_REL = 64, {torch.bfloat16: 2.0 ** -6, torch.float32: 2.0 ** -13}
+
+
+def worst_band_rel(got, want, h, d) -> float:
+    """The largest ||got - want|| / ||want|| over (batch, head, band)
+    blocks of (B, N, H*D) tensors: bands of BAND rows, the last taking
+    the ragged tail."""
+    b, n = want.shape[:2]
+    nb = max(n // BAND, 1)
+    band = (torch.arange(n, device=want.device) // BAND).clamp_max(nb - 1)
+    err, ref = (torch.zeros(b, nb, h, dtype=torch.float64,
+                            device=want.device).index_add_(
+        1, band, t.double().reshape(b, n, h, d).square().sum(-1)).sqrt()
+        for t in (got.double() - want.double(), want))
+    return float((err / ref.clamp_min(1e-300)).max())
+
+
+def compare_wide_bwd(gen, close, errs) -> None:
+    """B5 at D = 384 against autograd of its plain version, on the lane
+    slices of a qkv buffer: B 2, H 16, N 1025 and a ragged 77, both masks
+    (prefix-causal with cond_len 1); bf16 at B5's D <= 128 limit (2^-6 of
+    the largest |plain| + 2^-6 relative), fp32 at the fp32 backward's
+    (F32_BWD_TOL); besides, every (batch, head, 64-row) band within
+    BAND_REL of the plain version in fp32 (worst_band_rel); two calls give
+    the same bits."""
+    from enhancing_tpu_torch.ops import attention as att
+    d, h = P_HEAD_DIM, P_HEADS
+    for dtype, name in ((torch.bfloat16, "attention_bwd_wide"),
+                        (torch.float32, "attention_bwd_wide_f32")):
+        for (b, n, mode, cl) in ((2, P_CTX, "prefix_causal", 1),
+                                 (2, P_CTX, "none", 0),
+                                 (2, 77, "prefix_causal", 1),
+                                 (2, 77, "none", 0)):
+            qkv = rand((b, n, 3 * h * d), gen, dtype)
+            q3, k3, v3 = att.split_qkv_scaled(qkv, d ** -0.5)
+            do = rand((b, n, h * d), gen, dtype)
+            got = att.attention_bwd_kernel(q3, k3, v3, do, h, d, mode, cl)
+            again = att.attention_bwd_kernel(q3, k3, v3, do, h, d, mode, cl)
+            want = att.attention_bwd_plain(q3, k3, v3, do, h, d, mode, cl)
+            want32 = (want if dtype == torch.float32 else
+                      att.attention_bwd_plain(*(t.float() for t in (
+                          q3, k3, v3, do)), h, d, mode, cl))
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            check(same, f"{name} N={n} {mode}: two calls differ")
+            for gname, g, w, w32 in zip("qkv", got, want, want32):
+                tol = (F32_BWD_TOL if dtype == torch.float32 else
+                       dict(atol=2.0 ** -6 * float(w.float().abs().max()),
+                            rtol=2.0 ** -6))
+                label = (f"{name} {str(dtype)[6:]} d{gname} {mode} "
+                         f"B={b} N={n} H={h} D={d}")
+                close(name, label + " (two calls bit-equal)", g, w, **tol)
+                rel = worst_band_rel(g, w32, h, d)
+                ok = rel <= BAND_REL[dtype]
+                log(f"[compare] {label}: median |plain| "
+                    f"{float(w.float().abs().median()):.3e}, largest "
+                    f"{float(w.float().abs().max()):.3e}; worst {BAND}-row "
+                    f"band ||err||/||fp32 plain|| {rel:.3e} limit "
+                    f"{BAND_REL[dtype]:g} -> {'pass' if ok else 'FAIL'}")
+                check(ok, f"{label}: a {BAND}-row band disagrees")
+                if gname == "q" and n >= 2 * BAND:
+                    # the band limit fails a dq twice its limit off past the
+                    # first band, however the elementwise one takes it
+                    bad = g.clone()
+                    bad[:, BAND:] *= 1.0 + 2.0 * BAND_REL[dtype]
+                    err = (bad.float() - w.float()).abs()
+                    elem = bool((err <= tol["atol"] + tol["rtol"]
+                                 * w.float().abs()).all())
+                    rel = worst_band_rel(bad, w32, h, d)
+                    log(f"[compare] {label}, dq x{1 + 2 * BAND_REL[dtype]:g} "
+                        f"past row {BAND}: elementwise limit "
+                        f"{'passes' if elem else 'fails'} it, band "
+                        f"{rel:.3e} fails it: {rel > BAND_REL[dtype]}")
+                    check(rel > BAND_REL[dtype], f"{label}: the band limit "
+                          "passes a dq off past the first band")
+            del qkv, q3, k3, v3, do, got, again, want, want32
+
+
+def fastest_sdpa_backward(q, k, v, do, iters):
+    """(backward call, backend name, backends that refused) of the fastest
+    SDPA backward (causal, scale 1) on (B, H, N, D) q, k, v that some
+    backend takes, each backend tried alone; the call reruns the backward
+    of a graph recorded under that backend."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    best, refused = None, []
+    for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        bname = backend.name
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        try:
+            with sdpa_kernel([backend]):
+                out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                     scale=1.0)
+            torch.autograd.grad(out, leaves, do, retain_graph=True)
+        except RuntimeError:
+            refused.append(bname)
+            continue
+        fn = (lambda o, ls: lambda: torch.autograd.grad(
+            o, ls, do, retain_graph=True))(out, leaves)
+        ms = time_ms(fn, iters)
+        if best is None or ms < best[0]:
+            best = (ms, fn, bname)
+    return best[1], best[2], refused
+
+
+def time_wide_bwd(gen, row) -> None:
+    """B5 at D = 384, bf16 and fp32, at the prior's training batch (B 4,
+    H 16, N 1025, prefix-causal with cond_len 1, which is causal): the
+    bound as B5's row computes it, on the causal half of the score tile
+    (N (N + 1) / 2 pairs a (batch, head): this run's work); the library
+    call is the fastest SDPA backward that takes D = 384 (is_causal, one
+    backend at a time; the backend named on the line)."""
+    from enhancing_tpu_torch.ops import attention as att
+    b, n, h, d = PRIOR_TRAIN_BATCH, P_CTX, P_HEADS, P_HEAD_DIM
+    pairs = b * h * n * (n + 1) / 2
+    for dtype, name, iters in ((torch.bfloat16, "attention_bwd_wide", 10),
+                               (torch.float32, "attention_bwd_wide_f32", 3)):
+        qkv = rand((b, n, 3 * h * d), gen, dtype)
+        q3, k3, v3 = att.split_qkv_scaled(qkv, d ** -0.5)
+        do = rand((b, n, h * d), gen, dtype)
+        qt, kt, vt, dot = (t.reshape(b, n, h, d).transpose(1, 2)
+                           for t in (q3, k3, v3, do))
+        lib, backend, refused = fastest_sdpa_backward(qt, kt, vt, dot, iters)
+        row(name, f"{name} {str(dtype)[6:]} prefix_causal cond_len 1 B={b} "
+            f"N={n} H={h} D={d} (library: SDPA backward, backend {backend}; "
+            f"refused at D={d}: {', '.join(refused) or 'none'})",
+            lambda: att.attention_bwd_kernel(  # noqa: B023
+                q3, k3, v3, do, h, d, "prefix_causal", 1),
+            lambda: att.attention_bwd_plain(  # noqa: B023
+                q3, k3, v3, do, h, d, "prefix_causal", 1),
+            lib, 10.0 * pairs * d, 7 * b * n * h * d * dtype.itemsize,
+            PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32, iters)
+        del qkv, q3, k3, v3, do, qt, kt, vt, dot, lib
+        gc_cuda()
+
+
 def kernel_counts() -> dict:
     """The launches since the last reset by kernels-line name: each bf16
     kernel's (its LAUNCHES less the fp32 ones counted under its name) and
     each fp32 kernel's."""
-    from enhancing_tpu_torch.ops import F32_LAUNCHES, LAUNCHES
+    from enhancing_tpu_torch.ops import F32_LAUNCHES, LAUNCHES, WIDE_LAUNCHES
     out = {k: v - F32_LAUNCHES[k] for k, v in LAUNCHES.items()}
     out.update({k: F32_LAUNCHES[v] for k, v in F32_OF.items()})
+    out.update({k: WIDE_LAUNCHES[v] for k, v in WIDE_BWD.items()})
+    out["attention_bwd"] -= out["attention_bwd_wide"]
+    out["attention_bwd_f32"] -= out["attention_bwd_wide_f32"]
     return out
 
 
@@ -2487,8 +2686,9 @@ def phase_fused_routes(x8) -> dict:
 
 class StepRecorder:
     """The trainer's metrics logger: at each log call (after every step
-    and once after validation) it keeps the launch and plain-call counts,
-    the host clock and the metrics."""
+    and once after validation) it keeps the launch counts (raw and by
+    kernels-line name) and plain-call counts, the host clock and the
+    metrics."""
 
     def __init__(self) -> None:
         self.records: list = []
@@ -2498,6 +2698,7 @@ class StepRecorder:
         torch.cuda.synchronize()
         self.records.append(dict(step=step, t=time.perf_counter(),
                                  launches=dict(LAUNCHES),
+                                 counts=kernel_counts(),
                                  plain=dict(PLAIN_CALLS), metrics=metrics))
 
 
@@ -3056,7 +3257,11 @@ def profile_device(label: str, fn):
     groups: dict[str, float] = {}
     others = []
     for event in prof.key_averages():
-        if event.device_type != torch.autograd.DeviceType.CUDA:
+        # a user annotation's GPU range (the optimizer's step) spans
+        # kernels that are counted on their own
+        if (event.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(event, "is_user_annotation", False)
+                or event.key.startswith("Optimizer.")):
             continue
         ms = event.self_device_time_total / 1e3
         group = next((g for frag, g in KERNEL_GROUPS if frag in event.key),
@@ -3077,6 +3282,194 @@ def profile_device(label: str, fn):
     return busy
 
 
+# -- training the prior at its published widths -------------------------------
+
+# configs/imagenet_gpt_vitvq_base.yaml's prior trained through Trainer.fit
+# at full width (6144, 16 heads of 384, 8192 codes, 1 + 1024 tokens) over
+# its frozen ViT-VQGAN-Base tokenizer (fp32, the config's dtype; random
+# weights): 453 M parameters a layer hold 7.25 GB of training state (an
+# fp32 master weight, its gradient and two Adam moments), 174 GB at the
+# config's 24 layers, so the depth is cut to fit one 80 GB card beside a
+# plain reference step: (prior dtype, layers, steps)
+PRIOR_RUNS = (("bfloat16", 4, 3), ("float32", 2, 1))
+PRIOR_DEPTH_REASON = ("7.25 GB of training state a layer (453 M fp32 master "
+                      "weights, gradients and two Adam moments)")
+
+
+def prior_train_config(dtype: str, layers: int) -> dict:
+    """The config's model and a FakeImages dataset in place of ImageNet
+    (256 px, 1000 classes, the config's batch 4): the prior's dtype and
+    depth are the only changes to the model (and no stage-1 path: the
+    released weights are not in the repository)."""
+    model = json.loads(json.dumps(GPT_VITVQ_BASE))
+    prior = model["params"]["transformer"]["params"]
+    prior["n_layers"], prior["dtype"] = layers, dtype
+    fake = {"target": _FAKE, "params": {"resolution": 256,
+                                        "num_classes": 1000}}
+    data = {"target": "enhancing_tpu_torch.data.DataModuleFromConfig",
+            "params": {"batch_size": PRIOR_TRAIN_BATCH, "num_workers": 2,
+                       "train": {**fake, "params": {**fake["params"],
+                                                    "length": 64, "seed": 1}},
+                       "validation": {**fake, "params": {
+                           **fake["params"], "length": PRIOR_TRAIN_BATCH,
+                           "seed": 2}}}}
+    return {"model": model, "dataset": data}
+
+
+def prior_step_launches(dtype: str, layers: int, backward: bool) -> dict:
+    """Launches a prior step (backward) or validation batch makes, by
+    kernels-line name: the frozen fp32 tokenizer's encode (B1 24, fp32 B2
+    12, B3 1, B4 1), then B8 once a layer and B5 once a layer at D = 384."""
+    f32 = "_f32" if dtype == "float32" else ""
+    want = {"ln_gemm": 24, "attention_f32": 12, "layernorm": 1, "vq": 1,
+            "attention_bnhd" + f32: layers}
+    if backward:
+        want["attention_bwd_wide" + f32] = layers
+    return want
+
+
+# Every layer's key bias adds one vector to every key, which moves each
+# score row by a constant, which the softmax removes: its gradient is zero
+# in exact arithmetic, and both paths return rounding residue, whose
+# cosine means nothing. Those leaves are held instead to a small fraction
+# of the gradient norm of the same layer's query bias (bf16, fp32).
+# Set from the first measurement on the card (4.3e-4 bf16, 1.1e-6 fp32;
+# NVIDIA H100 80GB HBM3, 700 W) with a margin of about 25x.
+PRIOR_KEY_BIAS_LIMIT = (1e-2, 3e-5)
+
+
+def prior_agreement(names, got, want):
+    """The leaves' gradient cosines, least first, but the key biases'; and
+    (the largest norm of a key bias's gradient on either path over its
+    layer's query-bias gradient norm, that key bias)."""
+    grads = dict(zip(names, zip(got, want)))
+    cosines, bias = [], (0.0, "")
+    for name, (a, b) in grads.items():
+        if name.endswith("attn.key.bias"):
+            ref = float(grads[name.replace("key", "query")][1].norm())
+            ratio = max(float(a.norm()), float(b.norm())) / ref
+            bias = max(bias, (ratio, name))
+            continue
+        cosines.append(worst_cosine([name], [a], [b]))
+    return sorted(cosines), bias
+
+
+def prior_grads(model, codes, conds):
+    """The prior's loss and per-parameter gradients on one batch of codes,
+    without an update."""
+    params = list(model.transformer.parameters())
+    loss = model.loss_fn(codes, conds)
+    return float(loss.detach()), torch.autograd.grad(loss, params)
+
+
+def phase_prior_train() -> dict:
+    """PRIOR_RUNS through Trainer.fit, each: one step's loss and gradients
+    through the kernels against the plain path from the same weights and
+    batch, then the steps and a validation batch with their launches
+    asserted exactly, finite losses, every prior parameter moved, ms a step
+    and peak memory, one more step's device time by group."""
+    from enhancing_tpu_torch.models.stage2 import fp32_master_weights
+    from enhancing_tpu_torch.ops import reset_launches
+    from enhancing_tpu_torch.train import (Trainer,
+                                           make_cond_transformer_train_step)
+    from enhancing_tpu_torch.utils.config import initialize_from_config
+    limits = {"bfloat16": (LOSS_RTOL_LIMIT, 0.999, PRIOR_KEY_BIAS_LIMIT[0]),
+              "float32": (F32_LOSS_RTOL_LIMIT, F32_COS_LIMIT,
+                          PRIOR_KEY_BIAS_LIMIT[1])}
+    total: dict = {}
+    for dtype, layers, steps in PRIOR_RUNS:
+        gc_cuda()
+        tag = f"[prior-train {dtype[:4]}]"
+        cfg = prior_train_config(dtype, layers)
+        t0 = time.perf_counter()
+        model = initialize_from_config(cfg["model"], device="cuda")
+        data = initialize_from_config(cfg["dataset"])
+        data.setup()
+        gpt = fp32_master_weights(model.transformer)
+        names = [n for n, _ in gpt.named_parameters()]
+        n_params = sum(p.numel() for p in gpt.parameters())
+        log(f"{tag} imagenet_gpt_vitvq_base.yaml: n_layers 24 -> {layers} "
+            f"({PRIOR_DEPTH_REASON}); width {P_WIDTH}, {P_HEADS} heads of "
+            f"{P_HEAD_DIM}, {P_VOCAB} codes, {P_CTX} tokens; prior compute "
+            f"{dtype}, fp32 master weights, {n_params / 1e9:.3f} G "
+            f"parameters; frozen ViT-VQGAN-Base tokenizer fp32, random "
+            f"weights; FakeImages 256 px, 1000 classes, batch "
+            f"{PRIOR_TRAIN_BATCH}; built in {time.perf_counter() - t0:.1f} s")
+
+        # one step's loss and gradients, kernels against the plain path, on
+        # the same weights and codes (the tokenizer's, through its kernels)
+        batch = next(iter(data.train_dataloader()))
+        stage1 = model.stage1_model
+        codes = stage1.encode_codes(stage1.get_input(batch, "image")).clone()
+        conds = model.condition_codes(batch)
+        k_loss, k_grads = prior_grads(model, codes, conds)
+        with plain_versions():
+            p_loss, p_grads = prior_grads(model, codes, conds)
+        rel = abs(k_loss - p_loss) / abs(p_loss)
+        loss_lim, cos_lim, bias_lim = limits[dtype]
+        cos, bias = prior_agreement(names, k_grads, p_grads)
+        log(f"{tag} one step, kernels vs plain: loss {k_loss:.6f} vs "
+            f"{p_loss:.6f} ({rel:.3e} relative, limit {loss_lim}); least "
+            f"gradient cosine {cos[0][0]:.7f} ({cos[0][1]}; limit {cos_lim})"
+            f" over {len(names) - layers} leaves, next "
+            + ", ".join(f"{c:.7f} ({n})" for c, n in cos[1:4])
+            + f"; key biases (zero in exact arithmetic): largest |grad| "
+            f"{bias[0]:.3e} of the layer's query-bias |grad| ({bias[1]}; "
+            f"limit {bias_lim})")
+        check(rel <= loss_lim, f"{tag} loss disagrees with the plain path")
+        check(cos[0][0] >= cos_lim, f"{tag} gradients disagree with the "
+              "plain path")
+        check(bias[0] <= bias_lim, f"{tag} key-bias gradients not near 0")
+        del k_grads, p_grads
+        gc_cuda()
+
+        before = [p.detach().clone() for p in gpt.parameters()]
+        recorder = StepRecorder()
+        trainer = Trainer(max_steps=steps, log_every=1,
+                          metrics_logger=recorder)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        prev = dict(t=time.perf_counter(), counts=kernel_counts())
+        trainer.fit(model, data)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        check(len(recorder.records) == steps + 1,
+              f"{tag} {len(recorder.records)} log calls, expected {steps} "
+              "steps and one validation")
+        for i, r in enumerate(recorder.records):
+            got = {k: r["counts"][k] - prev["counts"][k] for k in r["counts"]
+                   if r["counts"][k] != prev["counts"][k]}
+            label = f"step {i}" if i < steps else "validation (1 batch)"
+            want = prior_step_launches(dtype, layers, i < steps)
+            ms = (r["t"] - prev["t"]) * 1e3
+            log(f"{tag} {label}: {ms:.1f} ms (host clock, synchronised), "
+                f"launches {got}; " + " ".join(
+                    f"{k}={v:.5g}" for k, v in sorted(r["metrics"].items())))
+            check(got == want, f"{tag} {label}: launches {got}, expected "
+                  f"{want}")
+            bad = [k for k, v in r["metrics"].items() if not np.isfinite(v)]
+            check(not bad, f"{tag} {label}: non-finite {bad}")
+            prev = r
+        for k, v in recorder.records[-1]["counts"].items():
+            total[k] = total.get(k, 0) + v
+        moved = sum(not torch.equal(p, q)
+                    for p, q in zip(gpt.parameters(), before))
+        log(f"{tag} {moved} of {len(before)} prior parameter tensors moved; "
+            f"peak memory {peak / 2**30:.2f} GiB")
+        check(moved == len(before), f"{tag} prior parameters did not move")
+        del before
+        gc_cuda()
+        images = stage1.get_input(batch, "image")
+        step = make_cond_transformer_train_step(model)
+        profile_device(f"one prior training step, {dtype}, {layers} layers, "
+                       f"batch {PRIOR_TRAIN_BATCH}",
+                       lambda: step(trainer.final_state, images, conds))
+        del model, gpt, trainer, step, data
+        gc_cuda()
+    return total
+
+
 def main() -> int:
     import enhancing_tpu_torch  # noqa: F401  (fails outside a checkout)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3095,8 +3488,9 @@ def main() -> int:
     shipped = phase_shipped_configs(x8, codes8)
     training32 = phase_train_f32()
     prior32 = phase_prior_f32()
+    prior_train = phase_prior_train()
     phases = (serving, training, sampling, serving8, fused, fused_routes,
-              shipped, training32, prior32)
+              shipped, training32, prior32, prior_train)
     kernels = []
     for kname in REPLACES:
         rows = times[kname]

@@ -24,11 +24,13 @@ block adds its bf16 branch outputs into it; LayerNorm statistics are fp32
 and its output, the token shift, q/k/v, the KV cache, the shift state and
 the logits are in the compute dtype. A flax Dense rounds the product to
 bf16 and adds the bias in bf16; the port's stage-1 ``Dense``, used here
-too, adds the bias inside the GEMM (one rounding; ROADMAP C). The GEMM
-weights are stored in the compute dtype: flax keeps fp32 parameters and
-casts them at each use, which gives the same numbers, and a bf16 prior
-stored so is cast once, when its weights are drawn or loaded, instead of
-at each of a sample's decode steps.
+too, adds the bias inside the GEMM (one rounding; ROADMAP C). A prior built
+to sample stores its GEMM weights in the compute dtype: flax keeps fp32
+parameters and casts them at each use, which gives the same numbers, and a
+bf16 prior stored so is cast once, when its weights are drawn or loaded,
+instead of at each of a sample's decode steps. Training stores them in
+fp32 and casts them at each use, as flax does (:func:`fp32_master_weights`,
+which the trainer's stage-2 build calls).
 
 Int8 serving (``models/stage2/quantize.py``), the JAX module's int8
 branches: once ``quantize_decode_params`` has given the GEMMs their int8
@@ -374,12 +376,11 @@ class GPT(nn.Module):
     ``device`` defaults to ``cuda``; ``dtype`` is the compute dtype
     (``"float32"`` or ``"bfloat16"``), in which the GEMM weights are also
     stored; the embeddings, LayerNorms, position embeddings and
-    ``time_mix`` are fp32, as the JAX module reads them. The prior's
-    training step, a later slice, decides its fp32 master weights
-    (ROADMAP A4). Random weights are drawn on
-    ``device`` from ``torch.Generator(device).manual_seed(seed)``: normal
-    (std 0.02) GEMM kernels and token embeddings, zero biases and position
-    embeddings, the ``time_mix`` ramp i / (C - 1).
+    ``time_mix`` are fp32, as the JAX module reads them. Training keeps the
+    GEMM weights in fp32 (:func:`fp32_master_weights`). Random weights are
+    drawn on ``device`` from ``torch.Generator(device).manual_seed(seed)``:
+    normal (std 0.02) GEMM kernels and token embeddings, zero biases and
+    position embeddings, the ``time_mix`` ramp i / (C - 1).
     """
 
     def __init__(self, vocab_cond_size: int, vocab_img_size: int,
@@ -587,3 +588,25 @@ class GPT(nn.Module):
         cache_row_update(k_all, k_news, cur_len)
         cache_row_update(v_all, v_news, cur_len)
         return self._head(x[:, -1], sites), cache
+
+
+def fp32_master_weights(gpt: GPT) -> GPT:
+    """Store every GEMM weight and bias of ``gpt`` in fp32, cast to the
+    compute dtype at each use, as flax keeps its parameters: the master
+    weights that training updates. Each block's q/k/v parameters stay row
+    blocks of one fused tensor (``MultiHeadSelfAttention.fused_qkv``), so an
+    optimizer's in-place updates reach the fused qkv product too. A prior
+    stored in fp32 already is left as it is. Returns ``gpt``."""
+    with torch.no_grad():
+        for module in gpt.modules():
+            if not isinstance(module, Dense):
+                continue
+            for attr in ("weight", "bias"):
+                p = getattr(module, attr)
+                if p is not None and p.dtype != torch.float32:
+                    setattr(module, attr, nn.Parameter(
+                        p.float(), requires_grad=p.requires_grad))
+        for block in gpt.blocks:
+            block.attn.fused_qkv("weight")
+            block.attn.fused_qkv("bias")
+    return gpt

@@ -83,7 +83,11 @@ class CondTransformer:
         """Frozen encodes: images -> codes, condition -> condition codes."""
         images = self.stage1_model.get_input(batch,
                                              self.stage1_model.image_key)
-        codes = self.stage1_model.encode_codes(images)
+        return (self.stage1_model.encode_codes(images),
+                self.condition_codes(batch))
+
+    def condition_codes(self, batch: Dict[str, Any]) -> torch.Tensor:
+        """The (B, T) int32 condition codes of a batch on the device."""
         cond_codes = self._ids(self.cond_model.encode_codes(
             batch[self.cond_key]))
         if cond_codes.ndim == 1:
@@ -97,7 +101,7 @@ class CondTransformer:
                     f"condition id {vmax} >= vocab_cond_size="
                     f"{self.transformer.vocab_cond_size}; check the "
                     "dataset's class range vs the transformer config")
-        return codes, cond_codes.to(torch.int32)
+        return cond_codes.to(torch.int32)
 
     def shared_step(self, batch: Dict[str, Any]) -> torch.Tensor:
         return self.loss_fn(*self.encode_inputs(batch))

@@ -29,11 +29,13 @@ other attention forwards:
   so that B8 on the lane slices of a qkv buffer gives B2's output bit for
   bit; the prior's 384 on ``attn_wide_kernel`` (an S warpgroup hands P to
   three O warpgroups that own 128 lanes of O each). Same numerics as
-  above. It has no backward yet: the prior's training step is a later
-  slice. Both kernels read each tensor through its own batch, head and row
-  strides (4-D TMA maps, :func:`attention_fwd_maps`) and a key length of
-  its own, and put the scale on q (in bf16) or on the fp32 scores, so they
-  also serve
+  above. Under autograd on CUDA it is a ``torch.autograd.Function`` as the
+  packed entry is (``_attention_fused_packed``'s ``custom_vjp``): B8
+  forward, the flash backward on the (B, N, H*D) views, at 384 on
+  ``csrc/attention_bwd_wide.cu``; the prior trains on it. Both kernels
+  read each tensor through its own batch, head and row strides (4-D TMA
+  maps, :func:`attention_fwd_maps`) and a key length of its own, and put
+  the scale on q (in bf16) or on the fp32 scores, so they also serve
   :func:`multihead_attention` ((B, H, N, D), the scale on the scores, the
   JAX public op; backward autograd of the plain version),
   :func:`_attention_fused_bnhd` ((B, N, H, D), likewise) and
@@ -75,7 +77,7 @@ import struct
 import torch
 
 from . import cuda_lib
-from .common import (F32_LAUNCHES, LAUNCHES, UNFUSED_CALLS,
+from .common import (F32_LAUNCHES, LAUNCHES, UNFUSED_CALLS, WIDE_LAUNCHES,
                      check_kernel_args, row_positions, use_kernel)
 from .ln_gemm import _plain_vjp
 
@@ -85,9 +87,10 @@ MASK_MODES = {"none": 0, "prefix_causal": 1}
 # (csrc/attention_bnhd.cu) and csrc/attention_bwd.cu run a head dim that is
 # a multiple of 8 up to 128 on the next of their tiles of 32, 64 and 128
 # lanes (the lanes past it are zeros that their 4-D tensor maps load and
-# their stores drop), attn_wide_kernel the prior's 384 (forward only).
-# fp32: csrc/attention_f32.cu on the same tiles (attn_f32_fwd_kernel and
-# the backward) and attn_f32_wide_kernel at 384 (forward only).
+# their stores drop), attn_wide_kernel the prior's 384; its backward is
+# csrc/attention_bwd_wide.cu. fp32: csrc/attention_f32.cu on the same tiles
+# (attn_f32_fwd_kernel and the backward), attn_f32_wide_kernel at 384 and
+# csrc/attention_bwd_wide.cu's fp32 form for its backward.
 KERNEL_TILES = (32, 64, 128)
 WIDE_HEAD_DIM = 384
 
@@ -97,25 +100,31 @@ def attention_route(dtype: torch.dtype, head_dim: int,
     """(kernel, tile) that the attention entries launch for ``dtype`` and
     ``head_dim``, as the C entries choose them: bf16 forwards on
     ``attn_fwd_kernel`` (tile 32, 64 or 128) or ``attn_wide_kernel`` (384),
-    the bf16 backward on ``attn_bwd`` (``csrc/attention_bwd.cu``), fp32 on
+    the bf16 backward on ``attn_bwd`` (``csrc/attention_bwd.cu``) or, at
+    384, ``attn_bwd_wide`` (``csrc/attention_bwd_wide.cu``), fp32 on
     ``attn_f32_fwd_kernel`` (the same tiles) or ``attn_f32_wide_kernel``
-    (384) and ``attn_f32_bwd`` (``csrc/attention_f32.cu``).
+    (384), ``attn_f32_bwd`` (``csrc/attention_f32.cu``) and at 384
+    ``attn_f32_bwd_wide`` (``csrc/attention_bwd_wide.cu``).
     Raises TypeError for another dtype and ValueError for a head dim no
-    kernel takes: not a multiple of 8, above 128 but not 384, or 384 in
-    the backward (ROADMAP.md queue B)."""
+    kernel takes: not a multiple of 8, or above 128 but not 384 (192 among
+    them: ROADMAP.md queue B)."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"attention kernels take bf16 or fp32, got {dtype}")
-    if head_dim == WIDE_HEAD_DIM and not backward:
-        return ("attn_wide_kernel" if dtype == torch.bfloat16
-                else "attn_f32_wide_kernel", WIDE_HEAD_DIM)
+    bf16 = dtype == torch.bfloat16
+    if head_dim == WIDE_HEAD_DIM:
+        if backward:
+            return ("attn_bwd_wide" if bf16 else "attn_f32_bwd_wide",
+                    WIDE_HEAD_DIM)
+        return ("attn_wide_kernel" if bf16 else "attn_f32_wide_kernel",
+                WIDE_HEAD_DIM)
     if head_dim <= 0 or head_dim % 8 or head_dim > KERNEL_TILES[-1]:
         raise ValueError(
             f"attention {'backward ' if backward else ''}kernel takes a "
-            f"head_dim that is a multiple of 8 up to {KERNEL_TILES[-1]}"
-            + ("" if backward else f" or {WIDE_HEAD_DIM}")
-            + f", got {head_dim}")
+            f"head_dim that is a multiple of 8 up to {KERNEL_TILES[-1]} or "
+            f"{WIDE_HEAD_DIM}, got {head_dim} (other head dims: ROADMAP.md "
+            "queue B)")
     tile = next(t for t in KERNEL_TILES if head_dim <= t)
-    if dtype == torch.bfloat16:
+    if bf16:
         return ("attn_bwd" if backward else "attn_fwd_kernel", tile)
     return ("attn_f32_bwd" if backward else "attn_f32_fwd_kernel", tile)
 
@@ -223,13 +232,15 @@ def attention_bwd_kernel(q3, k3, v3, do3, heads, head_dim, mask_mode="none",
     scaled), k, v and dO, or ``csrc/attention_f32.cu``'s backward (the split
     pass, then its rows and cols kernels on exact bf16 pieces) on fp32
     ones, each contiguous or a lane slice of a wider buffer with 16-byte
-    aligned rows; head dims that are multiples of 8 up to 128. Returns
+    aligned rows; head dims that are multiples of 8 up to 128. At head dim
+    384 (the GPT prior) ``csrc/attention_bwd_wide.cu`` in either dtype,
+    counted also in ``WIDE_LAUNCHES`` under its route's name. Returns
     contiguous dq, dk and dv."""
     b, n, hd = q3.shape
     if any(t.dtype != q3.dtype for t in (k3, v3, do3)):
         raise TypeError("attention backward kernel takes q, k, v, dO of one "
                         "dtype")
-    attention_route(q3.dtype, head_dim, backward=True)
+    route = attention_route(q3.dtype, head_dim, backward=True)[0]
     if hd != heads * head_dim:
         raise ValueError(f"attention backward kernel takes H*D lanes, got "
                          f"{tuple(q3.shape)} for {heads} x {head_dim}")
@@ -240,19 +251,28 @@ def attention_bwd_kernel(q3, k3, v3, do3, heads, head_dim, mask_mode="none",
     check_kernel_args("attention_bwd", q3, k3, v3, do3, strided_rows=True)
     grads = [torch.empty((b, n, hd), dtype=q3.dtype, device=q3.device)
              for _ in range(3)]
-    # the row statistics of every 128-row block of the rows kernel
+    # the row statistics (max, 1 / sum, delta) of every row, rows padded to
+    # a multiple of 128
     n_pad = -(-n // 128) * 128
     stats = torch.empty((3, b, heads, n_pad), dtype=torch.float32,
                         device=q3.device)
     f32 = q3.dtype == torch.float32
-    # fp32: the exact bf16 pieces of q, k, v and dO (csrc/attention_f32.cu)
-    pieces = ((f32_pieces(4 * b * n * hd, q3.device).data_ptr(),) if f32
-              else ())
-    cuda_lib.call("etk_attention_bwd_f32" if f32 else "etk_attention_bwd",
-                  *(t.data_ptr() for t in (q3, k3, v3, do3, *grads, stats)),
-                  *pieces, *(t.stride(1) for t in (q3, k3, v3, do3, *grads)),
-                  b, n, heads, head_dim, MASK_MODES[mask_mode],
-                  int(cond_len), cuda_lib.stream())
+    ptrs = [t.data_ptr() for t in (q3, k3, v3, do3, *grads, stats)]
+    lds = [t.stride(1) for t in (q3, k3, v3, do3, *grads)]
+    if head_dim == WIDE_HEAD_DIM:
+        # fp32 operands are split into bf16 pieces as the kernel loads them
+        cuda_lib.call("etk_attention_bwd_wide", *ptrs, *lds, b, n, heads,
+                      _DTYPES[q3.dtype], MASK_MODES[mask_mode],
+                      int(cond_len), cuda_lib.stream())
+        WIDE_LAUNCHES[route] += 1
+    else:
+        # fp32: the exact bf16 pieces of q, k, v and dO
+        # (csrc/attention_f32.cu)
+        pieces = ((f32_pieces(4 * b * n * hd, q3.device).data_ptr(),) if f32
+                  else ())
+        cuda_lib.call("etk_attention_bwd_f32" if f32 else "etk_attention_bwd",
+                      *ptrs, *pieces, *lds, b, n, heads, head_dim,
+                      MASK_MODES[mask_mode], int(cond_len), cuda_lib.stream())
     LAUNCHES["attention_bwd"] += 1
     if f32:
         F32_LAUNCHES["attention_bwd"] += 1
@@ -496,16 +516,52 @@ def attention_bnhd_kernel(q, k, v, scale, mask_mode="none", cond_len=0):
                                     mask_mode, cond_len)
 
 
+class _BNHDAttention(torch.autograd.Function):
+    """B8 forward, B5 backward on (B, N, H, D) q, k and v: the counterpart
+    of ``_attention_fused_packed``'s ``custom_vjp``
+    (``attention.py:1078-1095``), which ``multihead_attention_bnhd``
+    enters with q already scaled. The forward saves q, k and v; the
+    backward scales q in its dtype, runs the flash backward on the (B, N,
+    H*D) views against dO and chains dq through the scale, as
+    ``_PackedQKVAttention`` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, mask_mode, cond_len):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (scale, mask_mode, cond_len)
+        return attention_bnhd_kernel(q, k, v, scale, mask_mode, cond_len)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        scale, mask_mode, cond_len = ctx.args
+        b, n, h, d = q.shape
+        c = torch.tensor(scale, dtype=q.dtype)
+        q3, k3, v3, do3 = ((t * c if t is q else t).reshape(b, -1, h * d)
+                           for t in (q, k, v, g.to(q.dtype)))
+        dq, dk, dv = attention_bwd_kernel(q3, k3, v3, do3.contiguous(), h, d,
+                                          mask_mode, cond_len)
+        dq = dq * c  # through q's scale
+        return (dq.view(q.shape), dk.view(k.shape), dv.view(v.shape), None,
+                None, None)
+
+
 def multihead_attention_bnhd(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, scale: float | None = None,
                              mask_mode: str = "none",
                              cond_len: int = 0) -> torch.Tensor:
     """Attention over (batch, seq, heads, head_dim) q, k and v; returns the
     same layout. mask_mode 'none' or 'prefix_causal' (causal, the first
-    ``cond_len`` tokens mutually visible); scale defaults to D**-0.5."""
+    ``cond_len`` tokens mutually visible); scale defaults to D**-0.5.
+    Differentiable: on CUDA, where an input needs a gradient, through
+    :class:`_BNHDAttention` (B8 forward, B5 backward; N = M, a head dim B5
+    takes); on the CPU autograd of the plain version."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if use_kernel(q, k, v, op="attention_bnhd"):
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            return _BNHDAttention.apply(q, k, v, scale, mask_mode, cond_len)
         return attention_bnhd_kernel(q, k, v, scale, mask_mode, cond_len)
     return attention_bnhd_plain(q, k, v, scale, mask_mode, cond_len)
 

@@ -29,6 +29,11 @@ LAUNCHES: dict[str, int] = {"ln_gemm": 0, "attention": 0, "layernorm": 0,
 # The fp32 launches among them (csrc/attention_f32.cu's, counted in
 # LAUNCHES under the name of the bf16 kernel they stand beside too).
 F32_LAUNCHES: dict[str, int] = {name: 0 for name in LAUNCHES}
+# The launches among them of the kernels of their own that a head dim of 384
+# runs (the GPT prior's), by route name (ops.attention.attention_route):
+# the attention backward's attn_bwd_wide (bf16) and attn_f32_bwd_wide
+# (fp32), both also counted under "attention_bwd".
+WIDE_LAUNCHES: dict[str, int] = {"attn_bwd_wide": 0, "attn_f32_bwd_wide": 0}
 # Op calls on CUDA tensors that force_plain_ops sent to the plain version.
 PLAIN_CALLS: dict[str, int] = {name: 0 for name in LAUNCHES}
 # Calls of an opt-in fusion on CUDA tensors that its route (a function of
@@ -42,7 +47,8 @@ _FORCE_PLAIN_DEPTH = 0
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, F32_LAUNCHES, PLAIN_CALLS, UNFUSED_CALLS):
+    for counts in (LAUNCHES, F32_LAUNCHES, WIDE_LAUNCHES, PLAIN_CALLS,
+                   UNFUSED_CALLS):
         for name in counts:
             counts[name] = 0
 

@@ -2,13 +2,20 @@ from .optim import (
     ExponentialDecayScheduler,
     LambdaWarmUpCosineScheduler,
     LambdaWarmUpLinearScheduler,
+    gpt_decay_mask,
     make_ae_optimizer,
+    make_gpt_optimizer,
 )
-from .steps import GANTrainState, make_vitvq_eval_step, make_vitvq_train_step
+from .steps import (GANTrainState, TrainState,
+                    make_cond_transformer_eval_step,
+                    make_cond_transformer_train_step, make_vitvq_eval_step,
+                    make_vitvq_train_step)
 from .trainer import Trainer
 
 __all__ = [
     "ExponentialDecayScheduler", "LambdaWarmUpCosineScheduler",
-    "LambdaWarmUpLinearScheduler", "make_ae_optimizer", "GANTrainState",
+    "LambdaWarmUpLinearScheduler", "gpt_decay_mask", "make_ae_optimizer",
+    "make_gpt_optimizer", "GANTrainState", "TrainState",
+    "make_cond_transformer_eval_step", "make_cond_transformer_train_step",
     "make_vitvq_eval_step", "make_vitvq_train_step", "Trainer",
 ]

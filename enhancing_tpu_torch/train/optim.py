@@ -1,18 +1,32 @@
-"""Optimizers and LR schedules for the stage-1 trainer.
+"""Optimizers and LR schedules for the trainer.
 
 Counterpart of ``enhancing_tpu/train/optim.py``: the schedulers are
 step -> multiplier functions (copied, with Python floats in place of jnp),
-and the stage-1 recipe is AdamW(betas=(0.9, 0.99), weight decay 1e-4)
-for the autoencoder and for the discriminator, each with its own
-``torch.optim.AdamW`` and a ``LambdaLR`` stepped once per update, so the
-n-th update uses the multiplier of step n as optax evaluates it.
+and the two recipes, each a ``torch.optim.AdamW`` and a ``LambdaLR``
+stepped once per update, so the n-th update uses the multiplier of step n
+as optax evaluates it:
+
+- stage 1: AdamW(betas=(0.9, 0.99), weight decay 1e-4) for the
+  autoencoder and for the discriminator;
+- the stage-2 GPT prior: the optax chain ``scale_by_adam(0.9, 0.96)`` ->
+  ``add_decayed_weights(0.01, gpt_decay_mask)`` ->
+  ``scale_by_learning_rate``, which is AdamW(betas=(0.9, 0.96), eps 1e-8)
+  over two parameter groups, weight decay 0.01 and 0 (both subtract lr
+  times the decay times the old parameter beside lr times the Adam step).
+  The mask decides on each parameter's name in the JAX tree
+  (:func:`gpt_jax_name`), with the JAX package's own pattern: the port's
+  names (``tok_emb_code.weight``, ``ln1.weight``) would match it wrongly.
 """
 from __future__ import annotations
 
 import math
-from typing import Iterable, Optional, Tuple
+import re
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
+from torch import nn
+
+from ..models.stage2.layers import LayerNorm
 
 
 class BaseScheduler:
@@ -95,5 +109,59 @@ def make_ae_optimizer(params: Iterable[torch.nn.Parameter], base_lr: float,
     schedule (step the scheduler after every optimizer step)."""
     opt = torch.optim.AdamW(params, lr=base_lr, betas=(0.9, 0.99), eps=1e-8,
                             weight_decay=1e-4)
+    return opt, _lambda_lr(opt, scheduler)
+
+
+def _lambda_lr(opt: torch.optim.Optimizer,
+               scheduler: Optional[BaseScheduler]
+               ) -> torch.optim.lr_scheduler.LambdaLR:
     factor = scheduler.schedule if scheduler is not None else (lambda n: 1.0)
-    return opt, torch.optim.lr_scheduler.LambdaLR(opt, factor)
+    return torch.optim.lr_scheduler.LambdaLR(opt, factor)
+
+
+# the prior's weight decay, on the leaves that gpt_decay_mask marks
+_GPT_WEIGHT_DECAY = 0.01
+
+# the JAX package's no-decay pattern (enhancing_tpu/train/optim.py), matched
+# against "/"-joined JAX tree paths
+_NO_DECAY_PAT = re.compile(
+    r"(bias$)|(^|/)(pos_emb_cond|pos_emb_code|pos_emb_depth|time_mix)"
+    r"|(embedding$)|(scale$)|(layer_norm|ln1|ln2|ln_spatial|ln_depth|norm)"
+)
+
+
+def gpt_jax_name(gpt: nn.Module, name: str) -> str:
+    """The path, "/"-joined, of the JAX GPT leaf (``scan_layers=False``)
+    that the port's parameter ``name`` holds, as ``compat.load_gpt_from_jax``
+    maps them: an ``nn.Embedding``'s weight is an ``embedding``, a
+    LayerNorm's a ``scale``, a GEMM's a ``kernel``."""
+    owner, leaf = name.rsplit(".", 1) if "." in name else ("", name)
+    if leaf == "weight":
+        module = gpt.get_submodule(owner)
+        leaf = ("embedding" if isinstance(module, nn.Embedding) else
+                "scale" if isinstance(module, LayerNorm) else "kernel")
+    return "/".join([*owner.split("."), leaf] if owner else [leaf])
+
+
+def gpt_decay_mask(gpt: nn.Module) -> Dict[str, bool]:
+    """Port parameter name -> whether weight decay applies, the JAX
+    ``gpt_decay_mask`` (the minGPT split) read on each leaf's JAX path."""
+    return {name: _NO_DECAY_PAT.search(gpt_jax_name(gpt, name)) is None
+            for name, _ in gpt.named_parameters()}
+
+
+def make_gpt_optimizer(gpt: nn.Module, base_lr: float,
+                       scheduler: Optional[BaseScheduler] = None
+                       ) -> Tuple[torch.optim.AdamW,
+                                  torch.optim.lr_scheduler.LambdaLR]:
+    """AdamW(betas=(0.9, 0.96)) over the prior's parameters with weight
+    decay where :func:`gpt_decay_mask` says, and its LR schedule (step the
+    scheduler after every optimizer step)."""
+    mask = gpt_decay_mask(gpt)
+    params = dict(gpt.named_parameters())
+    groups = [{"params": [p for n, p in params.items() if mask[n] == decay],
+               "weight_decay": _GPT_WEIGHT_DECAY if decay else 0.0}
+              for decay in (True, False)]
+    opt = torch.optim.AdamW([g for g in groups if g["params"]], lr=base_lr,
+                            betas=(0.9, 0.96), eps=1e-8)
+    return opt, _lambda_lr(opt, scheduler)

@@ -1,6 +1,14 @@
-"""Stage-1 GAN training step and validation step.
+"""Training and validation steps: the stage-1 GAN and the stage-2 prior.
 
-Counterpart of ``enhancing_tpu/train/steps.py:46-153, 254-281``. One call
+Counterpart of ``enhancing_tpu/train/steps.py:46-153, 254-376``. The
+stage-2 steps (:func:`make_cond_transformer_train_step`,
+:func:`make_cond_transformer_eval_step`) encode the images with the frozen
+tokenizer under ``torch.no_grad()`` (JAX's ``stop_gradient``), then take
+the prior's fp32 cross-entropy (``CondTransformer.loss_fn``) and, in
+training, its gradient w.r.t. the prior's parameters only and the AdamW
+update. On CUDA the prior's attention runs B8 forward and B5 backward
+(``ops.multihead_attention_bnhd``). One call of the stage-1 train step
+runs
 of the train step runs, in the JAX step's order:
 
 1. the adaptive adversarial weight, when the loss asks for it: gradients
@@ -26,6 +34,16 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 Log = Dict[str, torch.Tensor]
+
+
+@dataclass
+class TrainState:
+    """The stage-2 prior's optimizer state and step counter; the parameters
+    live in the prior."""
+
+    step: int
+    opt: torch.optim.Optimizer
+    sched: torch.optim.lr_scheduler.LRScheduler
 
 
 @dataclass
@@ -141,5 +159,42 @@ def make_vitvq_eval_step(model, loss_obj) -> Callable[..., Log]:
         else:
             _, log = loss_obj.generator_loss(qloss, x, xrec, split="val")
         return log
+
+    return eval_step
+
+
+def _frozen_codes(cond_model, images: torch.Tensor) -> torch.Tensor:
+    """The frozen tokenizer's codes of ``images``, outside any graph."""
+    with torch.no_grad():
+        return cond_model.stage1_model.module.encode_codes(images)
+
+
+def make_cond_transformer_train_step(cond_model) -> Callable[..., Log]:
+    """The stage-2 prior step ``train_step(state, images, conds) -> log``:
+    frozen encode of ``images`` (B, H, W, C), cross-entropy of the prior on
+    the codes given the condition codes ``conds`` (B, T), and the update of
+    the prior's parameters by ``state.opt`` (AdamW, ``make_gpt_optimizer``).
+    Logs ``train/total_loss``."""
+    params = list(cond_model.transformer.parameters())
+
+    def train_step(state: TrainState, images: torch.Tensor,
+                   conds: torch.Tensor) -> Log:
+        loss = cond_model.loss_fn(_frozen_codes(cond_model, images), conds)
+        _update(params, loss, state.opt, state.sched)
+        state.step += 1
+        return {"train/total_loss": loss.detach()}
+
+    return train_step
+
+
+def make_cond_transformer_eval_step(cond_model) -> Callable[..., Log]:
+    """Validation ``eval_step(state, images, conds) -> log``: the prior's
+    cross-entropy on the frozen tokenizer's codes, ``val/total_loss``."""
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, images: torch.Tensor,
+                  conds: torch.Tensor) -> Log:
+        codes = _frozen_codes(cond_model, images)
+        return {"val/total_loss": cond_model.loss_fn(codes, conds)}
 
     return eval_step

@@ -1,16 +1,20 @@
-"""The stage-1 training loop on one device.
+"""The training loop on one device.
 
-Counterpart of ``enhancing_tpu/train/trainer.py:37-242`` for the stage-1
-tokenizer: ``fit(model, data)`` runs the train step over the training
-loader for ``max_epochs`` epochs or ``max_steps`` steps, with lazy R1 on
-every ``do_r1_every``-th batch of an epoch (batch 0 included), logs every
-``log_every`` steps, and validates at the end of each epoch. The model's
-``device`` is the device it trains on.
+Counterpart of ``enhancing_tpu/train/trainer.py:37-326``: ``fit(model,
+data)`` runs the train step over the training loader for ``max_epochs``
+epochs or ``max_steps`` steps, logs every ``log_every`` steps, and
+validates at the end of each epoch. The model's ``device`` is the device
+it trains on. A stage-1 tokenizer (``ViTVQ``) trains its GAN step, with
+lazy R1 on every ``do_r1_every``-th batch of an epoch (batch 0 included);
+a stage-2 ``CondTransformer`` trains its GPT prior on the frozen
+tokenizer's codes (``_build_stage2``: fp32 master weights,
+``make_gpt_optimizer``), validating on ``val/total_loss``.
 
 Options the port cannot honour yet raise ``NotImplementedError``:
-checkpoints (``basedir``, ``resume``), meshes and parallelism (``mesh``,
-``zero1``, ``sp``, ``pipeline_parallel``), the split GAN step
-(``split_gan_step``, ``reuse_xrec``), and stage-2 models.
+checkpoints (``basedir``, ``resume``; ROADMAP A7), meshes and parallelism
+(``mesh``, ``zero1``, ``sp``, ``pipeline_parallel``; A9), the split GAN
+step (``split_gan_step``, ``reuse_xrec``). The JAX trainer's image-logger
+callbacks wait for A7.
 """
 from __future__ import annotations
 
@@ -19,8 +23,13 @@ from typing import Any, Dict, Optional
 import numpy as np
 
 from ..models.stage1.vitvqgan import ViTVQ
-from .optim import make_ae_optimizer
-from .steps import GANTrainState, make_vitvq_eval_step, make_vitvq_train_step
+from ..models.stage2.layers import fp32_master_weights
+from ..models.stage2.transformer import CondTransformer
+from .optim import make_ae_optimizer, make_gpt_optimizer
+from .steps import (GANTrainState, TrainState,
+                    make_cond_transformer_eval_step,
+                    make_cond_transformer_train_step, make_vitvq_eval_step,
+                    make_vitvq_train_step)
 
 
 class Trainer:
@@ -30,18 +39,22 @@ class Trainer:
                  max_steps: Optional[int] = None,
                  split_gan_step: bool = False, reuse_xrec: bool = False,
                  metrics_logger=None, zero1: bool = False, sp: bool = False,
-                 pipeline_parallel: int = 1, resume: bool = False) -> None:
+                 pipeline_parallel: int = 1, resume: bool = False,
+                 accumulate_grad_batches: int = 1) -> None:
+        # option -> (asked for, the ROADMAP.md item that ports it)
         unsupported = {
-            "basedir (checkpoints)": basedir is not None,
-            "resume": resume,
-            "mesh": mesh is not None,
-            "zero1": zero1,
-            "sp": sp,
-            "pipeline_parallel": pipeline_parallel != 1,
-            "split_gan_step": split_gan_step,
-            "reuse_xrec": reuse_xrec,
+            "basedir (checkpoints)": (basedir is not None, "A7"),
+            "resume": (resume, "A7"),
+            "mesh": (mesh is not None, "A9"),
+            "zero1": (zero1, "A9"),
+            "sp": (sp, "A9"),
+            "pipeline_parallel": (pipeline_parallel != 1, "A9"),
+            "split_gan_step": (split_gan_step, "A3"),
+            "reuse_xrec": (reuse_xrec, "A3"),
+            "accumulate_grad_batches": (accumulate_grad_batches != 1, "A3"),
         }
-        asked = [name for name, on in unsupported.items() if on]
+        asked = [f"{name} (ROADMAP {item})"
+                 for name, (on, item) in unsupported.items() if on]
         if asked:
             raise NotImplementedError(
                 f"the port's Trainer does not support {asked} yet")
@@ -56,16 +69,20 @@ class Trainer:
         self.global_step = 0
         self.last_log: Dict[str, Any] = {}
 
+    def _scheduler(self, model):
+        """The model config's LR scheduler, started at ``base_lr``."""
+        if model.scheduler is None:
+            return None
+        from ..utils.config import initialize_from_config
+        cfg = dict(model.scheduler)
+        cfg["params"] = dict(cfg.get("params") or {}, start=self.base_lr)
+        return initialize_from_config(cfg)
+
     def _build_stage1(self, model):
         loss_obj = model.loss
         if hasattr(loss_obj, "check_trainable"):
             loss_obj.check_trainable()
-        sched = None
-        if model.scheduler is not None:
-            from ..utils.config import initialize_from_config
-            cfg = dict(model.scheduler)
-            cfg["params"] = dict(cfg.get("params") or {}, start=self.base_lr)
-            sched = initialize_from_config(cfg)
+        sched = self._scheduler(model)
         ae_opt, ae_sched = make_ae_optimizer(model.module.parameters(),
                                              self.base_lr, sched)
         state = GANTrainState(step=0, ae_opt=ae_opt, ae_sched=ae_sched)
@@ -75,12 +92,27 @@ class Trainer:
         return (state, make_vitvq_train_step(model, loss_obj),
                 make_vitvq_eval_step(model, loss_obj))
 
+    def _build_stage2(self, model: CondTransformer):
+        """The prior's fp32 master weights, optimizer and steps."""
+        gpt = fp32_master_weights(model.transformer)
+        opt, sched = make_gpt_optimizer(gpt, self.base_lr,
+                                        self._scheduler(model))
+        return (TrainState(step=0, opt=opt, sched=sched),
+                make_cond_transformer_train_step(model),
+                make_cond_transformer_eval_step(model))
+
     def fit(self, model, data) -> None:
-        if not isinstance(model, ViTVQ):
+        if not isinstance(model, (ViTVQ, CondTransformer)):
             raise NotImplementedError(
-                "the port trains stage-1 tokenizers only; stage 2 is a "
-                "later slice")
+                f"the port trains ViTVQ tokenizers and CondTransformer "
+                f"priors, not {type(model).__name__}")
         data.setup()
+        if isinstance(model, CondTransformer):
+            self._fit_stage2(model, data)
+        else:
+            self._fit_stage1(model, data)
+
+    def _fit_stage1(self, model, data) -> None:
         state, train_step, eval_step = self._build_stage1(model)
         do_r1_every = getattr(model.loss, "do_r1_every", 0)
         model.module.train()
@@ -102,11 +134,37 @@ class Trainer:
             model.module.eval()
         self.final_state = state
 
+    def _fit_stage2(self, model: CondTransformer, data) -> None:
+        state, train_step, eval_step = self._build_stage2(model)
+        for epoch in range(self.max_epochs):
+            for batch in data.train_dataloader():
+                log = train_step(state, *self._stage2_batch(model, batch))
+                self.last_log = log
+                self.global_step += 1
+                self._maybe_log(log, epoch)
+                if self.max_steps and self.global_step >= self.max_steps:
+                    break
+            self._validate(model, data, state, eval_step, epoch)
+            if self.max_steps and self.global_step >= self.max_steps:
+                break
+        self.final_state = state
+
+    @staticmethod
+    def _stage2_batch(model: CondTransformer, batch):
+        """(images (B, H, W, C), condition codes (B, T)) on the device."""
+        stage1 = model.stage1_model
+        return (stage1.get_input(batch, stage1.image_key),
+                model.condition_codes(batch))
+
     def _validate(self, model, data, state, eval_step, epoch) -> None:
         if "validation" not in getattr(data, "datasets", {}):
             return
-        logs = [eval_step(state, model.get_input(batch, model.image_key))
-                for batch in data.val_dataloader()]
+        if isinstance(model, CondTransformer):
+            logs = [eval_step(state, *self._stage2_batch(model, batch))
+                    for batch in data.val_dataloader()]
+        else:
+            logs = [eval_step(state, model.get_input(batch, model.image_key))
+                    for batch in data.val_dataloader()]
         if logs:
             mean_log = {k: float(np.mean([float(l[k]) for l in logs]))
                         for k in logs[0]}

@@ -130,6 +130,25 @@ def test_f32_backward_matches_autograd_of_plain(cuda, d, b, n, h, mode, cl):
         assert torch.equal(g, a)
 
 
+@pytest.mark.parametrize("b,n,h,mode,cl", [(2, 1025, 2, "prefix_causal", 1),
+                                           (1, 77, 2, "none", 0)])
+def test_f32_backward_at_384_matches_autograd_of_plain(cuda, b, n, h, mode,
+                                                       cl):
+    """B5 in fp32 at the prior's head dim (csrc/attention_bwd_wide.cu), on
+    the lane slices of a qkv buffer, against autograd of the plain
+    version; two calls give the same bits."""
+    d = 384
+    qkv = _randn(cuda, b, n, 3 * h * d)
+    q3, k3, v3 = att.split_qkv_scaled(qkv, d ** -0.5)
+    do = _randn(cuda, b, n, h * d)
+    got = att.attention_bwd_kernel(q3, k3, v3, do, h, d, mode, cl)
+    again = att.attention_bwd_kernel(q3, k3, v3, do, h, d, mode, cl)
+    want = att.attention_bwd_plain(q3, k3, v3, do, h, d, mode, cl)
+    for g, a, w in zip(got, again, want):
+        _close(g, w, F32_BWD_TOL)
+        assert torch.equal(g, a)
+
+
 def test_f32_autograd_goes_through_both_kernels(cuda):
     """The fp32 tokenizer's attention under autograd: forward and backward
     each one fp32 launch, gradients those of the plain version."""
@@ -174,7 +193,7 @@ def test_bf16_head_dims_between_the_tiles(cuda, d, b, n, h, mode, cl):
 
 
 def test_f32_kernels_refuse_what_they_do_not_take(cuda):
-    """fp32 D = 192, the backward at 384, fp16, mixed dtypes; the raw
+    """fp32 D = 192, the backward at 192, fp16, mixed dtypes; the raw
     launches of the opt-in fusions B15 and B16 run fp32 on their fp32
     kernels (the plain versions' results) and refuse mixed dtypes and the
     shapes their plans refuse (D = 80), naming the route that sends those
@@ -182,9 +201,9 @@ def test_f32_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="head_dim"):
         att.attention_packed_qkv_kernel(_randn(cuda, 1, 16, 3 * 2 * 192), 2,
                                         192, 0.1)
-    q3 = _randn(cuda, 1, 16, 2 * 384)
+    q3 = _randn(cuda, 1, 16, 2 * 192)
     with pytest.raises(ValueError, match="head_dim"):
-        att.attention_bwd_kernel(q3, q3, q3, q3, 2, 384)
+        att.attention_bwd_kernel(q3, q3, q3, q3, 2, 192)
     with pytest.raises(TypeError):
         att.attention_packed_qkv_kernel(
             _randn(cuda, 1, 16, 3 * 2 * 64, dtype=torch.float16), 2, 64, 0.1)

@@ -213,6 +213,8 @@ ROUTES = [
     (torch.float32, 384, False, ("attn_f32_wide_kernel", 384)),
     (torch.float32, 80, True, ("attn_f32_bwd", 128)),
     (torch.float32, 32, True, ("attn_f32_bwd", 32)),
+    (torch.bfloat16, 384, True, ("attn_bwd_wide", 384)),
+    (torch.float32, 384, True, ("attn_f32_bwd_wide", 384)),
 ]
 
 
@@ -227,12 +229,11 @@ def test_attention_route_by_dtype_and_head_dim(dtype, d, backward, want):
     (torch.bfloat16, 20, False, ValueError),
     (torch.bfloat16, 192, False, ValueError),
     (torch.float32, 256, False, ValueError),
-    (torch.bfloat16, 384, True, ValueError),
-    (torch.float32, 384, True, ValueError),
+    (torch.bfloat16, 192, True, ValueError),
     (torch.float32, 4, True, ValueError)])
 def test_attention_route_refusals(dtype, d, backward, err):
-    """fp16, int8, head dims not a multiple of 8 or above 128 (but the
-    forward's 384), and 384 in the backward (ROADMAP.md queue B)."""
+    """fp16, int8, head dims not a multiple of 8 or above 128 but not 384
+    (192 among them, forward and backward: ROADMAP.md queue B)."""
     with pytest.raises(err):
         tatt.attention_route(dtype, d, backward)
 

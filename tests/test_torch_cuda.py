@@ -258,6 +258,8 @@ def _grad_close(got, want, label):
     (1, 130, 3, 32, "prefix_causal", 70),
     (2, 77, 2, 128, "none", 0),
     (1, 200, 2, 128, "prefix_causal", 0),
+    (2, 1025, 2, 384, "prefix_causal", 1),
+    (1, 77, 2, 384, "none", 0),
 ])
 def test_attention_bwd_kernel_matches_plain(cuda, b, n, h, d, mode, cl):
     qkv = _randn(cuda, b, n, 3 * h * d, dtype=torch.bfloat16)
@@ -285,6 +287,32 @@ def test_attention_autograd_goes_through_both_kernels(cuda):
     out_p = att.attention_packed_qkv_plain(ref, 2, 64, 64 ** -0.5)
     (want,) = torch.autograd.grad(out_p, ref, do)
     _grad_close(got, want, "dqkv")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 384])
+def test_bnhd_autograd_goes_through_b8_and_b5(cuda, d, dtype):
+    """multihead_attention_bnhd under autograd: one B8 and one B5 launch
+    (at 384 csrc/attention_bwd_wide.cu's), gradients against autograd of
+    the plain version; fp32 to 1e-4 + 1e-4 relative (the fp32 backward's
+    limit, tests/test_torch_attention_f32.py), bf16 to _grad_close."""
+    q, k, v, do = (_randn(cuda, 2, 130, 2, d, dtype=dtype) for _ in range(4))
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    common.reset_launches()
+    out = att.multihead_attention_bnhd(*leaves, mask_mode="prefix_causal",
+                                       cond_len=1)
+    got = torch.autograd.grad(out, leaves, do)
+    assert common.LAUNCHES["attention_bnhd"] == 1
+    assert common.LAUNCHES["attention_bwd"] == 1
+    assert sum(common.WIDE_LAUNCHES.values()) == (d == 384)
+    ref = [t.detach().requires_grad_() for t in (q, k, v)]
+    out_p = att.attention_bnhd_plain(*ref, d ** -0.5, "prefix_causal", 1)
+    want = torch.autograd.grad(out_p, ref, do)
+    for name, g, w in zip("qkv", got, want):
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+        else:
+            _grad_close(g, w, "d" + name)
 
 
 @pytest.mark.parametrize("mode", [0, 1, 2, 3])

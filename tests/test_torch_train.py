@@ -175,8 +175,9 @@ def test_trainer_refuses_random_lpips_and_unsupported_options():
     with pytest.raises(ValueError, match="allow_random_lpips"):
         Trainer(max_steps=1).fit(model, initialize_from_config(cfg.dataset))
     for kw in (dict(basedir="ckpt"), dict(resume=True),
-               dict(split_gan_step=True), dict(zero1=True)):
-        with pytest.raises(NotImplementedError):
+               dict(split_gan_step=True), dict(zero1=True),
+               dict(accumulate_grad_batches=2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP A"):
             Trainer(**kw)
 
 
