@@ -38,8 +38,9 @@ Phases, each of which raises on failure:
    sm_90a, with the ptxas register and shared-memory report; the SASS of
    the bf16 LN -> GEMM, the fused FFN, attention -> projection, the
    attention forwards (head dims up to 128, and the prior's 384), the
-   attention backward, their fp32 counterparts (fp32 attention -> projection
-   and FFN among them) and the int8 decode MLP must hold wgmma (HGMMA) and
+   attention backward (and at the prior's 384), their fp32 counterparts
+   (fp32 attention -> projection and FFN among them) and the int8 decode
+   MLP must hold wgmma (HGMMA) and
    TMA loads (UTMALDG) and no mma.sync (``cuobjdump``), and the fp32
    kernels' wgmma must all be bf16 (exact pieces; no TF32);
 3. each kernel against its plain PyTorch version on the card at the main
@@ -433,9 +434,10 @@ def phase_build() -> None:
 
 # the bf16 LN -> GEMM (B1), the fused FFN (B16), attention -> projection
 # (B15), the attention forwards (B2, B8 at head dims up to 128, B17-B19;
-# B8 at the prior's 384), the attention backward's two kernels (B5), their
-# fp32 counterparts on exact bf16 pieces (B15 and B16 among them) and the
-# int8 decode MLP (B14) run
+# B8 at the prior's 384), the attention backward's two kernels (B5; and
+# at the prior's 384, csrc/attention_bwd_wide.cu), their fp32
+# counterparts on exact bf16 pieces (B15 and B16 among them) and the int8
+# decode MLP (B14) run
 # on Hopper's warpgroup MMA fed by TMA: their SASS holds HGMMA and
 # UTMALDG, and no mma.sync (HMMA). Each family by its demangled or mangled
 # name.
@@ -452,26 +454,22 @@ SM90_KERNELS = {"ln_gemm": ("ln_gemm_kernel<", "ln_gemm_kernelI"),
                 "attention_bwd f32 cols": ("attn_f32_bwd_cols_kernel",),
                 "attn_proj f32": ("attn_proj_f32_kernel",),
                 "ffn f32": ("ffn_f32_kernel",),
-                "int8_mlp": ("int8_mlp_kernel",)}
-# the fp32 kernels (csrc/attention_f32.cu, attn_proj_f32.cu, ffn_f32.cu)
-# compute fp32 products as six bf16 products of exact pieces: every HGMMA
-# of theirs is BF16, and none is TF32 (a single TF32 pass misses the fp32
-# limits)
+                "int8_mlp": ("int8_mlp_kernel",),
+                "attention_bwd D=384 rows": ("attn_bwd_wide_rows_kernel",),
+                "attention_bwd D=384 cols": ("attn_bwd_wide_cols_kernel",)}
+# the fp32 kernels (csrc/attention_f32.cu, attn_proj_f32.cu, ffn_f32.cu,
+# and csrc/attention_bwd_wide.cu, whose bf16 and fp32 forms share a
+# template) compute fp32 products as six bf16 products of exact pieces:
+# every HGMMA of theirs is BF16, and none is TF32 (a single TF32 pass
+# misses the fp32 limits)
 F32_PIECE_FAMILIES = ("attention fwd f32", "attention fwd f32 D=384",
                       "attention_bwd f32 rows", "attention_bwd f32 cols",
-                      "attn_proj f32", "ffn f32")
-
-
-# B5 at head dim 384 (csrc/attention_bwd_wide.cu), bf16 and fp32, runs on
-# warp-level mma.sync (HMMA) fed by cp.async: its SASS holds HMMA, every
-# one bf16 (the fp32 form's exact pieces), and no TF32 and no HGMMA
-MMA_SYNC_KERNELS = {"attention_bwd D=384 rows": ("attn_bwd_wide_rows_kernel",),
-                    "attention_bwd D=384 cols": ("attn_bwd_wide_cols_kernel",)}
+                      "attn_proj f32", "ffn f32", "attention_bwd D=384 rows",
+                      "attention_bwd D=384 cols")
 
 
 def check_sass(lib_path: str) -> None:
-    """Count HGMMA, UTMALDG and HMMA in the SASS of the sm90 kernels and
-    of the mma.sync kernels."""
+    """Count HGMMA, UTMALDG and HMMA in the SASS of the sm90 kernels."""
     from pathlib import Path
     from torch.utils.cpp_extension import CUDA_HOME
     tool = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
@@ -483,24 +481,15 @@ def check_sass(lib_path: str) -> None:
     demangled = subprocess.run(["c++filt"], input=sass, capture_output=True,
                                text=True).stdout or sass
     found = set()
-    families = {**SM90_KERNELS, **MMA_SYNC_KERNELS}
     for block in demangled.split("Function : ")[1:]:
         name = block.split("\n", 1)[0]
-        family = next((f for f, frags in families.items()
+        family = next((f for f, frags in SM90_KERNELS.items()
                        if any(k in name for k in frags)), None)
         if family is None:
             continue
         found.add(family)
         counts = {op: block.count(op) for op in ("HGMMA", "UTMALDG",
                                                  "UTMASTG", "HMMA")}
-        if family in MMA_SYNC_KERNELS:
-            hmma = [ln for ln in block.splitlines() if "HMMA" in ln]
-            kinds = sorted({ln.split("HMMA", 1)[1].split()[0] for ln in hmma})
-            log(f"[build] SASS {name[:70]}: {counts} {kinds}")
-            check(counts["HMMA"] > 0 and counts["HGMMA"] == 0
-                  and all(".BF16" in k and "TF32" not in k for k in kinds),
-                  f"{name}: expected bf16 mma.sync only (no TF32)")
-            continue
         hgmma = [ln for ln in block.splitlines() if "HGMMA" in ln]
         kinds = sorted({ln.split("HGMMA", 1)[1].split()[0] for ln in hgmma})
         log(f"[build] SASS {name[:70]}: {counts} {kinds}")
@@ -510,8 +499,8 @@ def check_sass(lib_path: str) -> None:
         if family in F32_PIECE_FAMILIES:
             check(all(".BF16" in k and "TF32" not in k for k in kinds),
                   f"{name}: expected bf16 wgmma of exact pieces, no TF32")
-    check(found == set(families),
-          f"kernels missing from the SASS: {set(families) - found}")
+    check(found == set(SM90_KERNELS),
+          f"kernels missing from the SASS: {set(SM90_KERNELS) - found}")
 
 
 def rand(shape, gen, dtype=torch.bfloat16, scale=1.0):

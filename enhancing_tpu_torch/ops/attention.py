@@ -104,7 +104,8 @@ def attention_route(dtype: torch.dtype, head_dim: int,
     384, ``attn_bwd_wide`` (``csrc/attention_bwd_wide.cu``), fp32 on
     ``attn_f32_fwd_kernel`` (the same tiles) or ``attn_f32_wide_kernel``
     (384), ``attn_f32_bwd`` (``csrc/attention_f32.cu``) and at 384
-    ``attn_f32_bwd_wide`` (``csrc/attention_bwd_wide.cu``).
+    ``attn_f32_bwd_wide`` (``csrc/attention_bwd_wide.cu`` on the exact
+    bf16 pieces of ``csrc/attention_f32.cu``'s split pass).
     Raises TypeError for another dtype and ValueError for a head dim no
     kernel takes: not a multiple of 8, or above 128 but not 384 (192 among
     them: ROADMAP.md queue B)."""
@@ -233,9 +234,10 @@ def attention_bwd_kernel(q3, k3, v3, do3, heads, head_dim, mask_mode="none",
     pass, then its rows and cols kernels on exact bf16 pieces) on fp32
     ones, each contiguous or a lane slice of a wider buffer with 16-byte
     aligned rows; head dims that are multiples of 8 up to 128. At head dim
-    384 (the GPT prior) ``csrc/attention_bwd_wide.cu`` in either dtype,
-    counted also in ``WIDE_LAUNCHES`` under its route's name. Returns
-    contiguous dq, dk and dv."""
+    384 (the GPT prior) ``csrc/attention_bwd_wide.cu`` in either dtype (its
+    rows and cols kernels on wgmma fed by a TMA ring; fp32 after the same
+    split pass, on the pieces), counted also in ``WIDE_LAUNCHES`` under its
+    route's name. Returns contiguous dq, dk and dv."""
     b, n, hd = q3.shape
     if any(t.dtype != q3.dtype for t in (k3, v3, do3)):
         raise TypeError("attention backward kernel takes q, k, v, dO of one "
@@ -259,17 +261,16 @@ def attention_bwd_kernel(q3, k3, v3, do3, heads, head_dim, mask_mode="none",
     f32 = q3.dtype == torch.float32
     ptrs = [t.data_ptr() for t in (q3, k3, v3, do3, *grads, stats)]
     lds = [t.stride(1) for t in (q3, k3, v3, do3, *grads)]
-    if head_dim == WIDE_HEAD_DIM:
-        # fp32 operands are split into bf16 pieces as the kernel loads them
-        cuda_lib.call("etk_attention_bwd_wide", *ptrs, *lds, b, n, heads,
-                      _DTYPES[q3.dtype], MASK_MODES[mask_mode],
-                      int(cond_len), cuda_lib.stream())
+    # fp32: the split pass writes the exact bf16 pieces of q, k, v and dO
+    # once into this scratch, and the kernels read only the pieces
+    pieces = ((f32_pieces(4 * b * n * hd, q3.device).data_ptr(),) if f32
+              else ())
+    if head_dim == WIDE_HEAD_DIM:  # its pieces pointer is null in bf16
+        cuda_lib.call("etk_attention_bwd_wide", *ptrs, *(pieces or (None,)),
+                      *lds, b, n, heads, _DTYPES[q3.dtype],
+                      MASK_MODES[mask_mode], int(cond_len), cuda_lib.stream())
         WIDE_LAUNCHES[route] += 1
     else:
-        # fp32: the exact bf16 pieces of q, k, v and dO
-        # (csrc/attention_f32.cu)
-        pieces = ((f32_pieces(4 * b * n * hd, q3.device).data_ptr(),) if f32
-                  else ())
         cuda_lib.call("etk_attention_bwd_f32" if f32 else "etk_attention_bwd",
                       *ptrs, *pieces, *lds, b, n, heads, head_dim,
                       MASK_MODES[mask_mode], int(cond_len), cuda_lib.stream())

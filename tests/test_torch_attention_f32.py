@@ -131,7 +131,8 @@ def test_f32_backward_matches_autograd_of_plain(cuda, d, b, n, h, mode, cl):
 
 
 @pytest.mark.parametrize("b,n,h,mode,cl", [(2, 1025, 2, "prefix_causal", 1),
-                                           (1, 77, 2, "none", 0)])
+                                           (1, 77, 2, "none", 0),
+                                           (1, 200, 2, "prefix_causal", 70)])
 def test_f32_backward_at_384_matches_autograd_of_plain(cuda, b, n, h, mode,
                                                        cl):
     """B5 in fp32 at the prior's head dim (csrc/attention_bwd_wide.cu), on

@@ -212,12 +212,32 @@ def test_forward_mirror_score_scale(n, m):
 
 # -- the backward: one-sweep statistics, 32-query cols tiles ---------------
 
-def bwd_mirror(q, k, v, do, mask_mode, cond_len):
+def piece_matmul_acc(acc, a, b):
+    """acc + a @ b as the backward kernels' accumulate products add it: the
+    five small terms, then hi*hi, into the running fp32 sum (every piece
+    product exact in fp32)."""
+    pa, pb = pieces(a.float()), pieces(b.float())
+    for i, j in SMALL:
+        acc = acc + pa[i] @ pb[j]
+    return acc + pa[0] @ pb[0]
+
+
+def bwd_mirror(q, k, v, do, mask_mode, cond_len, wide=False):
     """attn_f32_bwd_rows_kernel / _cols_kernel's arithmetic on (B, H, N, D)
     q (already scaled), k, v and dO: S and dP by piece products; m, 1 / l
     and delta from one online sweep over 64-key tiles; P and dS in fp32;
     dq = dS K by piece products; dk and dv summed over 32-query tiles of
-    dS^T q and P^T dO by piece products."""
+    dS^T q and P^T dO by piece products.
+
+    ``wide``: csrc/attention_bwd_wide.cu's (D = 384) instead: the same
+    statistics sweep (its rows kernel's sweep 1); dq summed over the 64-key
+    tiles of dS K (sweep 2), dk and dv over the 64-query tiles of dS^T q and
+    P^T dO (its dk and dv blocks), each tile's six piece products added to
+    the running accumulator. bf16 operands (wide): the products exact in
+    fp32 (one piece each), dS rounded to bf16 before the dq and dk products
+    and P before the dv product, the outputs rounded once."""
+    bf16 = q.dtype == torch.bfloat16
+    q, k, v, do = (t.float() for t in (q, k, v, do))
     n = q.shape[-2]
     s = piece_matmul(q, k.transpose(-1, -2))
     dp = piece_matmul(do, v.transpose(-1, -2))
@@ -241,43 +261,90 @@ def bwd_mirror(q, k, v, do, mask_mode, cond_len):
     inv = 1.0 / l
     p = torch.exp(s - run[..., None]) * inv[..., None]
     ds = p * (dp - (g * inv)[..., None])
-    dq = piece_matmul(ds, k)
     dk, dv = torch.zeros_like(k), torch.zeros_like(v)
-    for i0 in range(0, n, COLS):
-        dk = dk + piece_matmul(ds[..., i0:i0 + COLS, :].transpose(-1, -2),
-                               q[..., i0:i0 + COLS, :])
-        dv = dv + piece_matmul(p[..., i0:i0 + COLS, :].transpose(-1, -2),
-                               do[..., i0:i0 + COLS, :])
-    return dq, dk, dv
+    if not wide:
+        dq = piece_matmul(ds, k)
+        for i0 in range(0, n, COLS):
+            dk = dk + piece_matmul(ds[..., i0:i0 + COLS, :].transpose(-1, -2),
+                                   q[..., i0:i0 + COLS, :])
+            dv = dv + piece_matmul(p[..., i0:i0 + COLS, :].transpose(-1, -2),
+                                   do[..., i0:i0 + COLS, :])
+        return dq, dk, dv
+    if bf16:
+        p, ds = (t.to(torch.bfloat16).float() for t in (p, ds))
+    dq = torch.zeros_like(q)
+    for t0 in range(0, n, KEYS):
+        dq = piece_matmul_acc(dq, ds[..., t0:t0 + KEYS], k[..., t0:t0 + KEYS, :])
+        dk = piece_matmul_acc(dk, ds[..., t0:t0 + KEYS, :].transpose(-1, -2),
+                              q[..., t0:t0 + KEYS, :])
+        dv = piece_matmul_acc(dv, p[..., t0:t0 + KEYS, :].transpose(-1, -2),
+                              do[..., t0:t0 + KEYS, :])
+    out = (dq, dk, dv)
+    return tuple(t.to(torch.bfloat16) for t in out) if bf16 else out
+
+
+# bf16 at D = 384 against the JAX kernel: both round P and dS to bf16 from
+# fp32 values whose sums run in other orders, so a few round to the
+# neighbouring bf16 (a 2^-8 relative step of one term of a sum), and both
+# round the outputs once (half a bf16 step each): 2^-7 of the largest
+# |ref| plus 2^-7 relative element by element, and ||mirror - ref|| within
+# 2^-10 of ||ref|| (measured 1.9e-4; a mirror that rounds neither P nor dS
+# is 2.6e-3 off, which only this limit sees). Against the plain version in
+# fp32 on the same bf16 inputs, chip_smoke.py phase 3's bf16 limit for B5
+# (2^-6 of the largest |plain| + 2^-6 relative): P and dS rounded to bf16
+# before sums of up to N terms, and the outputs rounded.
+BF16_JAX_TOL, BF16_JAX_NORM, BF16_PLAIN_TOL = 2.0 ** -7, 2.0 ** -10, 2.0 ** -6
 
 
 @pytest.mark.parametrize("mode,cl", [("none", 0), ("prefix_causal", 5)])
-@pytest.mark.parametrize("d", [64, 80])
-def test_backward_mirror_matches_jax_and_plain(interpret, d, mode, cl):
+@pytest.mark.parametrize("d,dtype", [
+    pytest.param(64, torch.float32, id="64"),
+    pytest.param(80, torch.float32, id="80"),
+    pytest.param(384, torch.float32, id="384"),
+    pytest.param(384, torch.bfloat16, id="384-bf16")])
+def test_backward_mirror_matches_jax_and_plain(interpret, d, dtype, mode, cl):
     """B5: the mirror against ``_attention_packed_bwd_call`` in interpret
     mode (at D = 80 on heads zero-padded to 128 lanes, as JAX's
     ``multihead_attention_bnhd`` runs that head dim, and as the kernel's
-    128 tile reads it) and against autograd of the plain version."""
+    128 tile reads it; at D = 384 on a slab of 384 lanes, no padding, in
+    the inputs' dtype) and against autograd of the plain version (in
+    fp32, on the same bf16 values at D = 384 in bf16). N = 100 leaves a
+    ragged tile."""
     b, n, h = 2, 100, 2
-    rng = np.random.default_rng(d + 1)
+    rng = np.random.default_rng(d + 1 + (dtype == torch.bfloat16))
     q, k, v = _bnhd(rng, b, n, h, d)
     q = q * np.float32(d ** -0.5)
     do = rng.standard_normal((b, n, h, d)).astype(np.float32)
-    got = bwd_mirror(*(_t(a) for a in (q, k, v, do)), mode, cl)
+    if dtype == torch.bfloat16:  # the operands as the kernel gets them
+        q, k, v, do = (torch.from_numpy(a).to(dtype).float().numpy()
+                       for a in (q, k, v, do))
+    got = bwd_mirror(*(_t(a).to(dtype) for a in (q, k, v, do)), mode, cl,
+                     wide=d == tatt.WIDE_HEAD_DIM)
     tile = 128 if d == 80 else d
     padded = [np.pad(a, ((0, 0), (0, 0), (0, 0), (0, tile - d))).reshape(
         b, n, h * tile) for a in (q, k, v, do)]
     ref = jatt._attention_packed_bwd_call(
-        *(jnp.asarray(a) for a in padded), mode, cl, tile)
+        *(jnp.asarray(a, dtype=jnp.bfloat16 if dtype == torch.bfloat16
+                      else jnp.float32) for a in padded), mode, cl, tile)
     plain = tatt.attention_bwd_plain(
         *(torch.from_numpy(a).reshape(b, n, h * d) for a in (q, k, v, do)),
         h, d, mode, cl)
     for name, g_, r, p in zip("qkv", got, ref, plain):
-        g3 = g_.transpose(1, 2).numpy()
-        r3 = np.asarray(r).reshape(b, n, h, tile)[..., :d]
-        np.testing.assert_allclose(g3, r3, **F32_BWD_TOL, err_msg=name)
-        np.testing.assert_allclose(g3.reshape(b, n, h * d), p.numpy(),
-                                   **F32_BWD_TOL, err_msg=name)
+        g3 = g_.float().transpose(1, 2).numpy()
+        r3 = np.asarray(r, dtype=np.float32).reshape(b, n, h, tile)[..., :d]
+        p3 = p.numpy()
+        if dtype == torch.float32:
+            jax_tol = plain_tol = F32_BWD_TOL
+        else:
+            jax_tol = dict(atol=BF16_JAX_TOL * np.abs(r3).max(),
+                           rtol=BF16_JAX_TOL)
+            plain_tol = dict(atol=BF16_PLAIN_TOL * np.abs(p3).max(),
+                             rtol=BF16_PLAIN_TOL)
+            rel = np.linalg.norm(g3 - r3) / np.linalg.norm(r3)
+            assert rel <= BF16_JAX_NORM, (name, rel)
+        np.testing.assert_allclose(g3, r3, **jax_tol, err_msg=name)
+        np.testing.assert_allclose(g3.reshape(b, n, h * d), p3,
+                                   **plain_tol, err_msg=name)
 
 
 # -- the fp32 fusions: csrc/attn_proj_f32.cu (B15) and csrc/ffn_f32.cu (B16) --

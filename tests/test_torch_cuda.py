@@ -260,6 +260,7 @@ def _grad_close(got, want, label):
     (1, 200, 2, 128, "prefix_causal", 0),
     (2, 1025, 2, 384, "prefix_causal", 1),
     (1, 77, 2, 384, "none", 0),
+    (1, 200, 2, 384, "prefix_causal", 70),
 ])
 def test_attention_bwd_kernel_matches_plain(cuda, b, n, h, d, mode, cl):
     qkv = _randn(cuda, b, n, 3 * h * d, dtype=torch.bfloat16)
