@@ -370,17 +370,22 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
 def device_ms(fn, calls: int = 20) -> float:
     """Device ms per call of ``fn``, summed over its kernels
     (torch.profiler): back-to-back CUDA-event times of a short call are
-    the host's launch time."""
+    the host's launch time. A trace that holds no device time (seen late
+    in a long run, for a call that launches kernels) is taken once more,
+    and a second empty one reads as not measured (nan)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               ) / 1e3 / calls
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / calls
+    return float("nan")
 
 
 def bound(flops: float, nbytes: float, peak_flops: float):
@@ -437,11 +442,14 @@ def phase_build() -> None:
 # B8 at the prior's 384), the attention backward's two kernels (B5; and
 # at the prior's 384, csrc/attention_bwd_wide.cu), their fp32
 # counterparts on exact bf16 pieces (B15 and B16 among them) and the int8
-# decode MLP (B14) run
+# decode kernels (B12-B14) run
 # on Hopper's warpgroup MMA fed by TMA: their SASS holds HGMMA and
 # UTMALDG, and no mma.sync (HMMA). Each family by its demangled or mangled
-# name.
-SM90_KERNELS = {"ln_gemm": ("ln_gemm_kernel<", "ln_gemm_kernelI"),
+# name; the first family whose fragment a name holds takes it, so
+# int8_ln_gemm comes before ln_gemm.
+SM90_KERNELS = {"int8_gemm": ("int8_gemm_kernel",),
+                "int8_ln_gemm": ("int8_ln_gemm_kernel",),
+                "ln_gemm": ("ln_gemm_kernel<", "ln_gemm_kernelI"),
                 "ffn": ("ffn_kernel<", "ffn_kernelI"),
                 "attn_proj": ("attn_proj_kernel",),
                 "attention fwd": ("attn_fwd_kernel",),
@@ -459,13 +467,15 @@ SM90_KERNELS = {"ln_gemm": ("ln_gemm_kernel<", "ln_gemm_kernelI"),
                 "attention_bwd D=384 cols": ("attn_bwd_wide_cols_kernel",)}
 # the fp32 kernels (csrc/attention_f32.cu, attn_proj_f32.cu, ffn_f32.cu,
 # and csrc/attention_bwd_wide.cu, whose bf16 and fp32 forms share a
-# template) compute fp32 products as six bf16 products of exact pieces:
-# every HGMMA of theirs is BF16, and none is TF32 (a single TF32 pass
-# misses the fp32 limits)
+# template) compute fp32 products as six bf16 products of exact pieces,
+# and the int8 decode kernels (int8_wgmma.cuh) int8 weights widened to
+# bf16 times exact bf16 pieces: every HGMMA of theirs is BF16, and none is
+# TF32 (a single TF32 pass misses the fp32 limits) or int8 by int8
 F32_PIECE_FAMILIES = ("attention fwd f32", "attention fwd f32 D=384",
                       "attention_bwd f32 rows", "attention_bwd f32 cols",
                       "attn_proj f32", "ffn f32", "attention_bwd D=384 rows",
-                      "attention_bwd D=384 cols")
+                      "attention_bwd D=384 cols", "int8_mlp", "int8_gemm",
+                      "int8_ln_gemm")
 
 
 def check_sass(lib_path: str) -> None:
@@ -497,8 +507,9 @@ def check_sass(lib_path: str) -> None:
               and counts["HMMA"] == 0,
               f"{name}: expected wgmma fed by TMA and no mma.sync")
         if family in F32_PIECE_FAMILIES:
-            check(all(".BF16" in k and "TF32" not in k for k in kinds),
-                  f"{name}: expected bf16 wgmma of exact pieces, no TF32")
+            check(all(k.endswith(".F32.BF16") for k in kinds),
+                  f"{name}: expected bf16 wgmma of exact pieces into fp32, "
+                  "no TF32 or int8")
     check(found == set(SM90_KERNELS),
           f"kernels missing from the SASS: {set(SM90_KERNELS) - found}")
 
@@ -1286,18 +1297,24 @@ def time_int8_kernels(gen, row) -> None:
         log(f"[time] torch._weight_int8pack_mm does not run on CUDA here: "
             f"{str(exc).splitlines()[0][:120]}")
 
+    dev = []  # device ms of B12 and B13 (torch.profiler, 20 calls)
     copies = [(t["proj_q"].clone(), t["proj_s"].clone()) for _ in range(3)]
     w32 = deq("proj", torch.float32)
+    proj = cycling(lambda w: int8.int8_gemm_kernel(x, w[0], w[1],
+                                                   t["proj_b"]), copies)
+    dev.append(("proj f32", device_ms(proj)))
     row("int8_gemm", "int8_gemm decode proj f32 x (8, 6144) -> 6144 (3 "
         "weight copies in turn)",
-        cycling(lambda w: int8.int8_gemm_kernel(x, w[0], w[1], t["proj_b"]),
-                copies),
+        proj,
         lambda: int8.int8_gemm_plain(x, t["proj_q"], t["proj_s"],
                                      t["proj_b"]),
         lambda: F.linear(x, w32, t["proj_b"].float()),
         2.0 * b * c * c, 2 * f4 + c * c + c * 6, PEAK_F32, 50)
     del copies, w32
     w16 = deq("qkv", torch.bfloat16)
+    dev.append(("prefill qkv bf16", device_ms(
+        lambda: int8.int8_gemm_kernel(x16, t["qkv_q"], t["qkv_s"],
+                                      t["qkv_b"]))))
     row("int8_gemm", "int8_gemm prefill qkv bf16 x (8, 6144) -> 18432",
         lambda: int8.int8_gemm_kernel(x16, t["qkv_q"], t["qkv_s"],
                                       t["qkv_b"]),
@@ -1306,6 +1323,9 @@ def time_int8_kernels(gen, row) -> None:
         2.0 * b * c * 3 * c, h2 * 4 + 3 * c * c + 3 * c * 6, PEAK_F32, 30)
     del w16
     w32 = deq("qkv", torch.float32)
+    dev.append(("qkv + shift f32", device_ms(
+        lambda: int8.int8_ln_gemm_kernel(x, g, bt, tm, prev, t["qkv_q"],
+                                         t["qkv_s"], t["qkv_b"]))))
     row("int8_ln_gemm", "int8_ln_gemm decode qkv + shift f32 x (8, 6144) -> "
         "18432",
         lambda: int8.int8_ln_gemm_kernel(x, g, bt, tm, prev, t["qkv_q"],
@@ -1319,10 +1339,14 @@ def time_int8_kernels(gen, row) -> None:
     del w32
     copies = [(t["head_q"].clone(), t["head_s"].clone()) for _ in range(3)]
     w32 = deq("head", torch.float32)
+    head = cycling(lambda w: int8.int8_ln_gemm_kernel(x, g, bt, None, None,
+                                                      w[0], w[1]), copies)
+    dev.append(("head f32", device_ms(head)))
+    log("[time] int8_gemm, int8_ln_gemm device ms (torch.profiler, 20 "
+        "calls): " + ", ".join(f"{k} {v:.4f}" for k, v in dev))
     row("int8_ln_gemm", "int8_ln_gemm vocab head f32 x (8, 6144) -> 8192 (3 "
         "weight copies in turn)",
-        cycling(lambda w: int8.int8_ln_gemm_kernel(x, g, bt, None, None,
-                                                   w[0], w[1]), copies),
+        head,
         lambda: int8.int8_ln_gemm_plain(x, g, bt, None, None, t["head_q"],
                                         t["head_s"]),
         lambda: F.linear(x, w32),
@@ -3212,9 +3236,9 @@ KERNEL_GROUPS = (("attn_proj_kernel", "attn_proj"), ("ffn_kernel", "ffn"),
                  ("attn_f32_wide", "attention f32"),
                  ("attn_f32_bwd", "attention_bwd f32"),
                  ("f32_split", "fp32 split pass"),
-                 ("gemv_ln_kernel<signed char", "int8_ln_gemm"),
+                 ("int8_ln_gemm_kernel", "int8_ln_gemm"),
                  ("gemv_ln_kernel<", "ln_shift_gemm"),
-                 ("gemv_kernel<signed char", "int8_gemm"),
+                 ("int8_gemm_kernel", "int8_gemm"),
                  ("mlp_kernel", "int8_mlp"),
                  ("attn_bwd", "attention_bwd"),
                  ("attn_wide", "attention_bnhd"),

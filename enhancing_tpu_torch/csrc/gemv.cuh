@@ -1,37 +1,32 @@
 // Weight-streaming products for the decode step's few rows on CUDA cores:
-// the shared core of the int8 GEMM (int8_gemm.cu), the int8 LN +
-// token-shift GEMM (int8_ln_gemm.cu) and the bf16 LN + token-shift GEMM
-// (ln_shift_gemm.cu). (The one-launch int8 MLP runs on the tensor cores:
-// int8_wgmma.cuh.)
+// the core of the bf16 (or fp32) weight LN + token-shift GEMM
+// (ln_shift_gemm.cu, B11). (The int8 decode kernels B12-B14 run on the
+// tensor cores: int8_wgmma.cuh.)
 //
 //   y[r, n] = epilogue(sum_k a[r, k] * W[n, k])   for up to 8 rows r
 //
-// W is (N, K) with K contiguous (torch's Linear layout), int8, bf16 or
-// fp32; the activations a are fp32 values (an fp32 input, or a bf16 one
-// widened exactly), so every product is an fp32 product of the numbers
-// the JAX function multiplies, summed in fp32 on CUDA cores.
+// W is (N, K) with K contiguous (torch's Linear layout), bf16 or fp32; the
+// activations a are fp32 values (an fp32 input, or a bf16 one widened
+// exactly), so every product is an fp32 product of the numbers the JAX
+// function multiplies, summed in fp32 on CUDA cores.
 //
-// Bound on the H100 at 8 rows: bytes. Each weight byte is read once and
-// feeds 8 FMAs (one per row), about 70 fp32 operations per byte against
-// the ~20 that 67 TFLOP/s over 3.35 TB/s allow, so the inner loop is
-// written to spend few instructions a weight:
+// Bound on the H100 at 8 rows: bytes. Each weight is read once and feeds
+// 8 FMAs (one per row), so the inner loop is written to spend few
+// instructions a weight:
 // - a warp owns CH output channels; each lane loads 16 bytes of each
-//   channel's row per pass (512 k for int8), coalesced along K, and the
-//   whole chunk's weights are in flight before the block stages its
+//   channel's row per pass (512 k), coalesced along K, and the whole
+//   chunk's weights are in flight before the block stages its
 //   activations;
 // - the block stages 8 rows x 1024 k of activations in shared memory, as
 //   fp32, permuted so that the 16 weights a lane holds meet 16 activations
 //   that the warp reads as consecutive float4s (no bank conflicts), and
 //   each activation read feeds CH channels;
-// - int8 -> fp32 is one byte permute and one add per weight (the byte
-//   placed in the mantissa of 2^23, then 2^23 + 128 subtracted), bf16 ->
-//   fp32 a shift or a mask;
+// - bf16 -> fp32 is a shift or a mask;
 // - the 8 x CH sums are reduced across the warp once, at the end.
 // A block of 8 warps owns 8 * CH channels and loops over K in chunks,
-// staging each with all of a thread's loads in flight at once. With a
-// LayerNorm in front, the rows are normalised once into an fp32 workspace
-// by a cooperative launch (gemv_ln_kernel), not by every block.
-// wgmma, TMA and split-K: int8_wgmma.cuh (B14), where B11-B13 may move.
+// staging each with all of a thread's loads in flight at once. The rows
+// are normalised once into an fp32 workspace by a cooperative launch
+// (gemv_ln_kernel), not by every block.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -53,28 +48,14 @@ using cvt::from_f32;
 using cvt::ld4;
 using cvt::ld4_any;
 using cvt::load_any;
-using cvt::round_to;
+using cvt::ln_one;
+using cvt::mix_one;
 using cvt::st4;
 
 // ---- weight vectors: 16 weights per lane per pass -------------------------
 
 template <typename WT>
 struct W;
-
-template <>
-struct W<int8_t> {
-  static constexpr int EPV = 16;  // elements per 16-byte vector
-  static constexpr int NV = 1;    // vectors per lane per pass
-  // weights 4 * j .. 4 * j + 3 of the lane's 16, as fp32
-  __device__ __forceinline__ static void group(const uint4 (&raw)[NV], int j,
-                                               float (&f)[4]) {
-    const uint32_t u = (&raw[0].x)[j] ^ 0x80808080u;  // b + 128, unsigned
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      f[i] = __uint_as_float(__byte_perm(u, 0x00004B00u, 0x5440u | i)) -
-             8388736.f;  // (2^23 + b + 128) - (2^23 + 128)
-  }
-};
 
 template <>
 struct W<__nv_bfloat16> {
@@ -217,18 +198,6 @@ __device__ __forceinline__ void gemv_unit(const WT* __restrict__ w, int n0,
 
 // ---- activation sources ------------------------------------------------------
 
-// rows [row0, row0 + 8) of an (m, d) fp32 or bf16 tensor
-template <typename XT>
-struct RowsSrc {
-  const XT* x;
-  int row0, m, d;
-  __device__ __forceinline__ float4 operator()(int r, int k) const {
-    const int row = row0 + r;
-    return row < m ? ld4(x + static_cast<size_t>(row) * d + k)
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-};
-
 // fp32 workspace rows, `rows` of them valid, written earlier in the same
 // kernel (plain loads: the read-only cache is not coherent with them)
 struct WsSrc {
@@ -240,25 +209,6 @@ struct WsSrc {
                     : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 };
-
-// LN(x) of one element, as flax computes it (the statistics in fp32, the
-// fast variance), rounded to x's dtype
-template <typename XT>
-__device__ __forceinline__ float ln_one(float v, float g, float b,
-                                        float mean, float rstd) {
-  return round_to<XT>(
-      __fadd_rn(__fmul_rn(__fsub_rn(v, mean), __fmul_rn(rstd, g)), b));
-}
-
-// the token shift xn * tm + prev * (1 - tm), each step in x's dtype
-template <typename XT>
-__device__ __forceinline__ float mix_one(float xr, float t, float p) {
-  const float tmx = round_to<XT>(t);
-  const float a = round_to<XT>(__fmul_rn(xr, tmx));
-  const float one_m = round_to<XT>(__fsub_rn(1.f, tmx));
-  const float b = round_to<XT>(__fmul_rn(round_to<XT>(p), one_m));
-  return round_to<XT>(__fadd_rn(a, b));
-}
 
 // One block normalises row `row` of x (m, d): LN(x) rounded to x's dtype
 // into xn (x's dtype), and the product's input (LN(x), or with tm its
@@ -317,45 +267,38 @@ __device__ __forceinline__ void ln_row(const XT* __restrict__ x,
 
 // ---- the epilogue of a product --------------------------------------------------
 
-// out[row, ch] = act(sum * scale[ch] + bias[ch]) + residual[row, ch],
-// rounded once to out's dtype; scale, bias and residual optional
+// out[row, ch] = act(sum + bias[ch]), rounded once to out's dtype; bias
+// optional
 template <typename OT>
 struct OutEpi {
   OT* out;
-  const float* scale;
   const void* bias;
   int bias_dtype;
-  const float* residual;  // fp32 (m, n)
   int act, row0, m, n;
   __device__ __forceinline__ void operator()(int r, int ch, float v) const {
     const int row = row0 + r;
     if (row >= m) return;
-    if (scale != nullptr) v = __fmul_rn(v, scale[ch]);
     if (bias != nullptr) v = __fadd_rn(v, load_any(bias, bias_dtype, ch));
     v = apply_act(v, act);
-    const size_t i = static_cast<size_t>(row) * n + ch;
-    if (residual != nullptr) v = __fadd_rn(v, residual[i]);
-    out[i] = from_f32<OT>(v);
+    out[static_cast<size_t>(row) * n + ch] = from_f32<OT>(v);
   }
 };
 
-// ---- the GEMM, and the cooperative LN (-> shift) -> GEMM ---------------------
+// ---- the cooperative LN (-> shift) -> GEMM ---------------------------------
 
 struct GemvArgs {
   const void* x;       // (m, d) fp32 or bf16
-  const float* gamma;  // LayerNorm (the LN kernel)
+  const float* gamma;  // LayerNorm
   const float* beta;
   const float* tm;     // time_mix (d,), null: no shift
   const void* prev;    // shift state (m, d)
   int prev_dtype;
   const void* w;       // (n, d)
-  const float* scale;  // (n,) or null
   const void* bias;    // (n,) or null
   int bias_dtype;
-  const float* residual;  // (m, n) fp32 or null
   void* out;           // (m, n), x's dtype
-  void* xn;            // (m, d) LN(x), x's dtype (the LN kernel)
-  float* ws;           // kRows * d fp32 (the LN kernel)
+  void* xn;            // (m, d) LN(x), x's dtype
+  float* ws;           // kRows * d fp32
   int m, d, n, act;
   float eps;
 };
@@ -364,20 +307,6 @@ template <typename WT>
 struct Channels {
   static constexpr int CH = sizeof(WT) == 4 ? 2 : 4;  // registers
 };
-
-// y = epilogue(x @ W^T): a block a unit of channels, a row tile a grid row
-template <typename WT, typename XT>
-__global__ void __launch_bounds__(kThreads, 2) gemv_kernel(GemvArgs a) {
-  constexpr int CH = Channels<WT>::CH;
-  __shared__ __align__(16) float xs[kStageFloats];
-  const int row0 = blockIdx.y * kRows;
-  const OutEpi<XT> epi{static_cast<XT*>(a.out), a.scale, a.bias,
-                       a.bias_dtype, a.residual, a.act, row0, a.m, a.n};
-  gemv_unit<WT, CH>(static_cast<const WT*>(a.w), blockIdx.x * kWarps * CH,
-                    a.n, a.d, xs,
-                    RowsSrc<XT>{static_cast<const XT*>(a.x), row0, a.m, a.d},
-                    epi);
-}
 
 // LN (-> shift) -> GEMM as one cooperative launch, per tile of 8 rows:
 // the blocks of the first rows normalise one row each into the fp32
@@ -398,8 +327,8 @@ __global__ void __launch_bounds__(kThreads, 2) gemv_ln_kernel(GemvArgs a) {
              a.prev_dtype, static_cast<XT*>(a.xn),
              a.ws + static_cast<size_t>(r) * a.d, row0 + r, a.d, a.eps, red);
     grid.sync();
-    const OutEpi<XT> epi{static_cast<XT*>(a.out), a.scale, a.bias,
-                         a.bias_dtype, a.residual, a.act, row0, a.m, a.n};
+    const OutEpi<XT> epi{static_cast<XT*>(a.out), a.bias, a.bias_dtype,
+                         a.act, row0, a.m, a.n};
     for (int u = blockIdx.x; u < units; u += gridDim.x)
       gemv_unit<WT, CH>(static_cast<const WT*>(a.w), u * kWarps * CH, a.n,
                         a.d, xs, WsSrc{a.ws, rows, a.d}, epi);
@@ -407,48 +336,30 @@ __global__ void __launch_bounds__(kThreads, 2) gemv_ln_kernel(GemvArgs a) {
   }
 }
 
-// checks shared by the entry points: -1 for what the kernels do not take
+// shapes the kernel does not take (the entry point returns -1)
 __host__ __forceinline__ bool bad_shape(int m, int d, int n, int act) {
   return m <= 0 || d <= 0 || n <= 0 || d % 16 != 0 || act < ACT_NONE ||
-         act > ACT_GELU || (m + kRows - 1) / kRows > 65535;
+         act > ACT_GELU;
 }
 
-// a cooperative launch of as many blocks as fit on the card at once
-template <typename Args>
-int launch_cooperative(void (*kernel)(Args), Args args, cudaStream_t stream) {
+// gemv_ln_kernel<WT, XT> as a cooperative launch of as many blocks as fit
+// on the card at once
+template <typename WT, typename XT>
+int launch(const GemvArgs& a, cudaStream_t stream) {
+  auto kernel = gemv_ln_kernel<WT, XT>;
   int per_sm = 0;
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &per_sm, kernel, kThreads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int sms = sm_count();
   if (per_sm <= 0 || sms <= 0) return ETK_BAD_ARGS;
+  GemvArgs args = a;
   void* params[] = {&args};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
                                     dim3(per_sm * sms), dim3(kThreads),
                                     params, 0, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename WT, typename XT, bool WITH_LN>
-int launch(const GemvArgs& a, cudaStream_t stream) {
-  if constexpr (WITH_LN) {
-    return launch_cooperative(gemv_ln_kernel<WT, XT>, a, stream);
-  } else {
-    constexpr int per_block = kWarps * Channels<WT>::CH;
-    dim3 grid((a.n + per_block - 1) / per_block, (a.m + kRows - 1) / kRows);
-    gemv_kernel<WT, XT><<<grid, kThreads, 0, stream>>>(a);
-    return static_cast<int>(cudaGetLastError());
-  }
-}
-
-// x's dtype code -> the kernel for weights WT
-template <typename WT, bool WITH_LN>
-int launch_x(const GemvArgs& a, int x_dtype, cudaStream_t stream) {
-  if (x_dtype == ETK_F32) return launch<WT, float, WITH_LN>(a, stream);
-  if (x_dtype == ETK_BF16)
-    return launch<WT, __nv_bfloat16, WITH_LN>(a, stream);
-  return ETK_BAD_ARGS;
 }
 
 }  // namespace gemv

@@ -43,7 +43,6 @@
 // is staged once for the block's three warpgroups (~38 MB of L2 reads a
 // phase at the prior's widths).
 #include <algorithm>
-#include <type_traits>
 
 #include "int8_wgmma.cuh"
 
@@ -51,7 +50,6 @@ namespace {
 
 using i8w::kChunk;
 using i8w::kRows;
-using i8w::kSlices;
 using i8w::kTileN;
 
 constexpr int kWgs = 3;  // consumer warpgroups
@@ -141,14 +139,6 @@ __device__ __forceinline__ Unit unit_c(const MlpArgs& a, int g) {
               min(c0 + a.split_chunks, cdiv(a.h, kChunk)), split};
 }
 
-// LN(x) of one element, as flax computes it, rounded to x's dtype
-template <typename XT>
-__device__ __forceinline__ float ln_one(float v, float g, float b,
-                                        float mean, float rstd) {
-  return i8w::round_to<XT>(
-      __fadd_rn(__fmul_rn(__fsub_rn(v, mean), __fmul_rn(rstd, g)), b));
-}
-
 template <typename XT>
 __global__ void __launch_bounds__(kThreads, 1)
     int8_mlp_kernel(const __grid_constant__ CUtensorMap tw0,
@@ -156,7 +146,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                     const __grid_constant__ CUtensorMap tln,
                     const __grid_constant__ CUtensorMap thid,
                     const MlpArgs a) {
-  constexpr int P = i8w::Pieces<XT>::P, N = kRows * P;
+  constexpr int P = i8w::Pieces<XT>::P;
   constexpr int ABOX = act_box_bytes(P), SB = stage_bytes(P);
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages];
@@ -306,10 +296,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         const float4 xv = i8w::ld4(x + static_cast<size_t>(row0 + r) * d + k);
         const float4 g = i8w::ld4(a.gamma + k), b = i8w::ld4(a.beta + k);
         const float2 st = stats[r];
-        v[0] = ln_one<XT>(xv.x, g.x, b.x, st.x, st.y);
-        v[1] = ln_one<XT>(xv.y, g.y, b.y, st.x, st.y);
-        v[2] = ln_one<XT>(xv.z, g.z, b.z, st.x, st.y);
-        v[3] = ln_one<XT>(xv.w, g.w, b.w, st.x, st.y);
+        v[0] = i8w::ln_one<XT>(xv.x, g.x, b.x, st.x, st.y);
+        v[1] = i8w::ln_one<XT>(xv.y, g.y, b.y, st.x, st.y);
+        v[2] = i8w::ln_one<XT>(xv.z, g.z, b.z, st.x, st.y);
+        v[3] = i8w::ln_one<XT>(xv.w, g.w, b.w, st.x, st.y);
       }
       __nv_bfloat16 pc[4][P];
 #pragma unroll
@@ -327,53 +317,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   };
 
-  // the products of one unit of n stages into sum (int8_wgmma.cuh::fold):
-  // the k16 slices of a stage as one wgmma group on a fresh accumulator;
-  // the next stage's fragments are widened while the group runs, and the
-  // accumulator is read only once the group is done (a read while a group
-  // is in flight makes ptxas serialise the wgmmas, C7514)
+  // the products of one unit of n stages into sum (the ring stage holds
+  // the weight box, then the two activation boxes)
   auto run_unit = [&](int n, float (&sum)[4]) {
-    float acc[4 * P];
-    uint32_t frag[2][kSlices][4];
-    auto widen = [&](int j, auto set_c) {
-      constexpr int SET = decltype(set_c)::value;
-      const int i = it + j;
-      sm90::mbar_wait(&full[ring.stage(i)], ring.parity(i));
-      const uint8_t* st = smem + ring.stage(i) * SB;
-#pragma unroll
-      for (int ks = 0; ks < kSlices; ++ks)
-        i8w::load_frag(st, frow, ks, q, frag[SET][ks]);
-    };
-    auto step = [&](int j, auto set_c) {
-      constexpr int SET = decltype(set_c)::value;
-      const int i = it + j;
-#pragma unroll
-      for (int ks = 0; ks < kSlices; ++ks) sm90::hold(frag[SET][ks]);
-      sm90::hold(acc);
-      sm90::wgmma_fence();
-      const uint8_t* at = smem + ring.stage(i) * SB + kWBytes;
-#pragma unroll
-      for (int ks = 0; ks < kSlices; ++ks)
-        sm90::Wgmma<N>::rs(
-            acc, frag[SET][ks],
-            sm90::desc_k(sm90::smem_desc(at + (ks / 4) * ABOX), ks % 4),
-            ks > 0);
-      sm90::wgmma_commit();
-      if (j + 1 < n) widen(j + 1, std::integral_constant<int, SET ^ 1>{});
-      sm90::wgmma_wait<0>();
-      sm90::hold(acc);
-#pragma unroll
-      for (int ks = 0; ks < kSlices; ++ks) sm90::hold(frag[SET][ks]);
-      i8w::fold<P>(acc, sum);
-      if (leader) sm90::mbar_arrive(&empty[ring.stage(i)]);
-    };
-    widen(0, std::integral_constant<int, 0>{});
-    int j = 0;
-    for (; j + 1 < n; j += 2) {
-      step(j, std::integral_constant<int, 0>{});
-      step(j + 1, std::integral_constant<int, 1>{});
-    }
-    if (j < n) step(j, std::integral_constant<int, 0>{});
+    i8w::run_stages<P>(
+        n, it, ring, full, empty, frow, q, leader,
+        [&](int i) { return smem + ring.stage(i) * SB; },
+        [&](int i, int) { return smem + ring.stage(i) * SB + kWBytes; }, sum);
     it += n;
   };
 

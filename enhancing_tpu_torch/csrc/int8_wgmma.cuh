@@ -36,6 +36,8 @@
 //   own accumulation spans 128 k at most.
 #pragma once
 
+#include <type_traits>
+
 #include "common.cuh"
 #include "sm90.cuh"
 #include "vec.cuh"
@@ -61,8 +63,12 @@ struct Pieces<__nv_bfloat16> {
 
 using cvt::from_f32;
 using cvt::ld4;
+using cvt::ld4_any;
+using cvt::ln_one;
 using cvt::load_any;
+using cvt::mix_one;
 using cvt::round_to;
+using cvt::st4;
 
 // a = pieces[0] + pieces[1] + ... exactly (fp32 a, P = 3), each piece the
 // bf16 nearest to what the earlier ones leave
@@ -126,6 +132,68 @@ __device__ __forceinline__ void fold(const float (&acc)[4 * P],
     for (int p = P - 2; p >= 0; --p) t = __fadd_rn(t, acc[4 * p + i]);
     sum[i] = __fadd_rn(sum[i], t);
   }
+}
+
+// The products of n ring stages (positions it .. it + n - 1) for one
+// consumer warpgroup, added into sum (fold): the k16 slices of a stage as
+// one wgmma group on a fresh accumulator; the next stage's fragments are
+// widened while the group runs, and the accumulator is read only once the
+// group is done (a read while a group is in flight makes ptxas serialise
+// the wgmmas, C7514). w_tile(i): the weight box of position i (this
+// warpgroup's fragment rows are frow, frow + 8); b_box(i, j): the first
+// of the two 64-k activation boxes of stage j (position i), the second
+// one box on. Waits on full[] and arrives (leader) on empty[] of each
+// position.
+template <int P, typename WTile, typename BBox>
+__device__ __forceinline__ void run_stages(int n, int it,
+                                           const sm90::Ring& ring,
+                                           uint64_t* full, uint64_t* empty,
+                                           int frow, int q, bool leader,
+                                           const WTile& w_tile,
+                                           const BBox& b_box,
+                                           float (&sum)[4]) {
+  constexpr int N = kRows * P, ABOX = kRows * P * 128;
+  float acc[4 * P];
+  uint32_t frag[2][kSlices][4];
+  auto widen = [&](int j, auto set_c) {
+    constexpr int SET = decltype(set_c)::value;
+    const int i = it + j;
+    sm90::mbar_wait(&full[ring.stage(i)], ring.parity(i));
+    const uint8_t* st = w_tile(i);
+#pragma unroll
+    for (int ks = 0; ks < kSlices; ++ks)
+      load_frag(st, frow, ks, q, frag[SET][ks]);
+  };
+  auto step = [&](int j, auto set_c) {
+    constexpr int SET = decltype(set_c)::value;
+    const int i = it + j;
+#pragma unroll
+    for (int ks = 0; ks < kSlices; ++ks) sm90::hold(frag[SET][ks]);
+    sm90::hold(acc);
+    sm90::wgmma_fence();
+    const uint8_t* at = b_box(i, j);
+#pragma unroll
+    for (int ks = 0; ks < kSlices; ++ks)
+      sm90::Wgmma<N>::rs(
+          acc, frag[SET][ks],
+          sm90::desc_k(sm90::smem_desc(at + (ks / 4) * ABOX), ks % 4),
+          ks > 0);
+    sm90::wgmma_commit();
+    if (j + 1 < n) widen(j + 1, std::integral_constant<int, SET ^ 1>{});
+    sm90::wgmma_wait<0>();
+    sm90::hold(acc);
+#pragma unroll
+    for (int ks = 0; ks < kSlices; ++ks) sm90::hold(frag[SET][ks]);
+    fold<P>(acc, sum);
+    if (leader) sm90::mbar_arrive(&empty[ring.stage(i)]);
+  };
+  widen(0, std::integral_constant<int, 0>{});
+  int j = 0;
+  for (; j + 1 < n; j += 2) {
+    step(j, std::integral_constant<int, 0>{});
+    step(j + 1, std::integral_constant<int, 1>{});
+  }
+  if (j < n) step(j, std::integral_constant<int, 0>{});
 }
 
 // an L2 policy that evicts first what it loads: the weights, read once,

@@ -12,8 +12,7 @@
 //
 // Bound on the H100: bytes: the fused qkv (6144 -> 18432) reads 226.5 MB
 // of bf16 weights a layer at batch 8 (67.6 us). Design: gemv.cuh's
-// cooperative LN kernel, the same as int8_ln_gemm.cu's with bf16 (or fp32)
-// weight vectors and no scale.
+// cooperative LN kernel on bf16 (or fp32) weight vectors.
 #include "gemv.cuh"
 
 ETK_API int etk_ln_shift_gemm(const void* x, const void* gamma,
@@ -45,9 +44,11 @@ ETK_API int etk_ln_shift_gemm(const void* x, const void* gamma,
   a.act = act;
   a.eps = eps;
   auto s = static_cast<cudaStream_t>(stream);
-  if (w_dtype == ETK_BF16)
-    return gemv::launch_x<__nv_bfloat16, true>(a, x_dtype, s);
+  if (w_dtype == ETK_BF16 && x_dtype == ETK_F32)
+    return gemv::launch<__nv_bfloat16, float>(a, s);
+  if (w_dtype == ETK_BF16 && x_dtype == ETK_BF16)
+    return gemv::launch<__nv_bfloat16, __nv_bfloat16>(a, s);
   if (w_dtype == ETK_F32 && x_dtype == ETK_F32)
-    return gemv::launch<float, float, true>(a, s);
+    return gemv::launch<float, float>(a, s);
   return ETK_BAD_ARGS;
 }

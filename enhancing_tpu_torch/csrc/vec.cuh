@@ -1,6 +1,6 @@
 // 16-byte vector loads and stores of bf16 or fp32 rows, widened to fp32,
-// and (namespace cvt) the element conversions and 4-wide loads that the
-// decode-step kernels share.
+// and (namespace cvt) the element conversions, 4-wide loads, LayerNorm and
+// token shift of one element that the decode-step kernels share.
 #pragma once
 
 #include "common.cuh"
@@ -111,6 +111,25 @@ __device__ __forceinline__ void st4(__nv_bfloat16* p, float4 v) {
   u.x = pack_bf16x2(v.x, v.y);
   u.y = pack_bf16x2(v.z, v.w);
   *reinterpret_cast<uint2*>(p) = u;
+}
+
+// LN(x) of one element, as flax computes it (fp32 statistics, the fast
+// variance), rounded to T's precision
+template <typename T>
+__device__ __forceinline__ float ln_one(float v, float g, float b,
+                                        float mean, float rstd) {
+  return round_to<T>(
+      __fadd_rn(__fmul_rn(__fsub_rn(v, mean), __fmul_rn(rstd, g)), b));
+}
+
+// the token shift xn * tm + prev * (1 - tm), each step in T's precision
+template <typename T>
+__device__ __forceinline__ float mix_one(float xr, float t, float p) {
+  const float tmx = round_to<T>(t);
+  const float a = round_to<T>(__fmul_rn(xr, tmx));
+  const float one_m = round_to<T>(__fsub_rn(1.f, tmx));
+  const float b = round_to<T>(__fmul_rn(round_to<T>(p), one_m));
+  return round_to<T>(__fadd_rn(a, b));
 }
 
 }  // namespace cvt

@@ -33,6 +33,7 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 _p = ctypes.c_void_p
 _i = ctypes.c_int
 _f = ctypes.c_float
+_ll = ctypes.c_longlong
 # C entry points (see each csrc/*.cu); all return a cudaError_t, -1 for
 # arguments the kernel does not take, or -2 for a TMA tensor map that could
 # not be encoded.
@@ -55,8 +56,10 @@ SIGNATURES = {
     "etk_decode_attention": [_p] * 6 + [_i] * 6 + [_p] * 3 + [_i, _i, _p],
     "etk_decode_plan": [_i, _i, ctypes.POINTER(_i)],
     "etk_cache_row_update": [_p] * 3 + [_i] * 5 + [_p],
-    "etk_int8_gemm": [_p] * 6 + [_i] * 6 + [_p],
-    "etk_int8_ln_gemm": [_p] * 11 + [_i] * 4 + [_f, _i, _i, _i, _p],
+    "etk_int8_gemm": [_p] * 7 + [_ll, _p, _ll] + [_i] * 6 + [_p],
+    "etk_int8_gemm_plan": [_i, _i, _i, _i, ctypes.POINTER(_i)],
+    "etk_int8_ln_gemm": [_p] * 11 + [_ll, _p, _ll] + [_i] * 4
+    + [_f, _i, _i, _i, _p],
     "etk_ln_shift_gemm": [_p] * 10 + [_i] * 4 + [_f, _i, _i, _i, _i, _p],
     "etk_int8_mlp": [_p] * 13 + [_i] * 4 + [_f, _i, _i, _p],
     "etk_int8_mlp_plan": [_i, _i, _i, _i, ctypes.POINTER(_i)],

@@ -11,11 +11,18 @@ axis, so ``(x @ w_q^T) * scale`` is exact in the factorisation.
   b) [+ residual]``.
 - :func:`int8_ln_gemm` (``csrc/int8_ln_gemm.cu``): LayerNorm, the token
   shift (``tm`` None skips it), the product; returns ``(y, LN(x))``.
-- :func:`int8_mlp_decode` (``csrc/int8_mlp.cu`` on ``csrc/int8_wgmma.cuh``):
-  the whole pre-norm MLP ``residual + (act(LN(x) @ w0_q^T * s0 + b0) @
-  w1_q^T) * s1 + b1`` in one launch, its products on the tensor cores as
-  exact fp32 products of bf16 pieces (:func:`int8_mlp_plan` mirrors its
-  launch).
+- :func:`int8_mlp_decode` (``csrc/int8_mlp.cu``): the whole pre-norm MLP
+  ``residual + (act(LN(x) @ w0_q^T * s0 + b0) @ w1_q^T) * s1 + b1`` in one
+  launch (:func:`int8_mlp_plan` mirrors its launch).
+
+All three run on the tensor cores (``csrc/int8_wgmma.cuh``): the int8
+weights, widened exactly to bf16, times exact bf16 pieces of the
+activations (three of an fp32 value, one of a bf16 one), which are the fp32
+products of the JAX function; each 128-wide k stage is summed on a fresh
+fp32 accumulator and folded into the running sum. The two GEMMs share
+``csrc/int8_gemm.cuh``, whose launch :func:`int8_gemm_plan` mirrors: K is
+split so that the units fill the SMs, and the splits' fp32 partials are
+summed in split order.
 
 Numerics are the Pallas kernels': the int8 weight is cast exactly to the
 activations' dtype (fp32 on the decode path, whose residual stream is
@@ -30,6 +37,8 @@ launch under autograd raises. W8A8 (``act_int8``: int8 activations) is not
 here; the JAX package computes it with no Pallas kernel.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -65,6 +74,157 @@ def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+# csrc/int8_wgmma.cuh: 64 output channels a warpgroup (the wgmma's M),
+# 128-k stages, 8 activation rows a tile; a block may use 227 KB of shared
+# memory less 2 KB (alignment slack, static barriers)
+TILE_N, CHUNK, ROWS, SMEM_LIMIT = 64, 128, 8, 232448 - 2048
+# csrc/int8_gemm.cuh: three consumer warpgroups a block, 128-k stages of a
+# 192 x 128 int8 weight box, the activations' pieces of a split resident
+# in shared memory (8 rows x P pieces x 2 bytes a k)
+GEMM_WGS, GEMM_MAX_STAGES, GEMM_MIN_STAGES = 3, 4, 2
+GEMM_STAGE_BYTES = GEMM_WGS * TILE_N * CHUNK
+# two slots a warpgroup of its fp32 tile sums for the epilogue warps, and
+# 1 KB of static barriers and statistics beside the dynamic shared memory
+GEMM_SLOT_BYTES = GEMM_WGS * 2 * ROWS * TILE_N * 4
+GEMM_SMEM_BUDGET = SMEM_LIMIT - GEMM_SLOT_BYTES - 1024
+
+
+@functools.lru_cache(maxsize=256)
+def int8_gemm_plan(m: int, d: int, n: int, sms: int = 132,
+                   pieces: int = 3) -> dict:
+    """The launch of the int8 GEMM kernels (B12, and B13, which launches
+    the same) for an (m, d) x with an (n, d) weight on a card of ``sms``
+    SMs, ``pieces`` bf16 pieces an activation (3 for fp32 x, 1 for bf16),
+    as ``csrc/int8_gemm.cuh::make_plan`` makes it (the C entry
+    ``etk_int8_gemm_plan`` returns the same numbers):
+
+    - ``row_tiles`` of 8 rows and ``groups`` of 192 output channels (three
+      64-channel tiles);
+    - ``splits`` of K, ``split_chunks`` 128-wide chunks each (none empty):
+      the splits that cost the busiest block least, counted in quarter
+      chunks (its units, :func:`_max_units`, times their chunks plus a
+      quarter each for the partial, plus one a split for the last
+      arriver's reads; fewer splits on a tie), among those whose resident
+      pieces leave room for two ring stages;
+    - ``grid``: one block an SM, at most one a unit; block b takes units of
+      stream (row tile, split) b % streams when there are at least as many
+      blocks as streams;
+    - ``stages`` of the weight ring (at most 4) and the ``smem`` they, the
+      resident pieces and the epilogue warps' slots take (+ 1 KB of
+      alignment slack);
+    - ``part_bytes`` of fp32 partials and ``sync_words`` (a split count a
+      row tile and 64-channel tile) when there is more than one split.
+
+    Cached (the wrappers ask at every call): treat the dict as read-only.
+    Raises ValueError for a shape the kernel refuses."""
+    if m <= 0 or d <= 0 or n <= 0 or d % 16 or pieces not in (1, 3) \
+            or sms <= 0:
+        raise ValueError(f"int8 GEMM kernels take m, d, n > 0 with d % 16 "
+                         f"== 0 and 1 or 3 pieces; got m={m}, d={d}, n={n}, "
+                         f"pieces={pieces}")
+    tiles, chunks = cdiv(n, TILE_N), cdiv(d, CHUNK)
+    row_tiles, groups = cdiv(m, ROWS), cdiv(tiles, GEMM_WGS)
+    res_per_chunk = 2 * ROWS * pieces * 128
+    best = None
+    for s in range(1, chunks + 1):
+        sc = cdiv(chunks, s)
+        if cdiv(chunks, sc) != s or (GEMM_SMEM_BUDGET - sc * res_per_chunk
+                                     < GEMM_MIN_STAGES * GEMM_STAGE_BYTES):
+            continue
+        streams = row_tiles * s
+        if streams * groups > 2 ** 31 - 1:
+            continue
+        grid = min(sms, streams * groups)
+        cost = (_max_units(groups, streams, grid) * (4 * sc + 1)
+                + (s if s > 1 else 0))
+        if best is None or cost < best[0]:
+            best = (cost, s, sc)
+    if best is None:
+        raise ValueError(f"int8 GEMM kernels: m={m}, n={n} too large")
+    _, splits, split_chunks = best
+    units = row_tiles * groups * splits
+    part = 4 * row_tiles * splits * ROWS * n if splits > 1 else 0
+    words = row_tiles * tiles if splits > 1 else 0
+    if max(units, part, words) > 2 ** 31 - 1:
+        raise ValueError(f"int8 GEMM kernels: m={m}, n={n} too large")
+    res = split_chunks * res_per_chunk
+    stages = min(GEMM_MAX_STAGES, (GEMM_SMEM_BUDGET - res)
+                 // GEMM_STAGE_BYTES)
+    return dict(grid=min(sms, units), row_tiles=row_tiles, groups=groups,
+                splits=splits, split_chunks=split_chunks, stages=stages,
+                smem=res + stages * GEMM_STAGE_BYTES + GEMM_SLOT_BYTES + 1024,
+                part_bytes=part, sync_words=words)
+
+
+def _max_units(groups: int, streams: int, grid: int) -> int:
+    """Units of the busiest block: with at least as many blocks as streams
+    (a row tile and split each), a block takes units of one stream only;
+    with fewer, a contiguous run of all units."""
+    if grid >= streams:
+        return cdiv(groups, grid // streams)
+    return cdiv(groups * streams, grid)
+
+
+# Persistent scratch of the kernels, one buffer per kind, device and
+# stream, made when first asked for and grown when a launch needs more;
+# launches on one stream run in order, so they share it. Kinds: "mlp", B14's
+# grid barrier words, and "gemm_sync", the GEMMs' split counts, both zero
+# when made and left so by every launch (but the barrier's generation);
+# "gemm_part", the GEMMs' fp32 partials, rewritten by every launch.
+_SCRATCH: dict = {}
+# The scratch arguments of a GEMM launch by (x's shape and dtype, n,
+# device, stream), cleared whenever a buffer is replaced.
+_GEMM_ARGS: dict = {}
+
+
+def _scratch(kind: str, device: torch.device, stream: int, nbytes: int,
+             zero: bool = True) -> torch.Tensor:
+    key = (kind, device, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < nbytes:
+        make = torch.zeros if zero else torch.empty
+        buf = make(max(nbytes, 1024), dtype=torch.uint8, device=device)
+        _SCRATCH[key] = buf
+        _GEMM_ARGS.clear()
+    return buf
+
+
+def _gemm_scratch(x: torch.Tensor, n: int, stream: int) -> tuple:
+    """(partials, their bytes, split counts, their words) of an int8 GEMM
+    launch on x, sized by :func:`int8_gemm_plan`; with one split, no
+    scratch. The C entry refuses a launch whose plan needs more."""
+    key = (x.shape, x.dtype, n, x.device, stream)
+    args = _GEMM_ARGS.get(key)
+    if args is not None:
+        return args
+    plan = int8_gemm_plan(*x.shape, n, _sms(x.device), _pieces(x))
+    args = None, 0, None, 0
+    if plan["splits"] > 1:
+        part = _scratch("gemm_part", x.device, stream, plan["part_bytes"],
+                        zero=False)
+        sync = _scratch("gemm_sync", x.device, stream,
+                        4 * plan["sync_words"])
+        args = (part.data_ptr(), part.numel(), sync.data_ptr(),
+                sync.numel() // 4)
+    _GEMM_ARGS[key] = args
+    return args
+
+
+_SMS: dict = {}
+
+
+def _sms(device: torch.device) -> int:
+    sms = _SMS.get(device)
+    if sms is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _SMS[device] = sms
+    return sms
+
+
+def _pieces(x: torch.Tensor) -> int:
+    return 3 if x.dtype == torch.float32 else 1
+
+
 # -- y = act((x @ w_q^T) * scale + b) [+ residual] ----------------------------
 
 
@@ -83,7 +243,7 @@ def int8_gemm_plain(x, w_q, scale, b=None, residual=None, activation=None):
 def int8_gemm_kernel(x, w_q, scale, b=None, residual=None, activation=None):
     """Launch ``csrc/int8_gemm.cu`` on CUDA x (m, d) fp32 or bf16, w_q
     (n, d) int8, scale (n,) fp32, b (n,) fp32 or bf16, residual (m, n)
-    fp32; d % 16 == 0."""
+    fp32; d % 16 == 0. One launch (:func:`int8_gemm_plan`)."""
     m, d = x.shape
     n = w_q.shape[0]
     _check_x("int8_gemm", x)
@@ -98,10 +258,12 @@ def int8_gemm_kernel(x, w_q, scale, b=None, residual=None, activation=None):
         raise ValueError("int8_gemm kernel takes an fp32 (m, n) residual")
     check_kernel_args("int8_gemm", x, w_q, scale, b, residual)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    stream = cuda_lib.stream()
     cuda_lib.call("etk_int8_gemm", x.data_ptr(), w_q.data_ptr(),
                   scale.data_ptr(), _ptr(b), _ptr(residual), out.data_ptr(),
-                  m, d, n, ACTIVATIONS[activation], bias_code(b),
-                  DTYPE_CODES[x.dtype], cuda_lib.stream())
+                  *_gemm_scratch(x, n, stream), m, d, n,
+                  ACTIVATIONS[activation], bias_code(b), DTYPE_CODES[x.dtype],
+                  stream)
     LAUNCHES["int8_gemm"] += 1
     return out
 
@@ -160,13 +322,14 @@ def int8_ln_gemm_kernel(x, gamma, beta, tm, prev, w_q, scale, b=None,
     check_kernel_args("int8_ln_gemm", x, gamma, beta, tm, prev, w_q, scale, b)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     xn = torch.empty_like(x)
-    ws = torch.empty(8 * d, dtype=torch.float32, device=x.device)
+    stream = cuda_lib.stream()
     cuda_lib.call("etk_int8_ln_gemm", x.data_ptr(), gamma.data_ptr(),
                   beta.data_ptr(), _ptr(tm), _ptr(prev), w_q.data_ptr(),
                   scale.data_ptr(), _ptr(b), out.data_ptr(), xn.data_ptr(),
-                  ws.data_ptr(), m, d, n, ACTIVATIONS[activation], eps,
+                  *_gemm_scratch(x, n, stream), m, d, n,
+                  ACTIVATIONS[activation], eps,
                   0 if prev is None else DTYPE_CODES[prev.dtype],
-                  bias_code(b), DTYPE_CODES[x.dtype], cuda_lib.stream())
+                  bias_code(b), DTYPE_CODES[x.dtype], stream)
     LAUNCHES["int8_ln_gemm"] += 1
     return out, xn
 
@@ -217,9 +380,8 @@ def int8_mlp_plain(x, gamma, beta, w0_q, s0, b0, w1_q, s1, b1, residual,
 
 # csrc/int8_mlp.cu: three consumer warpgroups of 64 channels a block, 128-k
 # stages (a 192 x 128 int8 weight box and two 64-k boxes of 8 x P bf16
-# activation pieces), at most 6 stages under the 227 KB a block may use
-MLP_TILE_N, MLP_WGS, MLP_CHUNK, MLP_ROWS, MLP_MAX_STAGES = 64, 3, 128, 8, 6
-MLP_SMEM_LIMIT = 232448 - 2048
+# activation pieces), at most 6 stages
+MLP_WGS, MLP_MAX_STAGES = 3, 6
 
 
 def int8_mlp_plan(m: int, d: int, h: int, sms: int = 132,
@@ -246,37 +408,22 @@ def int8_mlp_plan(m: int, d: int, h: int, sms: int = 132,
         raise ValueError(f"int8_mlp kernel takes m, d, h > 0 with d and h % "
                          f"16 == 0 and 1 or 3 pieces; got m={m}, d={d}, "
                          f"h={h}, pieces={pieces}")
-    tiles_c = cdiv(d, MLP_TILE_N)
-    groups_c0, chunks_c = cdiv(tiles_c, MLP_WGS), cdiv(h, MLP_CHUNK)
-    groups_b = cdiv(cdiv(h, MLP_TILE_N), MLP_WGS)
+    tiles_c = cdiv(d, TILE_N)
+    groups_c0, chunks_c = cdiv(tiles_c, MLP_WGS), cdiv(h, CHUNK)
+    groups_b = cdiv(cdiv(h, TILE_N), MLP_WGS)
     split_chunks = cdiv(chunks_c, max(1, min(sms // groups_c0, chunks_c)))
     splits = cdiv(chunks_c, split_chunks)
     groups_c = groups_c0 * splits
-    stage = MLP_WGS * MLP_TILE_N * MLP_CHUNK + 2 * MLP_ROWS * pieces * 128
-    stages = min(MLP_MAX_STAGES, MLP_SMEM_LIMIT // stage)
-    ws = 2 * MLP_ROWS * pieces * (d + h)
+    stage = MLP_WGS * TILE_N * CHUNK + 2 * ROWS * pieces * 128
+    stages = min(MLP_MAX_STAGES, SMEM_LIMIT // stage)
+    ws = 2 * ROWS * pieces * (d + h)
     if splits > 1:
-        ws += 4 * splits * MLP_ROWS * d
+        ws += 4 * splits * ROWS * d
     return dict(grid=max(1, min(sms, max(groups_b, groups_c))),
                 groups_b=groups_b, groups_c=groups_c, splits=splits,
                 split_chunks=split_chunks, stages=stages,
                 smem=stages * stage + 1024, ws_bytes=ws,
                 sync_words=2 + tiles_c)
-
-
-# The kernel's grid barriers and split counts: int32 words that start at
-# zero once and that every launch leaves at zero (the barrier's generation
-# aside), one buffer per device and stream, grown when a wider d needs it.
-_MLP_SYNC: dict = {}
-
-
-def _mlp_sync(device: torch.device, words: int) -> torch.Tensor:
-    key = (device, torch.cuda.current_stream(device).cuda_stream)
-    buf = _MLP_SYNC.get(key)
-    if buf is None or buf.numel() < words:
-        buf = torch.zeros(max(words, 256), dtype=torch.int32, device=device)
-        _MLP_SYNC[key] = buf
-    return buf
 
 
 def int8_mlp_kernel(x, gamma, beta, w0_q, s0, b0, w1_q, s1, b1, residual,
@@ -308,18 +455,18 @@ def int8_mlp_kernel(x, gamma, beta, w0_q, s0, b0, w1_q, s1, b1, residual,
     if any(t.data_ptr() % 16 for t in (x, gamma, beta, w0_q, w1_q)):
         raise ValueError("int8_mlp kernel needs x, gamma, beta and the "
                          "weights 16-byte aligned")
-    plan = int8_mlp_plan(m, d, h, torch.cuda.get_device_properties(
-        x.device).multi_processor_count, 3 if x.dtype == torch.float32 else 1)
+    plan = int8_mlp_plan(m, d, h, _sms(x.device), _pieces(x))
     out = torch.empty_like(x)
     ws = torch.empty(plan["ws_bytes"], dtype=torch.uint8, device=x.device)
-    sync = _mlp_sync(x.device, plan["sync_words"])
+    stream = cuda_lib.stream()
+    sync = _scratch("mlp", x.device, stream, 4 * plan["sync_words"])
     bias = b0 if b0 is not None else b1
     cuda_lib.call("etk_int8_mlp", x.data_ptr(), gamma.data_ptr(),
                   beta.data_ptr(), w0_q.data_ptr(), s0.data_ptr(), _ptr(b0),
                   w1_q.data_ptr(), s1.data_ptr(), _ptr(b1),
                   residual.data_ptr(), out.data_ptr(), ws.data_ptr(),
                   sync.data_ptr(), m, d, h, ACTIVATIONS[activation], eps,
-                  bias_code(bias), DTYPE_CODES[x.dtype], cuda_lib.stream())
+                  bias_code(bias), DTYPE_CODES[x.dtype], stream)
     LAUNCHES["int8_mlp"] += 1
     return out
 

@@ -1002,6 +1002,171 @@ def test_int8_mlp_plan_mirrors_the_c_entry(cuda):
             cuda_lib.plan("etk_int8_mlp_plan", m, d, h, pieces, size=9)
 
 
+def _gemm_sync_is_zero():
+    """The GEMMs' persistent split counts, every word of them, are back at
+    zero after every launch."""
+    torch.cuda.synchronize()
+    bufs = [buf for key, buf in int8._SCRATCH.items()
+            if key[0] == "gemm_sync"]
+    return bool(bufs) and all(int(buf.sum()) == 0 for buf in bufs)
+
+
+# (bias dtype or None, fp32 residual, activation): every option of B12
+INT8_GEMM_OPTIONS = ((torch.float32, True, None),
+                     (torch.bfloat16, False, "gelu"),
+                     (None, True, "sqrelu"),
+                     (torch.float32, False, "tanh"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 5, 13, 40])
+def test_int8_gemm_wgmma_ragged_rows_and_options(cuda, dtype, m):
+    """csrc/int8_gemm.cu on csrc/int8_gemm.cuh at m = 1, 5, 13, 40 (one to
+    five tiles of 8 rows), d = 6144 (K split as the plan splits it) and
+    n = 1000 (not a multiple of 192: the last group holds one 40-channel
+    tile), with every bias dtype, the residual on and off and every
+    activation; two calls bit-equal and the split counts left at zero."""
+    d, n = 6144, 1000
+    x = _randn(cuda, m, d, dtype=dtype)
+    w_q, scale = _quantized(cuda, n, d)
+    assert int8.int8_gemm_plan(m, d, n, pieces=3 if dtype == torch.float32
+                               else 1)["splits"] > 1
+    for bias_dtype, residual, act in INT8_GEMM_OPTIONS:
+        b = None if bias_dtype is None else 0.1 * _randn(cuda, n,
+                                                         dtype=bias_dtype)
+        res = _randn(cuda, m, n) if residual else None
+        before = common.LAUNCHES["int8_gemm"]
+        got = int8.int8_gemm(x, w_q, scale, b, activation=act, residual=res)
+        again = int8.int8_gemm(x, w_q, scale, b, activation=act,
+                               residual=res)
+        assert common.LAUNCHES["int8_gemm"] == before + 2
+        want = int8.int8_gemm_plain(x, w_q, scale, b, res, act)
+        _close(got, want, _int8_limits(want))
+        assert torch.equal(got, again)
+    assert _gemm_sync_is_zero()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 5, 13, 40])
+def test_int8_ln_gemm_wgmma_ragged_rows_and_options(cuda, dtype, m):
+    """csrc/int8_ln_gemm.cu at m = 1, 5, 13, 40, d = 6144, n = 1000: the
+    shift on (prev fp32 or bf16) and off, biases fp32, bf16 and none, every
+    activation; LN(x) compared too; two calls bit-equal."""
+    d, n = 6144, 1000
+    x = _randn(cuda, m, d, dtype=dtype, scale=2.0)
+    gamma, beta = 1.0 + 0.1 * _randn(cuda, d), 0.1 * _randn(cuda, d)
+    w_q, scale = _quantized(cuda, n, d)
+    tm = torch.linspace(0, 1, d, device="cuda")
+    for prev_dtype, bias_dtype, act in ((torch.bfloat16, torch.bfloat16, None),
+                                        (torch.float32, torch.float32,
+                                         "sqrelu"),
+                                        (None, None, "gelu"),
+                                        (None, torch.float32, "tanh")):
+        shift = prev_dtype is not None
+        prev = _randn(cuda, m, d, dtype=prev_dtype) if shift else None
+        b = None if bias_dtype is None else 0.1 * _randn(cuda, n,
+                                                         dtype=bias_dtype)
+        args = (x, gamma, beta, tm if shift else None, prev, w_q, scale, b)
+        before = common.LAUNCHES["int8_ln_gemm"]
+        got, xn = int8.int8_ln_gemm(*args, activation=act)
+        again, xn_again = int8.int8_ln_gemm(*args, activation=act)
+        assert common.LAUNCHES["int8_ln_gemm"] == before + 2
+        want, want_xn = int8.int8_ln_gemm_plain(*args, activation=act)
+        _close(got, want, _int8_limits(want))
+        _close(xn, want_xn, _int8_limits(want_xn))
+        assert torch.equal(got, again) and torch.equal(xn, xn_again)
+    assert _gemm_sync_is_zero()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_gemms_with_more_streams_than_blocks(cuda, dtype):
+    """m = 1100: 138 row tiles, more (row tile, split) streams than SMs, so
+    a block's units cross streams and it rebuilds its pieces (and, for
+    B13, the row statistics) between them; both kernels against their
+    plain versions, bit-equal twice."""
+    m, d, n = 1100, 256, 200
+    plan = int8.int8_gemm_plan(m, d, n, torch.cuda.get_device_properties(
+        0).multi_processor_count, 3 if dtype == torch.float32 else 1)
+    assert plan["row_tiles"] * plan["splits"] > plan["grid"]
+    x = _randn(cuda, m, d, dtype=dtype, scale=2.0)
+    gamma, beta = 1.0 + 0.1 * _randn(cuda, d), 0.1 * _randn(cuda, d)
+    tm = torch.linspace(0, 1, d, device="cuda")
+    prev = _randn(cuda, m, d, dtype=dtype)
+    w_q, scale = _quantized(cuda, n, d)
+    b = 0.1 * _randn(cuda, n)
+    res = _randn(cuda, m, n)
+    got = int8.int8_gemm(x, w_q, scale, b, activation="gelu", residual=res)
+    again = int8.int8_gemm(x, w_q, scale, b, activation="gelu", residual=res)
+    want = int8.int8_gemm_plain(x, w_q, scale, b, res, "gelu")
+    _close(got, want, _int8_limits(want))
+    assert torch.equal(got, again)
+    args = (x, gamma, beta, tm, prev, w_q, scale, b)
+    got, xn = int8.int8_ln_gemm(*args, activation="sqrelu")
+    again, _ = int8.int8_ln_gemm(*args, activation="sqrelu")
+    want, want_xn = int8.int8_ln_gemm_plain(*args, activation="sqrelu")
+    _close(got, want, _int8_limits(want))
+    _close(xn, want_xn, _int8_limits(want_xn))
+    assert torch.equal(got, again)
+    assert _gemm_sync_is_zero()
+
+
+def test_int8_decode_gemms_at_batch_32_in_decode_order(cuda):
+    """The fp32 decode GEMMs of the prior's widths at batch 32, in a decode
+    step's order: B13 qkv (4 row tiles x 288 tiles = 1152 split counts),
+    B12 proj, qkv, proj, the B13 head, qkv. The split counts and the
+    partials live in buffers of their own, so the partials that proj and
+    head write cannot stand in qkv's counts; each call against its plain
+    version, the repeats bit-equal, every count back at zero."""
+    m, c = 32, 6144
+    x = _randn(cuda, m, c)
+    gamma, beta = 1.0 + 0.1 * _randn(cuda, c), 0.1 * _randn(cuda, c)
+    tm = torch.linspace(0, 1, c, device="cuda")
+    prev = _randn(cuda, m, c)
+    qkv, proj, head = (_quantized(cuda, n, c) for n in (3 * c, c, 8192))
+    b = 0.1 * _randn(cuda, 3 * c)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert int8.int8_gemm_plan(m, c, 3 * c, sms)["sync_words"] > 1024
+    calls = (lambda: int8.int8_ln_gemm(x, gamma, beta, tm, prev, *qkv, b),
+             lambda: (int8.int8_gemm(x, *proj, residual=x),),
+             lambda: int8.int8_ln_gemm(x, gamma, beta, None, None, *head))
+    wants = (int8.int8_ln_gemm_plain(x, gamma, beta, tm, prev, *qkv, b),
+             (int8.int8_gemm_plain(x, *proj, residual=x),),
+             int8.int8_ln_gemm_plain(x, gamma, beta, None, None, *head))
+    firsts = {}
+    for i in (0, 1, 0, 1, 2, 0):
+        got = calls[i]()
+        for g, w in zip(got, wants[i]):
+            _close(g, w, _int8_limits(w))
+        if i in firsts:
+            assert all(torch.equal(g, f) for g, f in zip(got, firsts[i]))
+        firsts[i] = got
+    assert _gemm_sync_is_zero()
+
+
+def test_int8_gemm_plan_mirrors_the_c_entry(cuda):
+    """ops.int8.int8_gemm_plan gives the numbers csrc/int8_gemm.cuh picks
+    on this card, at the prior's four shapes and the tests' shapes, and
+    both refuse the same shapes."""
+    from enhancing_tpu_torch.ops import cuda_lib
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    keys = ("grid", "row_tiles", "groups", "splits", "split_chunks",
+            "stages", "smem", "part_bytes", "sync_words")
+    for m, d, n in ((8, 6144, 6144), (8, 6144, 18432), (8, 6144, 8192),
+                    (1, 6144, 1000), (13, 6144, 1000), (40, 6144, 1000),
+                    (3, 256, 200), (20, 1040, 96), (5, 512, 136),
+                    (1100, 256, 200)):
+        for pieces in (1, 3):
+            want = int8.int8_gemm_plan(m, d, n, sms, pieces)
+            assert cuda_lib.plan("etk_int8_gemm_plan", m, d, n, pieces,
+                                 size=9) == tuple(want[k] for k in keys)
+    for m, d, n, pieces in ((0, 256, 1024, 3), (8, 200, 1024, 3),
+                            (8, 256, 0, 1), (8, 256, 1024, 2)):
+        with pytest.raises(ValueError):
+            int8.int8_gemm_plan(m, d, n, sms, pieces)
+        with pytest.raises(RuntimeError):
+            cuda_lib.plan("etk_int8_gemm_plan", m, d, n, pieces, size=9)
+
+
 @pytest.mark.parametrize("x_dtype,w_dtype", [
     (torch.float32, torch.bfloat16), (torch.bfloat16, torch.bfloat16),
     (torch.float32, torch.float32)])

@@ -1,6 +1,8 @@
-"""The arithmetic of the Hopper int8 decode MLP (``csrc/int8_mlp.cu`` on
-``csrc/int8_wgmma.cuh``) and the host plans of it and of the streaming
-LayerNorm (``csrc/layernorm.cu``), on the CPU.
+"""The arithmetic of the Hopper int8 decode kernels (the MLP
+``csrc/int8_mlp.cu``, the GEMM ``csrc/int8_gemm.cu`` and the LN GEMM
+``csrc/int8_ln_gemm.cu``, all on ``csrc/int8_wgmma.cuh``) and the host
+plans of them and of the streaming LayerNorm (``csrc/layernorm.cu``), on
+the CPU.
 
 The kernels run only on the card; what they compute is held here:
 
@@ -9,13 +11,16 @@ The kernels run only on the card; what they compute is held here:
   fp32 products of the JAX function;
 - the K permutation that lets a thread read 4 consecutive weight bytes is
   the one the staged activations follow;
-- a plain-torch mirror of the kernel's order of work (pieces, 128-wide k
-  stages folded into fp32 sums, the hidden axis split as the plan splits
-  it, partials summed in split order) against the JAX Pallas kernel
-  ``_int8_mlp_pallas`` in interpret mode, within the f32 tolerance of
-  ``tests/test_torch_int8.py``;
-- ``ops.int8.int8_mlp_plan`` and ``ops.ln_gemm.layernorm_plan`` at the
-  main path's shapes and the card tests' shapes, and what they refuse.
+- plain-torch mirrors of the kernels' order of work (pieces, 128-wide k
+  stages folded into fp32 sums, the contraction split as the plan splits
+  it, partials summed in split order; for the LN GEMM the fp32
+  statistics, LN(x) rounded to x's dtype and the shift in x's dtype before
+  the pieces) against the JAX Pallas kernels ``_int8_mlp_pallas``,
+  ``_int8_gemm_pallas`` and ``_int8_ln_gemm_pallas`` in interpret mode,
+  within the f32 tolerance of ``tests/test_torch_int8.py``;
+- ``ops.int8.int8_mlp_plan``, ``ops.int8.int8_gemm_plan`` and
+  ``ops.ln_gemm.layernorm_plan`` at the main path's shapes and the card
+  tests' shapes, and what they refuse.
 Inputs are made with numpy from a seed.
 """
 import jax.numpy as jnp
@@ -114,30 +119,43 @@ def _b14_mirror(x, gamma, beta, w0_q, s0, b0, w1_q, s1, b1, residual,
     xn = ((x32 - mean) * (1.0 / torch.sqrt(var + eps) * gamma) + beta
           ).to(dt).float()
 
-    def stages(a, w, k0, k1):
-        total = torch.zeros(a.shape[0], w.shape[0])
-        pieces = _pieces(a, n_pieces)
-        for c in range(k0, k1, CHUNK):
-            wc = w[:, c:c + CHUNK].float()
-            parts = [p[:, c:c + CHUNK] @ wc.t() for p in pieces]
-            t = parts[-1]
-            for p in parts[-2::-1]:
-                t = t + p
-            total = total + t
-        return total
-
-    hid = stages(xn, w0_q, 0, xn.shape[1]) * s0
+    hid = _stage_sums(_pieces(xn, n_pieces), w0_q, 0, xn.shape[1]) * s0
     if b0 is not None:
         hid = hid + b0.float()
     hid = tlg._act(hid, activation).to(dt).float()
-    h = w1_q.shape[1]
-    acc = None
-    for sp in range(splits):
-        k0 = sp * split_chunks * CHUNK
-        part = stages(hid, w1_q, k0, min(k0 + split_chunks * CHUNK, h))
-        acc = part if acc is None else acc + part
+    acc = _split_sums(_pieces(hid, n_pieces), w1_q, splits, split_chunks)
     res = residual.float() + (0.0 if b1 is None else b1.float())
     return (acc * s1 + res).to(dt)
+
+
+def _stage_sums(pieces, w, k0, k1):
+    """Sum over k in [k0, k1) of the pieces' products with the (n, k) int8
+    weight: each 128-wide k stage a fresh fp32 sum, its pieces added
+    smallest first, then added into the running sum."""
+    total = torch.zeros(pieces[0].shape[0], w.shape[0])
+    for c in range(k0, k1, CHUNK):
+        wc = w[:, c:c + CHUNK].float()
+        parts = [p[:, c:c + CHUNK] @ wc.t() for p in pieces]
+        t = parts[-1]
+        for p in parts[-2::-1]:
+            t = t + p
+        total = total + t
+    return total
+
+
+def _split_sums(pieces, w, splits, split_chunks):
+    """The contraction in ``splits`` ranges of ``split_chunks`` stages, the
+    partials summed in split order (from zero) as the last split to finish
+    sums them; one split is the running sum itself."""
+    k = w.shape[1]
+    if splits == 1:
+        return _stage_sums(pieces, w, 0, k)
+    acc = torch.zeros(pieces[0].shape[0], w.shape[0])
+    for sp in range(splits):
+        k0 = sp * split_chunks * CHUNK
+        acc = acc + _stage_sums(pieces, w, k0,
+                                min(k0 + split_chunks * CHUNK, k))
+    return acc
 
 
 def _weight(rng, d, n):
@@ -206,6 +224,231 @@ def test_b14_piecewise_mirror_matches_plain(m, d, h):
     top = float(want.abs().max())
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5 * top,
                                rtol=1e-5)
+
+
+def _b12_mirror(x, w_q, scale, b, residual, activation, splits,
+                split_chunks):
+    """csrc/int8_gemm.cu's order of work in plain torch: x cut into pieces
+    (3 for fp32 x, 1 for bf16), the 128-wide stages of each split folded,
+    the splits' partials summed in split order, then scale, bias, the
+    activation and the residual in fp32 and one rounding to x's dtype.
+    Weight (n, d) int8."""
+    dt = x.dtype
+    acc = _split_sums(_pieces(x.float(), 3 if dt == torch.float32 else 1),
+                      w_q, splits, split_chunks)
+    out = acc * scale
+    if b is not None:
+        out = out + b.float()
+    out = tlg._act(out, activation)
+    if residual is not None:
+        out = out + residual.float()
+    return out.to(dt)
+
+
+def _b13_mirror(x, gamma, beta, tm, prev, w_q, scale, b, activation, eps,
+                splits, split_chunks):
+    """csrc/int8_ln_gemm.cu's order of work in plain torch: fp32 row
+    statistics with the fast variance; LN(x) rounded to x's dtype; with tm
+    the shift LN(x) * tm + prev * (1 - tm), each step in x's dtype; then
+    the pieces of that and B12's products and epilogue (no residual).
+    Returns (y, LN(x))."""
+    dt = x.dtype
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = torch.clamp((x32 * x32).mean(-1, keepdim=True) - mean * mean,
+                      min=0.0)
+    xn = ((x32 - mean) * (1.0 / torch.sqrt(var + eps) * gamma) + beta).to(dt)
+    mixed = xn
+    if tm is not None:
+        t = tm.to(dt)
+        mixed = xn * t + prev.to(dt) * (1.0 - t)
+    return _b12_mirror(mixed, w_q, scale, b, None, activation, splits,
+                       split_chunks), xn
+
+
+def _jx(a, dtype):
+    """(JAX array in the JAX dtype, torch tensor of the same values)."""
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    xj = jnp.asarray(a, jdt)
+    return xj, torch.from_numpy(np.asarray(xj.astype(jnp.float32))).to(
+        getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,bias,residual,activation", [
+    (8, True, True, "gelu"), (8, False, False, None),
+    (16, True, False, "sqrelu")])
+def test_b12_piecewise_mirror_matches_jax_kernel(interpret, dtype, m, bias,
+                                                 residual, activation):
+    """B12's arithmetic, mirrored in torch with the plan's splits (4 at d
+    512, n 256), against ``_int8_gemm_pallas`` in interpret mode on shapes
+    that pass its gates (d, n % 128), with the bias, the residual and the
+    activation on and off; 16 rows are two row tiles."""
+    d, n = 512, 256
+    rng = np.random.default_rng(11)
+    x = (rng.standard_normal((m, d)) * 2.0 + 0.5).astype(np.float32)
+    w_q, scale = _weight(rng, d, n)
+    b = (0.1 * rng.standard_normal(n)).astype(np.float32)
+    res = rng.standard_normal((m, n)).astype(np.float32)
+    xj, xt = _jx(x, dtype)
+    want = jint8._int8_gemm_pallas(
+        xj, jnp.asarray(w_q), jnp.asarray(scale),
+        jnp.asarray(b if bias else np.zeros(n, np.float32)),
+        jnp.asarray(res) if residual else None, activation)
+    plan = tint8.int8_gemm_plan(m, d, n,
+                                pieces=3 if dtype == "float32" else 1)
+    assert plan["splits"] == 4
+    t = torch.from_numpy
+    got = _b12_mirror(xt, t(w_q.T.copy()), t(scale), t(b) if bias else None,
+                      t(res) if residual else None, activation,
+                      plan["splits"], plan["split_chunks"])
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,shift,bias,activation", [
+    (8, True, True, None), (8, False, False, None),
+    (16, True, False, "gelu")])
+def test_b13_piecewise_mirror_matches_jax_kernel(interpret, dtype, m, shift,
+                                                 bias, activation):
+    """B13's arithmetic (statistics, LN(x) rounded, the shift, then the
+    pieces), mirrored in torch with the plan's splits, against
+    ``_int8_ln_gemm_pallas`` in interpret mode, the shift and the bias on
+    and off; LN(x) compared too."""
+    d, n = 512, 256
+    rng = np.random.default_rng(13)
+    x = (rng.standard_normal((m, d)) * 2.0 + 0.5).astype(np.float32)
+    gamma = (1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+    beta = (0.1 * rng.standard_normal(d)).astype(np.float32)
+    tm = rng.uniform(0.0, 1.0, d).astype(np.float32)
+    prev = rng.standard_normal((m, d)).astype(np.float32)
+    w_q, scale = _weight(rng, d, n)
+    b = (0.1 * rng.standard_normal(n)).astype(np.float32)
+    xj, xt = _jx(x, dtype)
+    pj, pt = _jx(prev, dtype)
+    out, xn = jint8._int8_ln_gemm_pallas(
+        xj, jnp.asarray(gamma), jnp.asarray(beta), jnp.asarray(tm), pj,
+        jnp.asarray(w_q), jnp.asarray(scale),
+        jnp.asarray(b if bias else np.zeros(n, np.float32)), activation,
+        1e-5, shift)
+    plan = tint8.int8_gemm_plan(m, d, n,
+                                pieces=3 if dtype == "float32" else 1)
+    t = torch.from_numpy
+    got, got_xn = _b13_mirror(
+        xt, t(gamma), t(beta), t(tm) if shift else None,
+        pt if shift else None, t(w_q.T.copy()), t(scale),
+        t(b) if bias else None, activation, 1e-5, plan["splits"],
+        plan["split_chunks"])
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(out, np.float32), **tol)
+    np.testing.assert_allclose(got_xn.float().numpy(),
+                               np.asarray(xn, np.float32), **tol)
+
+
+@pytest.mark.parametrize("m,d,n", [(5, 1040, 136), (13, 512, 1000),
+                                   (40, 256, 200)])
+def test_b12_b13_piecewise_mirrors_match_plain(m, d, n):
+    """At the card tests' kinds of shape (ragged m, d not a multiple of the
+    128-wide stage, n not a multiple of 192), fp32 x, the mirrors with the
+    plan's splits against the port's plain versions, which take fp32
+    products in one sum."""
+    rng = np.random.default_rng(17)
+    t = torch.from_numpy
+    x = t(rng.standard_normal((m, d)).astype(np.float32))
+    gamma = t(1.0 + 0.1 * rng.standard_normal(d)).float()
+    beta = t(0.1 * rng.standard_normal(d)).float()
+    tm = t(rng.uniform(0.0, 1.0, d)).float()
+    prev = t(rng.standard_normal((m, d))).bfloat16()
+    w_q, scale = tint8.quantize_channelwise(
+        t(rng.standard_normal((n, d)) * 0.02).float())
+    b = t(0.1 * rng.standard_normal(n)).float()
+    res = t(rng.standard_normal((m, n))).float()
+    plan = tint8.int8_gemm_plan(m, d, n)
+    got = _b12_mirror(x, w_q, scale, b, res, "gelu", plan["splits"],
+                      plan["split_chunks"])
+    want = tint8.int8_gemm_plain(x, w_q, scale, b, res, "gelu")
+    top = float(want.abs().max())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5 * top,
+                               rtol=1e-5)
+    got, got_xn = _b13_mirror(x, gamma, beta, tm, prev, w_q, scale, b,
+                              "sqrelu", 1e-5, plan["splits"],
+                              plan["split_chunks"])
+    want, want_xn = tint8.int8_ln_gemm_plain(x, gamma, beta, tm, prev, w_q,
+                                             scale, b, "sqrelu")
+    top = float(want.abs().max())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5 * top,
+                               rtol=1e-5)
+    np.testing.assert_allclose(got_xn.numpy(), want_xn.numpy(), atol=1e-6,
+                               rtol=1e-6)
+
+
+def test_int8_gemm_plan_at_the_prior_shapes():
+    """The int8 decode step's four products at the prior's widths (batch
+    8) on a 132-SM card: the projection (fp32 x, 6144 -> 6144) 32 groups x
+    4 splits of 12 stages, 128 blocks; the prefill's bf16 qkv and the
+    decode qkv (-> 18432) 96 groups x 4 splits, 132 blocks (33 a split,
+    at most 3 units each); the vocab head (-> 8192) 43 groups x 3 splits of
+    16 stages, 129 blocks."""
+    res3, res1, stage = 2 * 8 * 3 * 128, 2 * 8 * 128, 3 * 64 * 128
+    slots = 3 * 2 * 8 * 64 * 4  # the epilogue warps' slots
+    assert tint8.int8_gemm_plan(8, 6144, 6144, 132, 3) == dict(
+        grid=128, row_tiles=1, groups=32, splits=4, split_chunks=12,
+        stages=4, smem=12 * res3 + 4 * stage + slots + 1024,
+        part_bytes=4 * 4 * 8 * 6144, sync_words=96)
+    for pieces, res, stages in ((1, res1, 4), (3, res3, 4)):
+        assert tint8.int8_gemm_plan(8, 6144, 18432, 132, pieces) == dict(
+            grid=132, row_tiles=1, groups=96, splits=4, split_chunks=12,
+            stages=stages, smem=12 * res + stages * stage + slots + 1024,
+            part_bytes=4 * 4 * 8 * 18432, sync_words=288)
+    assert tint8.int8_gemm_plan(8, 6144, 8192, 132, 3) == dict(
+        grid=129, row_tiles=1, groups=43, splits=3, split_chunks=16,
+        stages=4, smem=16 * res3 + 4 * stage + slots + 1024,
+        part_bytes=4 * 3 * 8 * 8192, sync_words=128)
+
+
+@pytest.mark.parametrize("sms", [132, 114, 1])
+def test_int8_gemm_plan_at_the_card_test_shapes(sms):
+    """Every shape of the card tests, both piece counts: no split empty,
+    the splits' chunks cover K, the resident pieces and the ring fit a
+    block, one block an SM at most, partials and counts only when split."""
+    for m, d, n in ((8, 6144, 6144), (8, 6144, 18432), (8, 6144, 8192),
+                    (1, 6144, 1000), (5, 6144, 1000), (13, 6144, 1000),
+                    (40, 6144, 1000), (3, 256, 200), (20, 1040, 96),
+                    (5, 512, 136), (8, 16, 8), (1100, 256, 200)):
+        for pieces in (1, 3):
+            p = tint8.int8_gemm_plan(m, d, n, sms, pieces)
+            chunks, tiles = -(-d // CHUNK), -(-n // 64)
+            assert p["row_tiles"] == -(-m // 8)
+            assert p["groups"] == -(-tiles // 3)
+            assert p["splits"] * p["split_chunks"] >= chunks
+            assert (p["splits"] - 1) * p["split_chunks"] < chunks
+            units = p["row_tiles"] * p["groups"] * p["splits"]
+            assert p["grid"] == min(sms, units)
+            # every unit has a block, and no block more than its share
+            # when blocks take one stream each
+            busiest = tint8._max_units(p["groups"], p["row_tiles"]
+                                       * p["splits"], p["grid"])
+            assert busiest * p["grid"] >= units
+            if m == 1100:  # more streams than blocks: units cross streams
+                assert p["row_tiles"] * p["splits"] > p["grid"]
+            assert 2 <= p["stages"] <= 4 and p["smem"] <= 232448 - 1024
+            split = p["splits"] > 1
+            assert p["part_bytes"] == (4 * p["row_tiles"] * p["splits"] * 8
+                                       * n if split else 0)
+            assert p["sync_words"] == (p["row_tiles"] * tiles if split
+                                       else 0)
+
+
+@pytest.mark.parametrize("m,d,n,pieces", [(0, 256, 1024, 3),
+                                          (8, 200, 1024, 3),
+                                          (8, 256, 0, 1), (8, 256, 1024, 2),
+                                          (8, -16, 1024, 1)])
+def test_int8_gemm_plan_refuses_what_the_kernel_refuses(m, d, n, pieces):
+    with pytest.raises(ValueError):
+        tint8.int8_gemm_plan(m, d, n, 132, pieces)
 
 
 def _check_mlp_plan(p, d, h, sms):
