@@ -39,8 +39,8 @@ Phases, each of which raises on failure:
    the bf16 LN -> GEMM, the fused FFN, attention -> projection, the
    attention forwards (head dims up to 128, and the prior's 384), the
    attention backward (and at the prior's 384), their fp32 counterparts
-   (fp32 attention -> projection and FFN among them) and the int8 decode
-   MLP must hold wgmma (HGMMA) and
+   (fp32 attention -> projection, FFN and LN -> GEMM among them), the int8
+   decode kernels and the LN -> shift -> GEMM must hold wgmma (HGMMA) and
    TMA loads (UTMALDG) and no mma.sync (``cuobjdump``), and the fp32
    kernels' wgmma must all be bf16 (exact pieces; no TF32);
 3. each kernel against its plain PyTorch version on the card at the main
@@ -80,7 +80,8 @@ Phases, each of which raises on failure:
    group;
 8. int8 serving on phase 7's prior: 32 decode steps under
    ENHANCING_TPU_DECODE_LNFUSE=all (B11 and B1 launches per step asserted,
-   logits held to the default path's); then ``quantize_decode_params``,
+   logits held to the default path's; one LNFUSE step's device time by
+   kernel group and its copy kernels); then ``quantize_decode_params``,
    int8 against bf16 (teacher-forced on phase 7's codes), the drop and the
    memory it frees, ``kv_int8``; one ``CondTransformer.sample`` with its
    launches asserted exactly; tokens/s, ms per decode step against its
@@ -133,6 +134,12 @@ Phases, each of which raises on failure:
     finite losses, every prior parameter moved, ms a step, peak memory and
     one step's device time by kernel group.
 
+Phases 3 and 4 hold and time fp32 B1 (``csrc/ln_gemm_f32.cu``: each
+fp32 product as six bf16 wgmma products of exact pieces, three with a bf16
+weight read as stored) at the fp32 towers' batch-8 shapes, Base's fc1 also
+against an fp64 evaluation (logged), and B11's kernel
+(``csrc/ln_shift_gemm.cu``) at the LNFUSE qkv and, without the shift, at
+the mlp and head sites, where fp32 B1's few rows run it.
 Phases 3 and 4 hold and time the fp32 attention kernels
 (``csrc/attention_f32.cu``: B2, B8 at 384, B5, B17-B19 in fp32, each
 fp32 product as six bf16 wgmma products of exact pieces; two bounds each,
@@ -332,13 +339,18 @@ REPLACES.update({name: REPLACES[bf16] for name, bf16 in F32_OF.items()})
 WIDE_BWD = {"attention_bwd_wide": "attn_bwd_wide",
             "attention_bwd_wide_f32": "attn_f32_bwd_wide"}
 REPLACES.update({name: REPLACES["attention_bwd"] for name in WIDE_BWD})
+# fp32 B1: csrc/ln_gemm_f32.cu's tiles, and at a decode step's few rows B11's
+# kernel without the shift (ops.ln_gemm.ln_gemm_route), counted under
+# ln_gemm and told apart by ops.LN_GEMM_ROUTES (kernel_counts)
+REPLACES["ln_gemm_f32"] = REPLACES["ln_gemm"]
 # B2, B8 and B17-B19 run the attention forwards of one source, their fp32
 # forms another
 SOURCES = {name: "enhancing_tpu_torch/csrc/" + {
     "attention": "attention_bnhd", "attention_bhnd": "attention_bnhd",
     "attention_fused_bnhd": "attention_bnhd",
     "attention_gridchunk": "attention_bnhd", "attn_proj_f32": "attn_proj_f32",
-    "ffn_f32": "ffn_f32", "attention_bwd_wide_f32": "attention_bwd_wide"}.get(
+    "ffn_f32": "ffn_f32", "attention_bwd_wide_f32": "attention_bwd_wide",
+    "ln_gemm_f32": "ln_gemm_f32"}.get(
         name, "attention_f32" if name in F32_OF else name) + ".cu"
     for name in REPLACES}
 
@@ -441,14 +453,17 @@ def phase_build() -> None:
 # (B15), the attention forwards (B2, B8 at head dims up to 128, B17-B19;
 # B8 at the prior's 384), the attention backward's two kernels (B5; and
 # at the prior's 384, csrc/attention_bwd_wide.cu), their fp32
-# counterparts on exact bf16 pieces (B15 and B16 among them) and the int8
-# decode kernels (B12-B14) run
+# counterparts on exact bf16 pieces (B15, B16 and B1 among them), the int8
+# decode kernels (B12-B14) and B11 on their core run
 # on Hopper's warpgroup MMA fed by TMA: their SASS holds HGMMA and
 # UTMALDG, and no mma.sync (HMMA). Each family by its demangled or mangled
-# name; the first family whose fragment a name holds takes it, so
-# int8_ln_gemm comes before ln_gemm.
+# name; the first family whose fragment a name holds takes it, so the
+# longer names come first (int8_ln_gemm, ln_shift_gemm and ln_gemm_f32
+# before ln_gemm).
 SM90_KERNELS = {"int8_gemm": ("int8_gemm_kernel",),
                 "int8_ln_gemm": ("int8_ln_gemm_kernel",),
+                "ln_shift_gemm": ("ln_shift_gemm_kernel",),
+                "ln_gemm f32": ("ln_gemm_f32_kernel",),
                 "ln_gemm": ("ln_gemm_kernel<", "ln_gemm_kernelI"),
                 "ffn": ("ffn_kernel<", "ffn_kernelI"),
                 "attn_proj": ("attn_proj_kernel",),
@@ -468,14 +483,16 @@ SM90_KERNELS = {"int8_gemm": ("int8_gemm_kernel",),
 # the fp32 kernels (csrc/attention_f32.cu, attn_proj_f32.cu, ffn_f32.cu,
 # and csrc/attention_bwd_wide.cu, whose bf16 and fp32 forms share a
 # template) compute fp32 products as six bf16 products of exact pieces,
-# and the int8 decode kernels (int8_wgmma.cuh) int8 weights widened to
-# bf16 times exact bf16 pieces: every HGMMA of theirs is BF16, and none is
-# TF32 (a single TF32 pass misses the fp32 limits) or int8 by int8
+# and the decode kernels on int8_wgmma.cuh (B12-B14, B11) int8 weights
+# widened to bf16, bf16 weights or fp32 weights' exact pieces times exact
+# bf16 pieces, as fp32 B1 (ln_gemm_f32.cu) does: every HGMMA of theirs is
+# BF16, and none is TF32 (a single TF32 pass misses the fp32 limits) or
+# int8 by int8
 F32_PIECE_FAMILIES = ("attention fwd f32", "attention fwd f32 D=384",
                       "attention_bwd f32 rows", "attention_bwd f32 cols",
                       "attn_proj f32", "ffn f32", "attention_bwd D=384 rows",
                       "attention_bwd D=384 cols", "int8_mlp", "int8_gemm",
-                      "int8_ln_gemm")
+                      "int8_ln_gemm", "ln_shift_gemm", "ln_gemm f32")
 
 
 def check_sass(lib_path: str) -> None:
@@ -595,12 +612,14 @@ def phase_compare() -> dict:
         close("ln_gemm", f"ln_gemm bf16 ragged M={m} d={d} n={n} {act}",
               lg.ln_gemm_kernel(x, g, bt, w, b, act),
               lg.ln_gemm_plain(x, g, bt, w, b, act), **tol)
-    # fp32 SIMT path: same products, another summation order
+    # fp32 (csrc/ln_gemm_f32.cu): the same products on exact bf16 pieces,
+    # another summation order
     x32, w32 = t["x"][:2048].float(), t["w_qkv"].float()
-    close("ln_gemm", "ln_gemm f32 M=2048 n=2304",
+    close("ln_gemm_f32", "ln_gemm f32 M=2048 n=2304",
           lg.ln_gemm_kernel(x32, t["gamma"], t["beta"], w32, None, "gelu"),
           lg.ln_gemm_plain(x32, t["gamma"], t["beta"], w32, None, "gelu"),
           atol=1e-4, rtol=1e-5)
+    compare_f32_ln_gemm(t, close)
 
     got = lg.layernorm_kernel(t["x"], t["gamma"], t["beta"])
     want = lg.layernorm(t["x"], t["gamma"], t["beta"])
@@ -700,6 +719,59 @@ def phase_compare() -> dict:
     compare_wide_bwd(gen, close, errs)
     torch.cuda.synchronize()
     return errs
+
+
+def ln_gemm_f64(x, gamma, beta, w, b, activation, eps=1e-5):
+    """LN -> GEMM in fp64 on fp32 operands (no rounding of its own): what
+    fp32 B1's products, summed exactly, give."""
+    from enhancing_tpu_torch.ops import ln_gemm as lg
+    x64 = x.double()
+    mean = x64.mean(-1, keepdim=True)
+    var = ((x64 * x64).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+    xn = (x64 - mean) * (torch.rsqrt(var + eps) * gamma.double()) \
+        + beta.double()
+    h = xn @ w.double().t()
+    return lg._act(h if b is None else h + b.double(), activation)
+
+
+def compare_f32_ln_gemm(t, close) -> None:
+    """fp32 B1 (csrc/ln_gemm_f32.cu) at the fp32 towers' batch-8 shapes:
+    ViT-VQGAN-Base's fc1 (768 -> 3072, tanh) and imagenet_vitvq_large.yaml's
+    decoder qkv and fc1 (1280 -> 3840, 5120), fp32 W; Base's qkv with the
+    bf16 weight read as stored; at the first line's limits (the same
+    products, another summation order). The fc1 line is also held (logged)
+    against an fp64 evaluation. Its own random numbers: the lines after it
+    draw the same inputs from phase 3's generator as before it was added."""
+    from enhancing_tpu_torch.ops import ln_gemm as lg
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    x, g, bt = t["x"].float(), t["gamma"], t["beta"]
+    w, b = t["w_fc1"].float(), t["b_fc1"]
+    got = lg.ln_gemm_kernel(x, g, bt, w, b, "tanh")
+    want = lg.ln_gemm_plain(x, g, bt, w, b, "tanh")
+    close("ln_gemm_f32", "ln_gemm f32 Base fc1 M=8192 768 -> 3072 tanh", got,
+          want, atol=1e-4, rtol=1e-5)
+    exact = ln_gemm_f64(x, g, bt, w, b, "tanh")
+    log("[compare] ln_gemm f32 Base fc1 M=8192 against an fp64 evaluation "
+        f"(|fp64| max {float(exact.abs().max()):.4f}): kernel max_abs_err "
+        f"{float((got.double() - exact).abs().max()):.3e}, plain "
+        f"{float((want.double() - exact).abs().max()):.3e} (logged)")
+    del got, want, exact
+    w16 = t["w_qkv"]
+    close("ln_gemm_f32", "ln_gemm f32 Base qkv M=8192 768 -> 2304, bf16 W "
+          "as stored", lg.ln_gemm_kernel(x, g, bt, w16, None, None),
+          lg.ln_gemm_plain(x, g, bt, w16, None, None), atol=1e-4, rtol=1e-5)
+    d = 1280
+    xl = torch.randn((CHECK_BATCH * TOKENS, d), generator=gen, device="cuda")
+    gl = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+    bl = 0.1 * torch.randn(d, generator=gen, device="cuda")
+    for n, label, act in ((3 * d, "qkv", None), (4 * d, "fc1", "tanh")):
+        wl = torch.randn((n, d), generator=gen, device="cuda") * d ** -0.5
+        bias = 0.02 * torch.randn(n, generator=gen, device="cuda")
+        close("ln_gemm_f32", f"ln_gemm f32 Large decoder {label} M=8192 "
+              f"{d} -> {n}", lg.ln_gemm_kernel(xl, gl, bl, wl, bias, act),
+              lg.ln_gemm_plain(xl, gl, bl, wl, bias, act), atol=1e-4,
+              rtol=1e-5)
+        del wl
 
 
 def prior_stack(gen, cur):
@@ -902,15 +974,21 @@ def compare_int8_kernels(gen, close, errs) -> None:
     line("ln_shift_gemm", "ln_shift_gemm qkv f32 x, bf16 W (18432, 6144)",
          got, want)
     line("ln_shift_gemm", "ln_shift_gemm qkv f32 x, LN(x)", got_xn, want_xn)
-    # B1 at the LNFUSE mlp and head sites: fp32 x and the bf16 weight cast
-    # to fp32 (fused_ln_gemm), so its fp32 SIMT path
+    # B1 at the LNFUSE mlp and head sites: fp32 x of 8 rows, so B11's
+    # kernel without the shift (ops.ln_gemm.ln_gemm_route), on the bf16
+    # weight as stored (as fused_ln_gemm hands it over) and on its fp32
+    # widening
     for label, w, b, act in (("mlp p0 sqrelu", t["p0"], t["p0_b"], "sqrelu"),
                              ("head", t["head"], None, None)):
-        w32, b32 = w.float(), None if b is None else b.float()
-        line("ln_gemm", f"ln_gemm LNFUSE {label} f32 x (8, 6144) -> "
-             f"{w.shape[0]}", lg.ln_gemm_kernel(x, g, bt, w32, b32, act),
-             lg.ln_gemm_plain(x, g, bt, w32, b32, act))
-        del w32
+        b32 = None if b is None else b.float()
+        check(lg.ln_gemm_route(x.shape[0], x.dtype, w.dtype) == "decode",
+              "the LNFUSE sites' rows do not take the decode route")
+        for wk in (w, w.float()):
+            line("ln_gemm_f32", f"ln_gemm LNFUSE {label} f32 x (8, 6144) -> "
+                 f"{w.shape[0]}, {str(wk.dtype)[6:]} W",
+                 lg.ln_gemm_kernel(x, g, bt, wk, b32, act),
+                 lg.ln_gemm_plain(x, g, bt, wk, b32, act))
+            del wk
     del t, mlp
 
     # B10 on the int8 cache: 6144-byte rows, exact; scalar, ragged, and
@@ -1015,12 +1093,13 @@ def phase_times() -> dict:
             reps=1):
         """reps > 1: kernel and library loops in turns, each number the
         median of ``reps`` loops, their min-max logged. The fp32 attention
-        kernels (``peak`` PEAK_F32) compute six bf16 products of exact
-        pieces for each fp32 one: their bound is those products at the bf16
+        kernels (``peak`` PEAK_F32; fp32 B1 among them) compute six bf16
+        products of exact pieces for each fp32 one: their bound is those products at the bf16
         peak (989 / 6 = 165 TFLOP/s), and the fp32 SIMT bound (67 TFLOP/s)
         is logged and kept beside it."""
         simt = None
-        if name in F32_OF or name == "attention_bwd_wide_f32":
+        if name in F32_OF or name in ("attention_bwd_wide_f32",
+                                      "ln_gemm_f32"):
             simt = bound(flops, nbytes, PEAK_F32)[0]
             flops, peak = 6 * flops, PEAK_BF16
         b_ms, b_by = bound(flops, nbytes, peak)
@@ -1163,6 +1242,7 @@ def phase_times() -> dict:
     time_int8_kernels(gen, row)
     time_fused_kernels(gen, row)
     time_f32_kernels(gen, row)
+    time_f32_ln_gemm(gen, row)
     time_f32_fusions(gen, row)
     time_wide_bwd(gen, row)
     return rows
@@ -1382,7 +1462,28 @@ def time_int8_kernels(gen, row) -> None:
         2.0 * b * c * 3 * c,
         2 * f4 + 3 * c * 4 + h2 + 6 * c * c + 3 * c * 2 + 3 * f4, PEAK_F32,
         30)
-    del w32, t
+    del w32
+    # B11 by device time, and fp32 B1 at the LNFUSE mlp and head sites on
+    # the bf16 weights as stored (the decode route: B11's kernel without
+    # the shift), two weight copies in turn, beside each call's bound (the
+    # bf16 weight bytes)
+    qkv = cycling(lambda w: lg.ln_shift_gemm_kernel(x, g, bt, tm, prev, w,
+                                                    t["qkv_b"]),
+                  [t["qkv"], t["qkv"].clone()])
+    dev = [("ln_shift_gemm qkv", device_ms(qkv), 3 * c * c * 2)]
+    for label, w, bias, act in (("mlp p0 sqrelu", t["p0"], t["p0_b"],
+                                 "sqrelu"), ("head", t["head"], None, None)):
+        b32 = None if bias is None else bias.float()
+        call = cycling(lambda wk: lg.ln_gemm_kernel(  # noqa: B023
+            x, g, bt, wk, b32, act), [w, w.clone()])  # noqa: B023
+        dev.append((f"ln_gemm LNFUSE {label}", device_ms(call),
+                    w.numel() * 2))
+    log("[time] LNFUSE decode calls f32 x (8, 6144), bf16 W, device ms "
+        "(torch.profiler, 20 calls, two weight copies in turn): "
+        + ", ".join(f"{k} {v:.4f} (bound {nb / PEAK_BYTES * 1e3:.4f}, "
+                    f"{nb / PEAK_BYTES * 1e3 / v:.0%})"
+                    for k, v, nb in dev))
+    del qkv, t
 
     # B9 over an int8 cache, fp32 q (the int8 decode step), at cur_len 1,
     # 256, 512 and 1024; 512 is the row of the kernels line
@@ -1713,8 +1814,8 @@ def time_f32_kernels(gen, row) -> None:
     at their bf16 rows' shapes but batch 8; two bounds (row(): six bf16
     products at 989 TFLOP/s, and the fp32 SIMT rate of 67); the library
     call SDPA in fp32 with TF32 off. Then, logged, heads of 80 in bf16 and
-    fp32 beside heads of 64 at the same width, and SDPA in fp32 at heads of
-    80 (forward and autograd backward)."""
+    fp32 beside heads of 64 at the same width, each with SDPA in its dtype
+    (forward and autograd backward)."""
     from enhancing_tpu_torch.ops import attention as att
     f32 = torch.float32
     b, n, h, d = CHECK_BATCH, TOKENS, HEADS, HEAD_DIM
@@ -1808,29 +1909,60 @@ def time_f32_kernels(gen, row) -> None:
                           peak)
             bb, _ = bound(10.0 * b * h * n * n * d, 7 * b * n * h * d * size,
                           peak)
-            if dtype == f32:  # the pieces' bound and SDPA fp32 beside them
+            if dtype == f32:  # the pieces' bound
                 fb, _ = bound(6 * 4.0 * b * h * n * n * d,
                               4 * b * n * h * d * size, PEAK_BF16)
                 bb, _ = bound(6 * 10.0 * b * h * n * n * d,
                               7 * b * n * h * d * size, PEAK_BF16)
-                ql, kl, vl = (u.reshape(b, n, h, d).transpose(1, 2).detach()
-                              .requires_grad_() for u in (q3, k3, v3))
-                lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-                    ql, kl, vl, scale=1.0), 5)
-                lib_out = F.scaled_dot_product_attention(ql, kl, vl,
-                                                         scale=1.0)
-                lib_do = do.reshape(b, n, h, d).transpose(1, 2)
-                lib_bwd = time_ms(lambda: torch.autograd.grad(
-                    lib_out, (ql, kl, vl), lib_do, retain_graph=True), 5)
-                lib = (f"; SDPA fp32 forward {lib_fwd:.4f} ms, autograd "
-                       f"backward {lib_bwd:.4f} ms")
-                del ql, kl, vl, lib_out
-            else:
-                lib = ""
+            # SDPA in the same dtype beside them (fp32: TF32 off)
+            ql, kl, vl = (u.reshape(b, n, h, d).transpose(1, 2).detach()
+                          .requires_grad_() for u in (q3, k3, v3))
+            lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+                ql, kl, vl, scale=1.0), 5)  # noqa: B023
+            lib_out = F.scaled_dot_product_attention(ql, kl, vl, scale=1.0)
+            lib_do = do.reshape(b, n, h, d).transpose(1, 2)
+            lib_bwd = time_ms(lambda: torch.autograd.grad(
+                lib_out, (ql, kl, vl), lib_do,  # noqa: B023
+                retain_graph=True), 5)
             log(f"[time] attention {str(dtype)[6:]} B={b} N={n} H={h} D={d}:"
                 f" forward {fwd:.4f} ms (bound {fb:.4f}), backward "
-                f"{bwd:.4f} ms (bound {bb:.4f}){lib}")
-            del qkv, q3, k3, v3, do
+                f"{bwd:.4f} ms (bound {bb:.4f}); SDPA {str(dtype)[6:]} "
+                f"forward {lib_fwd:.4f} ms, autograd backward {lib_bwd:.4f}"
+                " ms")
+            del qkv, q3, k3, v3, do, ql, kl, vl, lib_out
+
+
+# the fp32 towers' LN -> GEMM calls at batch 8 (M = 8192): (label, d, n,
+# activation), ViT-VQGAN-Base's qkv and fc1 and imagenet_vitvq_large.yaml's
+# decoder qkv and fc1
+F32_LN_GEMM = (("Base qkv", 768, 2304, None), ("Base fc1", 768, 3072, "tanh"),
+               ("Large decoder qkv", 1280, 3840, None),
+               ("Large decoder fc1", 1280, 5120, "tanh"))
+
+
+def time_f32_ln_gemm(gen, row) -> None:
+    """fp32 B1 (csrc/ln_gemm_f32.cu) at F32_LN_GEMM, fp32 W: kernel ms
+    beside the pieces' bound (six bf16 products at 989 TFLOP/s) and the
+    fp32 SIMT bound (67), the plain version and one library call
+    (F.layer_norm, F.linear and the activation in fp32, TF32 off)."""
+    from enhancing_tpu_torch.ops import ln_gemm as lg
+    m = CHECK_BATCH * TOKENS
+    for label, d, n, act in F32_LN_GEMM:
+        x = torch.randn((m, d), generator=gen, device="cuda")
+        g = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+        bt = 0.1 * torch.randn(d, generator=gen, device="cuda")
+        w = torch.randn((n, d), generator=gen, device="cuda") * d ** -0.5
+        b = (None if act is None
+             else 0.02 * torch.randn(n, generator=gen, device="cuda"))
+        row("ln_gemm_f32", f"ln_gemm f32 {label} B={CHECK_BATCH} M={m} {d} -> "
+            f"{n}",
+            lambda: lg.ln_gemm_kernel(x, g, bt, w, b, act),  # noqa: B023
+            lambda: lg.ln_gemm_plain(x, g, bt, w, b, act),  # noqa: B023
+            lambda: lg._act(F.linear(F.layer_norm(  # noqa: B023
+                x, (d,), g, bt, 1e-5), w, b), act),  # noqa: B023
+            2.0 * m * d * n, (m * d + n * d + m * n) * 4 + (2 * d + n) * 4,
+            PEAK_F32, 20)
+        del x, w
 
 
 # -- the fp32 fusions on exact bf16 pieces (csrc/attn_proj_f32.cu, B15;
@@ -2103,13 +2235,16 @@ def time_wide_bwd(gen, row) -> None:
 def kernel_counts() -> dict:
     """The launches since the last reset by kernels-line name: each bf16
     kernel's (its LAUNCHES less the fp32 ones counted under its name) and
-    each fp32 kernel's."""
-    from enhancing_tpu_torch.ops import F32_LAUNCHES, LAUNCHES, WIDE_LAUNCHES
+    each fp32 kernel's (fp32 B1: its two fp32 routes)."""
+    from enhancing_tpu_torch.ops import (F32_LAUNCHES, LAUNCHES,
+                                         LN_GEMM_ROUTES, WIDE_LAUNCHES)
     out = {k: v - F32_LAUNCHES[k] for k, v in LAUNCHES.items()}
     out.update({k: F32_LAUNCHES[v] for k, v in F32_OF.items()})
     out.update({k: WIDE_LAUNCHES[v] for k, v in WIDE_BWD.items()})
     out["attention_bwd"] -= out["attention_bwd_wide"]
     out["attention_bwd_f32"] -= out["attention_bwd_wide_f32"]
+    out["ln_gemm_f32"] = LN_GEMM_ROUTES["f32"] + LN_GEMM_ROUTES["decode"]
+    out["ln_gemm"] -= out["ln_gemm_f32"]
     return out
 
 
@@ -2253,7 +2388,8 @@ def phase_train_f32() -> dict:
     ms = (time.perf_counter() - t0) * 1e3
     counts = kernel_counts()
     got = {k: v for k, v in counts.items() if v}
-    want = dict(TRAIN_STEP, attention=0, attention_bwd=0, attention_f32=48,
+    want = dict(TRAIN_STEP, ln_gemm=0, attention=0, attention_bwd=0,
+                ln_gemm_f32=TRAIN_STEP["ln_gemm"], attention_f32=48,
                 attention_bwd_f32=24)
     want = {k: v for k, v in want.items() if v}
     log(f"[train32] fake_vitvq_base float32, one step (no R1) batch "
@@ -3090,6 +3226,22 @@ def phase_int8(model, codes7) -> dict:
         fused, lnfuse = counted(
             lambda: teacher_forced(gpt, codes7, conds, steps))
         t_fused = (time.perf_counter() - t0) / (steps + 1) * 1e3
+        lnfuse_counts = kernel_counts()
+        # one LNFUSE step at cur_len 512 by kernel group, and its weight
+        # casts: the mlp's p1 (a cuBLAS product's operand) is cast, p0 and
+        # the head go to B1 as stored
+        with torch.inference_mode():
+            cache = gpt.init_cache(SAMPLE_BATCH)
+            tok = codes7[:, 0]
+            gpt.decode_step(tok, 512, cache)
+            profile_device(f"one LNFUSE decode step batch {SAMPLE_BATCH} at "
+                           "cur_len 512",
+                           lambda: gpt.decode_step(tok, 512, cache))
+            casts = copy_kernels(lambda: gpt.decode_step(tok, 512, cache))
+        del cache
+        log(f"[int8] LNFUSE decode step: {casts[0]} copy kernels, "
+            f"{casts[1]:.3f} device ms (the {P_LAYERS} layers' p1 casts "
+            "expected; no cast of p0 or the head)")
     finally:
         del os.environ["ENHANCING_TPU_DECODE_LNFUSE"]
     # the prefill runs no LNFUSE site: its launches are the default ones
@@ -3220,7 +3372,8 @@ def phase_int8(model, codes7) -> dict:
     gc_cuda()
     # the kernels line counts both paths: the int8 sample and the LNFUSE
     # decode (B11's only path)
-    return {k: v + lnfuse.get(k, 0) for k, v in launches.items()}
+    return {k: launches.get(k, 0) + lnfuse_counts.get(k, 0)
+            for k in set(launches) | set(lnfuse_counts)}
 
 
 def gc_cuda() -> None:
@@ -3237,7 +3390,9 @@ KERNEL_GROUPS = (("attn_proj_kernel", "attn_proj"), ("ffn_kernel", "ffn"),
                  ("attn_f32_bwd", "attention_bwd f32"),
                  ("f32_split", "fp32 split pass"),
                  ("int8_ln_gemm_kernel", "int8_ln_gemm"),
-                 ("gemv_ln_kernel<", "ln_shift_gemm"),
+                 ("ln_shift_gemm_kernel", "ln_shift_gemm"),
+                 ("ln_gemm_stats_kernel<float", "ln_gemm f32"),
+                 ("ln_gemm_f32", "ln_gemm f32"),
                  ("int8_gemm_kernel", "int8_gemm"),
                  ("mlp_kernel", "int8_mlp"),
                  ("attn_bwd", "attention_bwd"),
@@ -3254,6 +3409,21 @@ KERNEL_GROUPS = (("attn_proj_kernel", "attn_proj"), ("ffn_kernel", "ffn"),
                  ("xmma", "cuBLAS"), ("cutlass", "cuBLAS"),
                  ("nvjet", "cuBLAS"), ("multi_tensor", "optimizer"),
                  ("elementwise", "elementwise"), ("reduce", "reductions"))
+
+
+def copy_kernels(fn) -> tuple:
+    """(number, device ms) of the copy kernels (casts among them) that one
+    call of ``fn`` launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and "copy" in e.key]
+    return (sum(e.count for e in events),
+            sum(e.self_device_time_total for e in events) / 1e3)
 
 
 def profile_device(label: str, fn):
@@ -3331,10 +3501,11 @@ def prior_train_config(dtype: str, layers: int) -> dict:
 
 def prior_step_launches(dtype: str, layers: int, backward: bool) -> dict:
     """Launches a prior step (backward) or validation batch makes, by
-    kernels-line name: the frozen fp32 tokenizer's encode (B1 24, fp32 B2
-    12, B3 1, B4 1), then B8 once a layer and B5 once a layer at D = 384."""
+    kernels-line name: the frozen fp32 tokenizer's encode (fp32 B1 24, fp32
+    B2 12, B3 1, B4 1), then B8 once a layer and B5 once a layer at D =
+    384."""
     f32 = "_f32" if dtype == "float32" else ""
-    want = {"ln_gemm": 24, "attention_f32": 12, "layernorm": 1, "vq": 1,
+    want = {"ln_gemm_f32": 24, "attention_f32": 12, "layernorm": 1, "vq": 1,
             "attention_bnhd" + f32: layers}
     if backward:
         want["attention_bwd_wide" + f32] = layers

@@ -20,7 +20,7 @@ template <typename XT>
 __global__ void __launch_bounds__(i8g::kThreads, 1)
     int8_gemm_kernel(const __grid_constant__ CUtensorMap tw,
                      const i8g::Args a) {
-  i8g::gemm_body<XT, false>(&tw, a);
+  i8g::gemm_body<XT, int8_t, false>(&tw, a);
 }
 
 }  // namespace
@@ -53,15 +53,15 @@ ETK_API int etk_int8_gemm(const void* x, const void* w_q, const void* scale,
   a.act = act;
   auto s = static_cast<cudaStream_t>(stream);
   if (x_dtype == ETK_F32)
-    return i8g::launch<int8_gemm_kernel<float>>(3, w_q, a, part_bytes,
+    return i8g::launch<int8_gemm_kernel<float>>(3, 1, w_q, a, part_bytes,
                                                 sync_words, s);
-  return i8g::launch<int8_gemm_kernel<__nv_bfloat16>>(1, w_q, a, part_bytes,
-                                                      sync_words, s);
+  return i8g::launch<int8_gemm_kernel<__nv_bfloat16>>(
+      1, 1, w_q, a, part_bytes, sync_words, s);
 }
 
 // the launch for an (m, d) x (n, d) product of P-piece activations (3:
 // fp32 x, 1: bf16) on this device, as ops.int8.int8_gemm_plan mirrors it;
 // the LN GEMM (int8_ln_gemm.cu) launches the same plan
 ETK_API int etk_int8_gemm_plan(int m, int d, int n, int pieces, int* out) {
-  return i8g::plan_entry(m, d, n, pieces, out);
+  return i8g::plan_entry(m, d, n, pieces, 1, out);
 }

@@ -1,23 +1,30 @@
-// The int8 GEMMs of the decode step on Hopper's tensor cores, shared by
-// the int8 GEMM (B12, int8_gemm.cu) and the int8 LN (+ token shift) GEMM
-// (B13, int8_ln_gemm.cu):
+// The decode step's GEMMs of few rows on Hopper's tensor cores, shared by
+// the int8 GEMM (B12, int8_gemm.cu), the int8 LN (+ token shift) GEMM
+// (B13, int8_ln_gemm.cu) and the LN (+ token shift) GEMM on bf16 or fp32
+// weights (B11, ln_shift_gemm.cu, which also takes fp32 B1's calls of a
+// few rows):
 //
-//   y = act((a @ W_q^T) * scale + b) [+ residual]
+//   y = act((a @ W^T) * scale + b) [+ residual]
 //   a = x (B12), or LN(x) rounded to x's dtype and then, with tm, the shift
-//       LN(x) * tm + prev * (1 - tm) in x's dtype (B13, which also returns
-//       LN(x))
+//       LN(x) * tm + prev * (1 - tm) in x's dtype (B13, B11, which also
+//       return LN(x))
+//   W int8 with a scale a channel (B12, B13), or bf16 or fp32 (B11, no
+//       scale: a factor of 1)
 //
-// The products are int8_wgmma.cuh's: the int8 weights are the wgmma's A
-// operand (64 output channels a warpgroup), the activations B as 8 rows x P
-// exact bf16 pieces (3 for fp32 x, 1 for bf16), so every product is the
-// fp32 product the JAX function forms; each 128-k stage is one wgmma group
-// on a fresh accumulator, folded into the running fp32 sum smallest piece
-// first. Only the order of the sums differs from JAX, and it is fixed: a
-// result does not change from run to run.
+// The products are int8_wgmma.cuh's: the weights are the wgmma's A operand
+// (64 output channels a warpgroup; int8 widened, bf16 as stored, fp32 as
+// three exact bf16 pieces), the activations B as 8 rows x P exact bf16
+// pieces (3 for fp32 x, 1 for bf16), so every product is the fp32 product
+// the JAX function forms; each 128-k stage is one wgmma group (fp32
+// weights: one a k16 slice) on a fresh accumulator, folded into the
+// running fp32 sum smallest piece first. Only the order of the sums
+// differs from JAX, and it is fixed: a result does not change from run to
+// run.
 //
-// Bound on the H100: bytes, the int8 weights (at the prior's widths and
-// batch 8: the projection 37.7 MB, the fused qkv 113 MB, the vocab head
-// 50 MB; 11-34 us at 3.35 TB/s).
+// Bound on the H100: bytes, the weights (at the prior's widths and batch
+// 8: the int8 projection 37.7 MB, the int8 fused qkv 113 MB, the int8
+// vocab head 50 MB, 11-34 us at 3.35 TB/s; the bf16 fused qkv 226.5 MB,
+// 67.6 us).
 //
 // Design. One launch of at most one block an SM: 3 consumer warpgroups, a
 // producer warp and an epilogue warp a consumer warpgroup (512 threads).
@@ -27,8 +34,9 @@
 // blocks, the qkv's 96 x 4 make 132 blocks of at most 3 units). The units
 // of one (row tile, split) are a stream, and a block takes units of one
 // stream only while there are blocks enough.
-// - The producer streams each stage's weight box (192 channels x 128 k,
-//   one TMA, evicted first from L2) through a 4-stage ring. It issues two
+// - The producer streams each stage's weights (192 channels x 128 k: one
+//   TMA box of int8, two of bf16, four of fp32, each 128 bytes a channel,
+//   evicted first from L2) through a ring of at most 4 stages. It issues two
 //   stages, then waits until the consumers have built their first pieces:
 //   the activations' loads queue behind every block's weight loads in the
 //   memory system, ~6 us behind full rings (PERF.md, section 6).
@@ -51,6 +59,7 @@
 #include <algorithm>
 #include <atomic>
 #include <climits>
+#include <type_traits>
 
 #include "int8_wgmma.cuh"
 
@@ -65,8 +74,13 @@ constexpr int kConsumers = kWgs * 128;
 constexpr int kProducer = kConsumers;           // the producer warp's lane 0
 constexpr int kEpilogue = kConsumers + 32;      // the first epilogue warp
 constexpr int kThreads = kEpilogue + kWgs * 32;  // + one a warpgroup
-constexpr int kGroupN = kWgs * kTileN;     // output channels a unit
-constexpr int kWBytes = kGroupN * kChunk;  // weight bytes a stage
+constexpr int kGroupN = kWgs * kTileN;  // output channels a unit
+// one TMA box of weights: 128 bytes of each of the unit's channels
+constexpr int kBoxBytes = kGroupN * 128;
+// weight bytes a stage of w_bytes-byte weights: w_bytes boxes
+__host__ __device__ constexpr int stage_bytes(int w_bytes) {
+  return w_bytes * kBoxBytes;
+}
 constexpr int kMaxStages = 4;
 constexpr int kMinStages = 2;
 constexpr int kConsumerBar = 4;  // named barrier of all consumers (1-3: a
@@ -95,8 +109,9 @@ __host__ __device__ constexpr int res_bytes(int chunks, int pieces) {
   return 2 * chunks * act_box_bytes(pieces);
 }
 
-// The launch for an (m, d) x (n, d) product with P-piece activations on
-// `sms` SMs (ops/int8.py::int8_gemm_plan mirrors it): grid, row tiles,
+// The launch for an (m, d) x (n, d) product with P-piece activations and
+// w_bytes-byte weights on `sms` SMs (ops/int8.py::int8_gemm_plan mirrors
+// it): grid, row tiles,
 // channel groups, splits of K and 128-k chunks a split, ring stages,
 // dynamic shared memory, bytes of fp32 partials, 32-bit words of split
 // counts in the persistent sync buffer.
@@ -121,10 +136,13 @@ __host__ __device__ inline int max_units(int groups, int streams, int grid) {
 // reads; fewer splits on a tie. A split's resident pieces must leave room
 // for kMinStages stages. Returns false for shapes the kernel does not
 // take.
-inline bool make_plan(int m, int d, int n, int pieces, int sms, Plan* out) {
+inline bool make_plan(int m, int d, int n, int pieces, int w_bytes, int sms,
+                      Plan* out) {
   if (m <= 0 || d <= 0 || n <= 0 || d % 16 || sms <= 0 ||
-      (pieces != 1 && pieces != 3))
+      (pieces != 1 && pieces != 3) ||
+      (w_bytes != 1 && w_bytes != 2 && w_bytes != 4))
     return false;
+  const int wb = stage_bytes(w_bytes);
   Plan p{};
   const int tiles = cdiv(n, kTileN), chunks = cdiv(d, kChunk);
   p.row_tiles = cdiv(m, kRows);
@@ -133,7 +151,7 @@ inline bool make_plan(int m, int d, int n, int pieces, int sms, Plan* out) {
   for (int s = 1; s <= chunks; ++s) {
     const int sc = cdiv(chunks, s);
     if (cdiv(chunks, sc) != s ||
-        kSmemBudget - res_bytes(sc, pieces) < kMinStages * kWBytes)
+        kSmemBudget - res_bytes(sc, pieces) < kMinStages * wb)
       continue;  // a split left empty, or no room for the ring
     const long long streams = 1LL * p.row_tiles * s;
     const long long units = streams * p.groups;
@@ -157,8 +175,8 @@ inline bool make_plan(int m, int d, int n, int pieces, int sms, Plan* out) {
   if (units > INT_MAX || part > INT_MAX || words > INT_MAX) return false;
   p.grid = static_cast<int>(std::min<long long>(sms, units));
   const int res = res_bytes(p.split_chunks, pieces);
-  p.stages = std::min(kMaxStages, (kSmemBudget - res) / kWBytes);
-  p.smem = res + p.stages * kWBytes + kSlotBytes + 1024;
+  p.stages = std::min(kMaxStages, (kSmemBudget - res) / wb);
+  p.smem = res + p.stages * wb + kSlotBytes + 1024;
   p.part_bytes = static_cast<int>(part);
   p.sync_words = static_cast<int>(words);
   *out = p;
@@ -172,12 +190,12 @@ struct Args {
   const float* tm;      // (d,) time_mix, null: no shift
   const void* prev;     // (m, d) shift state, fp32 or bf16
   int prev_dtype;
-  const float* scale;   // (n,)
+  const float* scale;   // (n,), or null: 1
   const void* bias;     // (n,) fp32 or bf16, or null
   int bias_dtype;
   const float* residual;  // (m, n) fp32, or null (B12)
   void* out;            // (m, n), x's dtype
-  void* xn;             // (m, d) LN(x), x's dtype (B13)
+  void* xn;             // (m, d) LN(x), x's dtype, or null (LN only)
   float* part;          // (row tiles, splits, 8, n) fp32 partials
   unsigned* sync;       // a split count per (row tile, output tile)
   int m, d, n, act;
@@ -259,7 +277,8 @@ __device__ __forceinline__ void row_stats(const Args& a, int row0, int rows,
 // prior's widths). LN (B13): a thread takes four consecutive k of all
 // rows, loads their gamma, beta and tm once and x (and prev) four rows at
 // a time; LayerNorm, LN(x) written for this range if `write_xn`, the
-// shift, then the pieces.
+// shift, then the pieces. write_xn: LN(x) of this range into a.xn (not
+// null).
 template <typename XT, bool LN>
 __device__ __forceinline__ void build(const Args& a, uint8_t* res, int row0,
                                       int rows, int c0, bool write_xn,
@@ -361,7 +380,8 @@ __device__ __forceinline__ void build(const Args& a, uint8_t* res, int row0,
 // units (units [u0, u1)) whose tile exists, the tile's fp32 sums from the
 // warpgroup's slot; with splits, its partial written, the tile's split
 // count taken, and the last split to finish sums the splits' partials in
-// split order from zero; then scale, bias, activation, the residual and
+// split order from zero; then scale (if any), bias, activation, the
+// residual and
 // one rounding, stored. Lane l owns channels 2l and 2l + 1 of the tile, so
 // a row's 64 channels are one coalesced run. The consumers never wait on
 // device memory for this.
@@ -383,7 +403,7 @@ __device__ __forceinline__ void epilogue(const Args& a, int u0, int u1,
     float sc[2], bi[2];  // asked for before the wait
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      sc[j] = live[j] ? a.scale[c0 + j] : 0.f;
+      sc[j] = live[j] && a.scale != nullptr ? a.scale[c0 + j] : 1.f;
       bi[j] = live[j] ? i8w::load_any(a.bias, a.bias_dtype, c0 + j) : 0.f;
     }
     const int k = handed & 1;
@@ -463,13 +483,15 @@ __device__ __forceinline__ void epilogue(const Args& a, int u0, int u1,
   }
 }
 
-// The kernel: `tw` maps W_q (n, d) in (192, 128) boxes. Every block takes
-// units [u0, u1) of the plan's a.units.
-template <typename XT, bool LN>
+// The kernel: `tw` maps W (n, d) of WT (int8_t, __nv_bfloat16, float) in
+// (192, 128-byte) boxes. Every block takes units [u0, u1) of the plan's
+// a.units.
+template <typename XT, typename WT, bool LN>
 __device__ __forceinline__ void gemm_body(const CUtensorMap* tw,
                                           const Args& a) {
   constexpr int P = i8w::Pieces<XT>::P;
   constexpr int ABOX = act_box_bytes(P);
+  constexpr int E = sizeof(WT), WB = stage_bytes(E);
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages];
   __shared__ __align__(8) uint64_t slot_full[kWgs][2], slot_free[kWgs][2];
@@ -477,7 +499,7 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* tw,
   __shared__ float2 stats[kRows];
   uint8_t* res = sm90::align_1024(smem_raw);
   uint8_t* ring_base = res + res_bytes(a.split_chunks, P);
-  float* slots = reinterpret_cast<float*>(ring_base + a.stages * kWBytes);
+  float* slots = reinterpret_cast<float*>(ring_base + a.stages * WB);
   const sm90::Ring ring{a.stages};
   int u0, u1;  // this block's units (max_units)
   const int streams = a.units / a.groups;
@@ -528,9 +550,12 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* tw,
         if (!issuer) continue;
         const int s = ring.stage(it);
         sm90::mbar_wait(&empty[s], ring.parity(it) ^ 1u);
-        sm90::mbar_expect_tx(&full[s], kWBytes);
-        i8w::tma_load_hint(ring_base + s * kWBytes, tw, &full[s],
-                           c * kChunk, un.n0, policy);
+        sm90::mbar_expect_tx(&full[s], WB);
+#pragma unroll
+        for (int b = 0; b < E; ++b)
+          i8w::tma_load_hint(ring_base + s * WB + b * kBoxBytes, tw,
+                             &full[s], c * kChunk + b * (128 / E), un.n0,
+                             policy);
       }
     }
     if (it <= kHeadStages) {
@@ -550,10 +575,14 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* tw,
   // the products of one unit's n stages into sum, B from the resident
   // pieces of the unit's split
   auto run_unit = [&](int n, float (&sum)[4]) {
-    i8w::run_stages<P>(
-        n, it, ring, full, empty, frow, q, leader,
-        [&](int i) { return ring_base + ring.stage(i) * kWBytes; },
-        [&](int, int j) { return res + 2 * j * ABOX; }, sum);
+    auto w_tile = [&](int i) { return ring_base + ring.stage(i) * WB; };
+    auto b_box = [&](int, int j) { return res + 2 * j * ABOX; };
+    if constexpr (std::is_same_v<WT, float>)
+      i8w::run_stages_pieces<P>(n, it, ring, full, empty, frow, q, leader,
+                                w_tile, b_box, sum, kBoxBytes);
+    else
+      i8w::run_stages<P, WT>(n, it, ring, full, empty, frow, q, leader,
+                             w_tile, b_box, sum, kBoxBytes);
     it += n;
   };
 
@@ -567,7 +596,8 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* tw,
       if constexpr (LN) {
         if (un.r != cur_r) row_stats<XT>(a, row0, rows, red, stats);
       }
-      build<XT, LN>(a, res, row0, rows, un.c0, LN && un.g == 0, stats);
+      build<XT, LN>(a, res, row0, rows, un.c0,
+                    LN && un.g == 0 && a.xn != nullptr, stats);
       sm90::fence_async_cta();  // the pieces, visible to the wgmmas
       sm90::named_sync(kConsumerBar, kConsumers);
       if (u == u0) sm90::named_arrive(kStartBar, kEpilogue);
@@ -610,14 +640,15 @@ int allow_smem() {
 }
 
 // Launch `Kernel` (a __global__ wrapper of gemm_body) for the plan of an
-// (m, d) x (n, d) product: fills the plan's fields of `a` and maps W_q.
-// With more than one split, a.part must hold `part_cap` bytes and a.sync
-// `sync_cap` words, zero, and the plan's partials and counts must fit.
+// (m, d) x (n, d) product of P-piece activations and w_bytes-byte weights:
+// fills the plan's fields of `a` and maps W. With more than one split,
+// a.part must hold `part_cap` bytes and a.sync `sync_cap` words, zero, and
+// the plan's partials and counts must fit.
 template <auto Kernel>
-int launch(int pieces, const void* w_q, Args a, long long part_cap,
-           long long sync_cap, cudaStream_t stream) {
+int launch(int pieces, int w_bytes, const void* w, Args a,
+           long long part_cap, long long sync_cap, cudaStream_t stream) {
   Plan p;
-  if (!make_plan(a.m, a.d, a.n, pieces, sm_count(), &p) ||
+  if (!make_plan(a.m, a.d, a.n, pieces, w_bytes, sm_count(), &p) ||
       (p.splits > 1 &&
        (a.part == nullptr || a.sync == nullptr || part_cap < p.part_bytes ||
         sync_cap < p.sync_words)))
@@ -628,7 +659,8 @@ int launch(int pieces, const void* w_q, Args a, long long part_cap,
   a.stages = p.stages;
   a.units = p.row_tiles * p.groups * p.splits;
   CUtensorMap tw;
-  if (i8w::tensor_map_i8(&tw, w_q, a.n, a.d, kGroupN)) return ETK_TMAP_FAILED;
+  if (sm90::tensor_map_128b(&tw, w, a.n, a.d, w_bytes, kGroupN))
+    return ETK_TMAP_FAILED;
   if (const int err = allow_smem<Kernel>()) return err;
   auto* kernel = Kernel;
   kernel<<<p.grid, kThreads, p.smem, stream>>>(tw, a);
@@ -637,9 +669,11 @@ int launch(int pieces, const void* w_q, Args a, long long part_cap,
 
 // the plan as the C entries return it: grid, row tiles, groups, splits,
 // chunks a split, stages, shared memory, partial bytes, sync words
-inline int plan_entry(int m, int d, int n, int pieces, int* out) {
+inline int plan_entry(int m, int d, int n, int pieces, int w_bytes,
+                      int* out) {
   Plan p;
-  if (!make_plan(m, d, n, pieces, sm_count(), &p)) return ETK_BAD_ARGS;
+  if (!make_plan(m, d, n, pieces, w_bytes, sm_count(), &p))
+    return ETK_BAD_ARGS;
   const int v[9] = {p.grid,  p.row_tiles, p.groups, p.splits, p.split_chunks,
                     p.stages, p.smem,     p.part_bytes, p.sync_words};
   for (int i = 0; i < 9; ++i) out[i] = v[i];

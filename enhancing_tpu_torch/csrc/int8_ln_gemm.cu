@@ -23,7 +23,7 @@ template <typename XT>
 __global__ void __launch_bounds__(i8g::kThreads, 1)
     int8_ln_gemm_kernel(const __grid_constant__ CUtensorMap tw,
                         const i8g::Args a) {
-  i8g::gemm_body<XT, true>(&tw, a);
+  i8g::gemm_body<XT, int8_t, true>(&tw, a);
 }
 
 }  // namespace
@@ -65,8 +65,8 @@ ETK_API int etk_int8_ln_gemm(const void* x, const void* gamma,
   a.eps = eps;
   auto s = static_cast<cudaStream_t>(stream);
   if (x_dtype == ETK_F32)
-    return i8g::launch<int8_ln_gemm_kernel<float>>(3, w_q, a, part_bytes,
+    return i8g::launch<int8_ln_gemm_kernel<float>>(3, 1, w_q, a, part_bytes,
                                                    sync_words, s);
   return i8g::launch<int8_ln_gemm_kernel<__nv_bfloat16>>(
-      1, w_q, a, part_bytes, sync_words, s);
+      1, 1, w_q, a, part_bytes, sync_words, s);
 }

@@ -460,8 +460,8 @@ ETK_API int etk_int8_mlp(const void* x, const void* gamma, const void* beta,
   a.split_chunks = p.split_chunks;
   a.stages = p.stages;
   CUtensorMap tw0, tw1, tln, thid;
-  if (i8w::tensor_map_i8(&tw0, w0_q, h, d, kGroupN) ||
-      i8w::tensor_map_i8(&tw1, w1_q, d, h, kGroupN) ||
+  if (sm90::tensor_map_128b(&tw0, w0_q, h, d, 1, kGroupN) ||
+      sm90::tensor_map_128b(&tw1, w1_q, d, h, 1, kGroupN) ||
       sm90::tensor_map(&tln, a.ln_ws, kRows * pieces, d, d, kRows * pieces) ||
       sm90::tensor_map(&thid, a.hid_ws, kRows * pieces, h, h, kRows * pieces))
     return ETK_TMAP_FAILED;

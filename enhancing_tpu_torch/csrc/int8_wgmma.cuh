@@ -1,36 +1,42 @@
-// Int8-weight products of the decode step's few rows on Hopper's tensor
-// cores, with every product exact in fp32: the core of the one-launch int8
-// decode MLP (B14, int8_mlp.cu), kept apart so that the int8 GEMM (B12)
-// and the int8 LN GEMM (B13) can move onto it.
+// Products of the decode step's few rows on Hopper's tensor cores, with
+// every product exact in fp32: the core of the one-launch int8 decode MLP
+// (B14, int8_mlp.cu), of the int8 GEMM (B12) and int8 LN GEMM (B13), and of
+// the LN (+ token shift) GEMM on bf16 or fp32 weights (B11).
 //
 //   y[r, n] = sum_k a[r, k] * W[n, k]   for a tile of 8 activation rows r
 //
 // Why the tensor cores can compute the fp32 products of the JAX function:
-// - every int8 weight is exact in bf16 (8 significant bits);
+// - every int8 weight is exact in bf16 (8 significant bits), and a bf16
+//   weight is its own bf16; an fp32 weight is the exact sum of three bf16
+//   pieces, split in registers after the load;
 // - every fp32 activation a is the exact sum of three bf16 pieces, hi =
 //   bf16(a), mid = bf16(a - hi), lo = bf16(a - hi - mid) (split_pieces);
 //   a bf16 activation is its own single piece;
-// - a weight times a piece has at most 16 significant bits, exact in fp32,
-//   so wgmma with fp32 accumulators forms the same products as fp32 FMAs
-//   and only the order of the sum differs.
+// - a weight piece times an activation piece has at most 16 significant
+//   bits, exact in fp32, so wgmma with fp32 accumulators forms the same
+//   products as fp32 FMAs and only the order of the sum differs.
 // The weights are the A operand (64 output channels a warpgroup, the
 // wgmma's M), the pieces the B operand: N = 8 rows x P pieces (24 for
 // fp32 activations, 8 for bf16), K-major in shared memory.
 //
 // Bound on the H100: bytes (the weights). The design spends few
 // instructions a weight:
-// - the TMA brings a (channels, 128 k) int8 box, swizzled in 128-byte rows,
-//   and each thread reads its A fragment rows as one 32-bit word per k16
-//   slice (bank-conflict free under the swizzle);
+// - the TMA brings (channels, 128 bytes) boxes of the weights, swizzled in
+//   128-byte rows: one int8 box a 128-k stage, two bf16 boxes, four fp32
+//   boxes; each thread reads its A fragment rows as one 32-bit (int8),
+//   64-bit (bf16) or 128-bit (fp32) word per k16 slice (bank-conflict free
+//   under the swizzle);
 // - a sum over K has no order, so K is permuted alike in the weights and in
 //   the staged pieces: within each 16-wide k group the thread of fragment
-//   column pair q reads the 4 consecutive bytes 4q..4q+3, which are the
+//   column pair q reads the 4 consecutive weights 4q..4q+3, which are the
 //   fragment's columns 2q, 2q+1, 2q+8, 2q+9 (perm_col);
 // - four int8 become two bf16 pairs with one XOR, four byte permutes and
 //   four fp32 subtractions (the byte in the mantissa of 2^23, then 2^23 +
 //   128 subtracted: exact) and two byte permutes that keep the upper
 //   halves, which hold the bf16 exactly (widen4): ~2.75 instructions a
-//   weight;
+//   weight; bf16 weights are the fragments as loaded; fp32 weights are
+//   split into three bf16 fragments (each times every activation piece:
+//   nine products, run_stages_pieces);
 // - each stage's wgmmas start a fresh fp32 accumulator, which is added into
 //   the running sum with round-to-nearest fp32 adds, so the tensor cores'
 //   own accumulation spans 128 k at most.
@@ -104,18 +110,70 @@ __device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo,
   hi = __byte_perm(f[2], f[3], 0x7632u);
 }
 
-// A fragments (mma.sync m16n8k16 layout) of k16 slice ks of a 128-byte-row
-// int8 tile that the TMA wrote with 128-byte swizzle, for the fragment rows
-// row and row + 8 (row = 16 * warp + lane / 4; both share row % 8) and
-// column pair q = lane % 4
-__device__ __forceinline__ void load_frag(const uint8_t* tile, int row, int ks,
-                                          int q, uint32_t (&a)[4]) {
+// A fragments (mma.sync m16n8k16 layout) of k16 slice ks (0-7) of a
+// 128-k stage of WT weights, for the fragment rows row and row + 8 (row =
+// 16 * warp + lane / 4; both share row % 8) and column pair q = lane % 4.
+// The stage is sizeof(WT) boxes `box_bytes` apart, each 128 bytes (128 /
+// sizeof(WT) consecutive k) of every row, written by the TMA with 128-byte
+// swizzle; the thread reads the weights of k 4q .. 4q + 3 of the slice's
+// 16 (perm_col).
+template <typename WT>
+__device__ __forceinline__ void load_frag(const uint8_t* tile, int box_bytes,
+                                          int row, int ks, int q,
+                                          uint32_t (&a)[4]);
+
+template <>
+__device__ __forceinline__ void load_frag<int8_t>(const uint8_t* tile, int,
+                                                  int row, int ks, int q,
+                                                  uint32_t (&a)[4]) {
   const uint32_t wa = *reinterpret_cast<const uint32_t*>(
       tile + sm90::swz<128>(row, ks) + 4 * q);
   const uint32_t wb = *reinterpret_cast<const uint32_t*>(
       tile + sm90::swz<128>(row + 8, ks) + 4 * q);
   widen4(wa, a[0], a[2]);
   widen4(wb, a[1], a[3]);
+}
+
+template <>
+__device__ __forceinline__ void load_frag<__nv_bfloat16>(const uint8_t* tile,
+                                                         int box_bytes,
+                                                         int row, int ks,
+                                                         int q,
+                                                         uint32_t (&a)[4]) {
+  const uint8_t* box = tile + (ks / 4) * box_bytes;
+  const int byte = (ks % 4) * 32 + 8 * q;
+  const uint2 wa = *reinterpret_cast<const uint2*>(
+      box + sm90::swz<128>(row, byte / 16) + byte % 16);
+  const uint2 wb = *reinterpret_cast<const uint2*>(
+      box + sm90::swz<128>(row + 8, byte / 16) + byte % 16);
+  a[0] = wa.x;  // k 4q, 4q + 1: columns 2q, 2q + 1
+  a[2] = wa.y;  // k 4q + 2, 4q + 3: columns 2q + 8, 2q + 9
+  a[1] = wb.x;
+  a[3] = wb.y;
+}
+
+// load_frag of an fp32 stage, as the A fragments f[p] of the weights'
+// three exact bf16 pieces
+__device__ __forceinline__ void load_frag_pieces(const uint8_t* tile,
+                                                 int box_bytes, int row,
+                                                 int ks, int q,
+                                                 uint32_t (&f)[3][4]) {
+  const uint8_t* box = tile + (ks / 2) * box_bytes;
+  const int chunk = (ks % 2) * 4 + q;
+  const float4 va = *reinterpret_cast<const float4*>(
+      box + sm90::swz<128>(row, chunk));
+  const float4 vb = *reinterpret_cast<const float4*>(
+      box + sm90::swz<128>(row + 8, chunk));
+  const float v[4][2] = {{va.x, va.y}, {vb.x, vb.y}, {va.z, va.w},
+                         {vb.z, vb.w}};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    float x[3], y[3];
+    sm90::bf16_pieces(v[e][0], x);
+    sm90::bf16_pieces(v[e][1], y);
+#pragma unroll
+    for (int p = 0; p < 3; ++p) f[p][e] = pack_bf16x2(x[p], y[p]);
+  }
 }
 
 // Add the per-stage accumulator (N = 8P: column 8p + r is piece p of row
@@ -137,21 +195,22 @@ __device__ __forceinline__ void fold(const float (&acc)[4 * P],
 // The products of n ring stages (positions it .. it + n - 1) for one
 // consumer warpgroup, added into sum (fold): the k16 slices of a stage as
 // one wgmma group on a fresh accumulator; the next stage's fragments are
-// widened while the group runs, and the accumulator is read only once the
-// group is done (a read while a group is in flight makes ptxas serialise
-// the wgmmas, C7514). w_tile(i): the weight box of position i (this
-// warpgroup's fragment rows are frow, frow + 8); b_box(i, j): the first
-// of the two 64-k activation boxes of stage j (position i), the second
-// one box on. Waits on full[] and arrives (leader) on empty[] of each
-// position.
-template <int P, typename WTile, typename BBox>
+// loaded (int8: widened) while the group runs, and the accumulator is read
+// only once the group is done (a read while a group is in flight makes
+// ptxas serialise the wgmmas, C7514). w_tile(i): the weights of position i
+// (this warpgroup's fragment rows are frow, frow + 8; boxes box_bytes
+// apart); b_box(i, j): the first of the two 64-k activation boxes of stage
+// j (position i), the second one box on. Waits on full[] and arrives
+// (leader) on empty[] of each position. int8 or bf16 weights.
+template <int P, typename WT = int8_t, typename WTile, typename BBox>
 __device__ __forceinline__ void run_stages(int n, int it,
                                            const sm90::Ring& ring,
                                            uint64_t* full, uint64_t* empty,
                                            int frow, int q, bool leader,
                                            const WTile& w_tile,
                                            const BBox& b_box,
-                                           float (&sum)[4]) {
+                                           float (&sum)[4],
+                                           int box_bytes = 0) {
   constexpr int N = kRows * P, ABOX = kRows * P * 128;
   float acc[4 * P];
   uint32_t frag[2][kSlices][4];
@@ -162,7 +221,7 @@ __device__ __forceinline__ void run_stages(int n, int it,
     const uint8_t* st = w_tile(i);
 #pragma unroll
     for (int ks = 0; ks < kSlices; ++ks)
-      load_frag(st, frow, ks, q, frag[SET][ks]);
+      load_frag<WT>(st, box_bytes, frow, ks, q, frag[SET][ks]);
   };
   auto step = [&](int j, auto set_c) {
     constexpr int SET = decltype(set_c)::value;
@@ -196,6 +255,54 @@ __device__ __forceinline__ void run_stages(int n, int it,
   if (j < n) step(j, std::integral_constant<int, 0>{});
 }
 
+// run_stages on fp32 weights: the three pieces of a k16 slice take 12
+// registers a thread, so a stage runs slice by slice, each slice's three
+// products (one a weight piece, N = all P activation pieces) a wgmma group
+// on the stage's fresh accumulator, the next slice's pieces built while it
+// runs (two slices' fragments live at a time); the accumulator is read
+// once the stage's last group is done.
+template <int P, typename WTile, typename BBox>
+__device__ __forceinline__ void run_stages_pieces(
+    int n, int it, const sm90::Ring& ring, uint64_t* full, uint64_t* empty,
+    int frow, int q, bool leader, const WTile& w_tile, const BBox& b_box,
+    float (&sum)[4], int box_bytes) {
+  constexpr int N = kRows * P, ABOX = kRows * P * 128;
+  float acc[4 * P];
+  uint32_t f[2][3][4];
+  for (int j = 0; j < n; ++j) {
+    const int i = it + j;
+    sm90::mbar_wait(&full[ring.stage(i)], ring.parity(i));
+    const uint8_t* st = w_tile(i);
+    const uint8_t* at = b_box(i, j);
+#pragma unroll
+    for (int ks = 0; ks < kSlices; ++ks) {
+      uint32_t (&g)[3][4] = f[ks % 2];
+      load_frag_pieces(st, box_bytes, frow, ks, q, g);
+#pragma unroll
+      for (int p = 0; p < 3; ++p) sm90::hold(g[p]);
+      // the accumulator only while no group runs on it
+      if (ks == 0) sm90::hold(acc);
+      sm90::wgmma_fence();
+      const uint64_t b =
+          sm90::desc_k(sm90::smem_desc(at + (ks / 4) * ABOX), ks % 4);
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+        sm90::Wgmma<N>::rs(acc, g[p], b, ks > 0 || p > 0);
+      sm90::wgmma_commit();
+      // the previous slice's group is done: its fragments may be rewritten
+      sm90::wgmma_wait<1>();
+#pragma unroll
+      for (int p = 0; p < 3; ++p) sm90::hold(f[(ks + 1) % 2][p]);
+    }
+    sm90::wgmma_wait<0>();
+    sm90::hold(acc);
+#pragma unroll
+    for (int p = 0; p < 3; ++p) sm90::hold(f[(kSlices - 1) % 2][p]);
+    fold<P>(acc, sum);
+    if (leader) sm90::mbar_arrive(&empty[ring.stage(i)]);
+  }
+}
+
 // an L2 policy that evicts first what it loads: the weights, read once,
 // then pass through L2 without pushing out the activation workspace
 __device__ __forceinline__ uint64_t evict_first() {
@@ -218,28 +325,7 @@ __device__ __forceinline__ void tma_load_hint(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// ---- host: int8 tensor maps, the cooperative launch -------------------------
-
-// Tensor map of a row-major int8 (rows, cols) matrix, read in (box_rows,
-// 128) tiles with 128-byte swizzle; reads outside the matrix fill zeros.
-// Returns 0 or ETK_TMAP_FAILED.
-inline int tensor_map_i8(CUtensorMap* map, const void* ptr, long long rows,
-                         long long cols, int box_rows) {
-  sm90::EncodeTiled encode = sm90::encode_tiled();
-  if (encode == nullptr) return ETK_TMAP_FAILED;
-  cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                        static_cast<cuuint64_t>(rows)};
-  cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};
-  cuuint32_t box[2] = {kChunk, static_cast<cuuint32_t>(box_rows)};
-  cuuint32_t unit[2] = {1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
-                      const_cast<void*>(ptr), dims, strides, box, unit,
-                      CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_128B,
-                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ETK_TMAP_FAILED;
-}
+// ---- host: the cooperative launch -------------------------------------------
 
 // A cooperative launch of `grid` blocks of `threads` with `smem` bytes of
 // dynamic shared memory: refused (ETK_BAD_ARGS) unless every block is

@@ -28,8 +28,7 @@
 // or device memory. The epilogue adds the bias and applies the activation
 // in fp32, rounds once into a swizzled shared-memory tile and TMA-stores
 // it, asynchronously, while the next tile's products start. fp32 inputs
-// take a SIMT FMA path in full fp32 (no TF32): tensor cores cannot
-// compute it.
+// run ln_gemm_f32.cu, on the same design with exact bf16 pieces.
 #include <type_traits>
 
 #include "common.cuh"
@@ -38,53 +37,7 @@
 
 namespace {
 
-// ---- row statistics ------------------------------------------------------
-
-// mean and rstd of rows [row0, row0 + rows) into shared memory; one warp
-// per row, rows past m get (0, 0)
-template <typename T>
-__device__ void row_stats(const T* __restrict__ x, int m, int d, float eps,
-                          int row0, int rows, float* mean_s, float* rstd_s) {
-  constexpr int V = Vec<T>::N;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nwarps = blockDim.x / 32;
-  for (int r = warp; r < rows; r += nwarps) {
-    const int row = row0 + r;
-    float s = 0.f, ss = 0.f;
-    if (row < m) {
-      const T* xr = x + static_cast<size_t>(row) * d;
-      for (int c = lane * V; c < d; c += 32 * V) {
-        float v[V];
-        Vec<T>::load(xr + c, v);
-#pragma unroll
-        for (int j = 0; j < V; ++j) {
-          s += v[j];
-          ss += v[j] * v[j];
-        }
-      }
-    }
-    s = warp_sum(s);
-    ss = warp_sum(ss);
-    if (lane == 0) {
-      const float mean = s / d;
-      const float var = fmaxf(ss / d - mean * mean, 0.f);
-      mean_s[r] = row < m ? mean : 0.f;
-      rstd_s[r] = row < m ? rsqrtf(var + eps) : 0.f;
-    }
-  }
-}
-
 // ---- bf16: row statistics, then wgmma ----------------------------------
-
-// mean and rstd of every row of a bf16 (m, d) x, eight rows a block, into
-// stats: the m means, then the m rstds
-__global__ void __launch_bounds__(256)
-    ln_gemm_stats_kernel(const __nv_bfloat16* __restrict__ x,
-                         float* __restrict__ stats, int m, int d, float eps) {
-  const int row0 = blockIdx.x * 8;
-  row_stats(x, m, d, eps, row0, min(8, m - row0), stats + row0,
-            stats + m + row0);
-}
 
 constexpr int BM = 128;
 constexpr int kConsumers = 256, kThreads = kConsumers + 128;
@@ -337,106 +290,29 @@ int launch_bf16(const void* x, const float* gamma, const float* beta,
       static_cast<int>(tiles)));
 }
 
-// ---- fp32: SIMT FMA ----------------------------------------------------------
-
-constexpr int FM = 64, FN = 64, FK = 16, FLD = FM + 4;
-constexpr int kF32Threads = 256;  // 16 x 16 threads, 4 x 4 outputs each
-
-__global__ void __launch_bounds__(kF32Threads)
-    ln_gemm_f32_kernel(const float* __restrict__ x,
-                       const float* __restrict__ gamma,
-                       const float* __restrict__ beta,
-                       const float* __restrict__ w,
-                       const float* __restrict__ bias, float* __restrict__ out,
-                       int m, int d, int n, int act, float eps) {
-  __shared__ __align__(16) float as[FK][FLD];  // normalised x, k-major
-  __shared__ __align__(16) float bs[FK][FLD];  // W, k-major
-  __shared__ float mean_s[FM], rstd_s[FM];
-
-  const int col0 = blockIdx.x * FN, row0 = blockIdx.y * FM;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;  // 4 x 4 outputs
-  row_stats(x, m, d, eps, row0, FM, mean_s, rstd_s);
-  __syncthreads();
-
-  float acc[4][4] = {};
-  const int lr = threadIdx.x / 4, lk = (threadIdx.x % 4) * 4;
-  for (int k0 = 0; k0 < d; k0 += FK) {
-    float xv[4] = {0.f, 0.f, 0.f, 0.f}, wv[4] = {0.f, 0.f, 0.f, 0.f};
-    if (row0 + lr < m)
-      Vec<float>::load(x + static_cast<size_t>(row0 + lr) * d + k0 + lk, xv);
-    if (col0 + lr < n)
-      Vec<float>::load(w + static_cast<size_t>(col0 + lr) * d + k0 + lk, wv);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = k0 + lk + j;
-      as[lk + j][lr] =
-          (xv[j] - mean_s[lr]) * (rstd_s[lr] * gamma[k]) + beta[k];
-      bs[lk + j][lr] = wv[j];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < FK; ++k) {
-      float a[4], b[4];
-      Vec<float>::load(&as[k][ty * 4], a);
-      Vec<float>::load(&bs[k][tx * 4], b);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty * 4 + i;
-    if (row >= m) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + tx * 4 + j;
-      if (col >= n) continue;
-      const float b = bias ? bias[col] : 0.f;
-      out[static_cast<size_t>(row) * n + col] = apply_act(acc[i][j] + b, act);
-    }
-  }
-}
-
 }  // namespace
 
-// x, w: (m, d), (n, d) of one dtype; gamma, beta (d,) and bias (n,) fp32;
-// out (m, n); stats: a 2 * m fp32 workspace for the bf16 path's row
-// statistics (unused in fp32).
+// x, w: bf16 (m, d), (n, d); gamma, beta (d,) and bias (n,) fp32; out
+// (m, n) bf16; stats: a 2 * m fp32 workspace for the row statistics. fp32
+// x runs ln_gemm_f32.cu (etk_ln_gemm_f32).
 ETK_API int etk_ln_gemm(const void* x, const void* gamma, const void* beta,
                         const void* w, const void* bias, void* out,
                         void* stats, int m, int d, int n, int act, float eps,
                         int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (m <= 0 || n <= 0 || act < ACT_NONE || act > ACT_GELU)
+  if (m <= 0 || n <= 0 || act < ACT_NONE || act > ACT_GELU ||
+      dtype != ETK_BF16 || d % 32 != 0 || n % 8 != 0 || stats == nullptr)
     return ETK_BAD_ARGS;
-  if (dtype == ETK_BF16) {
-    if (d % 32 != 0 || n % 8 != 0 || stats == nullptr) return ETK_BAD_ARGS;
-    auto g = static_cast<const float*>(gamma);
-    auto b = static_cast<const float*>(beta);
-    auto bi = static_cast<const float*>(bias);
-    auto st = static_cast<float*>(stats);
-    const int sms = sm_count();
-    return tile_n(m, n, sms) == kWideN
-               ? launch_bf16<kWideN>(x, g, b, w, bi, out, st, m, d, n, act,
-                                     eps, sms, s)
-               : launch_bf16<128>(x, g, b, w, bi, out, st, m, d, n, act, eps,
-                                  sms, s);
-  }
-  if (dtype == ETK_F32) {
-    if (d % FK != 0) return ETK_BAD_ARGS;
-    dim3 grid((n + FN - 1) / FN, (m + FM - 1) / FM);
-    ln_gemm_f32_kernel<<<grid, kF32Threads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(gamma),
-        static_cast<const float*>(beta), static_cast<const float*>(w),
-        static_cast<const float*>(bias), static_cast<float*>(out), m, d, n,
-        act, eps);
-    return static_cast<int>(cudaGetLastError());
-  }
-  return ETK_BAD_ARGS;
+  auto g = static_cast<const float*>(gamma);
+  auto b = static_cast<const float*>(beta);
+  auto bi = static_cast<const float*>(bias);
+  auto st = static_cast<float*>(stats);
+  const int sms = sm_count();
+  return tile_n(m, n, sms) == kWideN
+             ? launch_bf16<kWideN>(x, g, b, w, bi, out, st, m, d, n, act, eps,
+                                   sms, s)
+             : launch_bf16<128>(x, g, b, w, bi, out, st, m, d, n, act, eps,
+                                sms, s);
 }
 
 // the bf16 path's plan for an (m, n) product on this device: tile rows,

@@ -173,6 +173,35 @@ inline int tensor_map(CUtensorMap* map, const void* ptr, long long rows,
   return r == CUDA_SUCCESS ? 0 : ETK_TMAP_FAILED;
 }
 
+// Tensor map of a row-major (rows, cols) matrix of `elem_bytes`-byte
+// elements (1: int8, 2: bf16, 4: fp32), rows `cols` elements apart, read
+// in boxes of `box_rows` rows of 128 bytes (128 / elem_bytes elements)
+// with 128-byte swizzle; reads outside the matrix fill zeros. Returns 0 or
+// ETK_TMAP_FAILED.
+inline int tensor_map_128b(CUtensorMap* map, const void* ptr, long long rows,
+                           long long cols, int elem_bytes, int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr ||
+      (elem_bytes != 1 && elem_bytes != 2 && elem_bytes != 4))
+    return ETK_TMAP_FAILED;
+  const CUtensorMapDataType type =
+      elem_bytes == 1   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+      : elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                        : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                        static_cast<cuuint64_t>(rows)};
+  cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
+  cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / elem_bytes),
+                       static_cast<cuuint32_t>(box_rows)};
+  cuuint32_t unit[2] = {1, 1};
+  CUresult r = encode(map, type, 2, const_cast<void*>(ptr), dims, strides,
+                      box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ETK_TMAP_FAILED;
+}
+
 // launch `kernel` on `grid` blocks of `threads` in clusters of `cluster`
 // (1-8) along x, with `smem` bytes of dynamic shared memory
 template <typename... Params, typename... Args>

@@ -1,6 +1,7 @@
 // 16-byte vector loads and stores of bf16 or fp32 rows, widened to fp32,
-// and (namespace cvt) the element conversions, 4-wide loads, LayerNorm and
-// token shift of one element that the decode-step kernels share.
+// the LN -> GEMM kernels' row statistics, and (namespace cvt) the element
+// conversions, 4-wide loads, LayerNorm and token shift of one element that
+// the decode-step kernels share.
 #pragma once
 
 #include "common.cuh"
@@ -47,6 +48,51 @@ struct Vec<float> {
     __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
   }
 };
+
+// mean and rstd of rows [row0, row0 + rows) into shared memory; one warp
+// per row, rows past m get (0, 0)
+template <typename T>
+__device__ void row_stats(const T* __restrict__ x, int m, int d, float eps,
+                          int row0, int rows, float* mean_s, float* rstd_s) {
+  constexpr int V = Vec<T>::N;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nwarps = blockDim.x / 32;
+  for (int r = warp; r < rows; r += nwarps) {
+    const int row = row0 + r;
+    float s = 0.f, ss = 0.f;
+    if (row < m) {
+      const T* xr = x + static_cast<size_t>(row) * d;
+      for (int c = lane * V; c < d; c += 32 * V) {
+        float v[V];
+        Vec<T>::load(xr + c, v);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          s += v[j];
+          ss += v[j] * v[j];
+        }
+      }
+    }
+    s = warp_sum(s);
+    ss = warp_sum(ss);
+    if (lane == 0) {
+      const float mean = s / d;
+      const float var = fmaxf(ss / d - mean * mean, 0.f);
+      mean_s[r] = row < m ? mean : 0.f;
+      rstd_s[r] = row < m ? rsqrtf(var + eps) : 0.f;
+    }
+  }
+}
+
+// mean and rstd of every row of an (m, d) x, eight rows a block, into
+// stats: the m means, then the m rstds (the LN -> GEMM kernels' pre-pass)
+template <typename T>
+__global__ void __launch_bounds__(256)
+    ln_gemm_stats_kernel(const T* __restrict__ x, float* __restrict__ stats,
+                         int m, int d, float eps) {
+  const int row0 = blockIdx.x * 8;
+  row_stats(x, m, d, eps, row0, min(8, m - row0), stats + row0,
+            stats + m + row0);
+}
 
 namespace cvt {
 

@@ -1,7 +1,8 @@
 from .attention import (attention_packed_gridchunk, attention_proj_packed,
                         multihead_attention, multihead_attention_packed_qkv)
-from .common import (F32_LAUNCHES, LAUNCHES, PLAIN_CALLS, UNFUSED_CALLS,
-                     WIDE_LAUNCHES, force_plain_ops, reset_launches)
+from .common import (F32_LAUNCHES, LAUNCHES, LN_GEMM_ROUTES, PLAIN_CALLS,
+                     UNFUSED_CALLS, WIDE_LAUNCHES, force_plain_ops,
+                     reset_launches)
 from .ffn import fused_ffn
 from .fused_act import fused_leaky_relu
 from .ln_gemm import fused_layernorm, fused_ln_gemm, layernorm
@@ -11,6 +12,7 @@ __all__ = [
     "LAUNCHES",
     "F32_LAUNCHES",
     "WIDE_LAUNCHES",
+    "LN_GEMM_ROUTES",
     "PLAIN_CALLS",
     "UNFUSED_CALLS",
     "force_plain_ops",

@@ -34,6 +34,11 @@ F32_LAUNCHES: dict[str, int] = {name: 0 for name in LAUNCHES}
 # the attention backward's attn_bwd_wide (bf16) and attn_f32_bwd_wide
 # (fp32), both also counted under "attention_bwd".
 WIDE_LAUNCHES: dict[str, int] = {"attn_bwd_wide": 0, "attn_f32_bwd_wide": 0}
+# The launches among them of the LN -> GEMM (B1, "ln_gemm") by route
+# (ops.ln_gemm.ln_gemm_route): "bf16" csrc/ln_gemm.cu, "f32"
+# csrc/ln_gemm_f32.cu, "decode" B11's kernel without the shift
+# (csrc/ln_shift_gemm.cu) at fp32 x of a few rows.
+LN_GEMM_ROUTES: dict[str, int] = {"bf16": 0, "f32": 0, "decode": 0}
 # Op calls on CUDA tensors that force_plain_ops sent to the plain version.
 PLAIN_CALLS: dict[str, int] = {name: 0 for name in LAUNCHES}
 # Calls of an opt-in fusion on CUDA tensors that its route (a function of
@@ -47,8 +52,8 @@ _FORCE_PLAIN_DEPTH = 0
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, F32_LAUNCHES, WIDE_LAUNCHES, PLAIN_CALLS,
-                   UNFUSED_CALLS):
+    for counts in (LAUNCHES, F32_LAUNCHES, WIDE_LAUNCHES, LN_GEMM_ROUTES,
+                   PLAIN_CALLS, UNFUSED_CALLS):
         for name in counts:
             counts[name] = 0
 

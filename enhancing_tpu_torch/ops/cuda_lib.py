@@ -40,6 +40,8 @@ _ll = ctypes.c_longlong
 SIGNATURES = {
     "etk_ln_gemm": [_p] * 7 + [_i, _i, _i, _i, _f, _i, _p],
     "etk_ln_gemm_plan": [_i, _i, ctypes.POINTER(_i)],
+    "etk_ln_gemm_f32": [_p] * 8 + [_i, _i, _i, _i, _f, _i, _p],
+    "etk_ln_gemm_f32_plan": [_i] * 4 + [ctypes.POINTER(_i)],
     "etk_layernorm": [_p, _p, _p, _p, _i, _i, _f, _i, _p],
     "etk_layernorm_plan": [_i, _i, _i, ctypes.POINTER(_i)],
     "etk_attention_qkv": [_p, _p, _i, _i, _i, _i, _f, _i, _i, _p],
@@ -60,7 +62,9 @@ SIGNATURES = {
     "etk_int8_gemm_plan": [_i, _i, _i, _i, ctypes.POINTER(_i)],
     "etk_int8_ln_gemm": [_p] * 11 + [_ll, _p, _ll] + [_i] * 4
     + [_f, _i, _i, _i, _p],
-    "etk_ln_shift_gemm": [_p] * 10 + [_i] * 4 + [_f, _i, _i, _i, _i, _p],
+    "etk_ln_shift_gemm": [_p] * 10 + [_ll, _p, _ll] + [_i] * 4
+    + [_f, _i, _i, _i, _i, _p],
+    "etk_ln_shift_gemm_plan": [_i] * 5 + [ctypes.POINTER(_i)],
     "etk_int8_mlp": [_p] * 13 + [_i] * 4 + [_f, _i, _i, _p],
     "etk_int8_mlp_plan": [_i, _i, _i, _i, ctypes.POINTER(_i)],
     "etk_attn_proj": [_p] * 7 + [_i] * 9 + [_f, _i, _i, _p],

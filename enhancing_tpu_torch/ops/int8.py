@@ -78,11 +78,12 @@ def _ptr(t) -> int | None:
 # 128-k stages, 8 activation rows a tile; a block may use 227 KB of shared
 # memory less 2 KB (alignment slack, static barriers)
 TILE_N, CHUNK, ROWS, SMEM_LIMIT = 64, 128, 8, 232448 - 2048
-# csrc/int8_gemm.cuh: three consumer warpgroups a block, 128-k stages of a
-# 192 x 128 int8 weight box, the activations' pieces of a split resident
-# in shared memory (8 rows x P pieces x 2 bytes a k)
+# csrc/int8_gemm.cuh: three consumer warpgroups a block, 128-k stages of
+# 192 x 128 weights (int8; bf16 and fp32 for csrc/ln_shift_gemm.cu), the
+# activations' pieces of a split resident in shared memory (8 rows x P
+# pieces x 2 bytes a k)
 GEMM_WGS, GEMM_MAX_STAGES, GEMM_MIN_STAGES = 3, 4, 2
-GEMM_STAGE_BYTES = GEMM_WGS * TILE_N * CHUNK
+GEMM_STAGE_BYTES = GEMM_WGS * TILE_N * CHUNK  # a stage of int8 weights
 # two slots a warpgroup of its fp32 tile sums for the epilogue warps, and
 # 1 KB of static barriers and statistics beside the dynamic shared memory
 GEMM_SLOT_BYTES = GEMM_WGS * 2 * ROWS * TILE_N * 4
@@ -91,12 +92,14 @@ GEMM_SMEM_BUDGET = SMEM_LIMIT - GEMM_SLOT_BYTES - 1024
 
 @functools.lru_cache(maxsize=256)
 def int8_gemm_plan(m: int, d: int, n: int, sms: int = 132,
-                   pieces: int = 3) -> dict:
-    """The launch of the int8 GEMM kernels (B12, and B13, which launches
-    the same) for an (m, d) x with an (n, d) weight on a card of ``sms``
-    SMs, ``pieces`` bf16 pieces an activation (3 for fp32 x, 1 for bf16),
-    as ``csrc/int8_gemm.cuh::make_plan`` makes it (the C entry
-    ``etk_int8_gemm_plan`` returns the same numbers):
+                   pieces: int = 3, w_bytes: int = 1) -> dict:
+    """The launch of the kernels on ``csrc/int8_gemm.cuh`` (B12, B13,
+    which launches the same, and B11 on bf16 or fp32 weights) for an
+    (m, d) x with an (n, d) weight of ``w_bytes``-byte elements (1: int8,
+    2: bf16, 4: fp32) on a card of ``sms`` SMs, ``pieces`` bf16 pieces an
+    activation (3 for fp32 x, 1 for bf16), as ``make_plan`` there makes it
+    (the C entries ``etk_int8_gemm_plan`` and, for 2 and 4 bytes,
+    ``etk_ln_shift_gemm_plan`` return the same numbers):
 
     - ``row_tiles`` of 8 rows and ``groups`` of 192 output channels (three
       64-channel tiles);
@@ -105,7 +108,7 @@ def int8_gemm_plan(m: int, d: int, n: int, sms: int = 132,
       chunks (its units, :func:`_max_units`, times their chunks plus a
       quarter each for the partial, plus one a split for the last
       arriver's reads; fewer splits on a tie), among those whose resident
-      pieces leave room for two ring stages;
+      pieces leave room for two ring stages (``w_bytes`` x 24 KB each);
     - ``grid``: one block an SM, at most one a unit; block b takes units of
       stream (row tile, split) b % streams when there are at least as many
       blocks as streams;
@@ -118,10 +121,12 @@ def int8_gemm_plan(m: int, d: int, n: int, sms: int = 132,
     Cached (the wrappers ask at every call): treat the dict as read-only.
     Raises ValueError for a shape the kernel refuses."""
     if m <= 0 or d <= 0 or n <= 0 or d % 16 or pieces not in (1, 3) \
-            or sms <= 0:
+            or w_bytes not in (1, 2, 4) or sms <= 0:
         raise ValueError(f"int8 GEMM kernels take m, d, n > 0 with d % 16 "
-                         f"== 0 and 1 or 3 pieces; got m={m}, d={d}, n={n}, "
-                         f"pieces={pieces}")
+                         f"== 0, 1 or 3 pieces and 1-, 2- or 4-byte weights;"
+                         f" got m={m}, d={d}, n={n}, pieces={pieces}, "
+                         f"w_bytes={w_bytes}")
+    stage = w_bytes * GEMM_STAGE_BYTES
     tiles, chunks = cdiv(n, TILE_N), cdiv(d, CHUNK)
     row_tiles, groups = cdiv(m, ROWS), cdiv(tiles, GEMM_WGS)
     res_per_chunk = 2 * ROWS * pieces * 128
@@ -129,7 +134,7 @@ def int8_gemm_plan(m: int, d: int, n: int, sms: int = 132,
     for s in range(1, chunks + 1):
         sc = cdiv(chunks, s)
         if cdiv(chunks, sc) != s or (GEMM_SMEM_BUDGET - sc * res_per_chunk
-                                     < GEMM_MIN_STAGES * GEMM_STAGE_BYTES):
+                                     < GEMM_MIN_STAGES * stage):
             continue
         streams = row_tiles * s
         if streams * groups > 2 ** 31 - 1:
@@ -148,11 +153,10 @@ def int8_gemm_plan(m: int, d: int, n: int, sms: int = 132,
     if max(units, part, words) > 2 ** 31 - 1:
         raise ValueError(f"int8 GEMM kernels: m={m}, n={n} too large")
     res = split_chunks * res_per_chunk
-    stages = min(GEMM_MAX_STAGES, (GEMM_SMEM_BUDGET - res)
-                 // GEMM_STAGE_BYTES)
+    stages = min(GEMM_MAX_STAGES, (GEMM_SMEM_BUDGET - res) // stage)
     return dict(grid=min(sms, units), row_tiles=row_tiles, groups=groups,
                 splits=splits, split_chunks=split_chunks, stages=stages,
-                smem=res + stages * GEMM_STAGE_BYTES + GEMM_SLOT_BYTES + 1024,
+                smem=res + stages * stage + GEMM_SLOT_BYTES + 1024,
                 part_bytes=part, sync_words=words)
 
 
@@ -168,13 +172,17 @@ def _max_units(groups: int, streams: int, grid: int) -> int:
 # Persistent scratch of the kernels, one buffer per kind, device and
 # stream, made when first asked for and grown when a launch needs more;
 # launches on one stream run in order, so they share it. Kinds: "mlp", B14's
-# grid barrier words, and "gemm_sync", the GEMMs' split counts, both zero
-# when made and left so by every launch (but the barrier's generation);
-# "gemm_part", the GEMMs' fp32 partials, rewritten by every launch.
+# grid barrier words, and "gemm_sync" (B12, B13) and "ln_shift_sync" (B11),
+# the GEMMs' split counts, all zero when made and left so by every launch
+# (but the barrier's generation); "gemm_part" and "ln_shift_part", the
+# GEMMs' fp32 partials, rewritten by every launch.
 _SCRATCH: dict = {}
-# The scratch arguments of a GEMM launch by (x's shape and dtype, n,
-# device, stream), cleared whenever a buffer is replaced.
+# The scratch arguments of a GEMM launch by (kinds, weight bytes, x's shape
+# and dtype, n, device, stream), cleared whenever a buffer is replaced.
 _GEMM_ARGS: dict = {}
+# the scratch kinds (partials, split counts) of the int8 GEMMs and of B11
+GEMM_KINDS, LN_SHIFT_KINDS = ("gemm_part", "gemm_sync"), ("ln_shift_part",
+                                                          "ln_shift_sync")
 
 
 def _scratch(kind: str, device: torch.device, stream: int, nbytes: int,
@@ -189,21 +197,24 @@ def _scratch(kind: str, device: torch.device, stream: int, nbytes: int,
     return buf
 
 
-def _gemm_scratch(x: torch.Tensor, n: int, stream: int) -> tuple:
-    """(partials, their bytes, split counts, their words) of an int8 GEMM
-    launch on x, sized by :func:`int8_gemm_plan`; with one split, no
-    scratch. The C entry refuses a launch whose plan needs more."""
-    key = (x.shape, x.dtype, n, x.device, stream)
+def gemm_scratch(x: torch.Tensor, n: int, stream: int, w_bytes: int = 1,
+                 kinds: tuple = GEMM_KINDS) -> tuple:
+    """(partials, their bytes, split counts, their words) of a launch on
+    ``csrc/int8_gemm.cuh`` on x with ``w_bytes``-byte weights, sized by
+    :func:`int8_gemm_plan`, in the scratch ``kinds`` (partials, counts);
+    with one split, no scratch. The C entry refuses a launch whose plan
+    needs more."""
+    key = (kinds, w_bytes, x.shape, x.dtype, n, x.device, stream)
     args = _GEMM_ARGS.get(key)
     if args is not None:
         return args
-    plan = int8_gemm_plan(*x.shape, n, _sms(x.device), _pieces(x))
+    plan = int8_gemm_plan(*x.shape, n, _sms(x.device), _pieces(x),
+                          w_bytes)
     args = None, 0, None, 0
     if plan["splits"] > 1:
-        part = _scratch("gemm_part", x.device, stream, plan["part_bytes"],
+        part = _scratch(kinds[0], x.device, stream, plan["part_bytes"],
                         zero=False)
-        sync = _scratch("gemm_sync", x.device, stream,
-                        4 * plan["sync_words"])
+        sync = _scratch(kinds[1], x.device, stream, 4 * plan["sync_words"])
         args = (part.data_ptr(), part.numel(), sync.data_ptr(),
                 sync.numel() // 4)
     _GEMM_ARGS[key] = args
@@ -261,7 +272,7 @@ def int8_gemm_kernel(x, w_q, scale, b=None, residual=None, activation=None):
     stream = cuda_lib.stream()
     cuda_lib.call("etk_int8_gemm", x.data_ptr(), w_q.data_ptr(),
                   scale.data_ptr(), _ptr(b), _ptr(residual), out.data_ptr(),
-                  *_gemm_scratch(x, n, stream), m, d, n,
+                  *gemm_scratch(x, n, stream), m, d, n,
                   ACTIVATIONS[activation], bias_code(b), DTYPE_CODES[x.dtype],
                   stream)
     LAUNCHES["int8_gemm"] += 1
@@ -326,7 +337,7 @@ def int8_ln_gemm_kernel(x, gamma, beta, tm, prev, w_q, scale, b=None,
     cuda_lib.call("etk_int8_ln_gemm", x.data_ptr(), gamma.data_ptr(),
                   beta.data_ptr(), _ptr(tm), _ptr(prev), w_q.data_ptr(),
                   scale.data_ptr(), _ptr(b), out.data_ptr(), xn.data_ptr(),
-                  *_gemm_scratch(x, n, stream), m, d, n,
+                  *gemm_scratch(x, n, stream), m, d, n,
                   ACTIVATIONS[activation], eps,
                   0 if prev is None else DTYPE_CODES[prev.dtype],
                   bias_code(b), DTYPE_CODES[x.dtype], stream)

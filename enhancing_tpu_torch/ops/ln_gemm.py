@@ -2,12 +2,15 @@
 
 Counterpart of ``enhancing_tpu/ops/ln_gemm.py``. ``fused_ln_gemm`` computes
 ``act(LN(x) @ W^T + b)`` without the normalised activation ever reaching
-device memory (CUDA kernel ``csrc/ln_gemm.cu``); ``fused_layernorm`` is a
-single-pass LayerNorm (``csrc/layernorm.cu``). Both copy the JAX package's
-numerics: eps 1e-5, fp32 statistics with the fast variance
-``max(E[x^2] - mean^2, 0)``, fp32 affine, the normalised row rounded to the
-compute dtype before the product, fp32 accumulation, fp32 bias and
-activation, one rounding at the end.
+device memory: CUDA kernels ``csrc/ln_gemm.cu`` (bf16) and
+``csrc/ln_gemm_f32.cu`` (fp32 x, on exact bf16 pieces), and for fp32 x of a
+few decode rows ``csrc/ln_shift_gemm.cu`` without the shift
+(:func:`ln_gemm_route`). ``fused_layernorm`` is a single-pass LayerNorm
+(``csrc/layernorm.cu``). Both copy the JAX package's numerics: eps 1e-5,
+fp32 statistics with the fast variance ``max(E[x^2] - mean^2, 0)``, fp32
+affine, the normalised row rounded to the compute dtype before the
+product, fp32 accumulation, fp32 bias and activation, one rounding at the
+end.
 
 On CUDA each entry point is a ``torch.autograd.Function``: the forward is
 the kernel on detached inputs, and the backward is autograd of the plain
@@ -27,7 +30,8 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
-from .common import LAUNCHES, cdiv, check_kernel_args, use_kernel
+from .common import (LAUNCHES, LN_GEMM_ROUTES, cdiv, check_kernel_args,
+                     use_kernel)
 
 ACTIVATIONS = {None: 0, "none": 0, "tanh": 1, "sqrelu": 2, "gelu": 3}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -96,20 +100,75 @@ def ln_gemm_plan(m: int, n: int, sms: int = 132) -> dict:
                 grid=min(rows * -(-n // bn), sms))
 
 
+# csrc/ln_gemm_f32.cu: 128 x 128 tiles (two fp32 accumulators of 64 x 128
+# a consumer thread), 32-wide k slices of fp32 x (16 KB) and of each W
+# piece (8 KB) a ring stage, at most 8 stages
+LN_GEMM_F32_TILE, LN_GEMM_F32_K, LN_GEMM_F32_MAX_STAGES = 128, 32, 8
+
+
+def ln_gemm_f32_plan(m: int, d: int, n: int, w_pieces: int = 3,
+                     sms: int = 132) -> dict:
+    """The fp32 kernel's launch for an (m, d) x (n, d) product with
+    ``w_pieces`` bf16 pieces of W (3: fp32 W, split once a call; 1: bf16 W,
+    read as stored) on a card of ``sms`` SMs, as ``csrc/ln_gemm_f32.cu``
+    makes it (the C entry ``etk_ln_gemm_f32_plan`` returns the same
+    numbers): 128 x 128 tiles, 32-wide k slices, as many ring stages as 227
+    KB less 1 KB of alignment slack holds (at most 8), one persistent block
+    an SM, at most one a tile. Raises ValueError for what it refuses (d %
+    16, as the kernel)."""
+    if m <= 0 or n <= 0 or d <= 0 or d % 16 or w_pieces not in (1, 3):
+        raise ValueError(f"f32 ln_gemm kernel takes m, n > 0, d % 16 == 0 "
+                         f"and 1 or 3 W pieces; got m={m}, d={d}, n={n}, "
+                         f"w_pieces={w_pieces}")
+    t, k = LN_GEMM_F32_TILE, LN_GEMM_F32_K
+    stage = t * k * 4 + w_pieces * t * k * 2
+    stages = min(LN_GEMM_F32_MAX_STAGES, (LN_GEMM_SMEM_LIMIT - 1024) // stage)
+    return dict(tile_m=t, tile_n=t, tile_k=k, stages=stages,
+                smem=stages * stage + 1024,
+                grid=min(cdiv(m, t) * cdiv(n, t), sms))
+
+
+# fp32 x of at most this many rows (a decode step's few) goes to
+# csrc/ln_shift_gemm.cu, which reads the weights once per 8 rows at the
+# memory's rate; more rows, to csrc/ln_gemm_f32.cu's tiles. The crossing,
+# measured at the prior's mlp and head (``ab_ln_gemm_f32.py --route``;
+# PERF.md): B11's kernel is the faster up to 64 rows with bf16 W, up to 32
+# to 48 with fp32 W
+LN_GEMM_DECODE_ROWS = 32
+
+
+def ln_gemm_route(m: int, x_dtype: torch.dtype, w_dtype: torch.dtype) -> str:
+    """The kernel an (m, d) x of ``x_dtype`` with an (n, d) weight of
+    ``w_dtype`` (as :func:`fused_ln_gemm` hands it over) runs: ``"decode"``,
+    B11's kernel without the shift (``csrc/ln_shift_gemm.cu``), for fp32 x
+    of at most ``LN_GEMM_DECODE_ROWS`` rows; ``"f32"``, ``csrc/ln_gemm_f32.cu``,
+    for other fp32 x; ``"bf16"``, ``csrc/ln_gemm.cu``. A bf16 weight under
+    fp32 x is used as stored on both fp32 routes."""
+    if x_dtype == torch.float32:
+        if w_dtype not in _DTYPES:
+            raise TypeError(f"ln_gemm kernel takes a bf16 or f32 w under "
+                            f"f32 x, got {w_dtype}")
+        return "decode" if m <= LN_GEMM_DECODE_ROWS else "f32"
+    if x_dtype != torch.bfloat16 or w_dtype != torch.bfloat16:
+        raise TypeError(f"ln_gemm kernel takes bf16 w under bf16 x, or f32 "
+                        f"x; got {x_dtype} and {w_dtype}")
+    return "bf16"
+
+
 def ln_gemm_kernel(x, gamma, beta, w, b=None, activation=None, eps=1e-5):
-    """Launch ``csrc/ln_gemm.cu`` on CUDA tensors x (m, d), w (n, d) of one
-    dtype (bf16 or f32), fp32 gamma/beta (d,) and bias (n,). The bf16 path
-    first writes each row's mean and rstd into a 2 * m fp32 workspace (one
-    wrapper call, one launch counted)."""
+    """Launch the LN -> GEMM kernel of :func:`ln_gemm_route` on CUDA tensors
+    x (m, d) bf16 or f32, w (n, d) (bf16 under bf16 x; bf16 or f32 under
+    f32 x, used as stored), fp32 gamma/beta (d,) and bias (n,). The tiled
+    kernels first write each row's mean and rstd into a 2 * m fp32
+    workspace (and fp32 W's pieces into a bf16 one); one wrapper call, one
+    launch counted, and in ``LN_GEMM_ROUTES`` under its route."""
     m, d = x.shape
     n = w.shape[0]
-    if x.dtype not in _DTYPES or w.dtype != x.dtype:
-        raise TypeError(f"ln_gemm kernel takes bf16 or f32 x and w of one "
-                        f"dtype, got {x.dtype} and {w.dtype}")
-    if x.dtype == torch.bfloat16 and (d % 32 or n % 8):
+    route = ln_gemm_route(m, x.dtype, w.dtype)
+    if route == "bf16" and (d % 32 or n % 8):
         raise ValueError(f"bf16 ln_gemm kernel needs d % 32 == 0 and "
                          f"n % 8 == 0, got d={d}, n={n}")
-    if x.dtype == torch.float32 and d % 16:
+    if route != "bf16" and d % 16:
         raise ValueError(f"f32 ln_gemm kernel needs d % 16 == 0, got d={d}")
     if w.shape[1] != d or gamma.shape != (d,) or beta.shape != (d,):
         raise ValueError("ln_gemm: shapes of x, w, gamma, beta disagree")
@@ -117,17 +176,35 @@ def ln_gemm_kernel(x, gamma, beta, w, b=None, activation=None, eps=1e-5):
             b is not None and (b.dtype != torch.float32 or b.shape != (n,))):
         raise TypeError("ln_gemm kernel takes fp32 gamma, beta and bias")
     check_kernel_args("ln_gemm", x, gamma, beta, w, b)
+    if route == "decode":
+        out, _ = _ln_shift_gemm_launch(x, gamma, beta, None, None, w, b,
+                                       activation, eps, want_xn=False)
+        LAUNCHES["ln_gemm"] += 1
+        LN_GEMM_ROUTES[route] += 1
+        return out
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    # the bf16 path's row statistics: m means, then m rstds
-    stats = (torch.empty(2 * m, dtype=torch.float32, device=x.device)
-             if x.dtype == torch.bfloat16 else None)
-    cuda_lib.call("etk_ln_gemm", x.data_ptr(), gamma.data_ptr(),
-                  beta.data_ptr(), w.data_ptr(),
-                  None if b is None else b.data_ptr(), out.data_ptr(),
-                  None if stats is None else stats.data_ptr(), m, d, n,
-                  ACTIVATIONS[activation], eps, _DTYPES[x.dtype],
-                  cuda_lib.stream())
+    # the row statistics: m means, then m rstds
+    stats = torch.empty(2 * m, dtype=torch.float32, device=x.device)
+    if route == "bf16":
+        cuda_lib.call("etk_ln_gemm", x.data_ptr(), gamma.data_ptr(),
+                      beta.data_ptr(), w.data_ptr(),
+                      None if b is None else b.data_ptr(), out.data_ptr(),
+                      stats.data_ptr(), m, d, n, ACTIVATIONS[activation],
+                      eps, _DTYPES[x.dtype], cuda_lib.stream())
+    else:
+        # fp32 W's three bf16 pieces, written by the kernel's split pass
+        pieces = (torch.empty(3 * n * d, dtype=torch.bfloat16,
+                              device=x.device)
+                  if w.dtype == torch.float32 else None)
+        cuda_lib.call("etk_ln_gemm_f32", x.data_ptr(), gamma.data_ptr(),
+                      beta.data_ptr(), w.data_ptr(),
+                      None if b is None else b.data_ptr(), out.data_ptr(),
+                      stats.data_ptr(),
+                      None if pieces is None else pieces.data_ptr(), m, d, n,
+                      ACTIVATIONS[activation], eps, _DTYPES[w.dtype],
+                      cuda_lib.stream())
     LAUNCHES["ln_gemm"] += 1
+    LN_GEMM_ROUTES[route] += 1
     return out
 
 
@@ -182,16 +259,19 @@ def fused_ln_gemm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                   eps: float = 1e-5) -> torch.Tensor:
     """y = act(LayerNorm(x; gamma, beta) @ w^T + b).
 
-    x: (..., d); gamma/beta: (d,); w: (n, d), cast to ``x.dtype``; b: (n,)
+    x: (..., d); gamma/beta: (d,); w: (n, d), used in ``x.dtype``; b: (n,)
     or None, applied in fp32. CUDA tensors run the kernel, CPU tensors the
-    plain version.
+    plain version. The kernels read a bf16 w under fp32 x as stored (its
+    widening is exact); the plain version widens it, as the JAX wrapper
+    does.
     """
     if activation not in ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}")
     batch_shape = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    w = w.to(x.dtype)
     if use_kernel(x2, gamma, beta, w, b, op="ln_gemm"):
+        if not (x.dtype == torch.float32 and w.dtype == torch.bfloat16):
+            w = w.to(x.dtype)
         out = _LnGemm.apply(x2.contiguous(), gamma.float().contiguous(),
                             beta.float().contiguous(), w.contiguous(),
                             None if b is None else b.float().contiguous(),
@@ -326,11 +406,54 @@ def ln_shift_gemm_plain(x, gamma, beta, tm, prev, w, b=None, activation=None,
     return _act(h, activation).to(x.dtype), xn
 
 
+def ln_shift_gemm_plan(m: int, d: int, n: int, x_dtype: torch.dtype,
+                       w_dtype: torch.dtype, sms: int = 132) -> dict:
+    """The launch of ``csrc/ln_shift_gemm.cu`` (``csrc/int8_gemm.cuh``'s
+    plan, ``ops.int8.int8_gemm_plan``, on 2- or 4-byte weights; the C entry
+    ``etk_ln_shift_gemm_plan`` returns the same numbers) for an (m, d) x of
+    ``x_dtype`` and an (n, d) weight of ``w_dtype``: a bf16 weight under
+    fp32 or bf16 x, an fp32 one under fp32 x. Raises ValueError for what
+    the kernel refuses."""
+    from .int8 import int8_gemm_plan
+    if x_dtype not in _DTYPES or w_dtype not in _DTYPES or (
+            x_dtype == torch.bfloat16 and w_dtype == torch.float32):
+        raise ValueError(f"ln_shift_gemm kernel takes a bf16 weight, or an "
+                         f"fp32 one under fp32 x; got {w_dtype} under "
+                         f"{x_dtype}")
+    return int8_gemm_plan(m, d, n, sms, 3 if x_dtype == torch.float32 else 1,
+                          2 if w_dtype == torch.bfloat16 else 4)
+
+
+def _ln_shift_gemm_launch(x, gamma, beta, tm, prev, w, b, activation, eps,
+                          want_xn=True):
+    """Launch ``csrc/ln_shift_gemm.cu`` on checked operands (out, and LN(x)
+    if ``want_xn``, else None), its split partials and counts in scratch
+    kinds of their own (``ops.int8.LN_SHIFT_KINDS``)."""
+    from .int8 import LN_SHIFT_KINDS, gemm_scratch
+    m, d = x.shape
+    n = w.shape[0]
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    xn = torch.empty_like(x) if want_xn else None
+    stream = cuda_lib.stream()
+    scratch = gemm_scratch(x, n, stream, w.element_size(), LN_SHIFT_KINDS)
+    cuda_lib.call("etk_ln_shift_gemm", x.data_ptr(), gamma.data_ptr(),
+                  beta.data_ptr(), None if tm is None else tm.data_ptr(),
+                  None if prev is None else prev.data_ptr(), w.data_ptr(),
+                  None if b is None else b.data_ptr(), out.data_ptr(),
+                  None if xn is None else xn.data_ptr(), *scratch, m, d, n,
+                  ACTIVATIONS[activation], eps,
+                  0 if prev is None else DTYPE_CODES[prev.dtype],
+                  bias_code(b), DTYPE_CODES[x.dtype], DTYPE_CODES[w.dtype],
+                  stream)
+    return out, xn
+
+
 def ln_shift_gemm_kernel(x, gamma, beta, tm, prev, w, b=None,
                          activation=None, eps=1e-5):
     """Launch ``csrc/ln_shift_gemm.cu``: x (m, d) fp32 or bf16; fp32
     gamma, beta, tm (d,) (tm None: no shift); prev (m, d) fp32 or bf16;
-    w (n, d) bf16 (any x) or fp32 (fp32 x); b (n,) fp32 or bf16."""
+    w (n, d) bf16 (any x) or fp32 (fp32 x); b (n,) fp32 or bf16. One
+    launch (:func:`ln_shift_gemm_plan`)."""
     m, d = x.shape
     n = w.shape[0]
     ln_kernel_checks("ln_shift_gemm", x, gamma, beta, tm, prev, n, b)
@@ -341,18 +464,8 @@ def ln_shift_gemm_kernel(x, gamma, beta, tm, prev, w, b=None,
                          f"weight, or an fp32 one under fp32 x; got "
                          f"{tuple(w.shape)} {w.dtype} under {x.dtype}")
     check_kernel_args("ln_shift_gemm", x, gamma, beta, tm, prev, w, b)
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    xn = torch.empty_like(x)
-    ws = torch.empty(8 * d, dtype=torch.float32, device=x.device)
-    cuda_lib.call("etk_ln_shift_gemm", x.data_ptr(), gamma.data_ptr(),
-                  beta.data_ptr(), None if tm is None else tm.data_ptr(),
-                  None if prev is None else prev.data_ptr(), w.data_ptr(),
-                  None if b is None else b.data_ptr(), out.data_ptr(),
-                  xn.data_ptr(), ws.data_ptr(), m, d, n,
-                  ACTIVATIONS[activation], eps,
-                  0 if prev is None else DTYPE_CODES[prev.dtype],
-                  bias_code(b), DTYPE_CODES[x.dtype], DTYPE_CODES[w.dtype],
-                  cuda_lib.stream())
+    out, xn = _ln_shift_gemm_launch(x, gamma, beta, tm, prev, w, b,
+                                    activation, eps)
     LAUNCHES["ln_shift_gemm"] += 1
     return out, xn
 

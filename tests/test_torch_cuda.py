@@ -93,6 +93,59 @@ def test_ln_gemm_wgmma_tiles_match_plain(cuda, m, n, d, activation):
     _close(got, lg.ln_gemm_plain(x, gamma, beta, w, b, activation), BF16_TOL)
 
 
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("activation", [None, "gelu"])
+@pytest.mark.parametrize("d", [96, 1280])
+@pytest.mark.parametrize("n", [136, 2312])
+@pytest.mark.parametrize("m", [lg.LN_GEMM_DECODE_ROWS + 1, 1000])
+def test_ln_gemm_f32_tiles_match_plain(cuda, m, n, d, activation, w_dtype):
+    """csrc/ln_gemm_f32.cu over its tile edges: m just past the decode
+    route and past a 128-row block, n past 128-column tiles, d with a
+    ragged last 64 k (96) and whole ones; fp32 W (split into pieces) and
+    bf16 W (read as stored), a bias with gelu."""
+    x = _randn(cuda, m, d, scale=2.0)
+    gamma = 1.0 + 0.1 * _randn(cuda, d)
+    beta = 0.1 * _randn(cuda, d)
+    w = _randn(cuda, n, d, dtype=w_dtype, scale=d ** -0.5)
+    b = None if activation is None else 0.1 * _randn(cuda, n)
+    assert lg.ln_gemm_route(m, x.dtype, w.dtype) == "f32"
+    got = lg.fused_ln_gemm(x, gamma, beta, w, b, activation=activation)
+    again = lg.fused_ln_gemm(x, gamma, beta, w, b, activation=activation)
+    _close(got, lg.ln_gemm_plain(x, gamma, beta, w, b, activation), F32_TOL)
+    assert torch.equal(got, again)
+
+
+def test_ln_gemm_f32_and_b11_plans_mirror_the_c_entries(cuda):
+    """ops.ln_gemm.ln_gemm_f32_plan and ops.ln_gemm.ln_shift_gemm_plan give
+    the numbers that csrc/ln_gemm_f32.cu and csrc/ln_shift_gemm.cu pick on
+    this card, and both refuse what the Python plans refuse."""
+    from enhancing_tpu_torch.ops import cuda_lib
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for m in (17, 1000, 8192):
+        for d, n in ((512, 1536), (768, 2304), (1280, 5120), (96, 136)):
+            for pieces in (1, 3):
+                want = lg.ln_gemm_f32_plan(m, d, n, pieces, sms)
+                assert cuda_lib.plan("etk_ln_gemm_f32_plan", m, d, n, pieces,
+                                     size=6) == tuple(
+                    want[k] for k in ("tile_m", "tile_n", "tile_k", "stages",
+                                      "smem", "grid"))
+    keys = ("grid", "row_tiles", "groups", "splits", "split_chunks",
+            "stages", "smem", "part_bytes", "sync_words")
+    f32, bf16 = torch.float32, torch.bfloat16
+    for m, d, n in ((1, 6144, 18432), (8, 6144, 24576), (32, 6144, 8192),
+                    (4, 384, 264), (13, 1040, 1000)):
+        for x_dtype, w_dtype in ((f32, bf16), (bf16, bf16), (f32, f32)):
+            want = lg.ln_shift_gemm_plan(m, d, n, x_dtype, w_dtype, sms)
+            pieces = 3 if x_dtype == f32 else 1
+            assert cuda_lib.plan("etk_ln_shift_gemm_plan", m, d, n, pieces,
+                                 w_dtype.itemsize, size=9) == tuple(
+                want[k] for k in keys)
+    with pytest.raises(RuntimeError):
+        cuda_lib.plan("etk_ln_gemm_f32_plan", 8, 760, 64, 3, size=6)
+    with pytest.raises(RuntimeError):
+        cuda_lib.plan("etk_ln_shift_gemm_plan", 8, 6144, 64, 3, 1, size=9)
+
+
 def test_kernel_plans_mirror_the_c_entries(cuda):
     """ops.ln_gemm.ln_gemm_plan and ops.ffn.ffn_plan give the numbers that
     the kernels' own host code picks on this card."""
@@ -1167,13 +1220,26 @@ def test_int8_gemm_plan_mirrors_the_c_entry(cuda):
             cuda_lib.plan("etk_int8_gemm_plan", m, d, n, pieces, size=9)
 
 
+def _ln_shift_sync_is_zero():
+    """B11's persistent split counts are back at zero after every launch."""
+    torch.cuda.synchronize()
+    bufs = [buf for key, buf in int8._SCRATCH.items()
+            if key[0] == "ln_shift_sync"]
+    return all(int(buf.sum()) == 0 for buf in bufs)
+
+
 @pytest.mark.parametrize("x_dtype,w_dtype", [
     (torch.float32, torch.bfloat16), (torch.bfloat16, torch.bfloat16),
     (torch.float32, torch.float32)])
 @pytest.mark.parametrize("m,d,n,shift", [(8, 6144, 18432, True),
-                                         (4, 384, 264, False)])
+                                         (4, 384, 264, False),
+                                         (13, 1040, 1000, True)])
 def test_ln_shift_gemm_kernel_matches_plain(cuda, x_dtype, w_dtype, m, d, n,
                                             shift):
+    """csrc/ln_shift_gemm.cu (int8_gemm.cuh's body on bf16 or fp32
+    weights): every dtype pair, the shift on and off, d not a multiple of
+    the 128-wide stage and n not of 192 channels; LN(x) compared too, two
+    calls bit-equal, the split counts left at zero."""
     x = _randn(cuda, m, d, dtype=x_dtype, scale=2.0)
     gamma, beta = 1.0 + 0.1 * _randn(cuda, d), 0.1 * _randn(cuda, d)
     tm = torch.linspace(0, 1, d, device="cuda") if shift else None
@@ -1182,10 +1248,54 @@ def test_ln_shift_gemm_kernel_matches_plain(cuda, x_dtype, w_dtype, m, d, n,
     b = 0.1 * _randn(cuda, n)
     before = common.LAUNCHES["ln_shift_gemm"]
     got, xn = lg.fused_ln_shift_gemm(x, gamma, beta, tm, prev, w, b)
-    assert common.LAUNCHES["ln_shift_gemm"] == before + 1
+    again, xn_again = lg.fused_ln_shift_gemm(x, gamma, beta, tm, prev, w, b)
+    assert common.LAUNCHES["ln_shift_gemm"] == before + 2
     want, want_xn = lg.ln_shift_gemm_plain(x, gamma, beta, tm, prev, w, b)
     _close(got, want, _int8_limits(want))
     _close(xn, want_xn, _int8_limits(want_xn))
+    assert torch.equal(got, again) and torch.equal(xn, xn_again)
+    assert _ln_shift_sync_is_zero()
+
+
+@pytest.mark.parametrize("m", [1, 8, 13, 32])
+def test_ln_shift_gemm_decode_sites_in_decode_order(cuda, m):
+    """The LNFUSE decode step's three fp32 calls at the prior's widths and
+    batch 1-32, in a decode step's order, through one shared scratch: B11
+    at the qkv (the shift, bf16 W), B1 at the mlp (sqrelu) and the head,
+    which at these rows run B11's kernel without the shift on the bf16
+    weights as stored; qkv, mlp, qkv, head, qkv again. Each call against
+    its plain version, the repeats bit-equal, every split count back at
+    zero (partials of one call left in another's counts would show
+    here)."""
+    c = 6144
+    x = _randn(cuda, m, c)
+    gamma, beta = 1.0 + 0.1 * _randn(cuda, c), 0.1 * _randn(cuda, c)
+    tm = torch.linspace(0, 1, c, device="cuda")
+    prev = _randn(cuda, m, c, dtype=torch.bfloat16)
+    qkv, p0, head = (_randn(cuda, n, c, dtype=torch.bfloat16, scale=0.02)
+                     for n in (3 * c, 4 * c, 8192))
+    bq, b0 = 0.02 * _randn(cuda, 3 * c), 0.02 * _randn(cuda, 4 * c)
+    assert lg.ln_gemm_route(m, x.dtype, p0.dtype) == "decode"
+    calls = (lambda: lg.fused_ln_shift_gemm(x, gamma, beta, tm, prev, qkv,
+                                            bq),
+             lambda: (lg.fused_ln_gemm(x, gamma, beta, p0, b0,
+                                       activation="sqrelu"),),
+             lambda: (lg.fused_ln_gemm(x, gamma, beta, head),))
+    wants = (lg.ln_shift_gemm_plain(x, gamma, beta, tm, prev, qkv, bq),
+             (lg.ln_gemm_plain(x, gamma, beta, p0, b0, "sqrelu"),),
+             (lg.ln_gemm_plain(x, gamma, beta, head),))
+    firsts = {}
+    before = dict(common.LAUNCHES)
+    for i in (0, 1, 0, 2, 0):
+        got = calls[i]()
+        for g, w in zip(got, wants[i]):
+            _close(g, w, _int8_limits(w))
+        if i in firsts:
+            assert all(torch.equal(g, f) for g, f in zip(got, firsts[i]))
+        firsts[i] = got
+    assert common.LAUNCHES["ln_shift_gemm"] == before["ln_shift_gemm"] + 3
+    assert common.LAUNCHES["ln_gemm"] == before["ln_gemm"] + 2
+    assert _ln_shift_sync_is_zero()
 
 
 def test_int8_kernels_refuse_autograd_and_odd_shapes(cuda):
