@@ -40,9 +40,10 @@ Phases, each of which raises on failure:
    attention forwards (head dims up to 128, and the prior's 384), the
    attention backward (and at the prior's 384), their fp32 counterparts
    (fp32 attention -> projection, FFN and LN -> GEMM among them), the int8
-   decode kernels and the LN -> shift -> GEMM must hold wgmma (HGMMA) and
-   TMA loads (UTMALDG) and no mma.sync (``cuobjdump``), and the fp32
-   kernels' wgmma must all be bf16 (exact pieces; no TF32);
+   decode kernels, the LN -> shift -> GEMM and the VQ search must hold
+   wgmma (HGMMA) and TMA loads (UTMALDG) and no mma.sync (``cuobjdump``),
+   the fp32 kernels' wgmma (the VQ search's among them) must all be bf16
+   (exact pieces; no TF32), and the FIR blur must hold TMA loads;
 3. each kernel against its plain PyTorch version on the card at the main
    paths' shapes, with the tolerance stated on its line; the int8 decode
    MLP and its plain version are also held (logged) against an fp64
@@ -62,8 +63,9 @@ Phases, each of which raises on failure:
    batch, images/s and peak memory at batch 128, and the device time of
    one round trip by kernel group (``torch.profiler``);
 6. training through ``Trainer.fit``: counters reset just before and read
-   just after, exact launches per step and per kernel asserted (and the
-   R1 step's plain-routed calls), finite losses, moved parameters, code
+   just after, exact launches per step and per kernel asserted (the
+   blur's backward on its kernel, ``fir_vjp``, among them; and the R1
+   step's plain-routed calls), finite losses, moved parameters, code
    perplexity; one step's losses and per-tensor gradients through the
    kernels against the plain path; ms per step, images/s, peak memory and
    the device time of one step by kernel group;
@@ -153,6 +155,12 @@ fastest ``scaled_dot_product_attention`` backward that takes D = 384.
 Phases 3 and 4 also hold and time B17-B19, which no driven path runs
 (their JAX counterparts are a public op, a function with no caller and a
 kernel only a test reaches).
+Phases 3 and 4 hold and time the VQ search B4 (``csrc/vq.cu``: fp32
+scores as six bf16 wgmma products of exact pieces; two bounds, the
+pieces' and fp32 SIMT's) and the FIR blur B6 (``csrc/fir.cu``, rows
+streamed through a TMA ring) forward and as the VJP its backward
+launches (``fir_vjp``), against autograd of the plain version and of the
+library's depthwise convolution.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``. With no card, or run
@@ -223,9 +231,11 @@ FUSED_TRIP = {"ln_gemm": 24, "attn_proj": 24, "layernorm": 26, "ffn": 24,
 # per training step of fake_vitvq_base: two AE forwards (the AE update and
 # the D update's fresh reconstruction), one AE backward, three D forwards
 # (D on xrec in the AE phase, on x and xrec in the D phase) of 12 blurs
-# and 15 bias + leaky ReLUs each
+# and 15 bias + leaky ReLUs each, and their three backwards (the blur's
+# VJP on the blur's kernel, fir_vjp)
 TRAIN_STEP = {"ln_gemm": 96, "attention": 48, "layernorm": 4, "vq": 2,
-              "attention_bwd": 24, "fir": 36, "fused_act": 45}
+              "attention_bwd": 24, "fir": 36, "fir_vjp": 36,
+              "fused_act": 45}
 # the R1 step also runs one D forward on the plain versions
 R1_PLAIN = {"fir": 12, "fused_act": 15}
 # a validation batch: one AE round trip and three D forwards
@@ -239,6 +249,9 @@ REPLACES = {
     "vq": "enhancing_tpu/ops/vq.py:48",
     "attention_bwd": "enhancing_tpu/ops/attention.py:904",
     "fir": "enhancing_tpu/ops/upfirdn2d.py:74",
+    # the blur's VJP, which the JAX package computes as the blur of the
+    # gradient (_fir_fused_bwd, XLA) and the port on B6's kernel
+    "fir_vjp": "enhancing_tpu/ops/upfirdn2d.py:74",
     "fused_act": "enhancing_tpu/ops/fused_act.py:36",
     # the pallas_call sites (B8's kernel body is B2's _attn_kernel_packed)
     "attention_bnhd": "enhancing_tpu/ops/attention.py:626",
@@ -350,7 +363,7 @@ SOURCES = {name: "enhancing_tpu_torch/csrc/" + {
     "attention_fused_bnhd": "attention_bnhd",
     "attention_gridchunk": "attention_bnhd", "attn_proj_f32": "attn_proj_f32",
     "ffn_f32": "ffn_f32", "attention_bwd_wide_f32": "attention_bwd_wide",
-    "ln_gemm_f32": "ln_gemm_f32"}.get(
+    "ln_gemm_f32": "ln_gemm_f32", "fir_vjp": "fir"}.get(
         name, "attention_f32" if name in F32_OF else name) + ".cu"
     for name in REPLACES}
 
@@ -479,7 +492,8 @@ SM90_KERNELS = {"int8_gemm": ("int8_gemm_kernel",),
                 "ffn f32": ("ffn_f32_kernel",),
                 "int8_mlp": ("int8_mlp_kernel",),
                 "attention_bwd D=384 rows": ("attn_bwd_wide_rows_kernel",),
-                "attention_bwd D=384 cols": ("attn_bwd_wide_cols_kernel",)}
+                "attention_bwd D=384 cols": ("attn_bwd_wide_cols_kernel",),
+                "vq": ("vq_nearest_kernel",)}
 # the fp32 kernels (csrc/attention_f32.cu, attn_proj_f32.cu, ffn_f32.cu,
 # and csrc/attention_bwd_wide.cu, whose bf16 and fp32 forms share a
 # template) compute fp32 products as six bf16 products of exact pieces,
@@ -492,7 +506,10 @@ F32_PIECE_FAMILIES = ("attention fwd f32", "attention fwd f32 D=384",
                       "attention_bwd f32 rows", "attention_bwd f32 cols",
                       "attn_proj f32", "ffn f32", "attention_bwd D=384 rows",
                       "attention_bwd D=384 cols", "int8_mlp", "int8_gemm",
-                      "int8_ln_gemm", "ln_shift_gemm", "ln_gemm f32")
+                      "int8_ln_gemm", "ln_shift_gemm", "ln_gemm f32", "vq")
+# kernels fed by TMA that compute without the tensor cores: their SASS
+# holds UTMALDG and no HGMMA or HMMA (the FIR blur, forward and VJP)
+TMA_KERNELS = {"fir": ("fir_kernel",)}
 
 
 def check_sass(lib_path: str) -> None:
@@ -510,7 +527,8 @@ def check_sass(lib_path: str) -> None:
     found = set()
     for block in demangled.split("Function : ")[1:]:
         name = block.split("\n", 1)[0]
-        family = next((f for f, frags in SM90_KERNELS.items()
+        family = next((f for f, frags in {**SM90_KERNELS,
+                                          **TMA_KERNELS}.items()
                        if any(k in name for k in frags)), None)
         if family is None:
             continue
@@ -520,6 +538,11 @@ def check_sass(lib_path: str) -> None:
         hgmma = [ln for ln in block.splitlines() if "HGMMA" in ln]
         kinds = sorted({ln.split("HGMMA", 1)[1].split()[0] for ln in hgmma})
         log(f"[build] SASS {name[:70]}: {counts} {kinds}")
+        if family in TMA_KERNELS:
+            check(counts["UTMALDG"] > 0 and counts["HGMMA"] == 0
+                  and counts["HMMA"] == 0,
+                  f"{name}: expected TMA loads and no tensor-core product")
+            continue
         check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0
               and counts["HMMA"] == 0,
               f"{name}: expected wgmma fed by TMA and no mma.sync")
@@ -527,8 +550,8 @@ def check_sass(lib_path: str) -> None:
             check(all(k.endswith(".F32.BF16") for k in kinds),
                   f"{name}: expected bf16 wgmma of exact pieces into fp32, "
                   "no TF32 or int8")
-    check(found == set(SM90_KERNELS),
-          f"kernels missing from the SASS: {set(SM90_KERNELS) - found}")
+    want = set(SM90_KERNELS) | set(TMA_KERNELS)
+    check(found == want, f"kernels missing from the SASS: {want - found}")
 
 
 def rand(shape, gen, dtype=torch.bfloat16, scale=1.0):
@@ -568,6 +591,7 @@ def near_tie_rows(scores, rel=1e-5):
 
 def phase_compare() -> dict:
     """Kernel vs plain on the card; returns max_abs_err per kernel."""
+    from enhancing_tpu_torch.ops import LAUNCHES
     from enhancing_tpu_torch.ops import attention as att
     from enhancing_tpu_torch.ops import fused_act as fa
     from enhancing_tpu_torch.ops import ln_gemm as lg
@@ -668,6 +692,25 @@ def phase_compare() -> dict:
     dup = torch.cat([t["codebook"][:64], t["codebook"][:64]])
     check(bool((vq.nearest_kernel(t["z"][:4096], dup) < 64).all()),
           "vq kernel: duplicated codes must resolve to the lowest index")
+    # the two row tiles a warpgroup of large batches at D = 32, the other
+    # head dims (D = 16 runs as 32 with zero columns), ragged codebooks and
+    # rows past a block; inputs of their own
+    gq = torch.Generator(device="cuda").manual_seed(19)
+    for m, n, d in ((TIME_BATCH * TOKENS + 37, CODES - 1, EMBED),
+                    (CHECK_BATCH * TOKENS + 37, CODES, 64),
+                    (CHECK_BATCH * TOKENS, 100, 16)):
+        z = F.normalize(torch.randn((m, d), generator=gq, device="cuda"),
+                        dim=-1)
+        cb = F.normalize(torch.randn((n, d), generator=gq, device="cuda"),
+                         dim=-1)
+        got, want = vq.nearest_kernel(z, cb), vq.nearest_plain(z, cb)
+        ties = near_tie_rows(vq_scores(z, cb))
+        bad = int(((got != want) & ~ties).sum())
+        log(f"[compare] vq M={m} n={n} D={d}: {int((got != want).sum())} "
+            f"mismatches, {bad} outside near-ties (tol 0) -> "
+            f"{'pass' if bad == 0 else 'FAIL'}")
+        check(bad == 0, f"vq kernel disagrees outside near-ties at D={d}")
+        del z, cb, got, want, ties
 
     # attention backward: the kernel rounds dS to bf16 before its
     # products, autograd of the plain version rounds dP instead; one bf16
@@ -700,6 +743,35 @@ def phase_compare() -> dict:
           fir.upfirdn2d(x, k, pad=(-1, 2, 0, -2)),
           fir.upfirdn2d_plain(x, k, 1, 1, (-1, 2, 0, -2)), atol=1e-5,
           rtol=1e-5)
+
+    # the blur's VJP (fir_vjp): the backward launches B6's kernel on the
+    # output's gradient with the unflipped taps at the mirrored pads;
+    # against autograd of the plain version, f32 the same 16 products in
+    # another order, bf16 one rounding of an fp32 sum on each side; inputs
+    # of their own
+    gb = torch.Generator(device="cuda").manual_seed(20)
+    cases = ([(shape, pad, blur, torch.float32) for shape, pad in D_BLURS]
+             + [(D_BLURS[0][0], (2, 2), blur, torch.bfloat16),
+                (D_BLURS[-2][0], (2, 2), blur, torch.bfloat16)]
+             + [((2, 19, 23, 64), (-1, 2, 0, -2), k, dt)
+                for dt in (torch.float32, torch.bfloat16)])
+    for shape, pad, taps, dtype in cases:
+        x = torch.randn(shape, generator=gb, device="cuda").to(dtype)
+        xk = x.clone().requires_grad_()
+        out = fir.upfirdn2d(xk, taps, pad=pad)
+        g = torch.randn(out.shape, generator=gb, device="cuda").to(dtype)
+        n_vjp = LAUNCHES["fir_vjp"]
+        (got,) = torch.autograd.grad(out, xk, g)
+        check(LAUNCHES["fir_vjp"] == n_vjp + 1, "fir's backward did not "
+              "launch the kernel once")
+        xp = x.clone().requires_grad_()
+        (want,) = torch.autograd.grad(
+            fir.upfirdn2d_plain(xp, taps, 1, 1, pad), xp, g)
+        tol = (dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32
+               else dict(atol=2.0 ** -7, rtol=2.0 ** -7))
+        close("fir_vjp", f"fir_vjp {str(dtype)[6:]} {shape} "
+              f"{tuple(taps.shape)} taps pad {pad}", got, want, **tol)
+    del x, xk, xp, out, g, got, want
 
     # bias + leaky ReLU: the same roundings in the same order, exact
     for shape, dtype in ((D_ACTS[0], torch.float32), (D_ACTS[-1],
@@ -1093,13 +1165,13 @@ def phase_times() -> dict:
             reps=1):
         """reps > 1: kernel and library loops in turns, each number the
         median of ``reps`` loops, their min-max logged. The fp32 attention
-        kernels (``peak`` PEAK_F32; fp32 B1 among them) compute six bf16
-        products of exact pieces for each fp32 one: their bound is those products at the bf16
-        peak (989 / 6 = 165 TFLOP/s), and the fp32 SIMT bound (67 TFLOP/s)
-        is logged and kept beside it."""
+        kernels (``peak`` PEAK_F32; fp32 B1 and B4 among them) compute six
+        bf16 products of exact pieces for each fp32 one: their bound is
+        those products at the bf16 peak (989 / 6 = 165 TFLOP/s), and the
+        fp32 SIMT bound (67 TFLOP/s) is logged and kept beside it."""
         simt = None
         if name in F32_OF or name in ("attention_bwd_wide_f32",
-                                      "ln_gemm_f32"):
+                                      "ln_gemm_f32", "vq"):
             simt = bound(flops, nbytes, PEAK_F32)[0]
             flops, peak = 6 * flops, PEAK_BF16
         b_ms, b_by = bound(flops, nbytes, peak)
@@ -1226,6 +1298,30 @@ def phase_times() -> dict:
             2.0 * 16 * out_elems, (xb.numel() + out_elems) * 4, PEAK_F32,
             20)
     del xb, xn
+
+    # the 12 VJP blurs of one discriminator backward, f32: the kernel as
+    # the backward launches it (the unflipped taps at the mirrored pads),
+    # the plain version of that blur, and the library's gradient of x:
+    # autograd of F.conv2d(groups=C)
+    taps = blur.tolist()
+    for shape, pad in D_BLURS:
+        bsz, h, w, c = shape
+        ho = h + 2 * pad[0] - 3
+        g = torch.randn((bsz, ho, ho, c), generator=gen, device="cuda")
+        vjp_pad = fir.fir_vjp_pad(pad + pad, 4, 4)
+        flipped = torch.flip(blur, (0, 1))
+        weight = flipped.cuda()[None, None].expand(c, 1, 4, 4)
+        xn = torch.randn(shape, generator=gen, device="cuda").permute(
+            0, 3, 1, 2).requires_grad_()
+        lib_out = F.conv2d(xn, weight, padding=pad[0], groups=c)
+        gn = g.permute(0, 3, 1, 2)
+        row("fir_vjp", f"fir_vjp {shape} pad {pad}",
+            lambda: fir.fir_kernel(g, taps, vjp_pad, counter="fir_vjp"),
+            lambda: fir.upfirdn2d_plain(g, flipped, 1, 1, vjp_pad),
+            lambda: torch.autograd.grad(lib_out, xn, gn, retain_graph=True),
+            2.0 * 16 * xn.numel(), (g.numel() + xn.numel()) * 4, PEAK_F32,
+            20)
+    del g, xn, lib_out, gn
 
     # the 15 bias + leaky ReLUs of one discriminator forward, f32; no
     # single library call computes bias + leaky ReLU + gain
@@ -3402,8 +3498,14 @@ KERNEL_GROUPS = (("attn_proj_kernel", "attn_proj"), ("ffn_kernel", "ffn"),
                  ("layer_norm", "LayerNorm (PyTorch)"),
                  ("gemv", "cuBLAS"), ("ln_gemm", "ln_gemm"),
                  ("attn_fwd", "attention"), ("layernorm_kernel", "layernorm"),
-                 ("vq_nearest", "vq"), ("fir_kernel", "fir"),
-                 ("fused_act", "fused_act"), ("conv", "cuDNN conv"),
+                 ("vq_nearest", "vq"), ("vq_split", "vq"),
+                 ("fir_kernel", "fir"),
+                 ("fused_act", "fused_act"),
+                 # depthwise convolutions, what autograd of the blur's
+                 # plain version runs (its forward again, then the dgrad)
+                 ("conv2d_grouped_direct", "depthwise conv"),
+                 ("dgrad2d_c1_k1", "depthwise conv"),
+                 ("conv", "cuDNN conv"),
                  ("dgrad", "cuDNN conv"), ("wgrad", "cuDNN conv"),
                  ("implicit", "cuDNN conv"), ("gemm", "cuBLAS"),
                  ("xmma", "cuBLAS"), ("cutlass", "cuBLAS"),

@@ -16,10 +16,12 @@ import torch
 
 # Kernel launches since the last reset_launches(), by kernel name. Each
 # wrapper adds one where it launches its kernel and nowhere else, so a run
-# can show that its main path went through the kernels.
+# can show that its main path went through the kernels. "fir_vjp" counts
+# the blur's backward, which launches the kernel of "fir" (csrc/fir.cu).
 LAUNCHES: dict[str, int] = {"ln_gemm": 0, "attention": 0, "layernorm": 0,
                             "vq": 0, "attention_bwd": 0, "fir": 0,
-                            "fused_act": 0, "attention_bnhd": 0,
+                            "fir_vjp": 0, "fused_act": 0,
+                            "attention_bnhd": 0,
                             "decode_attention": 0, "cache_row_update": 0,
                             "ln_shift_gemm": 0, "int8_gemm": 0,
                             "int8_ln_gemm": 0, "int8_mlp": 0,

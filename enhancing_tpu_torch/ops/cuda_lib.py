@@ -46,10 +46,12 @@ SIGNATURES = {
     "etk_layernorm_plan": [_i, _i, _i, ctypes.POINTER(_i)],
     "etk_attention_qkv": [_p, _p, _i, _i, _i, _i, _f, _i, _i, _p],
     "etk_vq_nearest": [_p, _p, _p, _p, _i, _i, _i, _p],
+    "etk_vq_plan": [_i, _i, _i, ctypes.POINTER(_i)],
     "etk_attention_bwd": [_p] * 8 + [_i] * 13 + [_p],
     "etk_attention_bwd_f32": [_p] * 9 + [_i] * 13 + [_p],
     "etk_attention_bwd_wide": [_p] * 9 + [_i] * 13 + [_p],
     "etk_fir": [_p, _p, ctypes.POINTER(_f)] + [_i] * 11 + [_p],
+    "etk_fir_plan": [_i] * 7 + [ctypes.POINTER(_i)],
     "etk_fused_act": [_p, _p, _p, ctypes.c_longlong, _i, _f, _f, _i, _p],
     "etk_attention_bnhd": [_p] * 4 + [ctypes.POINTER(_i)] + [_i] * 5
     + [_f, _i, _i, _i, _p],

@@ -263,6 +263,53 @@ def test_vq_kernel_ties_go_to_the_lowest_index(cuda):
     assert (got < 300).all()
 
 
+def _near_ties(z, cb):
+    """Rows whose two best plain scores lie within 1e-5 relative
+    (chip_smoke.py's rule)."""
+    scores = -2.0 * (z @ cb.t()) + (cb * cb).sum(-1)[None]
+    best2 = torch.topk(scores, 2, dim=-1, largest=False).values
+    return best2[:, 1] - best2[:, 0] <= 1e-5 * best2[:, 0].abs().clamp(
+        min=1e-6)
+
+
+@pytest.mark.parametrize("d", vq.KERNEL_DIMS)
+@pytest.mark.parametrize("n", [8192, 8191, 100])
+@pytest.mark.parametrize("m", [64, 8192, 131072 + 37])
+def test_vq_pieces_kernel_outside_near_ties(cuda, m, n, d):
+    """csrc/vq.cu on exact bf16 pieces: every row's code is the plain
+    version's but where the two best plain scores tie within 1e-5; one
+    launch a call. 131 109 rows take two row tiles a warpgroup and a
+    ragged last block; 8191 and 100 codes a ragged last stage."""
+    z = torch.nn.functional.normalize(_randn(cuda, m, d), dim=-1)
+    cb = torch.nn.functional.normalize(_randn(cuda, n, d), dim=-1)
+    before = common.LAUNCHES["vq"]
+    got = vq.nearest_codebook_indices(z, cb)
+    assert common.LAUNCHES["vq"] == before + 1
+    want = vq.nearest_plain(z, cb)
+    assert got.dtype == torch.int32 and bool(((got >= 0) & (got < n)).all())
+    assert not bool(((got != want) & ~_near_ties(z, cb)).any())
+
+
+@pytest.mark.parametrize("d", vq.KERNEL_DIMS)
+@pytest.mark.parametrize("m", [1000, 131072])
+def test_vq_pieces_kernel_duplicated_codes_go_to_the_lowest_index(cuda, m, d):
+    base = torch.nn.functional.normalize(_randn(cuda, 300, d), dim=-1)
+    cb = torch.cat([base, base, base])
+    z = base[torch.randint(0, 300, (m,), generator=cuda, device="cuda")]
+    got = vq.nearest_codebook_indices(z, cb)
+    assert torch.equal(got, vq.nearest_plain(z, cb))
+    assert bool((got < 300).all())
+
+
+def test_vq_plan_mirrors_the_c_entry(cuda):
+    from enhancing_tpu_torch.ops import cuda_lib
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for m in (1, 64, 8192, 33792, 33793, 131072, 131109):
+        for n, d in ((8192, 32), (8191, 64), (100, 16)):
+            got = cuda_lib.plan("etk_vq_plan", m, n, d, size=6)
+            assert got == tuple(vq.vq_plan(m, n, d, sms).values())
+
+
 def test_tiny_model_round_trip_goes_through_the_kernels(cuda):
     from enhancing_tpu_torch.models.stage1.vitvqgan import ViTVQ
     tower = dict(dim=64, depth=2, heads=2, mlp_dim=128)
@@ -275,7 +322,8 @@ def test_tiny_model_round_trip_goes_through_the_kernels(cuda):
     torch.cuda.synchronize()
     assert common.LAUNCHES == {"ln_gemm": 8, "attention": 4, "layernorm": 2,
                                "vq": 1, "attention_bwd": 0, "fir": 0,
-                               "fused_act": 0, "attention_bnhd": 0,
+                               "fir_vjp": 0, "fused_act": 0,
+                               "attention_bnhd": 0,
                                "decode_attention": 0, "cache_row_update": 0,
                                "ln_shift_gemm": 0, "int8_gemm": 0,
                                "int8_ln_gemm": 0, "int8_mlp": 0,
@@ -474,6 +522,81 @@ def test_fir_kernel_negative_and_uneven_pads(cuda, dtype, pad):
            else dict(atol=2.0 ** -7, rtol=2.0 ** -7))
 
 
+@pytest.mark.parametrize("shape", BLUR_SHAPES)
+@pytest.mark.parametrize("pad", [(2, 2), (1, 1)])
+def test_fir_kernel_bf16_at_the_discriminator_shapes(cuda, shape, pad):
+    x = _randn(cuda, *shape, dtype=torch.bfloat16)
+    k = fir.make_blur_kernel([1, 3, 3, 1])
+    got = fir.upfirdn2d(x, k, pad=pad)
+    want = fir.upfirdn2d_plain(x, k, 1, 1, pad)
+    assert got.dtype == torch.bfloat16
+    # one rounding of an fp32 sum on each side
+    _close(got, want, dict(atol=2.0 ** -7, rtol=2.0 ** -7))
+
+
+_K23 = [[1.0, 2.0, 0.0], [0.5, -1.0, 3.0]]
+VJP_CASES = ([(shape, pad, None) for shape in BLUR_SHAPES
+              for pad in ((2, 2), (1, 1))]
+             + [((2, 19, 23, 64), pad, _K23)
+                for pad in ((-1, 2, 0, -2), (3, 0, 1, 1), (0, 0, 0, 0))])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,pad,taps", VJP_CASES)
+def test_fir_vjp_kernel_matches_autograd_of_plain(cuda, shape, pad, taps,
+                                                  dtype):
+    """The backward launches csrc/fir.cu once on the output's gradient
+    (counted as fir_vjp, not fir), equal to autograd of the plain
+    version: f32 the same products in another order, bf16 one rounding
+    of an fp32 sum on each side."""
+    k = (fir.make_blur_kernel([1, 3, 3, 1]) if taps is None
+         else torch.tensor(taps))
+    x = _randn(cuda, *shape, dtype=dtype)
+    xk = x.clone().requires_grad_()
+    out = fir.upfirdn2d(xk, k, pad=pad)
+    g = _randn(cuda, *out.shape, dtype=dtype)
+    before = dict(common.LAUNCHES)
+    (got,) = torch.autograd.grad(out, xk, g)
+    assert common.LAUNCHES["fir_vjp"] == before["fir_vjp"] + 1
+    assert common.LAUNCHES["fir"] == before["fir"]
+    xp = x.clone().requires_grad_()
+    (want,) = torch.autograd.grad(fir.upfirdn2d_plain(xp, k, 1, 1, pad), xp,
+                                  g)
+    assert got.shape == x.shape and got.dtype == dtype
+    _close(got, want, dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32
+           else dict(atol=2.0 ** -7, rtol=2.0 ** -7))
+
+
+def test_fir_double_backward_through_the_kernel_raises(cuda):
+    """The kernel's backward is first-order only (R1 differentiates the
+    blur twice on the plain versions): a second derivative raises instead
+    of coming out wrong."""
+    x = _randn(cuda, 2, 16, 16, 128).requires_grad_()
+    out = fir.upfirdn2d(x, fir.make_blur_kernel([1, 3, 3, 1]), pad=(2, 2))
+    g = _randn(cuda, *out.shape).requires_grad_()
+    (dx,) = torch.autograd.grad(out, x, g, create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        dx.sum().backward()
+
+
+def test_fir_plan_mirrors_the_c_entry(cuda):
+    """The split of the output into blocks, given the occupancy query's
+    blocks an SM (the C entry's last value)."""
+    from enhancing_tpu_torch.ops import cuda_lib
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, c, ho, wo, kh, kw in ((8, 128, 257, 257, 4, 4),
+                                 (8, 512, 7, 7, 4, 4), (1, 4, 300, 600, 8, 8),
+                                 (2, 64, 19, 23, 2, 3), (1, 40, 1, 1, 1, 1)):
+        for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+            if c % (4 if code == 0 else 8):
+                continue
+            got = cuda_lib.plan("etk_fir_plan", b, c, ho, wo, kh, kw, code,
+                                size=10)
+            assert got[-1] >= 1
+            want = fir.fir_plan(b, c, ho, wo, kw, dtype, sms, got[-1])
+            assert got == tuple(want.values()), (b, c, ho, wo, kw, dtype)
+
+
 def test_fir_backward_is_the_plain_gradient(cuda):
     x = _randn(cuda, 2, 16, 16, 128).requires_grad_()
     g = _randn(cuda, 2, 17, 17, 128)
@@ -556,10 +679,11 @@ def test_tiny_training_step_goes_through_every_kernel(cuda):
     log = step(state, x, do_r1=True)
     torch.cuda.synchronize()
     # two AE forwards of 2 + 2 layers, one AE backward, three D forwards
-    # at 32 px (6 blurs, 9 bias + leaky ReLUs each), one plain D forward
+    # at 32 px (6 blurs, 9 bias + leaky ReLUs each) and their backwards
+    # (the blurs' VJPs on the blur's kernel), one plain D forward
     assert common.LAUNCHES == {"ln_gemm": 16, "attention": 8,
                                "layernorm": 4, "vq": 2, "attention_bwd": 4,
-                               "fir": 18, "fused_act": 27,
+                               "fir": 18, "fir_vjp": 18, "fused_act": 27,
                                "attention_bnhd": 0, "decode_attention": 0,
                                "cache_row_update": 0, "ln_shift_gemm": 0,
                                "int8_gemm": 0, "int8_ln_gemm": 0,
