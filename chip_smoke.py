@@ -29,7 +29,10 @@ widths and depth (256 px, 8x8 patches, width 768, 12 heads of 64, MLP
   ``imagenet_gpt_vitvq_base.yaml``'s prefill and decode steps;
 - stage-2 training: ``Trainer.fit`` on ``imagenet_gpt_vitvq_base.yaml``'s
   prior at its published widths (depth cut to 4 in bf16 and 2 in its own
-  fp32) over its frozen tokenizer, batch 4 of FakeImages at 256 px.
+  fp32) over its frozen tokenizer, batch 4 of FakeImages at 256 px;
+- RQ serving: the RQ-VAE tokenizer of ``imagenet_rqvae_base.yaml`` and
+  the RQ prior of ``imagenet_rqtransformer_base.yaml`` over it (both held
+  as dicts) at full width and depth.
 
 Phases, each of which raises on failure:
 
@@ -134,8 +137,32 @@ Phases, each of which raises on failure:
     the launches of each step (B1 24, fp32 B2 12, B3 1, B4 1, B8 and B5 at
     D = 384 once a layer) and of the validation batch asserted exactly,
     finite losses, every prior parameter moved, ms a step, peak memory and
-    one step's device time by kernel group.
+    one step's device time by kernel group;
+14. RQ serving: (a) RQ-VAE round trips in bf16 at batch 1, 8 and 128
+    (launches a trip asserted: B1 48, B2 24, B3 2, B4 4; codes (B, 1024,
+    4)), its codes held to the plain path depth by depth on the
+    positions where every shallower depth agrees (95%) and its
+    reconstructions (0.1) at batch 8, images/s and peak memory at batch
+    128; (b) the RQ prior in bf16 with random weights, 8 class labels:
+    one ``CondTransformer.sample`` with its launches asserted exactly
+    (B8 24, B9 24 x 1023, B10 2 x 1023, 16 384 depth attentions on the
+    short route, ``ops.SHORT_CALLS``, and the tokenizer's decode), codes
+    and pixels checked, the sampler alone on a second seed with its
+    logits against the teacher-forced forward, the kernels against the
+    plain path on that forward and on 32 spatial positions with their
+    depth loops (phase 7's limits), codes/s, images/s, ms per spatial
+    position, peak memory and one position's device time by kernel
+    group; (c) the prior in its own fp32 over the prefill and 16 spatial
+    steps with every position's depth loop, launches asserted, against
+    the plain path (phase 12's limits).
 
+Phases 3 and 4 hold and time B8 and B9 at the RQ prior's head dim 96 and
+B10 on its (24, 8, 1032, 1536) stack (and the int8 cache), on generators
+of their own. B10's phase-4 rows are also timed by CUDA-graph replay
+(device time: its eager calls are host-bound), given in the kernels line
+as ``graph_ms`` and ``library_graph_ms`` beside the events times in
+``ms`` and ``library_ms``, which keep the meaning they have for every
+kernel and in earlier runs.
 Phases 3 and 4 hold and time fp32 B1 (``csrc/ln_gemm_f32.cu``: each
 fp32 product as six bf16 wgmma products of exact pieces, three with a bf16
 weight read as stored) at the fp32 towers' batch-8 shapes, Base's fc1 also
@@ -325,6 +352,59 @@ LNFUSE_STEP = {"ln_shift_gemm": P_LAYERS, "ln_gemm": P_LAYERS + 1,
                "decode_attention": P_LAYERS, "cache_row_update": 2}
 CHECK_STEPS = 32
 CLASSES = (1, 7, 42, 99, 207, 388, 812, 980)
+# configs/imagenet_rqvae_base.yaml's model after load_config's target remap,
+# its loss DummyLoss as the RQ prior's stage 1 holds it, and
+# configs/imagenet_rqtransformer_base.yaml's model less the stage-1
+# checkpoint path (a CPU test holds them equal to the files): the RQ-VAE
+# tokenizer (ViT-VQGAN-Base, a residual quantizer of depth 4) and the RQ
+# prior over its (1024, 4) codes
+RQVAE_BASE = {
+    "target": "enhancing_tpu_torch.models.stage1.vitvqgan.ViTVQ",
+    "params": {
+        "image_key": "image", "image_size": 256, "patch_size": 8,
+        "encoder": dict(_BASE_TOWER), "decoder": dict(_BASE_TOWER),
+        "quantizer": {"embed_dim": 32, "n_embed": 8192,
+                      "use_residual": True, "num_quantizers": 4},
+        "loss": {"target": "enhancing_tpu_torch.losses.vqperceptual."
+                           "DummyLoss"}}}
+RQ_TRANSFORMER_BASE = {
+    "target": "enhancing_tpu_torch.models.stage2.transformer.CondTransformer",
+    "params": {
+        "cond_key": "class", "code_shape": [1024, 4],
+        "cond": {
+            "target": "enhancing_tpu_torch.models.cond.dummycond.ClassCond",
+            "params": {"image_size": 256,
+                       "class_name": "assets/class/imagenet.txt"}},
+        "stage1": json.loads(json.dumps(RQVAE_BASE)),
+        "transformer": {
+            "target": "enhancing_tpu_torch.models.stage2.layers."
+                      "RQTransformer",
+            "params": {
+                "vocab_cond_size": 1000, "vocab_img_size": 8192,
+                "embed_dim": 1536, "cond_num_tokens": 1,
+                "img_num_tokens": 1024, "depth_num_tokens": 4,
+                "spatial_n_heads": 16, "depth_n_heads": 8,
+                "spatial_n_layers": 24, "depth_n_layers": 4}},
+    }}
+RQ_PRIOR = RQ_TRANSFORMER_BASE["params"]["transformer"]["params"]
+RQ_LAYERS, RQ_WIDTH = RQ_PRIOR["spatial_n_layers"], RQ_PRIOR["embed_dim"]
+RQ_HEADS, RQ_DEPTH = RQ_PRIOR["spatial_n_heads"], RQ_PRIOR["depth_num_tokens"]
+RQ_HEAD_DIM = RQ_WIDTH // RQ_HEADS
+RQ_DEPTH_LAYERS = RQ_PRIOR["depth_n_layers"]
+# per RQ-VAE round trip: the ViT-VQGAN-Base towers' launches (phase 5) and
+# the residual quantizer's four searches
+RQ_TRIP = {"ln_gemm": 48, "attention": 24, "layernorm": 2, "vq": RQ_DEPTH}
+# per CondTransformer.sample of the RQ prior, 8 images: the spatial
+# prefill (one B8 launch a layer, N = 1, D = 96), 1023 spatial steps (one
+# B9 launch a layer, two B10 launches), then the tokenizer's decode of the
+# codes (12 layers); the depth windows of 4 tokens at head dim 192 take
+# the short route (ops.SHORT_CALLS), 4 depth layers in each of 4 depth
+# forwards at each of the 1024 positions
+RQ_SAMPLE_CALL = {"attention_bnhd": RQ_LAYERS,
+                  "decode_attention": RQ_LAYERS * P_STEPS,
+                  "cache_row_update": 2 * P_STEPS,
+                  "ln_gemm": 24, "attention": 12, "layernorm": 1}
+RQ_SAMPLE_SHORT = 1024 * RQ_DEPTH * RQ_DEPTH_LAYERS
 # the discriminator's activations at 256 px, batch 8: its 12 blur inputs
 # (each blurred with pads (2, 2) and (1, 1)) and its 15 bias + leaky ReLU
 # inputs, the last one the final linear's
@@ -411,6 +491,30 @@ def device_ms(fn, calls: int = 20) -> float:
         if total > 0:
             return total / 1e3 / calls
     return float("nan")
+
+
+def graph_ms(fn, calls: int = 100, replays: int = 20) -> float:
+    """Device ms per call of ``fn``: a CUDA graph of ``calls`` calls
+    replayed ``replays`` times between CUDA events (no host work; the
+    launch gaps inside the graph counted). For short kernels whose eager
+    calls are host-bound, where the profiler's sums read low."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
 
 
 def bound(flops: float, nbytes: float, peak_flops: float):
@@ -789,6 +893,7 @@ def phase_compare() -> dict:
     compare_f32_kernels(gen, close, errs)
     compare_f32_fusions(gen, close, errs)
     compare_wide_bwd(gen, close, errs)
+    compare_rq_kernels(close)
     torch.cuda.synchronize()
     return errs
 
@@ -846,11 +951,11 @@ def compare_f32_ln_gemm(t, close) -> None:
         del wl
 
 
-def prior_stack(gen, cur):
+def prior_stack(gen, cur, width=P_WIDTH):
     """The prior's (L, B, ctx, C) k and v stacks at batch 8, bf16, with
     every row at or past each batch row's cur_len set to 1e6: a kernel that
-    read one would show it."""
-    shape = (P_LAYERS, SAMPLE_BATCH, P_CTX_PAD, P_WIDTH)
+    read one would show it. ``width``: C (the RQ prior's 1536)."""
+    shape = (P_LAYERS, SAMPLE_BATCH, P_CTX_PAD, width)
     dead = (torch.arange(P_CTX_PAD, device="cuda")[None, :]
             >= torch.as_tensor(cur, device="cuda").reshape(-1, 1))
     out = []
@@ -934,6 +1039,69 @@ def compare_prior_kernels(gen, close, errs) -> None:
         close("cache_row_update", f"cache_row_update bf16 {tuple(stack.shape)}"
               f" cur_len {label}", got, want, atol=0.0, rtol=0.0)
         del want
+
+
+def compare_rq_kernels(close) -> None:
+    """B8 and B9 at the RQ prior's head dim 96 (B8 on the 128 tile) and
+    B10 on its (24, 8, 1032, 1536) stack and on the int8 cache of the GPT
+    prior's, against their plain versions at phase 3's limits, on a
+    generator of their own."""
+    from enhancing_tpu_torch.ops import attention as att
+    from enhancing_tpu_torch.ops import cache
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    h, d = RQ_HEADS, RQ_HEAD_DIM
+    for b, n in ((2, P_CTX), (SAMPLE_BATCH, 1)):
+        q, k, v = (rand((b, n, h, d), gen) for _ in range(3))
+        close("attention_bnhd", f"attention_bnhd prefix_causal cond_len 1 "
+              f"B={b} N={n} H={h} D={d} (the 128 tile)",
+              att.attention_bnhd_kernel(q, k, v, d ** -0.5, "prefix_causal",
+                                        1),
+              att.attention_bnhd_plain(q, k, v, d ** -0.5, "prefix_causal",
+                                       1),
+              atol=1e-2, rtol=2.0 ** -7)
+    del q, k, v
+    layer = 5
+    ragged = torch.tensor([1, 100, 255, 256, 511, 513, 900, 1024],
+                          dtype=torch.int32, device="cuda")
+    outside = torch.tensor([-3, 0, 1, 513, P_CTX_PAD, P_CTX_PAD + 9, 1024,
+                            1031], dtype=torch.int32, device="cuda")
+    q3 = rand((SAMPLE_BATCH, RQ_WIDTH), gen, scale=d ** -0.5)
+    kn, vn = rand((SAMPLE_BATCH, RQ_WIDTH), gen), rand((SAMPLE_BATCH,
+                                                        RQ_WIDTH), gen)
+    for cur, label in ((1, 1), (513, 513), (1024, 1024), (ragged, "ragged"),
+                       (outside, "ragged, rows outside [0, ctx)")):
+        kc, vc = prior_stack(gen, cur, RQ_WIDTH)
+        got = att.decode_attention_kernel(q3, kc, vc, kn, vn, cur, layer, d)
+        want = att.decode_attention_plain(q3, kc[layer], vc[layer], kn, vn,
+                                          cur, d)
+        what = (f"decode_attention bf16 stack {tuple(kc.shape)} D={d} layer "
+                f"{layer} cur_len {label} (rows past cur_len = 1e6)")
+        close("decode_attention", what + " vs plain", got, want,
+              atol=row_atol(want, 2.0 ** -7).clamp(
+                  max=2.0 ** -8 * float(want.float().abs().max())),
+              rtol=2.0 ** -7)
+        want32 = att.decode_attention_plain(
+            q3.float(), kc[layer].float(), vc[layer].float(), kn.float(),
+            vn.float(), cur, d)
+        close("decode_attention", what + " vs fp32", got, want32,
+              atol=row_atol(want32, 2.0 ** -12), rtol=2.0 ** -8)
+        del kc, vc, want32
+    for width, dtype in ((RQ_WIDTH, torch.bfloat16), (P_WIDTH, torch.int8)):
+        shape = (P_LAYERS, SAMPLE_BATCH, P_CTX_PAD, width)
+        if dtype == torch.int8:
+            stack, news = (torch.randint(-127, 128, sh, generator=gen,
+                                         device="cuda", dtype=dtype)
+                           for sh in (shape, shape[:2] + (1, width)))
+        else:
+            stack, news = rand(shape, gen), rand(shape[:2] + (1, width), gen)
+        for cur, label in ((513, 513), (ragged, "ragged"),
+                           (outside, "ragged, rows outside [0, ctx)")):
+            want = cache.cache_row_update_plain(stack.clone(), news, cur)
+            got = cache.cache_row_update_kernel(stack, news, cur)
+            close("cache_row_update", f"cache_row_update {str(dtype)[6:]} "
+                  f"{shape} cur_len {label}", got, want, atol=0.0, rtol=0.0)
+            del want
+        del stack, news
 
 
 def row_atol(want, frac: float) -> torch.Tensor:
@@ -1162,9 +1330,14 @@ def phase_times() -> dict:
     rows: dict = {name: [] for name in REPLACES}
 
     def row(name, label, kernel, plain, library, flops, nbytes, peak, iters,
-            reps=1):
+            reps=1, graph=False):
         """reps > 1: kernel and library loops in turns, each number the
-        median of ``reps`` loops, their min-max logged. The fp32 attention
+        median of ``reps`` loops, their min-max logged. ``graph``: kernel
+        and library are also timed by CUDA-graph replay (:func:`graph_ms`,
+        device time for short kernels whose eager calls are host-bound),
+        kept as ``graph_ms`` and ``library_graph_ms`` beside the events
+        times, which stay in ``ms`` and ``library_ms`` as in every row of
+        the kernels line. The fp32 attention
         kernels (``peak`` PEAK_F32; fp32 B1 and B4 among them) compute six
         bf16 products of exact pieces for each fp32 one: their bound is
         those products at the bf16 peak (989 / 6 = 165 TFLOP/s), and the
@@ -1186,6 +1359,14 @@ def phase_times() -> dict:
                  bound_ms=b_ms, bound_by=b_by)
         if simt is not None:
             r["bound_f32_simt_ms"] = simt
+        graph_note = ""
+        if graph:
+            r["graph_ms"] = graph_ms(kernel)
+            r["library_graph_ms"] = (None if library is None
+                                     else graph_ms(library))
+            graph_note = (f"; by graph replay: kernel_ms {r['graph_ms']:.5f}"
+                          + ("" if library is None else
+                             f" library_ms {r['library_graph_ms']:.5f}"))
         rows[name].append(r)
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         spread = "" if reps == 1 else (
@@ -1197,7 +1378,8 @@ def phase_times() -> dict:
         log(f"[time] {label}: kernel_ms {r['ms']:.4f} plain_ms "
             f"{r['plain_ms']:.4f} library_ms {lib} bound_ms {b_ms:.4f} "
             f"({b_by}); {flops / r['ms'] / 1e9:.1f} TFLOP/s, "
-            f"{nbytes / r['ms'] / 1e6:.1f} GB/s{simt_note}{spread}")
+            f"{nbytes / r['ms'] / 1e6:.1f} GB/s{simt_note}{spread}"
+            f"{graph_note}")
 
     x, g, b = t["x"], t["gamma"], t["beta"]
     for label, w, bias, act in (("ln_gemm qkv", t["w_qkv"], None, None),
@@ -1341,6 +1523,7 @@ def phase_times() -> dict:
     time_f32_ln_gemm(gen, row)
     time_f32_fusions(gen, row)
     time_wide_bwd(gen, row)
+    time_rq_kernels(row)
     return rows
 
 
@@ -1429,7 +1612,64 @@ def time_prior_kernels(gen, row) -> None:
         lambda: cache.cache_row_update_kernel(kc, news, cur),
         lambda: cache.cache_row_update_plain(kc, news, cur),
         lambda: kc.__setitem__((slice(None), rows_b, cur_b), news[:, :, 0]),
-        0.0, 2 * news.numel() * 2, PEAK_BF16, 50)
+        0.0, 2 * news.numel() * 2, PEAK_BF16, 50, graph=True)
+
+
+def time_rq_kernels(row) -> None:
+    """B8-B10 at the RQ prior's sampling shapes (batch 8, heads of 96 over
+    its width of 1536), on a generator of their own: B8 at the
+    teacher-forced forward's N = 1025 and the spatial prefill's N = 1 (the
+    128 tile), B9 at cur_len 512 on its (24, 8, 1032, 1536) stack (three
+    layers in turn), B10 on that stack at cur_len 512 (also by
+    CUDA-graph replay)."""
+    from enhancing_tpu_torch.ops import attention as att
+    from enhancing_tpu_torch.ops import cache
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    b, h, d, hd = SAMPLE_BATCH, RQ_HEADS, RQ_HEAD_DIM, RQ_WIDTH
+    scale = d ** -0.5
+    for n in (P_CTX, 1):
+        q, k, v = (rand((b, n, h, d), gen) for _ in range(3))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        pairs = b * h * n * (n + 1) / 2
+        row("attention_bnhd", f"attention_bnhd prefix_causal B={b} N={n} "
+            f"H={h} D={d} (the RQ prior)",
+            lambda: att.attention_bnhd_kernel(q, k, v, scale,
+                                              "prefix_causal", 1),
+            lambda: att.attention_bnhd_plain(q, k, v, scale, "prefix_causal",
+                                             1),
+            lambda: F.scaled_dot_product_attention(  # noqa: B023
+                qt, kt, vt, is_causal=True, scale=scale),
+            4.0 * pairs * d, 4 * b * n * hd * 2, PEAK_BF16,
+            10 if n > 1 else 50)
+        del q, k, v, qt, kt, vt
+    layers = [3, 10, 17]
+    cur = 512
+    kc, vc = prior_stack(gen, 1024, RQ_WIDTH)
+    q3 = rand((b, hd), gen, scale=scale)
+    kn, vn = rand((b, hd), gen), rand((b, hd), gen)
+    split = lambda t: t.view(b, -1, h, d).transpose(1, 2)  # noqa: E731
+    k_cat = torch.cat([split(kc[layers[0], :, :cur]), split(kn[:, None])], 2)
+    v_cat = torch.cat([split(vc[layers[0], :, :cur]), split(vn[:, None])], 2)
+    q_l = split(q3[:, None])
+    row("decode_attention", f"decode_attention B={b} D={d} cur_len {cur} of "
+        f"the {tuple(kc.shape)} stack (the RQ prior), 3 layers in turn",
+        cycling(lambda li: att.decode_attention_kernel(
+            q3, kc, vc, kn, vn, cur, li, d), layers),
+        lambda: att.decode_attention_plain(q3, kc[layers[0]], vc[layers[0]],
+                                           kn, vn, cur, d),
+        lambda: F.scaled_dot_product_attention(q_l, k_cat, v_cat, scale=1.0),
+        4.0 * b * hd * (cur + 1), (2 * b * cur * hd + 4 * b * hd) * 2,
+        PEAK_BF16, 50)
+    del k_cat, v_cat, vc
+    news = rand((P_LAYERS, b, 1, hd), gen)
+    rows_b = torch.arange(b, device="cuda")
+    cur_b = torch.full((b,), cur, device="cuda")
+    row("cache_row_update", f"cache_row_update {tuple(kc.shape)} cur_len "
+        f"{cur} (the RQ prior; library: cache[:, arange(B), cur] = news)",
+        lambda: cache.cache_row_update_kernel(kc, news, cur),
+        lambda: cache.cache_row_update_plain(kc, news, cur),
+        lambda: kc.__setitem__((slice(None), rows_b, cur_b), news[:, :, 0]),
+        0.0, 2 * news.numel() * 2, PEAK_BF16, 50, graph=True)
 
 
 def cycling(fn, copies):
@@ -3756,6 +3996,290 @@ def phase_prior_train() -> dict:
     return total
 
 
+# -- the RQ prior and its RQ-VAE tokenizer at their published widths ----------
+
+# limits of phase 14 (a): phase 5's, the codes compared depth by depth on
+# the positions where every shallower depth agrees (a residual changed by
+# one differing code changes every deeper search)
+RQ_CODE_MATCH = 95.0
+# (c): the fp32 RQ prior, prefill and the spatial steps after it, each
+# position's depth loop teacher-forced on random codes; phase 12's limits
+RQ_F32_STEPS = 16
+
+
+def rq_full(rq, codes, conds):
+    """The teacher-forced forward's (B * T, D, V) logits in fp32."""
+    with torch.inference_mode():
+        return rq(codes, conds).float()
+
+
+def rq_teacher_forced(rq, codes, conds, steps):
+    """The spatial prefill and ``steps`` spatial steps fed the (B, T, D)
+    codes, each of the 1 + steps positions' depth loops fed them too:
+    (B * (1 + steps), D, V) fp32 logits, the full forward's layout."""
+    b = codes.shape[0]
+    out = []
+    with torch.inference_mode():
+        cache = rq.init_cache(b)
+        hidden, cache = rq.spatial_prefill(conds, cache)
+        for pos in range(steps + 1):
+            if pos:
+                hidden, cache = rq.spatial_step(codes[:, pos - 1], pos,
+                                                cache)
+            out.append(torch.stack([rq.depth_forward(hidden, codes[:, pos], d)
+                                    for d in range(RQ_DEPTH)], 1))
+    return torch.stack(out, 1).reshape(b * (steps + 1), RQ_DEPTH,
+                                       -1).float()
+
+
+def rq_vae_trips() -> dict:
+    """Phase 14 (a): round trips of the RQ-VAE tokenizer in bf16 at batch
+    1, 8 and 128, launches asserted; the kernels against the plain path at
+    batch 8; images/s and peak memory at batch 128."""
+    from enhancing_tpu_torch.ops import reset_launches
+    from enhancing_tpu_torch.utils.config import initialize_from_config
+    gc_cuda()
+    cfg = json.loads(json.dumps(RQVAE_BASE))
+    cfg["params"]["dtype"] = "bfloat16"
+    model = initialize_from_config(cfg, device="cuda")
+    rng = np.random.default_rng(14)
+    inputs = {b: torch.from_numpy(rng.random((b, 256, 256, 3),
+                                             dtype=np.float32)).cuda()
+              for b in (1, CHECK_BATCH, TIME_BATCH)}
+    torch.cuda.synchronize()
+    reset_launches()
+    outs = {}
+    for b, x in inputs.items():
+        codes = model.encode_codes(x)
+        outs[b] = (codes, model.decode_codes(codes))
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    launches = {k: v for k, v in counts.items() if v}
+    want = {k: len(outs) * v for k, v in RQ_TRIP.items()}
+    log(f"[rq] RQ-VAE bf16 round trips at batch 1, 8, 128: launches "
+        f"{launches}")
+    check(launches == want, f"RQ-VAE launches {launches}, expected {want}")
+    for b, (codes, rec) in outs.items():
+        check(codes.shape == (b, TOKENS, RQ_DEPTH)
+              and codes.dtype == torch.int32, f"RQ codes {codes.shape}")
+        check(bool(((codes >= 0) & (codes < CODES)).all()), "RQ code range")
+        check(rec.shape == (b, 256, 256, 3) and bool(torch.isfinite(rec).all()),
+              f"RQ reconstruction of batch {b}")
+    codes_k, rec_k = outs[CHECK_BATCH]
+    with plain_versions():
+        codes_p = model.encode_codes(inputs[CHECK_BATCH])
+        rec_p = model.decode_codes(codes_k)
+    matches = []
+    for d in range(RQ_DEPTH):
+        agree = (codes_k[..., :d] == codes_p[..., :d]).all(-1)
+        same = (codes_k[..., d] == codes_p[..., d])[agree]
+        matches.append(float(same.float().mean()) * 100)
+    rec_err = float((rec_k.float() - rec_p.float()).abs().max())
+    log(f"[rq] RQ-VAE kernels vs plain, batch {CHECK_BATCH}: code match by "
+        f"depth {', '.join(f'{m:.3f}%' for m in matches)} on the positions "
+        f"where every shallower depth agrees (threshold {RQ_CODE_MATCH}%), "
+        f"reconstruction from the same codes max_abs_err {rec_err:.4e} "
+        f"(threshold 0.1)")
+    check(min(matches) >= RQ_CODE_MATCH, "RQ-VAE codes disagree")
+    check(rec_err <= 0.1, "RQ-VAE reconstructions disagree")
+    x = inputs[TIME_BATCH]
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        model.decode_codes(model.encode_codes(x))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        model.decode_codes(model.encode_codes(x))
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / 3
+    log(f"[rq] RQ-VAE round trip batch {TIME_BATCH}: {dt * 1e3:.2f} ms, "
+        f"{TIME_BATCH / dt:.1f} images/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model, outs, inputs, x
+    gc_cuda()
+    return counts
+
+
+def rq_sampling() -> dict:
+    """Phase 14 (b): the bf16 RQ prior over the RQ-VAE tokenizer, one
+    ``CondTransformer.sample`` of 8 images with its launches asserted, the
+    sampler alone on another seed, the agreement checks and one position's
+    device time by kernel group."""
+    from enhancing_tpu_torch.models.stage2.sampling import _draw, sample_rq
+    from enhancing_tpu_torch.ops import LAUNCHES, SHORT_CALLS, reset_launches
+    from enhancing_tpu_torch.utils.config import initialize_from_config
+    gc_cuda()
+    cfg = json.loads(json.dumps(RQ_TRANSFORMER_BASE))
+    cfg["params"]["dtype"] = "bfloat16"
+    cfg["params"]["stage1"]["params"]["dtype"] = "bfloat16"
+    t0 = time.perf_counter()
+    model = initialize_from_config(cfg, device="cuda")
+    rq = model.transformer
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in rq.parameters())
+    log(f"[rq] RQ prior {RQ_LAYERS} spatial layers x {RQ_WIDTH} ({RQ_HEADS} "
+        f"heads of {RQ_HEAD_DIM}) + {RQ_DEPTH_LAYERS} depth layers "
+        f"({RQ_PRIOR['depth_n_heads']} heads of "
+        f"{RQ_WIDTH // RQ_PRIOR['depth_n_heads']}), bf16, built on the card "
+        f"in {time.perf_counter() - t0:.1f} s: {n_params / 1e9:.3f} G "
+        f"parameters; allocated {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB")
+    conds = torch.tensor(CLASSES, device="cuda")[:, None]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    pixels, codes = model.sample(conds, top_k=100, seed=0, return_codes=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kernel_counts()
+    launches = {k: v for k, v in counts.items() if v}
+    short = SHORT_CALLS["attention_bnhd"]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[rq] CondTransformer.sample(8 classes, top_k=100): {dt:.2f} s, "
+        f"launches {launches}; short-route attention calls {short}")
+    check(launches == RQ_SAMPLE_CALL, f"RQ sample launches {launches}, "
+          f"expected {RQ_SAMPLE_CALL}")
+    check(short == RQ_SAMPLE_SHORT, f"short-route calls {short}, expected "
+          f"{RQ_SAMPLE_SHORT}")
+    check(codes.shape == (SAMPLE_BATCH, 1024, RQ_DEPTH)
+          and codes.dtype == torch.int32, f"RQ codes {codes.shape}")
+    check(bool(((codes >= 0) & (codes < P_VOCAB)).all()), "RQ code range")
+    check(pixels.shape == (SAMPLE_BATCH, 256, 256, 3)
+          and bool(torch.isfinite(pixels).all())
+          and float(pixels.min()) >= 0.0 and float(pixels.max()) <= 1.0,
+          "RQ pixels not finite in [0, 1]")
+
+    gen = torch.Generator("cuda").manual_seed(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, codes_1 = sample_rq(rq, conds, gen, top_k=100, with_logits=True)
+    torch.cuda.synchronize()
+    t_sampler = time.perf_counter() - t0
+    differ = float((codes_1 != codes).float().mean())
+    n_codes = SAMPLE_BATCH * 1024 * RQ_DEPTH
+    log(f"[rq] codes int32 in [0, {P_VOCAB}), pixels finite in [0, 1]; seed 1 "
+        f"differs from seed 0 at {differ:.2%} of codes; end to end "
+        f"{n_codes / dt:.1f} codes/s, {SAMPLE_BATCH / dt:.3f} images/s; "
+        f"sampler alone {t_sampler:.2f} s = {t_sampler / 1024 * 1e3:.3f} ms "
+        f"per spatial position (a spatial step, {RQ_DEPTH} depth forwards "
+        f"and draws; the prefill counted in the first); peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    check(differ > 0.5, "two seeds gave (nearly) the same RQ codes")
+    full = rq_full(rq, codes_1, conds)
+    agreement(f"RQ sampler logits vs teacher-forced forward, 8 x 1024 x "
+              f"{RQ_DEPTH}", logits, full, STEP_VS_FULL_ATOL,
+              STEP_VS_FULL_ARGMAX)
+    del logits, full
+
+    before = dict(LAUNCHES)
+    k_full = rq_full(rq, codes[:2], conds[:2])
+    k_dec = rq_teacher_forced(rq, codes[:2], conds[:2], CHECK_STEPS)
+    with plain_versions():
+        p_full = rq_full(rq, codes[:2], conds[:2])
+        p_dec = rq_teacher_forced(rq, codes[:2], conds[:2], CHECK_STEPS)
+    check(LAUNCHES["attention_bnhd"] == before["attention_bnhd"]
+          + 2 * RQ_LAYERS and LAUNCHES["decode_attention"]
+          == before["decode_attention"] + CHECK_STEPS * RQ_LAYERS,
+          "the plain path launched a kernel")
+    agreement("RQ full forward batch 2, kernels vs plain", k_full, p_full,
+              KERNEL_VS_PLAIN_ATOL, KERNEL_VS_PLAIN_ARGMAX)
+    agreement(f"RQ prefill + {CHECK_STEPS} spatial positions with their depth"
+              " loops batch 2, kernels vs plain", k_dec, p_dec,
+              KERNEL_VS_PLAIN_ATOL, KERNEL_VS_PLAIN_ARGMAX)
+    del k_full, p_full, k_dec, p_dec
+
+    def position(cache, prev):
+        hidden, _ = rq.spatial_step(prev, 512, cache)
+        depth_codes = torch.zeros_like(prev)
+        for d in range(RQ_DEPTH):
+            logits = rq.depth_forward(hidden, depth_codes, d)
+            depth_codes[:, d] = _draw(gen, logits, 1.0, 100, None)
+        return depth_codes
+
+    with torch.inference_mode():
+        cache = rq.init_cache(SAMPLE_BATCH)
+        prev = codes[:, 510]
+        for _ in range(2):
+            position(cache, prev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            position(cache, prev)
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) / 20 * 1e3
+        busy = profile_device(f"one RQ spatial position batch {SAMPLE_BATCH} "
+                              "at position 512 (a spatial step, "
+                              f"{RQ_DEPTH} depth forwards and draws)",
+                              lambda: position(cache, prev))
+    if busy is not None:
+        log(f"[rq] one spatial position at 512: {host:.3f} ms on the host "
+            f"clock, device busy {busy:.3f} ms -> device idle "
+            f"{1 - busy / host:.1%} of the unprofiled position")
+    del model, rq, cache
+    gc_cuda()
+    return counts
+
+
+def rq_prior_f32() -> dict:
+    """Phase 14 (c): configs/imagenet_rqtransformer_base.yaml's prior in
+    its own fp32, the spatial prefill and RQ_F32_STEPS spatial steps with
+    every position's depth loop, teacher-forced on random codes, launches
+    asserted, against the plain path."""
+    from enhancing_tpu_torch.ops import SHORT_CALLS, reset_launches
+    from enhancing_tpu_torch.utils.config import initialize_from_config
+    gc_cuda()
+    model = initialize_from_config(json.loads(json.dumps(RQ_TRANSFORMER_BASE)),
+                                   device="cuda")
+    rq = model.transformer
+    conds = torch.tensor(CLASSES, device="cuda")[:, None]
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    codes = torch.randint(0, P_VOCAB, (SAMPLE_BATCH, RQ_F32_STEPS + 1,
+                                       RQ_DEPTH), generator=gen,
+                          device="cuda")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    got = rq_teacher_forced(rq, codes, conds, RQ_F32_STEPS)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (RQ_F32_STEPS + 1) * 1e3
+    counts = kernel_counts()
+    launches = {k: v for k, v in counts.items() if v}
+    short = SHORT_CALLS["attention_bnhd"]
+    want = {"attention_bnhd_f32": RQ_LAYERS,
+            "decode_attention": RQ_LAYERS * RQ_F32_STEPS,
+            "cache_row_update": 2 * RQ_F32_STEPS}
+    want_short = (RQ_F32_STEPS + 1) * RQ_DEPTH * RQ_DEPTH_LAYERS
+    log(f"[rq] fp32 RQ prior, prefill + {RQ_F32_STEPS} spatial steps batch "
+        f"{SAMPLE_BATCH}, each position's depth loop: {ms:.2f} ms a position"
+        f" (host clock); launches {launches}; short-route calls {short}")
+    check(launches == want and short == want_short,
+          f"fp32 RQ prior launches {launches} and {short} short, expected "
+          f"{want} and {want_short}")
+    with plain_versions():
+        want_logits = rq_teacher_forced(rq, codes, conds, RQ_F32_STEPS)
+    agreement(f"fp32 RQ prior, prefill + {RQ_F32_STEPS} spatial positions "
+              "with their depth loops, kernels vs plain", got, want_logits,
+              PRIOR_F32_ATOL, PRIOR_F32_ARGMAX)
+    del model, rq, got, want_logits
+    gc_cuda()
+    return counts
+
+
+def phase_rq() -> dict:
+    """Phase 14, RQ serving: (a) the RQ-VAE round trip, (b) the bf16 RQ
+    prior's sample, (c) the RQ prior in its own fp32. Returns the launches
+    by kernels-line name."""
+    t0 = time.perf_counter()
+    total: dict = {}
+    for part in (rq_vae_trips, rq_sampling, rq_prior_f32):
+        for k, v in part().items():
+            total[k] = total.get(k, 0) + v
+    log(f"[rq] phase 14 took {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main() -> int:
     import enhancing_tpu_torch  # noqa: F401  (fails outside a checkout)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3775,8 +4299,9 @@ def main() -> int:
     training32 = phase_train_f32()
     prior32 = phase_prior_f32()
     prior_train = phase_prior_train()
+    rq = phase_rq()
     phases = (serving, training, sampling, serving8, fused, fused_routes,
-              shipped, training32, prior32, prior_train)
+              shipped, training32, prior32, prior_train, rq)
     kernels = []
     for kname in REPLACES:
         rows = times[kname]
@@ -3787,9 +4312,10 @@ def main() -> int:
                for key in ("ms", "plain_ms", "bound_ms")}
         agg["library_ms"] = (None if rows[0]["library_ms"] is None
                              else sum(r["library_ms"] for r in rows))
-        if "bound_f32_simt_ms" in rows[0]:
-            agg["bound_f32_simt_ms"] = sum(r["bound_f32_simt_ms"]
-                                           for r in rows)
+        for key in ("bound_f32_simt_ms", "graph_ms", "library_graph_ms"):
+            if key in rows[0]:
+                agg[key] = (None if rows[0][key] is None
+                            else sum(r[key] for r in rows))
         kernels.append(dict(name=kname, route="cuda", source=SOURCES[kname],
                             replaces=REPLACES[kname],
                             launches=sum(p.get(kname, 0) for p in phases),

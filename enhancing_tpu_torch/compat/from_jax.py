@@ -103,7 +103,8 @@ def _gpt_name(path: Tuple[str, ...]) -> Tuple[str, bool]:
 def _unstack_layers(tree: Mapping, key: str = "blocks") -> dict:
     """A ``scan_layers=True`` tree with each stacked ``key`` subtree, whose
     leaves carry a leading layer axis, split into ``{key}_{i}``: the GPT's
-    top-level ``blocks``, or each ViT stack's ``transformer/layers``."""
+    top-level ``blocks``, the RQ prior's ``spatial`` and ``depth``, or each
+    ViT stack's ``transformer/layers``."""
 
     def take(node, i):
         if isinstance(node, Mapping):
@@ -176,4 +177,23 @@ def load_gpt_from_jax(model: Any, params: Mapping) -> Any:
     load_from_jax(gpt, _unstack_layers(params), name_fn=_gpt_name)
     if quant is not None:
         _load_gpt_quant(gpt, quant)
+    return model
+
+
+def load_rq_from_jax(model: Any, params: Mapping) -> Any:
+    """Fill a port ``RQTransformer`` (or the prior of a ``CondTransformer``)
+    from the JAX RQTransformer's ``params`` tree (or ``{"params": ...}``),
+    numpy leaves, of either layout: the scanned ``spatial`` and ``depth``
+    stacks (``scan_layers=True``, the JAX default) or ``spatial_{i}`` and
+    ``depth_{i}``. Names and layouts as in :func:`load_gpt_from_jax`; a
+    missing or left-over leaf and a shape mismatch raise. A ``quant``
+    collection raises: int8 serving of the RQ prior is not ported (ROADMAP
+    A5). Returns ``model``."""
+    rq = getattr(model, "transformer", model)
+    if "quant" in params:
+        raise NotImplementedError("int8 weights for the RQ prior are a "
+                                  "later slice of the port (ROADMAP A5)")
+    params = params.get("params", params)
+    tree = _unstack_layers(_unstack_layers(params, "spatial"), "depth")
+    load_from_jax(rq, tree, name_fn=_gpt_name)
     return model

@@ -4,20 +4,33 @@
 // Replaces enhancing_tpu/ops/cache.py::_row_write_kernel (entered through
 // _cache_row_update_pallas). The TPU kernel read-modify-writes an aligned
 // (8, C) tile because Mosaic forbids a one-row block, and exists to pin the
-// cache's layout inside XLA's while loop; both are means of the TPU. Here a
-// block of 128 threads copies one row of C elements as 16-byte vectors
-// straight to its place: nothing else of the cache is read or written.
+// cache's layout inside XLA's while loop; both are means of the TPU. Here
+// only the rows move: nothing else of the cache is read or written.
 //
-// Bound on the H100: bytes, 2 * L * B * C * itemsize (2.4 MB at the GPT
-// prior's (24, 8, 1032, 6144) bf16 stack), a few microseconds at 3.35 TB/s:
-// the launch's fixed cost dominates. cur is a scalar (the lockstep sampler,
-// passed by value) or a per-row int32 vector on the device (ragged batches);
-// a row whose position lies outside [0, ctx) is not written.
+// Bound on the H100: bytes, each row read once from `news` and written
+// once into the cache, 2 * L * B * C * itemsize: 4.72 MB at the GPT
+// prior's (24, 8, 1032, 6144) bf16 stack (1.41 us at 3.35 TB/s), 1.18 MB
+// at the RQ prior's (24, 8, 1032, 1536) (0.35 us). At these sizes a call
+// is latency-bound: a launch alone takes ~1.04 us as a CUDA-graph node,
+// and the copy adds one read latency. So every load of a thread is issued
+// before its first store: a block of 128 threads a (batch row, layer)
+// copies its row in rounds of up to kBatch 16-byte vectors a thread, all
+// loaded into registers, then all stored; one read latency a round, and
+// rows of up to 16 KB take one round. 1-D bulk copies (cp.async.bulk)
+// through a shared-memory ring, one block an SM, were measured slower on
+// the card at every stack: the copy engine's load and the store's read of
+// shared memory add latency to a few KB a block (PERF.md).
+//
+// cur is a scalar (the lockstep sampler, passed by value) or a per-row
+// int32 vector on the device (ragged batches), read once a block; a row
+// whose position lies outside [0, ctx) is not written. Rows of any
+// multiple of 16 bytes (bf16, fp32, int8) are taken.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kBatch = 8;  // 16-byte vectors a thread loads before storing
 
 __global__ void __launch_bounds__(kThreads)
     row_write_kernel(uint4* __restrict__ cache, const uint4* __restrict__ news,
@@ -29,7 +42,19 @@ __global__ void __launch_bounds__(kThreads)
   const size_t lb = static_cast<size_t>(l) * b + row;
   const uint4* src = news + lb * vecs;
   uint4* dst = cache + (lb * ctx + cur) * vecs;
-  for (int v = threadIdx.x; v < vecs; v += kThreads) dst[v] = src[v];
+  for (int base = threadIdx.x; base < vecs; base += kBatch * kThreads) {
+    uint4 r[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int v = base + k * kThreads;
+      if (v < vecs) r[k] = src[v];
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int v = base + k * kThreads;
+      if (v < vecs) dst[v] = r[k];
+    }
+  }
 }
 
 }  // namespace

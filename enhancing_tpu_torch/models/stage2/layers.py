@@ -1,7 +1,7 @@
-"""Stage-2 autoregressive GPT prior over tokenizer codes, in PyTorch.
+"""Stage-2 autoregressive priors over tokenizer codes, in PyTorch.
 
-Counterpart of the GPT of ``enhancing_tpu/models/stage2/layers.py`` (its
-default branches):
+Counterpart of the GPT and the RQTransformer of
+``enhancing_tpu/models/stage2/layers.py`` (their default branches):
 
 - :class:`MultiHeadSelfAttention` keeps the RWKV-style token shift (a
   learned per-channel ``time_mix`` ramp blending x with its one-step-delayed
@@ -9,11 +9,15 @@ default branches):
   through ``ops.multihead_attention_bnhd`` (B8 on CUDA).
 - :class:`FFN` is the 4x squared-ReLU MLP.
 - :class:`GPT` has the full forward (training), ``init_cache``, ``prefill``
-  and ``decode_step``. The decode step keeps the JAX structure: the
-  stacked (L, B, ctx, C) caches are read-only inside the layer loop, each
-  layer's attention (``ops.decode_attention_stacked``, B9 on CUDA) folds
-  the current token's key and value in as an extra softmax term, and after
-  the last layer the step writes the k stack once and the v stack once
+  and ``decode_step``; :class:`RQTransformer` (the RQ prior over residual
+  codes) the teacher-forced forward, ``init_cache``, ``spatial_prefill``,
+  ``spatial_step`` and ``depth_forward``. Both stacks' cached decode runs
+  :func:`prefill_stack` and :func:`decode_stack`. The decode step keeps
+  the JAX structure: the stacked (L, B, ctx, C) caches are read-only
+  inside the layer loop, each layer's attention
+  (``ops.decode_attention_stacked``, B9 on CUDA) folds the current
+  token's key and value in as an extra softmax term, and after the last
+  layer the step writes the k stack once and the v stack once
   (``ops.cache_row_update``, B10). The real per-layer token-shift state is
   carried through decode, the JAX package's deliberate divergence from the
   original repository (``layers.py:16-20`` there).
@@ -366,6 +370,120 @@ class Block(nn.Module):
         return x, k_new, v_new, new_shift
 
 
+@torch.no_grad()
+def reset_prior_parameters(module: nn.Module, generator: torch.Generator,
+                           uniform_positions: bool = False) -> None:
+    """Random weights of a prior drawn on its device from ``generator``, in
+    the order of ``named_parameters``: normal (std 0.02) GEMM kernels and
+    token embeddings, zero biases, unit LayerNorm weights, the
+    ``time_mix`` ramp i / (C - 1), and position embeddings zero or, with
+    ``uniform_positions``, uniform in [0, 1) (the RQ prior's, as the JAX
+    module draws them)."""
+    norms = {id(m.weight) for m in module.modules()
+             if isinstance(m, LayerNorm)}
+    for name, p in module.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if name.startswith("pos_emb_"):
+            if uniform_positions:
+                p.uniform_(0.0, 1.0, generator=generator)
+            else:
+                p.zero_()
+        elif leaf == "bias":
+            p.zero_()
+        elif id(p) in norms:
+            p.fill_(1.0)
+        elif leaf == "time_mix":
+            c = p.shape[-1]
+            p.copy_((torch.arange(c, dtype=torch.float32) / max(c - 1, 1))
+                    .reshape(p.shape))
+        else:  # GEMM kernels and token embeddings
+            p.normal_(0.0, 0.02, generator=generator)
+
+
+def code_position(pos_emb_code: nn.Parameter, step) -> torch.Tensor:
+    """The position embedding of code position ``step - 1`` as a (1, 1, C)
+    row, or (B, 1, C) rows for a (B,) tensor of per-row steps."""
+    if isinstance(step, int):
+        return pos_emb_code[0, step - 1][None, None, :]
+    return pos_emb_code[0][step.long() - 1][:, None, :]
+
+
+def init_stacked_cache(layers: int, batch: int, ctx_len: int, width: int,
+                       dtype: torch.dtype, kv_int8: bool,
+                       device: torch.device) -> Dict[str, torch.Tensor]:
+    """The decode cache of a stack of ``layers`` Blocks (GPT.init_cache):
+    zeroed (L, B, ctx, C) k and v stacks, ctx padded to a multiple of 8,
+    and the (L, B, C) token-shift state in ``dtype``; with ``kv_int8``
+    int8 stacks and their (L, B, ctx) fp32 ``k_scale`` / ``v_scale``."""
+    ctx_pad = -(-ctx_len // 8) * 8
+    shape = (layers, batch, ctx_pad, width)
+    kv_dtype = torch.int8 if kv_int8 else dtype
+    cache = {
+        "k": torch.zeros(shape, dtype=kv_dtype, device=device),
+        "v": torch.zeros(shape, dtype=kv_dtype, device=device),
+        "shift": torch.zeros((layers, batch, width), dtype=dtype,
+                             device=device),
+    }
+    if kv_int8:
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros(shape[:3], dtype=torch.float32,
+                                      device=device)
+    return cache
+
+
+def prefill_stack(blocks, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                  kv_int8: bool, dtype: torch.dtype) -> torch.Tensor:
+    """Run the T-token prefix x (B, T, C) through ``blocks``, filling rows
+    [0, T) of each layer's k and v and the shift state of ``cache`` in
+    place; returns the last block's output. Beside an int8 cache the rows
+    are quantised per row from ``dtype``, as the JAX package quantises its
+    prefix-sized temporary; else cast to the cache's dtype."""
+    t = x.shape[1]
+    shifts = []
+    for i, block in enumerate(blocks):
+        x, s, k, v = block.prefill(x)
+        for name, rows in (("k", k), ("v", v)):
+            if kv_int8:
+                q, sc = quantize_channelwise(rows.to(dtype))
+                cache[name][i][:, :t] = q
+                cache[name + "_scale"][i][:, :t] = sc
+            else:
+                cache[name][i][:, :t] = rows
+        shifts.append(s)
+    cache["shift"] = torch.stack(shifts).to(cache["shift"].dtype)
+    return x
+
+
+def decode_stack(blocks, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                 cur_len, sites: frozenset) -> torch.Tensor:
+    """One token x (B, 1, C) through ``blocks`` at position ``cur_len`` (an
+    int, or a (B,) tensor of per-row positions): the stacked caches are
+    read-only inside the layer loop; after the last layer the new rows go
+    in with one in-place row write per stack (B10), quantised with their
+    scales beside an int8 cache, and the shift state is replaced. Returns
+    the last block's output. The decode step of GPT and the spatial step
+    of RQTransformer."""
+    k_all, v_all = cache["k"], cache["v"]
+    ks, vs = cache.get("k_scale"), cache.get("v_scale")
+    k_cols, v_cols, s_cols = [], [], []
+    for i, block in enumerate(blocks):
+        x, k, v, s = block.decode(x, k_all, v_all, cur_len,
+                                  cache["shift"][i], i, ks, vs, sites)
+        k_cols.append(k)
+        v_cols.append(v)
+        s_cols.append(s)
+    cache["shift"] = torch.stack(s_cols).to(cache["shift"].dtype)
+    k_news, v_news = torch.stack(k_cols), torch.stack(v_cols)
+    if ks is not None:
+        k_news, k_sc = quantize_channelwise(k_news)
+        v_news, v_sc = quantize_channelwise(v_news)
+        scale_row_update(ks, k_sc, cur_len)
+        scale_row_update(vs, v_sc, cur_len)
+    cache_row_update(k_all, k_news, cur_len)
+    cache_row_update(v_all, v_news, cur_len)
+    return x
+
+
 class GPT(nn.Module):
     """Class-conditional GPT prior over tokenizer codes.
 
@@ -430,23 +548,9 @@ class GPT(nn.Module):
         for block in self.blocks:  # before the draws, which write through
             block.attn.fused_qkv("weight")
             block.attn.fused_qkv("bias")
-        self.reset_parameters(torch.Generator(self.device).manual_seed(seed))
+        reset_prior_parameters(self,
+                               torch.Generator(self.device).manual_seed(seed))
         self.eval()
-
-    @torch.no_grad()
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if name.startswith("pos_emb_") or leaf == "bias":
-                p.zero_()
-            elif ".ln" in name or name.startswith("layer_norm"):
-                p.fill_(1.0)
-            elif leaf == "time_mix":
-                c = p.shape[-1]
-                p.copy_((torch.arange(c, dtype=torch.float32) / max(c - 1, 1))
-                        .reshape(p.shape))
-            else:  # GEMM kernels and token embeddings
-                p.normal_(0.0, 0.02, generator=generator)
 
     @property
     def ctx_len(self) -> int:
@@ -492,34 +596,10 @@ class GPT(nn.Module):
         ``k_scale`` / ``v_scale`` ride beside them. (The JAX package pads
         an int8 cache to a multiple of 128 for its kernel's scale blocks;
         the port's kernels need no more than 8.)"""
-        dt = self.dtype if dtype is None else dtype
-        ctx_pad = -(-self.ctx_len // 8) * 8
-        shape = (self.n_layers, batch, ctx_pad, self.embed_dim)
-        kv_dtype = torch.int8 if self.kv_int8 else dt
-        cache = {
-            "k": torch.zeros(shape, dtype=kv_dtype, device=self.device),
-            "v": torch.zeros(shape, dtype=kv_dtype, device=self.device),
-            "shift": torch.zeros((self.n_layers, batch, self.embed_dim),
-                                 dtype=dt, device=self.device),
-        }
-        if self.kv_int8:
-            for name in ("k_scale", "v_scale"):
-                cache[name] = torch.zeros(shape[:3], dtype=torch.float32,
-                                          device=self.device)
-        return cache
-
-    def _write_prefix(self, cache, i: int, name: str,
-                      rows: torch.Tensor) -> None:
-        """Rows [0, T) of layer i's k or v: quantised per row beside an
-        int8 cache (from the compute dtype, as the JAX package quantises
-        its prefix-sized temporary), else cast to the cache's dtype."""
-        t = rows.shape[1]
-        if self.kv_int8:
-            q, sc = quantize_channelwise(rows.to(self.dtype))
-            cache[name][i][:, :t] = q
-            cache[name + "_scale"][i][:, :t] = sc
-        else:
-            cache[name][i][:, :t] = rows
+        return init_stacked_cache(self.n_layers, batch, self.ctx_len,
+                                  self.embed_dim,
+                                  self.dtype if dtype is None else dtype,
+                                  self.kv_int8, self.device)
 
     def _head(self, x: torch.Tensor, sites: frozenset) -> torch.Tensor:
         """Final LayerNorm + vocab head of (B, C) rows: B13 over the int8
@@ -540,13 +620,7 @@ class GPT(nn.Module):
         in place; returns the logits for code token 0 and the cache."""
         conds = conds.reshape(conds.shape[0], -1)
         x = self.tok_emb_cond(conds) + self.pos_emb_cond.to(self.dtype)
-        shifts = []
-        for i, block in enumerate(self.blocks):
-            x, s, k, v = block.prefill(x)
-            self._write_prefix(cache, i, "k", k)
-            self._write_prefix(cache, i, "v", v)
-            shifts.append(s)
-        cache["shift"] = torch.stack(shifts).to(cache["shift"].dtype)
+        x = prefill_stack(self.blocks, x, cache, self.kv_int8, self.dtype)
         return self._head(x[:, self.cond_num_tokens - 1], frozenset()), cache
 
     def decode_step(self, token: torch.Tensor, step,
@@ -561,33 +635,194 @@ class GPT(nn.Module):
         kernel reads only rows < cur_len.)
         """
         sites = lnfuse_sites()
-        if isinstance(step, int):
-            pos = self.pos_emb_code[0, step - 1][None, None, :]
-        else:
-            pos = self.pos_emb_code[0][step.long() - 1][:, None, :]
+        pos = code_position(self.pos_emb_code, step)
         x = self.tok_emb_code(token)[:, None, :] + pos.to(self.dtype)
         cur_len = self.cond_num_tokens + step - 1
-        k_all, v_all = cache["k"], cache["v"]
-        ks, vs = cache.get("k_scale"), cache.get("v_scale")
-        k_cols, v_cols, s_cols = [], [], []
-        for i, block in enumerate(self.blocks):
-            x, k, v, s = block.decode(x, k_all, v_all, cur_len,
-                                      cache["shift"][i], i, ks, vs, sites)
-            k_cols.append(k)
-            v_cols.append(v)
-            s_cols.append(s)
-        cache["shift"] = torch.stack(s_cols).to(cache["shift"].dtype)
-        # one in-place row write per stack, after the last layer; an int8
-        # cache takes the rows quantised and their scales
-        k_news, v_news = torch.stack(k_cols), torch.stack(v_cols)
-        if ks is not None:
-            k_news, k_sc = quantize_channelwise(k_news)
-            v_news, v_sc = quantize_channelwise(v_news)
-            scale_row_update(ks, k_sc, cur_len)
-            scale_row_update(vs, v_sc, cur_len)
-        cache_row_update(k_all, k_news, cur_len)
-        cache_row_update(v_all, v_news, cur_len)
+        x = decode_stack(self.blocks, x, cache, cur_len, sites)
         return self._head(x[:, -1], sites), cache
+
+
+class RQTransformer(nn.Module):
+    """Two-axis autoregressive prior over residual-quantizer codes: the
+    counterpart of ``RQTransformer`` of the JAX package
+    (``enhancing_tpu/models/stage2/layers.py:779-1052``).
+
+    A spatial stack (``spatial_{i}``, prefix-causal over the condition
+    tokens and the depth-summed code embeddings of the positions) gives one
+    hidden a position; a depth stack (``depth_{i}``, causal, no condition)
+    autoregresses over the depth prefix sums of the codes at that
+    position, from the hidden. ``forward`` is the teacher-forced pass,
+    (B * T, D, V) logits; sampling runs ``spatial_prefill``, then at each
+    position ``spatial_step`` (the GPT's stacked decode: B9 a layer, two
+    B10 row writes) and ``depth_forward`` once a depth (the depth window
+    recomputed, masked past ``d``; at fewer than 8 tokens and a head dim
+    no kernel takes, the attention's short route,
+    ``ops.attention.attention_bnhd_route``).
+
+    ``device``, ``dtype`` and the weights as for :class:`GPT`: GEMM
+    weights stored in the compute dtype, embeddings, position embeddings,
+    LayerNorms and ``time_mix`` fp32; random weights drawn on ``device``
+    from ``torch.Generator(device).manual_seed(seed)``, the position
+    embeddings uniform in [0, 1) as the JAX module draws them.
+    ``kv_int8`` and int8 weights (ROADMAP A5), ``act_int8`` (A8) and
+    ``sp_mesh`` (A9) raise.
+    """
+
+    def __init__(self, vocab_cond_size: int, vocab_img_size: int,
+                 embed_dim: int, cond_num_tokens: int, img_num_tokens: int,
+                 depth_num_tokens: int, spatial_n_heads: int,
+                 depth_n_heads: int, spatial_n_layers: int,
+                 depth_n_layers: int, mlp_bias: bool = True,
+                 attn_bias: bool = True, dtype: str = "float32",
+                 scan_layers: bool = True, remat: bool = False,
+                 kv_int8: bool = False, act_int8: bool = False,
+                 sp_mesh=None, *,
+                 device: Union[str, torch.device, None] = None,
+                 seed: int = 0) -> None:
+        super().__init__()
+        if kv_int8:
+            raise NotImplementedError(
+                "kv_int8 and int8 weights for the RQ prior are a later "
+                "slice of the port (ROADMAP A5)")
+        if act_int8:
+            raise NotImplementedError(
+                "act_int8 (W8A8: int8 activations on int8 GEMMs) is not "
+                "ported (ROADMAP A8)")
+        if sp_mesh is not None:
+            raise NotImplementedError(
+                "sp_mesh: multi-GPU parallelism is a later slice of the "
+                "port (ROADMAP A9)")
+        self.vocab_cond_size = vocab_cond_size
+        self.vocab_img_size = vocab_img_size
+        self.embed_dim = embed_dim
+        self.cond_num_tokens = cond_num_tokens
+        self.img_num_tokens = img_num_tokens
+        self.depth_num_tokens = depth_num_tokens
+        self.spatial_n_layers = spatial_n_layers
+        self.depth_n_layers = depth_n_layers
+        self.dtype = _dtype(dtype)
+        self.device = resolve_device(device)
+        with torch.device("meta"):
+            self.tok_emb_cond = nn.Embedding(vocab_cond_size, embed_dim)
+            self.pos_emb_cond = nn.Parameter(
+                torch.empty(1, cond_num_tokens, embed_dim))
+            self.tok_emb_code = nn.Embedding(vocab_img_size, embed_dim)
+            self.pos_emb_code = nn.Parameter(
+                torch.empty(1, img_num_tokens, embed_dim))
+            self.pos_emb_depth = nn.Parameter(
+                torch.empty(1, depth_num_tokens - 1, embed_dim))
+            for i in range(spatial_n_layers):
+                self.add_module(f"spatial_{i}", Block(
+                    embed_dim, spatial_n_heads, cond_num_tokens, mlp_bias,
+                    attn_bias, dtype=self.dtype))
+            for i in range(depth_n_layers):
+                self.add_module(f"depth_{i}", Block(
+                    embed_dim, depth_n_heads, 0, mlp_bias, attn_bias,
+                    dtype=self.dtype))
+            self.ln_spatial = LayerNorm(embed_dim, dtype=self.dtype)
+            self.ln_depth = LayerNorm(embed_dim, dtype=self.dtype)
+            self.head = _dense(embed_dim, vocab_img_size, False, self.dtype)
+        self.to_empty(device=self.device)
+        for block in self.spatial_blocks + self.depth_blocks:
+            block.attn.fused_qkv("weight")
+            block.attn.fused_qkv("bias")
+        reset_prior_parameters(
+            self, torch.Generator(self.device).manual_seed(seed),
+            uniform_positions=True)
+        self.eval()
+
+    @property
+    def ctx_len(self) -> int:
+        return self.cond_num_tokens + self.img_num_tokens
+
+    @property
+    def spatial_blocks(self):
+        return [getattr(self, f"spatial_{i}")
+                for i in range(self.spatial_n_layers)]
+
+    @property
+    def depth_blocks(self):
+        return [getattr(self, f"depth_{i}")
+                for i in range(self.depth_n_layers)]
+
+    def _depth(self, v: torch.Tensor) -> torch.Tensor:
+        for block in self.depth_blocks:
+            v = block(v)
+        return self.ln_depth(v)
+
+    def forward(self, codes: torch.Tensor,
+                conds: torch.Tensor) -> torch.Tensor:
+        """codes (B, T, D), conds (B, cond_num_tokens) ints -> logits
+        (B * T, D, vocab_img_size): depth d of position t predicts code
+        (t, d) from the condition, the positions < t and the depths < d of
+        position t (the depth-axis cumsum of the code embeddings; the JAX
+        package's PARITY.md)."""
+        b = codes.shape[0]
+        codes = codes.reshape(b, -1, codes.shape[-1])
+        emb = self.tok_emb_code(codes)                       # (B, T, D, C)
+        conds = conds.reshape(b, -1)
+        cc = self.tok_emb_cond(conds) + self.pos_emb_cond.to(self.dtype)
+        csum = torch.cumsum(emb, dim=-2)
+        h = torch.cat([cc, csum[..., -1, :]
+                       + self.pos_emb_code.to(self.dtype)], dim=1)
+        for block in self.spatial_blocks:
+            h = block(h)
+        h = self.ln_spatial(h)[:, self.cond_num_tokens - 1:-1]  # (B, T, C)
+        v = csum[..., :-1, :] + self.pos_emb_depth.to(self.dtype)
+        v = torch.cat([h[:, :, None, :].to(v.dtype), v], dim=2)
+        v = v.reshape(-1, *v.shape[2:])                      # (B * T, D, C)
+        return self.head(self._depth(v))
+
+    # -- cached sampling ------------------------------------------------------
+
+    def init_cache(self, batch: int, dtype: torch.dtype | None = None
+                   ) -> Dict[str, torch.Tensor]:
+        """The spatial stack's cache (:meth:`GPT.init_cache`); the depth
+        stack keeps none."""
+        return init_stacked_cache(self.spatial_n_layers, batch, self.ctx_len,
+                                  self.embed_dim,
+                                  self.dtype if dtype is None else dtype,
+                                  False, self.device)
+
+    def spatial_prefill(self, conds: torch.Tensor,
+                        cache: Dict[str, torch.Tensor]
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The condition prefix through the spatial stack, filling cache
+        rows [0, cond_num_tokens) in place; returns the (B, C) hidden of
+        code position 0 and the cache."""
+        conds = conds.reshape(conds.shape[0], -1)
+        x = self.tok_emb_cond(conds) + self.pos_emb_cond.to(self.dtype)
+        x = prefill_stack(self.spatial_blocks, x, cache, False, self.dtype)
+        return self.ln_spatial(x)[:, self.cond_num_tokens - 1], cache
+
+    def spatial_step(self, prev_codes: torch.Tensor, step,
+                     cache: Dict[str, torch.Tensor]
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """prev_codes: (B, D) codes of position step - 1 (step >= 1); step
+        an int or a (B,) tensor of per-row positions. Returns the (B, C)
+        hidden of position ``step`` and the cache, updated in place."""
+        pos = code_position(self.pos_emb_code, step)
+        x = (torch.sum(self.tok_emb_code(prev_codes), dim=1, keepdim=True)
+             + pos.to(self.dtype))
+        x = decode_stack(self.spatial_blocks, x, cache,
+                         self.cond_num_tokens + step - 1, lnfuse_sites())
+        return self.ln_spatial(x)[:, -1], cache
+
+    def depth_forward(self, hidden: torch.Tensor, depth_codes: torch.Tensor,
+                      d: int) -> torch.Tensor:
+        """Logits (B, V) of depth ``d`` at one position: hidden (B, C) from
+        the spatial stack, depth_codes (B, D) of which the first ``d`` are
+        valid. The depth window is recomputed with the codes at depths >= d
+        masked out of the cumsum (the window is tiny: no cache)."""
+        dmax = self.depth_num_tokens
+        emb = self.tok_emb_code(depth_codes)                 # (B, D, C)
+        valid = torch.arange(dmax, device=emb.device)[None, :, None] < d
+        csum = torch.cumsum(torch.where(valid, emb, torch.zeros_like(emb)),
+                            dim=1)
+        pos_d = F.pad(self.pos_emb_depth[0], (0, 0, 0, 1))   # (D, C)
+        v = csum[:, :-1] + pos_d[None, :-1]
+        v = torch.cat([hidden[:, None, :].to(v.dtype), v], dim=1)
+        return self.head(self._depth(v)[:, d])
 
 
 def fp32_master_weights(gpt: GPT) -> GPT:

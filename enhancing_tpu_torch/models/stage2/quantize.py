@@ -39,8 +39,9 @@ def _gpt(model: Any) -> GPT:
     if not isinstance(gpt, GPT):
         raise ValueError(
             f"int8 serving takes the GPT prior, got {type(gpt).__name__}: "
-            "the RQ prior (RQTransformer) is not ported (ROADMAP A5), and "
-            "its depth stack would read the full-precision weights")
+            "int8 serving of the RQ prior (RQTransformer) is not ported "
+            "(ROADMAP A5), and its depth stack would read the "
+            "full-precision weights")
     return gpt
 
 

@@ -1,14 +1,17 @@
-"""Autoregressive sampling of the stage-2 GPT prior, on the device.
+"""Autoregressive sampling of the stage-2 priors, on the device.
 
-Counterpart of ``filter_logits``, ``_draw`` and ``sample_gpt`` of
-``enhancing_tpu/models/stage2/sampling.py``. The JAX package compiles the
-decode into one ``lax.scan``; here it is a Python loop over the steps of
-eager calls: one prefill, then ``img_num_tokens - 1`` KV-cache decode
-steps, each drawing one token. Top-k, top-p and the categorical draw stay
-on the device and the loop never waits for the host. The draw takes an
-explicit ``torch.Generator`` on the model's device; it gives other numbers
-than ``jax.random`` for the same seed (the same distribution: a Gumbel-max
-draw, as ``jax.random.categorical`` makes).
+Counterpart of ``filter_logits``, ``_draw``, ``sample_gpt`` and
+``sample_rq`` of ``enhancing_tpu/models/stage2/sampling.py``. The JAX
+package compiles the decode into one ``lax.scan``; here it is a Python
+loop over the steps of eager calls: one prefill, then ``img_num_tokens -
+1`` KV-cache decode steps, each drawing one token (the GPT prior), or
+each position's spatial step followed by a depth loop of
+``depth_num_tokens`` draws (the RQ prior). Top-k, top-p and the
+categorical draw stay on the device and the loop never waits for the
+host. The draw takes an explicit ``torch.Generator`` on the model's
+device; it gives other numbers than ``jax.random`` for the same seed (the
+same distribution: a Gumbel-max draw, as ``jax.random.categorical``
+makes).
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .layers import GPT
+from .layers import GPT, RQTransformer
 
 
 def filter_logits(logits: torch.Tensor, top_k: Optional[int] = None,
@@ -85,3 +88,43 @@ def sample_gpt(module: GPT, conds: torch.Tensor, generator: torch.Generator,
         if with_logits:
             logits_all[:, step] = logits
     return logits_all, torch.stack(toks, dim=1)
+
+
+@torch.inference_mode()
+def sample_rq(module: RQTransformer, conds: torch.Tensor,
+              generator: torch.Generator, *, top_k: Optional[int] = None,
+              top_p: Optional[float] = None, temperature: float = 1.0,
+              with_logits: bool = True
+              ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """Sample (B, T, D) residual codes from an RQ prior.
+
+    conds: (B, cond_num_tokens) ints on the model's device. The spatial
+    prefill gives position 0's hidden; at every position a depth loop
+    draws depths 0..D-1 (``depth_forward`` on the codes drawn so far),
+    then the spatial step takes that position's codes to the next
+    position's hidden. Returns (logits (B * T, D, V) fp32, codes (B, T, D)
+    int32); ``with_logits=False`` returns (None, codes).
+    """
+    b, t = conds.shape[0], module.img_num_tokens
+    dmax, v = module.depth_num_tokens, module.vocab_img_size
+    logits_all = (torch.empty((b, t, dmax, v), dtype=torch.float32,
+                              device=conds.device)
+                  if with_logits else None)
+    codes_all = torch.empty((b, t, dmax), dtype=torch.int32,
+                            device=conds.device)
+    cache = module.init_cache(b)
+    hidden, cache = module.spatial_prefill(conds, cache)
+    for step in range(t):
+        if step:
+            hidden, cache = module.spatial_step(codes_all[:, step - 1], step,
+                                                cache)
+        codes = codes_all[:, step]
+        codes.zero_()
+        for d in range(dmax):
+            logits = module.depth_forward(hidden, codes, d)
+            codes[:, d] = _draw(generator, logits, temperature, top_k, top_p)
+            if with_logits:
+                logits_all[:, step, d] = logits
+    if not with_logits:
+        return None, codes_all
+    return logits_all.reshape(b * t, dmax, v), codes_all

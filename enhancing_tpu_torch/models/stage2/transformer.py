@@ -1,13 +1,16 @@
-"""Conditional stage-2 model: condition encoder + frozen stage-1 + GPT prior.
+"""Conditional stage-2 model: condition encoder + frozen stage-1 + prior.
 
 Counterpart of ``enhancing_tpu/models/stage2/transformer.py``
-(``CondTransformer``, ``:23-158``) for a GPT prior: it builds the
-condition model, the frozen stage-1 tokenizer and the prior from a config;
-``loss_fn`` is the prior's cross-entropy on the codes of a batch; ``sample``
-draws codes on the device and decodes them to pixels in [0, 1].
+(``CondTransformer``, ``:23-158``): it builds the condition model, the
+frozen stage-1 tokenizer and the prior from a config, a GPT over (B, T)
+codes or, when the transformer's target is ``RQTransformer``, an RQ prior
+over (B, T, D) residual codes of an RQ-VAE tokenizer (``is_rq``);
+``loss_fn`` is the prior's cross-entropy on the codes of a batch;
+``sample`` draws codes on the device (``sample_gpt`` or ``sample_rq``) and
+decodes them to pixels in [0, 1].
 
-The RQ prior (ROADMAP A5), ``mesh=`` data-parallel sampling (A9) and
-loading released checkpoints (``path``, A7) are later slices and raise.
+``mesh=`` data-parallel sampling (ROADMAP A9) and loading released
+checkpoints (``path``, A7) are later slices and raise.
 """
 from __future__ import annotations
 
@@ -19,8 +22,8 @@ import torch.nn.functional as F
 
 from ...ops.common import resolve_device
 from ...utils.config import initialize_from_config
-from .layers import GPT
-from .sampling import sample_gpt
+from .layers import GPT, RQTransformer
+from .sampling import sample_gpt, sample_rq
 
 
 class CondTransformer:
@@ -42,11 +45,6 @@ class CondTransformer:
             raise NotImplementedError(
                 "loading released checkpoints is a later slice of the port "
                 "(ROADMAP A7); use compat.from_jax.load_gpt_from_jax")
-        target = transformer["target"]
-        if target.rsplit(".", 1)[-1] == "RQTransformer":
-            raise NotImplementedError(
-                "the RQ prior (RQTransformer) is a later slice of the port "
-                "(ROADMAP A5)")
         self.device = resolve_device(device)
         self.cond_key = cond_key
         self.code_shape = code_shape
@@ -55,7 +53,10 @@ class CondTransformer:
         self.stage1_model = initialize_from_config(stage1, device=self.device)
         tconf = dict(transformer.get("params", {}) or {})
         tconf.setdefault("dtype", dtype)
-        self.transformer = GPT(**tconf, device=self.device, seed=seed)
+        self.is_rq = transformer["target"].rsplit(".", 1)[-1] == \
+            "RQTransformer"
+        prior = RQTransformer if self.is_rq else GPT
+        self.transformer = prior(**tconf, device=self.device, seed=seed)
 
     # -- the prior's forward and loss -----------------------------------------
 
@@ -65,11 +66,14 @@ class CondTransformer:
         return x.to(self.device).long()
 
     def __call__(self, codes, conds) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(logits (B, T, V), target codes (B, T)) of the teacher-forced
-        forward."""
+        """(logits, target codes) of the teacher-forced forward: (B, T, V)
+        and (B, T) for a GPT prior, (B * T, D, V) and (B * T, D) for an RQ
+        prior."""
         codes, conds = self._ids(codes), self._ids(conds)
         conds = conds.reshape(conds.shape[0], -1)
         logits = self.transformer(codes, conds)
+        if self.is_rq:
+            return logits, codes.reshape(-1, codes.shape[-1])
         return logits, codes.reshape(codes.shape[0], -1)
 
     def loss_fn(self, codes, conds) -> torch.Tensor:
@@ -113,7 +117,9 @@ class CondTransformer:
                softmax_temperature: float = 1.0, seed: int = 0,
                return_codes: bool = False, mesh=None):
         """Images (B, H, W, C) in [0, 1] for the condition codes ``conds``;
-        with ``return_codes`` also the (B, T) int32 codes."""
+        with ``return_codes`` also the int32 codes: (B, T) from a GPT
+        prior, (B, T, D) from an RQ prior, reshaped to ``code_shape``
+        where the config gives one."""
         if mesh is not None:
             raise NotImplementedError(
                 "mesh=: data-parallel sampling over several cards is a "
@@ -121,10 +127,11 @@ class CondTransformer:
         conds = self._ids(conds)
         conds = conds.reshape(conds.shape[0], -1)
         generator = torch.Generator(self.device).manual_seed(seed)
-        _, codes = sample_gpt(self.transformer, conds, generator,
-                              top_k=top_k, top_p=top_p,
-                              temperature=float(softmax_temperature),
-                              with_logits=False)
+        sampler = sample_rq if self.is_rq else sample_gpt
+        _, codes = sampler(self.transformer, conds, generator, top_k=top_k,
+                           top_p=top_p,
+                           temperature=float(softmax_temperature),
+                           with_logits=False)
         if self.code_shape is not None:
             codes = codes.reshape(codes.shape[0], *self.code_shape)
         pixels = torch.clamp(self.stage1_model.decode_codes(codes), 0.0, 1.0)

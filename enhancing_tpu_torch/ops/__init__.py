@@ -1,8 +1,8 @@
 from .attention import (attention_packed_gridchunk, attention_proj_packed,
                         multihead_attention, multihead_attention_packed_qkv)
 from .common import (F32_LAUNCHES, LAUNCHES, LN_GEMM_ROUTES, PLAIN_CALLS,
-                     UNFUSED_CALLS, WIDE_LAUNCHES, force_plain_ops,
-                     reset_launches)
+                     SHORT_CALLS, UNFUSED_CALLS, WIDE_LAUNCHES,
+                     force_plain_ops, reset_launches)
 from .ffn import fused_ffn
 from .fused_act import fused_leaky_relu
 from .ln_gemm import fused_layernorm, fused_ln_gemm, layernorm
@@ -15,6 +15,7 @@ __all__ = [
     "LN_GEMM_ROUTES",
     "PLAIN_CALLS",
     "UNFUSED_CALLS",
+    "SHORT_CALLS",
     "force_plain_ops",
     "reset_launches",
     "multihead_attention_packed_qkv",

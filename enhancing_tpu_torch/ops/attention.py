@@ -32,7 +32,11 @@ other attention forwards:
   above. Under autograd on CUDA it is a ``torch.autograd.Function`` as the
   packed entry is (``_attention_fused_packed``'s ``custom_vjp``): B8
   forward, the flash backward on the (B, N, H*D) views, at 384 on
-  ``csrc/attention_bwd_wide.cu``; the prior trains on it. Both kernels
+  ``csrc/attention_bwd_wide.cu``; the prior trains on it. Below 8
+  tokens, at a head dim no kernel takes (the RQ prior's depth window of 4
+  tokens at 192), it runs the plain ``_attention_xla_bnhd`` as the JAX
+  package does at every n < 8 (:func:`attention_bnhd_route`, counted in
+  ``SHORT_CALLS``); such a head dim at 8 tokens or more raises. Both kernels
   read each tensor through its own batch, head and row strides (4-D TMA
   maps, :func:`attention_fwd_maps`) and a key length of its own, and put
   the scale on q (in bf16) or on the fp32 scores, so they also serve
@@ -77,8 +81,9 @@ import struct
 import torch
 
 from . import cuda_lib
-from .common import (F32_LAUNCHES, LAUNCHES, UNFUSED_CALLS, WIDE_LAUNCHES,
-                     check_kernel_args, row_positions, use_kernel)
+from .common import (F32_LAUNCHES, LAUNCHES, SHORT_CALLS, UNFUSED_CALLS,
+                     WIDE_LAUNCHES, check_kernel_args, row_positions,
+                     use_kernel)
 from .ln_gemm import _plain_vjp
 
 NEG_INF = -1e30
@@ -95,6 +100,12 @@ KERNEL_TILES = (32, 64, 128)
 WIDE_HEAD_DIM = 384
 
 
+def kernel_head_dim(head_dim: int) -> bool:
+    """Whether an attention kernel takes ``head_dim``."""
+    return head_dim == WIDE_HEAD_DIM or (
+        0 < head_dim <= KERNEL_TILES[-1] and head_dim % 8 == 0)
+
+
 def attention_route(dtype: torch.dtype, head_dim: int,
                     backward: bool = False) -> tuple:
     """(kernel, tile) that the attention entries launch for ``dtype`` and
@@ -108,7 +119,8 @@ def attention_route(dtype: torch.dtype, head_dim: int,
     bf16 pieces of ``csrc/attention_f32.cu``'s split pass).
     Raises TypeError for another dtype and ValueError for a head dim no
     kernel takes: not a multiple of 8, or above 128 but not 384 (192 among
-    them: ROADMAP.md queue B)."""
+    them: ROADMAP.md queue B; below 8 tokens :func:`attention_bnhd_route`
+    sends those to the plain version, as the JAX package does)."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"attention kernels take bf16 or fp32, got {dtype}")
     bf16 = dtype == torch.bfloat16
@@ -118,7 +130,7 @@ def attention_route(dtype: torch.dtype, head_dim: int,
                     WIDE_HEAD_DIM)
         return ("attn_wide_kernel" if bf16 else "attn_f32_wide_kernel",
                 WIDE_HEAD_DIM)
-    if head_dim <= 0 or head_dim % 8 or head_dim > KERNEL_TILES[-1]:
+    if not kernel_head_dim(head_dim):
         raise ValueError(
             f"attention {'backward ' if backward else ''}kernel takes a "
             f"head_dim that is a multiple of 8 up to {KERNEL_TILES[-1]} or "
@@ -128,6 +140,32 @@ def attention_route(dtype: torch.dtype, head_dim: int,
     if bf16:
         return ("attn_bwd" if backward else "attn_fwd_kernel", tile)
     return ("attn_f32_bwd" if backward else "attn_f32_fwd_kernel", tile)
+
+
+# The JAX package's multihead_attention_bnhd enters its Pallas kernels only
+# at n >= 8 tokens and computes _attention_xla_bnhd below that
+# (enhancing_tpu/ops/attention.py:1832).
+SHORT_SEQ = 8
+
+
+def short_route(head_dim: int, n: int) -> bool:
+    """Whether ``n`` query tokens at ``head_dim`` take the short route:
+    fewer than 8 at a head dim no kernel takes."""
+    return n < SHORT_SEQ and not kernel_head_dim(head_dim)
+
+
+def attention_bnhd_route(dtype: torch.dtype, head_dim: int, n: int) -> tuple:
+    """(kernel, tile) that :func:`multihead_attention_bnhd` runs on CUDA
+    tensors of ``dtype`` with ``n`` query tokens: ``("short", None)``
+    where n < 8 and no kernel takes the head dim (the RQ prior's depth
+    window of 4 tokens at 192): the plain ``_attention_xla_bnhd``, the
+    scale on the fp32 scores, which the JAX package computes at every
+    n < 8; else :func:`attention_route`'s kernel (B8 at every n, n = 1
+    included), which raises ValueError for such a head dim at n >= 8
+    (ROADMAP.md queue B)."""
+    if short_route(head_dim, n):
+        return ("short", None)
+    return attention_route(dtype, head_dim)
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -556,10 +594,18 @@ def multihead_attention_bnhd(q: torch.Tensor, k: torch.Tensor,
     ``cond_len`` tokens mutually visible); scale defaults to D**-0.5.
     Differentiable: on CUDA, where an input needs a gradient, through
     :class:`_BNHDAttention` (B8 forward, B5 backward; N = M, a head dim B5
-    takes); on the CPU autograd of the plain version."""
+    takes); on the CPU autograd of the plain version. The short route of
+    :func:`attention_bnhd_route` (fewer than 8 tokens at a head dim no
+    kernel takes) runs :func:`attention_fused_bnhd_plain` on both devices,
+    counted in ``SHORT_CALLS`` on CUDA."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if use_kernel(q, k, v, op="attention_bnhd"):
+    kernel = use_kernel(q, k, v, op="attention_bnhd")
+    if short_route(q.shape[-1], q.shape[1]):
+        if kernel:
+            SHORT_CALLS["attention_bnhd"] += 1
+        return attention_fused_bnhd_plain(q, k, v, scale, mask_mode, cond_len)
+    if kernel:
         if torch.is_grad_enabled() and any(t.requires_grad
                                            for t in (q, k, v)):
             return _BNHDAttention.apply(q, k, v, scale, mask_mode, cond_len)

@@ -4,11 +4,12 @@ Counterpart of ``enhancing_tpu/ops/cache.py::cache_row_update``: after the
 last layer of a decode step, the new token's key (or value) rows of every
 layer, ``news`` (L, B, 1, C), go to position ``cur[b]`` of each batch row
 of the (L, B, ctx, C) stack, in place. On CUDA the kernel
-``csrc/cache_row_update.cu`` copies just those rows; the plain version is
-an indexed assignment. The JAX package writes through a Pallas kernel to
-pin the cache's layout inside XLA's loop (``ops/cache.py:3-17`` there);
-PyTorch has no such layout to pin, and the port keeps the kernel as the
-one in-place write of the step.
+``csrc/cache_row_update.cu`` copies just those rows, a block a (batch
+row, layer), each thread's loads issued before its stores; the plain
+version is an indexed assignment. The JAX package writes through a
+Pallas kernel to pin the cache's layout inside XLA's loop
+(``ops/cache.py:3-17`` there); PyTorch has no such layout to pin, and the
+port keeps the kernel as the one in-place write of the step.
 
 Positions outside [0, ctx), on both routes: a scalar raises on the host;
 a row of a (B,) vector is left unwritten, as the JAX package's ragged path

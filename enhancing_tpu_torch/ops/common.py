@@ -49,13 +49,18 @@ PLAIN_CALLS: dict[str, int] = {name: 0 for name in LAUNCHES}
 # counted where it launches): the form the JAX package computes there, or
 # one it fuses and the port has no one-launch kernel for yet.
 UNFUSED_CALLS: dict[str, int] = {"attn_proj": 0, "ffn": 0}
+# Calls of multihead_attention_bnhd on CUDA tensors that its route
+# (ops.attention.attention_bnhd_route) sent to the short route: fewer than
+# 8 tokens at a head dim no kernel takes (the RQ prior's depth window of 4
+# at 192), where the JAX package computes _attention_xla_bnhd too.
+SHORT_CALLS: dict[str, int] = {"attention_bnhd": 0}
 
 _FORCE_PLAIN_DEPTH = 0
 
 
 def reset_launches() -> None:
     for counts in (LAUNCHES, F32_LAUNCHES, WIDE_LAUNCHES, LN_GEMM_ROUTES,
-                   PLAIN_CALLS, UNFUSED_CALLS):
+                   PLAIN_CALLS, UNFUSED_CALLS, SHORT_CALLS):
         for name in counts:
             counts[name] = 0
 

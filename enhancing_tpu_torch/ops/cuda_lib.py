@@ -60,6 +60,7 @@ SIGNATURES = {
     "etk_decode_attention": [_p] * 6 + [_i] * 6 + [_p] * 3 + [_i, _i, _p],
     "etk_decode_plan": [_i, _i, ctypes.POINTER(_i)],
     "etk_cache_row_update": [_p] * 3 + [_i] * 5 + [_p],
+    "etk_cache_row_update_bulk": [_p] * 3 + [_i] * 8 + [_p],
     "etk_int8_gemm": [_p] * 7 + [_ll, _p, _ll] + [_i] * 6 + [_p],
     "etk_int8_gemm_plan": [_i, _i, _i, _i, ctypes.POINTER(_i)],
     "etk_int8_ln_gemm": [_p] * 11 + [_ll, _p, _ll] + [_i] * 4
@@ -168,7 +169,12 @@ def plan(name: str, *args: int, size: int = 5) -> tuple:
 
 
 def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The raw handle of the current CUDA stream of the current device:
+    what ``torch.cuda.current_stream().cuda_stream`` gives, read without
+    building a Stream object (0.1-0.4 us a call against 4-7 us on an NVIDIA
+    H100 80GB HBM3 at 700 W, ``ab_cache_row_update.py``): every wrapper
+    asks at each launch."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
 def call(name: str, *args) -> None:

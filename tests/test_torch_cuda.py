@@ -1016,6 +1016,73 @@ def test_cache_row_update_kernel_matches_plain(cuda, dtype, cur):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("dtype,c", [(torch.bfloat16, 1536),
+                                     (torch.int8, 1536),
+                                     (torch.float32, 6144),
+                                     (torch.bfloat16, 8),
+                                     (torch.int8, 8208)])
+@pytest.mark.parametrize("cur", [0, 513, 1031, "ragged", "outside"])
+def test_cache_row_update_every_row_size(cuda, dtype, c, cur):
+    """The RQ prior's (24, 8, 1032, 1536) stacks, rows of two rounds of 8
+    vectors a thread (fp32 6144: 1536 vectors), of a ragged round (int8
+    8208: 513) and of one 16-byte vector: bit-exact, one launch, in place;
+    rows outside [0, ctx) unwritten."""
+    layers, b, ctx = 24, 8, 1032
+    if cur == "ragged":
+        cur = torch.tensor([0, 1, 5, 513, 700, 1000, 1030, 1031],
+                           dtype=torch.int32, device="cuda")
+    elif cur == "outside":
+        cur = torch.tensor([-1, 1, 1032, 513, 5000, 1000, -7, 1031],
+                           dtype=torch.int32, device="cuda")
+    if dtype == torch.int8:
+        stack, news = (torch.randint(-127, 128, shape, generator=cuda,
+                                     device="cuda", dtype=dtype)
+                       for shape in ((layers, b, ctx, c), (layers, b, 1, c)))
+    else:
+        stack = _randn(cuda, layers, b, ctx, c, dtype=dtype)
+        news = _randn(cuda, layers, b, 1, c, dtype=dtype)
+    want = cache.cache_row_update_plain(stack.clone(), news, cur)
+    before = common.LAUNCHES["cache_row_update"]
+    got = cache.cache_row_update(stack, news, cur)
+    assert common.LAUNCHES["cache_row_update"] == before + 1
+    assert got.data_ptr() == stack.data_ptr()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("variant", [(8192, 4, 1), (2048, 8, 1),
+                                     (4096, 4, 0)])
+@pytest.mark.parametrize("dtype,c", [(torch.bfloat16, 1536),
+                                     (torch.bfloat16, 6152),
+                                     (torch.int8, 8208)])
+@pytest.mark.parametrize("cur", [513, "outside"])
+def test_cache_row_update_bulk_design_is_exact(cuda, variant, dtype, c, cur):
+    """The 1-D bulk-copy design kept beside B10 for its A/B
+    (``csrc/cache_row_update_bulk.cu``; no wrapper launches it) at (chunk
+    bytes, stages, blocks an SM): rows of one piece and of a ragged last
+    piece, bit-exact, rows outside [0, ctx) unwritten."""
+    from enhancing_tpu_torch.ops import cuda_lib
+    layers, b, ctx = 24, 8, 1032
+    if cur == "outside":
+        cur = torch.tensor([-1, 1, 1032, 513, 5000, 1000, -7, 1031],
+                           dtype=torch.int32, device="cuda")
+    if dtype == torch.int8:
+        stack, news = (torch.randint(-127, 128, shape, generator=cuda,
+                                     device="cuda", dtype=dtype)
+                       for shape in ((layers, b, ctx, c), (layers, b, 1, c)))
+    else:
+        stack = _randn(cuda, layers, b, ctx, c, dtype=dtype)
+        news = _randn(cuda, layers, b, 1, c, dtype=dtype)
+    want = cache.cache_row_update_plain(stack.clone(), news, cur)
+    scalar = isinstance(cur, int)
+    cuda_lib.call("etk_cache_row_update_bulk", stack.data_ptr(),
+                  news.data_ptr(), None if scalar else cur.data_ptr(),
+                  cur if scalar else 0, layers, b, ctx,
+                  c * stack.element_size(), *variant, cuda_lib.stream())
+    torch.cuda.synchronize()
+    assert torch.equal(stack, want)
+
+
 def test_gpt_cached_decode_matches_full_forward_on_card(cuda):
     """Two layers at the prior's width (6144, 16 heads of 384) in bf16:
     prefill + teacher-forced decode steps (B9, B10) give the logits of the
