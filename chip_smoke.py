@@ -32,7 +32,9 @@ widths and depth (256 px, 8x8 patches, width 768, 12 heads of 64, MLP
   fp32) over its frozen tokenizer, batch 4 of FakeImages at 256 px;
 - RQ serving: the RQ-VAE tokenizer of ``imagenet_rqvae_base.yaml`` and
   the RQ prior of ``imagenet_rqtransformer_base.yaml`` over it (both held
-  as dicts) at full width and depth.
+  as dicts) at full width and depth, in bf16, fp32 and int8;
+- RQ training: ``Trainer.fit`` on that RQ prior at full width and depth
+  over its frozen RQ-VAE tokenizer, batch 4 of FakeImages at 256 px.
 
 Phases, each of which raises on failure:
 
@@ -154,11 +156,41 @@ Phases, each of which raises on failure:
     position, peak memory and one position's device time by kernel
     group; (c) the prior in its own fp32 over the prefill and 16 spatial
     steps with every position's depth loop, launches asserted, against
-    the plain path (phase 12's limits).
+    the plain path (phase 12's limits); (d) (b)'s prior in int8,
+    teacher-forced on (b)'s codes over the prefill and 32 spatial
+    positions with their depth loops: ``kv_int8`` alone (bf16 weights,
+    bf16 q on the int8 cache) against the plain path (phase 7's limits),
+    launches asserted; ``quantize_decode_params``, int8 against bf16
+    (argmax equal on more than half of the positions) and the int8
+    kernels against the int8 plain path (limits of their own: bf16 logits
+    of the depth stack and head); one int8
+    ``CondTransformer.sample`` of 8 labels with its launches asserted
+    exactly (B8 24, B9 24 x 1023, B10 2 x 1023, B12 24 x 1025, B13 24 x
+    1023, B14 24 x 1024, 16 384 short-route depth attentions, the
+    tokenizer's decode), codes/s, ms per spatial position, peak memory and
+    one position's device time by kernel group (its idle share);
+15. RQ training: ``configs/imagenet_rqtransformer_base.yaml``'s prior
+    through ``Trainer.fit`` at its published widths and full depth (24
+    spatial layers of 1536, 16 heads of 96; 4 depth layers, 8 heads of
+    192; 8192 codes, 1025 tokens x 4 depths) over its frozen fp32 RQ-VAE
+    (random weights), batch 4 of FakeImages: bf16 with fp32 master
+    weights for 3 steps, its own fp32 for 2, each then one validation
+    batch; as phase 13, one step's loss and per-leaf gradients against
+    the plain path first (codes encoded once), then the launches of each
+    step (B1 24, fp32 B2 12, B3 1, B4 4, B8 24 and B5 at D = 96 24, 4
+    depth attentions on the short route) and of the validation batch (no
+    B5) asserted exactly, finite losses, every prior parameter moved, ms a
+    step, peak memory and one step's device time by kernel group.
 
 Phases 3 and 4 hold and time B8 and B9 at the RQ prior's head dim 96 and
 B10 on its (24, 8, 1032, 1536) stack (and the int8 cache), on generators
-of their own. B10's phase-4 rows are also timed by CUDA-graph replay
+of their own; and at the shapes phases 14 (d) and 15 give the kernels, on
+generators of their own too: B5 at the RQ training batch's (4, 1025, 16,
+96) in bf16 and fp32, fp32 B8 there, B9 at D = 96 on the (24, 8, 1152,
+1536) int8 cache with fp32 and bf16 q, B10's int8 rows into that cache,
+B12 (qkv and proj), B13 (qkv with the shift) and B14 at width 1536; and
+B8 at both priors' training shapes 300 times, each call's bits equal to
+the first's. B10's phase-4 rows are also timed by CUDA-graph replay
 (device time: its eager calls are host-bound), given in the kernels line
 as ``graph_ms`` and ``library_graph_ms`` beside the events times in
 ``ms`` and ``library_ms``, which keep the meaning they have for every
@@ -405,6 +437,25 @@ RQ_SAMPLE_CALL = {"attention_bnhd": RQ_LAYERS,
                   "cache_row_update": 2 * P_STEPS,
                   "ln_gemm": 24, "attention": 12, "layernorm": 1}
 RQ_SAMPLE_SHORT = 1024 * RQ_DEPTH * RQ_DEPTH_LAYERS
+# configs/imagenet_rqtransformer_base.yaml's dataset batch_size (a CPU test
+# holds it), the batch phase 15 trains the RQ prior at
+RQ_TRAIN_BATCH = 4
+# the RQ prior's int8 spatial cache pads its context to a multiple of 128,
+# as the JAX module pads it (1025 -> 1152)
+RQ_INT8_CTX = -(-P_CTX // 128) * 128
+# per CondTransformer.sample of the int8 RQ prior, 8 images: the spatial
+# prefill (the int8 qkv and projection GEMMs and the int8 MLP a layer, B8
+# at N = 1), then per spatial step and layer the int8 LN + shift + qkv,
+# the int8 projection, the int8 MLP and B9 (fp32 q on the int8 cache), two
+# B10 row writes a step; no int8 head (the head is the depth path's, in
+# bf16), and the depth windows on the short route as in the bf16 sample
+RQ_INT8_SAMPLE_CALL = {"int8_gemm": 2 * RQ_LAYERS + RQ_LAYERS * P_STEPS,
+                       "int8_ln_gemm": RQ_LAYERS * P_STEPS,
+                       "int8_mlp": RQ_LAYERS + RQ_LAYERS * P_STEPS,
+                       "attention_bnhd": RQ_LAYERS,
+                       "decode_attention": RQ_LAYERS * P_STEPS,
+                       "cache_row_update": 2 * P_STEPS,
+                       "ln_gemm": 24, "attention": 12, "layernorm": 1}
 # the discriminator's activations at 256 px, batch 8: its 12 blur inputs
 # (each blurred with pads (2, 2) and (1, 1)) and its 15 bias + leaky ReLU
 # inputs, the last one the final linear's
@@ -894,6 +945,8 @@ def phase_compare() -> dict:
     compare_f32_fusions(gen, close, errs)
     compare_wide_bwd(gen, close, errs)
     compare_rq_kernels(close)
+    compare_rq_slice_kernels(close)
+    compare_repeats()
     torch.cuda.synchronize()
     return errs
 
@@ -951,12 +1004,13 @@ def compare_f32_ln_gemm(t, close) -> None:
         del wl
 
 
-def prior_stack(gen, cur, width=P_WIDTH):
+def prior_stack(gen, cur, width=P_WIDTH, ctx=P_CTX_PAD):
     """The prior's (L, B, ctx, C) k and v stacks at batch 8, bf16, with
     every row at or past each batch row's cur_len set to 1e6: a kernel that
-    read one would show it. ``width``: C (the RQ prior's 1536)."""
-    shape = (P_LAYERS, SAMPLE_BATCH, P_CTX_PAD, width)
-    dead = (torch.arange(P_CTX_PAD, device="cuda")[None, :]
+    read one would show it. ``width``: C (the RQ prior's 1536); ``ctx``:
+    the padded context (the RQ prior's int8 cache: 1152)."""
+    shape = (P_LAYERS, SAMPLE_BATCH, ctx, width)
+    dead = (torch.arange(ctx, device="cuda")[None, :]
             >= torch.as_tensor(cur, device="cuda").reshape(-1, 1))
     out = []
     for _ in range(2):
@@ -1123,13 +1177,13 @@ def own_limits(want, bf16: bool) -> dict:
     return dict(atol=1e-5 * top, rtol=1e-5)
 
 
-def prior_int8_inputs(gen) -> dict:
-    """The int8 decode step's operands at batch 8 on the prior's widths:
-    the fp32 residual stream, LayerNorm and time_mix, the bf16 shift state,
-    int8 twins of seeded bf16 weights (std 0.02, as the prior draws them)
-    and their biases."""
+def prior_int8_inputs(gen, c=P_WIDTH) -> dict:
+    """The int8 decode step's operands at batch 8 on the prior's widths
+    (``c``: the RQ prior's 1536): the fp32 residual stream, LayerNorm and
+    time_mix, the bf16 shift state, int8 twins of seeded bf16 weights (std
+    0.02, as the prior draws them) and their biases."""
     from enhancing_tpu_torch.ops import int8
-    b, c = SAMPLE_BATCH, P_WIDTH
+    b = SAMPLE_BATCH
 
     def twin(n, d):
         w = rand((n, d), gen, scale=0.02)
@@ -1170,7 +1224,6 @@ def compare_int8_kernels(gen, close, errs) -> None:
     """B11-B14 and B9's new dtype pairs against their plain versions at the
     int8 serving path's shapes, each line with the limit of its output;
     B1 at the LNFUSE sites and B10 on int8 rows."""
-    from enhancing_tpu_torch.ops import attention as att
     from enhancing_tpu_torch.ops import cache, int8
     from enhancing_tpu_torch.ops import ln_gemm as lg
     t = prior_int8_inputs(gen)
@@ -1252,29 +1305,45 @@ def compare_int8_kernels(gen, close, errs) -> None:
     del stack, news
 
     # B9's new (q, cache) pairs on the prior's stack, scalar and ragged
-    # cur_len; every row at or past cur_len is 1e6 (bf16) or 127 at a scale
-    # of 1e6 (int8)
-    hd, layer = P_WIDTH, 17
+    # cur_len
+    compare_decode_pairs(gen, close, ragged, P_WIDTH, P_HEAD_DIM, P_CTX_PAD,
+                         17, DECODE_PAIRS)
+
+
+# B9's (q, cache) pairs beside the bf16 pair: fp32 q on a bf16 cache (the
+# fp32 decode), fp32 and bf16 q on an int8 cache (int8 weights and not)
+DECODE_PAIRS = ((torch.float32, "bf16"), (torch.float32, "int8"),
+                (torch.bfloat16, "int8"))
+
+
+def compare_decode_pairs(gen, close, ragged, width, head_dim, ctx, layer,
+                         pairs) -> None:
+    """B9 on a (24, 8, ctx, width) stack at heads of ``head_dim`` for each
+    (q dtype, cache) of ``pairs``, at cur_len 513, 1024 and ``ragged``,
+    against its plain version and against the same function in fp32; every
+    row at or past cur_len is 1e6 (bf16) or 127 at a scale of 1e6
+    (int8)."""
+    from enhancing_tpu_torch.ops import attention as att
+    from enhancing_tpu_torch.ops import int8
     for cur, label in ((513, 513), (1024, 1024), (ragged, "ragged")):
-        kc, vc = prior_stack(gen, cur)
+        kc, vc = prior_stack(gen, cur, width, ctx)
         k8, ks = int8.quantize_channelwise(kc)
         v8, vs = int8.quantize_channelwise(vc)
-        dead = (torch.arange(P_CTX_PAD, device="cuda")[None, :]
+        dead = (torch.arange(ctx, device="cuda")[None, :]
                 >= torch.as_tensor(cur, device="cuda").reshape(-1, 1))
         for q8, sc in ((k8, ks), (v8, vs)):
             q8.masked_fill_(dead[None, :, :, None], 127)
             sc.masked_fill_(dead[None], 1e6)
-        for q_dtype, kv in ((torch.float32, "bf16"),
-                            (torch.float32, "int8"),
-                            (torch.bfloat16, "int8")):
-            q3 = rand((SAMPLE_BATCH, hd), gen, q_dtype, P_HEAD_DIM ** -0.5)
+        for q_dtype, kv in pairs:
+            q3 = rand((SAMPLE_BATCH, width), gen, q_dtype,
+                      head_dim ** -0.5)
             new_dtype = q_dtype if kv == "int8" else torch.bfloat16
-            kn, vn = (rand((SAMPLE_BATCH, hd), gen, new_dtype)
+            kn, vn = (rand((SAMPLE_BATCH, width), gen, new_dtype)
                       for _ in range(2))
             stacks = ((kc, vc, None, None) if kv == "bf16"
                       else (k8, v8, ks, vs))
             got = att.decode_attention_kernel(q3, stacks[0], stacks[1], kn,
-                                              vn, cur, layer, P_HEAD_DIM,
+                                              vn, cur, layer, head_dim,
                                               stacks[2], stacks[3])
             what = (f"decode_attention q {q_dtype} cache {kv} stack "
                     f"{tuple(kc.shape)} layer {layer} cur_len {label}")
@@ -1286,10 +1355,10 @@ def compare_int8_kernels(gen, close, errs) -> None:
                 kp, vp = att.dequant_cache(kp, vp, stacks[2][layer],
                                            stacks[3][layer], q_dtype)
             want = att.decode_attention_plain(q3, kp, vp, kn, vn, cur,
-                                              P_HEAD_DIM)
+                                              head_dim)
             want32 = att.decode_attention_plain(
                 q3.float(), k32, v32, kn.float(), vn.float(), cur,
-                P_HEAD_DIM)
+                head_dim)
             # every limit from each batch row's own largest |plain| (as
             # in compare_prior_kernels)
             if torch.bfloat16 in (q_dtype, kp.dtype):
@@ -1524,6 +1593,7 @@ def phase_times() -> dict:
     time_f32_fusions(gen, row)
     time_wide_bwd(gen, row)
     time_rq_kernels(row)
+    time_rq_slice_kernels(row)
     return rows
 
 
@@ -1670,6 +1740,255 @@ def time_rq_kernels(row) -> None:
         lambda: cache.cache_row_update_plain(kc, news, cur),
         lambda: kc.__setitem__((slice(None), rows_b, cur_b), news[:, :, 0]),
         0.0, 2 * news.numel() * 2, PEAK_BF16, 50, graph=True)
+
+
+# calls of the attention forwards at the priors' training shapes that must
+# give the same bits as the first: attn_f32_wide_kernel once read a ring
+# stage before its load had landed, in about one call of 200
+REPEAT_CALLS = 300
+
+
+def compare_repeats() -> None:
+    """B8 at the priors' training shapes, each REPEAT_CALLS times on the
+    same inputs (a generator of its own): every call's output equal to the
+    first bit for bit. fp32 and bf16 at the GPT prior's (4, 1025, 16, 384)
+    and the RQ prior's (4, 1025, 16, 96), prefix-causal with cond_len 1."""
+    from enhancing_tpu_torch.ops import attention as att
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    for d, h in ((P_HEAD_DIM, P_HEADS), (RQ_HEAD_DIM, RQ_HEADS)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (rand((PRIOR_TRAIN_BATCH, P_CTX, h, d), gen, dtype)
+                       for _ in range(3))
+            first = att.attention_bnhd_kernel(q, k, v, d ** -0.5,
+                                              "prefix_causal", 1)
+            differ = sum(not torch.equal(first, att.attention_bnhd_kernel(
+                q, k, v, d ** -0.5, "prefix_causal", 1))
+                for _ in range(REPEAT_CALLS))
+            label = (f"attention_bnhd {str(dtype)[6:]} prefix_causal B="
+                     f"{PRIOR_TRAIN_BATCH} N={P_CTX} H={h} D={d}")
+            verdict = "FAIL" if differ else "pass"
+            log(f"[compare] {label}: {differ} of {REPEAT_CALLS} calls differ "
+                f"from the first (tol 0) -> {verdict}")
+            check(not differ, f"{label}: calls on the same inputs differ")
+            del q, k, v, first
+
+
+def compare_rq_slice_kernels(close) -> None:
+    """The kernels at the shapes the RQ prior's training (phase 15) and int8
+    serving (phase 14 (d)) give them, against their plain versions at
+    phase 3's limits, on a generator of their own: B5 at the training
+    batch's (4, 1025, 16, 96), prefix-causal with cond_len 1, bf16 and fp32
+    (:func:`hold_bwd`); B8 at that shape in fp32; B9 at D = 96 on the
+    (24, 8, 1152, 1536) int8 cache, fp32 and bf16 q; B10's int8 rows into
+    that cache; B12 (qkv and proj), B13 (qkv with the shift) and B14 at
+    width 1536."""
+    from enhancing_tpu_torch.ops import attention as att
+    from enhancing_tpu_torch.ops import cache, int8
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    b, n, h, d = RQ_TRAIN_BATCH, P_CTX, RQ_HEADS, RQ_HEAD_DIM
+    for dtype, name in ((torch.bfloat16, "attention_bwd"),
+                        (torch.float32, "attention_bwd_f32")):
+        hold_bwd(gen, close, name, dtype, b, n, h, d, "prefix_causal", 1)
+    q, k, v = (rand((b, n, h, d), gen, torch.float32) for _ in range(3))
+    close("attention_bnhd_f32", f"attention_bnhd f32 prefix_causal cond_len "
+          f"1 B={b} N={n} H={h} D={d} (the RQ prior's training)",
+          att.attention_bnhd_kernel(q, k, v, d ** -0.5, "prefix_causal", 1),
+          att.attention_bnhd_plain(q, k, v, d ** -0.5, "prefix_causal", 1),
+          **F32_TOL)
+    del q, k, v
+    gc_cuda()
+
+    ragged = torch.tensor([1, 100, 255, 256, 511, 513, 900, 1024],
+                          dtype=torch.int32, device="cuda")
+    compare_decode_pairs(gen, close, ragged, RQ_WIDTH, d, RQ_INT8_CTX, 5,
+                         DECODE_PAIRS[1:])
+    shape = (RQ_LAYERS, SAMPLE_BATCH, RQ_INT8_CTX, RQ_WIDTH)
+    stack = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                          dtype=torch.int8)
+    news = torch.randint(-127, 128, shape[:2] + (1, RQ_WIDTH), generator=gen,
+                         device="cuda", dtype=torch.int8)
+    outside = torch.tensor([-3, 0, 1, 513, RQ_INT8_CTX, RQ_INT8_CTX + 9,
+                            1024, 1031], dtype=torch.int32, device="cuda")
+    for cur, label in ((513, 513), (ragged, "ragged"),
+                       (outside, "ragged, rows outside [0, ctx)")):
+        want = cache.cache_row_update_plain(stack.clone(), news, cur)
+        got = cache.cache_row_update_kernel(stack, news, cur)
+        close("cache_row_update", f"cache_row_update int8 {shape} cur_len "
+              f"{label} (the RQ prior)", got, want, atol=0.0, rtol=0.0)
+        del want
+    del stack, news
+
+    t = prior_int8_inputs(gen, RQ_WIDTH)
+    x, x16 = t["x"], t["x16"]
+    c = RQ_WIDTH
+
+    def line(name, label, got, want, bf16=False):
+        close(name, label + " (the RQ prior)", got, want,
+              **own_limits(want, bf16))
+
+    line("int8_gemm", f"int8_gemm prefill qkv bf16 x (8, {c}) -> {3 * c}",
+         int8.int8_gemm_kernel(x16, t["qkv_q"], t["qkv_s"], t["qkv_b"]),
+         int8.int8_gemm_plain(x16, t["qkv_q"], t["qkv_s"], t["qkv_b"]),
+         bf16=True)
+    line("int8_gemm", f"int8_gemm decode proj f32 x (8, {c}) -> {c}",
+         int8.int8_gemm_kernel(x, t["proj_q"], t["proj_s"], t["proj_b"]),
+         int8.int8_gemm_plain(x, t["proj_q"], t["proj_s"], t["proj_b"]))
+    args = (x, t["gamma"], t["beta"], t["tm"], t["prev"], t["qkv_q"],
+            t["qkv_s"], t["qkv_b"])
+    got, got_xn = int8.int8_ln_gemm_kernel(*args)
+    want, want_xn = int8.int8_ln_gemm_plain(*args)
+    label = f"int8_ln_gemm qkv with shift f32 x (8, {c}) -> {3 * c}"
+    line("int8_ln_gemm", label, got, want)
+    line("int8_ln_gemm", label + ", LN(x)", got_xn, want_xn)
+    mlp = (x, t["gamma"], t["beta"], t["p0_q"], t["p0_s"], t["p0_b"],
+           t["p1_q"], t["p1_s"], t["p1_b"], x)
+    line("int8_mlp", f"int8_mlp f32 x (8, {c}), hidden {4 * c}",
+         int8.int8_mlp_kernel(*mlp), int8.int8_mlp_plain(*mlp))
+    del t, mlp, got, want, got_xn, want_xn
+    gc_cuda()
+
+
+def time_rq_slice_kernels(row) -> None:
+    """The kernels at the RQ prior's training and int8 serving shapes (those
+    of :func:`compare_rq_slice_kernels`), on a generator of their own: B5
+    bf16 and fp32 (:func:`time_bwd`), fp32 B8 (library: fp32 SDPA
+    ``is_causal``), B9 at cur_len 512 of the int8 cache with fp32 and bf16
+    q, three layers in turn (library: SDPA on the cache dequantised and
+    concatenated beforehand, neither timed), B10's int8 rows (also by
+    CUDA-graph replay), B12-B14 (library: F.linear on the weights
+    dequantised beforehand; B14 F.linear, squared ReLU, F.linear)."""
+    from enhancing_tpu_torch.ops import attention as att
+    from enhancing_tpu_torch.ops import cache, int8
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    b, n, h, d = RQ_TRAIN_BATCH, P_CTX, RQ_HEADS, RQ_HEAD_DIM
+    c = RQ_WIDTH
+    for dtype, name, iters in ((torch.bfloat16, "attention_bwd", 10),
+                               (torch.float32, "attention_bwd_f32", 5)):
+        time_bwd(gen, row, name, dtype, b, n, h, d, iters)
+    q, k, v = (rand((b, n, h, d), gen, torch.float32) for _ in range(3))
+    qt, kt, vt = (u.transpose(1, 2) for u in (q, k, v))
+    pairs = b * h * n * (n + 1) / 2
+    row("attention_bnhd_f32", f"attention_bnhd f32 prefix_causal B={b} N={n} "
+        f"H={h} D={d} (the RQ prior's training; library: SDPA fp32 "
+        "is_causal)",
+        lambda: att.attention_bnhd_kernel(q, k, v, d ** -0.5,
+                                          "prefix_causal", 1),
+        lambda: att.attention_bnhd_plain(q, k, v, d ** -0.5, "prefix_causal",
+                                         1),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               scale=d ** -0.5),
+        4.0 * pairs * d, 4 * b * n * c * 4, PEAK_F32, 10)
+    del q, k, v, qt, kt, vt
+    gc_cuda()
+
+    bs, cur, layers = SAMPLE_BATCH, 512, [3, 10, 17]
+    kc, vc = prior_stack(gen, 1024, c, RQ_INT8_CTX)
+    k8, ks = int8.quantize_channelwise(kc)
+    v8, vs = int8.quantize_channelwise(vc)
+    del kc, vc
+    split = lambda u: u.view(bs, -1, h, d).transpose(1, 2)  # noqa: E731
+    for q_dtype, peak in ((torch.float32, PEAK_F32),
+                          (torch.bfloat16, PEAK_BF16)):
+        q3 = rand((bs, c), gen, q_dtype, d ** -0.5)
+        kn, vn = (rand((bs, c), gen, q_dtype) for _ in range(2))
+        kd, vd = att.dequant_cache(k8[layers[0], :, :cur],
+                                   v8[layers[0], :, :cur],
+                                   ks[layers[0], :, :cur],
+                                   vs[layers[0], :, :cur], q_dtype)
+        k_cat = torch.cat([split(kd), split(kn[:, None])], 2)
+        v_cat = torch.cat([split(vd), split(vn[:, None])], 2)
+        q_l = split(q3[:, None])
+        size = q_dtype.itemsize
+        row("decode_attention", f"decode_attention int8 cache, "
+            f"{str(q_dtype)[6:]} q, B={bs} D={d} cur_len {cur} of the "
+            f"{tuple(k8.shape)} stack (the RQ prior), 3 layers in turn (SDPA"
+            " on the dequantised, concatenated k, v: neither timed)",
+            cycling(lambda li: att.decode_attention_kernel(  # noqa: B023
+                q3, k8, v8, kn, vn, cur, li, d, ks, vs), layers),
+            lambda: att.decode_attention_plain(  # noqa: B023
+                q3, *att.dequant_cache(k8[layers[0]], v8[layers[0]],
+                                       ks[layers[0]], vs[layers[0]],
+                                       q_dtype), kn, vn, cur, d),
+            lambda: F.scaled_dot_product_attention(  # noqa: B023
+                q_l, k_cat, v_cat, scale=1.0),
+            4.0 * bs * c * (cur + 1),
+            2 * bs * cur * c + 2 * bs * cur * 4 + 4 * bs * c * size, peak, 50)
+        del kd, vd, k_cat, v_cat
+    news = torch.randint(-127, 128, (RQ_LAYERS, bs, 1, c), generator=gen,
+                         device="cuda", dtype=torch.int8)
+    rows_b = torch.arange(bs, device="cuda")
+    cur_b = torch.full((bs,), cur, device="cuda")
+    row("cache_row_update", f"cache_row_update int8 {tuple(k8.shape)} "
+        f"cur_len {cur} (the RQ prior; library: cache[:, arange(B), cur] = "
+        "news)",
+        lambda: cache.cache_row_update_kernel(k8, news, cur),
+        lambda: cache.cache_row_update_plain(k8, news, cur),
+        lambda: k8.__setitem__((slice(None), rows_b, cur_b), news[:, :, 0]),
+        0.0, 2 * news.numel(), PEAK_BF16, 50, graph=True)
+    del k8, v8, ks, vs, news
+    gc_cuda()
+
+    t = prior_int8_inputs(gen, c)
+    x, x16 = t["x"], t["x16"]
+    f4, h2 = bs * c * 4, bs * c * 2  # an fp32 / bf16 (8, 1536) activation
+
+    def deq(name, dtype):
+        return (t[name + "_q"].float() * t[name + "_s"][:, None]).to(dtype)
+
+    copies = [(t["proj_q"].clone(), t["proj_s"].clone()) for _ in range(3)]
+    w32 = deq("proj", torch.float32)
+    row("int8_gemm", f"int8_gemm decode proj f32 x (8, {c}) -> {c} (the RQ "
+        "prior; 3 weight copies in turn)",
+        cycling(lambda w: int8.int8_gemm_kernel(x, w[0], w[1], t["proj_b"]),
+                copies),
+        lambda: int8.int8_gemm_plain(x, t["proj_q"], t["proj_s"],
+                                     t["proj_b"]),
+        lambda: F.linear(x, w32, t["proj_b"].float()),
+        2.0 * bs * c * c, 2 * f4 + c * c + c * 6, PEAK_F32, 50)
+    w16 = deq("qkv", torch.bfloat16)
+    row("int8_gemm", f"int8_gemm prefill qkv bf16 x (8, {c}) -> {3 * c} (the"
+        " RQ prior)",
+        lambda: int8.int8_gemm_kernel(x16, t["qkv_q"], t["qkv_s"],
+                                      t["qkv_b"]),
+        lambda: int8.int8_gemm_plain(x16, t["qkv_q"], t["qkv_s"], t["qkv_b"]),
+        lambda: F.linear(x16, w16, t["qkv_b"]),
+        2.0 * bs * c * 3 * c, h2 * 4 + 3 * c * c + 3 * c * 6, PEAK_F32, 50)
+    w32 = deq("qkv", torch.float32)
+    row("int8_ln_gemm", f"int8_ln_gemm decode qkv + shift f32 x (8, {c}) -> "
+        f"{3 * c} (the RQ prior)",
+        lambda: int8.int8_ln_gemm_kernel(x, t["gamma"], t["beta"], t["tm"],
+                                         t["prev"], t["qkv_q"], t["qkv_s"],
+                                         t["qkv_b"]),
+        lambda: int8.int8_ln_gemm_plain(x, t["gamma"], t["beta"], t["tm"],
+                                        t["prev"], t["qkv_q"], t["qkv_s"],
+                                        t["qkv_b"]),
+        lambda: F.linear(x, w32, t["qkv_b"].float()),
+        2.0 * bs * c * 3 * c,
+        2 * f4 + 3 * c * 4 + h2 + 3 * c * c + 3 * c * 6 + 3 * f4, PEAK_F32,
+        50)
+    mlp = (x, t["gamma"], t["beta"], t["p0_q"], t["p0_s"], t["p0_b"],
+           t["p1_q"], t["p1_s"], t["p1_b"], x)
+    w0, w1 = deq("p0", torch.float32), deq("p1", torch.float32)
+    b0, b1 = t["p0_b"].float(), t["p1_b"].float()
+    row("int8_mlp", f"int8_mlp f32 x (8, {c}), hidden {4 * c} (the RQ prior;"
+        " library: F.linear, squared ReLU, F.linear on the dequantised "
+        "weights)",
+        lambda: int8.int8_mlp_kernel(*mlp), lambda: int8.int8_mlp_plain(*mlp),
+        lambda: F.linear(torch.square(torch.relu(F.linear(x, w0, b0))), w1,
+                         b1),
+        4.0 * bs * c * 4 * c,
+        2 * f4 + 2 * c * 4 + 8 * c * c + 4 * c * 6 + c * 6, PEAK_F32, 50)
+    ln_gemm = (x, t["gamma"], t["beta"], t["tm"], t["prev"], t["qkv_q"],
+               t["qkv_s"], t["qkv_b"])
+    dev = {"proj": device_ms(lambda: int8.int8_gemm_kernel(
+               x, t["proj_q"], t["proj_s"], t["proj_b"])),
+           "qkv + shift": device_ms(
+               lambda: int8.int8_ln_gemm_kernel(*ln_gemm)),
+           "mlp": device_ms(lambda: int8.int8_mlp_kernel(*mlp))}
+    log("[time] the RQ prior's int8 decode calls, device ms (torch.profiler,"
+        " 20 calls): " + ", ".join(f"{k} {v:.4f}" for k, v in dev.items()))
+    del t, mlp, copies, w32, w16, w0, w1
+    gc_cuda()
 
 
 def cycling(fn, copies):
@@ -2451,63 +2770,69 @@ def worst_band_rel(got, want, h, d) -> float:
 
 
 def compare_wide_bwd(gen, close, errs) -> None:
-    """B5 at D = 384 against autograd of its plain version, on the lane
-    slices of a qkv buffer: B 2, H 16, N 1025 and a ragged 77, both masks
-    (prefix-causal with cond_len 1); bf16 at B5's D <= 128 limit (2^-6 of
-    the largest |plain| + 2^-6 relative), fp32 at the fp32 backward's
-    (F32_BWD_TOL); besides, every (batch, head, 64-row) band within
-    BAND_REL of the plain version in fp32 (worst_band_rel); two calls give
-    the same bits."""
-    from enhancing_tpu_torch.ops import attention as att
-    d, h = P_HEAD_DIM, P_HEADS
+    """B5 at D = 384 against autograd of its plain version
+    (:func:`hold_bwd`): B 2, H 16, N 1025 and a ragged 77, both masks
+    (prefix-causal with cond_len 1), bf16 and fp32."""
     for dtype, name in ((torch.bfloat16, "attention_bwd_wide"),
                         (torch.float32, "attention_bwd_wide_f32")):
         for (b, n, mode, cl) in ((2, P_CTX, "prefix_causal", 1),
                                  (2, P_CTX, "none", 0),
                                  (2, 77, "prefix_causal", 1),
                                  (2, 77, "none", 0)):
-            qkv = rand((b, n, 3 * h * d), gen, dtype)
-            q3, k3, v3 = att.split_qkv_scaled(qkv, d ** -0.5)
-            do = rand((b, n, h * d), gen, dtype)
-            got = att.attention_bwd_kernel(q3, k3, v3, do, h, d, mode, cl)
-            again = att.attention_bwd_kernel(q3, k3, v3, do, h, d, mode, cl)
-            want = att.attention_bwd_plain(q3, k3, v3, do, h, d, mode, cl)
-            want32 = (want if dtype == torch.float32 else
-                      att.attention_bwd_plain(*(t.float() for t in (
-                          q3, k3, v3, do)), h, d, mode, cl))
-            same = all(torch.equal(x, y) for x, y in zip(got, again))
-            check(same, f"{name} N={n} {mode}: two calls differ")
-            for gname, g, w, w32 in zip("qkv", got, want, want32):
-                tol = (F32_BWD_TOL if dtype == torch.float32 else
-                       dict(atol=2.0 ** -6 * float(w.float().abs().max()),
-                            rtol=2.0 ** -6))
-                label = (f"{name} {str(dtype)[6:]} d{gname} {mode} "
-                         f"B={b} N={n} H={h} D={d}")
-                close(name, label + " (two calls bit-equal)", g, w, **tol)
-                rel = worst_band_rel(g, w32, h, d)
-                ok = rel <= BAND_REL[dtype]
-                log(f"[compare] {label}: median |plain| "
-                    f"{float(w.float().abs().median()):.3e}, largest "
-                    f"{float(w.float().abs().max()):.3e}; worst {BAND}-row "
-                    f"band ||err||/||fp32 plain|| {rel:.3e} limit "
-                    f"{BAND_REL[dtype]:g} -> {'pass' if ok else 'FAIL'}")
-                check(ok, f"{label}: a {BAND}-row band disagrees")
-                if gname == "q" and n >= 2 * BAND:
-                    # the band limit fails a dq twice its limit off past the
-                    # first band, however the elementwise one takes it
-                    bad = g.clone()
-                    bad[:, BAND:] *= 1.0 + 2.0 * BAND_REL[dtype]
-                    err = (bad.float() - w.float()).abs()
-                    elem = bool((err <= tol["atol"] + tol["rtol"]
-                                 * w.float().abs()).all())
-                    rel = worst_band_rel(bad, w32, h, d)
-                    log(f"[compare] {label}, dq x{1 + 2 * BAND_REL[dtype]:g} "
-                        f"past row {BAND}: elementwise limit "
-                        f"{'passes' if elem else 'fails'} it, band "
-                        f"{rel:.3e} fails it: {rel > BAND_REL[dtype]}")
-                    check(rel > BAND_REL[dtype], f"{label}: the band limit "
-                          "passes a dq off past the first band")
-            del qkv, q3, k3, v3, do, got, again, want, want32
+            hold_bwd(gen, close, name, dtype, b, n, P_HEADS, P_HEAD_DIM,
+                     mode, cl)
+
+
+def hold_bwd(gen, close, name, dtype, b, n, h, d, mode, cl) -> None:
+    """B5 on the lane slices of a (B, N, 3 H D) qkv buffer against autograd
+    of its plain version: bf16 at B5's D <= 128 limit (2^-6 of the largest
+    |plain| + 2^-6 relative), fp32 at the fp32 backward's (F32_BWD_TOL);
+    besides, every (batch, head, 64-row) band within BAND_REL of the plain
+    version in fp32 (worst_band_rel), and a dq made wrong past the first
+    band failed by it; two calls give the same bits."""
+    from enhancing_tpu_torch.ops import attention as att
+    qkv = rand((b, n, 3 * h * d), gen, dtype)
+    q3, k3, v3 = att.split_qkv_scaled(qkv, d ** -0.5)
+    do = rand((b, n, h * d), gen, dtype)
+    got = att.attention_bwd_kernel(q3, k3, v3, do, h, d, mode, cl)
+    again = att.attention_bwd_kernel(q3, k3, v3, do, h, d, mode, cl)
+    want = att.attention_bwd_plain(q3, k3, v3, do, h, d, mode, cl)
+    want32 = (want if dtype == torch.float32 else
+              att.attention_bwd_plain(*(t.float() for t in (
+                  q3, k3, v3, do)), h, d, mode, cl))
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    check(same, f"{name} N={n} {mode}: two calls differ")
+    for gname, g, w, w32 in zip("qkv", got, want, want32):
+        tol = (F32_BWD_TOL if dtype == torch.float32 else
+               dict(atol=2.0 ** -6 * float(w.float().abs().max()),
+                    rtol=2.0 ** -6))
+        label = (f"{name} {str(dtype)[6:]} d{gname} {mode} "
+                 f"B={b} N={n} H={h} D={d}")
+        close(name, label + " (two calls bit-equal)", g, w, **tol)
+        rel = worst_band_rel(g, w32, h, d)
+        ok = rel <= BAND_REL[dtype]
+        log(f"[compare] {label}: median |plain| "
+            f"{float(w.float().abs().median()):.3e}, largest "
+            f"{float(w.float().abs().max()):.3e}; worst {BAND}-row "
+            f"band ||err||/||fp32 plain|| {rel:.3e} limit "
+            f"{BAND_REL[dtype]:g} -> {'pass' if ok else 'FAIL'}")
+        check(ok, f"{label}: a {BAND}-row band disagrees")
+        if gname == "q" and n >= 2 * BAND:
+            # the band limit fails a dq twice its limit off past the
+            # first band, however the elementwise one takes it
+            bad = g.clone()
+            bad[:, BAND:] *= 1.0 + 2.0 * BAND_REL[dtype]
+            err = (bad.float() - w.float()).abs()
+            elem = bool((err <= tol["atol"] + tol["rtol"]
+                         * w.float().abs()).all())
+            rel = worst_band_rel(bad, w32, h, d)
+            log(f"[compare] {label}, dq x{1 + 2 * BAND_REL[dtype]:g} "
+                f"past row {BAND}: elementwise limit "
+                f"{'passes' if elem else 'fails'} it, band "
+                f"{rel:.3e} fails it: {rel > BAND_REL[dtype]}")
+            check(rel > BAND_REL[dtype], f"{label}: the band limit "
+                  "passes a dq off past the first band")
+    del qkv, q3, k3, v3, do, got, again, want, want32
 
 
 def fastest_sdpa_backward(q, k, v, do, iters):
@@ -2539,33 +2864,38 @@ def fastest_sdpa_backward(q, k, v, do, iters):
 
 def time_wide_bwd(gen, row) -> None:
     """B5 at D = 384, bf16 and fp32, at the prior's training batch (B 4,
-    H 16, N 1025, prefix-causal with cond_len 1, which is causal): the
-    bound as B5's row computes it, on the causal half of the score tile
-    (N (N + 1) / 2 pairs a (batch, head): this run's work); the library
-    call is the fastest SDPA backward that takes D = 384 (is_causal, one
-    backend at a time; the backend named on the line)."""
-    from enhancing_tpu_torch.ops import attention as att
-    b, n, h, d = PRIOR_TRAIN_BATCH, P_CTX, P_HEADS, P_HEAD_DIM
-    pairs = b * h * n * (n + 1) / 2
+    H 16, N 1025): :func:`time_bwd`."""
     for dtype, name, iters in ((torch.bfloat16, "attention_bwd_wide", 10),
                                (torch.float32, "attention_bwd_wide_f32", 3)):
-        qkv = rand((b, n, 3 * h * d), gen, dtype)
-        q3, k3, v3 = att.split_qkv_scaled(qkv, d ** -0.5)
-        do = rand((b, n, h * d), gen, dtype)
-        qt, kt, vt, dot = (t.reshape(b, n, h, d).transpose(1, 2)
-                           for t in (q3, k3, v3, do))
-        lib, backend, refused = fastest_sdpa_backward(qt, kt, vt, dot, iters)
-        row(name, f"{name} {str(dtype)[6:]} prefix_causal cond_len 1 B={b} "
-            f"N={n} H={h} D={d} (library: SDPA backward, backend {backend}; "
-            f"refused at D={d}: {', '.join(refused) or 'none'})",
-            lambda: att.attention_bwd_kernel(  # noqa: B023
-                q3, k3, v3, do, h, d, "prefix_causal", 1),
-            lambda: att.attention_bwd_plain(  # noqa: B023
-                q3, k3, v3, do, h, d, "prefix_causal", 1),
-            lib, 10.0 * pairs * d, 7 * b * n * h * d * dtype.itemsize,
-            PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32, iters)
-        del qkv, q3, k3, v3, do, qt, kt, vt, dot, lib
-        gc_cuda()
+        time_bwd(gen, row, name, dtype, PRIOR_TRAIN_BATCH, P_CTX, P_HEADS,
+                 P_HEAD_DIM, iters)
+
+
+def time_bwd(gen, row, name, dtype, b, n, h, d, iters) -> None:
+    """B5 prefix-causal with cond_len 1 (which is causal) on (B, N, H*D)
+    lane slices: the bound as B5's row computes it, on the causal half of
+    the score tile (N (N + 1) / 2 pairs a (batch, head): this run's work);
+    the library call is the fastest SDPA backward that takes the head dim
+    (is_causal, one backend at a time; the backend named on the line)."""
+    from enhancing_tpu_torch.ops import attention as att
+    pairs = b * h * n * (n + 1) / 2
+    qkv = rand((b, n, 3 * h * d), gen, dtype)
+    q3, k3, v3 = att.split_qkv_scaled(qkv, d ** -0.5)
+    do = rand((b, n, h * d), gen, dtype)
+    qt, kt, vt, dot = (t.reshape(b, n, h, d).transpose(1, 2)
+                       for t in (q3, k3, v3, do))
+    lib, backend, refused = fastest_sdpa_backward(qt, kt, vt, dot, iters)
+    row(name, f"{name} {str(dtype)[6:]} prefix_causal cond_len 1 B={b} "
+        f"N={n} H={h} D={d} (library: SDPA backward, backend {backend}; "
+        f"refused at D={d}: {', '.join(refused) or 'none'})",
+        lambda: att.attention_bwd_kernel(q3, k3, v3, do, h, d,
+                                         "prefix_causal", 1),
+        lambda: att.attention_bwd_plain(q3, k3, v3, do, h, d,
+                                        "prefix_causal", 1),
+        lib, 10.0 * pairs * d, 7 * b * n * h * d * dtype.itemsize,
+        PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32, iters)
+    del qkv, q3, k3, v3, do, qt, kt, vt, dot, lib
+    gc_cuda()
 
 
 def kernel_counts() -> dict:
@@ -3172,18 +3502,20 @@ def phase_fused_routes(x8) -> dict:
 class StepRecorder:
     """The trainer's metrics logger: at each log call (after every step
     and once after validation) it keeps the launch counts (raw and by
-    kernels-line name) and plain-call counts, the host clock and the
-    metrics."""
+    kernels-line name), the short-route attentions and plain-call counts,
+    the host clock and the metrics."""
 
     def __init__(self) -> None:
         self.records: list = []
 
     def log_metrics(self, metrics: dict, step: int) -> None:
-        from enhancing_tpu_torch.ops import LAUNCHES, PLAIN_CALLS
+        from enhancing_tpu_torch.ops import (LAUNCHES, PLAIN_CALLS,
+                                             SHORT_CALLS)
         torch.cuda.synchronize()
         self.records.append(dict(step=step, t=time.perf_counter(),
                                  launches=dict(LAUNCHES),
                                  counts=kernel_counts(),
+                                 short=SHORT_CALLS["attention_bnhd"],
                                  plain=dict(PLAIN_CALLS), metrics=metrics))
 
 
@@ -3829,16 +4161,20 @@ def prior_train_config(dtype: str, layers: int) -> dict:
     model = json.loads(json.dumps(GPT_VITVQ_BASE))
     prior = model["params"]["transformer"]["params"]
     prior["n_layers"], prior["dtype"] = layers, dtype
+    return {"model": model, "dataset": fake_imagenet(PRIOR_TRAIN_BATCH)}
+
+
+def fake_imagenet(batch: int) -> dict:
+    """A FakeImages dataset in place of ImageNet: 256 px, 1000 classes, a
+    validation split of one batch."""
     fake = {"target": _FAKE, "params": {"resolution": 256,
                                         "num_classes": 1000}}
-    data = {"target": "enhancing_tpu_torch.data.DataModuleFromConfig",
-            "params": {"batch_size": PRIOR_TRAIN_BATCH, "num_workers": 2,
+    return {"target": "enhancing_tpu_torch.data.DataModuleFromConfig",
+            "params": {"batch_size": batch, "num_workers": 2,
                        "train": {**fake, "params": {**fake["params"],
                                                     "length": 64, "seed": 1}},
                        "validation": {**fake, "params": {
-                           **fake["params"], "length": PRIOR_TRAIN_BATCH,
-                           "seed": 2}}}}
-    return {"model": model, "dataset": data}
+                           **fake["params"], "length": batch, "seed": 2}}}}
 
 
 def prior_step_launches(dtype: str, layers: int, backward: bool) -> dict:
@@ -3889,11 +4225,35 @@ def prior_grads(model, codes, conds):
 
 
 def phase_prior_train() -> dict:
-    """PRIOR_RUNS through Trainer.fit, each: one step's loss and gradients
+    """PRIOR_RUNS through Trainer.fit (:func:`train_prior`)."""
+    total: dict = {}
+    for dtype, layers, steps in PRIOR_RUNS:
+        counts = train_prior(
+            f"[prior-train {dtype[:4]}]", prior_train_config(dtype, layers),
+            dtype, steps,
+            lambda backward: prior_step_launches(  # noqa: B023
+                dtype, layers, backward), 0,
+            f"imagenet_gpt_vitvq_base.yaml: n_layers 24 -> {layers} "
+            f"({PRIOR_DEPTH_REASON}); width {P_WIDTH}, {P_HEADS} heads of "
+            f"{P_HEAD_DIM}, {P_VOCAB} codes, {P_CTX} tokens; prior compute "
+            f"{dtype}, fp32 master weights; frozen ViT-VQGAN-Base tokenizer "
+            f"fp32, random weights; FakeImages 256 px, 1000 classes, batch "
+            f"{PRIOR_TRAIN_BATCH}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def train_prior(tag, cfg, dtype, steps, launches, short, what) -> dict:
+    """One prior (``cfg``: the config's model with the prior's ``dtype``, and
+    a dataset) through Trainer.fit: first one step's loss and gradients
     through the kernels against the plain path from the same weights and
-    batch, then the steps and a validation batch with their launches
-    asserted exactly, finite losses, every prior parameter moved, ms a step
-    and peak memory, one more step's device time by group."""
+    codes (the tokenizer's, through its kernels, encoded once); then
+    ``steps`` steps and a validation batch with their launches asserted
+    exactly (``launches(backward)`` by kernels-line name, and ``short``
+    short-route attentions each), finite losses, every prior parameter
+    moved, ms a step and peak memory, one more step's device time by
+    group. Returns the launches of the steps and the validation."""
     from enhancing_tpu_torch.models.stage2 import fp32_master_weights
     from enhancing_tpu_torch.ops import reset_launches
     from enhancing_tpu_torch.train import (Trainer,
@@ -3902,98 +4262,87 @@ def phase_prior_train() -> dict:
     limits = {"bfloat16": (LOSS_RTOL_LIMIT, 0.999, PRIOR_KEY_BIAS_LIMIT[0]),
               "float32": (F32_LOSS_RTOL_LIMIT, F32_COS_LIMIT,
                           PRIOR_KEY_BIAS_LIMIT[1])}
-    total: dict = {}
-    for dtype, layers, steps in PRIOR_RUNS:
-        gc_cuda()
-        tag = f"[prior-train {dtype[:4]}]"
-        cfg = prior_train_config(dtype, layers)
-        t0 = time.perf_counter()
-        model = initialize_from_config(cfg["model"], device="cuda")
-        data = initialize_from_config(cfg["dataset"])
-        data.setup()
-        gpt = fp32_master_weights(model.transformer)
-        names = [n for n, _ in gpt.named_parameters()]
-        n_params = sum(p.numel() for p in gpt.parameters())
-        log(f"{tag} imagenet_gpt_vitvq_base.yaml: n_layers 24 -> {layers} "
-            f"({PRIOR_DEPTH_REASON}); width {P_WIDTH}, {P_HEADS} heads of "
-            f"{P_HEAD_DIM}, {P_VOCAB} codes, {P_CTX} tokens; prior compute "
-            f"{dtype}, fp32 master weights, {n_params / 1e9:.3f} G "
-            f"parameters; frozen ViT-VQGAN-Base tokenizer fp32, random "
-            f"weights; FakeImages 256 px, 1000 classes, batch "
-            f"{PRIOR_TRAIN_BATCH}; built in {time.perf_counter() - t0:.1f} s")
+    gc_cuda()
+    t0 = time.perf_counter()
+    model = initialize_from_config(cfg["model"], device="cuda")
+    data = initialize_from_config(cfg["dataset"])
+    data.setup()
+    prior = fp32_master_weights(model.transformer)
+    names = [n for n, _ in prior.named_parameters()]
+    n_params = sum(p.numel() for p in prior.parameters())
+    log(f"{tag} {what}; {n_params / 1e9:.3f} G prior parameters; built in "
+        f"{time.perf_counter() - t0:.1f} s")
 
-        # one step's loss and gradients, kernels against the plain path, on
-        # the same weights and codes (the tokenizer's, through its kernels)
-        batch = next(iter(data.train_dataloader()))
-        stage1 = model.stage1_model
-        codes = stage1.encode_codes(stage1.get_input(batch, "image")).clone()
-        conds = model.condition_codes(batch)
-        k_loss, k_grads = prior_grads(model, codes, conds)
-        with plain_versions():
-            p_loss, p_grads = prior_grads(model, codes, conds)
-        rel = abs(k_loss - p_loss) / abs(p_loss)
-        loss_lim, cos_lim, bias_lim = limits[dtype]
-        cos, bias = prior_agreement(names, k_grads, p_grads)
-        log(f"{tag} one step, kernels vs plain: loss {k_loss:.6f} vs "
-            f"{p_loss:.6f} ({rel:.3e} relative, limit {loss_lim}); least "
-            f"gradient cosine {cos[0][0]:.7f} ({cos[0][1]}; limit {cos_lim})"
-            f" over {len(names) - layers} leaves, next "
-            + ", ".join(f"{c:.7f} ({n})" for c, n in cos[1:4])
-            + f"; key biases (zero in exact arithmetic): largest |grad| "
-            f"{bias[0]:.3e} of the layer's query-bias |grad| ({bias[1]}; "
-            f"limit {bias_lim})")
-        check(rel <= loss_lim, f"{tag} loss disagrees with the plain path")
-        check(cos[0][0] >= cos_lim, f"{tag} gradients disagree with the "
-              "plain path")
-        check(bias[0] <= bias_lim, f"{tag} key-bias gradients not near 0")
-        del k_grads, p_grads
-        gc_cuda()
+    # one step's loss and gradients, kernels against the plain path, on
+    # the same weights and codes (the tokenizer's, through its kernels)
+    batch = next(iter(data.train_dataloader()))
+    stage1 = model.stage1_model
+    codes = stage1.encode_codes(stage1.get_input(batch, "image")).clone()
+    conds = model.condition_codes(batch)
+    k_loss, k_grads = prior_grads(model, codes, conds)
+    with plain_versions():
+        p_loss, p_grads = prior_grads(model, codes, conds)
+    rel = abs(k_loss - p_loss) / abs(p_loss)
+    loss_lim, cos_lim, bias_lim = limits[dtype]
+    cos, bias = prior_agreement(names, k_grads, p_grads)
+    log(f"{tag} one step, kernels vs plain: loss {k_loss:.6f} vs "
+        f"{p_loss:.6f} ({rel:.3e} relative, limit {loss_lim}); least "
+        f"gradient cosine {cos[0][0]:.7f} ({cos[0][1]}; limit {cos_lim})"
+        f" over {len(cos)} leaves, next "
+        + ", ".join(f"{c:.7f} ({n})" for c, n in cos[1:4])
+        + f"; key biases (zero in exact arithmetic): largest |grad| "
+        f"{bias[0]:.3e} of the layer's query-bias |grad| ({bias[1]}; "
+        f"limit {bias_lim})")
+    check(rel <= loss_lim, f"{tag} loss disagrees with the plain path")
+    check(cos[0][0] >= cos_lim, f"{tag} gradients disagree with the "
+          "plain path")
+    check(bias[0] <= bias_lim, f"{tag} key-bias gradients not near 0")
+    del k_grads, p_grads
+    gc_cuda()
 
-        before = [p.detach().clone() for p in gpt.parameters()]
-        recorder = StepRecorder()
-        trainer = Trainer(max_steps=steps, log_every=1,
-                          metrics_logger=recorder)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        prev = dict(t=time.perf_counter(), counts=kernel_counts())
-        trainer.fit(model, data)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated()
-        check(len(recorder.records) == steps + 1,
-              f"{tag} {len(recorder.records)} log calls, expected {steps} "
-              "steps and one validation")
-        for i, r in enumerate(recorder.records):
-            got = {k: r["counts"][k] - prev["counts"][k] for k in r["counts"]
-                   if r["counts"][k] != prev["counts"][k]}
-            label = f"step {i}" if i < steps else "validation (1 batch)"
-            want = prior_step_launches(dtype, layers, i < steps)
-            ms = (r["t"] - prev["t"]) * 1e3
-            log(f"{tag} {label}: {ms:.1f} ms (host clock, synchronised), "
-                f"launches {got}; " + " ".join(
-                    f"{k}={v:.5g}" for k, v in sorted(r["metrics"].items())))
-            check(got == want, f"{tag} {label}: launches {got}, expected "
-                  f"{want}")
-            bad = [k for k, v in r["metrics"].items() if not np.isfinite(v)]
-            check(not bad, f"{tag} {label}: non-finite {bad}")
-            prev = r
-        for k, v in recorder.records[-1]["counts"].items():
-            total[k] = total.get(k, 0) + v
-        moved = sum(not torch.equal(p, q)
-                    for p, q in zip(gpt.parameters(), before))
-        log(f"{tag} {moved} of {len(before)} prior parameter tensors moved; "
-            f"peak memory {peak / 2**30:.2f} GiB")
-        check(moved == len(before), f"{tag} prior parameters did not move")
-        del before
-        gc_cuda()
-        images = stage1.get_input(batch, "image")
-        step = make_cond_transformer_train_step(model)
-        profile_device(f"one prior training step, {dtype}, {layers} layers, "
-                       f"batch {PRIOR_TRAIN_BATCH}",
-                       lambda: step(trainer.final_state, images, conds))
-        del model, gpt, trainer, step, data
-        gc_cuda()
-    return total
+    before = [p.detach().clone() for p in prior.parameters()]
+    recorder = StepRecorder()
+    trainer = Trainer(max_steps=steps, log_every=1, metrics_logger=recorder)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    prev = dict(t=time.perf_counter(), counts=kernel_counts(), short=0)
+    trainer.fit(model, data)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check(len(recorder.records) == steps + 1,
+          f"{tag} {len(recorder.records)} log calls, expected {steps} "
+          "steps and one validation")
+    for i, r in enumerate(recorder.records):
+        got = {k: r["counts"][k] - prev["counts"][k] for k in r["counts"]
+               if r["counts"][k] != prev["counts"][k]}
+        n_short = r["short"] - prev["short"]
+        label = f"step {i}" if i < steps else "validation (1 batch)"
+        want = launches(i < steps)
+        ms = (r["t"] - prev["t"]) * 1e3
+        log(f"{tag} {label}: {ms:.1f} ms (host clock, synchronised), "
+            f"launches {got}, short-route attentions {n_short}; " + " ".join(
+                f"{k}={v:.5g}" for k, v in sorted(r["metrics"].items())))
+        check(got == want and n_short == short, f"{tag} {label}: launches "
+              f"{got} and {n_short} short, expected {want} and {short}")
+        bad = [k for k, v in r["metrics"].items() if not np.isfinite(v)]
+        check(not bad, f"{tag} {label}: non-finite {bad}")
+        prev = r
+    moved = sum(not torch.equal(p, q)
+                for p, q in zip(prior.parameters(), before))
+    log(f"{tag} {moved} of {len(before)} prior parameter tensors moved; "
+        f"peak memory {peak / 2**30:.2f} GiB")
+    check(moved == len(before), f"{tag} prior parameters did not move")
+    del before
+    gc_cuda()
+    images = stage1.get_input(batch, "image")
+    step = make_cond_transformer_train_step(model)
+    profile_device(f"{tag} one training step, batch {images.shape[0]}",
+                   lambda: step(trainer.final_state, images, conds))
+    counts = recorder.records[-1]["counts"]
+    del model, prior, trainer, step, data
+    gc_cuda()
+    return counts
 
 
 # -- the RQ prior and its RQ-VAE tokenizer at their published widths ----------
@@ -4100,12 +4449,13 @@ def rq_vae_trips() -> dict:
     return counts
 
 
-def rq_sampling() -> dict:
+def rq_sampling() -> tuple:
     """Phase 14 (b): the bf16 RQ prior over the RQ-VAE tokenizer, one
     ``CondTransformer.sample`` of 8 images with its launches asserted, the
     sampler alone on another seed, the agreement checks and one position's
-    device time by kernel group."""
-    from enhancing_tpu_torch.models.stage2.sampling import _draw, sample_rq
+    device time by kernel group. Returns the launches, the model (for
+    (d)) and its codes."""
+    from enhancing_tpu_torch.models.stage2.sampling import sample_rq
     from enhancing_tpu_torch.ops import LAUNCHES, SHORT_CALLS, reset_launches
     from enhancing_tpu_torch.utils.config import initialize_from_config
     gc_cuda()
@@ -4190,7 +4540,19 @@ def rq_sampling() -> dict:
               KERNEL_VS_PLAIN_ATOL, KERNEL_VS_PLAIN_ARGMAX)
     del k_full, p_full, k_dec, p_dec
 
-    def position(cache, prev):
+    time_rq_position(rq, codes[:, 510], gen, "bf16")
+    del rq
+    gc_cuda()
+    return counts, model, codes
+
+
+def time_rq_position(rq, prev, gen, label) -> None:
+    """One spatial position of the sampler at position 512 (a spatial step,
+    then RQ_DEPTH depth forwards and draws) on the host clock over 20
+    positions, and its device time by kernel group: the idle share."""
+    from enhancing_tpu_torch.models.stage2.sampling import _draw
+
+    def position(cache):
         hidden, _ = rq.spatial_step(prev, 512, cache)
         depth_codes = torch.zeros_like(prev)
         for d in range(RQ_DEPTH):
@@ -4200,26 +4562,23 @@ def rq_sampling() -> dict:
 
     with torch.inference_mode():
         cache = rq.init_cache(SAMPLE_BATCH)
-        prev = codes[:, 510]
         for _ in range(2):
-            position(cache, prev)
+            position(cache)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(20):
-            position(cache, prev)
+            position(cache)
         torch.cuda.synchronize()
         host = (time.perf_counter() - t0) / 20 * 1e3
-        busy = profile_device(f"one RQ spatial position batch {SAMPLE_BATCH} "
-                              "at position 512 (a spatial step, "
-                              f"{RQ_DEPTH} depth forwards and draws)",
-                              lambda: position(cache, prev))
+        busy = profile_device(f"one {label} RQ spatial position batch "
+                              f"{SAMPLE_BATCH} at position 512 (a spatial "
+                              f"step, {RQ_DEPTH} depth forwards and draws)",
+                              lambda: position(cache))
     if busy is not None:
-        log(f"[rq] one spatial position at 512: {host:.3f} ms on the host "
-            f"clock, device busy {busy:.3f} ms -> device idle "
+        log(f"[rq] one {label} spatial position at 512: {host:.3f} ms on the "
+            f"host clock, device busy {busy:.3f} ms -> device idle "
             f"{1 - busy / host:.1%} of the unprofiled position")
-    del model, rq, cache
-    gc_cuda()
-    return counts
+    del cache
 
 
 def rq_prior_f32() -> dict:
@@ -4267,16 +4626,203 @@ def rq_prior_f32() -> dict:
     return counts
 
 
+# limits of phase 14 (d). int8 against bf16: phase 8's bar (argmax equal on
+# more than half of the positions). The int8 cache alone (bf16 weights,
+# bf16 q) against its plain path: phase 7's. The int8 kernels against the
+# int8 plain path: the RQ prior's logits come out of its bf16 depth stack
+# and head, which re-round the spatial hidden's fp32 differences (the int8
+# products summed in another order) at its bf16 LayerNorm and in every
+# depth layer, where phase 8's logits are B13's fp32 products; set from the
+# first measurements on the card (largest differences 0.039-0.047, argmax
+# equal at 96.6-99.6% of positions over eight sets of random codes, batch
+# 8 and 2; NVIDIA H100 80GB HBM3, 700 W) with a margin of 3x on the
+# difference and on the argmax disagreement.
+RQ_INT8_KERNEL_VS_PLAIN_ATOL, RQ_INT8_KERNEL_VS_PLAIN_ARGMAX = 0.15, 0.9
+
+
+def rq_int8(model, codes) -> dict:
+    """Phase 14 (d): int8 serving of (b)'s bf16 RQ prior, teacher-forced on
+    its codes over the prefill and CHECK_STEPS spatial positions with
+    their depth loops: ``kv_int8`` alone (bf16 weights, bf16 q on the int8
+    cache) against the plain path, its launches asserted; then
+    ``quantize_decode_params``, int8 against bf16 and the int8 kernels
+    against the int8 plain path; one int8 ``CondTransformer.sample`` of 8
+    labels with its launches asserted exactly, codes/s, ms per spatial
+    position, peak memory and one position's device time by kernel group.
+    Returns the sample's launches by kernels-line name."""
+    from enhancing_tpu_torch.models.stage2 import quantize_decode_params
+    from enhancing_tpu_torch.ops import LAUNCHES, SHORT_CALLS, reset_launches
+    gc_cuda()
+    rq = model.transformer
+    conds = torch.tensor(CLASSES, device="cuda")[:, None]
+    steps, b = CHECK_STEPS, SAMPLE_BATCH
+    what = (f"prefill + {steps} spatial positions with their depth loops "
+            f"batch {b}, teacher-forced on (b)'s codes")
+    ref16 = rq_teacher_forced(rq, codes, conds, steps)
+
+    # the int8 cache alone: as a config's kv_int8, init_cache now makes an
+    # int8 cache; bf16 weights, so bf16 q
+    rq.kv_int8 = True
+    torch.cuda.synchronize()
+    reset_launches()
+    k_kv = rq_teacher_forced(rq, codes, conds, steps)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernel_counts().items() if v}
+    want = {"attention_bnhd": RQ_LAYERS, "decode_attention": RQ_LAYERS * steps,
+            "cache_row_update": 2 * steps}
+    log(f"[rq-int8] kv_int8, bf16 weights, {what}: launches {launches}")
+    check(launches == want, f"kv_int8 launches {launches}, expected {want}")
+    mid = dict(LAUNCHES)
+    with plain_versions():
+        p_kv = rq_teacher_forced(rq, codes, conds, steps)
+    check(LAUNCHES == mid, "the plain path launched a kernel")
+    agreement(f"RQ kv_int8 (bf16 weights, bf16 q on the int8 cache), {what}"
+              ", kernels vs plain", k_kv, p_kv, KERNEL_VS_PLAIN_ATOL,
+              KERNEL_VS_PLAIN_ARGMAX)
+    del k_kv, p_kv
+
+    # int8 weights beside the full-precision ones (the depth stack and the
+    # head read those)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    quantize_decode_params(model)
+    torch.cuda.synchronize()
+    log(f"[rq-int8] quantize_decode_params: {time.perf_counter() - t0:.2f} "
+        f"s, int8 twins {(torch.cuda.memory_allocated() - before) / 2**30:.3f}"
+        " GiB")
+    k_q = rq_teacher_forced(rq, codes, conds, steps)
+    agree = float((k_q.argmax(-1) == ref16.argmax(-1)).float().mean())
+    log(f"[rq-int8] int8 weights and cache vs bf16 weights and cache, {what}"
+        f": argmax equal at {agree:.2%} (limit > {INT8_VS_BF16_ARGMAX:.0%}), "
+        f"logits max_abs_diff {float((k_q - ref16).abs().max()):.4f} "
+        f"(|logits| max {float(ref16.abs().max()):.3f})")
+    check(agree > INT8_VS_BF16_ARGMAX, "RQ int8 and bf16 argmax disagree")
+    mid = dict(LAUNCHES)
+    with plain_versions():
+        p_q = rq_teacher_forced(rq, codes, conds, steps)
+    check(LAUNCHES == mid, "the plain path launched a kernel")
+    agreement(f"RQ int8 weights and cache, {what}, kernels vs plain", k_q,
+              p_q, RQ_INT8_KERNEL_VS_PLAIN_ATOL,
+              RQ_INT8_KERNEL_VS_PLAIN_ARGMAX)
+    del ref16, k_q, p_q
+
+    # the entry point, counted
+    gc_cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    pixels, codes_q = model.sample(conds, top_k=100, seed=0,
+                                   return_codes=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kernel_counts()
+    launches = {k: v for k, v in counts.items() if v}
+    short = SHORT_CALLS["attention_bnhd"]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[rq-int8] CondTransformer.sample(8 classes, top_k=100), int8 "
+        f"weights and cache: {dt:.2f} s, launches {launches}; short-route "
+        f"attention calls {short}")
+    check(launches == RQ_INT8_SAMPLE_CALL, f"RQ int8 sample launches "
+          f"{launches}, expected {RQ_INT8_SAMPLE_CALL}")
+    check(short == RQ_SAMPLE_SHORT, f"short-route calls {short}, expected "
+          f"{RQ_SAMPLE_SHORT}")
+    check(codes_q.shape == (b, 1024, RQ_DEPTH)
+          and codes_q.dtype == torch.int32, f"RQ codes {codes_q.shape}")
+    check(bool(((codes_q >= 0) & (codes_q < P_VOCAB)).all()),
+          "RQ code range")
+    check(pixels.shape == (b, 256, 256, 3)
+          and bool(torch.isfinite(pixels).all())
+          and float(pixels.min()) >= 0.0 and float(pixels.max()) <= 1.0,
+          "RQ pixels not finite in [0, 1]")
+    n_codes = b * 1024 * RQ_DEPTH
+    log(f"[rq-int8] codes int32 in [0, {P_VOCAB}), pixels finite in [0, 1]; "
+        f"equal to (b)'s bf16 sample (same seed) at "
+        f"{float((codes_q == codes).float().mean()):.2%} of codes; end to "
+        f"end {n_codes / dt:.1f} codes/s, {b / dt:.3f} images/s, "
+        f"{dt / 1024 * 1e3:.3f} ms per spatial position (the tokenizer's "
+        f"decode included); peak memory {peak / 2**30:.2f} GiB")
+    time_rq_position(rq, codes_q[:, 510],
+                     torch.Generator("cuda").manual_seed(2), "int8")
+    del rq, pixels, codes_q
+    gc_cuda()
+    return counts
+
+
 def phase_rq() -> dict:
     """Phase 14, RQ serving: (a) the RQ-VAE round trip, (b) the bf16 RQ
-    prior's sample, (c) the RQ prior in its own fp32. Returns the launches
-    by kernels-line name."""
+    prior's sample, (c) the RQ prior in its own fp32, (d) (b)'s prior in
+    int8. Returns the launches by kernels-line name."""
+    t0 = time.perf_counter()
+    total = dict(rq_vae_trips())
+    sampled, model, codes = rq_sampling()
+    for part in (sampled, rq_prior_f32(), rq_int8(model, codes)):
+        for k, v in part.items():
+            total[k] = total.get(k, 0) + v
+    del model, codes
+    gc_cuda()
+    log(f"[rq] phase 14 took {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+# -- training the RQ prior at its published widths and depth -----------------
+
+# configs/imagenet_rqtransformer_base.yaml's RQ prior trained through
+# Trainer.fit at its published widths and full depth (24 spatial layers of
+# 1536, 16 heads of 96; 4 depth layers, 8 heads of 192; 8192 codes, 1025
+# tokens x 4 depths) over its frozen RQ-VAE tokenizer (fp32, the config's
+# dtype; random weights): ~821 M parameters, ~13.1 GB of fp32 masters,
+# gradients and two Adam moments, so the whole depth fits one 80 GB card:
+# (prior dtype, steps)
+RQ_TRAIN_RUNS = (("bfloat16", 3), ("float32", 2))
+
+
+def rq_train_config(dtype: str) -> dict:
+    """The config's model with the prior's dtype set (the only change; no
+    stage-1 path: the released weights are not in the repository) and a
+    FakeImages dataset in place of ImageNet at the config's batch 4."""
+    model = json.loads(json.dumps(RQ_TRANSFORMER_BASE))
+    model["params"]["transformer"]["params"]["dtype"] = dtype
+    return {"model": model, "dataset": fake_imagenet(RQ_TRAIN_BATCH)}
+
+
+def rq_step_launches(dtype: str, backward: bool) -> dict:
+    """Launches an RQ prior step (backward) or validation batch makes, by
+    kernels-line name: the frozen fp32 RQ-VAE's encode (fp32 B1 24, fp32
+    B2 12, B3 1, B4 once a depth), then B8 once a spatial layer and B5 at
+    D = 96 once a spatial layer. The depth layers' attention (4 tokens at
+    D = 192) takes the short route, counted apart."""
+    f32 = "_f32" if dtype == "float32" else ""
+    want = {"ln_gemm_f32": 24, "attention_f32": 12, "layernorm": 1,
+            "vq": RQ_DEPTH, "attention_bnhd" + f32: RQ_LAYERS}
+    if backward:
+        want["attention_bwd" + f32] = RQ_LAYERS
+    return want
+
+
+def phase_rq_train() -> dict:
+    """Phase 15: RQ_TRAIN_RUNS through Trainer.fit (:func:`train_prior`)
+    at full width and depth. Returns the launches by kernels-line name."""
     t0 = time.perf_counter()
     total: dict = {}
-    for part in (rq_vae_trips, rq_sampling, rq_prior_f32):
-        for k, v in part().items():
+    for dtype, steps in RQ_TRAIN_RUNS:
+        counts = train_prior(
+            f"[rq-train {dtype[:4]}]", rq_train_config(dtype), dtype, steps,
+            lambda backward: rq_step_launches(dtype, backward),  # noqa: B023
+            RQ_DEPTH_LAYERS,
+            f"imagenet_rqtransformer_base.yaml at full depth: {RQ_LAYERS} "
+            f"spatial layers x {RQ_WIDTH} ({RQ_HEADS} heads of "
+            f"{RQ_HEAD_DIM}), {RQ_DEPTH_LAYERS} depth layers "
+            f"({RQ_PRIOR['depth_n_heads']} heads of "
+            f"{RQ_WIDTH // RQ_PRIOR['depth_n_heads']}), {P_VOCAB} codes, "
+            f"{P_CTX} tokens x {RQ_DEPTH} depths; prior compute {dtype}, "
+            f"fp32 master weights; frozen RQ-VAE tokenizer fp32, random "
+            f"weights; FakeImages 256 px, 1000 classes, batch "
+            f"{RQ_TRAIN_BATCH}")
+        for k, v in counts.items():
             total[k] = total.get(k, 0) + v
-    log(f"[rq] phase 14 took {time.perf_counter() - t0:.1f} s")
+    log(f"[rq-train] phase 15 took {time.perf_counter() - t0:.1f} s")
     return total
 
 
@@ -4300,8 +4846,9 @@ def main() -> int:
     prior32 = phase_prior_f32()
     prior_train = phase_prior_train()
     rq = phase_rq()
+    rq_train = phase_rq_train()
     phases = (serving, training, sampling, serving8, fused, fused_routes,
-              shipped, training32, prior32, prior_train, rq)
+              shipped, training32, prior32, prior_train, rq, rq_train)
     kernels = []
     for kname in REPLACES:
         rows = times[kname]

@@ -124,15 +124,16 @@ def _unstack_layers(tree: Mapping, key: str = "blocks") -> dict:
     return out
 
 
-def _load_gpt_quant(gpt: Any, quant: Mapping) -> None:
-    """Fill the int8 twins from JAX's ``quant`` collection: ``kernel_q``
-    (d, n) int8 becomes the port's (n, d) ``weight_q``, ``scale`` (n,)
-    stays; a stacked ``blocks`` tree splits per layer."""
+def _load_quant(prior: Any, quant: Mapping) -> None:
+    """Fill the int8 twins of a prior from JAX's ``quant`` collection, its
+    stacks already unstacked: ``kernel_q`` (d, n) int8 becomes the port's
+    (n, d) ``weight_q``, ``scale`` (n,) stays. A leaf without a twin, or a
+    twin without a leaf, raises KeyError."""
     from ..models.stage2.quantize import attach_int8_buffers
-    attach_int8_buffers(gpt)
-    modules = dict(gpt.named_modules())
+    attach_int8_buffers(prior)
+    modules = dict(prior.named_modules())
     filled = set()
-    for path, leaf in _leaves(_unstack_layers(quant)):
+    for path, leaf in _leaves(quant):
         *owner, name = path
         dense = modules.get(".".join(owner))
         if name not in ("kernel_q", "scale") or dense is None or \
@@ -148,7 +149,7 @@ def _load_gpt_quant(gpt: Any, quant: Mapping) -> None:
             raise ValueError(f"{'/'.join(path)}: JAX shape {np.shape(leaf)}"
                              f" does not fit {tuple(target.shape)}")
         with torch.no_grad():
-            target.copy_(torch.from_numpy(np.ascontiguousarray(array)))
+            target.copy_(torch.tensor(np.ascontiguousarray(array)))
         filled.add((".".join(owner), name))
     wanted = {(n, leaf) for n, m in modules.items()
               if getattr(m, "weight_q", None) is not None
@@ -169,31 +170,39 @@ def load_gpt_from_jax(model: Any, params: Mapping) -> Any:
     ``scale`` fill the GEMMs' int8 twins (``kernel_q`` transposed to (out,
     in)). Returns ``model``."""
     gpt = getattr(model, "transformer", model)
-    if "params" in params or "quant" in params:
-        quant = params.get("quant")
-        params = params["params"]
-    else:
-        quant = None
+    params, quant = _split_variables(params)
     load_from_jax(gpt, _unstack_layers(params), name_fn=_gpt_name)
     if quant is not None:
-        _load_gpt_quant(gpt, quant)
+        _load_quant(gpt, _unstack_layers(quant))
     return model
+
+
+def _split_variables(params: Mapping) -> Tuple[Mapping, Any]:
+    """(the ``params`` tree, the ``quant`` collection or None) of a JAX
+    ``params`` tree or of its variables ``{"params": ..., "quant": ...}``."""
+    if "params" in params or "quant" in params:
+        return params["params"], params.get("quant")
+    return params, None
 
 
 def load_rq_from_jax(model: Any, params: Mapping) -> Any:
     """Fill a port ``RQTransformer`` (or the prior of a ``CondTransformer``)
-    from the JAX RQTransformer's ``params`` tree (or ``{"params": ...}``),
-    numpy leaves, of either layout: the scanned ``spatial`` and ``depth``
-    stacks (``scan_layers=True``, the JAX default) or ``spatial_{i}`` and
-    ``depth_{i}``. Names and layouts as in :func:`load_gpt_from_jax`; a
-    missing or left-over leaf and a shape mismatch raise. A ``quant``
-    collection raises: int8 serving of the RQ prior is not ported (ROADMAP
-    A5). Returns ``model``."""
+    from the JAX RQTransformer's parameters, numpy leaves, of either
+    layout: the scanned ``spatial`` and ``depth`` stacks
+    (``scan_layers=True``, the JAX default) or ``spatial_{i}`` and
+    ``depth_{i}``. Names and layouts as in :func:`load_gpt_from_jax`, and
+    as there ``params`` may be the variables ``{"params": ..., "quant":
+    ...}`` of the JAX ``quantize_decode_params``, whose ``quant`` (in
+    either layout) fills the int8 twins of every GEMM. A missing or
+    left-over leaf, in either collection, and a shape mismatch raise.
+    Returns ``model``."""
     rq = getattr(model, "transformer", model)
-    if "quant" in params:
-        raise NotImplementedError("int8 weights for the RQ prior are a "
-                                  "later slice of the port (ROADMAP A5)")
-    params = params.get("params", params)
-    tree = _unstack_layers(_unstack_layers(params, "spatial"), "depth")
-    load_from_jax(rq, tree, name_fn=_gpt_name)
+    params, quant = _split_variables(params)
+
+    def unstack(tree):
+        return _unstack_layers(_unstack_layers(tree, "spatial"), "depth")
+
+    load_from_jax(rq, unstack(params), name_fn=_gpt_name)
+    if quant is not None:
+        _load_quant(rq, unstack(quant))
     return model

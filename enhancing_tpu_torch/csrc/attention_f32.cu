@@ -321,6 +321,16 @@ constexpr int WRING = fit_stages(WFIXED, WSTAGE, 8);
 constexpr int WSMEM = WRING * WSTAGE + WFIXED + 1024;
 static_assert(WRING >= 4, "a q and a K box in flight beside the next two");
 static_assert(WSMEM <= sm90::kSmemLimit, "shared memory of a block");
+// A parity wait on a ring stage passes at once while the stage's previous
+// phase is still incomplete, so no role may wait on a stage whose previous
+// load it has not seen complete. An O warpgroup waits only on its own V
+// boxes: with WBOXES <= WRING <= 2 WBOXES a V box's previous load is a q or
+// K box of the same key tile, which the S warpgroup has waited on before it
+// hands that tile's P over. The S warpgroup waits on every stage in order,
+// the V boxes of each tile too (before that handover, while no O warpgroup
+// can free them).
+static_assert(WRING >= WBOXES && WRING <= 2 * WBOXES,
+              "a V box's previous load is a q or K box of its key tile");
 // registers a thread (setmaxnreg): the launch gives 65536 / threads (96);
 // the producer drops to 24, S takes 144, each O warpgroup 104
 constexpr int WBASE = 65536 / kWideThreads / 8 * 8, WS_REGS = 144,
@@ -451,6 +461,14 @@ __global__ void __launch_bounds__(kWideThreads, 1)
       if (qd == 0) {
         alpha_s[slot * 64 + r] = alpha[0];
         alpha_s[slot * 64 + r + 8] = alpha[1];
+      }
+      // this tile's V boxes have landed before the O warpgroups may free
+      // them: the next tile's q and K boxes reuse their stages, and a wait
+      // there must not pass on a V load still in flight
+#pragma unroll
+      for (int j = 0; j < WBOXES; ++j) {
+        const int iv = i0 + 2 * WBOXES + j;
+        sm90::mbar_wait(&full[rp.stage(iv)], rp.parity(iv));
       }
       sm90::fence_async_cta();  // the O warpgroups' wgmma reads P
       sm90::named_arrive(BAR_PFULL + slot, kRoleThreads);

@@ -45,7 +45,9 @@ product (``int8_ln_gemm``, B13), projects with B12, runs its MLP as B14
 and its vocab head as B13 without the shift. Their activations are the
 fp32 residual stream, so these products are fp32 (ROADMAP C). With
 ``kv_int8`` the cache is int8 with per-row fp32 scales (L, B, ctx); the
-new rows are quantised per row at each step. W8A8 (``act_int8``) raises.
+new rows are quantised per row at each step. The RQ prior's spatial
+prefill and spatial steps run the same branches; its depth stack and head
+read the full-precision weights. W8A8 (``act_int8``) raises.
 
 ``ENHANCING_TPU_DECODE_LNFUSE`` (``all``, ``none`` or a comma list of
 ``qkv``, ``mlp``, ``head``), read at each ``decode_step``, folds the
@@ -131,6 +133,34 @@ class LayerNorm(nn.Module):
                             self.bias, self.eps).to(self.dtype)
 
 
+def _mix(x: torch.Tensor, shifted: torch.Tensor,
+         tm: torch.Tensor) -> torch.Tensor:
+    return x * tm + shifted * (1.0 - tm)
+
+
+class _TokenShift(torch.autograd.Function):
+    """The token shift x * tm + shifted * (1 - tm), tm the fp32 ``time_mix``
+    in x's dtype, with autograd's gradients of x and shifted, but
+    ``time_mix``'s summed in fp32 from (x - shifted) * g. Autograd of the
+    expression (and the JAX package's, of the same expression) rounds the
+    two sums of x * g and of shifted * g to x's dtype and subtracts them;
+    in bf16 that loses most of the digits where they nearly cancel, as in
+    the RQ prior's deep spatial layers (ROADMAP C)."""
+
+    @staticmethod
+    def forward(ctx, x, shifted, time_mix):
+        tm = time_mix.to(x.dtype)
+        ctx.save_for_backward(x, shifted, tm)
+        return _mix(x, shifted, tm)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, shifted, tm = ctx.saved_tensors
+        g_tm = ((x.float() - shifted.float()) * g.float()).sum(
+            dim=(0, 1), keepdim=True)
+        return g * tm, g * (1.0 - tm), g_tm
+
+
 class MultiHeadSelfAttention(nn.Module):
     def __init__(self, embed_dim: int, n_heads: int, cond_len: int,
                  attn_bias: bool = True, use_mask: bool = True, *,
@@ -184,13 +214,15 @@ class MultiHeadSelfAttention(nn.Module):
     def token_shift(self, x: torch.Tensor,
                     prev: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x*tm + delay(x)*(1-tm) in x's dtype; ``prev`` (B, C) is the
-        previous token's state for a one-token decode."""
-        tm = self.time_mix.to(x.dtype)
+        previous token's state for a one-token decode. Under grad,
+        ``time_mix``'s gradient is summed in fp32 (:class:`_TokenShift`)."""
         if x.shape[1] == 1 and prev is not None:
             shifted = prev[:, None, :]
         else:
             shifted = F.pad(x, (0, 0, 1, 0))[:, :-1]
-        return x * tm + shifted * (1.0 - tm)
+        if torch.is_grad_enabled() and self.time_mix.requires_grad:
+            return _TokenShift.apply(x, shifted, self.time_mix)
+        return _mix(x, shifted, self.time_mix.to(x.dtype))
 
     def _split(self, t: torch.Tensor) -> torch.Tensor:
         b, n, _ = t.shape
@@ -410,12 +442,14 @@ def code_position(pos_emb_code: nn.Parameter, step) -> torch.Tensor:
 
 def init_stacked_cache(layers: int, batch: int, ctx_len: int, width: int,
                        dtype: torch.dtype, kv_int8: bool,
-                       device: torch.device) -> Dict[str, torch.Tensor]:
+                       device: torch.device, ctx_multiple: int = 8
+                       ) -> Dict[str, torch.Tensor]:
     """The decode cache of a stack of ``layers`` Blocks (GPT.init_cache):
-    zeroed (L, B, ctx, C) k and v stacks, ctx padded to a multiple of 8,
-    and the (L, B, C) token-shift state in ``dtype``; with ``kv_int8``
-    int8 stacks and their (L, B, ctx) fp32 ``k_scale`` / ``v_scale``."""
-    ctx_pad = -(-ctx_len // 8) * 8
+    zeroed (L, B, ctx, C) k and v stacks, ctx padded to a multiple of
+    ``ctx_multiple``, and the (L, B, C) token-shift state in ``dtype``;
+    with ``kv_int8`` int8 stacks and their (L, B, ctx) fp32 ``k_scale`` /
+    ``v_scale``."""
+    ctx_pad = -(-ctx_len // ctx_multiple) * ctx_multiple
     shape = (layers, batch, ctx_pad, width)
     kv_dtype = torch.int8 if kv_int8 else dtype
     cache = {
@@ -663,9 +697,16 @@ class RQTransformer(nn.Module):
     weights stored in the compute dtype, embeddings, position embeddings,
     LayerNorms and ``time_mix`` fp32; random weights drawn on ``device``
     from ``torch.Generator(device).manual_seed(seed)``, the position
-    embeddings uniform in [0, 1) as the JAX module draws them.
-    ``kv_int8`` and int8 weights (ROADMAP A5), ``act_int8`` (A8) and
-    ``sp_mesh`` (A9) raise.
+    embeddings uniform in [0, 1) as the JAX module draws them. Training
+    keeps the GEMM weights in fp32 (:func:`fp32_master_weights`).
+
+    Int8 serving, as for :class:`GPT`: ``kv_int8`` makes the spatial cache
+    int8 with per-row fp32 scales (its ctx padded to a multiple of 128, as
+    the JAX module pads it); the int8 twins of ``quantize_decode_params``
+    run the spatial prefill (B12, B14) and the spatial steps (B13, B12,
+    B14). The depth stack and the head read the full-precision weights,
+    as the JAX module's ``depth_forward`` does. ``act_int8`` (ROADMAP A8)
+    and ``sp_mesh`` (A9) raise.
     """
 
     def __init__(self, vocab_cond_size: int, vocab_img_size: int,
@@ -680,10 +721,6 @@ class RQTransformer(nn.Module):
                  device: Union[str, torch.device, None] = None,
                  seed: int = 0) -> None:
         super().__init__()
-        if kv_int8:
-            raise NotImplementedError(
-                "kv_int8 and int8 weights for the RQ prior are a later "
-                "slice of the port (ROADMAP A5)")
         if act_int8:
             raise NotImplementedError(
                 "act_int8 (W8A8: int8 activations on int8 GEMMs) is not "
@@ -701,6 +738,7 @@ class RQTransformer(nn.Module):
         self.spatial_n_layers = spatial_n_layers
         self.depth_n_layers = depth_n_layers
         self.dtype = _dtype(dtype)
+        self.kv_int8 = kv_int8
         self.device = resolve_device(device)
         with torch.device("meta"):
             self.tok_emb_cond = nn.Embedding(vocab_cond_size, embed_dim)
@@ -723,7 +761,7 @@ class RQTransformer(nn.Module):
             self.ln_depth = LayerNorm(embed_dim, dtype=self.dtype)
             self.head = _dense(embed_dim, vocab_img_size, False, self.dtype)
         self.to_empty(device=self.device)
-        for block in self.spatial_blocks + self.depth_blocks:
+        for block in self.blocks:
             block.attn.fused_qkv("weight")
             block.attn.fused_qkv("bias")
         reset_prior_parameters(
@@ -744,6 +782,11 @@ class RQTransformer(nn.Module):
     def depth_blocks(self):
         return [getattr(self, f"depth_{i}")
                 for i in range(self.depth_n_layers)]
+
+    @property
+    def blocks(self):
+        """Every Block: the spatial stack's, then the depth stack's."""
+        return self.spatial_blocks + self.depth_blocks
 
     def _depth(self, v: torch.Tensor) -> torch.Tensor:
         for block in self.depth_blocks:
@@ -778,21 +821,25 @@ class RQTransformer(nn.Module):
     def init_cache(self, batch: int, dtype: torch.dtype | None = None
                    ) -> Dict[str, torch.Tensor]:
         """The spatial stack's cache (:meth:`GPT.init_cache`); the depth
-        stack keeps none."""
+        stack keeps none. With ``kv_int8`` ctx is padded to a multiple of
+        128, as the JAX module pads it (1025 -> 1152)."""
         return init_stacked_cache(self.spatial_n_layers, batch, self.ctx_len,
                                   self.embed_dim,
                                   self.dtype if dtype is None else dtype,
-                                  False, self.device)
+                                  self.kv_int8, self.device,
+                                  128 if self.kv_int8 else 8)
 
     def spatial_prefill(self, conds: torch.Tensor,
                         cache: Dict[str, torch.Tensor]
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The condition prefix through the spatial stack, filling cache
-        rows [0, cond_num_tokens) in place; returns the (B, C) hidden of
-        code position 0 and the cache."""
+        rows [0, cond_num_tokens) in place (quantised per row beside an
+        int8 cache); returns the (B, C) hidden of code position 0 and the
+        cache."""
         conds = conds.reshape(conds.shape[0], -1)
         x = self.tok_emb_cond(conds) + self.pos_emb_cond.to(self.dtype)
-        x = prefill_stack(self.spatial_blocks, x, cache, False, self.dtype)
+        x = prefill_stack(self.spatial_blocks, x, cache, self.kv_int8,
+                          self.dtype)
         return self.ln_spatial(x)[:, self.cond_num_tokens - 1], cache
 
     def spatial_step(self, prev_codes: torch.Tensor, step,
@@ -800,7 +847,8 @@ class RQTransformer(nn.Module):
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """prev_codes: (B, D) codes of position step - 1 (step >= 1); step
         an int or a (B,) tensor of per-row positions. Returns the (B, C)
-        hidden of position ``step`` and the cache, updated in place."""
+        hidden of position ``step`` and the cache, updated in place (the
+        new rows quantised per row beside an int8 cache)."""
         pos = code_position(self.pos_emb_code, step)
         x = (torch.sum(self.tok_emb_code(prev_codes), dim=1, keepdim=True)
              + pos.to(self.dtype))
@@ -825,15 +873,21 @@ class RQTransformer(nn.Module):
         return self.head(self._depth(v)[:, d])
 
 
-def fp32_master_weights(gpt: GPT) -> GPT:
-    """Store every GEMM weight and bias of ``gpt`` in fp32, cast to the
-    compute dtype at each use, as flax keeps its parameters: the master
-    weights that training updates. Each block's q/k/v parameters stay row
-    blocks of one fused tensor (``MultiHeadSelfAttention.fused_qkv``), so an
-    optimizer's in-place updates reach the fused qkv product too. A prior
-    stored in fp32 already is left as it is. Returns ``gpt``."""
+def fp32_master_weights(prior: Union[GPT, RQTransformer]
+                        ) -> Union[GPT, RQTransformer]:
+    """Store every GEMM weight and bias of ``prior`` (a GPT or an
+    RQTransformer) in fp32, cast to the compute dtype at each use, as flax
+    keeps its parameters: the master weights that training updates. Each
+    block's q/k/v parameters stay row blocks of one fused tensor
+    (``MultiHeadSelfAttention.fused_qkv``), so an optimizer's in-place
+    updates reach the fused qkv product too. A prior stored in fp32
+    already is left as it is; any other module raises TypeError before a
+    weight is touched. Returns ``prior``."""
+    if not isinstance(prior, (GPT, RQTransformer)):
+        raise TypeError(f"a prior is a GPT or an RQTransformer, got "
+                        f"{type(prior).__name__}")
     with torch.no_grad():
-        for module in gpt.modules():
+        for module in prior.modules():
             if not isinstance(module, Dense):
                 continue
             for attr in ("weight", "bias"):
@@ -841,7 +895,7 @@ def fp32_master_weights(gpt: GPT) -> GPT:
                 if p is not None and p.dtype != torch.float32:
                     setattr(module, attr, nn.Parameter(
                         p.float(), requires_grad=p.requires_grad))
-        for block in gpt.blocks:
+        for block in prior.blocks:
             block.attn.fused_qkv("weight")
             block.attn.fused_qkv("bias")
-    return gpt
+    return prior

@@ -8,7 +8,8 @@ as optax evaluates it:
 
 - stage 1: AdamW(betas=(0.9, 0.99), weight decay 1e-4) for the
   autoencoder and for the discriminator;
-- the stage-2 GPT prior: the optax chain ``scale_by_adam(0.9, 0.96)`` ->
+- the stage-2 priors (GPT and RQTransformer): the optax chain
+  ``scale_by_adam(0.9, 0.96)`` ->
   ``add_decayed_weights(0.01, gpt_decay_mask)`` ->
   ``scale_by_learning_rate``, which is AdamW(betas=(0.9, 0.96), eps 1e-8)
   over two parameter groups, weight decay 0.01 and 0 (both subtract lr
@@ -131,10 +132,12 @@ _NO_DECAY_PAT = re.compile(
 
 
 def gpt_jax_name(gpt: nn.Module, name: str) -> str:
-    """The path, "/"-joined, of the JAX GPT leaf (``scan_layers=False``)
-    that the port's parameter ``name`` holds, as ``compat.load_gpt_from_jax``
-    maps them: an ``nn.Embedding``'s weight is an ``embedding``, a
-    LayerNorm's a ``scale``, a GEMM's a ``kernel``."""
+    """The path, "/"-joined, of the JAX prior's leaf (``scan_layers=False``:
+    a GPT's ``blocks_{i}``, an RQTransformer's ``spatial_{i}`` and
+    ``depth_{i}``) that the port's parameter ``name`` holds, as
+    ``compat.load_gpt_from_jax`` and ``load_rq_from_jax`` map them: an
+    ``nn.Embedding``'s weight is an ``embedding``, a LayerNorm's a
+    ``scale``, a GEMM's a ``kernel``."""
     owner, leaf = name.rsplit(".", 1) if "." in name else ("", name)
     if leaf == "weight":
         module = gpt.get_submodule(owner)

@@ -6,10 +6,13 @@ stage-2 steps (:func:`make_cond_transformer_train_step`,
 tokenizer under ``torch.no_grad()`` (JAX's ``stop_gradient``), then take
 the prior's fp32 cross-entropy (``CondTransformer.loss_fn``) and, in
 training, its gradient w.r.t. the prior's parameters only and the AdamW
-update. On CUDA the prior's attention runs B8 forward and B5 backward
-(``ops.multihead_attention_bnhd``). One call of the stage-1 train step
-runs
-of the train step runs, in the JAX step's order:
+update. The prior is a GPT over (B, T) codes or an RQTransformer over
+(B, T, D) residual codes, whose loss takes (B * T, D) targets. On CUDA
+the prior's attention runs B8 forward and B5 backward
+(``ops.multihead_attention_bnhd``); the RQ prior's depth window (4 tokens
+at head dim 192 in the shipped config) takes the short route, the plain
+version differentiated by autograd, as the JAX package's XLA path is.
+One call of the stage-1 train step runs, in the JAX step's order:
 
 1. the adaptive adversarial weight, when the loss asks for it: gradients
    of the reconstruction and GAN losses w.r.t. the reconstruction, chained

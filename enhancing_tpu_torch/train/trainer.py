@@ -6,8 +6,9 @@ epochs or ``max_steps`` steps, logs every ``log_every`` steps, and
 validates at the end of each epoch. The model's ``device`` is the device
 it trains on. A stage-1 tokenizer (``ViTVQ``) trains its GAN step, with
 lazy R1 on every ``do_r1_every``-th batch of an epoch (batch 0 included);
-a stage-2 ``CondTransformer`` trains its GPT prior on the frozen
-tokenizer's codes (``_build_stage2``: fp32 master weights,
+a stage-2 ``CondTransformer`` trains its prior, a GPT over (B, T) codes
+or an RQTransformer over an RQ-VAE's (B, T, D) residual codes, on the
+frozen tokenizer's codes (``_build_stage2``: fp32 master weights,
 ``make_gpt_optimizer``), validating on ``val/total_loss``.
 
 Options the port cannot honour yet raise ``NotImplementedError``:
@@ -93,9 +94,10 @@ class Trainer:
                 make_vitvq_eval_step(model, loss_obj))
 
     def _build_stage2(self, model: CondTransformer):
-        """The prior's fp32 master weights, optimizer and steps."""
-        gpt = fp32_master_weights(model.transformer)
-        opt, sched = make_gpt_optimizer(gpt, self.base_lr,
+        """The prior's fp32 master weights, optimizer and steps (a GPT or
+        an RQTransformer; any other prior raises before it is touched)."""
+        prior = fp32_master_weights(model.transformer)
+        opt, sched = make_gpt_optimizer(prior, self.base_lr,
                                         self._scheduler(model))
         return (TrainState(step=0, opt=opt, sched=sched),
                 make_cond_transformer_train_step(model),

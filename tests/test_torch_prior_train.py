@@ -5,7 +5,8 @@ on the CPU.
   ``multihead_attention_bnhd`` (autograd of its plain version here; on
   CUDA B8 forward and B5 backward, at D = 384 ``csrc/attention_bwd_wide.cu``)
   against ``jax.vjp`` of the JAX function, at the prior's head dim 384
-  and at 64 and 32, both masks, fp32 and bf16.
+  and at 64 and 32, and at the RQ prior's 96 (spatial) and 192 on 4
+  tokens (its depth window), both masks, fp32 and bf16.
 - The prior's train and eval steps against ``make_cond_transformer_train_step``
   / ``make_cond_transformer_eval_step`` (``tests/test_train.py``'s tiny
   prior over a tiny ViT-VQGAN, fp32): losses, and every parameter after
@@ -91,15 +92,23 @@ def _np(tree):
 
 # -- the differentiable (B, N, H, D) entry -----------------------------------
 
+# head dim -> tokens: 17 (the kernels' route on CUDA), but 4 at the RQ
+# prior's depth head dim 192, its depth window, where the short route's
+# plain version is differentiated on CUDA too; 96 is the RQ prior's
+# spatial head dim (B5 on the 128 tile)
+BNHD_TOKENS = {384: 17, 64: 17, 32: 17, 96: 17, 192: 4}
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mode,cl", [("none", 0), ("prefix_causal", 1)])
-@pytest.mark.parametrize("d", [384, 64, 32])
+@pytest.mark.parametrize("d", [384, 64, 32, 96, 192])
 def test_bnhd_gradients_match_jax_vjp(d, mode, cl, dtype):
     """dq, dk, dv of multihead_attention_bnhd against jax.vjp of the JAX
-    function (2 heads, N = M = 17). fp32 to 1e-5; bf16 to 2^-6 of the
-    largest |JAX| + 2^-6 relative, the port's bf16 attention-gradient
-    tolerance (one bf16 step on N-term sums, rounded at other places)."""
-    b, n, h = 2, 17, 2
+    function (2 heads, N = M = BNHD_TOKENS[d]). fp32 to 1e-5; bf16 to 2^-6
+    of the largest |JAX| + 2^-6 relative, the port's bf16
+    attention-gradient tolerance (one bf16 step on N-term sums, rounded at
+    other places)."""
+    b, n, h = 2, BNHD_TOKENS[d], 2
     rng = np.random.default_rng(d + len(mode))
     q, k, v, do = (rng.standard_normal((b, n, h, d)).astype(np.float32)
                    for _ in range(4))

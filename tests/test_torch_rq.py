@@ -288,7 +288,8 @@ def test_loader_refuses_mismatches(pair):
     with pytest.raises(ValueError):
         load_rq_from_jax(RQTransformer(**{**TINY, "depth_num_tokens": 3},
                                        device="cpu"), params)
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(KeyError, match="no JAX quant leaf"):
+        # a quant collection without the twins' leaves
         load_rq_from_jax(RQTransformer(**TINY, device="cpu"),
                          {"params": params, "quant": {}})
 

@@ -286,14 +286,20 @@ def test_refused_options_raise():
         GPT(**TINY, act_int8=True, device="cpu")
     with pytest.raises(NotImplementedError, match="A9"):
         GPT(**TINY, sp_mesh=object(), device="cpu")
-    # the RQ prior's options that are still to be ported: its int8 cache
-    # and int8 activations
+    # the RQ prior's int8 activations are still to be ported; its int8
+    # cache builds (int8 stacks, ctx padded to a multiple of 128)
     rq = load_config(REPO / "configs" / "fake_rq_tiny.yaml").model.to_dict()
-    for option, item in (("kv_int8", "A5"), ("act_int8", "A8")):
-        cfg_rq = copy.deepcopy(rq)
-        cfg_rq["params"]["transformer"]["params"][option] = True
-        with pytest.raises(NotImplementedError, match=item):
-            initialize_from_config(cfg_rq, device="cpu")
+    cfg_rq = copy.deepcopy(rq)
+    cfg_rq["params"]["transformer"]["params"]["act_int8"] = True
+    with pytest.raises(NotImplementedError, match="A8"):
+        initialize_from_config(cfg_rq, device="cpu")
+    cfg_rq = copy.deepcopy(rq)
+    cfg_rq["params"]["transformer"]["params"]["kv_int8"] = True
+    prior = initialize_from_config(cfg_rq, device="cpu").transformer
+    assert prior.kv_int8
+    cache = prior.init_cache(2)
+    assert cache["k"].dtype == torch.int8 and cache["k"].shape[2] == 128
+    assert cache["k_scale"].shape == (2, 2, 128)
     cfg = load_config(REPO / "configs" / "fake_gpt_tiny.yaml").model
     with pytest.raises(NotImplementedError, match="A7"):
         initialize_from_config(cfg, device="cpu", path="x.ckpt")
