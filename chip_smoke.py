@@ -34,7 +34,12 @@ widths and depth (256 px, 8x8 patches, width 768, 12 heads of 64, MLP
   the RQ prior of ``imagenet_rqtransformer_base.yaml`` over it (both held
   as dicts) at full width and depth, in bf16, fp32 and int8;
 - RQ training: ``Trainer.fit`` on that RQ prior at full width and depth
-  over its frozen RQ-VAE tokenizer, batch 4 of FakeImages at 256 px.
+  over its frozen RQ-VAE tokenizer, batch 4 of FakeImages at 256 px;
+- Gumbel training: ``Trainer.fit`` on the model of
+  ``configs/imagenet_vitvq_gumbel_base.yaml`` as shipped (fp32), LPIPS
+  read through ``lpips_weights``;
+- the split GAN step, ``reuse_xrec`` and gradient accumulation on
+  ``configs/convergence_vitvq_base.yaml``.
 
 Phases, each of which raises on failure:
 
@@ -180,7 +185,32 @@ Phases, each of which raises on failure:
     step (B1 24, fp32 B2 12, B3 1, B4 4, B8 24 and B5 at D = 96 24, 4
     depth attentions on the short route) and of the validation batch (no
     B5) asserted exactly, finite losses, every prior parameter moved, ms a
-    step, peak memory and one step's device time by kernel group.
+    step, peak memory and one step's device time by kernel group;
+16. Gumbel training: the model block of
+    ``configs/imagenet_vitvq_gumbel_base.yaml`` as shipped (``ViTVQGumbel``
+    at ViT-VQGAN-Base widths in fp32, 8192 codes, its
+    ``ExponentialDecayScheduler`` and loss weights) through
+    ``Trainer.fit`` on FakeImages at 256 px, batch 8, its LPIPS read
+    through ``lpips_weights`` from a file of seeded random VGG16 and lin
+    weights in the torchvision / lpips layout that the phase writes; 3
+    steps (R1 on step 0) and a validation batch, each step's temperature
+    equal to the scheduler's and its launches asserted exactly (fp32 B1
+    96, fp32 B2 48, B3 4, fp32 B5 24, B6 36 + 36, B7 45; no B4), code
+    usage finite; one step's losses and gradients through the kernels
+    against the plain path on the same weights and noise (one CUDA
+    generator seed) at phase 6's limits; ms a step, peak memory and one
+    step's device time by kernel group (its busy share);
+17. the split step, ``reuse_xrec`` and accumulation:
+    ``configs/convergence_vitvq_base.yaml`` (bf16, batch 8) from one saved
+    state through ``Trainer.fit`` with the fused step, ``split_gan_step``
+    and ``reuse_xrec`` (3 steps each) and ``accumulate_grad_batches=2`` (4
+    micro-steps) on the kernels and on the plain versions: split against
+    fused at phase 6's limits on the logged losses, the AdamW first
+    moments and the parameter movements, with phase 6's launches a step;
+    reuse_xrec one generator round trip (B1 48, B2 24, B3 2, B4 1) fewer a
+    step than split; accumulation's parameters bit-equal after micro-steps
+    1 and 3 and moved after 2 and 4, its first moments against its plain
+    run at phase 6's limits; ms a step of each run.
 
 Phases 3 and 4 hold and time B8 and B9 at the RQ prior's head dim 96 and
 B10 on its (24, 8, 1032, 1536) stack (and the int8 cache), on generators
@@ -3503,10 +3533,12 @@ class StepRecorder:
     """The trainer's metrics logger: at each log call (after every step
     and once after validation) it keeps the launch counts (raw and by
     kernels-line name), the short-route attentions and plain-call counts,
-    the host clock and the metrics."""
+    the host clock, the metrics and (given the trainer) the temperature
+    of the last step."""
 
-    def __init__(self) -> None:
+    def __init__(self, trainer=None) -> None:
         self.records: list = []
+        self.trainer = trainer
 
     def log_metrics(self, metrics: dict, step: int) -> None:
         from enhancing_tpu_torch.ops import (LAUNCHES, PLAIN_CALLS,
@@ -3516,16 +3548,24 @@ class StepRecorder:
                                  launches=dict(LAUNCHES),
                                  counts=kernel_counts(),
                                  short=SHORT_CALLS["attention_bnhd"],
-                                 plain=dict(PLAIN_CALLS), metrics=metrics))
+                                 plain=dict(PLAIN_CALLS), metrics=metrics,
+                                 temp=getattr(self.trainer, "last_temp",
+                                              None)))
 
 
-def one_step_grads(model, x):
+def one_step_grads(model, x, temp=None, key=None):
     """Losses and gradients of one AE phase and one D phase on the same
-    batch and weights, without an update."""
+    batch and weights, without an update; a Gumbel tokenizer draws its
+    noise on the card from a generator seeded with ``key`` (the same
+    draws on either path) at ``temp``."""
     module, loss = model.module, model.loss
     ae_params = list(module.parameters())
     d_params = list(loss.discriminator.parameters())
-    xrec, qloss, _, codes = module.forward_training(x)
+    if key is None:
+        xrec, qloss, _, codes = module.forward_training(x)
+    else:
+        xrec, qloss, _, codes = module.forward_training(
+            x, temp, False, torch.Generator(device="cuda").manual_seed(key))
     ae_loss, glog = loss.generator_loss(qloss, x, xrec, 1.0)
     ae_grads = torch.autograd.grad(ae_loss, ae_params, allow_unused=True,
                                    materialize_grads=True)
@@ -4826,6 +4866,417 @@ def phase_rq_train() -> dict:
     return total
 
 
+# -- phase 16: the Gumbel tokenizer's GAN training at its published widths --
+
+# configs/imagenet_vitvq_gumbel_base.yaml's model after load_config's target
+# remap (a CPU test holds the two equal): ViT-VQGAN-Base in fp32 with the
+# Gumbel-softmax quantizer, its temperature schedule and its loss weights
+GUMBEL_VITVQ_BASE = {
+    "target": "enhancing_tpu_torch.models.stage1.vitvqgan.ViTVQGumbel",
+    "params": {
+        "image_key": "image", "image_size": 256, "patch_size": 8,
+        "encoder": dict(_TOWER), "decoder": dict(_TOWER),
+        "quantizer": {"embed_dim": 32, "n_embed": 8192, "temp_init": 1.0},
+        "temperature_scheduler": {
+            "target": "enhancing_tpu_torch.train.optim."
+                      "ExponentialDecayScheduler",
+            "params": {"start": 1.0, "end": 0.0625, "decay_every_step": 1,
+                       "scale_factor": 0.00001}},
+        "loss": {
+            "target": "enhancing_tpu_torch.losses.vqperceptual."
+                      "VQLPIPSWithDiscriminator",
+            "params": {"loglaplace_weight": 0.0, "loggaussian_weight": 1.0,
+                       "perceptual_weight": 0.1,
+                       "adversarial_weight": 0.1}},
+    }}
+GUMBEL_STEPS = 3
+# per fp32 Gumbel step: phase 11's fp32 step less its two VQ searches (the
+# Gumbel quantizer takes the argmax of its softmax over the full distance
+# matrix, a library product); a validation batch: one fp32 round trip and
+# three D forwards
+GUMBEL_STEP = {"ln_gemm_f32": 96, "attention_f32": 48, "layernorm": 4,
+               "attention_bwd_f32": 24, "fir": 36, "fir_vjp": 36,
+               "fused_act": 45}
+GUMBEL_EVAL = {"ln_gemm_f32": 48, "attention_f32": 24, "layernorm": 2,
+               "fir": 36, "fused_act": 45}
+# torchvision's VGG16 convs (features.{i}) and the lpips package's lin
+# heads: the layout lpips_weights is read in
+VGG16_CONVS = ((0, 64), (2, 64), (5, 128), (7, 128), (10, 256), (12, 256),
+               (14, 256), (17, 512), (19, 512), (21, 512), (24, 512),
+               (26, 512), (28, 512))
+LPIPS_LINS = (64, 128, 256, 512, 512)
+
+
+def write_lpips_file(path: str, seed: int = 16) -> str:
+    """Seeded random VGG16 conv weights (He-scaled) and non-negative lin
+    heads in the torchvision + lpips key layout, torch.save'd to ``path``:
+    no pretrained file is in the repository, so the weight loader runs on
+    this one."""
+    import os
+    gen = torch.Generator().manual_seed(seed)
+    sd, in_ch = {}, 3
+    for idx, width in VGG16_CONVS:
+        sd[f"features.{idx}.weight"] = (torch.randn(
+            width, in_ch, 3, 3, generator=gen) * (2.0 / (9 * in_ch)) ** 0.5)
+        sd[f"features.{idx}.bias"] = torch.zeros(width)
+        in_ch = width
+    for i, width in enumerate(LPIPS_LINS):
+        sd[f"lin{i}.model.1.weight"] = torch.rand(1, width, 1, 1,
+                                                  generator=gen) * 0.1
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(sd, path)
+    return path
+
+
+def phase_gumbel_train() -> dict:
+    """Phase 16: configs/imagenet_vitvq_gumbel_base.yaml's model as shipped
+    (fp32) through Trainer.fit on FakeImages at 256 px, batch 8, LPIPS read
+    through lpips_weights from a file written here; GUMBEL_STEPS steps (R1
+    on step 0) and a validation batch, each step's temperature against the
+    scheduler's and its launches asserted exactly; one step's losses and
+    gradients through the kernels against the plain path on the same
+    weights and noise; ms a step, peak memory, one step's device time."""
+    from enhancing_tpu_torch.ops import (LAUNCHES, PLAIN_CALLS,
+                                         reset_launches)
+    from enhancing_tpu_torch.train import Trainer, make_vitvq_train_step
+    from enhancing_tpu_torch.utils.config import initialize_from_config
+    gc_cuda()
+    t0 = time.perf_counter()
+    cfg = json.loads(json.dumps(GUMBEL_VITVQ_BASE))
+    cfg["params"]["loss"]["params"]["lpips_weights"] = write_lpips_file(
+        "build/lpips_vgg16_random.pt")
+    model = initialize_from_config(cfg, device="cuda")
+    data = initialize_from_config(fake_imagenet(TRAIN_BATCH))
+    module, disc = model.module, model.loss.discriminator
+    check(not model.loss.lpips_is_random, "LPIPS did not load its file")
+    log(f"[gumbel] imagenet_vitvq_gumbel_base.yaml as shipped (ViTVQGumbel,"
+        f" fp32, {CODES} codes of {EMBED}, ExponentialDecayScheduler, "
+        f"VQLPIPSWithDiscriminator), LPIPS from lpips_weights (seeded random"
+        f" VGG16 + lin heads in the torchvision / lpips layout), FakeImages "
+        f"256 px batch {TRAIN_BATCH}: built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    before = {"AE": [p.detach().clone() for p in module.parameters()],
+              "D": [p.detach().clone() for p in disc.parameters()]}
+    trainer = Trainer(max_steps=GUMBEL_STEPS, log_every=1)
+    recorder = StepRecorder(trainer)
+    trainer.metrics_logger = recorder
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    prev = dict(t=time.perf_counter(), counts=kernel_counts(),
+                plain={k: 0 for k in PLAIN_CALLS})
+    trainer.fit(model, data)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check(len(recorder.records) == GUMBEL_STEPS + 1,
+          f"{len(recorder.records)} log calls, expected {GUMBEL_STEPS} steps "
+          "and one validation")
+    step_ms = []
+    for i, r in enumerate(recorder.records):
+        got = {k: r["counts"][k] - prev["counts"][k] for k in r["counts"]
+               if r["counts"][k] != prev["counts"][k]}
+        plain = {k: r["plain"][k] - prev["plain"][k] for k in PLAIN_CALLS
+                 if r["plain"][k] != prev["plain"][k]}
+        ms = (r["t"] - prev["t"]) * 1e3
+        if i < GUMBEL_STEPS:
+            want_temp = model.temperature_scheduler(i)
+            label = (f"step {i} ({'R1' if i == 0 else 'no R1'}, temperature "
+                     f"{r['temp']!r})")
+            want, want_plain = GUMBEL_STEP, (R1_PLAIN if i == 0 else {})
+            check(r["temp"] == want_temp, f"step {i}: temperature "
+                  f"{r['temp']!r}, the scheduler's {want_temp!r}")
+            step_ms.append(ms)
+        else:
+            label, want, want_plain = "validation (1 batch)", GUMBEL_EVAL, {}
+        log(f"[gumbel] {label}: {ms:.1f} ms, launches {got}, plain-routed "
+            f"{plain}")
+        check(got == want, f"gumbel {label}: launches {got}, expected {want}")
+        check(plain == want_plain, f"gumbel {label}: plain-routed {plain}")
+        bad = [k for k, v in r["metrics"].items() if not np.isfinite(v)]
+        check(not bad, f"gumbel {label}: non-finite {bad}")
+        prev = r
+    for group, params in (("AE", module.parameters()),
+                          ("D", disc.parameters())):
+        moved = sum(not torch.equal(p, q) for p, q in zip(params,
+                                                          before[group]))
+        check(moved == len(before[group]), f"gumbel {group} parameters did "
+              "not all move")
+    del before
+    last = recorder.records[GUMBEL_STEPS - 1]["metrics"]
+    steady = float(np.mean(step_ms[1:]))
+    log(f"[gumbel] after {GUMBEL_STEPS} steps: " + " ".join(
+        f"{k}={v:.5g}" for k, v in sorted(last.items())))
+    log(f"[gumbel] code perplexity {last['train/code_perplexity']:.2f} "
+        f"({last['train/codes_used']:.0f} codes used); step 0 (R1, first "
+        f"calls) {step_ms[0]:.1f} ms, steps 1-{GUMBEL_STEPS - 1} mean "
+        f"{steady:.1f} ms = {TRAIN_BATCH / steady * 1e3:.2f} images/s, peak "
+        f"memory {peak / 2**30:.2f} GiB (wall clock around each step, "
+        "logging included)")
+    check(np.isfinite(last["train/code_perplexity"])
+          and last["train/codes_used"] > 0, "gumbel code usage")
+
+    # one step's losses and gradients, kernels against the plain path, on
+    # the same weights and the same draws (one CUDA generator seed); the
+    # model is fp32, so phase 11's fp32 limits hold it
+    x = model.get_input(next(iter(data.val_dataloader())), "image")
+    temp = model.temperature_scheduler(GUMBEL_STEPS)
+    module.train()
+    k_logs, k_ae, k_d, k_codes = one_step_grads(model, x, temp, key=16)
+    mid = dict(LAUNCHES)
+    with plain_versions():
+        p_logs, p_ae, p_d, p_codes = one_step_grads(model, x, temp, key=16)
+    check(LAUNCHES == mid, "gumbel: the plain path launched a kernel")
+    rel = {k: abs(k_logs[k] - p_logs[k]) / max(abs(p_logs[k]), 1e-6)
+           for k in p_logs}
+    worst = max(rel.items(), key=lambda kv: kv[1])
+    ae_cos = worst_cosine([n for n, _ in module.named_parameters()], k_ae,
+                          p_ae)
+    d_cos = worst_cosine([n for n, _ in disc.named_parameters()], k_d, p_d)
+    match = float((k_codes == p_codes).float().mean()) * 100
+    log(f"[gumbel] one step at temperature {temp:.6f}, fp32 kernels vs fp32"
+        f" plain, same noise: code match {match:.3f}%; largest loss "
+        f"difference {worst[1]:.3e} relative ({worst[0]}; limit "
+        f"{F32_LOSS_RTOL_LIMIT}); least gradient cosine AE {ae_cos[0]:.7f} "
+        f"({ae_cos[1]}), D {d_cos[0]:.7f} ({d_cos[1]}) (limit "
+        f"{F32_COS_LIMIT})")
+    check(worst[1] <= F32_LOSS_RTOL_LIMIT, "gumbel losses disagree")
+    check(min(ae_cos[0], d_cos[0]) >= F32_COS_LIMIT,
+          "gumbel gradients disagree")
+    del k_ae, k_d, p_ae, p_d
+    step = make_vitvq_train_step(model, model.loss)
+    busy = profile_device(
+        f"one fp32 Gumbel training step (no R1) batch {TRAIN_BATCH}",
+        lambda: step(trainer.final_state, x, rng=7, temp=temp))
+    module.eval()
+    if busy is not None:
+        log(f"[gumbel] device busy {busy:.2f} ms in one step against "
+            f"{steady:.1f} ms a step unprofiled: {busy / steady:.1%} busy")
+    counts = recorder.records[-1]["counts"]
+    del model, trainer, step, data
+    gc_cuda()
+    return counts
+
+
+# -- phase 17: the split GAN step, reuse_xrec and gradient accumulation -----
+
+# configs/convergence_vitvq_base.yaml after load_config's target remap (a
+# CPU test holds the two equal): ViT-VQGAN-Base bf16, perceptual weight 0,
+# the GAN term from step 100
+CONVERGENCE_VITVQ_BASE = {
+    "model": {
+        "target": "enhancing_tpu_torch.models.stage1.vitvqgan.ViTVQ",
+        "params": {
+            "image_key": "image", "image_size": 256, "patch_size": 8,
+            "dtype": "bfloat16", "scan_layers": True, "remat": True,
+            "encoder": dict(_TOWER), "decoder": dict(_TOWER),
+            "quantizer": {"embed_dim": 32, "n_embed": 8192},
+            "loss": {
+                "target": "enhancing_tpu_torch.losses.vqperceptual."
+                          "VQLPIPSWithDiscriminator",
+                "params": {"loglaplace_weight": 1.0,
+                           "loggaussian_weight": 1.0,
+                           "perceptual_weight": 0.0,
+                           "adversarial_weight": 0.1,
+                           "disc_start": 100}},
+        }},
+    "dataset": {
+        "target": "enhancing_tpu_torch.data.DataModuleFromConfig",
+        "params": {
+            "batch_size": 8, "num_workers": 4,
+            "train": {"target": _FAKE, "params": {
+                "length": 4096, "resolution": 256, "seed": 1}},
+            "validation": {"target": _FAKE, "params": {
+                "length": 64, "resolution": 256, "seed": 2}},
+        }},
+}
+SPLIT_STEPS, ACCUM_STEPS = 3, 4
+# a generator round trip: what reuse_xrec saves a step
+ROUND_TRIP_SAVED = {"ln_gemm": 48, "attention": 24, "layernorm": 2, "vq": 1}
+
+
+def adam_moments(opt, which: str) -> list:
+    """The AdamW moments ``which`` ("exp_avg", the running means of the
+    gradients, or "exp_avg_sq", of their squares) of the optimizer a
+    MultiSteps wraps, in parameter order."""
+    inner = opt.opt
+    return [inner.state[p][which].detach().clone()
+            for g in inner.param_groups for p in g["params"]]
+
+
+class ParamWatch(StepRecorder):
+    """StepRecorder that also records, at every log call, whether the AE
+    and D parameters are bit-equal to the last call's."""
+
+    def __init__(self, trainer, tensors) -> None:
+        super().__init__(trainer)
+        self.tensors = tensors
+        self.last = [t.detach().clone() for t in tensors]
+
+    def log_metrics(self, metrics: dict, step: int) -> None:
+        super().log_metrics(metrics, step)
+        now = [t.detach().clone() for t in self.tensors]
+        self.records[-1]["same"] = all(torch.equal(a, b)
+                                       for a, b in zip(self.last, now))
+        self.last = now
+
+
+def phase_split_accumulate() -> dict:
+    """Phase 17: configs/convergence_vitvq_base.yaml (bf16, batch 8, no
+    validation split) from one initial state through Trainer.fit five
+    ways: the fused step, split_gan_step, reuse_xrec (SPLIT_STEPS steps
+    each), accumulate_grad_batches=2 (ACCUM_STEPS micro-steps), and that
+    accumulation on the plain versions. The split step against the fused
+    one, and the accumulation's kernels against its plain run: logged
+    losses within phase 6's 5e-3, AdamW first and second moments (the
+    running means of the gradients and their squares) to phase 6's
+    cosines, and the split step's parameter movements too; reuse
+    launches one generator round trip fewer a step than split;
+    accumulation leaves every parameter bit-equal after odd micro-steps.
+    Returns the launches by kernels-line name."""
+    from enhancing_tpu_torch.ops import LAUNCHES, reset_launches
+    from enhancing_tpu_torch.train import Trainer
+    from enhancing_tpu_torch.utils.config import initialize_from_config
+    gc_cuda()
+    t0 = time.perf_counter()
+    model = initialize_from_config(CONVERGENCE_VITVQ_BASE["model"],
+                                   device="cuda")
+    module, disc = model.module, model.loss.discriminator
+    tensors = [*module.parameters(), *disc.parameters()]
+    n_ae = len(list(module.parameters()))
+    init = [t.detach().clone() for t in tensors]
+    log(f"[split] convergence_vitvq_base.yaml (bf16, perceptual weight 0, "
+        f"disc_start 100) built in {time.perf_counter() - t0:.1f} s")
+    dataset = json.loads(json.dumps(CONVERGENCE_VITVQ_BASE["dataset"]))
+    del dataset["params"]["validation"]
+    total: dict = {}
+
+    def run(label, steps, plain=False, **kw):
+        with torch.no_grad():
+            for t, v in zip(tensors, init):
+                t.copy_(v)
+        trainer = Trainer(max_steps=steps, log_every=1, **kw)
+        watch = ParamWatch(trainer, tensors)
+        trainer.metrics_logger = watch
+        data = initialize_from_config(dataset)
+        torch.cuda.synchronize()
+        reset_launches()
+        start = dict(t=time.perf_counter(), launches=dict(LAUNCHES),
+                     counts=kernel_counts())
+        with plain_versions() if plain else contextlib.nullcontext():
+            trainer.fit(model, data)
+        torch.cuda.synchronize()
+        check(len(watch.records) == steps, f"{label}: {len(watch.records)}"
+              f" log calls, expected {steps}")
+        check(not plain or not any(LAUNCHES.values()),
+              f"{label}: the plain path launched a kernel")
+        per_step, prev = [], start
+        for r in watch.records:
+            per_step.append(({k: r["launches"][k] - prev["launches"][k]
+                              for k in LAUNCHES},
+                             (r["t"] - prev["t"]) * 1e3))
+            prev = r
+        counts = watch.records[-1]["counts"]
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        ms = [m for _, m in per_step]
+        log(f"[split] {label}: {steps} steps, ms a step "
+            + ", ".join(f"{m:.1f}" for m in ms) + f" (step 0 R1; mean of "
+            f"steps 1-{steps - 1} {float(np.mean(ms[1:])):.1f} ms), losses "
+            + " ".join(f"{k}={v:.5g}" for k, v in sorted(
+                watch.records[-1]["metrics"].items()) if "loss" in k))
+        state = trainer.final_state
+        return dict(records=watch.records, launches=per_step,
+                    after=[t.detach().clone() for t in tensors],
+                    moments={which: adam_moments(state.ae_opt, which)
+                             + adam_moments(state.disc_opt, which)
+                             for which in ("exp_avg", "exp_avg_sq")},
+                    state=state)
+
+    def agree(label, got, want, movements: bool):
+        """Logged losses, AdamW first and second moments and, where
+        ``movements``, parameter movements of two runs from the same
+        state, checked against phase 6's limits. Without ``movements``
+        those are logged unchecked: the same AdamW code turns moments that
+        agree into movements of ~lr a step that need not (a code one path
+        chose and the other did not moves its codebook row, and a
+        near-zero gradient's sign decides its entry's step)."""
+        names = ([f"AE {n}" for n, _ in module.named_parameters()]
+                 + [f"D {n}" for n, _ in disc.named_parameters()])
+        worst_loss = (0.0, "")
+        for rg, rw in zip(got["records"], want["records"]):
+            for k, v in rw["metrics"].items():
+                if "loss" in k:
+                    rel = abs(rg["metrics"][k] - v) / max(abs(v), 1e-6)
+                    worst_loss = max(worst_loss, (rel, k))
+        pairs = {"first moments": (got["moments"]["exp_avg"],
+                                   want["moments"]["exp_avg"]),
+                 "second moments": (got["moments"]["exp_avg_sq"],
+                                    want["moments"]["exp_avg_sq"]),
+                 "parameter movements": (
+                     [a - b for a, b in zip(got["after"], init)],
+                     [a - b for a, b in zip(want["after"], init)])}
+        out = {what: (worst_cosine(names[:n_ae], g[:n_ae], w[:n_ae]),
+                      worst_cosine(names[n_ae:], g[n_ae:], w[n_ae:]))
+               for what, (g, w) in pairs.items()}
+        checked = [w for w in out if movements or w != "parameter movements"]
+
+        def reading(what: str) -> str:
+            (ae, ae_name), (d, d_name) = out[what]
+            return (f"least {what} cosine AE {ae:.7f} ({ae_name}), D "
+                    f"{d:.7f} ({d_name})")
+
+        log(f"[split] {label}: largest loss difference {worst_loss[0]:.3e} "
+            f"relative ({worst_loss[1]}; limit {LOSS_RTOL_LIMIT}); "
+            + "; ".join(reading(w) for w in checked)
+            + f" (limits AE {AE_COS_LIMIT}, D {D_COS_LIMIT})"
+            + ("" if movements else
+               f"; not checked: {reading('parameter movements')}"))
+        check(worst_loss[0] <= LOSS_RTOL_LIMIT, f"{label}: losses disagree")
+        for what in checked:
+            (ae, _), (d, _) = out[what]
+            check(ae >= AE_COS_LIMIT and d >= D_COS_LIMIT,
+                  f"{label}: {what} disagree")
+
+    fused = run("fused step", SPLIT_STEPS)
+    split = run("split_gan_step", SPLIT_STEPS, split_gan_step=True)
+    agree("split vs fused", split, fused, movements=True)
+    for i, ((lf, _), (ls, _)) in enumerate(zip(fused["launches"],
+                                               split["launches"])):
+        check(lf == ls, f"step {i}: split launches {ls}, fused {lf}")
+        want = dict(TRAIN_STEP)
+        check({k: v for k, v in ls.items() if v} == want,
+              f"split step {i}: launches {ls}, expected {want}")
+    del fused
+    reuse = run("reuse_xrec", SPLIT_STEPS, reuse_xrec=True)
+    for i, ((ls, _), (lr, _)) in enumerate(zip(split["launches"],
+                                               reuse["launches"])):
+        fewer = {k: ls[k] - lr[k] for k in ls if ls[k] != lr[k]}
+        log(f"[split] step {i}: reuse_xrec launches {fewer} fewer than "
+            "split_gan_step")
+        check(fewer == ROUND_TRIP_SAVED, f"reuse_xrec step {i}: {fewer} "
+              f"fewer, expected {ROUND_TRIP_SAVED}")
+    del split, reuse
+
+    accum = run("accumulate_grad_batches=2", ACCUM_STEPS,
+                accumulate_grad_batches=2)
+    check(accum["state"].ae_opt.every_k == 2
+          and accum["state"].ae_opt.sched.last_epoch == ACCUM_STEPS // 2,
+          "accumulation: not every 2 calls, or the schedule miscounted")
+    same = [r["same"] for r in accum["records"]]
+    log(f"[split] accumulation: parameters bit-equal to the previous "
+        f"micro-step's after micro-steps 1-{ACCUM_STEPS}: {same}")
+    check(same == [i % 2 == 0 for i in range(ACCUM_STEPS)],
+          "accumulation moved parameters on a non-final micro-step, or "
+          "none on a final one")
+    accum_plain = run("accumulate_grad_batches=2 on the plain versions",
+                      ACCUM_STEPS, plain=True, accumulate_grad_batches=2)
+    agree("accumulation, kernels vs plain", accum, accum_plain,
+          movements=False)
+    del accum, accum_plain, model, tensors, init
+    gc_cuda()
+    return total
+
+
 def main() -> int:
     import enhancing_tpu_torch  # noqa: F401  (fails outside a checkout)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4847,8 +5298,11 @@ def main() -> int:
     prior_train = phase_prior_train()
     rq = phase_rq()
     rq_train = phase_rq_train()
+    gumbel = phase_gumbel_train()
+    split = phase_split_accumulate()
     phases = (serving, training, sampling, serving8, fused, fused_routes,
-              shipped, training32, prior32, prior_train, rq, rq_train)
+              shipped, training32, prior32, prior_train, rq, rq_train,
+              gumbel, split)
     kernels = []
     for kname in REPLACES:
         rows = times[kname]

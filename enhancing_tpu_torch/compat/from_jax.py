@@ -88,6 +88,36 @@ def load_style_discriminator_from_jax(disc: nn.Module,
     return load_from_jax(disc, params)
 
 
+def load_patch_discriminator_from_jax(disc: nn.Module,
+                                      variables: Mapping) -> nn.Module:
+    """Fill a port ``PatchDiscriminator`` from the JAX module's variables
+    (numpy leaves): ``params`` as :func:`load_from_jax` does, and the
+    ``batch_stats`` collection (BatchNorm's ``mean`` / ``var``, ActNorm's
+    ``loc`` / ``scale`` / ``initialized``) into the buffers of the same
+    names. A leaf without a buffer, a buffer left unfilled or a shape
+    mismatch raises."""
+    load_from_jax(disc, variables["params"])
+    targets = dict(disc.named_buffers())
+    filled = set()
+    for path, leaf in _leaves(variables.get("batch_stats", {})):
+        name = ".".join(path)
+        if name not in targets:
+            raise KeyError(f"JAX batch_stats leaf {'/'.join(path)} has no "
+                           f"buffer {name!r} in the port")
+        buf = targets[name]
+        array = np.asarray(leaf)
+        if tuple(array.shape) != tuple(buf.shape):
+            raise ValueError(f"{name}: JAX shape {array.shape} != port "
+                             f"shape {tuple(buf.shape)}")
+        buf.copy_(torch.tensor(np.array(array)))
+        filled.add(name)
+    missing = sorted(set(targets) - filled)
+    if missing:
+        raise KeyError(f"port buffers with no JAX batch_stats leaf: "
+                       f"{missing}")
+    return disc
+
+
 def load_lpips_from_jax(lpips: nn.Module, params: Mapping) -> nn.Module:
     """Fill a port ``LPIPS`` from the JAX loss's ``lpips_params``."""
     return load_from_jax(lpips, params)

@@ -442,7 +442,17 @@ constexpr int WFIXED = WTILE + 2 * WPSLOT + 3 * 64 * 4;
 // the ring: as many 8 KiB K / V boxes as fit beside q and P (20)
 constexpr int WRING = (sm90::kSmemLimit - WFIXED) / WBOX;
 constexpr int WSMEM = WFIXED + WRING * WBOX + 1024;
-static_assert(WRING >= 2 * WBOXES, "a K and a V tile in flight");
+// A parity wait on a ring stage passes at once while the stage's previous
+// phase is still incomplete, so no role may wait on a stage whose previous
+// load has not been seen complete. The S warpgroup waits on every stage in
+// order, the K boxes of a key tile and then its V boxes (before it hands
+// the tile's P over, while no O warpgroup can free them). With WRING >= 2
+// WBOXES the previous load of any stage is a box of an earlier key tile:
+// the S warpgroup saw it complete before it handed that tile's P over, and
+// an O warpgroup waits on a V box only after the handover of the V box's
+// own tile, which follows it.
+static_assert(WRING >= 2 * WBOXES,
+              "a stage's previous load is a box of an earlier key tile");
 // registers a thread (setmaxnreg): the launch gives 65536 / threads (96),
 // and what the roles take back can only come out of what the block was
 // given: the producer drops to 24, S keeps 96, O takes 120
@@ -612,6 +622,14 @@ __global__ void __launch_bounds__(kWideThreads, 1)
       if (qd == 0) {
         alpha_s[slot * 64 + r] = alpha[0];
         alpha_s[slot * 64 + r + 8] = alpha[1];
+      }
+      // this tile's V boxes have landed before the O warpgroups may free
+      // them: later K boxes reuse their stages, and a wait there must not
+      // pass on a V load still in flight
+#pragma unroll
+      for (int j = 0; j < WBOXES; ++j) {
+        const int iv = i0 + WBOXES + j;
+        sm90::mbar_wait(&full[rp.stage(iv)], rp.parity(iv));
       }
       sm90::named_arrive(BAR_PFULL + slot, kRoleThreads);
     }

@@ -1,12 +1,16 @@
 """StyleGAN2 discriminator, NHWC, in PyTorch.
 
-Counterpart of ``enhancing_tpu/losses/discriminator.py:25-191``.
+Counterpart of ``enhancing_tpu/losses/discriminator.py``.
 Equalized-LR layers draw their weights from N(0, 1) and apply the He
 constant 1/sqrt(fan_in) at run time; the blur before each strided conv
 runs through ``ops.upfirdn2d`` and the bias + leaky ReLU through
 ``ops.fused_act`` (the kernels ``csrc/fir.cu`` and ``csrc/fused_act.cu``
 on the card). Activations stay NHWC: each convolution reads them as a
 channels-last NCHW view, so no layout copy is made.
+
+:class:`PatchDiscriminator` (with :class:`BatchNorm` or :class:`ActNorm`)
+is the counterpart of ``discriminator.py:194-281``; no loss of the JAX
+package builds it, so it runs on no training path.
 
 Convolution weights are stored OIHW (``F.conv2d``'s layout) and linear
 weights (out, in); ``compat.from_jax`` transposes the JAX HWIO and
@@ -197,3 +201,149 @@ class StyleDiscriminator(nn.Module):
         out = self.final_conv(minibatch_stddev(out))
         out = self.final_linear1(out.reshape(out.shape[0], -1))
         return self.final_linear2(out)[:, 0]
+
+
+class ActNorm(nn.Module):
+    """Activation normalisation with a data-dependent init, NHWC (or (B, C)).
+    ``loc``, ``scale`` and ``initialized`` are buffers, as the JAX
+    package's ``batch_stats``: the first call with ``train=True`` sets loc
+    to minus each channel's mean and scale to 1 / (its std (ddof=1) +
+    1e-6), and that call's output already uses them (its gradient flows
+    through the batch statistics, as in JAX); they stay fixed after.
+    With ``logdet`` it also returns H * W * sum(log |scale|) per sample."""
+
+    def __init__(self, num_features: int, logdet: bool = False) -> None:
+        super().__init__()
+        self.num_features = num_features
+        self.logdet = logdet
+        shape = (1, 1, 1, num_features)
+        self.register_buffer("loc", torch.zeros(shape))
+        self.register_buffer("scale", torch.ones(shape))
+        self.register_buffer("initialized", torch.zeros((), dtype=torch.uint8))
+
+    def forward(self, x: torch.Tensor, train: bool = False):
+        squeeze = x.ndim == 2
+        if squeeze:
+            x = x[:, None, None, :]
+        loc, scale = self.loc, self.scale
+        if train:
+            flat = x.permute(3, 0, 1, 2).reshape(self.num_features, -1)
+            mean = torch.mean(flat, dim=1).reshape(loc.shape)
+            std = torch.std(flat, dim=1, correction=1).reshape(loc.shape)
+            first = self.initialized == 0
+            loc = torch.where(first, -mean, loc)
+            scale = torch.where(first, 1.0 / (std + 1e-6), scale)
+            with torch.no_grad():
+                self.loc.copy_(loc)
+                self.scale.copy_(scale)
+                self.initialized.fill_(1)
+        h = scale * (x + loc)
+        if squeeze:
+            h = h[:, 0, 0, :]
+        if self.logdet:
+            hw = x.shape[1] * x.shape[2]
+            logdet = hw * torch.sum(torch.log(torch.abs(scale)))
+            return h, logdet * torch.ones(x.shape[0], device=x.device)
+        return h
+
+
+class BatchNorm(nn.Module):
+    """flax's ``nn.BatchNorm`` over the last axis, written out: batch
+    statistics in fp32 (the variance as E[x^2] - E[x]^2, clipped at 0, the
+    biased one) under ``train=True``, whose running averages take momentum
+    0.99 (torch's 0.01) and keep that biased variance; the running ones
+    otherwise; eps 1e-5. ``weight`` is flax's ``scale``, drawn as the JAX
+    package's ``normal(1.0, 0.02)`` draws it (stddev 1, its second
+    argument being a dtype)."""
+
+    def __init__(self, num_features: int, momentum: float = 0.99,
+                 eps: float = 1e-5, *,
+                 generator: torch.Generator | None = None) -> None:
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.randn(num_features,
+                                               generator=generator))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("mean", torch.zeros(num_features))
+        self.register_buffer("var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        xf = x.float()
+        if train:
+            dims = tuple(range(x.ndim - 1))
+            mean = torch.mean(xf, dim=dims)
+            var = torch.clamp_min(torch.mean(xf * xf, dim=dims)
+                                  - mean * mean, 0.0)
+            with torch.no_grad():
+                self.mean.mul_(self.momentum).add_((1 - self.momentum)
+                                                   * mean)
+                self.var.mul_(self.momentum).add_((1 - self.momentum) * var)
+        else:
+            mean, var = self.mean, self.var
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight)
+        return (y + self.bias).to(x.dtype)
+
+
+class _Conv(nn.Module):
+    """A plain NHWC convolution (flax ``nn.Conv``), OIHW weight drawn from
+    N(0, 0.02), zero bias."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int,
+                 bias: bool, dtype: torch.dtype,
+                 generator: torch.Generator | None) -> None:
+        super().__init__()
+        self.weight = nn.Parameter(0.02 * torch.randn(
+            out_channels, in_channels, 4, 4, generator=generator))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
+        self.stride, self.dtype = stride, dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = conv2d_nhwc(x.to(self.dtype), self.weight.to(self.dtype),
+                          self.stride, padding=1)
+        if self.bias is not None:
+            out = out + self.bias.to(self.dtype)
+        return out
+
+
+def _leaky(h: torch.Tensor) -> torch.Tensor:
+    return torch.where(h >= 0, h, 0.2 * h)
+
+
+class PatchDiscriminator(nn.Module):
+    """Pix2Pix PatchGAN discriminator, NHWC: 4x4 convolutions (stride 2,
+    then 1) with padding 1 and leaky ReLU 0.2, BatchNorm (or ActNorm with
+    ``use_actnorm``) after every convolution but the first and the last.
+    ``forward(x, train)``: ``train=True`` normalises with the batch's
+    statistics and updates the running ones (ActNorm: its first-batch
+    init). Submodules carry the JAX names (``conv0``, ``norm1``, ...,
+    ``conv_out``); ``compat.load_patch_discriminator_from_jax`` fills the
+    parameters and the ``batch_stats`` buffers."""
+
+    def __init__(self, input_nc: int = 3, ndf: int = 64, n_layers: int = 3,
+                 use_actnorm: bool = False, dtype="float32", *,
+                 generator: torch.Generator | None = None) -> None:
+        super().__init__()
+        self.n_layers = n_layers
+        dtype = _dtype(dtype)
+
+        def norm(features):
+            return (ActNorm(features) if use_actnorm
+                    else BatchNorm(features, generator=generator))
+
+        self.conv0 = _Conv(input_nc, ndf, 2, True, dtype, generator)
+        in_ch = ndf
+        for n in range(1, n_layers + 1):
+            out_ch = ndf * min(2 ** n, 8)
+            self.add_module(f"conv{n}", _Conv(in_ch, out_ch,
+                                              2 if n < n_layers else 1,
+                                              use_actnorm, dtype, generator))
+            self.add_module(f"norm{n}", norm(out_ch))
+            in_ch = out_ch
+        self.conv_out = _Conv(in_ch, 1, 1, True, dtype, generator)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        h = _leaky(self.conv0(x))
+        for n in range(1, self.n_layers + 1):
+            h = getattr(self, f"conv{n}")(h)
+            h = _leaky(getattr(self, f"norm{n}")(h, train=train))
+        return self.conv_out(h)

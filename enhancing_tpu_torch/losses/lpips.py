@@ -10,9 +10,13 @@ Counterpart of ``enhancing_tpu/losses/lpips.py``:
   applies the 1x1 "lin" heads and averages over space, summed over the
   five stages.
 
-No pretrained weights are in the repository, so :func:`init_lpips` draws
-random weights and warns, as the JAX package does: the loss is then a
-random-projection perceptual distance, not the published metric.
+:func:`init_lpips` loads pretrained weights from a torch file
+(:func:`load_torch_lpips`: torchvision's VGG16 ``features.*`` convs and
+the ``lpips`` package's lin heads), as the JAX package's
+``load_torch_lpips`` does. No such file is in the repository; without
+one it draws random weights and warns, as the JAX package does: the loss
+is then a random-projection perceptual distance, not the published
+metric.
 """
 from __future__ import annotations
 
@@ -106,13 +110,56 @@ class LPIPS(nn.Module):
         return total
 
 
+# the indices of torchvision's 13 VGG16 convs in its ``features``
+TORCHVISION_CONVS = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+
+
+def load_torch_lpips(lpips: LPIPS, path: str) -> LPIPS:
+    """Copy a torch checkpoint into ``lpips``: torchvision's VGG16 conv
+    weights and biases (``features.{0,2,5,...,28}.weight`` / ``.bias``,
+    OIHW as the port stores them) and the ``lpips`` package's lin heads
+    (``lin{i}.model.1.weight`` or ``lins.{i}.model.1.weight``, (1, C, 1,
+    1)), with or without a ``state_dict`` wrapper. A missing or left-over
+    key, or a shape mismatch, raises."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    sd = dict(sd)
+    targets = {}
+    for idx, name in zip(TORCHVISION_CONVS, lpips.net.names):
+        conv = getattr(lpips.net, name)
+        targets[f"features.{idx}.weight"] = conv.weight
+        targets[f"features.{idx}.bias"] = conv.bias
+    for i in range(len(VGG_PLAN)):
+        # the two names the lpips package gives a lin head's weight
+        names = (f"lin{i}.model.1.weight", f"lins.{i}.model.1.weight")
+        found = [k for k in names if k in sd]
+        if len(found) != 1:
+            raise KeyError(f"{path}: lin head {i} needs exactly one of "
+                           f"{names}, found {found}")
+        targets[found[0]] = getattr(lpips, f"lin{i}").weight
+    missing = sorted(set(targets) - set(sd))
+    extra = sorted(set(sd) - set(targets))
+    if missing or extra:
+        raise KeyError(f"{path}: missing keys {missing}, left-over keys "
+                       f"{extra}")
+    with torch.no_grad():
+        for key, param in targets.items():
+            value = torch.as_tensor(sd[key])
+            if value.shape != param.shape:
+                raise ValueError(f"{path}: {key} has shape "
+                                 f"{tuple(value.shape)}, expected "
+                                 f"{tuple(param.shape)}")
+            param.copy_(value)
+    return lpips
+
+
 def init_lpips(weights_path: Optional[str] = None,
                generator: torch.Generator | None = None) -> LPIPS:
-    """Build LPIPS with random weights from ``generator``, and warn.
-    Loading pretrained vgg + lin weights is a later slice of the port."""
+    """Build LPIPS and load ``weights_path`` (:func:`load_torch_lpips`);
+    without a file, random weights from ``generator``, and a warning."""
     if weights_path:
-        raise NotImplementedError(
-            "loading lpips_weights is a later slice of the port")
+        return load_torch_lpips(LPIPS(generator), weights_path)
     warnings.warn(
         "LPIPS running with randomly initialized VGG16 weights — "
         "perceptual loss is a random-projection distance, not the "

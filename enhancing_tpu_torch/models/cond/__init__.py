@@ -1,3 +1,4 @@
 from .dummycond import ClassCond, DummyCond
+from .vqcond import VQCond, VQSegmentation
 
-__all__ = ["DummyCond", "ClassCond"]
+__all__ = ["DummyCond", "ClassCond", "VQCond", "VQSegmentation"]

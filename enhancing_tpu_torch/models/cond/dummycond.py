@@ -5,8 +5,8 @@ The port's copy of ``DummyCond`` and ``ClassCond`` of
 ``enhancing_tpu/models/cond/dummycond.py``: host-side objects with no
 parameters; ``encode_codes`` is the identity on class ids, ``to_img``
 renders each class name as an image for logging (Pillow, imported when
-rendering). ``TextCond`` needs the CLIP tokenizer and comes with the
-conditioners' slice (ROADMAP A6).
+rendering). ``TextCond`` needs the CLIP tokenizer and comes with ROADMAP
+A6.
 """
 from __future__ import annotations
 

@@ -23,6 +23,16 @@ from ...ops.vq import codebook_distances, l2_normalize, nearest_codebook_indices
 QuantizerOutput = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
+def gumbel_noise(shape, generator: torch.Generator | None,
+                 device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """Standard Gumbel noise -log(-log(u)) with u uniform in [tiny, 1), as
+    ``jax.random.gumbel`` draws it (``tiny`` the dtype's smallest normal, so
+    no draw is infinite), from ``generator`` on ``device``."""
+    u = torch.rand(shape, generator=generator, device=device, dtype=dtype)
+    u = torch.clamp_min(u, torch.finfo(dtype).tiny)
+    return -torch.log(-torch.log(u))
+
+
 def _embedding(n_embed: int, embed_dim: int,
                generator: torch.Generator | None) -> nn.Parameter:
     w = torch.empty(n_embed, embed_dim)
@@ -92,8 +102,12 @@ class VectorQuantizer(nn.Module):
 class GumbelQuantizer(nn.Module):
     """Gumbel-softmax quantizer with a KL-to-uniform prior loss. The
     deterministic path (``deterministic=True``, used outside training)
-    takes the straight-through hard one-hot; otherwise gumbel noise is
-    drawn from ``generator`` and the soft relaxation is used."""
+    takes the straight-through hard one-hot; in training
+    (``deterministic=False``) :func:`gumbel_noise` is drawn from
+    ``generator`` and z_q is the soft relaxation ``y_soft``, with no
+    straight-through on top, as in the JAX package. The full (tokens,
+    n_embed) distance matrix is one fp32 library product, as JAX's is one
+    XLA matmul outside any Pallas kernel."""
 
     def __init__(self, embed_dim: int, n_embed: int, temp_init: float = 1.0,
                  use_norm: bool = True, use_residual: bool = False,
@@ -121,9 +135,8 @@ class GumbelQuantizer(nn.Module):
         if deterministic:
             y_soft = torch.softmax(logits / temp, dim=-1)
         else:
-            u = torch.rand(logits.shape, generator=generator,
-                           device=logits.device, dtype=logits.dtype)
-            g = -torch.log(-torch.log(u))
+            g = gumbel_noise(logits.shape, generator, logits.device,
+                             logits.dtype)
             y_soft = torch.softmax((logits + g) / temp, dim=-1)
         indices = torch.argmax(y_soft, dim=-1).to(torch.int32)
         if deterministic:

@@ -202,6 +202,8 @@ class ViTVQ:
 
 
 class ViTVQGumbel(ViTVQ):
-    """ViTVQ with the Gumbel-softmax quantizer (deterministic when serving)."""
+    """ViTVQ with the Gumbel-softmax quantizer: deterministic when serving;
+    ``train.Trainer`` trains it on Gumbel noise at the temperature its
+    ``temperature_scheduler`` gives each step."""
 
     quantizer_type = "gumbel"

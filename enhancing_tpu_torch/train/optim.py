@@ -4,7 +4,7 @@ Counterpart of ``enhancing_tpu/train/optim.py``: the schedulers are
 step -> multiplier functions (copied, with Python floats in place of jnp),
 and the two recipes, each a ``torch.optim.AdamW`` and a ``LambdaLR``
 stepped once per update, so the n-th update uses the multiplier of step n
-as optax evaluates it:
+as optax evaluates it, both held by a :class:`MultiSteps`:
 
 - stage 1: AdamW(betas=(0.9, 0.99), weight decay 1e-4) for the
   autoencoder and for the discriminator;
@@ -17,12 +17,17 @@ as optax evaluates it:
   The mask decides on each parameter's name in the JAX tree
   (:func:`gpt_jax_name`), with the JAX package's own pattern: the port's
   names (``tok_emb_code.weight``, ``ln1.weight``) would match it wrongly.
+
+:class:`MultiSteps` is the counterpart of ``optax.MultiSteps(tx,
+every_k_schedule=k)`` for ``accumulate`` = k: gradients are averaged over
+k calls, and only the k-th call updates the parameters, the AdamW state
+and the LR schedule; k = 1 updates on every call.
 """
 from __future__ import annotations
 
 import math
 import re
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, Optional, Sequence
 
 import torch
 from torch import nn
@@ -102,15 +107,57 @@ class LambdaWarmUpLinearScheduler(BaseScheduler):
         return decay / self.start
 
 
+class MultiSteps:
+    """``optax.MultiSteps(every_k_schedule=every_k)`` around a torch
+    optimizer and its LR schedule. Each call of :meth:`update` folds one
+    gradient into a running mean (Welford's update, as optax's
+    ``use_grad_mean``); calls 1 to k - 1 leave the parameters, the
+    optimizer's state and the schedule as they are, and the k-th applies
+    the mean through the optimizer and steps the schedule, which therefore
+    counts real updates only. With ``every_k`` = 1 every call is an
+    update on its own gradient."""
+
+    def __init__(self, opt: torch.optim.Optimizer,
+                 sched: torch.optim.lr_scheduler.LRScheduler,
+                 every_k: int = 1) -> None:
+        if every_k < 1:
+            raise ValueError(f"every_k must be at least 1, got {every_k}")
+        self.opt, self.sched, self.every_k = opt, sched, every_k
+        self.mini_step = 0
+        self.acc: Optional[list] = None
+
+    def update(self, params: Sequence[torch.nn.Parameter],
+               grads: Sequence[torch.Tensor]) -> None:
+        """Fold ``grads`` (fresh tensors, kept) into the mean; on the k-th
+        call, take one optimizer step on ``params`` with it and one step
+        of the LR schedule."""
+        n = self.mini_step
+        with torch.no_grad():
+            if n == 0:
+                self.acc = [g.detach() for g in grads]
+            else:
+                for a, g in zip(self.acc, grads):
+                    a.add_((g - a) / (n + 1))
+        if n + 1 < self.every_k:
+            self.mini_step = n + 1
+            return
+        for p, g in zip(params, self.acc):
+            p.grad = g
+        self.opt.step()
+        self.sched.step()
+        self.opt.zero_grad(set_to_none=True)
+        self.mini_step, self.acc = 0, None
+
+
 def make_ae_optimizer(params: Iterable[torch.nn.Parameter], base_lr: float,
-                      scheduler: Optional[BaseScheduler] = None
-                      ) -> Tuple[torch.optim.AdamW,
-                                 torch.optim.lr_scheduler.LambdaLR]:
-    """AdamW for the stage-1 autoencoder or discriminator, and its LR
-    schedule (step the scheduler after every optimizer step)."""
+                      scheduler: Optional[BaseScheduler] = None,
+                      accumulate: int = 1) -> MultiSteps:
+    """AdamW for the stage-1 autoencoder or discriminator and its LR
+    schedule, in a :class:`MultiSteps` of ``accumulate`` calls an
+    update."""
     opt = torch.optim.AdamW(params, lr=base_lr, betas=(0.9, 0.99), eps=1e-8,
                             weight_decay=1e-4)
-    return opt, _lambda_lr(opt, scheduler)
+    return MultiSteps(opt, _lambda_lr(opt, scheduler), accumulate)
 
 
 def _lambda_lr(opt: torch.optim.Optimizer,
@@ -154,12 +201,11 @@ def gpt_decay_mask(gpt: nn.Module) -> Dict[str, bool]:
 
 
 def make_gpt_optimizer(gpt: nn.Module, base_lr: float,
-                       scheduler: Optional[BaseScheduler] = None
-                       ) -> Tuple[torch.optim.AdamW,
-                                  torch.optim.lr_scheduler.LambdaLR]:
+                       scheduler: Optional[BaseScheduler] = None,
+                       accumulate: int = 1) -> MultiSteps:
     """AdamW(betas=(0.9, 0.96)) over the prior's parameters with weight
-    decay where :func:`gpt_decay_mask` says, and its LR schedule (step the
-    scheduler after every optimizer step)."""
+    decay where :func:`gpt_decay_mask` says and its LR schedule, in a
+    :class:`MultiSteps` of ``accumulate`` calls an update."""
     mask = gpt_decay_mask(gpt)
     params = dict(gpt.named_parameters())
     groups = [{"params": [p for n, p in params.items() if mask[n] == decay],
@@ -167,4 +213,4 @@ def make_gpt_optimizer(gpt: nn.Module, base_lr: float,
               for decay in (True, False)]
     opt = torch.optim.AdamW([g for g in groups if g["params"]], lr=base_lr,
                             betas=(0.9, 0.96), eps=1e-8)
-    return opt, _lambda_lr(opt, scheduler)
+    return MultiSteps(opt, _lambda_lr(opt, scheduler), accumulate)

@@ -11,11 +11,26 @@ or an RQTransformer over an RQ-VAE's (B, T, D) residual codes, on the
 frozen tokenizer's codes (``_build_stage2``: fp32 master weights,
 ``make_gpt_optimizer``), validating on ``val/total_loss``.
 
+A Gumbel tokenizer (``ViTVQGumbel``) trains at the temperature
+``model.temperature_scheduler(global_step)`` (without a scheduler the
+quantizer's ``temp_init``; the last one in ``last_temp``) on noise keyed
+by ``seed``: the Trainer splits one key per step off its running key, as
+the JAX Trainer splits ``jax.random.PRNGKey(seed)``.
+
+The stage-1 step always runs as the two phases of
+``steps.make_vitvq_train_steps_split`` on the two halves of the step's
+key, which is what the JAX Trainer's ``split_gan_step`` does in two
+programs: here ``split_gan_step`` only refuses the adaptive adversarial
+weight, as the JAX split step does. ``reuse_xrec`` (which implies it)
+trains D on the AE phase's reconstruction. ``accumulate_grad_batches`` =
+k makes every optimizer of either stage an ``optim.MultiSteps`` of k:
+gradients averaged over k batches, one update every k steps, as
+``optax.MultiSteps`` does.
+
 Options the port cannot honour yet raise ``NotImplementedError``:
 checkpoints (``basedir``, ``resume``; ROADMAP A7), meshes and parallelism
-(``mesh``, ``zero1``, ``sp``, ``pipeline_parallel``; A9), the split GAN
-step (``split_gan_step``, ``reuse_xrec``). The JAX trainer's image-logger
-callbacks wait for A7.
+(``mesh``, ``zero1``, ``sp``, ``pipeline_parallel``; A9). The JAX
+trainer's image-logger callbacks wait for A7.
 """
 from __future__ import annotations
 
@@ -30,7 +45,8 @@ from .optim import make_ae_optimizer, make_gpt_optimizer
 from .steps import (GANTrainState, TrainState,
                     make_cond_transformer_eval_step,
                     make_cond_transformer_train_step, make_vitvq_eval_step,
-                    make_vitvq_train_step)
+                    make_vitvq_train_step, refuse_adaptive_weight,
+                    split_key)
 
 
 class Trainer:
@@ -50,20 +66,25 @@ class Trainer:
             "zero1": (zero1, "A9"),
             "sp": (sp, "A9"),
             "pipeline_parallel": (pipeline_parallel != 1, "A9"),
-            "split_gan_step": (split_gan_step, "A3"),
-            "reuse_xrec": (reuse_xrec, "A3"),
-            "accumulate_grad_batches": (accumulate_grad_batches != 1, "A3"),
         }
         asked = [f"{name} (ROADMAP {item})"
                  for name, (on, item) in unsupported.items() if on]
         if asked:
             raise NotImplementedError(
                 f"the port's Trainer does not support {asked} yet")
+        if accumulate_grad_batches < 1:
+            raise ValueError("accumulate_grad_batches must be at least 1")
         self.max_epochs = max_epochs
         self.base_lr = base_lr
-        # stage-1 VQ training draws no random numbers; the seed is kept
-        # for the Gumbel slice
+        # the running key of the per-step Gumbel noise
         self.seed = seed
+        self.accumulate = accumulate_grad_batches
+        # D trains on the AE phase's reconstruction instead of re-running
+        # the generator forward — one SGD step stale; see
+        # steps.make_vitvq_train_steps_split. Implies split_gan_step.
+        self.reuse_xrec = reuse_xrec
+        self.split_gan_step = split_gan_step or reuse_xrec
+        self.last_temp: Optional[float] = None
         self.log_every = log_every
         self.max_steps = max_steps
         self.metrics_logger = metrics_logger
@@ -84,22 +105,25 @@ class Trainer:
         if hasattr(loss_obj, "check_trainable"):
             loss_obj.check_trainable()
         sched = self._scheduler(model)
-        ae_opt, ae_sched = make_ae_optimizer(model.module.parameters(),
-                                             self.base_lr, sched)
-        state = GANTrainState(step=0, ae_opt=ae_opt, ae_sched=ae_sched)
+        state = GANTrainState(step=0, ae_opt=make_ae_optimizer(
+            model.module.parameters(), self.base_lr, sched, self.accumulate))
         if getattr(loss_obj, "has_discriminator", False):
-            state.disc_opt, state.disc_sched = make_ae_optimizer(
-                loss_obj.discriminator.parameters(), self.base_lr, sched)
-        return (state, make_vitvq_train_step(model, loss_obj),
-                make_vitvq_eval_step(model, loss_obj))
+            state.disc_opt = make_ae_optimizer(
+                loss_obj.discriminator.parameters(), self.base_lr, sched,
+                self.accumulate)
+        if self.split_gan_step:
+            refuse_adaptive_weight(loss_obj)
+        train_step = make_vitvq_train_step(model, loss_obj,
+                                           reuse_xrec=self.reuse_xrec)
+        return state, train_step, make_vitvq_eval_step(model, loss_obj)
 
     def _build_stage2(self, model: CondTransformer):
         """The prior's fp32 master weights, optimizer and steps (a GPT or
         an RQTransformer; any other prior raises before it is touched)."""
         prior = fp32_master_weights(model.transformer)
-        opt, sched = make_gpt_optimizer(prior, self.base_lr,
-                                        self._scheduler(model))
-        return (TrainState(step=0, opt=opt, sched=sched),
+        opt = make_gpt_optimizer(prior, self.base_lr, self._scheduler(model),
+                                 self.accumulate)
+        return (TrainState(step=0, opt=opt),
                 make_cond_transformer_train_step(model),
                 make_cond_transformer_eval_step(model))
 
@@ -117,13 +141,17 @@ class Trainer:
     def _fit_stage1(self, model, data) -> None:
         state, train_step, eval_step = self._build_stage1(model)
         do_r1_every = getattr(model.loss, "do_r1_every", 0)
+        key = self.seed
         model.module.train()
         try:
             for epoch in range(self.max_epochs):
                 for batch_idx, batch in enumerate(data.train_dataloader()):
                     x = model.get_input(batch, model.image_key)
                     do_r1 = bool(do_r1_every) and batch_idx % do_r1_every == 0
-                    log = train_step(state, x, do_r1=do_r1)
+                    key, step_key = split_key(key)
+                    self.last_temp = self._gumbel_temp(model)
+                    log = train_step(state, x, do_r1=do_r1, rng=step_key,
+                                     temp=self.last_temp)
                     self.last_log = log
                     self.global_step += 1
                     self._maybe_log(log, epoch)
@@ -173,6 +201,13 @@ class Trainer:
             self._print_metrics(mean_log, prefix=f"[epoch {epoch} val]")
             if self.metrics_logger is not None:
                 self.metrics_logger.log_metrics(mean_log, self.global_step)
+
+    def _gumbel_temp(self, model) -> float:
+        """The temperature of the step at ``global_step``."""
+        ts = getattr(model, "temperature_scheduler", None)
+        if ts is not None:
+            return float(ts(self.global_step))
+        return float(getattr(model.module.quantizer, "temp_init", 1.0))
 
     def _maybe_log(self, log: Dict[str, Any], epoch: int) -> None:
         if self.global_step % self.log_every == 0:

@@ -467,6 +467,21 @@ def test_attention_bwd_kernel_is_deterministic(cuda):
         assert torch.equal(g1, g2)
 
 
+@pytest.mark.parametrize("mode,cl", [("prefix_causal", 1), ("none", 0)])
+def test_attention_wide_forward_repeats_bit_for_bit(cuda, mode, cl):
+    """bf16 B8 at head dim 384 (attn_wide_kernel) on the same inputs, 200
+    times: every call's output equal to the first bit for bit. Its S
+    warpgroup waits on each key tile's V boxes before it hands P over, so
+    no ring wait passes on a load still in flight; the fp32 twin once gave
+    other bits in about one call of 200 without that wait."""
+    q, k, v = (_randn(cuda, 4, 1025, 16, 384, dtype=torch.bfloat16)
+               for _ in range(3))
+    first = att.attention_bnhd_kernel(q, k, v, 384 ** -0.5, mode, cl)
+    differ = sum(not torch.equal(first, att.attention_bnhd_kernel(
+        q, k, v, 384 ** -0.5, mode, cl)) for _ in range(200))
+    assert differ == 0
+
+
 @pytest.mark.parametrize("b,n,h,ho,mode,cl", [
     (8, 1024, 12, 768, "none", 0),           # the fused trip's, batch 8
     (2, 1025, 12, 768, "prefix_causal", 5),  # ragged, prefix-causal
@@ -671,8 +686,8 @@ def test_tiny_training_step_goes_through_every_kernel(cuda):
                   quantizer=dict(embed_dim=16, n_embed=128), loss=loss,
                   dtype="bfloat16", device="cuda")
     state = GANTrainState(
-        0, *make_ae_optimizer(model.module.parameters(), 1e-4),
-        *make_ae_optimizer(model.loss.discriminator.parameters(), 1e-4))
+        0, make_ae_optimizer(model.module.parameters(), 1e-4),
+        make_ae_optimizer(model.loss.discriminator.parameters(), 1e-4))
     step = make_vitvq_train_step(model, model.loss)
     x = torch.rand(4, 32, 32, 3, generator=cuda, device="cuda")
     common.reset_launches()

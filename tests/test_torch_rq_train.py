@@ -224,8 +224,7 @@ def test_two_rq_prior_steps_match_jax(priors):
                                        jnp.asarray(conds))["val/total_loss"])
 
     rq = fp32_master_weights(tm.transformer)
-    opt, sched = make_gpt_optimizer(rq, LR)
-    tstate = TrainState(step=0, opt=opt, sched=sched)
+    tstate = TrainState(step=0, opt=make_gpt_optimizer(rq, LR))
     tstep = make_cond_transformer_train_step(tm)
     x, c = torch.from_numpy(images), torch.from_numpy(conds)
     got_losses = [float(tstep(tstate, x, c)["train/total_loss"])

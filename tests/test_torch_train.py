@@ -84,10 +84,9 @@ def one_step(request, jax_side):
 
     model = _port_model(trees)
     before = copy.deepcopy(model)
-    ae_opt, ae_sched = make_ae_optimizer(model.module.parameters(), LR)
-    d_opt, d_sched = make_ae_optimizer(
-        model.loss.discriminator.parameters(), LR)
-    tstate = GANTrainState(0, ae_opt, ae_sched, d_opt, d_sched)
+    tstate = GANTrainState(
+        0, make_ae_optimizer(model.module.parameters(), LR),
+        make_ae_optimizer(model.loss.discriminator.parameters(), LR))
     tlog = make_vitvq_train_step(model, model.loss)(
         tstate, torch.from_numpy(x), do_r1=do_r1)
     assert tstate.step == 1
@@ -168,17 +167,24 @@ def test_trainer_fits_the_tiny_config():
     assert not model.module.training
 
 
-def test_trainer_refuses_random_lpips_and_unsupported_options():
-    cfg = load_config(TINY)
-    cfg.model.params.loss.params.allow_random_lpips = False
-    model = initialize_from_config(cfg.model, device="cpu")
-    with pytest.raises(ValueError, match="allow_random_lpips"):
-        Trainer(max_steps=1).fit(model, initialize_from_config(cfg.dataset))
-    for kw in (dict(basedir="ckpt"), dict(resume=True),
-               dict(split_gan_step=True), dict(zero1=True),
-               dict(accumulate_grad_batches=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
-            Trainer(**kw)
+@pytest.mark.parametrize("option", ["random_lpips", "basedir", "resume",
+                                    "zero1"])
+def test_trainer_refuses_random_lpips_and_unsupported_options(option):
+    """Training against a random LPIPS without ``allow_random_lpips``, and
+    the options the port cannot honour yet (checkpoints, ROADMAP A7; a
+    sharded optimizer, A9), each raise."""
+    if option == "random_lpips":
+        cfg = load_config(TINY)
+        cfg.model.params.loss.params.allow_random_lpips = False
+        model = initialize_from_config(cfg.model, device="cpu")
+        with pytest.raises(ValueError, match="allow_random_lpips"):
+            Trainer(max_steps=1).fit(model,
+                                     initialize_from_config(cfg.dataset))
+        return
+    kw = {"basedir": dict(basedir="ckpt"), "resume": dict(resume=True),
+          "zero1": dict(zero1=True)}[option]
+    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        Trainer(**kw)
 
 
 def test_chip_smoke_holds_the_base_training_config():
