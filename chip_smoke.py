@@ -39,7 +39,10 @@ widths and depth (256 px, 8x8 patches, width 768, 12 heads of 64, MLP
   ``configs/imagenet_vitvq_gumbel_base.yaml`` as shipped (fp32), LPIPS
   read through ``lpips_weights``;
 - the split GAN step, ``reuse_xrec`` and gradient accumulation on
-  ``configs/convergence_vitvq_base.yaml``.
+  ``configs/convergence_vitvq_base.yaml``;
+- text conditioning: both CLIP towers at ViT-L/14 width, the CLIP
+  conditioners on a checkpoint they read, and ``ViTVQ(path=...)`` on a
+  reference checkpoint of the Base tokenizer.
 
 Phases, each of which raises on failure:
 
@@ -210,8 +213,30 @@ Phases, each of which raises on failure:
     reuse_xrec one generator round trip (B1 48, B2 24, B3 2, B4 1) fewer a
     step than split; accumulation's parameters bit-equal after micro-steps
     1 and 3 and moved after 2 and 4, its first moments against its plain
-    run at phase 6's limits; ms a step of each run.
+    run at phase 6's limits; ms a step of each run;
+18. text conditioning and released checkpoints, fp32 with seeded weights:
+    (a) both CLIP towers at ViT-L/14 width (text 12 x 768, 12 heads of 64,
+    77 tokens; vision 24 x 1024, 16 heads of 64, 257 tokens at 224 px),
+    batch 8: captions tokenized by the port's ``SimpleTokenizer``, phase
+    5's 256 px images through ``preprocess_images``; B8 launches a
+    forward asserted (text 12, vision 24, all fp32), features against the
+    plain path (each row's cosine >= 0.99999, max abs difference <= 1e-3
+    of its norm), then the text tower in bf16 (cosine >= 0.999, the bf16
+    prior step's bar; its B8 calls phase 4 holds to phase 3's limits);
+    (b) an OpenAI-layout checkpoint of seeded ViT-B/32 towers written to
+    a temporary directory and read back by ``ClipTextCond`` and
+    ``ClipImageCond`` (``clip_params_path``): features bit-equal to the
+    towers'; (c) a Lightning-layout checkpoint of a seeded
+    ``imagenet_vitvq_base.yaml`` model (the reference's key names,
+    ``loss.discriminator.*`` included) restored by ``ViTVQ(path=...,
+    ignore_keys=[...])`` of another seed: every parameter equal, the
+    ignored prefix the restored model's own, codes and reconstructions
+    bit-equal, B1 48, B2 24, B3 2, B4 1 a trip; the files deleted; the
+    forwards' and loads' times.
 
+Phase 4 also holds and times fp32 B8 at phase 18's CLIP shapes (text 77
+causal tokens, vision 257), beside SDPA fp32, logged apart from the
+kernels line.
 Phases 3 and 4 hold and time B8 and B9 at the RQ prior's head dim 96 and
 B10 on its (24, 8, 1032, 1536) stack (and the int8 cache), on generators
 of their own; and at the shapes phases 14 (d) and 15 give the kernels, on
@@ -1624,7 +1649,64 @@ def phase_times() -> dict:
     time_wide_bwd(gen, row)
     time_rq_kernels(row)
     time_rq_slice_kernels(row)
+    time_clip_attention(gen)
     return rows
+
+
+def time_clip_attention(gen) -> None:
+    """fp32 B8 at the ViT-L/14 CLIP towers' shapes (phase 18), batch 8,
+    on lane slices of a qkv buffer as the towers give it: the text tower's
+    77 causal tokens (12 heads of 64) and the vision tower's 257 tokens
+    (16 heads of 64); each held to its plain version at F32_TOL (and in
+    bf16 at phase 3's bf16 B8 limits), and timed beside it, SDPA fp32 (TF32
+    off; both also as device time, ``torch.profiler``) and its two bounds (six bf16 products of exact pieces at 989 TFLOP/s;
+    fp32 SIMT at 67). Logged only: the kernels line keeps B8's rows."""
+    from enhancing_tpu_torch.ops import attention as att
+    for label, n, h, mode in (("text", 77, 12, "prefix_causal"),
+                              ("vision", 257, 16, "none")):
+        b, d = CHECK_BATCH, HEAD_DIM
+        qkv = rand((b, n, 3 * h * d), gen, torch.float32)
+        q, k, v = (u.reshape(b, n, h, d) for u in qkv.split(h * d, -1))
+        qt, kt, vt = (u.transpose(1, 2) for u in (q, k, v))
+        causal = mode == "prefix_causal"
+        pairs = b * h * (n * (n + 1) / 2 if causal else n * n)
+        flops, nbytes = 4.0 * pairs * d, 4 * b * n * h * d * 4
+        pieces, by = bound(6 * flops, nbytes, PEAK_BF16)
+        simt = bound(flops, nbytes, PEAK_F32)[0]
+        got = att.attention_bnhd_kernel(q, k, v, d ** -0.5, mode, 0)
+        want = att.attention_bnhd_plain(q, k, v, d ** -0.5, mode, 0)
+        worst = float(((got - want).abs() - F32_TOL["rtol"] * want.abs()
+                       - F32_TOL["atol"]).max())
+        log(f"[time] attention_bnhd f32 CLIP {label} vs plain: max_abs_err "
+            f"{float((got - want).abs().max()):.3e} (F32_TOL) -> "
+            f"{'pass' if worst <= 0 else 'FAIL'}")
+        check(worst <= 0 and bool(torch.isfinite(got).all()),
+              f"B8 at the CLIP {label} shape disagrees with its plain version")
+        q16, k16, v16 = (u.to(torch.bfloat16) for u in (q, k, v))
+        got = att.attention_bnhd_kernel(q16, k16, v16, d ** -0.5, mode, 0)
+        want = att.attention_bnhd_plain(q16, k16, v16, d ** -0.5, mode, 0)
+        err = (got.float() - want.float()).abs()
+        worst = float((err - 2.0 ** -7 * want.float().abs() - 1e-2).max())
+        log(f"[time] attention_bnhd bf16 CLIP {label} vs plain: max_abs_err "
+            f"{float(err.max()):.3e} (phase 3's atol 1e-2 + rtol 2^-7) -> "
+            f"{'pass' if worst <= 0 else 'FAIL'}")
+        check(worst <= 0, f"bf16 B8 at the CLIP {label} shape disagrees")
+        def kernel():
+            return att.attention_bnhd_kernel(q, k, v, d ** -0.5, mode, 0)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, scale=d ** -0.5)
+
+        ms, lib = time_ms(kernel, 20), time_ms(library, 20)
+        plain = time_ms(lambda: att.attention_bnhd_plain(q, k, v, d ** -0.5,
+                                                         mode, 0), 3, 1)
+        log(f"[time] attention_bnhd f32 CLIP {label} {mode} B={b} N={n} "
+            f"H={h} D={d} (lane slices of qkv): kernel_ms {ms:.5f} "
+            f"(device {device_ms(kernel):.5f}) plain_ms {plain:.5f} "
+            f"library_ms {lib:.5f} (device {device_ms(library):.5f}; SDPA "
+            f"fp32) bound_ms {pieces:.5f} ({by}; fp32 SIMT {simt:.5f})")
+    del qkv, q, k, v, qt, kt, vt, got, want, q16, k16, v16
 
 
 def kernel_names(fn) -> list:
@@ -5277,6 +5359,405 @@ def phase_split_accumulate() -> dict:
     return total
 
 
+# -- phase 18: text conditioning and released checkpoints --------------------
+
+CLIP_CAPTIONS = (
+    "a photo of a red double-decker bus crossing a bridge at night",
+    "two cats asleep on a sofa in the afternoon sun",
+    "Café au lait & croissants on a marble table, 2 plates",
+    "an aerial view of a coastline with white cliffs",
+    "a watercolor painting of a lighthouse in a storm",
+    "東京の夜景 from a rooftop bar",
+    "a close-up of a hummingbird drinking from a flower",
+    "an old map of the world, ½ scale, with sea monsters")
+# shipped fp32 against the plain path (PERF.md section 2): each feature
+# row's cosine, and its max abs difference over the row's norm
+CLIP_COS_LIMIT, CLIP_REL_LIMIT = 0.99999, 1e-3
+# bf16 (the bf16 prior step's per-leaf bar): 12 blocks whose bf16
+# roundings fall in other places on the two paths put the features as far
+# apart as bf16 is from fp32 (measured on an H100: cosine 0.999925 kernels
+# vs plain, 0.999920 bf16 vs fp32; max abs difference 0.039 at |feature|
+# <= 3.9, past phase 3's one-call limits, which phase 4 holds B8 to at
+# this shape)
+CLIP_BF16_COS_LIMIT = 0.999
+# B8 launches of one forward: a block each
+CLIP_TEXT_LAUNCHES, CLIP_VISION_LAUNCHES = 12, 24
+# phase 18 (c): the prefix the restored ViTVQ drops and keeps its own values
+CKPT_IGNORE = "loss.discriminator.final_linear"
+CKPT_LOSS_SEED = 5
+
+
+def openai_clip_state_dict(text, vision) -> dict:
+    """The OpenAI CLIP state dict (``clip.load(...)``'s names and layouts)
+    of a port text and vision tower: the inverse of
+    ``models.cond.clip.load_torch_clip``'s map. The port's Dense weights
+    are torch's (out, in) already."""
+    sd = {}
+
+    def blocks(tower, prefix):
+        for i in range(tower.layers):
+            blk = getattr(tower, f"resblocks_{i}")
+            pre = f"{prefix}transformer.resblocks.{i}."
+            for src, dst in (("ln_1", "ln_1"), ("ln_2", "ln_2"),
+                             ("out_proj", "attn.out_proj"),
+                             ("c_fc", "mlp.c_fc"), ("c_proj", "mlp.c_proj")):
+                sd[pre + dst + ".weight"] = getattr(blk, src).weight
+                sd[pre + dst + ".bias"] = getattr(blk, src).bias
+            sd[pre + "attn.in_proj_weight"] = blk.in_proj.weight
+            sd[pre + "attn.in_proj_bias"] = blk.in_proj.bias
+
+    blocks(vision, "visual.")
+    for name in ("conv1.weight", "class_embedding", "positional_embedding",
+                 "proj", "ln_pre.weight", "ln_pre.bias", "ln_post.weight",
+                 "ln_post.bias"):
+        sd["visual." + name] = vision.get_parameter(name)
+    blocks(text, "")
+    for name in ("token_embedding.weight", "positional_embedding",
+                 "text_projection", "ln_final.weight", "ln_final.bias"):
+        sd[name] = text.get_parameter(name)
+    sd["logit_scale"] = torch.tensor(float(np.log(1 / 0.07)))
+    return {k: v.detach().cpu().clone() for k, v in sd.items()}
+
+
+def reference_vitvq_state_dict(model) -> dict:
+    """The reference (Lightning) state dict of a port ``ViTVQ`` and its
+    loss's StyleGAN discriminator: the inverse of
+    ``compat.torch_loader.load_vitvq_params`` and
+    ``load_style_discriminator_params``. The reference's pixel bias is one
+    per channel: the model's must repeat each over a patch."""
+    import math
+    m, p = model.module, model.patch_size
+    sd = {}
+    w = m.encoder.patch_embed.weight                      # (dim, c*p*p)
+    sd["encoder.to_patch_embedding.0.weight"] = w.reshape(w.shape[0], -1, p, p)
+    sd["encoder.to_patch_embedding.0.bias"] = m.encoder.patch_embed.bias
+    w, b = m.decoder.to_pixel.weight, m.decoder.to_pixel.bias  # (c*p*p, dim)
+    check(torch.equal(b, b[::p * p].repeat_interleave(p * p)),
+          "the pixel bias is not one per channel")
+    sd["decoder.to_pixel.1.weight"] = w.T.reshape(w.shape[1], -1, p, p)
+    sd["decoder.to_pixel.1.bias"] = b[::p * p]
+    block = (("0.norm", "norm1"), ("0.fn.to_qkv", "attn.to_qkv"),
+             ("0.fn.to_out", "attn.to_out"), ("1.norm", "norm2"),
+             ("1.fn.net.0", "ff.fc1"), ("1.fn.net.2", "ff.fc2"))
+    for tower in ("encoder", "decoder"):
+        t = getattr(m, tower).transformer
+        for i in range(t.depth):
+            for dst, src in block:
+                layer = t.get_submodule(f"layers_{i}.{src}")
+                sd[f"{tower}.transformer.layers.{i}.{dst}.weight"] = \
+                    layer.weight
+                if layer.bias is not None:
+                    sd[f"{tower}.transformer.layers.{i}.{dst}.bias"] = \
+                        layer.bias
+        sd[f"{tower}.transformer.norm.weight"] = t.norm.weight
+        sd[f"{tower}.transformer.norm.bias"] = t.norm.bias
+    for name in ("pre_quant", "post_quant"):
+        sd[f"{name}.weight"] = getattr(m, name).weight
+        sd[f"{name}.bias"] = getattr(m, name).bias
+    sd["quantizer.embedding.weight"] = m.quantizer.embedding
+    log_size = int(math.log2(model.image_size))
+    names = {"stem.conv.weight": "blocks.0.0.weight",
+             "stem.act_bias": "blocks.0.1.bias",
+             "final_conv.conv.weight": "final_conv.0.weight",
+             "final_conv.act_bias": "final_conv.1.bias"}
+    for j in range(1, log_size - 1):
+        res = log_size - (j - 1)
+        names.update({
+            f"block_{res}.conv1.conv.weight": f"blocks.{j}.conv1.0.weight",
+            f"block_{res}.conv1.act_bias": f"blocks.{j}.conv1.1.bias",
+            f"block_{res}.conv2.conv.weight": f"blocks.{j}.conv2.1.weight",
+            f"block_{res}.conv2.act_bias": f"blocks.{j}.conv2.2.bias",
+            f"block_{res}.skip.conv.weight": f"blocks.{j}.skip.1.weight"})
+    for i in (1, 2):
+        for leaf in ("weight", "bias"):
+            names[f"final_linear{i}.{leaf}"] = f"final_linear.{i - 1}.{leaf}"
+    for name, param in model.loss.discriminator.named_parameters():
+        sd["loss.discriminator." + names[name]] = param
+    return {k: v.detach().cpu().clone() for k, v in sd.items()}
+
+
+def feature_agreement(label, got, want) -> None:
+    """Each row's cosine and max abs difference over its norm, against the
+    shipped-fp32 limits."""
+    got, want = got.double(), want.double()
+    cos = float(F.cosine_similarity(got, want, dim=-1).min())
+    rel = float(((got - want).abs().amax(-1) / want.norm(dim=-1)).max())
+    ok = cos >= CLIP_COS_LIMIT and rel <= CLIP_REL_LIMIT
+    log(f"[text] {label}, kernels vs plain: worst row cosine {cos:.9f} "
+        f"(limit {CLIP_COS_LIMIT}), max abs diff / row norm {rel:.3e} "
+        f"(limit {CLIP_REL_LIMIT:g}) -> {'pass' if ok else 'FAIL'}")
+    check(ok and bool(torch.isfinite(got).all()), f"{label} disagrees")
+
+
+def counted_forward(label, fn, want: dict):
+    """``fn()`` with the launch counters reset just before and read just
+    after; its launches must be ``want`` exactly."""
+    from enhancing_tpu_torch.ops import LAUNCHES, reset_launches
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    got = {k: v for k, v in LAUNCHES.items() if v}
+    log(f"[text] {label}: launches {got}")
+    check(got == want, f"{label}: launches {got}, expected {want}")
+    return out, kernel_counts()
+
+
+def clip_towers(x8) -> dict:
+    """(a) Both CLIP towers at ViT-L/14 width in fp32 on captions of the
+    port's tokenizer and (b) ``load_torch_clip`` at ViT-B/32 through the
+    conditioners. Returns the launches by kernels-line name."""
+    from enhancing_tpu_torch.models.cond import ClipImageCond, ClipTextCond
+    from enhancing_tpu_torch.models.cond.clip import (CLIP_CONFIGS,
+                                                      CLIPTextTransformer,
+                                                      CLIPVisionTransformer,
+                                                      preprocess_images)
+    from enhancing_tpu_torch.ops import F32_LAUNCHES, LAUNCHES
+    from enhancing_tpu_torch.utils.tokenizer import SimpleTokenizer
+    total: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    cfg = CLIP_CONFIGS["ViT-L/14"]
+    t0 = time.perf_counter()
+    tokens_np = SimpleTokenizer().tokenize(list(CLIP_CAPTIONS),
+                                           cfg.context_length)
+    log(f"[text] tokenized {len(CLIP_CAPTIONS)} captions in "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms: "
+        f"{int((tokens_np > 0).sum(1).max())} tokens at most")
+    tokens = torch.from_numpy(tokens_np).long().cuda()
+    images = torch.as_tensor(x8, device="cuda")
+    t0 = time.perf_counter()
+    text = CLIPTextTransformer(cfg, seed=18, device="cuda")
+    torch.cuda.synchronize()
+    t_text = time.perf_counter() - t0
+    vision = CLIPVisionTransformer(cfg, seed=19, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[text] ViT-L/14 towers: text {cfg.transformer_layers} x "
+        f"{cfg.transformer_width} ({cfg.transformer_heads} heads of 64, "
+        f"{cfg.context_length} tokens), vision {cfg.vision_layers} x "
+        f"{cfg.vision_width} ({cfg.vision_heads} heads of 64, "
+        f"{(cfg.image_resolution // cfg.vision_patch_size) ** 2 + 1} tokens"
+        f" at {cfg.image_resolution} px), fp32, drawn on the card in "
+        f"{t_text:.1f} + {time.perf_counter() - t0 - t_text:.1f} s")
+    with torch.inference_mode():
+        pixels = preprocess_images(images, cfg.image_resolution)
+        res = cfg.image_resolution
+        check(pixels.shape == (CHECK_BATCH, res, res, 3)
+              and bool(torch.isfinite(pixels).all()), "preprocess_images")
+        ft, counts = counted_forward(
+            "ViT-L/14 text forward, batch 8", lambda: text(tokens),
+            {"attention_bnhd": CLIP_TEXT_LAUNCHES})
+        check(F32_LAUNCHES["attention_bnhd"] == CLIP_TEXT_LAUNCHES,
+              "text tower: B8 launches not fp32")
+        add(counts)
+        fv, counts = counted_forward(
+            "ViT-L/14 vision forward, batch 8", lambda: vision(pixels),
+            {"attention_bnhd": CLIP_VISION_LAUNCHES})
+        check(F32_LAUNCHES["attention_bnhd"] == CLIP_VISION_LAUNCHES,
+              "vision tower: B8 launches not fp32")
+        add(counts)
+        check(ft.shape == fv.shape == (CHECK_BATCH, cfg.embed_dim),
+              f"features {ft.shape} {fv.shape}")
+        before = dict(LAUNCHES)
+        with plain_versions():
+            ft_p, fv_p = text(tokens), vision(pixels)
+            text_plain_ms = time_ms(lambda: text(tokens), 3, warmup=1)
+            vision_plain_ms = time_ms(lambda: vision(pixels), 3, warmup=1)
+        check(LAUNCHES == before, "the plain path launched a kernel")
+        feature_agreement("ViT-L/14 text features fp32", ft, ft_p)
+        feature_agreement("ViT-L/14 image features fp32", fv, fv_p)
+        text_ms = time_ms(lambda: text(tokens), 10)
+        vision_ms = time_ms(lambda: vision(pixels), 10)
+        log(f"[text] ViT-L/14 fp32 forward, batch 8: text {text_ms:.3f} ms "
+            f"(plain {text_plain_ms:.3f}), vision {vision_ms:.3f} ms (plain"
+            f" {vision_plain_ms:.3f}), preprocessing 256 -> {res} px "
+            f"{time_ms(lambda: preprocess_images(images, res), 10):.3f} ms")
+        del vision, fv, fv_p, pixels
+        gc_cuda()
+
+        # the text tower in bf16 (phase 4 holds its B8 calls to phase 3's
+        # bf16 limits): features at the bf16 cosine bar of section 2
+        t0 = time.perf_counter()
+        text16 = CLIPTextTransformer(cfg, dtype="bfloat16", seed=18,
+                                     device="cuda")
+        torch.cuda.synchronize()
+        log(f"[text] ViT-L/14 text tower in bf16 drawn in "
+            f"{time.perf_counter() - t0:.1f} s")
+        f16, counts = counted_forward(
+            "ViT-L/14 text forward bf16, batch 8", lambda: text16(tokens),
+            {"attention_bnhd": CLIP_TEXT_LAUNCHES})
+        check(F32_LAUNCHES["attention_bnhd"] == 0,
+              "bf16 text tower: fp32 B8 launches")
+        add(counts)
+        with plain_versions():
+            f16_p = text16(tokens)
+        def worst_cos(a, b):
+            return float(F.cosine_similarity(a.float(), b.float(),
+                                             dim=-1).min())
+
+        err = float((f16.float() - f16_p.float()).abs().max())
+        cos = worst_cos(f16, f16_p)
+        ok = cos >= CLIP_BF16_COS_LIMIT
+        log(f"[text] ViT-L/14 text features bf16, kernels vs plain: worst "
+            f"row cosine {cos:.6f} (limit {CLIP_BF16_COS_LIMIT}), max_abs_err"
+            f" {err:.3e} (|plain| max {float(f16_p.float().abs().max()):.3f})"
+            f"; bf16 vs fp32: kernels {worst_cos(f16, ft):.6f}, plain "
+            f"{worst_cos(f16_p, ft_p):.6f} -> {'pass' if ok else 'FAIL'}")
+        check(ok and bool(torch.isfinite(f16).all()),
+              "bf16 text features disagree")
+        log(f"[text] ViT-L/14 bf16 text forward, batch 8: "
+            f"{time_ms(lambda: text16(tokens), 10):.3f} ms")
+        del text, text16, ft, ft_p, f16, f16_p
+        gc_cuda()
+
+    # (b) an OpenAI-layout checkpoint of seeded ViT-B/32 towers, read back
+    # by the conditioners: features bit for bit the towers' own
+    import os
+    import shutil
+    import tempfile
+    b32 = CLIP_CONFIGS["ViT-B/32"]
+    text = CLIPTextTransformer(b32, seed=20, device="cuda")
+    vision = CLIPVisionTransformer(b32, seed=21, device="cuda")
+    tmp = tempfile.mkdtemp(prefix="clip_ckpt_")
+    try:
+        path = os.path.join(tmp, "clip_vit_b32.pt")
+        t0 = time.perf_counter()
+        torch.save(openai_clip_state_dict(text, vision), path)
+        log(f"[text] ViT-B/32 OpenAI-layout checkpoint: "
+            f"{os.path.getsize(path) / 2**20:.0f} MiB written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        text_cond = ClipTextCond(image_size=256, clip_model="ViT-B/32",
+                                 clip_params_path=path, device="cuda")
+        t_text = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        image_cond = ClipImageCond(clip_model="ViT-B/32",
+                                   clip_params_path=path, device="cuda")
+        t_image = time.perf_counter() - t0
+        log(f"[text] load_torch_clip through ClipTextCond {t_text:.2f} s, "
+            f"ClipImageCond {t_image:.2f} s")
+        with torch.inference_mode():
+            want_t = text(tokens)
+            want_i = vision(preprocess_images(images, b32.image_resolution))
+        got_t, counts = counted_forward(
+            "ClipTextCond.encode_codes ViT-B/32, batch 8",
+            lambda: text_cond.encode_codes(tokens_np),
+            {"attention_bnhd": b32.transformer_layers})
+        add(counts)
+        got_i, counts = counted_forward(
+            "ClipImageCond.encode_codes ViT-B/32, batch 8",
+            lambda: image_cond.encode_codes(images),
+            {"attention_bnhd": b32.vision_layers})
+        add(counts)
+        equal = torch.equal(got_t, want_t) and torch.equal(got_i, want_i)
+        log(f"[text] conditioners' features vs the seeded towers': "
+            f"{'bit-equal' if equal else 'DIFFERENT'} (text "
+            f"{tuple(got_t.shape)}, image {tuple(got_i.shape)}, no grad "
+            f"{not got_t.requires_grad and not got_i.requires_grad})")
+        check(equal and not got_t.requires_grad,
+              "loaded CLIP features differ from the source towers'")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del text, vision, text_cond, image_cond
+    gc_cuda()
+    return total
+
+
+def vitvq_checkpoint(x8) -> dict:
+    """(c) ``ViTVQ(path=..., ignore_keys=...)`` at full width: a Lightning
+    checkpoint of a seeded ``imagenet_vitvq_base.yaml`` model (its loss's
+    discriminator included) restores codes and reconstructions bit for
+    bit; the ignored prefix keeps the restored model's own values. Returns
+    the launches by kernels-line name."""
+    import copy
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from enhancing_tpu_torch.losses.discriminator import StyleDiscriminator
+    from enhancing_tpu_torch.utils.config import (initialize_from_config,
+                                                  load_config)
+    cfg = load_config(Path(__file__).resolve().parent / "configs"
+                      / "imagenet_vitvq_base.yaml").model
+    t0 = time.perf_counter()
+    source = initialize_from_config(cfg, device="cuda")
+    pp = source.patch_size ** 2
+    bias = source.module.decoder.to_pixel.bias
+    with torch.no_grad():   # a random bias, one per channel as saved
+        bias.copy_(torch.randn(bias.numel() // pp,
+                               generator=torch.Generator().manual_seed(3))
+                   .repeat_interleave(pp).cuda())
+    log(f"[ckpt] source imagenet_vitvq_base fp32 built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tmp = tempfile.mkdtemp(prefix="vitvq_ckpt_")
+    try:
+        path = os.path.join(tmp, "vitvq_base.ckpt")
+        t0 = time.perf_counter()
+        torch.save({"state_dict": reference_vitvq_state_dict(source)}, path)
+        log(f"[ckpt] Lightning-layout checkpoint: "
+            f"{os.path.getsize(path) / 2**20:.0f} MiB written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        restored_cfg = copy.deepcopy(cfg.to_dict())
+        restored_cfg["params"].update(seed=1, path=path,
+                                      ignore_keys=[CKPT_IGNORE])
+        restored_cfg["params"]["loss"]["params"]["seed"] = CKPT_LOSS_SEED
+        t0 = time.perf_counter()
+        restored = initialize_from_config(restored_cfg, device="cuda")
+        torch.cuda.synchronize()
+        log(f"[ckpt] ViTVQ(path=..., ignore_keys=[{CKPT_IGNORE!r}]) built "
+            f"and restored in {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the discriminator: the source's, but for the ignored prefix, which
+    # keeps the restored loss's own draw (seed + 1)
+    fresh = dict(StyleDiscriminator(
+        size=256, generator=torch.Generator().manual_seed(
+            CKPT_LOSS_SEED + 1)).named_parameters())
+    src_disc = dict(source.loss.discriminator.named_parameters())
+    kept = differ = 0
+    for name, got in restored.loss.discriminator.named_parameters():
+        ignored = ("loss.discriminator." + name).startswith(CKPT_IGNORE)
+        want = fresh[name].cuda() if ignored else src_disc[name]
+        kept += ignored
+        differ += ignored and not torch.equal(got, src_disc[name])
+        check(torch.equal(got, want), f"discriminator {name} not as expected")
+    check(differ > 0, "the ignored prefix holds the source's values")
+    for name, got in restored.module.named_parameters():
+        check(torch.equal(got, source.module.get_parameter(name)),
+              f"{name} not restored")
+    log(f"[ckpt] every tokenizer and discriminator parameter equal to the "
+        f"source's, the {kept} of {CKPT_IGNORE!r} the restored model's own "
+        f"({differ} of them unlike the source's)")
+    with torch.inference_mode():
+        want_codes = source.encode_codes(x8)
+        want_rec = source.decode_codes(want_codes)
+    (codes, rec), counts = counted_forward(
+        "restored imagenet_vitvq_base round trip, batch 8",
+        lambda: (lambda c: (c, restored.decode_codes(c)))(
+            restored.encode_codes(x8)),
+        SHIPPED["imagenet_vitvq_base"])
+    equal = torch.equal(codes, want_codes) and torch.equal(rec, want_rec)
+    log(f"[ckpt] restored codes and reconstructions vs the source's: "
+        f"{'bit-equal' if equal else 'DIFFERENT'}")
+    check(equal, "the restored model's round trip differs")
+    del source, restored, fresh, src_disc
+    gc_cuda()
+    return counts
+
+
+def phase_text_and_checkpoints(x8) -> dict:
+    """Phase 18; returns its launches by kernels-line name."""
+    t0 = time.perf_counter()
+    total = clip_towers(x8)
+    for k, v in vitvq_checkpoint(x8).items():
+        total[k] = total.get(k, 0) + v
+    log(f"[text] phase 18 took {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main() -> int:
     import enhancing_tpu_torch  # noqa: F401  (fails outside a checkout)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5300,9 +5781,10 @@ def main() -> int:
     rq_train = phase_rq_train()
     gumbel = phase_gumbel_train()
     split = phase_split_accumulate()
+    text = phase_text_and_checkpoints(x8)
     phases = (serving, training, sampling, serving8, fused, fused_routes,
               shipped, training32, prior32, prior_train, rq, rq_train,
-              gumbel, split)
+              gumbel, split, text)
     kernels = []
     for kname in REPLACES:
         rows = times[kname]

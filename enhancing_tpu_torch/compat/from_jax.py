@@ -71,6 +71,44 @@ def load_from_jax(module: nn.Module, params: Mapping,
     return module
 
 
+def _from_torch_layout(array: np.ndarray) -> np.ndarray:
+    if array.ndim == 4:
+        return array.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+    return array.T
+
+
+def to_jax_tree(module: nn.Module) -> dict:
+    """The parameters of ``module`` as a JAX-named tree of fp32 numpy
+    arrays in the JAX layouts, the inverse of the names and layouts here:
+    ``compat.torch_loader`` edits such a tree as the JAX package edits its
+    own, and the loaders here fill the module back from it. A ``weight``'s
+    JAX leaf follows its owner: an nn.Embedding's is an ``embedding`` (in
+    the GPT prior and the CLIP text tower), a LayerNorm's 1-D weight a
+    ``scale``, an nn.Linear's (``Dense``) or nn.Conv2d's a ``kernel``, and
+    any other 2-D or 4-D weight (``EqualLinear``, ``EqualConv2d``) stays a
+    ``weight``; kernels and weights change layout back."""
+    modules = dict(module.named_modules())
+    tree: dict = {}
+    for name, param in module.named_parameters():
+        owner, _, leaf = name.rpartition(".")
+        array = param.detach().float().cpu().numpy()
+        if leaf == "weight":
+            kind = modules[owner]
+            if isinstance(kind, nn.Embedding):
+                leaf = "embedding"
+            elif array.ndim == 1:
+                leaf = "scale"
+            else:
+                array = _from_torch_layout(array)
+                if isinstance(kind, (nn.Linear, nn.Conv2d)):
+                    leaf = "kernel"
+        node = tree
+        for part in owner.split(".") if owner else ():
+            node = node.setdefault(part, {})
+        node[leaf] = array
+    return tree
+
+
 def load_vitvq_from_jax(model: Any, params: Mapping) -> Any:
     """Fill ``model`` (a ``ViTVQ`` or its ``ViTVQModule``) from ``params``,
     the JAX ``ViTVQ.params`` tree with numpy leaves, each stack unrolled
@@ -128,6 +166,17 @@ def _gpt_name(path: Tuple[str, ...]) -> Tuple[str, bool]:
     if path[-1] == "embedding":
         return ".".join([*path[:-1], "weight"]), False
     return torch_name(path)
+
+
+def load_clip_from_jax(tower: nn.Module, params: Mapping) -> nn.Module:
+    """Fill a port CLIP tower (``models.cond.clip``'s
+    ``CLIPVisionTransformer`` or ``CLIPTextTransformer``) from the JAX
+    tower's ``params`` (numpy leaves): Dense kernels transposed, the
+    vision ``conv1`` kernel from (kh, kw, in, out) to (out, in, kh, kw),
+    the ``token_embedding`` table, the class and position embeddings and
+    the projections as they are. A missing or left-over leaf and a shape
+    mismatch raise. Returns ``tower``."""
+    return load_from_jax(tower, params, name_fn=_gpt_name)
 
 
 def _unstack_layers(tree: Mapping, key: str = "blocks") -> dict:

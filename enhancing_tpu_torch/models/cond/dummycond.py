@@ -1,20 +1,20 @@
 """Condition encoders: identity conditions and class-index conditions with
 render-to-image logging.
 
-The port's copy of ``DummyCond`` and ``ClassCond`` of
-``enhancing_tpu/models/cond/dummycond.py``: host-side objects with no
-parameters; ``encode_codes`` is the identity on class ids, ``to_img``
-renders each class name as an image for logging (Pillow, imported when
-rendering). ``TextCond`` needs the CLIP tokenizer and comes with ROADMAP
-A6.
+The port's copy of ``enhancing_tpu/models/cond/dummycond.py``: host-side
+objects with no parameters; ``encode_codes`` is the identity on class ids
+and on BPE caption tokens, ``to_img`` renders each class name or decoded
+caption as an image for logging (Pillow, imported when rendering).
 """
 from __future__ import annotations
 
 import os
 from pathlib import Path
-from typing import Any, List, Tuple, Union
+from typing import Any, List, Optional, Tuple, Union
 
 import numpy as np
+
+from ...utils.config import initialize_from_config
 
 
 class DummyCond:
@@ -73,6 +73,29 @@ def _render_text(text: str, size: Tuple[int, int]) -> np.ndarray:
     return np.asarray(img).astype(np.float32) / 255.0
 
 
+def _host(x) -> np.ndarray:
+    return np.asarray(x.cpu() if hasattr(x, "cpu") else x)
+
+
+class TextCond(DummyCond):
+    """Raw BPE-token text condition: the CLIP tokenizer of
+    ``utils.tokenizer``, or the one ``tokenizer`` configures."""
+
+    def __init__(self, image_size: Union[int, Tuple[int, int]],
+                 tokenizer: Optional[dict] = None) -> None:
+        from ...utils.tokenizer import SimpleTokenizer
+        self.image_size = image_size
+        self.tokenizer = (initialize_from_config(tokenizer) if tokenizer
+                          else SimpleTokenizer())
+
+    def to_img(self, texts) -> np.ndarray:
+        """(B, H, W, 3) fp32 images in [0, 1], each a decoded caption."""
+        size = (self.image_size, self.image_size) \
+            if isinstance(self.image_size, int) else tuple(self.image_size)
+        return np.stack([_render_text(self.tokenizer.decode(t), size)
+                         for t in _host(texts)])
+
+
 class ClassCond(DummyCond):
     """Class-index condition with names from a txt file or a list."""
 
@@ -102,8 +125,6 @@ class ClassCond(DummyCond):
         """(B, H, W, 3) fp32 images in [0, 1], each a class name."""
         size = (self.img_size, self.img_size) \
             if isinstance(self.img_size, int) else tuple(self.img_size)
-        if hasattr(clss, "cpu"):
-            clss = clss.cpu()
         imgs = [_render_text(self.cls_name[int(c)], size)
-                for c in np.asarray(clss).reshape(-1)]
+                for c in _host(clss).reshape(-1)]
         return np.stack(imgs)

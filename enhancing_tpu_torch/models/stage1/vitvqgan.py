@@ -17,9 +17,10 @@ The constructor takes the JAX wrapper's config keys and builds ``loss``
 and ``temperature_scheduler`` with ``initialize_from_config``, as the JAX
 wrapper does; the loss moves to the model's device. ``remat`` and
 ``scan_layers`` choose how XLA compiles the JAX model and mean nothing to
-eager PyTorch; loading a released checkpoint (``path``) is a later slice.
-Weights come across from a JAX parameter tree through
-``compat.from_jax.load_vitvq_from_jax``.
+eager PyTorch. ``path=`` restores a reference (Lightning) checkpoint,
+the loss's StyleGAN discriminator included, through
+``compat.torch_loader``; weights come across from a JAX parameter tree
+through ``compat.from_jax.load_vitvq_from_jax``.
 """
 from __future__ import annotations
 
@@ -138,10 +139,6 @@ class ViTVQ:
                  seed: int = 0, remat: bool = False, scan_layers: bool = False,
                  temperature_scheduler: Optional[dict] = None,
                  device: str | torch.device | None = None) -> None:
-        if path is not None:
-            raise NotImplementedError(
-                "loading released checkpoints is a later slice of the port; "
-                "use compat.from_jax.load_vitvq_from_jax")
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {sorted(DTYPES)}")
         self.device = resolve_device(device)
@@ -160,6 +157,32 @@ class ViTVQ:
             image_size, patch_size, dict(encoder or {}), dict(decoder or {}),
             dict(quantizer or {}), self.quantizer_type, dtype=self.dtype,
             generator=generator).to(self.device).eval()
+        if path is not None:
+            self.init_from_ckpt(path, list(ignore_keys))
+
+    def init_from_ckpt(self, path: str, ignore_keys: Sequence[str] = ()
+                       ) -> None:
+        """Restore a reference (Lightning) checkpoint: the tokenizer's
+        weights and, where the model's loss holds the StyleGAN
+        discriminator and the file has ``loss.discriminator.*``, the
+        discriminator's. Keys under a prefix of ``ignore_keys`` are dropped
+        (each printed) and keep this model's values."""
+        from ...compat.from_jax import (load_style_discriminator_from_jax,
+                                        load_vitvq_from_jax, to_jax_tree)
+        from ...compat.torch_loader import (load_style_discriminator_params,
+                                            load_torch_state_dict,
+                                            load_vitvq_params)
+        sd = load_torch_state_dict(path)
+        load_vitvq_from_jax(self, load_vitvq_params(
+            sd, to_jax_tree(self.module), ignore_keys))
+        if (getattr(self.loss, "has_discriminator", False)
+                and any(k.startswith("loss.discriminator.") for k in sd)):
+            disc = self.loss.discriminator
+            load_style_discriminator_from_jax(
+                disc, load_style_discriminator_params(
+                    sd, to_jax_tree(disc), size=self.image_size,
+                    ignore_keys=ignore_keys))
+        print(f"Restored from {path}")
 
     def _tensor(self, x, dtype: torch.dtype | None = None) -> torch.Tensor:
         if not isinstance(x, torch.Tensor):

@@ -9,8 +9,9 @@ over (B, T, D) residual codes of an RQ-VAE tokenizer (``is_rq``);
 ``sample`` draws codes on the device (``sample_gpt`` or ``sample_rq``) and
 decodes them to pixels in [0, 1].
 
-``mesh=`` data-parallel sampling (ROADMAP A9) and loading released
-checkpoints (``path``, A7) are later slices and raise.
+``path=`` restores the prior from a reference checkpoint
+(``compat.torch_loader``); ``mesh=`` data-parallel sampling (ROADMAP A9)
+is a later slice and raises.
 """
 from __future__ import annotations
 
@@ -41,10 +42,6 @@ class CondTransformer:
                  scheduler: Optional[dict] = None, dtype: str = "float32",
                  seed: int = 0,
                  device: str | torch.device | None = None) -> None:
-        if path is not None:
-            raise NotImplementedError(
-                "loading released checkpoints is a later slice of the port "
-                "(ROADMAP A7); use compat.from_jax.load_gpt_from_jax")
         self.device = resolve_device(device)
         self.cond_key = cond_key
         self.code_shape = code_shape
@@ -57,6 +54,23 @@ class CondTransformer:
             "RQTransformer"
         prior = RQTransformer if self.is_rq else GPT
         self.transformer = prior(**tconf, device=self.device, seed=seed)
+        if path is not None:
+            self.init_from_ckpt(path, list(ignore_keys))
+
+    def init_from_ckpt(self, path: str, ignore_keys: Sequence[str] = ()
+                       ) -> None:
+        """Restore the prior from a reference checkpoint (a stage-2
+        Lightning file, whose ``transformer.`` keys are the prior's, or
+        the prior's own state dict). Keys under a prefix of
+        ``ignore_keys`` are dropped (each printed) and keep this model's
+        values."""
+        from ...compat.from_jax import (load_gpt_from_jax, load_rq_from_jax,
+                                        to_jax_tree)
+        from ...compat.torch_loader import load_gpt_params
+        load = load_rq_from_jax if self.is_rq else load_gpt_from_jax
+        load(self.transformer, load_gpt_params(
+            path, to_jax_tree(self.transformer), ignore_keys))
+        print(f"Restored from {path}")
 
     # -- the prior's forward and loss -----------------------------------------
 
