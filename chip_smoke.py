@@ -42,7 +42,10 @@ widths and depth (256 px, 8x8 patches, width 768, 12 heads of 64, MLP
   ``configs/convergence_vitvq_base.yaml``;
 - text conditioning: both CLIP towers at ViT-L/14 width, the CLIP
   conditioners on a checkpoint they read, and ``ViTVQ(path=...)`` on a
-  reference checkpoint of the Base tokenizer.
+  reference checkpoint of the Base tokenizer;
+- the command line: ``python -m enhancing_tpu_torch.main`` trains
+  ``fake_vitvq_base.yaml`` with per-epoch checkpoints and ``--resume``,
+  and the scripts reconstruct, evaluate and sample from config files.
 
 Phases, each of which raises on failure:
 
@@ -232,7 +235,28 @@ Phases, each of which raises on failure:
     ignore_keys=[...])`` of another seed: every parameter equal, the
     ignored prefix the restored model's own, codes and reconstructions
     bit-equal, B1 48, B2 24, B3 2, B4 1 a trip; the files deleted; the
-    forwards' and loads' times.
+    forwards' and loads' times;
+19. the command line and the user scripts, from ``configs/*.yaml`` cut
+    to size and written by the port's YAML writer into a temporary
+    working directory (deleted after): (a) ``enhancing_tpu_torch.main``
+    on ``fake_vitvq_base.yaml`` as shipped (bf16, batch 8, B1-B7) with 2
+    train and 2 validation steps an epoch: run A two epochs, run B one
+    epoch then ``--resume`` to two; each run's launches asserted (phase
+    6's per step and validation batch, plus the image logger's round trip
+    on each epoch's first validation batch), the restored state held to
+    the saved checkpoint tensor by tensor, run B's last checkpoint to run
+    A's (bit-equal, else the AdamW first moments at phase 6's cosines),
+    step times, checkpoint sizes and save / restore seconds; (b)
+    ``scripts.reconstruct`` (4 PNGs) and ``scripts.evaluate`` (2 batches
+    of 8 from a folder of PNGs in the ImageNet layout) on
+    ``imagenet_vitvq_base.yaml`` restored through ``--ckpt`` from a
+    reference checkpoint of another seed's model: codes equal to that
+    model's, B1 48, B2 24, B3 2, B4 1 a trip; (c) ``scripts.sample`` and
+    ``scripts.eval_samples`` (8 images, Inception weights read from a
+    seeded torchvision-layout file) on ``imagenet_gpt_vitvq_base.yaml``'s
+    prior at its published width, 2 layers, fp32, over that tokenizer: B8
+    2, B9 2 046, B10 2 046 and the decode's B1 24, B2 12, B3 1 a sample,
+    the Inception features on the card against the CPU's.
 
 Phase 4 also holds and times fp32 B8 at phase 18's CLIP shapes (text 77
 causal tokens, vision 257), beside SDPA fp32, logged apart from the
@@ -5758,6 +5782,324 @@ def phase_text_and_checkpoints(x8) -> dict:
     return total
 
 
+# -- phase 19: the CLI, checkpoints and resume, and the user scripts ---------
+
+# (a) the train and validation steps an epoch the CLI runs take, cut from
+# fake_vitvq_base.yaml's 512 and 8
+CLI_STEPS = 2
+# (b), (c): the PNG images of the evaluation folder (two batches of 8), the
+# images reconstruct takes, the prior's depth (cut as phase 13 cuts it) and
+# the classes sampled, two images each
+CLI_IMAGES, CLI_RECON, CLI_PRIOR_LAYERS = 16, 4, 2
+CLI_CLASSES = (1, 7, 42, 99)
+CLI_TOP_K = 100
+# a round trip of the shipped fp32 Base tokenizer, raw LAUNCHES names
+DECODE_F32 = {"ln_gemm": 24, "attention": 12, "layernorm": 1}
+# the fp32 prior's sample of 8 images at CLI_PRIOR_LAYERS layers, and the
+# tokenizer's decode of its codes
+CLI_SAMPLE_CALL = {"attention_bnhd": CLI_PRIOR_LAYERS,
+                   "decode_attention": CLI_PRIOR_LAYERS * P_STEPS,
+                   "cache_row_update": 2 * P_STEPS, **DECODE_F32}
+
+
+def cli_configs(workdir, ckpt: str) -> None:
+    """``workdir/configs``: the shipped configs as the CLI and scripts read
+    them, cut to this phase's size and written by the port's YAML writer,
+    and ``workdir/imagenet/val``: an ImageNet-layout folder of PNGs."""
+    from pathlib import Path
+
+    from enhancing_tpu_torch.utils import yaml_io
+    from enhancing_tpu_torch.utils.logging import encode_png
+    repo = Path(__file__).resolve().parent
+    (workdir / "configs").mkdir()
+    train = yaml_io.load(repo / "configs" / "fake_vitvq_base.yaml")
+    for split in ("train", "validation"):
+        train["dataset"]["params"][split]["params"]["length"] = \
+            CLI_STEPS * TRAIN_BATCH
+    yaml_io.dump(train, workdir / "configs" / "fake_vitvq_base_cli.yaml")
+
+    folder = {"target": "enhancing_tpu.data.imagenet.ImageNetValidation",
+              "params": {"root": str(workdir / "imagenet"),
+                         "resolution": 256}}
+    recon = yaml_io.load(repo / "configs" / "imagenet_vitvq_base.yaml")
+    recon["dataset"]["params"].pop("train")
+    recon["dataset"]["params"]["validation"] = folder
+    yaml_io.dump(recon, workdir / "configs" / "imagenet_vitvq_base_cli.yaml")
+    prior = yaml_io.load(repo / "configs" / "imagenet_gpt_vitvq_base.yaml")
+    p = prior["model"]["params"]
+    p["transformer"]["params"]["n_layers"] = CLI_PRIOR_LAYERS
+    p["stage1"]["params"]["path"] = ckpt
+    p["cond"]["params"]["class_name"] = str(repo / p["cond"]["params"][
+        "class_name"])
+    prior["dataset"]["params"].pop("train")
+    prior["dataset"]["params"]["validation"] = folder
+    prior["dataset"]["params"]["batch_size"] = SAMPLE_BATCH
+    yaml_io.dump(prior, workdir / "configs" /
+                 "imagenet_gpt_vitvq_base_cli.yaml")
+
+    rng = np.random.default_rng(19)
+    for i in range(CLI_IMAGES):
+        d = workdir / "imagenet" / "val" / f"n{i % 2:08d}"
+        d.mkdir(parents=True, exist_ok=True)
+        low = rng.random((36 + i % 3, 40 - i % 4, 3))
+        img = np.repeat(np.repeat(low, 8, axis=0), 8, axis=1)
+        (d / f"img{i:02d}.png").write_bytes(encode_png(
+            (img * 255).astype(np.uint8)))
+
+
+def payload_tensors(tree, prefix=""):
+    """(path, leaf) of a checkpoint payload, depth first."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from payload_tensors(v, f"{prefix}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from payload_tensors(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
+def payload_diff(got, want) -> list:
+    """The paths where two payloads differ (tensors bit for bit)."""
+    got, want = dict(payload_tensors(got)), dict(payload_tensors(want))
+    if got.keys() != want.keys():
+        return sorted(set(got) ^ set(want))
+    return [k for k, v in want.items()
+            if not (torch.equal(got[k].cpu(), v.cpu())
+                    if isinstance(v, torch.Tensor) else got[k] == v)]
+
+
+def moments_cosine(got, want, group: str) -> float:
+    """The least cosine between two payloads' AdamW first moments of one
+    optimizer (``ae_opt`` or ``disc_opt``), phase 17's measure."""
+    a = got[group]["opt"]["state"]
+    b = want[group]["opt"]["state"]
+    return min(float(F.cosine_similarity(a[i]["exp_avg"].double().flatten(),
+                                         b[i]["exp_avg"].double().flatten(),
+                                         dim=0)) for i in b)
+
+
+def cli_train_resume(workdir) -> dict:
+    """(a) ``main(argv)`` on the cut fake_vitvq_base: run A two epochs
+    straight, run B one epoch then ``--resume`` to two; launches asserted
+    per run, the restored state held to the saved one, run B's last
+    checkpoint to run A's. Returns the launches by kernels-line name."""
+    import os
+
+    from enhancing_tpu_torch import main as cli
+    from enhancing_tpu_torch.ops import LAUNCHES, reset_launches
+    from enhancing_tpu_torch.train import Trainer
+    from enhancing_tpu_torch.train.checkpoint import CheckpointDir
+    total: dict = {}
+    epoch = {k: CLI_STEPS * (TRAIN_STEP.get(k, 0) + EVAL_STEP.get(k, 0))
+             + ROUND_TRIP.get(k, 0) for k in LAUNCHES}
+    restore_check = {}
+    resume = Trainer._maybe_resume
+
+    def checked_resume(self, model, state):
+        start = resume(self, model, state)
+        if start == 0:
+            return start
+        t0 = time.perf_counter()
+        bad = payload_diff(self._payload(model, state),
+                           self.restore(start - 1))
+        restore_check.update(bad=bad, seconds=time.perf_counter() - t0)
+        return start
+
+    def run(tag, argv, epochs):
+        reset_launches()
+        t0 = time.perf_counter()
+        trainer = cli.main(["-c", "fake_vitvq_base_cli", "--log_every", "1",
+                            *argv])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: v for k, v in LAUNCHES.items() if v}
+        want = {k: epochs * v for k, v in epoch.items() if v}
+        steps = np.diff(trainer.step_ends) * 1e3
+        saves = ", ".join(f"epoch {e} {os.path.getsize(p) / 1e9:.3f} GB in "
+                          f"{s:.2f} s" for e, p, s in trainer.saves)
+        log(f"[cli] run {tag}: {wall:.1f} s, global step "
+            f"{trainer.global_step}, steps after the first "
+            f"{', '.join(f'{v:.1f}' for v in steps)} ms (host clock between "
+            f"step ends, logging every step; the epochs' validation and "
+            f"saves fall between steps 2 and 3), saves: {saves}, launches "
+            f"{got}")
+        check(got == want, f"run {tag}: launches {got}, expected {want}")
+        for k, v in kernel_counts().items():
+            total[k] = total.get(k, 0) + v
+        return trainer
+
+    Trainer._maybe_resume = checked_resume
+    try:
+        run_a = workdir / "run_a"
+        a = run("A (-e 2)", ["-e", "2", "--run_dir", str(run_a)], 2)
+        run_b = workdir / "run_b"
+        run("B (-e 1)", ["-e", "1", "--run_dir", str(run_b)], 1)
+        b = run("B (--resume -e 2)", ["-e", "2", "--resume", "--run_dir",
+                                      str(run_b)], 1)
+    finally:
+        Trainer._maybe_resume = resume
+    check(a.global_step == b.global_step == 2 * CLI_STEPS,
+          f"global steps {a.global_step}, {b.global_step}")
+    log(f"[cli] restore of the epoch-0 checkpoint: {b.restore_seconds:.2f} s;"
+        f" the restored state vs the saved one, tensor by tensor: "
+        f"{'bit-equal' if not restore_check['bad'] else restore_check['bad']}"
+        f" (compared in {restore_check['seconds']:.2f} s)")
+    check(not restore_check["bad"], "the restored state differs")
+    # the two runs' first epochs, both uninterrupted on the same inputs:
+    # whether the path repeats its own bits from run to run
+    first = payload_diff(CheckpointDir(run_b / "ckpt").load(0),
+                         CheckpointDir(run_a / "ckpt").load(0))
+    log(f"[cli] runs A and B after their first epoch (both uninterrupted): "
+        f"{'bit-equal' if not first else f'{len(first)} leaves differ'}")
+    got = CheckpointDir(run_b / "ckpt").load(1)
+    want = CheckpointDir(run_a / "ckpt").load(1)
+    bad = payload_diff(got, want)
+    if bad:
+        cos = {g: moments_cosine(got, want, g) for g in ("ae_opt", "disc_opt")}
+        log(f"[cli] run B's last checkpoint vs run A's: {len(bad)} of "
+            f"{len(dict(payload_tensors(want)))} leaves differ (e.g. "
+            f"{bad[:3]}); AdamW first moments' least cosine AE "
+            f"{cos['ae_opt']:.6f} (limit {AE_COS_LIMIT}), D "
+            f"{cos['disc_opt']:.6f} (limit {D_COS_LIMIT}) -> within phase "
+            f"17's limits")
+        check(cos["ae_opt"] >= AE_COS_LIMIT and cos["disc_opt"] >= D_COS_LIMIT,
+              "the resumed run departs from the uninterrupted one")
+    else:
+        log("[cli] run B's last checkpoint vs run A's: bit-equal (parameters, "
+            "buffers, AdamW moments, LR schedules, step counters)")
+    for d in (run_a, run_b):
+        import shutil
+        shutil.rmtree(d / "ckpt")
+    return total
+
+
+def cli_scripts(workdir, ckpt: str, source) -> dict:
+    """(b) reconstruct and evaluate on the reference checkpoint ``ckpt`` of
+    ``source``; (c) sample and eval_samples on the cut prior over it.
+    Returns the launches by kernels-line name."""
+    from enhancing_tpu_torch.eval.inception import (fid_feature_fn,
+                                                    init_inception)
+    from enhancing_tpu_torch.ops import LAUNCHES, reset_launches
+    from enhancing_tpu_torch.scripts import (eval_samples, evaluate,
+                                             reconstruct, sample)
+    total: dict = {}
+
+    def counted(label, fn, want):
+        gc_cuda()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in LAUNCHES.items() if v}
+        log(f"[cli] {label}: {time.perf_counter() - t0:.1f} s (model build "
+            f"and restore included), launches {got}")
+        check(got == want, f"{label}: launches {got}, expected {want}")
+        for k, v in kernel_counts().items():
+            total[k] = total.get(k, 0) + v
+        return out
+
+    images = sorted(str(p) for p in (workdir / "imagenet").glob("*/*/*.png"))
+    rec = counted(f"reconstruct, {CLI_RECON} images", lambda: reconstruct.main(
+        ["-c", "imagenet_vitvq_base_cli", "--ckpt", ckpt,
+         *images[:CLI_RECON], "-o", str(workdir / "recon")]),
+        SHIPPED["imagenet_vitvq_base"])
+    with torch.inference_mode():
+        want = source.encode_codes(rec["images"]).cpu().numpy()
+    equal = np.array_equal(rec["codes"], want)
+    log(f"[cli] reconstruct: codes {rec['codes'].shape} "
+        f"{'equal to' if equal else 'DIFFERENT from'} the source model's, "
+        f"MSE {rec['mse']:.5f}, grids "
+        f"{sorted(p.name for p in (workdir / 'recon').iterdir())[:3]}...")
+    check(equal and np.isfinite(rec["reconstructions"]).all(),
+          "reconstruct disagrees with the source model")
+    res = counted("evaluate --max-batches 2", lambda: evaluate.main(
+        ["-c", "imagenet_vitvq_base_cli", "--ckpt", ckpt, "--max-batches",
+         "2"]), {k: 2 * v for k, v in SHIPPED["imagenet_vitvq_base"].items()})
+    log(f"[cli] evaluate: {json.dumps(res)}")
+    check(res["num_images"] == CLI_IMAGES and all(
+        np.isfinite(v) for v in res.values()), "evaluate's result")
+
+    path = str(workdir / "pt_inception_random.pth")
+    net = init_inception(seed=19, device="cpu")
+    sd = dict(net.state_dict(), **{"fc.weight": torch.zeros(1008, 2048),
+                                   "fc.bias": torch.zeros(1008)})
+    torch.save(sd, path)
+    x = torch.rand(2, 256, 256, 3, generator=torch.Generator().manual_seed(7))
+    want = fid_feature_fn(net)(x)
+    got = fid_feature_fn(init_inception(path, device="cuda"))(x.cuda()).cpu()
+    err = float((got - want).abs().max() / want.abs().max())
+    log(f"[cli] InceptionV3 pool3 from the torchvision-layout file, card "
+        f"(cuDNN, no TF32) vs CPU at batch 2: max abs difference over the "
+        f"largest |feature| {err:.3e} (|CPU| max "
+        f"{float(want.abs().max()):.3e}; limit 1e-4)")
+    check(err <= 1e-4, "Inception features on the card disagree")
+
+    argv = ["-c", "imagenet_gpt_vitvq_base_cli", "--top_k", str(CLI_TOP_K)]
+    out = counted(f"sample, {len(CLI_CLASSES)} classes x 2, fp32 prior "
+                  f"{CLI_PRIOR_LAYERS} x {P_WIDTH}", lambda: sample.main(
+                      [*argv, "--classes", *map(str, CLI_CLASSES), "-n", "2",
+                       "-o", str(workdir / "samples")]), CLI_SAMPLE_CALL)
+    px, codes = out["pixels"], out["codes"]
+    check(px.shape == (SAMPLE_BATCH, 256, 256, 3) and np.isfinite(px).all()
+          and codes.shape == (SAMPLE_BATCH, 1024) and codes.min() >= 0
+          and codes.max() < P_VOCAB, f"samples {px.shape} {codes.shape}")
+    res = counted("eval_samples, 8 samples, Inception weights from a file",
+                  lambda: eval_samples.main(
+                      [*argv, "--num_samples", str(SAMPLE_BATCH), "--batch",
+                       str(SAMPLE_BATCH), "--inception_weights", path]),
+                  CLI_SAMPLE_CALL)
+    log(f"[cli] eval_samples: {json.dumps(res)}")
+    check(res["feature_trunk"] == "inception_pool3"
+          and res["num_real"] == SAMPLE_BATCH
+          and np.isfinite(res["frechet_distance"]), "eval_samples' result")
+    return total
+
+
+def phase_cli() -> dict:
+    """Phase 19: the CLI and the user scripts from config files, in a
+    temporary working directory (deleted after). Returns its launches by
+    kernels-line name."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from enhancing_tpu_torch.utils.config import (initialize_from_config,
+                                                  load_config)
+    t0 = time.perf_counter()
+    # wandb, where it imports, logs nowhere
+    os.environ["WANDB_MODE"] = "disabled"
+    workdir = Path(tempfile.mkdtemp(prefix="cli_"))
+    cwd = os.getcwd()
+    try:
+        ckpt = str(workdir / "imagenet_vitvq_base_reference.ckpt")
+        cli_configs(workdir, ckpt)
+        os.chdir(workdir)
+        total = cli_train_resume(workdir)
+        gc_cuda()
+        # seed 1: the scripts build the config's seed 0, so only the
+        # checkpoint can give them the source's weights
+        cfg = load_config(Path(__file__).resolve().parent / "configs"
+                          / "imagenet_vitvq_base.yaml").model
+        cfg.params.seed = 1
+        source = initialize_from_config(cfg, device="cuda")
+        t1 = time.perf_counter()
+        torch.save({"state_dict": reference_vitvq_state_dict(source)}, ckpt)
+        log(f"[cli] reference checkpoint of imagenet_vitvq_base at seed 1: "
+            f"{os.path.getsize(ckpt) / 2**20:.0f} MiB written in "
+            f"{time.perf_counter() - t1:.2f} s")
+        for k, v in cli_scripts(workdir, ckpt, source).items():
+            total[k] = total.get(k, 0) + v
+        del source
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(workdir, ignore_errors=True)
+    gc_cuda()
+    log(f"[cli] phase 19 took {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main() -> int:
     import enhancing_tpu_torch  # noqa: F401  (fails outside a checkout)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5782,9 +6124,10 @@ def main() -> int:
     gumbel = phase_gumbel_train()
     split = phase_split_accumulate()
     text = phase_text_and_checkpoints(x8)
+    cli = phase_cli()
     phases = (serving, training, sampling, serving8, fused, fused_routes,
               shipped, training32, prior32, prior_train, rq, rq_train,
-              gumbel, split, text)
+              gumbel, split, text, cli)
     kernels = []
     for kname in REPLACES:
         rows = times[kname]

@@ -2,6 +2,7 @@ from .from_jax import (
     load_clip_from_jax,
     load_from_jax,
     load_gpt_from_jax,
+    load_inception_from_jax,
     load_lpips_from_jax,
     load_patch_discriminator_from_jax,
     load_rq_from_jax,
@@ -19,6 +20,6 @@ from .torch_loader import (
 __all__ = ["load_from_jax", "load_vitvq_from_jax", "load_gpt_from_jax",
            "load_rq_from_jax", "load_style_discriminator_from_jax",
            "load_lpips_from_jax", "load_patch_discriminator_from_jax",
-           "load_clip_from_jax", "to_jax_tree", "load_torch_state_dict",
+           "load_clip_from_jax", "load_inception_from_jax", "to_jax_tree", "load_torch_state_dict",
            "load_vitvq_params", "load_gpt_params",
            "load_style_discriminator_params"]

@@ -285,3 +285,43 @@ def load_rq_from_jax(model: Any, params: Mapping) -> Any:
     if quant is not None:
         _load_quant(rq, unstack(quant))
     return model
+
+
+# the JAX BasicConv2d's leaves -> the port's (torchvision's) names
+_INCEPTION_LEAVES = {"kernel": "conv.weight", "scale": "bn.weight",
+                     "bias": "bn.bias", "mean": "bn.running_mean",
+                     "var": "bn.running_var"}
+
+
+def load_inception_from_jax(module: nn.Module, params: Mapping) -> nn.Module:
+    """Fill a port ``eval.InceptionV3Pool3`` from the JAX module's params
+    (numpy leaves): each BasicConv2d's HWIO ``kernel`` becomes the conv's
+    OIHW weight, ``scale`` / ``bias`` the BatchNorm's affine parameters and
+    ``mean`` / ``var`` its running statistics. A leaf without a
+    counterpart, a tensor left unfilled or a shape mismatch raises."""
+    targets = dict(module.named_parameters())
+    targets.update((k, v) for k, v in module.named_buffers()
+                   if not k.endswith("num_batches_tracked"))
+    filled = set()
+    for path, leaf in _leaves(params):
+        *owner, name = path
+        if name not in _INCEPTION_LEAVES:
+            raise KeyError(f"JAX leaf {'/'.join(path)} has no counterpart")
+        key = ".".join([*owner, _INCEPTION_LEAVES[name]])
+        if key not in targets:
+            raise KeyError(f"JAX leaf {'/'.join(path)} has no counterpart "
+                           f"{key!r} in the port")
+        array = np.asarray(leaf, dtype=np.float32)
+        if name == "kernel":
+            array = _to_torch_layout(array)
+        if tuple(array.shape) != tuple(targets[key].shape):
+            raise ValueError(f"{key}: JAX shape {np.shape(leaf)} != port "
+                             f"shape {tuple(targets[key].shape)}")
+        with torch.no_grad():
+            targets[key].copy_(torch.tensor(np.ascontiguousarray(array)))
+        filled.add(key)
+    missing = sorted(set(targets) - filled)
+    if missing:
+        raise KeyError(f"port tensors with no JAX leaf: {missing[:4]} "
+                       f"({len(missing)} in all)")
+    return module

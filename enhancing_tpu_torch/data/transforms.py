@@ -1,15 +1,17 @@
-"""Image transforms on numpy arrays (HWC uint8/float), Pillow decode.
+"""Image transforms on numpy arrays (HWC uint8/float), and image decode.
 
 The port's copy of ``enhancing_tpu/data/transforms.py``: every function
 takes and returns HWC numpy arrays, and the output convention is float32
-in [0, 1], channels last. Images decode through Pillow only (the JAX
-package's native libjpeg/libpng path is ROADMAP A7); Pillow is imported in
-the functions that decode or resize.
+in [0, 1], channels last. :func:`load_image` decodes JPEG and PNG through
+the repository's native libjpeg / libpng path (:mod:`.native`) where the
+library was built with its decoders, and everything else, or everything
+where it was not, through Pillow; Pillow is imported in the functions
+that decode or resize.
 """
 from __future__ import annotations
 
 import random
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -18,7 +20,15 @@ IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".ppm", ".bmp", ".pgm", ".tif",
 
 
 def load_image(path: str) -> np.ndarray:
-    """Decode to RGB uint8 HWC."""
+    """Decode to RGB uint8 HWC: natively where the library has decoders
+    and reads the file, else through Pillow (webp, corrupt headers)."""
+    from . import native
+    if native.has_decoders():
+        try:
+            with open(path, "rb") as f:
+                return native.decode_image(f.read())
+        except ValueError:
+            pass
     from PIL import Image
     Image.MAX_IMAGE_PIXELS = None
     with Image.open(path) as img:
@@ -39,6 +49,18 @@ def resize(img: np.ndarray, size: int) -> np.ndarray:
     pil = Image.fromarray(img if img.dtype == np.uint8
                           else (img * 255).astype(np.uint8))
     return np.asarray(pil.resize((nw, nh), Image.BILINEAR))
+
+
+def resize_exact(img: np.ndarray, hw: Tuple[int, int],
+                 interpolation: Optional[int] = None) -> np.ndarray:
+    """Resize to exactly ``hw`` = (height, width); bicubic unless a Pillow
+    filter is given."""
+    from PIL import Image
+    pil = Image.fromarray(img if img.dtype == np.uint8
+                          else (img * 255).astype(np.uint8))
+    return np.asarray(pil.resize(
+        (hw[1], hw[0]),
+        Image.BICUBIC if interpolation is None else interpolation))
 
 
 def center_crop(img: np.ndarray, size: int) -> np.ndarray:

@@ -1,5 +1,6 @@
 from .config import (
     ConfigDict,
+    get_config_from_file,
     get_obj_from_str,
     initialize_from_config,
     load_config,
@@ -8,6 +9,7 @@ from .config import (
 
 __all__ = [
     "ConfigDict",
+    "get_config_from_file",
     "get_obj_from_str",
     "initialize_from_config",
     "load_config",

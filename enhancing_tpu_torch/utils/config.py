@@ -12,14 +12,17 @@ the port does not have yet (losses, data, schedulers) are only rewritten;
 the stage-1 models keep their ``loss:`` and ``temperature_scheduler:``
 blocks as dicts and do not build them.
 
-``yaml`` is imported inside :func:`load_config`, so the package imports on
-a machine without pyyaml.
+The files are read by the port's own standard-library reader
+(:mod:`.yaml_io`), which resolves every scalar as ``yaml.safe_load``
+does: nothing here needs pyyaml.
 """
 from __future__ import annotations
 
 import importlib
 from pathlib import Path
 from typing import Any, Mapping
+
+from . import yaml_io
 
 JAX_PREFIX = "enhancing_tpu."
 PORT_PREFIX = "enhancing_tpu_torch."
@@ -99,11 +102,8 @@ def merge_configs(base: Mapping, override: Mapping) -> ConfigDict:
 def load_config(path: str | Path) -> ConfigDict:
     """Load a YAML config, recursively merging an optional ``base_config``,
     with its targets remapped to the port."""
-    import yaml
-
     path = Path(path)
-    with open(path) as f:
-        cfg = yaml.safe_load(f) or {}
+    cfg = yaml_io.load(path) or {}
     cfg = remap_targets(cfg)
     if "base_config" in cfg:
         base_path = cfg.pop("base_config")
@@ -114,6 +114,10 @@ def load_config(path: str | Path) -> ConfigDict:
             base_path = path.parent / base_path
         return merge_configs(load_config(base_path), cfg)
     return ConfigDict(cfg)
+
+
+# the JAX package's (and the reference's) name for it
+get_config_from_file = load_config
 
 
 def get_obj_from_str(name: str) -> Any:

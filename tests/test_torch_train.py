@@ -169,10 +169,12 @@ def test_trainer_fits_the_tiny_config():
 
 @pytest.mark.parametrize("option", ["random_lpips", "basedir", "resume",
                                     "zero1"])
-def test_trainer_refuses_random_lpips_and_unsupported_options(option):
+def test_trainer_refuses_random_lpips_and_unsupported_options(option,
+                                                              tmp_path):
     """Training against a random LPIPS without ``allow_random_lpips``, and
-    the options the port cannot honour yet (checkpoints, ROADMAP A7; a
-    sharded optimizer, A9), each raise."""
+    the options the port cannot honour yet (a sharded optimizer, ROADMAP
+    A9), each raise; checkpoints (``basedir``, ``resume``) are taken now
+    (``tests/test_torch_resume.py`` holds them)."""
     if option == "random_lpips":
         cfg = load_config(TINY)
         cfg.model.params.loss.params.allow_random_lpips = False
@@ -181,10 +183,13 @@ def test_trainer_refuses_random_lpips_and_unsupported_options(option):
             Trainer(max_steps=1).fit(model,
                                      initialize_from_config(cfg.dataset))
         return
-    kw = {"basedir": dict(basedir="ckpt"), "resume": dict(resume=True),
-          "zero1": dict(zero1=True)}[option]
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        Trainer(**kw)
+    if option in ("basedir", "resume"):
+        trainer = Trainer(basedir=str(tmp_path), resume=option == "resume")
+        assert trainer.ckpt.root == tmp_path / "ckpt"
+        assert trainer.ckpt.latest_step() is None
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        Trainer(zero1=True)
 
 
 def test_chip_smoke_holds_the_base_training_config():
